@@ -1,0 +1,131 @@
+"""Build and bind the port's CUDA kernels (``src/repro_torch/csrc/*.cu``).
+
+Each source is compiled for Hopper (``sm_90a``) by its own ``nvcc`` process,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  Nothing here runs at
+import time: the first launch of a kernel builds the library, and the
+library is cached under ``<repo>/build/`` by a hash of the sources and
+flags, so a second process reuses it.
+
+No ``--use_fast_math``: the quantize kernel divides with IEEE rounding
+(``inl / sigma``, ``m / qmax``), as the reference does, and is held to it
+bitwise.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry point -> argument types (pointers and the stream are void*)
+SIGNATURES: dict[str, list] = {
+    # x, x_is_bf16, q, scale, ovals, oidx, T, H, bits, k, stream
+    "aaq_quantize_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, scale, ovals, oidx, w, y, is_bf16, T, H, D, bits, k, kk, stream
+    "aaq_matmul_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, bias, kvlen, o, qkv_is_bf16, bias_kind, B, Sq, Skv, Hq, Hkv, D,
+    # Bb, q strides (b,s,h), k strides, v strides, bias strides (b,h,q,k),
+    # causal, window, scale, stream
+    "flash_mha_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _F, _P],
+}
+
+_LIB: ctypes.CDLL | None = None
+build_seconds: float | None = None   # wall time of this process's build (None: cached)
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, $PATH or /usr/local/cuda (in that order)."""
+    cand = [Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"] if os.environ.get("CUDA_HOME") else []
+    found = shutil.which("nvcc")
+    cand += [Path(found)] if found else []
+    cand.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cand:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit ($CUDA_HOME, $PATH or /usr/local/cuda)")
+
+
+def compile_commands(nvcc: str, srcs: list[Path], out_dir: Path) -> list[list[str]]:
+    """One ``nvcc -c`` per source; they run in parallel."""
+    return [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(out_dir / f"{s.stem}.o")]
+            for s in srcs]
+
+
+def link_command(nvcc: str, objs: list[Path], lib: Path) -> list[str]:
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(lib: Path, srcs: list[Path]) -> None:
+    nvcc = nvcc_path()
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        tmpd = Path(tmp)
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in compile_commands(nvcc, srcs, tmpd)]
+        errors = []
+        for cmd, p in procs:
+            out, _ = p.communicate()
+            if p.returncode:
+                errors.append(f"$ {' '.join(cmd)}\n{out}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        staged = tmpd / lib.name
+        res = subprocess.run(link_command(nvcc, [tmpd / f"{s.stem}.o" for s in srcs], staged),
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+        os.replace(staged, lib)       # atomic: a concurrent loader sees all or nothing
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _LIB, build_seconds
+    if _LIB is None:
+        srcs = sources()
+        lib = BUILD_DIR / f"repro_torch_kernels-{_digest(srcs)}" / "libreprokernels.so"
+        if not lib.exists():
+            t0 = time.perf_counter()
+            _build(lib, srcs)
+            build_seconds = time.perf_counter() - t0
+        cdll = ctypes.CDLL(str(lib))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(cdll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = cdll
+    return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

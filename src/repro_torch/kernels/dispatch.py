@@ -1,0 +1,165 @@
+"""Kernel dispatch: one routing point between the CUDA kernels and the plain
+PyTorch references (port of ``repro/kernels/dispatch.py``).
+
+Every attention and quantized-matmul call site of the folding model (seq
+attention, triangular attention, the structure module and
+``AAQScheme.linear``) goes through ``attention`` / ``quantized_linear``.
+The backend of a call is, in order:
+
+  1. an explicit ``backend=`` argument,
+  2. the process-wide mode set by ``set_backend`` / ``use_backend`` (the
+     ``--kernels {kernel,ref,auto}`` flag),
+  3. in ``auto`` mode, the device of the operands: the hand-written kernel
+     on a CUDA tensor, at every shape; the plain reference on a CPU tensor.
+
+``ref`` is an explicit request for the plain reference on any device (the
+reference's ``--kernels ref``).  ``kernel`` on a CPU tensor runs the
+kernel-shaped dataflow with each kernel's plain version, as the reference's
+``pallas`` mode does in interpret mode off-TPU.
+
+Counters: ``counters`` counts routed calls per backend; each kernel wrapper
+module counts its own CUDA ``launches`` and CPU ``plain_calls``
+(``launch_counts`` / ``plain_counts``).
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch.core.qmatmul import qmatmul_fused_ref
+from repro_torch.kernels.aaq_matmul import aaq_matmul as _aaq_matmul_mod
+from repro_torch.kernels.aaq_matmul.ops import aaq_linear
+from repro_torch.kernels.aaq_quant import aaq_quant as _aaq_quant_mod
+from repro_torch.kernels.flash_attention import flash_attention as _flash_mod
+from repro_torch.kernels.flash_attention.flash_attention import flash_mha_kernel
+from repro_torch.kernels.flash_attention.ref import mha_chunked
+
+REF = "ref"
+KERNEL = "kernel"
+AUTO = "auto"
+BACKENDS = (REF, KERNEL, AUTO)
+
+# kernel name -> wrapper module holding its ``launches`` / ``plain_calls``
+KERNEL_MODULES = {
+    "aaq_quantize": _aaq_quant_mod,
+    "aaq_matmul": _aaq_matmul_mod,
+    "flash_mha": _flash_mod,
+}
+
+_MODE = AUTO
+
+counters: dict[str, int] = {
+    "attention.kernel": 0,
+    "attention.ref": 0,
+    "qmatmul.kernel": 0,
+    "qmatmul.ref": 0,
+}
+
+
+def reset_counters() -> None:
+    """Zero the routing counters and every kernel's launch/plain counts."""
+    for k in counters:
+        counters[k] = 0
+    for mod in KERNEL_MODULES.values():
+        mod.launches = 0
+        mod.plain_calls = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+
+
+def plain_counts() -> dict[str, int]:
+    return {name: mod.plain_calls for name, mod in KERNEL_MODULES.items()}
+
+
+def _check(mode: str) -> str:
+    if mode not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {mode!r}; pick one of {BACKENDS}")
+    return mode
+
+
+def set_backend(mode: str) -> None:
+    """Set the process-wide backend mode (the ``--kernels`` flag)."""
+    global _MODE
+    _MODE = _check(mode)
+
+
+def get_backend() -> str:
+    return _MODE
+
+
+@contextlib.contextmanager
+def use_backend(mode: str):
+    """Scoped ``set_backend``."""
+    global _MODE
+    prev = _MODE
+    _MODE = _check(mode)
+    try:
+        yield
+    finally:
+        _MODE = prev
+
+
+def resolve(device: torch.device, *, backend: str | None = None) -> str:
+    """The backend a call on ``device`` takes: ``kernel`` or ``ref``."""
+    mode = _check(backend) if backend is not None else _MODE
+    if mode != AUTO:
+        return mode
+    return KERNEL if torch.device(device).type == "cuda" else REF
+
+
+def attention_is_kernel(device: torch.device, *, backend: str | None = None) -> bool:
+    """Will ``attention`` take the kernel path on this device?  Triangular
+    attention uses this to pick its rows-as-batch dataflow before building
+    operands."""
+    return resolve(device, backend=backend) == KERNEL
+
+
+def describe(backend: str | None = None, device: torch.device | str = "cuda") -> str:
+    """Report label for the backend a mode resolves to on ``device``:
+    ``kernel``, ``ref``, ``auto:kernel``/``auto:ref``; a kernel request on
+    the CPU reads ``kernel-plain`` (the plain versions compute it)."""
+    mode = _check(backend) if backend is not None else _MODE
+    inner = resolve(device, backend=mode)
+    if inner == KERNEL and torch.device(device).type == "cpu":
+        inner = "kernel-plain"
+    return f"auto:{inner}" if mode == AUTO else inner
+
+
+# --------------------------------------------------------------------------
+# routed ops
+# --------------------------------------------------------------------------
+def attention(q, k, v, *, bias=None, causal=False, window=None,
+              kv_valid_len=None, softmax_scale=None, q_chunk=512, backend=None):
+    """Token-wise MHA: q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D); bias (Bb,Hq,Sq,Skv)
+    with block batch-broadcast (bias row t covers B//Bb consecutive q rows).
+
+    Kernel path: the CUDA flash kernel.  Ref path: ``mha_chunked``.
+    """
+    if resolve(q.device, backend=backend) == KERNEL:
+        counters["attention.kernel"] += 1
+        return flash_mha_kernel(q, k, v, bias, kv_valid_len, causal=causal,
+                                window=window, softmax_scale=softmax_scale)
+    counters["attention.ref"] += 1
+    return mha_chunked(q, k, v, bias=bias, causal=causal, window=window,
+                       kv_valid_len=kv_valid_len, softmax_scale=softmax_scale,
+                       q_chunk=q_chunk)
+
+
+def quantized_linear(x, w, *, bits: int, k_outliers: int, bias=None,
+                     backend=None):
+    """AAQ linear  y = dequant-free-matmul(quantize(x), w) (+ bias).
+
+    Kernel path: the aaq_quant + aaq_matmul CUDA kernels on INT4/INT8
+    inliers with the deferred per-token scale.  Ref path:
+    ``qmatmul_fused_ref`` (the same integer-path math in plain PyTorch).
+    """
+    if resolve(x.device, backend=backend) == KERNEL:
+        counters["qmatmul.kernel"] += 1
+        y = aaq_linear(x, w, bits=bits, k_outliers=k_outliers)
+    else:
+        counters["qmatmul.ref"] += 1
+        y = qmatmul_fused_ref(x, w, bits, k_outliers)
+    return y if bias is None else y + bias

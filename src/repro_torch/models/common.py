@@ -1,0 +1,100 @@
+"""Shared functional building blocks (port of ``repro/models/common.py``).
+
+Params are plain nested dicts of tensors with the reference's layout: a
+dense layer is ``{"w": (in, out), "b": (out,)}`` and applies as ``x @ w``.
+Every init function takes an explicit ``torch.Generator`` (its device is
+where the parameters are made); the numbers differ from ``jax.random``'s,
+so parity tests bring the reference's parameters through ``bridge``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+Params = dict[str, Any]
+
+
+# --------------------------------------------------------------------------
+# initializers
+# --------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = False,
+               scale: float | None = None, dtype=torch.float32) -> Params:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * scale
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def ln_init(dim: int, dtype=torch.float32, device=None) -> Params:
+    return {"g": torch.ones((dim,), dtype=dtype, device=device),
+            "b": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=torch.float32) -> Params:
+    e = torch.randn((vocab, dim), generator=gen, device=gen.device) * 0.02
+    return {"e": e.to(dtype)}
+
+
+# --------------------------------------------------------------------------
+# apply
+# --------------------------------------------------------------------------
+def dense(p: Params, x: torch.Tensor, scheme=None, site: str = "") -> torch.Tensor:
+    """Linear layer routed through the active quantization scheme."""
+    if scheme is not None:
+        return scheme.linear(x, p["w"].to(x.dtype), p.get("b"), site)
+    y = torch.matmul(x, p["w"].to(x.dtype))      # f32 accumulation, x's dtype out
+    return y if "b" not in p else y + p["b"].to(x.dtype)
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32; the variance is the population variance
+    (``jnp.var``), hence ``correction=0``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["g"] + p["b"]).to(x.dtype)
+
+
+def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    return p["e"][ids]
+
+
+# --------------------------------------------------------------------------
+# attention masks
+# --------------------------------------------------------------------------
+NEG_INF = -1e9
+
+
+def key_padding_bias(mask: torch.Tensor) -> torch.Tensor:
+    """(..., N) bool key mask -> additive f32 bias: 0 real, NEG_INF padded.
+
+    NEG_INF underflows to exactly 0.0 through float32 softmax's exp, so
+    padded keys contribute literal +0.0 to the normalizer.  Every masked
+    attention path (trunk, structure module) uses this helper.
+    """
+    return torch.where(mask, torch.tensor(0.0, device=mask.device),
+                       torch.tensor(NEG_INF, device=mask.device)).float()
+
+
+def _leaves(params):
+    if isinstance(params, dict):
+        for v in params.values():
+            yield from _leaves(v)
+    elif isinstance(params, (list, tuple)):
+        for v in params:
+            yield from _leaves(v)
+    else:
+        yield params
+
+
+def count_params(params) -> int:
+    return sum(p.numel() for p in _leaves(params))
+
+
+def param_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in _leaves(params))

@@ -1,0 +1,109 @@
+"""Full protein structure prediction model (port of
+``repro/models/ppm/model.py``).
+
+Input embedding -> folding trunk -> structure module, with recycling.  The
+upstream protein language model is the input-embedding stub: a learned
+amino-acid embedding + relative-position pair embedding.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.schemes import FP16Baseline, QuantScheme
+from repro_torch.device import resolve_device
+from repro_torch.models import common as cm
+from repro_torch.models.ppm import structure as st
+from repro_torch.models.ppm import trunk as tk
+from repro_torch.models.ppm.trunk import PPMConfig
+
+
+def init_ppm(cfg: PPMConfig, seed: int = 0, *, device=None) -> cm.Params:
+    """Random parameters from ``seed``, made on ``device`` (default CUDA).
+
+    The layout is the reference's, with the trunk as one dict per block;
+    the numbers are ``torch.Generator``'s, not ``jax.random``'s.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.torch_dtype
+    return {
+        "aa_embed": cm.embed_init(gen, cfg.vocab, cfg.hm, dt),
+        "left": cm.dense_init(gen, cfg.hm, cfg.hz, dtype=dt),
+        "right": cm.dense_init(gen, cfg.hm, cfg.hz, dtype=dt),
+        "relpos": cm.embed_init(gen, cfg.relpos_bins, cfg.hz, dt),
+        "recycle_s_ln": cm.ln_init(cfg.hm, dt, dev),
+        "recycle_z_ln": cm.ln_init(cfg.hz, dt, dev),
+        "trunk": tk.init_trunk(gen, cfg),
+        "structure": st.init_structure(gen, cfg),
+        "distogram": cm.dense_init(gen, cfg.hz, cfg.distogram_bins, bias=True, dtype=dt),
+    }
+
+
+def input_embedding(p, aatype: torch.Tensor, cfg: PPMConfig):
+    """aatype (B,N) int -> s0 (B,N,Hm), z0 (B,N,N,Hz)."""
+    s0 = cm.embed(p["aa_embed"], aatype)
+    li = cm.dense(p["left"], s0)
+    ri = cm.dense(p["right"], s0)
+    z0 = li[:, :, None, :] + ri[:, None, :, :]
+    n = aatype.shape[-1]
+    pos = torch.arange(n, device=aatype.device)
+    half = cfg.relpos_bins // 2
+    rel = torch.clamp(pos[:, None] - pos[None, :], -half, half) + half
+    z0 = z0 + cm.embed(p["relpos"], rel)[None]
+    return s0.to(cfg.torch_dtype), z0.to(cfg.torch_dtype)
+
+
+def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
+                scheme: QuantScheme | None = None, *,
+                mask: torch.Tensor | None = None):
+    """Full forward pass on ``aatype``'s device.  Returns dict with coords,
+    distogram, s, z.
+
+    ``mask`` (B, N) bool marks real tokens when ``aatype`` is padded to a
+    serving bucket; ``None`` is the unmasked path.
+    """
+    scheme = scheme or FP16Baseline()
+    if mask is not None:
+        mask = mask.to(torch.bool)
+    s0, z0 = input_embedding(params, aatype, cfg)
+    s, z = s0, z0
+    for r in range(cfg.recycles):
+        s_in = s0 + (cm.layernorm(params["recycle_s_ln"], s) if r else 0.0)
+        z_in = z0 + (cm.layernorm(params["recycle_z_ln"], z) if r else 0.0)
+        s, z = tk.trunk_apply(params["trunk"], s_in, z_in, cfg, scheme, mask=mask)
+    coords, s_final = st.structure_apply(params["structure"], s, z,
+                                         n_iter=cfg.ipa_iters, mask=mask)
+    zsym = 0.5 * (z + z.transpose(1, 2))
+    distogram = cm.dense(params["distogram"], zsym)
+    return {"coords": coords, "distogram": distogram, "s": s_final, "z": z}
+
+
+# --------------------------------------------------------------------------
+# activation inventory — drives the footprint accounting (paper Table 1)
+# --------------------------------------------------------------------------
+def pair_activation_inventory(cfg: PPMConfig, ns: int, batch: int = 1):
+    """Every pair-dataflow activation one block stores, as (site, shape)."""
+    hz, th, f = cfg.hz, cfg.tri_hidden, cfg.transition_factor
+    inv: list[tuple[str, tuple[int, ...]]] = []
+    for sc in ("tri_mul_out", "tri_mul_in"):
+        inv += [(f"{sc}.pre_ln", (batch, ns, ns, hz)),
+                (f"{sc}.post_ln", (batch, ns, ns, hz)),
+                (f"{sc}.ab", (batch, ns, ns, th)),
+                (f"{sc}.ab", (batch, ns, ns, th)),
+                (f"{sc}.prod_pre_ln", (batch, ns, ns, th)),
+                (f"{sc}.out", (batch, ns, ns, hz))]
+    for sc in ("tri_attn_start", "tri_attn_end"):
+        inv += [(f"{sc}.pre_ln", (batch, ns, ns, hz)),
+                (f"{sc}.post_ln", (batch, ns, ns, hz)),
+                (f"{sc}.qkv_in", (batch, ns, ns, 3 * hz)),
+                (f"{sc}.av", (batch, ns, ns, hz)),
+                (f"{sc}.proj_in", (batch, ns, ns, hz))]
+    inv += [("pair_trans.pre_ln", (batch, ns, ns, hz)),
+            ("pair_trans.post_ln", (batch, ns, ns, hz)),
+            ("pair_trans.proj_in", (batch, ns, ns, f * hz))]
+    return inv
+
+
+def score_tensor_shape(cfg: PPMConfig, ns: int, batch: int = 1):
+    """The cubic triangular-attention score tensor (per tri-attn op)."""
+    return (batch, cfg.pair_heads, ns, ns, ns)

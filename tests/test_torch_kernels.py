@@ -1,0 +1,297 @@
+"""Each kernel's plain PyTorch version against the JAX Pallas kernel run in
+interpret mode, the flash references against the JAX references, the
+dispatch rules, and the build/binding contract of the CUDA sources.
+
+This box has no card, so the CUDA kernels themselves are held against these
+plain versions by ``chip_smoke.py`` on the GPU; here each wrapper gets CPU
+tensors and computes its plain version.
+
+Tolerances:
+  * aaq_quantize: bitwise against the JAX plain reference; against the
+    interpreted Pallas kernel, scales within one float32 ulp and inliers
+    within one step (see below), outliers bitwise;
+  * aaq_matmul, attention: rtol 1e-5, atol 1e-5 of the output's max — the
+    same float32 arithmetic summed in another order (and exp in another
+    library for attention).
+"""
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.aaq_matmul.aaq_matmul import aaq_matmul_pallas  # noqa: E402
+from repro.kernels.aaq_matmul.ops import aaq_linear as jax_aaq_linear  # noqa: E402
+from repro.kernels.aaq_quant.aaq_quant import aaq_quantize_pallas  # noqa: E402
+from repro.kernels.aaq_quant.ref import aaq_quantize_ref as jax_quant_ref  # noqa: E402
+from repro.kernels.flash_attention import ref as jref  # noqa: E402
+from repro.kernels.flash_attention.flash_attention import flash_mha_pallas  # noqa: E402
+from repro_torch.kernels import build, dispatch  # noqa: E402
+from repro_torch.kernels.aaq_matmul.aaq_matmul import aaq_matmul_kernel  # noqa: E402
+from repro_torch.kernels.aaq_matmul.ops import aaq_linear  # noqa: E402
+from repro_torch.kernels.aaq_quant.aaq_quant import aaq_quantize_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_mha_kernel, flash_mha_plain)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes at once; torch's default of a
+    thread per core in each of them oversubscribes the CPU many times."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(got, want, rtol=1e-5):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * max(float(np.abs(want).max()), 1.0))
+
+
+def _activations(t, h, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((t, h)) * 2).astype(np.float32)
+    x[0] = 0.0                                   # padded token: every lane ties
+    x[1, : h // 2] = 1.5                         # ties on the largest |x|
+    x[2, 3] = 60.0
+    x[-1] = np.round(x[-1])
+    return x
+
+
+# --------------------------------------------------------------------------
+# aaq_quantize: plain version vs the Pallas kernel (interpret)
+#
+# The port divides with IEEE rounding (``m / qmax``, ``inl / sigma``), as the
+# JAX package's own plain reference does when run op by op; the two agree
+# bitwise.  The interpreted Pallas kernel is compiled by XLA, which turns the
+# division by the constant qmax into a product with its reciprocal, so its
+# scale may sit one float32 ulp away, and an inlier on a rounding tie one
+# step away.  Outlier values and indices are bitwise in all three.
+# --------------------------------------------------------------------------
+def _check_quant(got, want, bits, *, bitwise):
+    from repro_torch.core.qtensor import unpack_int4
+    for name, w, g in zip(("inliers", "scales", "ovals", "oidx"), want, got):
+        w = np.asarray(w).astype(np.float32)
+        assert w.shape == tuple(g.shape), name
+        if bitwise or name in ("ovals", "oidx"):
+            np.testing.assert_array_equal(g.float().numpy(), w, err_msg=name)
+        elif name == "scales":
+            np.testing.assert_allclose(g.numpy(), w, rtol=1.2e-7, atol=0, err_msg=name)
+        else:
+            unpack = unpack_int4 if bits == 4 else (lambda a: a)
+            wi = torch.from_numpy(np.array(want[0]))
+            assert int((unpack(g).int() - unpack(wi).int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("t,h", [(37, 128), (130, 32), (9, 512)])
+@pytest.mark.parametrize("bits,k", [(4, 4), (8, 4), (4, 0), (8, 0)])
+def test_aaq_quantize_plain_matches_pallas(t, h, bits, k):
+    x = _activations(t, h, seed=t + h + bits + k)
+    got = aaq_quantize_kernel(_t(x), bits=bits, k_outliers=k)
+    # bitwise against the JAX package's plain reference (IEEE division)
+    _check_quant(got, jax_quant_ref(jnp.asarray(x), bits, k), bits, bitwise=True)
+    want = aaq_quantize_pallas(jnp.asarray(x), bits=bits, k_outliers=k,
+                               block_t=64, interpret=True)
+    _check_quant(got, want, bits, bitwise=False)
+
+
+def test_aaq_quantize_bf16_input_matches_reference():
+    x = _activations(33, 128, seed=3)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    got = aaq_quantize_kernel(_t(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16),
+                              bits=4, k_outliers=4)
+    _check_quant(got, jax_quant_ref(xb, 4, 4), 4, bitwise=True)
+    _check_quant(got, aaq_quantize_pallas(xb, bits=4, k_outliers=4, block_t=64,
+                                          interpret=True), 4, bitwise=False)
+
+
+# --------------------------------------------------------------------------
+# aaq_matmul: plain version vs the Pallas kernel (interpret)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("t,h,d", [(37, 128, 4), (130, 32, 96), (64, 512, 130)])
+@pytest.mark.parametrize("bits,k", [(4, 4), (8, 4), (4, 0)])
+def test_aaq_matmul_plain_matches_pallas(t, h, d, bits, k):
+    x = _activations(t, h, seed=t * d + bits + k)
+    w = (np.random.default_rng(d).standard_normal((h, d)) / np.sqrt(h)).astype(np.float32)
+    q, s, ov, oi = (np.asarray(a) for a in jax_quant_ref(jnp.asarray(x), bits, k))
+    want = aaq_matmul_pallas(jnp.asarray(q), jnp.asarray(s), jnp.asarray(ov),
+                             jnp.asarray(oi), jnp.asarray(w), bits=bits,
+                             block_t=32, block_d=64, interpret=True)
+    got = aaq_matmul_kernel(_t(q), _t(s), _t(ov.astype(np.float32)).to(torch.bfloat16),
+                            _t(oi), _t(w), bits=bits, out_dtype=torch.float32)
+    _close(got.numpy(), want)
+
+
+def test_aaq_linear_matches_reference():
+    x = _activations(2 * 5 * 7, 32, seed=11).reshape(2, 5, 7, 32)
+    w = np.random.default_rng(1).standard_normal((32, 24)).astype(np.float32)
+    want = jax_aaq_linear(jnp.asarray(x), jnp.asarray(w), bits=4, k_outliers=4,
+                          block_t=32, block_d=32)
+    got = aaq_linear(_t(x), _t(w), bits=4, k_outliers=4)
+    assert got.shape == (2, 5, 7, 24)
+    _close(got.numpy(), want)
+
+
+# --------------------------------------------------------------------------
+# flash attention: plain version vs the Pallas kernel (interpret)
+# --------------------------------------------------------------------------
+def _attn_inputs(b, sq, skv, hq, hkv, d, *, bias_b=None, bias_bf16=False, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    bias = None
+    if bias_b is not None:
+        bias = rng.standard_normal((bias_b, hq, sq, skv)).astype(np.float32)
+        if bias_bf16:
+            bias = np.asarray(jnp.asarray(bias).astype(jnp.bfloat16).astype(jnp.float32))
+    return q, k, v, bias
+
+
+FLASH_CASES = {
+    # name: (b, sq, skv, hq, hkv, d, bias batch, bf16 bias, kv lens, causal, window)
+    "ragged": (2, 37, 50, 2, 2, 16, None, False, None, False, None),
+    "block-bias": (6, 21, 21, 4, 4, 32, 2, False, None, False, None),
+    "tri-bf16-bias-kvlen": (6, 21, 21, 4, 4, 32, 2, True, [21, 21, 21, 15, 15, 15],
+                            False, None),
+    "fully-masked-row": (2, 19, 33, 2, 2, 8, None, False, [0, 30], False, None),
+    "causal": (2, 40, 40, 2, 2, 64, None, False, None, True, None),
+    "window": (2, 40, 40, 2, 2, 32, None, False, None, True, 7),
+    "gqa": (2, 33, 45, 8, 2, 16, 1, False, [45, 20], False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_plain_matches_pallas(case):
+    b, sq, skv, hq, hkv, d, bb, bf, lens, causal, window = FLASH_CASES[case]
+    q, k, v, bias = _attn_inputs(b, sq, skv, hq, hkv, d, bias_b=bb, bias_bf16=bf)
+    kvl = None if lens is None else np.asarray(lens, np.int32)
+    jbias = None if bias is None else jnp.asarray(bias)
+    if bf:
+        jbias = jbias.astype(jnp.bfloat16)
+    want = flash_mha_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jbias,
+                            None if kvl is None else jnp.asarray(kvl), causal=causal,
+                            window=window, block_q=16, block_k=16, interpret=True)
+    tbias = None if bias is None else _t(bias)
+    if bf:
+        tbias = tbias.to(torch.bfloat16)
+    got = flash_mha_kernel(_t(q), _t(k), _t(v), tbias,
+                           None if kvl is None else _t(kvl), causal=causal, window=window)
+    _close(got.numpy(), want)
+    if case == "fully-masked-row":          # the kernel returns 0 there, mha_ref mean(v)
+        assert np.all(got.numpy()[0] == 0.0)
+
+
+def test_flash_plain_agrees_with_mha_ref_on_rows_with_a_key():
+    q, k, v, bias = _attn_inputs(4, 30, 30, 4, 2, 32, bias_b=2, seed=5)
+    kvl = _t(np.asarray([30, 12, 30, 1], np.int32))
+    a = flash_mha_plain(_t(q), _t(k), _t(v), _t(bias), kvl, causal=True)
+    b = tref.mha_ref(_t(q), _t(k), _t(v), bias=_t(bias), kv_valid_len=kvl, causal=True)
+    _close(a.numpy(), b.numpy())
+
+
+# --------------------------------------------------------------------------
+# references (the ``ref`` backend) vs the JAX references
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("q_chunk", [4, 512])
+@pytest.mark.parametrize("masks", ["none", "causal-window-kvlen"])
+def test_mha_ref_and_chunked_match_reference(q_chunk, masks):
+    q, k, v, bias = _attn_inputs(4, 8, 8, 4, 2, 16, bias_b=2, seed=q_chunk)
+    kw = {}
+    if masks != "none":
+        kw = dict(causal=True, window=3)
+    kvl = np.asarray([8, 5, 8, 2], np.int32) if masks != "none" else None
+    want = jref.mha_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            bias=jnp.asarray(bias), q_chunk=q_chunk,
+                            kv_valid_len=None if kvl is None else jnp.asarray(kvl), **kw)
+    got = tref.mha_chunked(_t(q), _t(k), _t(v), bias=_t(bias), q_chunk=q_chunk,
+                           kv_valid_len=None if kvl is None else _t(kvl), **kw)
+    _close(got.numpy(), want)
+
+
+def test_block_broadcast_bias_matches_reference():
+    bias = np.arange(2 * 3 * 4, dtype=np.float32).reshape(2, 3, 4)
+    np.testing.assert_array_equal(
+        tref._block_broadcast_bias(_t(bias), 6).numpy(),
+        np.asarray(jref._block_broadcast_bias(jnp.asarray(bias), 6)))
+    # block, not modulo: rows 0..2 read bias row 0
+    assert tref._block_broadcast_bias(_t(bias), 6)[2, 0, 0] == 0.0
+
+
+# --------------------------------------------------------------------------
+# dispatch
+# --------------------------------------------------------------------------
+def test_dispatch_routes_by_mode_and_device():
+    q, k, v, bias = (_t(a) for a in _attn_inputs(2, 9, 9, 2, 2, 8, bias_b=1))
+    x = torch.randn(3, 5, 32)
+    w = torch.randn(32, 8)
+    dispatch.reset_counters()
+    assert dispatch.get_backend() == dispatch.AUTO
+    cpu = torch.device("cpu")
+    assert not dispatch.attention_is_kernel(cpu)
+    assert dispatch.attention_is_kernel(torch.device("cuda"))     # decided by device type
+    assert dispatch.describe(device="cpu") == "auto:ref"
+    assert dispatch.describe(device="cuda") == "auto:kernel"
+    ref_o = dispatch.attention(q, k, v, bias=bias)
+    dispatch.quantized_linear(x, w, bits=4, k_outliers=4)
+    assert dispatch.counters == {"attention.kernel": 0, "attention.ref": 1,
+                                 "qmatmul.kernel": 0, "qmatmul.ref": 1}
+    with dispatch.use_backend("kernel"):
+        assert dispatch.attention_is_kernel(cpu)
+        assert dispatch.describe(device="cpu") == "kernel-plain"
+        ker_o = dispatch.attention(q, k, v, bias=bias)
+        dispatch.quantized_linear(x, w, bits=4, k_outliers=4)
+    assert dispatch.get_backend() == dispatch.AUTO
+    assert dispatch.counters["attention.kernel"] == 1
+    assert dispatch.plain_counts() == {"aaq_quantize": 1, "aaq_matmul": 1, "flash_mha": 1}
+    assert dispatch.launch_counts() == {"aaq_quantize": 0, "aaq_matmul": 0, "flash_mha": 0}
+    _close(ker_o.numpy(), ref_o.numpy())
+    assert dispatch.describe("ref", device="cuda") == "ref"
+    with pytest.raises(ValueError):
+        dispatch.set_backend("pallas")
+    dispatch.reset_counters()
+    assert sum(dispatch.plain_counts().values()) == 0
+
+
+# --------------------------------------------------------------------------
+# build and ctypes binding contract (static: no nvcc here)
+# --------------------------------------------------------------------------
+def test_build_commands_target_hopper_without_fast_math(tmp_path):
+    srcs = build.sources()
+    assert [s.name for s in srcs] == ["aaq_matmul.cu", "aaq_quant.cu", "flash_attention.cu"]
+    cmds = build.compile_commands("nvcc", srcs, tmp_path)
+    assert len(cmds) == len(srcs)                 # one nvcc per source, run together
+    for cmd in cmds:
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
+        assert "-std=c++17" in cmd and "-fPIC" in cmd and "-c" in cmd
+        assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+    link = build.link_command("nvcc", [tmp_path / "a.o"], tmp_path / "lib.so")
+    assert "-shared" in link
+    assert build.BUILD_DIR.name == "build"
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    text = "\n".join(s.read_text() for s in build.sources())
+    for name, argtypes in build.SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+        assert m, name
+        params = [p.strip() for p in m.group(1).split(",")]
+        assert len(params) == len(argtypes), name
+        for p, a in zip(params, argtypes):
+            if "*" in p:
+                assert a is build.ctypes.c_void_p, (name, p)
+            elif p.startswith("float"):
+                assert a is build.ctypes.c_float, (name, p)
+            else:
+                assert p.startswith("int") and a is build.ctypes.c_int, (name, p)
+    assert "cudaGetLastError" in text and "__shfl_xor_sync" in text
