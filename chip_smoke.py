@@ -6,16 +6,21 @@
 Phases, each fatal on failure:
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA
      and nvcc versions; no CUDA device -> exit 1;
-  2. build: the three CUDA kernels from ``src/repro_torch/csrc``;
-  3. each kernel against its plain PyTorch version on the card at the main
-     path's shapes, with its time, the plain version's, the least time the
-     card could take (``bound_ms``) and one PyTorch library call's;
+  2. build: the CUDA kernels from ``src/repro_torch/csrc``;
+  3. each kernel variant against its plain PyTorch version on the card at
+     the main path's shapes and at long N (seq attention at N = 1024 and
+     2048, triangular attention at N = 1024), with its time at every
+     main-path shape, the plain version's, the least time the card could
+     take (``bound_ms``) and one PyTorch library call's;
   4. whole forward, kernels vs the plain references, 2 blocks at full
      esmfold_ppm width, one padded request, with two controls that the
      lightnobel_aaq gate must reject;
   5. the sequential server at full esmfold_ppm width (48 blocks, bf16,
-     seeded random weights): every kernel launched, no plain version ran;
-     then one profiled fold per scheme (device-busy share, top kernels);
+     seeded random weights): 4 short requests, then one of 1,000 residues
+     in bucket 1,024; in each run every main-path kernel launched and no
+     plain version ran; then one profiled fold per scheme at N = 250
+     (device-busy share, top kernels, the two tensor-core kernels' device
+     time) and the main-path launches per fold at each kernel shape;
   6. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -30,6 +35,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -39,8 +45,9 @@ SRC = ROOT / "src"
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-SERVE_BUCKETS = (96, 192, 256)
+SERVE_BUCKETS = (96, 192, 256, 1024)
 SERVE_N = 4
+LONG_LEN = 1000             # one long request, served alone in bucket 1024
 FWD_BUCKET = 256
 FWD_LEN = 230
 # TM floor of the kernels against the plain references over a 2-block
@@ -54,6 +61,16 @@ FWD_LEN = 230
 # in PERF.md).
 TM_GATE = 0.9995
 
+PALLAS = {
+    "aaq_quantize": "src/repro/kernels/aaq_quant/aaq_quant.py:53",
+    "aaq_matmul": "src/repro/kernels/aaq_matmul/aaq_matmul.py:47",
+    "flash_mha": "src/repro/kernels/flash_attention/flash_attention.py:93",
+}
+# (H, D) of every aaq_matmul call of a fold: the tri-attention bias, the
+# pair projections, tri-attention's qkv, tri-mul's packed projection,
+# the pair transition's down projection
+MATMUL_SHAPES = ((128, 4), (128, 128), (128, 384), (128, 512), (512, 128))
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -66,8 +83,9 @@ def fail(msg: str) -> None:
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+def call_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, by CUDA events
+    (includes the gaps where the device waits for the host to launch)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -79,6 +97,25 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls: the summed duration
+    of every device kernel and copy it ran, from ``torch.profiler`` (host
+    gaps between launches excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        fail("torch.profiler recorded no device time")
+    return us / 1e3 / iters
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -93,17 +130,20 @@ def nbytes(*tensors) -> int:
 
 @dataclasses.dataclass
 class KernelRow:
+    """One kernel variant at one shape: the JSON row of a variant is its
+    first (timed) shape; ``shapes`` keeps every main-path shape."""
     name: str
     source: str
     replaces: str
-    shape: str
+    shape: str = ""
     max_abs_err: float = 0.0
     ms: float = 0.0
-    plain_ms: float = 0.0
+    plain_ms: float | None = 0.0
     bound_ms: float = 0.0
     bound_by: str = ""
     library_ms: float | None = None
     launches: int = 0
+    call_ms: float = 0.0        # CUDA-event time of back-to-back calls (log only)
 
     def record(self) -> dict:
         return {"name": self.name, "route": "cuda", "source": self.source,
@@ -112,6 +152,22 @@ class KernelRow:
                 "ms": self.ms, "plain_ms": self.plain_ms,
                 "bound_ms": self.bound_ms, "bound_by": self.bound_by,
                 "library_ms": self.library_ms}
+
+    def line(self) -> str:
+        lib = "none" if self.library_ms is None else f"{self.library_ms:.4f}"
+        plain = "not timed" if self.plain_ms is None else f"{self.plain_ms:.4f}"
+        return (f"{self.name} [{self.shape}]: kernel_ms={self.ms:.4f} "
+                f"call_ms={self.call_ms:.4f} "
+                f"bound_ms={self.bound_ms:.4f} ({self.bound_by}, "
+                f"{100 * self.bound_ms / self.ms:.1f}% of bound) plain_ms={plain} "
+                f"library_ms={lib} max_abs_err={self.max_abs_err:.3e}")
+
+
+def _row(name: str, shape: str) -> KernelRow:
+    src = {"aaq_quantize": "aaq_quant.cu", "aaq_matmul": "aaq_matmul.cu",
+           "flash_mha": "flash_attention.cu"}[name.split("_f32")[0].split("_simt")[0]]
+    return KernelRow(name, f"src/repro_torch/csrc/{src}",
+                     PALLAS[name.split("_f32")[0].split("_simt")[0]], shape)
 
 
 # ---------------------------------------------------------------------------
@@ -142,17 +198,16 @@ def check_quantize(torch, rows: dict) -> None:
                          f"bits={bits} k={k} {dt}")
     log(f"aaq_quantize: bitwise equal to the plain version on {2 * len(cases)} cases "
         "(T = 65536 and 65535, all-zero rows, ties)")
-    # timing at the main-path shape: post_ln site, H = 128, bits 4, k 4, bf16
-    x = torch.randn((t, 128), generator=g, device="cuda").to(torch.bfloat16)
-    out = aaq_quantize_kernel(x, bits=4, k_outliers=4)
-    row = rows["aaq_quantize"]
-    row.shape = "x (65536, 128) bf16, bits 4, k 4"
-    row.ms = time_ms(torch, lambda: aaq_quantize_kernel(x, bits=4, k_outliers=4))
-    row.plain_ms = time_ms(torch, lambda: aaq_quantize_ref(x, 4, 4), iters=5)
-    row.bound_ms, row.bound_by = bound_ms(nbytes(x, *out), 0)
-    row.max_abs_err = 0.0
-    log(f"aaq_quantize {row.shape}: kernel_ms={row.ms:.4f} plain_ms={row.plain_ms:.4f} "
-        f"bound_ms={row.bound_ms:.4f} ({row.bound_by}) library_ms=none")
+    for h in (128, 512):              # the main path's widths, bits 4, k 4, bf16
+        x = torch.randn((t, h), generator=g, device="cuda").to(torch.bfloat16)
+        out = aaq_quantize_kernel(x, bits=4, k_outliers=4)
+        row = _row("aaq_quantize", f"x ({t}, {h}) bf16, bits 4, k 4")
+        row.ms = time_ms(torch, lambda: aaq_quantize_kernel(x, bits=4, k_outliers=4))
+        row.call_ms = call_ms(torch, lambda: aaq_quantize_kernel(x, bits=4, k_outliers=4))
+        row.plain_ms = time_ms(torch, lambda: aaq_quantize_ref(x, 4, 4), iters=5)
+        row.bound_ms, row.bound_by = bound_ms(nbytes(x, *out), 0)
+        rows.setdefault("aaq_quantize", []).append(row)
+        log(row.line())
 
 
 def check_matmul(torch, rows: dict) -> None:
@@ -166,7 +221,7 @@ def check_matmul(torch, rows: dict) -> None:
     # float32 reassociation of H terms (1e-4 of the largest output).
     cases = [(128, 4, 4), (128, 128, 4), (128, 384, 4), (128, 512, 4), (512, 128, 4),
              (128, 128, 8), (512, 128, 8)]                     # (H, D, bits)
-    worst = 0.0
+    worst, n_cases = 0.0, 0
     for h, d, bits in cases:
         for k in (0, 4):
             for dt in (torch.bfloat16, torch.float32) if (h, d) == (128, 128) else (torch.bfloat16,):
@@ -184,33 +239,41 @@ def check_matmul(torch, rows: dict) -> None:
                     fail(f"aaq_matmul H={h} D={d} bits={bits} k={k} {dt}: max err "
                          f"{float(err.max()):.3e} over tolerance")
                 worst = max(worst, float(err.max()))
+                n_cases += 1
     log(f"aaq_matmul: allclose (rtol one bf16 ulp 2^-7 / 1e-5 for f32, atol 1e-4*max|y|) "
-        f"on all cases, worst max|err| {worst:.3e}")
-    row = rows["aaq_matmul"]
-    h, d = 128, 128
-    row.shape = "q (65536, 64) int4 packed, W (128, 128) bf16, bits 4, k 4"
-    x = torch.randn((t, h), generator=g, device="cuda").to(torch.bfloat16)
-    w = (torch.randn((h, d), generator=g, device="cuda") / math.sqrt(h)).to(torch.bfloat16)
-    q, s, ov, oi = aaq_quantize_ref(x, 4, 4)
-    y = aaq_matmul_kernel(q, s, ov, oi, w, bits=4, out_dtype=torch.bfloat16)
-    want = aaq_matmul_ref(q, s, ov, oi, w, bits=4, out_dtype=torch.bfloat16)
-    row.max_abs_err = float((y.float() - want.float()).abs().max())
-    row.ms = time_ms(torch, lambda: aaq_matmul_kernel(q, s, ov, oi, w, bits=4,
-                                                      out_dtype=torch.bfloat16))
-    row.plain_ms = time_ms(torch, lambda: aaq_matmul_ref(q, s, ov, oi, w, bits=4,
-                                                         out_dtype=torch.bfloat16), iters=5)
-    row.library_ms = time_ms(torch, lambda: x @ w)
-    row.bound_ms, row.bound_by = bound_ms(nbytes(q, s, ov, oi, w, y), 2 * t * h * d)
-    log(f"aaq_matmul {row.shape}: kernel_ms={row.ms:.4f} plain_ms={row.plain_ms:.4f} "
-        f"bound_ms={row.bound_ms:.4f} ({row.bound_by}) library_ms(x_bf16 @ W)={row.library_ms:.4f}")
+        f"on {n_cases} cases (T = 65533; bf16 W on the tensor cores, f32 W on the SIMT "
+        f"kernel), worst max|err| {worst:.3e}")
+    # timing at every main-path shape (bf16, bits 4, k 4), then the f32 variant
+    timed = [("aaq_matmul", torch.bfloat16, hd) for hd in MATMUL_SHAPES]
+    for name, dt, (h, d) in timed + [("aaq_matmul_f32", torch.float32, (128, 128))]:
+        x = torch.randn((t, h), generator=g, device="cuda").to(dt)
+        w = (torch.randn((h, d), generator=g, device="cuda") / math.sqrt(h)).to(dt)
+        q, s, ov, oi = aaq_quantize_ref(x, 4, 4)
+        y = aaq_matmul_kernel(q, s, ov, oi, w, bits=4, out_dtype=dt)
+        want = aaq_matmul_ref(q, s, ov, oi, w, bits=4, out_dtype=dt)
+        row = _row(name, f"q ({t}, {h // 2}) int4 packed, W ({h}, {d}) "
+                         f"{'bf16' if dt == torch.bfloat16 else 'f32'}, bits 4, k 4")
+        row.max_abs_err = float((y.float() - want.float()).abs().max())
+        row.ms = time_ms(torch, lambda: aaq_matmul_kernel(q, s, ov, oi, w, bits=4,
+                                                          out_dtype=dt))
+        row.call_ms = call_ms(torch, lambda: aaq_matmul_kernel(q, s, ov, oi, w, bits=4,
+                                                               out_dtype=dt))
+        row.plain_ms = time_ms(torch, lambda: aaq_matmul_ref(q, s, ov, oi, w, bits=4,
+                                                             out_dtype=dt), iters=5)
+        row.library_ms = time_ms(torch, lambda: x @ w)       # unquantized x @ W
+        row.bound_ms, row.bound_by = bound_ms(nbytes(q, s, ov, oi, w, y), 2 * t * h * d)
+        rows.setdefault(name, []).append(row)
+        log(row.line())
 
 
 def _attn_case(torch, g, name, b, n, hq, hkv, d, dt, *, bias=None, causal=False,
                window=None, rows_as_batch=False, pad=0):
-    """Inputs of one attention case.  ``bias="f32"``: a (B, H, N, N) f32
-    bias.  ``rows_as_batch``: triangular
-    attention's (B*N, N, H, D) views of a (B, N, N, 3*H*D) projection and a
-    transposed bf16 (B, H, N, N) bias; ``pad`` trailing keys are padding."""
+    """Inputs of one attention case.  ``bias="f32"``: a contiguous
+    (B, H, N, N) f32 bias (the structure module's); ``bias="seq"``: seq
+    attention's, an f32 bias permuted from (B, N, N, H).  ``rows_as_batch``:
+    triangular attention's (B*N, N, H, D) views of a (B, N, N, 3*H*D)
+    projection and a transposed bf16 (B, H, N, N) bias; ``pad`` trailing
+    keys are padding."""
     kvlen = None
     if rows_as_batch:
         qkv = torch.randn((1, n, n, 3 * hq * d), generator=g, device="cuda").to(dt)
@@ -225,72 +288,117 @@ def _attn_case(torch, g, name, b, n, hq, hkv, d, dt, *, bias=None, causal=False,
         v = torch.randn((b, n, hkv, d), generator=g, device="cuda").to(dt)
         if bias == "f32":
             bias = torch.randn((b, hq, n, n), generator=g, device="cuda")
-            if pad:
-                bias[..., n - pad:] += -1e9                     # key-padding fold
+        elif bias == "seq":
+            bias = torch.randn((b, n, n, hq), generator=g, device="cuda").permute(0, 3, 1, 2)
+        if bias is not None and pad:
+            bias[..., n - pad:] += -1e9                     # key-padding fold
     return dict(name=name, q=q, k=k, v=v, bias=bias, kvlen=kvlen, causal=causal,
                 window=window)
+
+
+def _flash_close(torch, got, want, v, name):
+    """Same float32 online softmax as the plain version, summed in another
+    order: one ulp of the output type (2^-7 bf16, 1e-5 f32) relative, plus
+    1e-4 of max|v| for reassociation and expf/torch.exp differences."""
+    got, want = got.float(), want.float()
+    torch.cuda.synchronize()
+    rtol = 2.0 ** -7 if v.dtype == torch.bfloat16 else 1e-5
+    err = (got - want).abs()
+    tol = rtol * want.abs() + 1e-4 * v.float().abs().max()
+    if not bool((err <= tol).all()) or not bool(torch.isfinite(got).all()):
+        fail(f"flash_mha {name}: max err {float(err.max()):.3e} over tolerance")
+    return float(err.max())
 
 
 def check_flash(torch, rows: dict) -> None:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (flash_mha_kernel,
-                                                                     flash_mha_plain)
+                                                                     flash_mha_plain,
+                                                                     variant_for)
     g = torch.Generator(device="cuda").manual_seed(3)
     bf = torch.bfloat16
     cases = []
     for n in (200, 256):
         cases += [
-            _attn_case(torch, g, f"seq N={n}", 1, n, 16, 16, 64, bf, bias="f32", pad=n // 10),
+            _attn_case(torch, g, f"seq N={n}", 1, n, 16, 16, 64, bf, bias="seq", pad=n // 10),
             _attn_case(torch, g, f"tri N={n}", 1, n, 4, 4, 32, bf, rows_as_batch=True, pad=n // 10),
             _attn_case(torch, g, f"structure N={n}", 1, n, 16, 16, 64, bf, bias="f32"),
         ]
     cases += [
+        _attn_case(torch, g, "seq N=1024", 1, 1024, 16, 16, 64, bf, bias="seq", pad=24),
+        _attn_case(torch, g, "seq N=2048", 1, 2048, 16, 16, 64, bf, bias="seq", pad=48),
         _attn_case(torch, g, "causal", 2, 100, 4, 4, 64, torch.float32, causal=True),
         _attn_case(torch, g, "window", 2, 100, 4, 4, 32, torch.float32, causal=True, window=16),
         _attn_case(torch, g, "gqa", 2, 77, 8, 2, 16, torch.float32, bias="f32"),
         _attn_case(torch, g, "d8", 3, 70, 2, 2, 8, bf),
         _attn_case(torch, g, "d128", 1, 130, 2, 2, 128, bf, bias="f32"),
+        _attn_case(torch, g, "bf16 causal window gqa", 2, 150, 8, 2, 64, bf, causal=True,
+                   window=70),
+        _attn_case(torch, g, "bf16 d16", 3, 90, 4, 4, 16, bf, bias="f32", pad=9),
     ]
-    # Same float32 online softmax as the plain version, summed in another
-    # order: one ulp of the output type (2^-7 bf16, 1e-5 f32) relative, plus
-    # 1e-4 of max|v| for reassociation and expf/torch.exp differences.
     worst = 0.0
     for c in cases:
         args = (c["q"], c["k"], c["v"], c["bias"], c["kvlen"])
         kw = dict(causal=c["causal"], window=c["window"])
-        got = flash_mha_kernel(*args, **kw).float()
-        want = flash_mha_plain(*args, **kw).float()
-        torch.cuda.synchronize()
-        rtol = 2.0 ** -7 if c["q"].dtype == bf else 1e-5
-        err = (got - want).abs()
-        tol = rtol * want.abs() + 1e-4 * c["v"].float().abs().max()
-        if not bool((err <= tol).all()) or not bool(torch.isfinite(got).all()):
-            fail(f"flash_mha {c['name']}: max err {float(err.max()):.3e} over tolerance")
-        worst = max(worst, float(err.max()))
-    log(f"flash_mha: allclose on {len(cases)} cases (seq/tri/structure at N=200,256, "
-        f"causal, window, GQA, D=8/128), worst max|err| {worst:.3e}")
-    # timing at the main path's largest shape: triangular attention at N = 256
-    c = next(c for c in cases if c["name"] == "tri N=256")
-    row = rows["flash_mha"]
-    row.shape = "tri attention: q,k,v (256, 256, 4, 32) bf16 views, bias (1, 4, 256, 256) bf16"
-    args = (c["q"], c["k"], c["v"], c["bias"], c["kvlen"])
-    o = flash_mha_kernel(*args)
-    row.max_abs_err = float((o.float() - flash_mha_plain(*args).float()).abs().max())
-    row.ms = time_ms(torch, lambda: flash_mha_kernel(*args))
-    row.plain_ms = time_ms(torch, lambda: flash_mha_plain(*args), iters=5)
-    b, n, h, d = c["q"].shape
-    # the library yardstick gets the bias expanded over the rows and the
-    # key-length mask folded in (SDPA has no block broadcast)
-    mask = c["bias"].float().expand(b, h, n, n).clone()
-    mask[..., int(c["kvlen"][0]):] = -1e30
-    mask = mask.to(bf)
-    qt, kt, vt = (a.transpose(1, 2) for a in (c["q"], c["k"], c["v"]))
-    row.library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask))
-    row.bound_ms, row.bound_by = bound_ms(nbytes(c["q"], c["k"], c["v"], c["bias"], c["kvlen"], o),
-                                          4 * b * h * n * n * d)
-    log(f"flash_mha {row.shape}: kernel_ms={row.ms:.4f} plain_ms={row.plain_ms:.4f} "
-        f"bound_ms={row.bound_ms:.4f} ({row.bound_by}) library_ms(sdpa)={row.library_ms:.4f}")
+        got = flash_mha_kernel(*args, **kw)
+        worst = max(worst, _flash_close(torch, got, flash_mha_plain(*args, **kw), c["v"],
+                                        c["name"]))
+    # triangular attention at N = 1024: the kernel over all rows, the plain
+    # version on 8 of them with the same shared bias (over all rows it would
+    # materialize (N, 4, N, N) f32 logits, 17 GB)
+    tri = _attn_case(torch, g, "tri N=1024", 1, 1024, 4, 4, 32, bf, rows_as_batch=True, pad=24)
+    got = flash_mha_kernel(tri["q"], tri["k"], tri["v"], tri["bias"], tri["kvlen"])
+    sub = torch.tensor([0, 1, 137, 500, 511, 512, 999, 1023], device="cuda")
+    want = flash_mha_plain(tri["q"][sub], tri["k"][sub], tri["v"][sub], tri["bias"],
+                           tri["kvlen"][sub])
+    tri_err = _flash_close(torch, got[sub], want, tri["v"], "tri N=1024 (8 rows)")
+    worst = max(worst, tri_err)
+    log(f"flash_mha: allclose on {len(cases) + 1} cases (seq/tri/structure at N=200,256, "
+        f"seq at N=1024 and 2048, tri at N=1024 on 8 rows; causal, window, GQA, D=8/16/128; "
+        f"bf16 on the tensor cores, f32 and D=8 on the SIMT kernel), worst max|err| {worst:.3e}")
+
+    def timed(c, name, shape, *, plain=True, library=True, err=0.0):
+        args = (c["q"], c["k"], c["v"], c["bias"], c["kvlen"])
+        o = flash_mha_kernel(*args)
+        b, n, h, d = c["q"].shape
+        row = _row(name, shape)
+        row.max_abs_err = err
+        row.ms = time_ms(torch, lambda: flash_mha_kernel(*args))
+        row.call_ms = call_ms(torch, lambda: flash_mha_kernel(*args))
+        row.plain_ms = time_ms(torch, lambda: flash_mha_plain(*args), iters=3) if plain else None
+        if plain:
+            row.max_abs_err = float((o.float() - flash_mha_plain(*args).float()).abs().max())
+        if library:
+            # the library yardstick gets the bias expanded over the rows and
+            # the key-length mask folded in (SDPA has no block broadcast)
+            mask = c["bias"].float().expand(b, h, n, n).clone()
+            if c["kvlen"] is not None:
+                mask[..., int(c["kvlen"][0]):] = -1e30
+            mask = mask.to(c["q"].dtype)
+            qt, kt, vt = (a.transpose(1, 2) for a in (c["q"], c["k"], c["v"]))
+            row.library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+            del mask
+        row.bound_ms, row.bound_by = bound_ms(nbytes(*args, o), 4 * b * h * n * n * d)
+        rows.setdefault(name, []).append(row)
+        log(row.line())
+
+    by_name = {c["name"]: c for c in cases}
+    timed(by_name["tri N=256"], "flash_mha", "tri: q,k,v (256, 256, 4, 32) bf16 views, "
+          "bias (1, 4, 256, 256) bf16 transposed")
+    timed(by_name["seq N=256"], "flash_mha", "seq: q,k,v (1, 256, 16, 64) bf16, "
+          "bias (1, 16, 256, 256) f32 permuted")
+    timed(by_name["structure N=256"], "flash_mha", "structure: q,k,v (1, 256, 16, 64) bf16, "
+          "bias (1, 16, 256, 256) f32")
+    timed(tri, "flash_mha", "tri: q,k,v (1024, 1024, 4, 32) bf16 views, "
+          "bias (1, 4, 1024, 1024) bf16 transposed; error on 8 rows", plain=False,
+          library=False, err=tri_err)
+    timed(by_name["seq N=2048"], "flash_mha", "seq: q,k,v (1, 2048, 16, 64) bf16, "
+          "bias (1, 16, 2048, 2048) f32 permuted")
+    c = by_name["tri N=256"]
+    f32 = dict(c, q=c["q"].float(), k=c["k"].float(), v=c["v"].float())
+    assert variant_for(f32["q"].dtype, 32) == "simt"
+    timed(f32, "flash_mha_simt", "tri: q,k,v (256, 256, 4, 32) f32, bias (1, 4, 256, 256) bf16")
 
 
 # ---------------------------------------------------------------------------
@@ -379,11 +487,39 @@ def check_forward(torch) -> None:
         fail("; ".join(faults))
 
 
+def _serve_run(torch, cfg, params, seqs, what):
+    """One run of the sequential server at full width: counters zeroed just
+    before, read just after; every main-path kernel launched, no plain
+    version, finite coords."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import serve_ppm_sequential
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_counters()
+    results = serve_ppm_sequential(cfg, params, seqs, SERVE_BUCKETS,
+                                   scheme="lightnobel_aaq", fidelity=True,
+                                   device="cuda", emit=log)
+    launches, plain = dispatch.launch_counts(), dispatch.plain_counts()
+    routed = dict(dispatch.counters)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{what}: served {len(results)} requests; lengths {[r.length for r in results]} "
+        f"in buckets {[r.bucket for r in results]}; latency_ms "
+        f"{[round(r.latency_ms, 1) for r in results if r.latency_ms is not None]}; TM vs "
+        f"baseline_fp16 {[round(r.tm_vs_fp, 4) for r in results if r.tm_vs_fp is not None]}; "
+        f"peak memory {peak / 2**30:.2f} GiB on {torch.cuda.get_device_name(0)}")
+    log(f"{what}: launches {launches}; plain versions {plain}; routed {routed}")
+    for r in results:
+        if r.bucket is None or r.coords is None or not bool(torch.isfinite(r.coords).all()):
+            fail(f"{what} request {r.request}: no finite coords")
+    if any(launches[name] == 0 for name in dispatch.MAIN_PATH):
+        fail(f"{what}: a main-path kernel was never launched: {launches}")
+    if any(plain.values()) or routed["attention.ref"] or routed["qmatmul.ref"]:
+        fail(f"{what}: a plain version ran on the main path: {plain} {routed}")
+    return results, launches
+
+
 def serve_full_width(torch):
     from repro_torch.configs import get_ppm_config
     from repro_torch.data.pipeline import ProteinSampler
-    from repro_torch.kernels import dispatch
-    from repro_torch.launch.serve import serve_ppm_sequential
     from repro_torch.models.ppm import init_ppm
     from repro_torch.models import common as cm
     cfg = get_ppm_config()
@@ -395,30 +531,19 @@ def serve_full_width(torch):
         f"made in {time.perf_counter() - t0:.1f}s")
     sampler = ProteinSampler(seed=11, min_len=64, max_len=256)
     seqs = [sampler.sample(i) for i in range(SERVE_N)]
-    torch.cuda.reset_peak_memory_stats()
-    dispatch.reset_counters()
-    results = serve_ppm_sequential(cfg, params, seqs, SERVE_BUCKETS,
-                                   scheme="lightnobel_aaq", fidelity=True,
-                                   device="cuda", emit=log)
-    launches, plain = dispatch.launch_counts(), dispatch.plain_counts()
-    routed = dict(dispatch.counters)
-    peak = torch.cuda.max_memory_allocated()
-    log(f"served {len(results)} requests; latency_ms "
-        f"{[round(r.latency_ms, 1) for r in results if r.latency_ms is not None]}; "
-        f"peak memory {peak / 2**30:.2f} GiB on {torch.cuda.get_device_name(0)}")
-    log(f"launches {launches}; plain versions {plain}; routed {routed}")
-    for r in results:
-        if r.bucket is None or r.coords is None or not bool(torch.isfinite(r.coords).all()):
-            fail(f"request {r.request}: no finite coords")
-    if any(v == 0 for v in launches.values()):
-        fail(f"a kernel was never launched on the main path: {launches}")
-    if any(plain.values()) or routed["attention.ref"] or routed["qmatmul.ref"]:
-        fail(f"a plain version ran on the main path: {plain} {routed}")
+    results, launches = _serve_run(torch, cfg, params, seqs, "short requests")
     folds = len(results)
     log(f"launches per fold: aaq_quantize {launches['aaq_quantize'] / folds:.0f}, "
         f"aaq_matmul {launches['aaq_matmul'] / folds:.0f} (lightnobel_aaq folds), "
         f"flash_mha {launches['flash_mha'] / (2 * folds):.0f} (every fold)")
-    return launches, cfg, params
+    long_seq = ProteinSampler(seed=11).sample(SERVE_N, length=LONG_LEN)
+    (res,), long_launches = _serve_run(torch, cfg, params, [long_seq], "long request")
+    if res.bucket != 1024:
+        fail(f"long request of {LONG_LEN} residues went to bucket {res.bucket}")
+    log(f"long request: {LONG_LEN} residues in bucket {res.bucket}: latency "
+        f"{res.latency_ms:.1f} ms, TM vs baseline_fp16 {res.tm_vs_fp:.4f}")
+    total = {k: launches[k] + long_launches[k] for k in launches}
+    return total, cfg, params
 
 
 def _device_us(evt) -> float:
@@ -426,11 +551,36 @@ def _device_us(evt) -> float:
                  or getattr(evt, "self_cuda_time_total", 0.0))
 
 
+@contextlib.contextmanager
+def shape_census():
+    """Tally the shapes the main path hands aaq_matmul and flash_mha (one
+    unprofiled fold; wraps the routing layer's references, not the kernels'
+    launch counts)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.aaq_matmul import ops
+    tally = Counter()
+    mm, fl = ops.aaq_matmul_kernel, dispatch.flash_mha_kernel
+
+    def mm_counted(q, s, ov, oi, w, **kw):
+        tally[("aaq_matmul", tuple(w.shape))] += 1
+        return mm(q, s, ov, oi, w, **kw)
+
+    def fl_counted(q, k, v, bias=None, kvl=None, **kw):
+        kind = "tri" if q.shape[0] > 1 else "seq/structure"
+        tally[("flash_mha", kind)] += 1
+        return fl(q, k, v, bias, kvl, **kw)
+
+    with swapped(ops, "aaq_matmul_kernel", mm_counted), \
+            swapped(dispatch, "flash_mha_kernel", fl_counted):
+        yield tally
+
+
 def profile_folds(torch, cfg, params) -> None:
     """Where a full-width fold's time goes: one fold per scheme at bucket
-    256 under torch.profiler; device-busy share of the wall time and the
-    kernels that take the most device time.  The profiler's own overhead
-    lengthens the wall time, so the busy share is a lower bound."""
+    256 under torch.profiler; device-busy share of the wall time, the
+    kernels that take the most device time, and the device time of the two
+    tensor-core kernels.  The profiler's own overhead lengthens the wall
+    time, so the busy share is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import make_scheme
     from repro_torch.data.pipeline import ProteinSampler
@@ -441,8 +591,11 @@ def profile_folds(torch, cfg, params) -> None:
     aat, mask = torch.from_numpy(aat).cuda(), torch.from_numpy(mask).cuda()
     for scheme in ("lightnobel_aaq", "baseline_fp16"):
         with torch.inference_mode():
-            ppm_forward(params, aat, cfg, make_scheme(scheme), mask=mask)     # warm
+            with shape_census() as tally:                                    # warm
+                ppm_forward(params, aat, cfg, make_scheme(scheme), mask=mask)
             torch.cuda.synchronize()
+            log(f"launches per {scheme} fold by shape: "
+                f"{ {f'{k[0]} {k[1]}': v for k, v in sorted(tally.items())} }")
             t0 = time.perf_counter()
             ppm_forward(params, aat, cfg, make_scheme(scheme), mask=mask)
             torch.cuda.synchronize()
@@ -461,6 +614,10 @@ def profile_folds(torch, cfg, params) -> None:
             f"({100 * busy / wall:.1f}% of the profiled wall); {n_launch} device kernels")
         if not kernels:
             log("profile: the profiler recorded no device time (not measured)")
+        for tag in ("aaq_matmul_tc", "flash_tc"):
+            hits = [(us, n) for name, us, n in kernels if tag in name]
+            log(f"  {tag}: {sum(us for us, _ in hits) / 1e3:.2f} ms device time per fold "
+                f"over {sum(n for _, n in hits)} launches")
         for name, us, count in sorted(kernels, key=lambda k: -k[1])[:8]:
             log(f"  {us / 1e3:8.2f} ms  {count:5d}x  {name[:100]}")
 
@@ -486,7 +643,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels import build
     resolve_device("cuda")
     nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
@@ -499,31 +656,26 @@ def main() -> int:
         f"({'built' if build.build_seconds is not None else 'cached'}) from "
         f"{[str(s.relative_to(ROOT)) for s in build.sources()]}")
 
-    # 3. kernels vs plain versions
-    rows = {
-        "aaq_quantize": KernelRow("aaq_quantize", "src/repro_torch/csrc/aaq_quant.cu",
-                                  "src/repro/kernels/aaq_quant/aaq_quant.py:53", ""),
-        "aaq_matmul": KernelRow("aaq_matmul", "src/repro_torch/csrc/aaq_matmul.cu",
-                                "src/repro/kernels/aaq_matmul/aaq_matmul.py:47", ""),
-        "flash_mha": KernelRow("flash_mha", "src/repro_torch/csrc/flash_attention.cu",
-                               "src/repro/kernels/flash_attention/flash_attention.py:93", ""),
-    }
+    # 3. kernels vs plain versions, timed at every main-path shape
+    rows: dict[str, list[KernelRow]] = {}
     check_quantize(torch, rows)
     check_matmul(torch, rows)
     check_flash(torch, rows)
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f}s")
 
     # 4. whole forward, kernels vs plain references
     check_forward(torch)
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 5. the main path: sequential serving at full width
+    # 5. the main path: sequential serving at full width, short and long
     launches, cfg, params = serve_full_width(torch)
     for name, n in launches.items():
-        rows[name].launches = n
+        rows[name][0].launches = n
     profile_folds(torch, cfg, params)
 
     # 6. summary
     log(f"total {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": [r.record() for r in rows.values()]}))
+    print(json.dumps({"kernels": [r[0].record() for r in rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

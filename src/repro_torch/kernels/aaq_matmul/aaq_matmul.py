@@ -2,14 +2,17 @@
 
 y[t, :] = sigma[t] * (q[t, :] @ W)  +  sum_j ovals[t, j] * W[oidx[t, j], :]
 
-Replaces ``repro/kernels/aaq_matmul/aaq_matmul.py:aaq_matmul_pallas``.  The
-kernel (``csrc/aaq_matmul.cu``) gives each block one (64-token, 64-column)
-output tile: int4 inliers are unpacked with sign extension and widened to
-float32 (exact), multiplied against W widened to float32, and the deferred
-per-token scale and the rank-k outlier gather are applied in the epilogue.
-At the main-path shapes it is bound by bytes on the H100 (the (T, D) output
-write dominates); this first version runs the product on the CUDA cores in
-float32 and is far from that bound, tensor cores are later work.
+Replaces ``repro/kernels/aaq_matmul/aaq_matmul.py:aaq_matmul_pallas``.  Two
+variants of the kernel (``csrc/aaq_matmul.cu``), chosen by a fixed rule on
+W's type and counted apart:
+
+* bf16 W (every main-path call): the tensor-core kernel.  W stays resident
+  in shared memory, a persistent grid streams 128-token q tiles through a
+  two-stage ``cp.async`` ring, int4/int8 inliers are widened to bf16 in
+  registers (exact) and multiplied with ``mma.sync`` into float32; sigma
+  and the rank-k outlier gather are applied in the epilogue.  It is bound
+  by bytes on the H100 (the packed q read and the (T, D) write).
+* f32 W: the SIMT kernel, IEEE float32 on the CUDA cores.
 
 On a CUDA tensor the wrapper launches the kernel or raises.  On a CPU
 tensor it computes the plain version (``ref.aaq_matmul_ref``) instead.
@@ -21,7 +24,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.aaq_matmul.ref import aaq_matmul_ref
 
-launches = 0        # kernel launches (CUDA tensors only)
+MAX_TC_H = 512
+launches = 0        # tensor-core kernel launches (bf16 W)
+f32_launches = 0    # SIMT kernel launches (f32 W)
 plain_calls = 0     # calls that computed the plain version (CPU tensors)
 
 
@@ -29,7 +34,7 @@ def aaq_matmul_kernel(inliers, scales, ovals, oidx, w, *, bits: int,
                       out_dtype=torch.float32):
     """inliers (T, H/2 or H) int8, scales (T,1) f32, ovals (T,k) bf16,
     oidx (T,k) int32, w (H, D) -> y (T, D) in ``out_dtype``."""
-    global launches, plain_calls
+    global launches, f32_launches, plain_calls
     if inliers.device.type == "cpu":
         plain_calls += 1
         return aaq_matmul_ref(inliers, scales, ovals, oidx, w, bits=bits,
@@ -55,14 +60,23 @@ def aaq_matmul_kernel(inliers, scales, ovals, oidx, w, *, bits: int,
                              f"{a.device} is not a contiguous {dt} {shape}")
     if k > 4:
         raise ValueError(f"aaq_matmul_kernel: k={k} > 4")
+    tc = w.dtype == torch.bfloat16
+    if tc and (h > MAX_TC_H or h % (32 if bits == 4 else 16)):
+        raise ValueError(f"aaq_matmul_kernel: the bf16 kernel takes H <= {MAX_TC_H}, a "
+                         f"multiple of {32 if bits == 4 else 16} at {bits} bits; got H={h}")
+    if tc and any(a.data_ptr() % 16 for a in (inliers, scales, ovals, oidx, w)):
+        raise ValueError("aaq_matmul_kernel: the bf16 kernel copies its operands 16 bytes "
+                         "at a time; a base pointer is not 16-byte aligned")
     y = torch.empty((t, d), dtype=out_dtype, device=w.device)
     lib = build.library()
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.aaq_matmul_launch(
-            inliers.data_ptr(), scales.data_ptr(), ovals.data_ptr(), oidx.data_ptr(),
-            w.data_ptr(), y.data_ptr(), int(w.dtype == torch.bfloat16), t, h, d,
-            bits, k, max(k, 1), stream)
-    build.check(err, "aaq_matmul")
-    launches += 1
+        launch = lib.aaq_matmul_launch if tc else lib.aaq_matmul_f32_launch
+        err = launch(inliers.data_ptr(), scales.data_ptr(), ovals.data_ptr(), oidx.data_ptr(),
+                     w.data_ptr(), y.data_ptr(), t, h, d, bits, k, max(k, 1), stream)
+    build.check(err, "aaq_matmul" if tc else "aaq_matmul_f32")
+    if tc:
+        launches += 1
+    else:
+        f32_launches += 1
     return y

@@ -29,19 +29,24 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
-# C entry point -> argument types (pointers and the stream are void*)
+_MATMUL = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_FLASH = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _P]
+# C entry point -> argument types (pointers and the stream are void*;
+# strides are int64_t)
 SIGNATURES: dict[str, list] = {
     # x, x_is_bf16, q, scale, ovals, oidx, T, H, bits, k, stream
     "aaq_quantize_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, scale, ovals, oidx, w, y, is_bf16, T, H, D, bits, k, kk, stream
-    "aaq_matmul_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, scale, ovals, oidx, w, y, T, H, D, bits, k, kk, stream
+    "aaq_matmul_launch": _MATMUL,          # bf16 W, tensor cores
+    "aaq_matmul_f32_launch": _MATMUL,      # f32 W, CUDA cores
     # q, k, v, bias, kvlen, o, qkv_is_bf16, bias_kind, B, Sq, Skv, Hq, Hkv, D,
     # Bb, q strides (b,s,h), k strides, v strides, bias strides (b,h,q,k),
     # causal, window, scale, stream
-    "flash_mha_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _F, _P],
+    "flash_mha_launch": _FLASH,            # bf16, D in 16..128, tensor cores
+    "flash_mha_simt_launch": _FLASH,       # f32 or D = 8, CUDA cores
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -50,6 +55,10 @@ build_seconds: float | None = None   # wall time of this process's build (None: 
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -77,7 +86,7 @@ def link_command(nvcc: str, objs: list[Path], lib: Path) -> list[str]:
 
 def _digest(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in (*srcs, *headers()):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -125,7 +134,16 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
+# steps of a launch named in its status (csrc/hopper.cuh: hopper::status)
+LAUNCH_STEPS = {1: "argument or device query", 2: "shared-memory attribute",
+                3: "grid or occupancy", 4: "kernel launch",
+                9: "an error pending before the launch"}
+
+
 def check(err: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    """Raise on a non-zero launch status: the ``cudaError_t`` in the low 16
+    bits and, for the matmul and flash kernels, the failing step above."""
     if err:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+        code, step = err & 0xFFFF, err >> 16
+        where = f" at step {step} ({LAUNCH_STEPS[step]})" if step in LAUNCH_STEPS else ""
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}{where}")

@@ -18,8 +18,9 @@ kernel-shaped dataflow with each kernel's plain version, as the reference's
 ``pallas`` mode does in interpret mode off-TPU.
 
 Counters: ``counters`` counts routed calls per backend; each kernel wrapper
-module counts its own CUDA ``launches`` and CPU ``plain_calls``
-(``launch_counts`` / ``plain_counts``).
+module counts the CUDA launches of each of its kernel variants and its CPU
+``plain_calls`` (``launch_counts`` per variant / ``plain_counts`` per
+kernel).  ``MAIN_PATH`` names the variants a fold launches.
 """
 from __future__ import annotations
 
@@ -40,12 +41,22 @@ KERNEL = "kernel"
 AUTO = "auto"
 BACKENDS = (REF, KERNEL, AUTO)
 
-# kernel name -> wrapper module holding its ``launches`` / ``plain_calls``
+# kernel name -> wrapper module holding its ``plain_calls``
 KERNEL_MODULES = {
     "aaq_quantize": _aaq_quant_mod,
     "aaq_matmul": _aaq_matmul_mod,
     "flash_mha": _flash_mod,
 }
+# kernel variant -> (wrapper module, its launch counter)
+KERNEL_VARIANTS = {
+    "aaq_quantize": (_aaq_quant_mod, "launches"),
+    "aaq_matmul": (_aaq_matmul_mod, "launches"),            # bf16 W, tensor cores
+    "aaq_matmul_f32": (_aaq_matmul_mod, "f32_launches"),    # f32 W, CUDA cores
+    "flash_mha": (_flash_mod, "launches"),                  # bf16, tensor cores
+    "flash_mha_simt": (_flash_mod, "simt_launches"),        # f32 or D = 8, CUDA cores
+}
+# the variants every fold on the card launches (bf16 weights and activations)
+MAIN_PATH = ("aaq_quantize", "aaq_matmul", "flash_mha")
 
 _MODE = AUTO
 
@@ -61,13 +72,14 @@ def reset_counters() -> None:
     """Zero the routing counters and every kernel's launch/plain counts."""
     for k in counters:
         counters[k] = 0
+    for mod, attr in KERNEL_VARIANTS.values():
+        setattr(mod, attr, 0)
     for mod in KERNEL_MODULES.values():
-        mod.launches = 0
         mod.plain_calls = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNEL_VARIANTS.items()}
 
 
 def plain_counts() -> dict[str, int]:

@@ -1,19 +1,30 @@
 """CUDA kernel wrapper: token-wise MHA with online softmax.
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py:flash_mha_pallas``.
-The kernel (``csrc/flash_attention.cu``) gives each block one (batch row,
-head, 64-query tile) and loops over 64-key tiles inside the block, keeping
-the float32 (m, l, o) state in registers; the TPU kernel's sequential KV
-grid axis has no CUDA counterpart.  At the main-path shapes it is bound by
-bytes on the H100; this first version runs both products on the CUDA cores
-in float32 and is far from that bound.
+A block of the kernel (``csrc/flash_attention.cu``) owns a (batch row,
+64-query tile) and loops over 64-key tiles inside the block, keeping the
+float32 (m, l, o) state in registers; the TPU kernel's sequential KV grid
+axis has no CUDA counterpart.  Two variants, chosen by a fixed rule on the
+type and head dim (:func:`variant_for`) and counted apart:
+
+* bf16 q/k/v with D in {16, 32, 64, 128} (every main-path call): the
+  tensor-core kernel, FlashAttention-2 with ``mma.sync`` (QK^T and a PV
+  product split into P_hi + P_lo, so P is not rounded to bf16), K/V/bias
+  tiles through a two-stage ``cp.async`` ring.  It reads q, k and v 16 bytes
+  at a time, so it needs 16-byte aligned base pointers and strides.
+* f32 q/k/v, or D = 8: the SIMT kernel, float32 on the CUDA cores.
+
 Additive bias (f32 or bf16, any strides) is broadcast by block, GQA, causal,
-sliding window and ``kv_valid_len`` are one predicate each.
+sliding window and ``kv_valid_len`` are one predicate each.  Strides are
+passed as 64-bit integers and every offset in the kernels is 64-bit, so the
+trunk's operands at any length it folds are taken as they are.
 
 On a CUDA tensor the wrapper launches the kernel or raises.  On a CPU
 tensor it computes :func:`flash_mha_plain`, the kernel's plain version.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -22,7 +33,11 @@ from repro_torch.kernels.flash_attention.ref import _block_broadcast_bias
 
 NEG = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)
-launches = 0        # kernel launches (CUDA tensors only)
+TC_HEAD_DIMS = (16, 32, 64, 128)
+TC, SIMT = "tc", "simt"
+INT32_MAX = 2 ** 31 - 1
+launches = 0        # tensor-core kernel launches (bf16, D in TC_HEAD_DIMS)
+simt_launches = 0   # SIMT kernel launches (f32, or D = 8)
 plain_calls = 0     # calls that computed the plain version (CPU tensors)
 
 
@@ -62,16 +77,44 @@ def flash_mha_plain(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     return o.to(q.dtype)
 
 
-def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
-                     window=None, softmax_scale=None):
-    """q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D); bias (Bb,Hq,Sq,Skv); -> (B,Sq,Hq,D)."""
-    global launches, plain_calls
-    if q.device.type == "cpu":
-        plain_calls += 1
-        return flash_mha_plain(q, k, v, bias, kv_valid_len, causal=causal,
-                               window=window, softmax_scale=softmax_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_mha_kernel: unsupported device {q.device}")
+def variant_for(dtype: torch.dtype, d: int) -> str:
+    """The kernel a launch takes: a fixed rule on the inputs' type and head dim."""
+    return TC if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else SIMT
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashLaunchArgs:
+    """Everything ``flash_mha_launch`` takes besides pointers and stream."""
+    variant: str
+    qkv_is_bf16: int
+    bias_kind: int                 # 0 none, 1 f32, 2 bf16
+    sizes: tuple                   # B, Sq, Skv, Hq, Hkv, D, Bb
+    q_strides: tuple               # (b, s, h), elements
+    k_strides: tuple
+    v_strides: tuple
+    bias_strides: tuple            # (b, h, q, k), elements; zeros without a bias
+    causal: int
+    window: int                    # -1: no sliding window
+    scale: float
+
+    def c_args(self) -> tuple:
+        return (self.qkv_is_bf16, self.bias_kind, *self.sizes, *self.q_strides,
+                *self.k_strides, *self.v_strides, *self.bias_strides, self.causal,
+                self.window, self.scale)
+
+
+def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
+                       window=None, softmax_scale=None) -> FlashLaunchArgs:
+    """Validate the operands of a launch and pack its scalar arguments.
+
+    Allocates and launches nothing, so it runs on ``meta`` tensors.  Raises
+    on what the kernels do not take: a head dim without unit stride, shapes
+    that do not match, a bias that does not broadcast, a size beyond 32 bits,
+    and, for the tensor-core variant, a q/k/v base pointer or (b, s, h)
+    stride that is not a multiple of 16 bytes.  Strides are the tensors' own:
+    the kernels index in 64 bits, so no stride or offset bound remains."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_mha_kernel: q, k, v must be (B, S, H, D)")
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     if d not in HEAD_DIMS:
@@ -84,40 +127,66 @@ def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
                              f"not match q {tuple(q.shape)} {q.dtype}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"flash_mha_kernel: Hq={hq} not a multiple of Hkv={hkv}")
+    variant = variant_for(q.dtype, d)
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.stride(-1) != 1:
             raise ValueError(f"flash_mha_kernel: {name} head dim must have unit stride")
+        if variant == TC and (a.data_ptr() % 16 or any(
+                st * a.element_size() % 16 for st in a.stride()[:3])):
+            raise ValueError(f"flash_mha_kernel: {name} is read 16 bytes at a time; its "
+                             f"base pointer or strides {a.stride()} are not 16-byte aligned")
     bias_kind, bb, bstr = 0, 1, (0, 0, 0, 0)
     if bias is not None:
         bias_kind = {torch.float32: 1, torch.bfloat16: 2}.get(bias.dtype)
         if bias_kind is None:
             raise ValueError(f"flash_mha_kernel: bias dtype {bias.dtype} not f32/bf16")
-        bb = bias.shape[0]
-        if bias.device != q.device or tuple(bias.shape[1:]) != (hq, sq, skv) or b % bb:
+        bb = bias.shape[0] if bias.dim() == 4 else 0
+        if bias.device != q.device or bias.dim() != 4 or \
+                tuple(bias.shape[1:]) != (hq, sq, skv) or bb == 0 or b % bb:
             raise ValueError(f"flash_mha_kernel: bias {tuple(bias.shape)} does not "
                              f"broadcast to ({b}, {hq}, {sq}, {skv})")
-        bstr = bias.stride()
+        bstr = tuple(bias.stride())
+    if kv_valid_len is not None and tuple(kv_valid_len.shape) != (b,):
+        raise ValueError(f"flash_mha_kernel: kv_valid_len {tuple(kv_valid_len.shape)} "
+                         f"is not ({b},)")
+    if max(b, sq, skv, hq) > INT32_MAX or -(-sq // 64) * hq * b > INT32_MAX:
+        raise ValueError(f"flash_mha_kernel: B={b}, Sq={sq}, Skv={skv}, Hq={hq} exceed the "
+                         "kernel's 32-bit sizes or grid")
+    return FlashLaunchArgs(
+        variant=variant, qkv_is_bf16=int(q.dtype == torch.bfloat16), bias_kind=bias_kind,
+        sizes=(b, sq, skv, hq, hkv, d, bb), q_strides=tuple(q.stride()[:3]),
+        k_strides=tuple(k.stride()[:3]), v_strides=tuple(v.stride()[:3]),
+        bias_strides=bstr, causal=int(causal), window=-1 if window is None else int(window),
+        scale=_scale(d, softmax_scale))
+
+
+def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
+                     window=None, softmax_scale=None):
+    """q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D); bias (Bb,Hq,Sq,Skv); -> (B,Sq,Hq,D)."""
+    global launches, simt_launches, plain_calls
+    if q.device.type == "cpu":
+        plain_calls += 1
+        return flash_mha_plain(q, k, v, bias, kv_valid_len, causal=causal,
+                               window=window, softmax_scale=softmax_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha_kernel: unsupported device {q.device}")
+    args = _flash_launch_args(q, k, v, bias, kv_valid_len, causal=causal, window=window,
+                              softmax_scale=softmax_scale)
     if kv_valid_len is not None:
         kv_valid_len = kv_valid_len.to(device=q.device, dtype=torch.int32).contiguous()
-        if kv_valid_len.shape != (b,):
-            raise ValueError(f"flash_mha_kernel: kv_valid_len {tuple(kv_valid_len.shape)}"
-                             f" is not ({b},)")
-    for a in (q, k, v, bias):
-        if a is not None and max(a.stride()) * max(a.shape) >= 2 ** 31:
-            raise ValueError("flash_mha_kernel: tensor too large for 32-bit strides")
+    b, sq, _, hq, _, d, _ = args.sizes
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_mha_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr() if bias is not None else None,
-            kv_valid_len.data_ptr() if kv_valid_len is not None else None,
-            o.data_ptr(), int(q.dtype == torch.bfloat16), bias_kind,
-            b, sq, skv, hq, hkv, d, bb, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *bstr, int(causal), -1 if window is None else int(window),
-            _scale(d, softmax_scale), stream)
-    build.check(err, "flash_mha")
-    launches += 1
+        launch = lib.flash_mha_launch if args.variant == TC else lib.flash_mha_simt_launch
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     bias.data_ptr() if bias is not None else None,
+                     kv_valid_len.data_ptr() if kv_valid_len is not None else None,
+                     o.data_ptr(), *args.c_args(), stream)
+    build.check(err, "flash_mha" if args.variant == TC else "flash_mha_simt")
+    if args.variant == TC:
+        launches += 1
+    else:
+        simt_launches += 1
     return o
-

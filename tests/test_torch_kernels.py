@@ -35,7 +35,7 @@ from repro_torch.kernels.aaq_matmul.ops import aaq_linear  # noqa: E402
 from repro_torch.kernels.aaq_quant.aaq_quant import aaq_quantize_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_mha_kernel, flash_mha_plain)
+    _flash_launch_args, flash_mha_kernel, flash_mha_plain, variant_for)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -254,7 +254,9 @@ def test_dispatch_routes_by_mode_and_device():
     assert dispatch.get_backend() == dispatch.AUTO
     assert dispatch.counters["attention.kernel"] == 1
     assert dispatch.plain_counts() == {"aaq_quantize": 1, "aaq_matmul": 1, "flash_mha": 1}
-    assert dispatch.launch_counts() == {"aaq_quantize": 0, "aaq_matmul": 0, "flash_mha": 0}
+    assert dispatch.launch_counts() == {"aaq_quantize": 0, "aaq_matmul": 0, "aaq_matmul_f32": 0,
+                                        "flash_mha": 0, "flash_mha_simt": 0}
+    assert set(dispatch.MAIN_PATH) <= set(dispatch.launch_counts())
     _close(ker_o.numpy(), ref_o.numpy())
     assert dispatch.describe("ref", device="cuda") == "ref"
     with pytest.raises(ValueError):
@@ -292,6 +294,74 @@ def test_ctypes_signatures_match_the_c_entry_points():
                 assert a is build.ctypes.c_void_p, (name, p)
             elif p.startswith("float"):
                 assert a is build.ctypes.c_float, (name, p)
+            elif p.startswith("int64_t"):
+                assert a is build.ctypes.c_int64, (name, p)
             else:
-                assert p.startswith("int") and a is build.ctypes.c_int, (name, p)
+                assert p.startswith("int ") and a is build.ctypes.c_int, (name, p)
+    # every flash stride is 64-bit
+    flash = re.search(r'extern "C" int flash_mha_launch\(([^)]*)\)', text).group(1)
+    assert sum("int64_t" in p for p in flash.split(",")) == 13
     assert "cudaGetLastError" in text and "__shfl_xor_sync" in text
+    assert "mma.sync.aligned.m16n8k16" in build.headers()[0].read_text()
+
+
+# --------------------------------------------------------------------------
+# flash launch arguments at the trunk's full-length operands (meta tensors)
+#
+# The kernels index in 64 bits; the wrapper must take the trunk's own views
+# at every length the model folds and hand their strides on unchanged.
+# --------------------------------------------------------------------------
+def _seq_operands(n, heads=16, dh=64):
+    """seq_attn_apply's q, k, v views and its f32 bias permuted from (1,N,N,H)."""
+    qkv = torch.empty((1, n, 3 * heads * dh), dtype=torch.bfloat16, device="meta")
+    q, k, v = (a.reshape(1, n, heads, dh) for a in torch.split(qkv, heads * dh, dim=-1))
+    bias = torch.empty((1, n, n, heads), dtype=torch.bfloat16, device="meta")
+    return q, k, v, bias.permute(0, 3, 1, 2).float()
+
+
+def _tri_operands(n, heads=4, dh=32):
+    """tri_attn_apply's rows-as-batch views of a split (1,N,N,3*H*dh)
+    projection and its permuted (1,N,N,H) bf16 bias."""
+    qkv = torch.empty((1, n, n, 3 * heads * dh), dtype=torch.bfloat16, device="meta")
+    q, k, v = (a.reshape(1, n, n, heads, dh).reshape(n, n, heads, dh)
+               for a in torch.split(qkv, heads * dh, dim=-1))
+    bias = torch.empty((1, n, n, heads), dtype=torch.bfloat16, device="meta")
+    return q, k, v, bias.permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("kind,n", [("seq", 512), ("seq", 1024), ("seq", 2048),
+                                    ("tri", 1024), ("tri", 2400)])
+def test_flash_launch_args_take_the_trunks_operands_at_full_length(kind, n):
+    q, k, v, bias = (_seq_operands if kind == "seq" else _tri_operands)(n)
+    kvl = torch.empty((q.shape[0],), dtype=torch.int32, device="meta")
+    args = _flash_launch_args(q, k, v, bias, kvl)
+    assert args.variant == "tc"
+    assert args.q_strides == q.stride()[:3] and args.k_strides == k.stride()[:3]
+    assert args.v_strides == v.stride()[:3] and args.bias_strides == bias.stride()
+    assert args.sizes == (q.shape[0], n, n, q.shape[2], k.shape[2], q.shape[3], 1)
+    assert args.bias_kind == (1 if kind == "seq" else 2)
+    # the old product guard max(stride) * max(shape) >= 2**31 tripped on these
+    assert max(max(a.stride()) * max(a.shape) for a in (q, bias)) >= 2 ** 31 or n < 813
+    assert len(args.c_args()) == len(build.SIGNATURES["flash_mha_launch"]) - 7
+
+
+def test_flash_launch_args_refuse_what_the_kernels_do_not_take():
+    q, k, v, bias = _tri_operands(64)
+    _flash_launch_args(q, k, v, bias)
+    qt = torch.empty((64, 64, 32, 4), dtype=torch.bfloat16, device="meta").transpose(2, 3)
+    with pytest.raises(ValueError, match="unit stride"):                # head dim strided
+        _flash_launch_args(qt, k, v, bias)
+    base = torch.empty((64, 64, 4, 40), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="16-byte aligned"):            # misaligned view
+        _flash_launch_args(base[..., 1:33], k, v, bias)
+    padded = torch.empty((64, 64, 4, 36), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="16-byte aligned"):            # 72-byte head stride
+        _flash_launch_args(q, padded[..., :32], v, bias)
+    with pytest.raises(ValueError, match="broadcast"):                  # 64 % 3 != 0
+        _flash_launch_args(q, k, v, torch.empty((3, 4, 64, 64), device="meta"))
+    with pytest.raises(ValueError, match="broadcast"):
+        _flash_launch_args(q, k, v, bias[..., :63])
+    # the float32 variant reads element by element: no alignment rule
+    f = torch.empty((64, 64, 4, 40), device="meta")[..., 1:33]
+    assert _flash_launch_args(f, f, f).variant == "simt"
+    assert variant_for(torch.bfloat16, 8) == "simt" and variant_for(torch.bfloat16, 64) == "tc"
