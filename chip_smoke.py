@@ -11,7 +11,9 @@ Phases, each fatal on failure:
      the main path's shapes and at long N (seq attention at N = 1024 and
      2048, triangular attention at N = 1024), with its time at every
      main-path shape, the plain version's, the least time the card could
-     take (``bound_ms``) and one PyTorch library call's;
+     take (``bound_ms``) and one PyTorch library call's; both forms of the
+     AAQ quantize kernel (``aaq_quantize`` for the linears, the fake-quant
+     ``aaq_fake_quant`` for the ``act`` sites) bitwise;
   4. whole forward, kernels vs the plain references, 2 blocks at full
      esmfold_ppm width, one padded request, with two controls that the
      lightnobel_aaq gate must reject;
@@ -19,8 +21,9 @@ Phases, each fatal on failure:
      seeded random weights): 4 short requests, then one of 1,000 residues
      in bucket 1,024; in each run every main-path kernel launched and no
      plain version ran; then one profiled fold per scheme at N = 250
-     (device-busy share, top kernels, the two tensor-core kernels' device
-     time) and the main-path launches per fold at each kernel shape;
+     (device-busy share, top kernels, each kernel's device time) and the
+     main-path launches per fold at each kernel shape, with one
+     ``aaq_fake_quant`` launch for each enabled ``AAQScheme.act`` call;
   6. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -61,15 +64,22 @@ FWD_LEN = 230
 # in PERF.md).
 TM_GATE = 0.9995
 
-PALLAS = {
-    "aaq_quantize": "src/repro/kernels/aaq_quant/aaq_quant.py:53",
-    "aaq_matmul": "src/repro/kernels/aaq_matmul/aaq_matmul.py:47",
-    "flash_mha": "src/repro/kernels/flash_attention/flash_attention.py:93",
+# kernel variant -> (CUDA source, the Pallas kernel it replaces)
+VARIANTS = {
+    "aaq_quantize": ("aaq_quant.cu", "src/repro/kernels/aaq_quant/aaq_quant.py:53"),
+    "aaq_matmul": ("aaq_matmul.cu", "src/repro/kernels/aaq_matmul/aaq_matmul.py:47"),
+    "flash_mha": ("flash_attention.cu", "src/repro/kernels/flash_attention/flash_attention.py:93"),
 }
+VARIANTS.update(aaq_fake_quant=VARIANTS["aaq_quantize"],
+                aaq_matmul_f32=VARIANTS["aaq_matmul"], flash_mha_simt=VARIANTS["flash_mha"])
 # (H, D) of every aaq_matmul call of a fold: the tri-attention bias, the
 # pair projections, tri-attention's qkv, tri-mul's packed projection,
 # the pair transition's down projection
 MATMUL_SHAPES = ((128, 4), (128, 128), (128, 384), (128, 512), (512, 128))
+# (H, bits, k) of every quantize call of a fold: group B (post-LayerNorm, the
+# linears' and acts' most common), group C at H = 128 and at the pair
+# transition's H = 512, group A (acts only)
+QUANT_SHAPES = ((128, 4, 4), (128, 4, 0), (512, 4, 0), (128, 8, 4))
 
 
 def log(msg: str) -> None:
@@ -164,18 +174,35 @@ class KernelRow:
 
 
 def _row(name: str, shape: str) -> KernelRow:
-    src = {"aaq_quantize": "aaq_quant.cu", "aaq_matmul": "aaq_matmul.cu",
-           "flash_mha": "flash_attention.cu"}[name.split("_f32")[0].split("_simt")[0]]
-    return KernelRow(name, f"src/repro_torch/csrc/{src}",
-                     PALLAS[name.split("_f32")[0].split("_simt")[0]], shape)
+    src, pallas = VARIANTS[name]
+    return KernelRow(name, f"src/repro_torch/csrc/{src}", pallas, shape)
 
 
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
+def _bitwise(torch, a, b) -> bool:
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    elif a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _linear_input(torch, g, t: int, h: int):
+    """A quantized linear's input as the fold makes it: a fake-quantized
+    activation (group B at H = 128, group C after a ReLU at H = 512)."""
+    from repro_torch.kernels.aaq_quant.aaq_quant import aaq_fake_quant_kernel
+    x = torch.randn((t, h), generator=g, device="cuda").to(torch.bfloat16)
+    return aaq_fake_quant_kernel(x, 4, 4) if h == 128 else aaq_fake_quant_kernel(x.relu(), 4, 0)
+
+
 def check_quantize(torch, rows: dict) -> None:
-    from repro_torch.kernels.aaq_quant.aaq_quant import aaq_quantize_kernel
-    from repro_torch.kernels.aaq_quant.ref import aaq_quantize_ref
+    """Both forms of the quantize kernel, bitwise against their plain
+    versions, then timed at every quantize shape of the main path."""
+    from repro_torch.kernels.aaq_quant.aaq_quant import (aaq_fake_quant_kernel,
+                                                         aaq_quantize_kernel)
+    from repro_torch.kernels.aaq_quant.ref import aaq_fake_quant_ref, aaq_quantize_ref
     g = torch.Generator(device="cuda").manual_seed(1)
     t = 256 * 256
     cases = [(h, bits, k, dt) for h in (128, 512) for bits in (4, 8)
@@ -187,26 +214,57 @@ def check_quantize(torch, rows: dict) -> None:
             x[:64] = 0                                          # all-zero (padded) tokens
             x[64:128, : h // 2] = 1.5                           # ties on many lanes
             x[128, 5] = 60.0
+            x[129] = 0.25                                       # 16 equal maxima across
+            x[129, 8:24] = torch.tensor([5.0, -5.0] * 8, device="cuda").to(dt)  # two lanes
+            x[130, 16:20] = torch.tensor([50.0, -50.0, 40.0, -40.0], device="cuda").to(dt)
             got = aaq_quantize_kernel(x, bits=bits, k_outliers=k)
             want = aaq_quantize_ref(x, bits, k)
             torch.cuda.synchronize()
             for name, a, b in zip(("inliers", "scales", "ovals", "oidx"), got, want):
-                if a.dtype == torch.bfloat16:
-                    a, b = a.view(torch.int16), b.view(torch.int16)
-                if a.shape != b.shape or not torch.equal(a, b):
+                if not _bitwise(torch, a, b):
                     fail(f"aaq_quantize {name} not bitwise equal at T={tt} H={h} "
                          f"bits={bits} k={k} {dt}")
-    log(f"aaq_quantize: bitwise equal to the plain version on {2 * len(cases)} cases "
-        "(T = 65536 and 65535, all-zero rows, ties)")
-    for h in (128, 512):              # the main path's widths, bits 4, k 4, bf16
-        x = torch.randn((t, h), generator=g, device="cuda").to(torch.bfloat16)
-        out = aaq_quantize_kernel(x, bits=4, k_outliers=4)
-        row = _row("aaq_quantize", f"x ({t}, {h}) bf16, bits 4, k 4")
-        row.ms = time_ms(torch, lambda: aaq_quantize_kernel(x, bits=4, k_outliers=4))
-        row.call_ms = call_ms(torch, lambda: aaq_quantize_kernel(x, bits=4, k_outliers=4))
-        row.plain_ms = time_ms(torch, lambda: aaq_quantize_ref(x, 4, 4), iters=5)
-        row.bound_ms, row.bound_by = bound_ms(nbytes(x, *out), 0)
-        rows.setdefault("aaq_quantize", []).append(row)
+            got = aaq_fake_quant_kernel(x, bits, k)
+            want = aaq_fake_quant_ref(x, bits, k)
+            torch.cuda.synchronize()
+            if got.dtype != dt or not _bitwise(torch, got, want):
+                fail(f"aaq_fake_quant x_hat not bitwise equal at T={tt} H={h} "
+                     f"bits={bits} k={k} {dt}")
+    # the linears' inputs on the fold are fake-quantized activations (many
+    # exact zeros, values on a grid); the pair transition's follow a ReLU
+    for h, bits, k in QUANT_SHAPES[:3]:
+        x = _linear_input(torch, g, t, h)
+        for name, a, b in zip(("inliers", "scales", "ovals", "oidx"),
+                              aaq_quantize_kernel(x, bits=bits, k_outliers=k),
+                              aaq_quantize_ref(x, bits, k)):
+            if not _bitwise(torch, a, b):
+                fail(f"aaq_quantize {name} not bitwise equal on a fake-quantized input "
+                     f"H={h} bits={bits} k={k}")
+    log(f"aaq_quantize, aaq_fake_quant: bitwise equal to their plain versions on "
+        f"{2 * len(cases)} cases each (T = 65536 and 65535, all-zero rows, ties, 16 equal "
+        "maxima across two lanes, all outliers in one lane); aaq_quantize also on 3 "
+        "fake-quantized inputs")
+    timed = ([("aaq_quantize", shape, False) for shape in QUANT_SHAPES]
+             + [("aaq_quantize", shape, True) for shape in QUANT_SHAPES[:3]]
+             + [("aaq_fake_quant", shape, False) for shape in QUANT_SHAPES])
+    for name, (h, bits, k), linear_input in timed:   # the main path's shapes, bf16
+        x = (_linear_input(torch, g, t, h) if linear_input else
+             torch.randn((t, h), generator=g, device="cuda").to(torch.bfloat16))
+        if name == "aaq_quantize":
+            kern = lambda: aaq_quantize_kernel(x, bits=bits, k_outliers=k)  # noqa: E731
+            plain = lambda: aaq_quantize_ref(x, bits, k)                    # noqa: E731
+        else:
+            kern = lambda: aaq_fake_quant_kernel(x, bits, k)                # noqa: E731
+            plain = lambda: aaq_fake_quant_ref(x, bits, k)                  # noqa: E731
+        out = kern()
+        row = _row(name, f"x ({t}, {h}) bf16{' fake-quantized' if linear_input else ''}, "
+                         f"bits {bits}, k {k}")
+        row.ms = time_ms(torch, kern)
+        row.call_ms = call_ms(torch, kern)
+        row.plain_ms = time_ms(torch, plain, iters=5)
+        row.bound_ms, row.bound_by = bound_ms(
+            nbytes(x, *(out if isinstance(out, tuple) else (out,))), 0)
+        rows.setdefault(name, []).append(row)
         log(row.line())
 
 
@@ -512,8 +570,12 @@ def _serve_run(torch, cfg, params, seqs, what):
             fail(f"{what} request {r.request}: no finite coords")
     if any(launches[name] == 0 for name in dispatch.MAIN_PATH):
         fail(f"{what}: a main-path kernel was never launched: {launches}")
-    if any(plain.values()) or routed["attention.ref"] or routed["qmatmul.ref"]:
+    if any(plain.values()) or any(routed[f"{op}.ref"] for op in ("attention", "qmatmul",
+                                                                    "fakequant")):
         fail(f"{what}: a plain version ran on the main path: {plain} {routed}")
+    if launches["aaq_fake_quant"] != routed["fakequant.kernel"]:
+        fail(f"{what}: {routed['fakequant.kernel']} fake-quant calls routed to the kernel "
+             f"but {launches['aaq_fake_quant']} launches")
     return results, launches
 
 
@@ -534,6 +596,7 @@ def serve_full_width(torch):
     results, launches = _serve_run(torch, cfg, params, seqs, "short requests")
     folds = len(results)
     log(f"launches per fold: aaq_quantize {launches['aaq_quantize'] / folds:.0f}, "
+        f"aaq_fake_quant {launches['aaq_fake_quant'] / folds:.0f}, "
         f"aaq_matmul {launches['aaq_matmul'] / folds:.0f} (lightnobel_aaq folds), "
         f"flash_mha {launches['flash_mha'] / (2 * folds):.0f} (every fold)")
     long_seq = ProteinSampler(seed=11).sample(SERVE_N, length=LONG_LEN)
@@ -553,17 +616,34 @@ def _device_us(evt) -> float:
 
 @contextlib.contextmanager
 def shape_census():
-    """Tally the shapes the main path hands aaq_matmul and flash_mha (one
-    unprofiled fold; wraps the routing layer's references, not the kernels'
-    launch counts)."""
+    """Tally the shapes the main path hands each kernel, and the
+    ``AAQScheme.act`` calls with an enabled policy (one unprofiled fold;
+    wraps the ops' and the scheme's references, not the kernels' launch
+    counts)."""
+    from repro_torch.core.schemes import AAQScheme
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.aaq_matmul import ops
+    from repro_torch.kernels.aaq_quant import ops as qops
     tally = Counter()
     mm, fl = ops.aaq_matmul_kernel, dispatch.flash_mha_kernel
+    qk, fq, act = qops.aaq_quantize_kernel, qops.aaq_fake_quant_kernel, AAQScheme.act
 
     def mm_counted(q, s, ov, oi, w, **kw):
         tally[("aaq_matmul", tuple(w.shape))] += 1
         return mm(q, s, ov, oi, w, **kw)
+
+    def qk_counted(x, *, bits, k_outliers):
+        tally[("aaq_quantize", (x.shape[-1], bits, k_outliers))] += 1
+        return qk(x, bits=bits, k_outliers=k_outliers)
+
+    def fq_counted(x, bits, k_outliers):
+        tally[("aaq_fake_quant", (x.shape[-1], bits, k_outliers))] += 1
+        return fq(x, bits, k_outliers)
+
+    def act_counted(self, x, site):
+        if self.cfg.policy_for(site).enabled:
+            tally[("act", "enabled")] += 1
+        return act(self, x, site)
 
     def fl_counted(q, k, v, bias=None, kvl=None, **kw):
         kind = "tri" if q.shape[0] > 1 else "seq/structure"
@@ -571,19 +651,24 @@ def shape_census():
         return fl(q, k, v, bias, kvl, **kw)
 
     with swapped(ops, "aaq_matmul_kernel", mm_counted), \
-            swapped(dispatch, "flash_mha_kernel", fl_counted):
+            swapped(dispatch, "flash_mha_kernel", fl_counted), \
+            swapped(qops, "aaq_quantize_kernel", qk_counted), \
+            swapped(qops, "aaq_fake_quant_kernel", fq_counted), \
+            swapped(AAQScheme, "act", act_counted):
         yield tally
 
 
 def profile_folds(torch, cfg, params) -> None:
     """Where a full-width fold's time goes: one fold per scheme at bucket
     256 under torch.profiler; device-busy share of the wall time, the
-    kernels that take the most device time, and the device time of the two
-    tensor-core kernels.  The profiler's own overhead lengthens the wall
-    time, so the busy share is a lower bound."""
+    kernels that take the most device time, and each kernel's device time.
+    The profiler's own overhead lengthens the wall time, so the busy share
+    is a lower bound.  The census fold before it must launch aaq_fake_quant
+    once for each enabled ``AAQScheme.act`` call."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import make_scheme
     from repro_torch.data.pipeline import ProteinSampler
+    from repro_torch.kernels import dispatch
     from repro_torch.models.ppm import ppm_forward
     from repro_torch.serving import pad_to_bucket
     seq = ProteinSampler(seed=11).sample(99, length=250)
@@ -591,11 +676,18 @@ def profile_folds(torch, cfg, params) -> None:
     aat, mask = torch.from_numpy(aat).cuda(), torch.from_numpy(mask).cuda()
     for scheme in ("lightnobel_aaq", "baseline_fp16"):
         with torch.inference_mode():
+            before = dispatch.launch_counts()["aaq_fake_quant"]
             with shape_census() as tally:                                    # warm
                 ppm_forward(params, aat, cfg, make_scheme(scheme), mask=mask)
             torch.cuda.synchronize()
+            fake = dispatch.launch_counts()["aaq_fake_quant"] - before
             log(f"launches per {scheme} fold by shape: "
-                f"{ {f'{k[0]} {k[1]}': v for k, v in sorted(tally.items())} }")
+                f"{ {f'{k[0]} {k[1]}': v for k, v in sorted(tally.items(), key=str)} }")
+            acts = tally[("act", "enabled")]
+            log(f"{scheme} fold: {acts} AAQScheme.act calls with an enabled policy "
+                f"({acts / cfg.blocks:g} a block), {fake} aaq_fake_quant launches")
+            if fake != acts or (scheme == "lightnobel_aaq" and not acts):
+                fail(f"{scheme} fold: {fake} aaq_fake_quant launches for {acts} act calls")
             t0 = time.perf_counter()
             ppm_forward(params, aat, cfg, make_scheme(scheme), mask=mask)
             torch.cuda.synchronize()
@@ -614,7 +706,7 @@ def profile_folds(torch, cfg, params) -> None:
             f"({100 * busy / wall:.1f}% of the profiled wall); {n_launch} device kernels")
         if not kernels:
             log("profile: the profiler recorded no device time (not measured)")
-        for tag in ("aaq_matmul_tc", "flash_tc"):
+        for tag in ("aaq_quantize_lanes", "aaq_fake_quant_lanes", "aaq_matmul_tc", "flash_tc"):
             hits = [(us, n) for name, us, n in kernels if tag in name]
             log(f"  {tag}: {sum(us for us, _ in hits) / 1e3:.2f} ms device time per fold "
                 f"over {sum(n for _, n in hits)} launches")

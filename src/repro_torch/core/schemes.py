@@ -65,7 +65,13 @@ class AAQScheme(QuantScheme):
     name = "lightnobel_aaq"
 
     def act(self, x, site):
-        return self.cfg.act(x, site)
+        pol = self.cfg.policy_for(site)
+        if not pol.enabled:
+            return x
+        # routed: the CUDA aaq_fake_quant kernel or the plain reference
+        # dataflow (AAQConfig.act's), per the active kernel backend
+        from repro_torch.kernels import dispatch
+        return dispatch.fake_quant(x, bits=pol.bits, k_outliers=pol.k_outliers)
 
     def linear(self, x, w, b=None, site=""):
         pol = self.cfg.policy_for(site)

@@ -1,160 +1,423 @@
-// AAQ runtime quantization, token-wise: one warp per token.
+// AAQ runtime quantization, token-wise: a group of lanes per token.
 //
 // Replaces the Pallas TPU kernel repro/kernels/aaq_quant/aaq_quant.py:
-// aaq_quantize_pallas (body _quant_kernel).  Semantics, bitwise with the
-// plain version (repro_torch/kernels/aaq_quant/ref.py):
-//   top-k of |x| (k <= 4), ties to the lower index, in descending order;
-//   outlier slots zeroed before the max; sigma = max(max|inlier| / qmax,
-//   1e-12) with IEEE division; q = clip(rint(inl / sigma), +-qmax) (rint is
-//   round-half-even, as jnp.round); 4-bit values nibble-packed, low nibble
-//   = even column; ovals rounded to bf16 (round to nearest even).
+// aaq_quantize_pallas (body _quant_kernel), in two output forms that share
+// one body:
+//   aaq_quantize_launch   -> q (int4 nibble-packed or int8), scale, ovals,
+//                            oidx: the input of aaq_matmul;
+//   aaq_fake_quant_launch -> x_hat = dequantize(quantize(x)) in x's dtype
+//                            and nothing else: the fold's fake-quant act.
+// Semantics, bitwise with the plain versions (repro_torch/kernels/aaq_quant/
+// ref.py): top-k of |x| (k <= 4), ties to the lower index, in descending
+// order; outlier slots zeroed before the max; sigma = max(max|inlier| /
+// qmax, 1e-12) with IEEE division; q = clip(rint(inl / sigma), +-qmax)
+// (rint is round-half-even, as jnp.round); low nibble = even column; ovals
+// rounded to bf16 (nearest even).  x_hat = q * sigma in float32, each
+// outlier slot float(bf16(x)), rounded once to x's dtype.  No fast-math.
 //
-// Bound on the H100: bytes.  At the main-path shape (T = 65536 tokens,
-// H = 128, bf16 in) it reads 2 B and writes ~0.6 B per value; the top-k
-// rounds are k warp-shuffle argmax reductions over registers.  Design: a
-// lane owns adjacent pairs of columns (2 loads per pair, and the two
-// nibbles of one output byte come from the same lane, so packing needs no
-// shuffle); the row stays in registers from load to store.
+// Bound on the H100: bytes.  At the main path's (T, 128) bf16 input, 4 bits,
+// k = 4, a call reads 2 B and writes ~0.7 B per value (x_hat: 2 B), 0.0068 ms
+// at T = 65536.  A one-warp-per-token form is bound by instruction issue
+// instead: k rounds of a 5-level shuffle argmax over three registers, ~65
+// warp shuffles a token, scalar 2-byte loads and byte stores.  The design
+// cuts the instructions a value takes (what still holds it above the bound:
+// keys, sort, merge, rounding and packing for every value):
+//   - A token gets G = pow2ceil(H / 16) lanes (8 at H = 128, so a warp
+//     serves 4 tokens; 32 at H = 512), and each lane owns 16 consecutive
+//     columns, read with 16-byte loads (two for bf16, four for f32).
+//   - Each value becomes one integer key ordered as (|x| desc, column asc):
+//     |x|'s bits, then 512 - column, then the sign in bit 0 (so the key
+//     also carries the value back).  bf16 input fits a 32-bit key (15 bits
+//     of |x|), f32 a 64-bit one.  Absent columns are key 0, below all.
+//   - A lane sorts its 16 keys in four quads (5 max/min pairs each) and
+//     merges the sorted 4-lists in a tree; log2(G) butterfly levels then
+//     merge the partners' lists the same way (elementwise max against the
+//     reversed partner list, which is bitonic and holds the top 4 of the
+//     union, then a 4-wide bitonic clean-up).  Keys are distinct, so the
+//     order is total and ties resolve exactly as the reference's stable
+//     sort; every lane of the group ends with the same list.  At H = 128
+//     that is 3 levels of 4 shuffles for 4 tokens at once.
+//   - Each lane marks the top-k columns it owns in a 16-bit mask; the
+//     inlier max is one more butterfly of log2(G) shuffles.
+//   - The inliers are divided by sigma through one IEEE reciprocal and a
+//     product, with the IEEE division kept for the values whose product
+//     lies near a rounding tie (see below): a per-value IEEE division costs
+//     ~11 instructions, and on the fold's fake-quantized inputs (exact
+//     zeros, values on a grid) it often takes its slow path.
+//   - q leaves in one 8-byte (int4) or 16-byte (int8) store per lane, the
+//     group's first lane writes scale, ovals (8 B) and oidx (16 B) with one
+//     store each; x_hat leaves in 16-byte stores.
+// H <= 512; the rows must be 16-byte aligned (the wrapper checks), so H is a
+// multiple of 8 (bf16) or 4 (f32); a ragged last lane is masked per 16-byte
+// chunk, and q rows that are not a multiple of the vector width are stored
+// byte by byte.  Token offsets are 64-bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr float kEps = 1e-12f;
-constexpr int kWarps = 8;   // tokens per block
+constexpr int kThreads = 256;
+constexpr int kCols = 16;                 // columns a lane owns
+constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// The key type of an input type: 15 bits of a bf16 |x| fit above the
+// column field of a 32-bit key, an f32 |x| needs 64 bits.
+template <typename T> struct Io;
+template <> struct Io<bf16> { using Key = unsigned; };
+template <> struct Io<float> { using Key = unsigned long long; };
+
+// u: the value's float32 bits; col < 512.
+__device__ __forceinline__ unsigned make_key(unsigned u, int col, unsigned) {
+  return (u & 0x7fff0000u) | (static_cast<unsigned>(512 - col) << 1) | (u >> 31);
+}
+__device__ __forceinline__ unsigned long long make_key(unsigned u, int col,
+                                                       unsigned long long) {
+  return (static_cast<unsigned long long>(u & 0x7fffffffu) << 32) |
+         (static_cast<unsigned>(512 - col) << 1) | (u >> 31);
+}
+// The float32 bits and the column a key was made from.
+__device__ __forceinline__ unsigned key_value(unsigned k) {
+  return (k & 0x7fff0000u) | (k << 31);
+}
+__device__ __forceinline__ unsigned key_value(unsigned long long k) {
+  return static_cast<unsigned>(k >> 32) | (static_cast<unsigned>(k) << 31);
+}
+template <typename Key> __device__ __forceinline__ int key_col(Key k) {
+  return 512 - static_cast<int>((static_cast<unsigned>(k) >> 1) & 0x3ffu);
 }
 
-// (a, idx) beats (b, jdx): larger magnitude, ties to the lower index.
-__device__ __forceinline__ bool better(float a, int i, float b, int j) {
-  return a > b || (a == b && i < j);
+// hi >= lo afterwards.
+template <typename Key> __device__ __forceinline__ void order(Key& hi, Key& lo) {
+  const Key a = hi, b = lo;
+  hi = a > b ? a : b;
+  lo = a > b ? b : a;
+}
+// Sort four keys, descending (a 5-comparator network).
+template <typename Key> __device__ __forceinline__ void sort4(Key (&a)[4]) {
+  order(a[0], a[1]);
+  order(a[2], a[3]);
+  order(a[0], a[2]);
+  order(a[1], a[3]);
+  order(a[1], a[2]);
+}
+// a <- the top 4 of two descending 4-lists, descending: the elementwise max
+// of a and reversed b is bitonic and holds the top 4; a half-cleaner and one
+// more level sort it.
+template <typename Key> __device__ __forceinline__ void merge4(Key (&a)[4], const Key (&b)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = a[j] > b[3 - j] ? a[j] : b[3 - j];
+  order(a[0], a[2]);
+  order(a[1], a[3]);
+  order(a[0], a[1]);
+  order(a[2], a[3]);
 }
 
-// NP = pairs of columns per lane: lane l owns columns 2*(l + 32*p) + {0,1}.
-template <typename T, int NP>
-__global__ void aaq_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                                 float* __restrict__ scale,
-                                 __nv_bfloat16* __restrict__ ovals,
-                                 int32_t* __restrict__ oidx,
-                                 int n_tokens, int h, int bits, int k) {
-  const int lane = threadIdx.x & 31;
-  const int token = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (token >= n_tokens) return;            // whole warp leaves together
-  const T* row = x + (int64_t)token * h;
-  const int kk = k > 0 ? k : 1;
-
-  float v[NP][2];
-  float a[NP][2];                           // |v|; -1 once taken or absent
+template <typename T> __device__ __forceinline__ void load_lane(const T* row, int c0, int h,
+                                                                unsigned (&u)[kCols]);
+template <> __device__ __forceinline__ void load_lane<bf16>(const bf16* row, int c0, int h,
+                                                            unsigned (&u)[kCols]) {
 #pragma unroll
-  for (int p = 0; p < NP; ++p) {
+  for (int c = 0; c < 2; ++c) {
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (c0 + 8 * c < h) w = __ldg(reinterpret_cast<const uint4*>(row + c0 + 8 * c));
+    const unsigned ws[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int col = 2 * (lane + 32 * p) + c;
-      const bool in = col < h;
-      v[p][c] = in ? to_f32(row[col]) : 0.f;
-      a[p][c] = in ? fabsf(v[p][c]) : -1.f;
+    for (int j = 0; j < 4; ++j) {
+      u[8 * c + 2 * j] = ws[j] << 16;
+      u[8 * c + 2 * j + 1] = ws[j] & 0xffff0000u;
     }
   }
-
-  for (int r = 0; r < k; ++r) {
-    float ba = -1.f, bv = 0.f;
-    int bi = 0x7fffffff;
+}
+template <> __device__ __forceinline__ void load_lane<float>(const float* row, int c0, int h,
+                                                             unsigned (&u)[kCols]) {
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = 2 * (lane + 32 * p) + c;
-        if (better(a[p][c], col, ba, bi)) { ba = a[p][c]; bi = col; bv = v[p][c]; }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float oa = __shfl_xor_sync(0xffffffffu, ba, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      if (better(oa, oi, ba, bi)) { ba = oa; bi = oi; bv = ov; }
-    }
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        if (2 * (lane + 32 * p) + c == bi) { a[p][c] = -1.f; v[p][c] = 0.f; }
-      }
-    }
-    if (lane == 0) {
-      ovals[(int64_t)token * kk + r] = __float2bfloat16_rn(bv);
-      oidx[(int64_t)token * kk + r] = bi;
-    }
+  for (int c = 0; c < 4; ++c) {
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (c0 + 4 * c < h) w = __ldg(reinterpret_cast<const uint4*>(row + c0 + 4 * c));
+    u[4 * c] = w.x; u[4 * c + 1] = w.y; u[4 * c + 2] = w.z; u[4 * c + 3] = w.w;
   }
-  if (k == 0 && lane == 0) {                 // (T, 1) zero dummies
-    ovals[token] = __float2bfloat16_rn(0.f);
-    oidx[token] = 0;
+}
+
+// x_hat of one lane, from float32 values in[]: one rounding to T.
+template <typename T> __device__ __forceinline__ void store_lane(T* row, int c0, int h,
+                                                                 const float (&in)[kCols]);
+template <> __device__ __forceinline__ void store_lane<bf16>(bf16* row, int c0, int h,
+                                                             const float (&in)[kCols]) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (c0 + 8 * c >= h) continue;
+    const float* v = in + 8 * c;
+    *reinterpret_cast<uint4*>(row + c0 + 8 * c) =
+        make_uint4(hopper::pack_bf16(v[0], v[1]), hopper::pack_bf16(v[2], v[3]),
+                   hopper::pack_bf16(v[4], v[5]), hopper::pack_bf16(v[6], v[7]));
+  }
+}
+template <> __device__ __forceinline__ void store_lane<float>(float* row, int c0, int h,
+                                                              const float (&in)[kCols]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (c0 + 4 * c >= h) continue;
+    *reinterpret_cast<float4*>(row + c0 + 4 * c) =
+        make_float4(in[4 * c], in[4 * c + 1], in[4 * c + 2], in[4 * c + 3]);
+  }
+}
+
+// G lanes per token (a power of two, G * 16 >= H).  kFake: write x_hat
+// only; otherwise q, scale, ovals (T, max(k,1)) and oidx (T, max(k,1)).
+template <typename T, int G, bool kFake>
+__device__ __forceinline__ void quant_body(const T* __restrict__ x, int8_t* __restrict__ q,
+                                           float* __restrict__ scale,
+                                           bf16* __restrict__ ovals,
+                                           int32_t* __restrict__ oidx, T* __restrict__ xhat,
+                                           int n_tokens, int h, int bits, int k) {
+  using Key = typename Io<T>::Key;
+  const int gl = threadIdx.x & (G - 1);
+  const int64_t token = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / G;
+  const bool live = token < n_tokens;     // dead groups still join the shuffles
+  const int c0 = gl * kCols;
+
+  unsigned u[kCols];                      // float32 bits of the lane's values
+  if (live) {
+    load_lane<T>(x + token * h, c0, h, u);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) u[i] = 0;
+  }
+
+  // top 4 keys of the token, descending, on every lane of the group: four
+  // sorted quads of the lane's keys merged in a tree, then log2(G) butterfly
+  // levels across the group
+  Key t[4] = {0, 0, 0, 0};
+  unsigned outs = 0;                      // bit i: column c0 + i is an outlier
+  if (k > 0) {
+    Key quad[4][4];
+#pragma unroll
+    for (int i = 0; i < kCols; ++i)
+      quad[i / 4][i % 4] = c0 + i < h ? make_key(u[i], c0 + i, Key{}) : Key{0};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sort4(quad[j]);
+    merge4(quad[0], quad[1]);
+    merge4(quad[2], quad[3]);
+    merge4(quad[0], quad[2]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[j] = quad[0][j];
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1) {
+      Key p[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[j] = __shfl_xor_sync(kFull, t[j], off);
+      merge4(t, p);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned d = static_cast<unsigned>(key_col(t[j]) - c0);
+      if (j < k && d < kCols) outs |= 1u << d;
+    }
   }
 
   float m = 0.f;
 #pragma unroll
-  for (int p = 0; p < NP; ++p) m = fmaxf(m, fmaxf(fabsf(v[p][0]), fabsf(v[p][1])));
+  for (int i = 0; i < kCols; ++i)
+    if (!(outs >> i & 1u)) m = fmaxf(m, fabsf(__uint_as_float(u[i])));
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  const float qm = (float)((1 << (bits - 1)) - 1);
-  const float sigma = fmaxf(m / qm, kEps);   // IEEE division (no fast-math)
-  if (lane == 0) scale[token] = sigma;
+  for (int off = 1; off < G; off <<= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+  if (!live) return;
 
+  const float qm = static_cast<float>((1 << (bits - 1)) - 1);
+  const float sigma = fmaxf(m / qm, kEps);          // IEEE division (no fast-math)
+  // q = rint(v / sigma) with the IEEE quotient, without dividing each value:
+  // |v / sigma| <= qmax < 128 for an inlier, and v * RN(1 / sigma) lies
+  // within 1.5 * 2^-23 * 128 < 2^-15 of the rounded quotient, so both round
+  // to the same integer unless the product lies within 2^-13 of a
+  // half-integer.  Those values (rare), and every value of a token whose
+  // 1 / sigma would be subnormal, take the IEEE division.  Outliers' q is 0
+  // whatever their product.
+  const float rcp = 1.f / sigma;
+  const bool tiny_rcp = !(sigma < 0x1p+120f);
+  int qi[kCols];
 #pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    const int pair = lane + 32 * p;
-    if (2 * pair >= h) continue;
-    int qi[2];
+  for (int i = 0; i < kCols; ++i) {
+    const float v = __uint_as_float(u[i]);
+    float p = __fmul_rn(v, rcp);
+    if (tiny_rcp || fabsf(p - (floorf(p) + 0.5f)) < 0x1p-13f) p = v / sigma;
+    qi[i] = outs >> i & 1u ? 0 : static_cast<int>(fminf(fmaxf(rintf(p), -qm), qm));
+  }
+
+  if constexpr (kFake) {
+    float r[kCols];
 #pragma unroll
-    for (int c = 0; c < 2; ++c)
-      qi[c] = (int)fminf(fmaxf(rintf(v[p][c] / sigma), -qm), qm);
-    if (bits == 4) {
-      q[(int64_t)token * (h / 2) + pair] = (int8_t)((qi[0] & 0x0F) | ((qi[1] & 0x0F) << 4));
+    for (int i = 0; i < kCols; ++i)
+      r[i] = outs >> i & 1u ? __bfloat162float(__float2bfloat16_rn(__uint_as_float(u[i])))
+                            : static_cast<float>(qi[i]) * sigma;
+    store_lane<T>(xhat + token * h, c0, h, r);
+    return;
+  }
+
+  if (bits == 4) {                        // 16 values -> 8 bytes, low nibble = even column
+    unsigned w[2] = {0, 0};
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      w[b >> 2] |= static_cast<unsigned>((qi[2 * b] & 0x0F) | ((qi[2 * b + 1] & 0x0F) << 4))
+                   << (8 * (b & 3));
+    int8_t* dst = q + token * (h / 2) + c0 / 2;
+    if (h % 16 == 0) {                    // 8-byte aligned rows; lanes are whole or absent
+      if (c0 < h) *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
     } else {
-      int8_t* out = q + (int64_t)token * h + 2 * pair;
-      out[0] = (int8_t)qi[0];
-      if (2 * pair + 1 < h) out[1] = (int8_t)qi[1];
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (c0 + 2 * b < h) dst[b] = static_cast<int8_t>(w[b >> 2] >> (8 * (b & 3)));
+    }
+  } else {                                // 16 values -> 16 bytes
+    unsigned w[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < kCols; ++i)
+      w[i >> 2] |= static_cast<unsigned>(qi[i] & 0xFF) << (8 * (i & 3));
+    int8_t* dst = q + token * h + c0;
+    if (h % 16 == 0) {
+      if (c0 < h) *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kCols; ++i)
+        if (c0 + i < h) dst[i] = static_cast<int8_t>(w[i >> 2] >> (8 * (i & 3)));
+    }
+  }
+  if (gl != 0) return;
+  scale[token] = sigma;
+  if (k == 4) {
+    unsigned short ob[4];
+    int oc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ob[j] = __bfloat16_as_ushort(__float2bfloat16_rn(__uint_as_float(key_value(t[j]))));
+      oc[j] = key_col(t[j]);
+    }
+    *reinterpret_cast<uint2*>(ovals + token * 4) =
+        make_uint2(ob[0] | (static_cast<unsigned>(ob[1]) << 16),
+                   ob[2] | (static_cast<unsigned>(ob[3]) << 16));
+    *reinterpret_cast<int4*>(oidx + token * 4) = make_int4(oc[0], oc[1], oc[2], oc[3]);
+  } else if (k == 0) {                    // (T, 1) zero dummies
+    ovals[token] = __float2bfloat16_rn(0.f);
+    oidx[token] = 0;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j >= k) break;
+      ovals[token * k + j] = __float2bfloat16_rn(__uint_as_float(key_value(t[j])));
+      oidx[token * k + j] = key_col(t[j]);
     }
   }
 }
 
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+aaq_quantize_lanes(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
+                   bf16* __restrict__ ovals, int32_t* __restrict__ oidx, int n_tokens, int h,
+                   int bits, int k) {
+  quant_body<T, G, false>(x, q, scale, ovals, oidx, nullptr, n_tokens, h, bits, k);
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+aaq_fake_quant_lanes(const T* __restrict__ x, T* __restrict__ xhat, int n_tokens, int h,
+                     int bits, int k) {
+  quant_body<T, G, true>(x, nullptr, nullptr, nullptr, nullptr, xhat, n_tokens, h, bits, k);
+}
+
+// Lanes a token takes: the least power of two with 16 columns each >= h.
+int lanes_for(int h) {
+  int g = 1;
+  while (g * kCols < h) g <<= 1;
+  return g;
+}
+
+dim3 grid_for(int n_tokens, int g) {
+  return dim3(static_cast<unsigned>((static_cast<int64_t>(n_tokens) * g + kThreads - 1) /
+                                    kThreads));
+}
+
 template <typename T>
-cudaError_t launch_typed(const void* x, void* q, float* scale, void* ovals, int32_t* oidx,
-                         int n_tokens, int h, int bits, int k, cudaStream_t stream) {
-  const dim3 grid((n_tokens + kWarps - 1) / kWarps), block(32 * kWarps);
-  const int np = (h + 63) / 64;
+void launch_quantize(const void* x, void* q, void* scale, void* ovals, void* oidx,
+                     int n_tokens, int h, int bits, int k, cudaStream_t s) {
+  const int g = lanes_for(h);
   auto* xp = static_cast<const T*>(x);
   auto* qp = static_cast<int8_t*>(q);
-  auto* op = static_cast<__nv_bfloat16*>(ovals);
-  if (np <= 1)
-    aaq_quant_kernel<T, 1><<<grid, block, 0, stream>>>(xp, qp, scale, op, oidx, n_tokens, h, bits, k);
-  else if (np <= 2)
-    aaq_quant_kernel<T, 2><<<grid, block, 0, stream>>>(xp, qp, scale, op, oidx, n_tokens, h, bits, k);
-  else if (np <= 4)
-    aaq_quant_kernel<T, 4><<<grid, block, 0, stream>>>(xp, qp, scale, op, oidx, n_tokens, h, bits, k);
-  else
-    aaq_quant_kernel<T, 8><<<grid, block, 0, stream>>>(xp, qp, scale, op, oidx, n_tokens, h, bits, k);
-  return cudaGetLastError();
+  auto* sp = static_cast<float*>(scale);
+  auto* op = static_cast<bf16*>(ovals);
+  auto* ip = static_cast<int32_t*>(oidx);
+#define AAQ_Q(G) aaq_quantize_lanes<T, G><<<grid_for(n_tokens, G), kThreads, 0, s>>>( \
+      xp, qp, sp, op, ip, n_tokens, h, bits, k)
+  switch (g) {
+    case 1: AAQ_Q(1); break;
+    case 2: AAQ_Q(2); break;
+    case 4: AAQ_Q(4); break;
+    case 8: AAQ_Q(8); break;
+    case 16: AAQ_Q(16); break;
+    default: AAQ_Q(32); break;
+  }
+#undef AAQ_Q
+}
+
+template <typename T>
+void launch_fake_quant(const void* x, void* xhat, int n_tokens, int h, int bits, int k,
+                       cudaStream_t s) {
+  const int g = lanes_for(h);
+  auto* xp = static_cast<const T*>(x);
+  auto* op = static_cast<T*>(xhat);
+#define AAQ_F(G) aaq_fake_quant_lanes<T, G><<<grid_for(n_tokens, G), kThreads, 0, s>>>( \
+      xp, op, n_tokens, h, bits, k)
+  switch (g) {
+    case 1: AAQ_F(1); break;
+    case 2: AAQ_F(2); break;
+    case 4: AAQ_F(4); break;
+    case 8: AAQ_F(8); break;
+    case 16: AAQ_F(16); break;
+    default: AAQ_F(32); break;
+  }
+#undef AAQ_F
+}
+
+bool args_ok(int h, int bits, int k) {
+  return h > 0 && h <= 32 * kCols && (bits == 4 || bits == 8) && !(bits == 4 && h % 2) &&
+         k >= 0 && k <= 4 && k <= h;
 }
 
 }  // namespace
 
-// x (T, H) bf16 or f32, contiguous; H <= 512, even when bits == 4; k <= 4.
-// q (T, H/2 or H) int8; scale (T) f32; ovals (T, max(k,1)) bf16;
-// oidx (T, max(k,1)) int32.  Returns cudaGetLastError() after the launch.
+// x (T, H) bf16 or f32, contiguous, 16-byte aligned rows; H <= 512, even
+// when bits == 4; k <= 4.  q (T, H/2 or H) int8; scale (T) f32; ovals
+// (T, max(k,1)) bf16; oidx (T, max(k,1)) int32.  Returns a launch status
+// (hopper::status).
 extern "C" int aaq_quantize_launch(const void* x, int x_is_bf16, void* q, void* scale,
                                    void* ovals, void* oidx, int n_tokens, int h,
                                    int bits, int k, void* stream) {
   if (n_tokens == 0) return 0;
+  HOPPER_RETURN_IF_PENDING();
+  if (!args_ok(h, bits, k)) return hopper::status(cudaErrorInvalidValue, 1);
   auto s = static_cast<cudaStream_t>(stream);
-  auto* sp = static_cast<float*>(scale);
-  auto* ip = static_cast<int32_t*>(oidx);
-  return x_is_bf16
-      ? (int)launch_typed<__nv_bfloat16>(x, q, sp, ovals, ip, n_tokens, h, bits, k, s)
-      : (int)launch_typed<float>(x, q, sp, ovals, ip, n_tokens, h, bits, k, s);
+  if (x_is_bf16)
+    launch_quantize<bf16>(x, q, scale, ovals, oidx, n_tokens, h, bits, k, s);
+  else
+    launch_quantize<float>(x, q, scale, ovals, oidx, n_tokens, h, bits, k, s);
+  return hopper::status(cudaGetLastError(), 4);
+}
+
+// The fake-quant form: xhat (T, H) in x's dtype, as aaq_quantize_launch's
+// arguments otherwise.
+extern "C" int aaq_fake_quant_launch(const void* x, int x_is_bf16, void* xhat, int n_tokens,
+                                     int h, int bits, int k, void* stream) {
+  if (n_tokens == 0) return 0;
+  HOPPER_RETURN_IF_PENDING();
+  if (!args_ok(h, bits, k)) return hopper::status(cudaErrorInvalidValue, 1);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16)
+    launch_fake_quant<bf16>(x, xhat, n_tokens, h, bits, k, s);
+  else
+    launch_fake_quant<float>(x, xhat, n_tokens, h, bits, k, s);
+  return hopper::status(cudaGetLastError(), 4);
 }

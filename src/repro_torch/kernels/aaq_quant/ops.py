@@ -1,10 +1,11 @@
-"""Public op: AAQ runtime quantization (kernel-backed, QTensor-returning)."""
+"""Public ops: AAQ runtime quantization (kernel-backed, QTensor-returning)
+and its fake-quant form."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.qtensor import QTensor
-from repro_torch.kernels.aaq_quant.aaq_quant import aaq_quantize_kernel
+from repro_torch.kernels.aaq_quant.aaq_quant import aaq_fake_quant_kernel, aaq_quantize_kernel
 
 
 def aaq_quantize(x: torch.Tensor, bits: int, k_outliers: int) -> QTensor:
@@ -20,3 +21,10 @@ def aaq_quantize(x: torch.Tensor, bits: int, k_outliers: int) -> QTensor:
         outlier_idx=oidx.reshape(*lead, k_outliers),
         bits=bits, k_outliers=k_outliers, feature_dim=shape[-1],
         orig_dtype=x.dtype)
+
+
+def aaq_fake_quant(x: torch.Tensor, bits: int, k_outliers: int) -> torch.Tensor:
+    """Fake-quantize an activation of any rank through the kernel; token
+    axis = -1.  The result has x's shape and dtype (contiguous)."""
+    flat = x.reshape(-1, x.shape[-1]).contiguous()
+    return aaq_fake_quant_kernel(flat, bits, k_outliers).reshape(x.shape)

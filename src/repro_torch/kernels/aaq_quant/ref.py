@@ -1,14 +1,15 @@
 """Plain PyTorch version of the AAQ runtime-quantization kernel.
 
-Port of ``repro/kernels/aaq_quant/ref.py``; same signature as the kernel
-wrapper:  x (T, H) -> (inliers, scales, ovals, oidx).
+Port of ``repro/kernels/aaq_quant/ref.py``; same signatures as the kernel
+wrappers:  x (T, H) -> (inliers, scales, ovals, oidx), and the fake-quant
+form x (T, H) -> x_hat (T, H).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.qtensor import pack_int4, qmax
-from repro_torch.core.quantize import scale_for, topk_lower_index
+from repro_torch.core.qtensor import QTensor, pack_int4, qmax
+from repro_torch.core.quantize import dequantize, scale_for, topk_lower_index
 
 
 def aaq_quantize_ref(x: torch.Tensor, bits: int, k_outliers: int):
@@ -38,3 +39,11 @@ def aaq_quantize_ref(x: torch.Tensor, bits: int, k_outliers: int):
     if bits == 4:
         q = pack_int4(q)
     return q, scales, ovals.to(torch.bfloat16), oidx.to(torch.int32)
+
+
+def aaq_fake_quant_ref(x: torch.Tensor, bits: int, k_outliers: int) -> torch.Tensor:
+    """x_hat = dequantize(aaq_quantize_ref(x)) in x's dtype."""
+    q, scales, ovals, oidx = aaq_quantize_ref(x, bits, k_outliers)
+    return dequantize(QTensor(inliers=q, scales=scales, outlier_values=ovals,
+                              outlier_idx=oidx, bits=bits, k_outliers=k_outliers,
+                              feature_dim=x.shape[-1], orig_dtype=x.dtype))

@@ -39,6 +39,8 @@ _FLASH = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
 SIGNATURES: dict[str, list] = {
     # x, x_is_bf16, q, scale, ovals, oidx, T, H, bits, k, stream
     "aaq_quantize_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, x_is_bf16, xhat, T, H, bits, k, stream
+    "aaq_fake_quant_launch": [_P, _I, _P, _I, _I, _I, _I, _P],
     # q, scale, ovals, oidx, w, y, T, H, D, bits, k, kk, stream
     "aaq_matmul_launch": _MATMUL,          # bf16 W, tensor cores
     "aaq_matmul_f32_launch": _MATMUL,      # f32 W, CUDA cores
@@ -142,7 +144,7 @@ LAUNCH_STEPS = {1: "argument or device query", 2: "shared-memory attribute",
 
 def check(err: int, what: str) -> None:
     """Raise on a non-zero launch status: the ``cudaError_t`` in the low 16
-    bits and, for the matmul and flash kernels, the failing step above."""
+    bits and the failing step above them."""
     if err:
         code, step = err & 0xFFFF, err >> 16
         where = f" at step {step} ({LAUNCH_STEPS[step]})" if step in LAUNCH_STEPS else ""

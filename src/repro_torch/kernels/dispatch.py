@@ -1,9 +1,10 @@
 """Kernel dispatch: one routing point between the CUDA kernels and the plain
 PyTorch references (port of ``repro/kernels/dispatch.py``).
 
-Every attention and quantized-matmul call site of the folding model (seq
-attention, triangular attention, the structure module and
-``AAQScheme.linear``) goes through ``attention`` / ``quantized_linear``.
+Every attention, quantized-matmul and fake-quant call site of the folding
+model (seq attention, triangular attention, the structure module,
+``AAQScheme.linear`` and ``AAQScheme.act``) goes through ``attention`` /
+``quantized_linear`` / ``fake_quant``.
 The backend of a call is, in order:
 
   1. an explicit ``backend=`` argument,
@@ -18,9 +19,10 @@ kernel-shaped dataflow with each kernel's plain version, as the reference's
 ``pallas`` mode does in interpret mode off-TPU.
 
 Counters: ``counters`` counts routed calls per backend; each kernel wrapper
-module counts the CUDA launches of each of its kernel variants and its CPU
-``plain_calls`` (``launch_counts`` per variant / ``plain_counts`` per
-kernel).  ``MAIN_PATH`` names the variants a fold launches.
+module counts the CUDA launches of each of its kernel variants and the
+calls that computed a plain version on the CPU (``launch_counts`` per
+variant / ``plain_counts`` per kernel).  ``MAIN_PATH`` names the variants a
+fold launches.
 """
 from __future__ import annotations
 
@@ -29,9 +31,11 @@ import contextlib
 import torch
 
 from repro_torch.core.qmatmul import qmatmul_fused_ref
+from repro_torch.core.quantize import fake_quant as fake_quant_ref
 from repro_torch.kernels.aaq_matmul import aaq_matmul as _aaq_matmul_mod
 from repro_torch.kernels.aaq_matmul.ops import aaq_linear
 from repro_torch.kernels.aaq_quant import aaq_quant as _aaq_quant_mod
+from repro_torch.kernels.aaq_quant.ops import aaq_fake_quant
 from repro_torch.kernels.flash_attention import flash_attention as _flash_mod
 from repro_torch.kernels.flash_attention.flash_attention import flash_mha_kernel
 from repro_torch.kernels.flash_attention.ref import mha_chunked
@@ -41,22 +45,24 @@ KERNEL = "kernel"
 AUTO = "auto"
 BACKENDS = (REF, KERNEL, AUTO)
 
-# kernel name -> wrapper module holding its ``plain_calls``
-KERNEL_MODULES = {
-    "aaq_quantize": _aaq_quant_mod,
-    "aaq_matmul": _aaq_matmul_mod,
-    "flash_mha": _flash_mod,
+# kernel -> (wrapper module, its count of plain-version calls)
+KERNEL_PLAIN = {
+    "aaq_quantize": (_aaq_quant_mod, "plain_calls"),
+    "aaq_fake_quant": (_aaq_quant_mod, "fake_plain_calls"),
+    "aaq_matmul": (_aaq_matmul_mod, "plain_calls"),
+    "flash_mha": (_flash_mod, "plain_calls"),
 }
 # kernel variant -> (wrapper module, its launch counter)
 KERNEL_VARIANTS = {
-    "aaq_quantize": (_aaq_quant_mod, "launches"),
+    "aaq_quantize": (_aaq_quant_mod, "launches"),           # q, scales, outliers
+    "aaq_fake_quant": (_aaq_quant_mod, "fake_launches"),    # x_hat only
     "aaq_matmul": (_aaq_matmul_mod, "launches"),            # bf16 W, tensor cores
     "aaq_matmul_f32": (_aaq_matmul_mod, "f32_launches"),    # f32 W, CUDA cores
     "flash_mha": (_flash_mod, "launches"),                  # bf16, tensor cores
     "flash_mha_simt": (_flash_mod, "simt_launches"),        # f32 or D = 8, CUDA cores
 }
 # the variants every fold on the card launches (bf16 weights and activations)
-MAIN_PATH = ("aaq_quantize", "aaq_matmul", "flash_mha")
+MAIN_PATH = ("aaq_quantize", "aaq_fake_quant", "aaq_matmul", "flash_mha")
 
 _MODE = AUTO
 
@@ -65,6 +71,8 @@ counters: dict[str, int] = {
     "attention.ref": 0,
     "qmatmul.kernel": 0,
     "qmatmul.ref": 0,
+    "fakequant.kernel": 0,
+    "fakequant.ref": 0,
 }
 
 
@@ -72,10 +80,8 @@ def reset_counters() -> None:
     """Zero the routing counters and every kernel's launch/plain counts."""
     for k in counters:
         counters[k] = 0
-    for mod, attr in KERNEL_VARIANTS.values():
+    for mod, attr in (*KERNEL_VARIANTS.values(), *KERNEL_PLAIN.values()):
         setattr(mod, attr, 0)
-    for mod in KERNEL_MODULES.values():
-        mod.plain_calls = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -83,7 +89,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def plain_counts() -> dict[str, int]:
-    return {name: mod.plain_calls for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNEL_PLAIN.items()}
 
 
 def _check(mode: str) -> str:
@@ -175,3 +181,16 @@ def quantized_linear(x, w, *, bits: int, k_outliers: int, bias=None,
         counters["qmatmul.ref"] += 1
         y = qmatmul_fused_ref(x, w, bits, k_outliers)
     return y if bias is None else y + bias
+
+
+def fake_quant(x, *, bits: int, k_outliers: int, backend=None):
+    """AAQ fake-quant  x_hat = dequantize(quantize(x)), in x's dtype.
+
+    Kernel path: the aaq_fake_quant CUDA kernel (one launch, x_hat is all it
+    writes).  Ref path: ``quantize.fake_quant`` (the reference dataflow).
+    """
+    if resolve(x.device, backend=backend) == KERNEL:
+        counters["fakequant.kernel"] += 1
+        return aaq_fake_quant(x, bits, k_outliers)
+    counters["fakequant.ref"] += 1
+    return fake_quant_ref(x, bits, k_outliers)

@@ -205,6 +205,36 @@ def test_scheme_linear_and_act_match_reference(name, site):
     _bits_equal(np.asarray(js.act(jnp.asarray(x), site)), ts.act(_t(x), site).numpy())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("site", ["tri_mul_out.pre_ln", "tri_attn_end.post_ln",
+                                  "tri_mul_in.ab", "pair_trans.proj_in", "seq.none"])
+def test_scheme_act_same_bits_on_every_backend(site, dtype):
+    """``AAQScheme.act`` routes through ``dispatch.fake_quant``: ``auto`` and
+    ``ref`` take the reference dataflow on the CPU, ``kernel`` the
+    aaq_fake_quant kernel's plain version; all three give the JAX act's bits
+    (groups A, B and C, and a site the override disables)."""
+    from repro_torch.kernels import dispatch
+    x = _activations(3 * 7, 128, seed=21).reshape(3, 7, 128)
+    if dtype == "bfloat16":
+        x = x.astype(ml_dtypes.bfloat16)
+    cfg = dict(overrides={"seq.none": jcore.NO_QUANT})
+    js = jcore.schemes.AAQScheme(cfg=jcore.AAQConfig(**cfg))
+    ts = tcore.schemes.AAQScheme(cfg=tcore.AAQConfig(
+        overrides={"seq.none": tcore.NO_QUANT}))
+    want = np.asarray(js.act(jnp.asarray(x), site))
+    enabled = ts.cfg.policy_for(site).enabled
+    dispatch.reset_counters()
+    for backend in ("auto", "ref", "kernel"):
+        with dispatch.use_backend(backend):
+            got = ts.act(_t(x), site)
+        assert got.dtype == _t(x).dtype
+        _bits_equal(want, _np(got))
+    assert dispatch.counters["fakequant.ref"] == 2 * enabled
+    assert dispatch.counters["fakequant.kernel"] == enabled
+    assert dispatch.plain_counts()["aaq_fake_quant"] == enabled
+    dispatch.reset_counters()
+
+
 # --------------------------------------------------------------------------
 # parameter bridge and device policy
 # --------------------------------------------------------------------------

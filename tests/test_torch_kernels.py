@@ -10,6 +10,10 @@ Tolerances:
   * aaq_quantize: bitwise against the JAX plain reference; against the
     interpreted Pallas kernel, scales within one float32 ulp and inliers
     within one step (see below), outliers bitwise;
+  * aaq_fake_quant: bitwise against ``dequantize`` of the JAX plain
+    reference; against ``dequantize`` of the interpreted Pallas kernel,
+    within one inlier step of the row plus one ulp of the output type (the
+    same one-ulp scale);
   * aaq_matmul, attention: rtol 1e-5, atol 1e-5 of the output's max — the
     same float32 arithmetic summed in another order (and exp in another
     library for attention).
@@ -32,7 +36,8 @@ from repro.kernels.flash_attention.flash_attention import flash_mha_pallas  # no
 from repro_torch.kernels import build, dispatch  # noqa: E402
 from repro_torch.kernels.aaq_matmul.aaq_matmul import aaq_matmul_kernel  # noqa: E402
 from repro_torch.kernels.aaq_matmul.ops import aaq_linear  # noqa: E402
-from repro_torch.kernels.aaq_quant.aaq_quant import aaq_quantize_kernel  # noqa: E402
+from repro_torch.kernels.aaq_quant.aaq_quant import (  # noqa: E402
+    _launch_shape, aaq_fake_quant_kernel, aaq_quantize_kernel)
 from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     _flash_launch_args, flash_mha_kernel, flash_mha_plain, variant_for)
@@ -113,6 +118,168 @@ def test_aaq_quantize_bf16_input_matches_reference():
     _check_quant(got, jax_quant_ref(xb, 4, 4), 4, bitwise=True)
     _check_quant(got, aaq_quantize_pallas(xb, bits=4, k_outliers=4, block_t=64,
                                           interpret=True), 4, bitwise=False)
+
+
+# --------------------------------------------------------------------------
+# aaq_fake_quant: plain version vs dequantize of the JAX reference and of the
+# Pallas kernel (interpret)
+# --------------------------------------------------------------------------
+def _lane_rows(x):
+    """Rows that exercise the CUDA kernel's 16-column lanes: 16 equal maxima
+    straddling two lanes, all outliers inside one lane, the largest values in
+    the last columns, negative zeros."""
+    h = x.shape[1]
+    x[3] = 0.25
+    x[3, 8:24] = np.where(np.arange(16) % 2, 5.0, -5.0)
+    x[4, 16:20] = [50.0, -50.0, 40.0, -40.0]
+    x[5, h - 4:] = 9.0
+    x[6] = -0.0
+    x[6, h // 2] = 1.0
+    return x
+
+
+def _dequantize_jax(out, bits, k, h, dtype):
+    from repro.core.qtensor import QTensor as JQTensor
+    from repro.core.quantize import dequantize as jdequantize
+    return np.asarray(jdequantize(JQTensor(*out, bits=bits, k_outliers=k, feature_dim=h,
+                                            orig_dtype=dtype)).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [32, 128, 512])
+@pytest.mark.parametrize("bits,k", [(8, 4), (4, 4), (4, 0)])
+def test_aaq_fake_quant_plain_matches_dequantized_reference(h, bits, k, dtype):
+    x = _lane_rows(_activations(70, h, seed=h + 3 * bits + k))
+    jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = aaq_fake_quant_kernel(tx, bits, k)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    got = got.float().numpy()
+    want = _dequantize_jax(jax_quant_ref(jx, bits, k), bits, k, h, jx.dtype)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    pallas = aaq_quantize_pallas(jx, bits=bits, k_outliers=k, block_t=64, interpret=True)
+    want = _dequantize_jax(pallas, bits, k, h, jx.dtype)
+    ulp = 2.0 ** -7 if dtype == "bfloat16" else 2.0 ** -22
+    step = np.asarray(pallas[1]) * (1 + 2.0 ** -20)
+    assert np.all(np.abs(got - want) <= step + ulp * np.abs(want))
+
+
+# --------------------------------------------------------------------------
+# the CUDA quantize kernel's lane layout, modelled in numpy
+#
+# csrc/aaq_quant.cu gives a token G = pow2ceil(H/16) lanes of 16 columns.
+# Each value becomes an integer key (|x| bits, 512 - column, sign); a lane
+# sorts its keys in four quads (a 5-comparator network) and merges the
+# sorted 4-lists in a tree, then log2(G) butterfly levels merge the
+# partners' lists (max against the reversed partner list, then a bitonic
+# clean-up), and each lane marks the top-k columns it owns.  The model
+# below repeats those steps on whole arrays; it must pick the reference's
+# top k.
+# --------------------------------------------------------------------------
+def _order(a, i, j):
+    hi, lo = np.maximum(a[..., i], a[..., j]), np.minimum(a[..., i], a[..., j])
+    a[..., i], a[..., j] = hi, lo
+
+
+def _merge4(a, b):
+    a = np.maximum(a, b[..., ::-1])
+    for i, j in ((0, 2), (1, 3), (0, 1), (2, 3)):
+        _order(a, i, j)
+    return a
+
+
+def _lane_model_top4(x, key_bits):
+    """(T, H) float32 -> the merged top-4 keys on every lane, (T, G, 4)."""
+    t, h = x.shape
+    g = 1
+    while 16 * g < h:
+        g *= 2
+    u = np.zeros((t, 16 * g), np.uint64)
+    u[:, :h] = x.view(np.uint32)
+    col = np.arange(16 * g, dtype=np.uint64)
+    low = ((np.uint64(512) - col) << np.uint64(1)) | (u >> np.uint64(31))
+    if key_bits == 32:
+        key = (u & np.uint64(0x7FFF0000)) | low
+    else:
+        key = ((u & np.uint64(0x7FFFFFFF)) << np.uint64(32)) | low
+    key[:, h:] = 0
+    quad = key.reshape(t, g, 4, 4).copy()
+    for i, j in ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)):
+        _order(quad, i, j)
+    top = _merge4(_merge4(quad[:, :, 0], quad[:, :, 1]), _merge4(quad[:, :, 2], quad[:, :, 3]))
+    off = 1
+    while off < g:
+        top = _merge4(top, top[:, np.arange(g) ^ off, :])
+        off *= 2
+    return top
+
+
+@pytest.mark.parametrize("key_bits", [32, 64])
+@pytest.mark.parametrize("h", [32, 128, 512])
+def test_lane_merge_model_picks_the_reference_top4(h, key_bits):
+    from repro_torch.core.quantize import topk_lower_index
+    rng = np.random.default_rng(h + key_bits)
+    x = rng.integers(-3, 4, (96, h)).astype(np.float32)            # ties everywhere
+    x[40:] = (rng.standard_normal((56, h)) * 2).astype(np.float32)
+    x[0] = 0.0
+    x[1, : h // 2] = 1.5
+    x[2, 7], x[2, h - 1] = 4.0, -4.0
+    x = _lane_rows(x)
+    x[50:60] = rng.integers(-1, 2, (10, h)) * 2.0 ** rng.integers(-3, 3, (10, h))
+    if key_bits == 32:                                    # bf16 input: 32-bit keys
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    top = _lane_model_top4(x, key_bits)
+    assert (top == top[:, :1]).all()                      # every lane holds the same list
+    cols = 512 - ((top >> np.uint64(1)) & np.uint64(0x3FF)).astype(np.int64)
+    g = top.shape[1]
+    top, lane_cols = top[:, 0], cols
+    cols = cols[:, 0]
+    if key_bits == 32:
+        bits = (top & np.uint64(0x7FFF0000)) | ((top & np.uint64(1)) << np.uint64(31))
+    else:
+        bits = (top >> np.uint64(32)) | ((top & np.uint64(1)) << np.uint64(31))
+    want = topk_lower_index(torch.from_numpy(np.abs(x)), 4).numpy()
+    np.testing.assert_array_equal(cols, want)
+    np.testing.assert_array_equal(bits.astype(np.uint32),
+                                  np.take_along_axis(x, want, -1).view(np.uint32))
+    for k in (1, 2, 4):                 # each lane marks the top-k columns it owns
+        d = lane_cols[:, :, :k] - 16 * np.arange(g)[None, :, None]
+        mask = np.zeros((x.shape[0], g, 16), bool)
+        tok, lane, j = np.nonzero((d >= 0) & (d < 16))
+        mask[tok, lane, d[tok, lane, j]] = True
+        want_mask = np.zeros_like(x, bool)
+        np.put_along_axis(want_mask, want[:, :k], True, -1)
+        np.testing.assert_array_equal(mask.reshape(x.shape[0], -1)[:, : x.shape[1]], want_mask)
+
+
+# --------------------------------------------------------------------------
+# the CUDA quantize kernel's division rule, modelled in numpy
+#
+# The kernel rounds v * RN(1/sigma) instead of the IEEE quotient v / sigma,
+# and divides only where that product lies within 2^-13 of a half-integer
+# (or 1/sigma would be subnormal): for an inlier |v / sigma| <= qmax < 128,
+# so the product is within 2^-15 of the rounded quotient and rounds to the
+# same integer elsewhere.  numpy's float32 arithmetic is IEEE, as the card's.
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("qm", [7, 127])
+def test_reciprocal_division_rule_rounds_as_the_ieee_quotient(qm):
+    f32 = np.float32
+    rng = np.random.default_rng(qm)
+    n = 1_000_000
+    sigma = np.maximum((2.0 ** rng.uniform(-40, 40, n) * rng.uniform(1, 2, n)).astype(f32),
+                       f32(1e-12))
+    s64 = sigma.astype(np.float64)
+    inlier = (rng.uniform(-1, 1, n) * qm * s64).astype(f32)
+    tie = ((rng.integers(-qm, qm, n) + 0.5) * s64).astype(f32)          # a few ulps off
+    tie = np.nextafter(tie, np.where(rng.integers(0, 2, n) == 1, np.inf, -np.inf).astype(f32))
+    grid = (rng.integers(-qm, qm + 1, n) * s64).astype(f32)             # fake-quantized
+    v = np.choose(rng.integers(0, 3, n), [inlier, tie, grid])
+    v[::97] = 0.0
+    want = np.rint(v / sigma)
+    prod = v * (f32(1) / sigma)
+    near = (np.abs(prod - (np.floor(prod) + f32(0.5))) < f32(2.0 ** -13)) | ~(sigma < f32(2.0 ** 120))
+    np.testing.assert_array_equal(np.rint(np.where(near, v / sigma, prod)), want)
+    assert 0.2 < near.mean() < 0.5 and (np.rint(prod) != want).sum() > 1000   # the rule matters
 
 
 # --------------------------------------------------------------------------
@@ -244,20 +411,29 @@ def test_dispatch_routes_by_mode_and_device():
     assert dispatch.describe(device="cuda") == "auto:kernel"
     ref_o = dispatch.attention(q, k, v, bias=bias)
     dispatch.quantized_linear(x, w, bits=4, k_outliers=4)
+    ref_fq = dispatch.fake_quant(x, bits=4, k_outliers=4)
     assert dispatch.counters == {"attention.kernel": 0, "attention.ref": 1,
-                                 "qmatmul.kernel": 0, "qmatmul.ref": 1}
+                                 "qmatmul.kernel": 0, "qmatmul.ref": 1,
+                                 "fakequant.kernel": 0, "fakequant.ref": 1}
     with dispatch.use_backend("kernel"):
         assert dispatch.attention_is_kernel(cpu)
         assert dispatch.describe(device="cpu") == "kernel-plain"
         ker_o = dispatch.attention(q, k, v, bias=bias)
         dispatch.quantized_linear(x, w, bits=4, k_outliers=4)
+        ker_fq = dispatch.fake_quant(x, bits=4, k_outliers=4)
+    dispatch.fake_quant(x, bits=8, k_outliers=4, backend="kernel")
+    dispatch.fake_quant(x, bits=8, k_outliers=4, backend="ref")
     assert dispatch.get_backend() == dispatch.AUTO
     assert dispatch.counters["attention.kernel"] == 1
-    assert dispatch.plain_counts() == {"aaq_quantize": 1, "aaq_matmul": 1, "flash_mha": 1}
-    assert dispatch.launch_counts() == {"aaq_quantize": 0, "aaq_matmul": 0, "aaq_matmul_f32": 0,
-                                        "flash_mha": 0, "flash_mha_simt": 0}
+    assert dispatch.counters["fakequant.kernel"] == 2 and dispatch.counters["fakequant.ref"] == 2
+    assert dispatch.plain_counts() == {"aaq_quantize": 1, "aaq_fake_quant": 2, "aaq_matmul": 1,
+                                       "flash_mha": 1}
+    assert dispatch.launch_counts() == {"aaq_quantize": 0, "aaq_fake_quant": 0, "aaq_matmul": 0,
+                                        "aaq_matmul_f32": 0, "flash_mha": 0,
+                                        "flash_mha_simt": 0}
     assert set(dispatch.MAIN_PATH) <= set(dispatch.launch_counts())
     _close(ker_o.numpy(), ref_o.numpy())
+    assert ker_fq.shape == x.shape and torch.equal(ker_fq, ref_fq)
     assert dispatch.describe("ref", device="cuda") == "ref"
     with pytest.raises(ValueError):
         dispatch.set_backend("pallas")
@@ -298,11 +474,36 @@ def test_ctypes_signatures_match_the_c_entry_points():
                 assert a is build.ctypes.c_int64, (name, p)
             else:
                 assert p.startswith("int ") and a is build.ctypes.c_int, (name, p)
+    assert {"aaq_quantize_launch", "aaq_fake_quant_launch"} <= set(build.SIGNATURES)
     # every flash stride is 64-bit
     flash = re.search(r'extern "C" int flash_mha_launch\(([^)]*)\)', text).group(1)
     assert sum("int64_t" in p for p in flash.split(",")) == 13
     assert "cudaGetLastError" in text and "__shfl_xor_sync" in text
     assert "mma.sync.aligned.m16n8k16" in build.headers()[0].read_text()
+
+
+# --------------------------------------------------------------------------
+# quantize launch arguments (meta tensors): the 16-byte loads need aligned rows
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("h,dtype,ok", [(128, torch.bfloat16, True), (512, torch.bfloat16, True),
+                                        (40, torch.bfloat16, True), (36, torch.float32, True),
+                                        (130, torch.bfloat16, False), (34, torch.float32, False),
+                                        (513, torch.float32, False)])
+def test_quantize_launch_args_need_16_byte_rows(h, dtype, ok):
+    x = torch.empty((2048 * 2048, h), dtype=dtype, device="meta")
+    for what in ("aaq_quantize", "aaq_fake_quant"):
+        if ok:
+            assert _launch_shape(x, 4, 4, what) == (2048 * 2048, h)
+        else:
+            with pytest.raises(ValueError):
+                _launch_shape(x, 4, 4, what)
+    if ok:
+        with pytest.raises(ValueError, match="even"):
+            _launch_shape(torch.empty((4, h + 1), device="meta"), 4, 0, "aaq_quantize")
+        with pytest.raises(ValueError, match="contiguous"):
+            _launch_shape(x[:, : h // 2], 4, 0, "aaq_quantize")
+        with pytest.raises(ValueError, match="k="):
+            _launch_shape(x, 8, 5, "aaq_quantize")
 
 
 # --------------------------------------------------------------------------

@@ -200,11 +200,14 @@ def test_kernel_route_reaches_every_kernel_plain_version():
     _port_forward("lightnobel_aaq", aat, mask, "kernel")
     plain = dispatch.plain_counts()
     blocks = CFG.blocks
-    # per block: 22 quantized pair linears, seq attention + 2 triangular
-    # attentions; then one attention per structure-module iteration
-    assert plain == {"aaq_quantize": 22 * blocks, "aaq_matmul": 22 * blocks,
-                     "flash_mha": 3 * blocks + CFG.ipa_iters}
+    # per block: 22 quantized pair linears, 23 fake-quant sites (7 in each
+    # tri_mul, 3 in each tri_attn on the rows-as-batch route, 3 in
+    # pair_trans), seq attention + 2 triangular attentions; then one
+    # attention per structure-module iteration
+    assert plain == {"aaq_quantize": 22 * blocks, "aaq_fake_quant": 23 * blocks,
+                     "aaq_matmul": 22 * blocks, "flash_mha": 3 * blocks + CFG.ipa_iters}
     assert dispatch.counters["attention.ref"] == 0 and dispatch.counters["qmatmul.ref"] == 0
+    assert dispatch.counters["fakequant.ref"] == 0
     dispatch.reset_counters()
 
 
