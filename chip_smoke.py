@@ -24,7 +24,25 @@ Phases, each fatal on failure:
      (device-busy share, top kernels, each kernel's device time) and the
      main-path launches per fold at each kernel shape, with one
      ``aaq_fake_quant`` launch for each enabled ``AAQScheme.act`` call;
-  6. summary: one JSON line of the kernels, the card, and the last line
+  6. the batching engine at full esmfold_ppm width: first the kernels at
+     its new shapes (batch 4 in bucket 256, where triangular, seq and
+     structure attention each get every protein's own key length, and the
+     chunked bucket-2,048 slabs), each against its plain version and timed;
+     then ``FoldClient`` (ring depth 2, batches up to 4,
+     ``chunk_size="auto"`` at the default 4,096 MB budget, fidelity on)
+     serves 8 requests in buckets 96/192/256, one
+     launch at batch 4, every batch a replay of the CUDA graph captured
+     once for its key; each request held to TM >= 0.9995 against the same
+     request folded at batch 1 by the sequential server; captures equal to
+     the distinct keys, and a second pass of the same requests captures
+     nothing and gives the same coords; a graph replay against the eager
+     forward of the same key and inputs; main-path launches read from the
+     capture pass (replays run no wrapper); every main-path kernel launched
+     and no plain version; then one 2,000-residue request in bucket 2,048
+     through the chunked key (chunk, wall, peak memory against the
+     planner's estimate, the memory reserved, the graph's capture time and
+     node count);
+  7. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -49,6 +67,16 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 SERVE_BUCKETS = (96, 192, 256, 1024)
+# the engine phase: 8 requests, four of them in bucket 256 (one batch of 4)
+ENGINE_BUCKETS = (96, 192, 256)
+ENGINE_LENGTHS = (250, 241, 233, 226, 180, 150, 90, 70)
+ENGINE_MAX_BATCH = 4
+# TM floor of each request served batched through graphs against the same
+# request folded at batch 1 by the sequential server (eager): the phase-4
+# floor, since only the batch size and the launch route differ
+ENGINE_TM_GATE = 0.9995
+ENGINE_LONG_LEN = 2000
+ENGINE_LONG_BUCKET = 2048
 SERVE_N = 4
 LONG_LEN = 1000             # one long request, served alone in bucket 1024
 FWD_BUCKET = 256
@@ -63,6 +91,10 @@ FWD_LEN = 230
 # bias, and one whose aaq_matmul launches drop the outlier term (readings
 # in PERF.md).
 TM_GATE = 0.9995
+
+# lengths of the spin kernel that holds the stream while time_ms enqueues
+# its calls, in clock cycles (2**26 is about 34 ms at 1.98 GHz), longest last
+SPIN_CYCLES = (2 ** 26, 2 ** 28, 2 ** 30)
 
 # kernel variant -> (CUDA source, the Pallas kernel it replaces)
 VARIANTS = {
@@ -110,22 +142,32 @@ def call_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls: the summed duration
-    of every device kernel and copy it ran, from ``torch.profiler`` (host
-    gaps between launches excluded)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events, with
+    no host launch gap counted: the calls are enqueued behind a spin kernel
+    (``torch.cuda._sleep``) that holds the stream until the host has
+    enqueued them all, so they run back to back.  If the spin ended before
+    the host was done (the start event had already passed), it is made four
+    times longer and the calls are timed again.  Not ``torch.profiler``: on
+    the card it has recorded no device time in some runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for cycles in SPIN_CYCLES:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        held = not start.query()            # the stream still spinning
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        fail("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+        if held:
+            return start.elapsed_time(end) / iters
+        log(f"time_ms: a spin of {cycles} cycles ended before the host had enqueued "
+            f"{iters} calls; timing again behind a longer one")
+    fail(f"time_ms: the host took longer to enqueue {iters} calls than a spin of "
+         f"{SPIN_CYCLES[-1]} cycles")
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -614,12 +656,19 @@ def _device_us(evt) -> float:
                  or getattr(evt, "self_cuda_time_total", 0.0))
 
 
+# the function that hands dispatch.attention its operands -> the attention it is
+_ATTN_CALLERS = {"seq_attn_apply": "seq", "structure_apply": "structure"}
+
+
 @contextlib.contextmanager
-def shape_census():
-    """Tally the shapes the main path hands each kernel, and the
-    ``AAQScheme.act`` calls with an enabled policy (one unprofiled fold;
-    wraps the ops' and the scheme's references, not the kernels' launch
-    counts)."""
+def launch_tally(full: bool = False):
+    """Tally the launches a run hands each kernel wrapper, by variant and
+    shape, and the ``AAQScheme.act`` calls with an enabled policy.  Wraps the
+    ops' references to the wrappers, not their launch counts, so a launch
+    captured into a CUDA graph passes through once and its replays never.
+    Keys: the operands' last dims (``full=False``) or their whole shapes
+    (``full=True``); flash launches also by attention (seq, structure, or
+    tri for the triangular rows, chunked or not) and bias rows."""
     from repro_torch.core.schemes import AAQScheme
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.aaq_matmul import ops
@@ -629,15 +678,15 @@ def shape_census():
     qk, fq, act = qops.aaq_quantize_kernel, qops.aaq_fake_quant_kernel, AAQScheme.act
 
     def mm_counted(q, s, ov, oi, w, **kw):
-        tally[("aaq_matmul", tuple(w.shape))] += 1
+        tally[("aaq_matmul", (q.shape[0], *w.shape) if full else tuple(w.shape))] += 1
         return mm(q, s, ov, oi, w, **kw)
 
     def qk_counted(x, *, bits, k_outliers):
-        tally[("aaq_quantize", (x.shape[-1], bits, k_outliers))] += 1
+        tally[("aaq_quantize", (*(x.shape if full else x.shape[-1:]), bits, k_outliers))] += 1
         return qk(x, bits=bits, k_outliers=k_outliers)
 
     def fq_counted(x, bits, k_outliers):
-        tally[("aaq_fake_quant", (x.shape[-1], bits, k_outliers))] += 1
+        tally[("aaq_fake_quant", (*(x.shape if full else x.shape[-1:]), bits, k_outliers))] += 1
         return fq(x, bits, k_outliers)
 
     def act_counted(self, x, site):
@@ -646,8 +695,10 @@ def shape_census():
         return act(self, x, site)
 
     def fl_counted(q, k, v, bias=None, kvl=None, **kw):
-        kind = "tri" if q.shape[0] > 1 else "seq/structure"
-        tally[("flash_mha", kind)] += 1
+        # frame 1 is dispatch.attention, frame 2 the model code that called it
+        kind = _ATTN_CALLERS.get(sys._getframe(2).f_code.co_name, "tri")
+        rows = None if bias is None else bias.shape[0]
+        tally[("flash_mha", (kind, *q.shape, rows) if full else kind)] += 1
         return fl(q, k, v, bias, kvl, **kw)
 
     with swapped(ops, "aaq_matmul_kernel", mm_counted), \
@@ -677,7 +728,7 @@ def profile_folds(torch, cfg, params) -> None:
     for scheme in ("lightnobel_aaq", "baseline_fp16"):
         with torch.inference_mode():
             before = dispatch.launch_counts()["aaq_fake_quant"]
-            with shape_census() as tally:                                    # warm
+            with launch_tally() as tally:                                    # warm
                 ppm_forward(params, aat, cfg, make_scheme(scheme), mask=mask)
             torch.cuda.synchronize()
             fake = dispatch.launch_counts()["aaq_fake_quant"] - before
@@ -699,19 +750,470 @@ def profile_folds(torch, cfg, params) -> None:
                 wall = (time.perf_counter() - t0) * 1e3
         kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
                    if _device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            log(f"profile {scheme} N=250 in bucket 256: wall {plain_wall:.1f} ms unprofiled; "
+                "the profiler recorded no device time (device busy: not measured)")
+            continue
         busy = sum(us for _, us, _ in kernels) / 1e3
         n_launch = sum(c for _, _, c in kernels)
         log(f"profile {scheme} N=250 in bucket 256: wall {plain_wall:.1f} ms unprofiled, "
             f"{wall:.1f} ms profiled; device busy {busy:.1f} ms "
             f"({100 * busy / wall:.1f}% of the profiled wall); {n_launch} device kernels")
-        if not kernels:
-            log("profile: the profiler recorded no device time (not measured)")
         for tag in ("aaq_quantize_lanes", "aaq_fake_quant_lanes", "aaq_matmul_tc", "flash_tc"):
             hits = [(us, n) for name, us, n in kernels if tag in name]
             log(f"  {tag}: {sum(us for us, _ in hits) / 1e3:.2f} ms device time per fold "
                 f"over {sum(n for _, n in hits)} launches")
         for name, us, count in sorted(kernels, key=lambda k: -k[1])[:8]:
             log(f"  {us / 1e3:8.2f} ms  {count:5d}x  {name[:100]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the batching engine, one CUDA graph per executable key
+# ---------------------------------------------------------------------------
+def _check_main_path(what, launches, plain, routed) -> None:
+    from repro_torch.kernels import dispatch
+    if any(launches[name] == 0 for name in dispatch.MAIN_PATH):
+        fail(f"{what}: a main-path kernel was never launched: {launches}")
+    if any(plain.values()) or any(routed[f"{op}.ref"] for op in ("attention", "qmatmul",
+                                                                    "fakequant")):
+        fail(f"{what}: a plain version ran on the main path: {plain} {routed}")
+
+
+def _counts():
+    from repro_torch.kernels import dispatch
+    return dispatch.launch_counts(), dispatch.plain_counts(), dict(dispatch.counters)
+
+
+def _bitwise_out(torch, a, b) -> bool:
+    return all(_bitwise(torch, a[k].contiguous(), b[k].contiguous())
+               for k in ("coords", "distogram"))
+
+
+def serve_engine(torch, cfg, params):
+    """The engine phase (see the module docstring).  Returns the launches
+    of its counted runs by variant and by shape, and the readings; each
+    part's engine (and its graphs' memory pool) is gone when it returns."""
+    import gc
+    from repro_torch.data.pipeline import ProteinSampler
+    sampler = ProteinSampler(seed=11)
+    launches, tally, readings = _engine_short(torch, cfg, params, sampler)
+    gc.collect()
+    torch.cuda.empty_cache()
+    llaunch, ltally, long_readings = _engine_long(torch, cfg, params, sampler)
+    gc.collect()
+    torch.cuda.empty_cache()
+    readings.update(long_readings)
+    return {k: launches[k] + llaunch[k] for k in launches}, tally, ltally, readings
+
+
+def _engine_short(torch, cfg, params, sampler):
+    from repro_torch.core import make_scheme
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import serve_ppm_sequential
+    from repro_torch.models.ppm import ppm_forward, tm_score
+    from repro_torch.serving import (DEFAULT_LONGFOLD_BUDGET_MB, CompileWatcher,
+                                     FoldClient, check_request_order, pad_to_bucket)
+    card = f"{torch.cuda.get_device_name(0)}"
+    seqs = [sampler.sample(200 + i, length=n) for i, n in enumerate(ENGINE_LENGTHS)]
+    aaq = "lightnobel_aaq"
+    client = FoldClient(params, cfg, aaq, buckets=ENGINE_BUCKETS,
+                        max_batch=ENGINE_MAX_BATCH, inflight_depth=2, chunk_size="auto",
+                        mem_budget_mb=DEFAULT_LONGFOLD_BUDGET_MB, fidelity=True,
+                        device="cuda")
+    core = client.core
+    events = []
+    client.subscribe(events.append)
+
+    def serve_pass():
+        t0 = time.perf_counter()
+        handles = [client.submit(s) for s in seqs]
+        client.drive()
+        torch.cuda.synchronize()
+        return [h.result() for h in handles], (time.perf_counter() - t0) * 1e3
+
+    # the counted main-path run: cold, every key captured in it
+    torch.cuda.reset_peak_memory_stats()
+    watch = CompileWatcher()
+    dispatch.reset_counters()
+    with launch_tally(full=True) as tally:
+        first, wall = serve_pass()
+    launches, plain, routed = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"engine first pass: {len(first)} requests, lengths {[r.length for r in first]}, "
+        f"buckets {[r.bucket for r in first]}, batches {[r.batch_size for r in first]} "
+        f"(launched {[r.launched_batch for r in first]}), chunks "
+        f"{sorted({r.chunk_size for r in first})}; wall {wall:.1f} ms with captures; "
+        f"peak memory {peak / 2**30:.2f} GiB on {card}")
+    log(f"engine first pass: launches {launches} (warm-up and capture of each key; "
+        f"replays run no wrapper); plain versions {plain}; routed {routed}")
+    _check_main_path("engine first pass", launches, plain, routed)
+    for r in first:
+        if not r.ok or r.coords is None or not np_finite(r.coords):
+            fail(f"engine request {r.request_id}: status {r.status} {r.reason}")
+    if max(r.batch_size for r in first) < 3:
+        fail(f"engine: no launch at batch >= 3: {[r.batch_size for r in first]}")
+    by_req = {}
+    for e in events:
+        by_req.setdefault(e.request_id, []).append(e)
+    for rid, evs in by_req.items():
+        check_request_order(evs)
+    keys = {(r.bucket, r.launched_batch, s, r.placement, r.chunk_size)
+            for r in first for s in (aaq, "baseline_fp16")}
+    if not (core.compile_count == len(keys) == len(core._executables) == watch.delta()):
+        fail(f"engine: {core.compile_count} captures, watcher {watch.delta()}, for "
+             f"{len(keys)} distinct keys {sorted(keys)}")
+    for exe in core._executables.values():
+        d = exe.describe()
+        log(f"  key {d['key']}: capture {d['capture_ms']:.1f} ms (with its eager warm-up), "
+            f"instantiate {d['instantiate_ms']:.1f} ms, {d['nodes']} graph nodes, "
+            f"kernel launches in the graph {d['kernel_launches']}")
+    log(f"engine: {core.compile_count} captures for {len(keys)} distinct keys; graph pool "
+        f"reserved {core.pool_reserved_bytes() / 2**30:.3f} GiB, memory_reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB (all pools, with the outputs)")
+
+    # the same requests at batch 1 through the sequential server (eager)
+    seq_res = serve_ppm_sequential(cfg, params, seqs, ENGINE_BUCKETS, scheme=aaq,
+                                   fidelity=False, device="cuda", emit=lambda *_: None)
+    tms = [float(tm_score(torch.from_numpy(r.coords), s.coords)) for r, s in zip(first, seq_res)]
+    log(f"engine vs sequential batch 1: TM {[round(t, 5) for t in tms]} gate >= {ENGINE_TM_GATE}; "
+        f"TM vs baseline_fp16 {[round(r.tm_vs_fp, 4) for r in first]}; run_ms "
+        f"{[round(r.run_ms, 1) for r in first]}; queue_wait_ms "
+        f"{[round(r.queue_wait_ms, 1) for r in first]}; compile_ms "
+        f"{[round(r.compile_ms, 1) for r in first]}")
+    if min(tms) < ENGINE_TM_GATE:
+        fail(f"engine vs sequential: TM {min(tms):.5f} < {ENGINE_TM_GATE}")
+
+    # steady state: the same requests again, no capture, the same coords
+    watch.mark()
+    replayed0 = dict(core.replayed_launches)
+    dispatch.reset_counters()
+    second, wall2 = serve_pass()
+    launches2 = dispatch.launch_counts()
+    replayed = {k: core.replayed_launches[k] - replayed0[k] for k in replayed0}
+    same = all(np_equal(a.coords, b.coords) for a, b in zip(first, second))
+    log(f"engine second pass: wall {wall2:.1f} ms, {watch.delta()} new captures, wrapper "
+        f"launches {launches2}, kernel launches replayed by graphs {replayed}; coords "
+        f"bitwise equal to the first pass: {same}; run_ms {[round(r.run_ms, 1) for r in second]}")
+    if watch.delta() or core.compile_count != len(keys) or any(launches2.values()):
+        fail(f"engine second pass captured again or launched outside a graph: "
+             f"{watch.delta()} {launches2}")
+    if not same or any(replayed[k] == 0 for k in dispatch.MAIN_PATH):
+        fail(f"engine second pass: coords differ or a kernel was not replayed: {replayed}")
+
+    # a graph replay against the eager forward of the same key and inputs
+    b4 = [r for r in first if r.batch_size >= 3][0]
+    rows = [s for s, r in zip(seqs, first) if r.bucket == b4.bucket][:b4.launched_batch]
+    aat, mask = pad_to_bucket(rows, b4.bucket, b4.launched_batch)
+    aat, mask = torch.from_numpy(aat).cuda(), torch.from_numpy(mask).cuda()
+    exe = core._executables[(b4.bucket, b4.launched_batch, aaq, "single", b4.chunk_size)]
+    graph_out = exe.launch(aat, mask)
+    with torch.inference_mode():
+        eager = ppm_forward(params, aat, cfg, make_scheme(aaq), mask=mask)
+    torch.cuda.synchronize()
+    bitwise = _bitwise_out(torch, graph_out, eager)
+    geq_tm = min(float(tm_score(graph_out["coords"][i, :len(q)].float().cpu(),
+                                eager["coords"][i, :len(q)].float().cpu()))
+                 for i, q in enumerate(rows))
+    log(f"graph vs eager, key {exe.describe()['key']}: coords and distogram bitwise equal: "
+        f"{bitwise}; min TM {geq_tm:.6f}")
+    if not bitwise and geq_tm < ENGINE_TM_GATE:
+        fail(f"graph vs eager: not bitwise and TM {geq_tm:.5f} < {ENGINE_TM_GATE}")
+    del graph_out, eager
+
+    # time per request at batch 4 in bucket 256, and a batch-1 fold of
+    # N = 250 through a graph under each scheme (timed after the counted
+    # runs; these keys are captured here, outside them)
+    ms4 = sorted(exe.timed_ms(aat, mask, clock=time.perf_counter) for _ in range(5))[2]
+    readings = {"batch4_ms": ms4, "per_request_ms": ms4 / b4.launched_batch}
+    one = sampler.sample(99, length=250)
+    a1, m1 = pad_to_bucket([one], 256)
+    a1, m1 = torch.from_numpy(a1).cuda(), torch.from_numpy(m1).cuda()
+    for name in (aaq, "baseline_fp16"):
+        e1, cap_s = core._executable(256, 1, make_scheme(name))
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = e1.launch(a1, m1)
+            out["ready"].synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        dev_ms = sorted(e1.timed_ms(a1, m1, clock=time.perf_counter) for _ in range(5))[2]
+        readings[f"{name}_b1_wall_ms"] = sorted(walls)[2]
+        log(f"graph fold N=250 bucket 256 batch 1 {name}: wall {sorted(walls)[2]:.1f} ms "
+            f"(median of 5, host clock around the replay), {dev_ms:.1f} ms by CUDA events; "
+            f"capture {cap_s * 1e3:.1f} ms, {e1.nodes} graph nodes")
+    log(f"batch 4 in bucket 256 ({aaq}): {ms4:.1f} ms a launch by CUDA events, "
+        f"{ms4 / b4.launched_batch:.1f} ms a request; "
+        f"graph pool {core.pool_reserved_bytes() / 2**30:.3f} GiB")
+    return launches, dict(tally), readings
+
+
+def _engine_long(torch, cfg, params, sampler):
+    """One 2,000-residue request in bucket 2,048 through the chunked key."""
+    import gc
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import DEFAULT_LONGFOLD_BUDGET_MB, FoldClient
+    aaq = "lightnobel_aaq"
+    long_client = FoldClient(params, cfg, aaq, buckets=(ENGINE_LONG_BUCKET,), max_batch=1,
+                             chunk_size="auto", mem_budget_mb=DEFAULT_LONGFOLD_BUDGET_MB,
+                             fidelity=False, device="cuda")
+    lcore = long_client.core
+    long_seq = sampler.sample(300, length=ENGINE_LONG_LEN)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_counters()
+    with launch_tally(full=True) as ltally:
+        t0 = time.perf_counter()
+        res = long_client.submit(long_seq).result()
+        torch.cuda.synchronize()
+        lwall = (time.perf_counter() - t0) * 1e3
+    llaunch, lplain, lrouted = _counts()
+    lpeak = torch.cuda.max_memory_allocated()
+    lreserved = torch.cuda.memory_reserved()
+    est = lcore.admission.estimate_bytes(ENGINE_LONG_BUCKET, 1)
+    (lexe,) = lcore._executables.values()
+    d = lexe.describe()
+    log(f"long request: {res.length} residues in bucket {res.bucket}, chunk {res.chunk_size} "
+        f"(ChunkPolicy auto at {DEFAULT_LONGFOLD_BUDGET_MB:.0f} MB), status {res.status}; "
+        f"first pass {lwall:.1f} ms (capture {d['capture_ms']:.1f} ms with its eager warm-up, "
+        f"instantiate {d['instantiate_ms']:.1f} ms, {d['nodes']} graph nodes), replay run_ms "
+        f"{res.run_ms:.1f}")
+    log(f"long request: peak memory {lpeak / 2**30:.2f} GiB allocated ({(lpeak - base) / 2**30:.2f}"
+        f" GiB above the {base / 2**30:.2f} GiB held before it), graph pool "
+        f"{lcore.pool_reserved_bytes() / 2**30:.3f} GiB, memory_reserved "
+        f"{lreserved / 2**30:.3f} GiB after the key; the planner's estimate for chunk "
+        f"{res.chunk_size}: {est / 2**30:.2f} GiB ({est / 1e6:.0f} MB)")
+    log(f"long request: launches {llaunch}; plain versions {lplain}; routed {lrouted}")
+    _check_main_path("long request", llaunch, lplain, lrouted)
+    if res.bucket != ENGINE_LONG_BUCKET or not res.chunk_size or not res.ok \
+            or not np_finite(res.coords):
+        fail(f"long request: bucket {res.bucket} chunk {res.chunk_size} status {res.status}")
+    t0 = time.perf_counter()
+    res2 = long_client.submit(long_seq).result()
+    lwall2 = (time.perf_counter() - t0) * 1e3
+    if lcore.compile_count != 1 or not np_equal(res.coords, res2.coords):
+        fail("long request: the second fold captured again or changed its coords")
+    log(f"long request, second fold (a replay): {lwall2:.1f} ms wall, run_ms {res2.run_ms:.1f}")
+    readings = dict(long_chunk=res.chunk_size, long_wall_ms=lwall2, long_peak=lpeak - base,
+                    long_est=est, long_capture_ms=d["capture_ms"], long_nodes=d["nodes"],
+                    long_pool=lcore.pool_reserved_bytes(), long_reserved=lreserved)
+    chunk = res.chunk_size
+    del long_client, lcore, lexe, res, res2
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what sets the peaks: the 1,000-residue fold unchunked in bucket 1,024
+    # and the 2,000-residue fold chunked in bucket 2,048, eager, by stage
+    memory_by_op(torch, cfg, params, sampler.sample(SERVE_N, length=LONG_LEN), 1024)
+    memory_by_op(torch, cfg, params, long_seq, ENGINE_LONG_BUCKET, chunk)
+    return llaunch, dict(ltally), readings
+
+
+def memory_by_op(torch, cfg, params, seq, bucket, chunk=None) -> None:
+    """One eager lightnobel_aaq fold with the peak device memory of each
+    stage: the input embedding, each trunk op (the largest over the 48
+    blocks), the structure module, and what follows them (the distogram
+    head).  Each reading is the peak allocation during the call, as an
+    absolute and above what was held when the call began."""
+    from repro_torch.core import make_scheme
+    from repro_torch.models.ppm import chunking as ck
+    from repro_torch.models.ppm import model as md
+    from repro_torch.models.ppm import structure as st
+    from repro_torch.models.ppm import trunk as tk
+    from repro_torch.serving import pad_to_bucket
+    rec: dict[str, tuple[int, int]] = {}
+    depth = [0]
+
+    def wrap(name, fn):
+        def measured(*a, **k):
+            if depth[0]:                  # inside a measured stage: its part
+                return fn(*a, **k)
+            depth[0] += 1
+            try:
+                return _measure(name, fn, a, k)
+            finally:
+                depth[0] -= 1
+        return measured
+
+    def _measure(name, fn, a, k):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        old = rec.get(name, (0, 0))
+        rec[name] = (max(old[0], peak), max(old[1], peak - held))
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    targets = [(md, "input_embedding"), (st, "structure_apply")]
+    targets += [(tk, n) for n in ("seq_attn_apply", "seq_transition_apply", "opm_apply",
+                                  "tri_mul_apply", "tri_attn_apply", "pair_transition_apply")]
+    targets += [(ck, n) for n in ("seq_pair_bias_chunked", "opm_chunked", "tri_mul_chunked",
+                                  "tri_attn_chunked", "pair_transition_chunked")]
+    aat, mask = pad_to_bucket([seq], bucket)
+    aat, mask = torch.from_numpy(aat).cuda(), torch.from_numpy(mask).cuda()
+    with contextlib.ExitStack() as stack:
+        for mod, name in targets:
+            stack.enter_context(swapped(mod, name, wrap(name, getattr(mod, name))))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            out = md.ppm_forward(params, aat, cfg, make_scheme("lightnobel_aaq"), mask=mask,
+                                 chunk_size=chunk)
+        torch.cuda.synchronize()
+        rec["after the structure module (distogram head)"] = (
+            torch.cuda.max_memory_allocated(), torch.cuda.max_memory_allocated() - base)
+        del out
+    order = sorted(rec.items(), key=lambda kv: -kv[1][0])
+    log(f"peak memory by stage, eager lightnobel_aaq fold of {len(seq)} residues in bucket "
+        f"{bucket}, chunk {chunk or 'none'} ({base / 2**30:.2f} GiB held before it): "
+        + "; ".join(f"{name} {a / 2**30:.2f} GiB (+{d / 2**30:.2f})" for name, (a, d) in order))
+
+
+def np_finite(a) -> bool:
+    import numpy as np
+    return bool(np.isfinite(np.asarray(a)).all())
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
+def _tri_rows(torch, g, lens, rows, n):
+    """Triangular attention's operands as the trunk builds them: q/k/v are
+    (b*rows, n, 4, 32) views of a (b, rows, n, 384) bf16 projection, the
+    bias a transposed (b, 4, n, n) bf16 view broadcast by block over each
+    protein's rows, protein i's rows with key length lens[i]."""
+    bf, b = torch.bfloat16, len(lens)
+    qkv = torch.randn((b, rows, n, 384), generator=g, device="cuda").to(bf)
+    q, k, v = (a.reshape(b * rows, n, 4, 32) for a in torch.split(qkv, 128, dim=-1))
+    bias = torch.randn((b, n, n, 4), generator=g, device="cuda").to(bf).permute(0, 3, 1, 2)
+    kvlen = torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(rows)
+    return dict(q=q, k=k, v=v, bias=bias, kvlen=kvlen)
+
+
+def _seq_rows(torch, g, lens, n, *, structure):
+    """Seq attention's (``structure=False``) or the structure module's
+    operands as the model builds them for a batch: q/k/v (b, n, 16, 64)
+    views of a (b, n, 3072) bf16 projection, a per-protein f32 bias
+    permuted from (b, n, n, 16) (the structure module's minus a distance
+    term), protein i's keys past lens[i] folded into its bias as -1e9."""
+    b = len(lens)
+    qkv = torch.randn((b, n, 3 * 1024), generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = (a.reshape(b, n, 16, 64) for a in torch.split(qkv, 1024, dim=-1))
+    bias = torch.randn((b, n, n, 16), generator=g, device="cuda").to(torch.bfloat16)
+    bias = bias.permute(0, 3, 1, 2).float()
+    if structure:
+        d2 = torch.rand((b, n, n), generator=g, device="cuda")
+        bias = bias - 0.7 * d2[:, None]
+    real = torch.arange(n, device="cuda")[None, :] < torch.tensor(lens, device="cuda")[:, None]
+    bias = bias + torch.where(real, 0.0, -1e9).float()[:, None, None, :]
+    return dict(q=q, k=k, v=v, bias=bias, kvlen=None)
+
+
+def _flash_engine_row(torch, rows, pending, c, lens, label, part, kind, shape):
+    """One flash row at an engine shape: against its plain version, timed,
+    with SDPA on the bias expanded over the rows and the key lengths folded
+    in as the library yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import flash_mha_kernel, flash_mha_plain
+    args = (c["q"], c["k"], c["v"], c["bias"], c["kvlen"])
+    o = flash_mha_kernel(*args)
+    row = _row("flash_mha", f"{label}: {kind} {shape}")
+    row.max_abs_err = _flash_close(torch, o, flash_mha_plain(*args), c["v"], f"{kind} at {label}")
+    bq, n, h, d = c["q"].shape
+    pending.append((row, part, ("flash_mha", (kind, bq, n, h, d, len(lens)))))
+    row.ms = time_ms(torch, lambda: flash_mha_kernel(*args))
+    row.call_ms = call_ms(torch, lambda: flash_mha_kernel(*args))
+    row.plain_ms = time_ms(torch, lambda: flash_mha_plain(*args), iters=3)
+    per = bq // len(lens)
+    mask = c["bias"].repeat_interleave(per, dim=0).float()
+    if c["kvlen"] is not None:
+        for i, ln in enumerate(lens):
+            mask[i * per:(i + 1) * per, ..., ln:] = -1e30
+    mask = mask.to(c["q"].dtype)
+    qt, kt, vt = (a.transpose(1, 2) for a in (c["q"], c["k"], c["v"]))
+    row.library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    del mask
+    row.bound_ms, row.bound_by = bound_ms(nbytes(*args, o), 4 * bq * h * n * n * d)
+    rows.setdefault("flash_mha", []).append(row)
+    log(row.line())
+
+
+def check_engine_shapes(torch, rows: dict) -> list:
+    """Each kernel at the engine's new main-path shapes: batch 4 in bucket
+    256 (the engine phase's four longest requests; triangular, seq and
+    structure attention with each protein's own key length) and the
+    chunk-64 slabs of bucket 2,048, against its plain version and timed.
+    Returns (row, part, launch tally key) for each row, whose launches the
+    engine's capture passes give."""
+    from repro_torch.kernels.aaq_matmul.aaq_matmul import aaq_matmul_kernel
+    from repro_torch.kernels.aaq_matmul.ref import aaq_matmul_ref
+    from repro_torch.kernels.aaq_quant.aaq_quant import aaq_fake_quant_kernel, aaq_quantize_kernel
+    from repro_torch.kernels.aaq_quant.ref import aaq_fake_quant_ref, aaq_quantize_ref
+    g = torch.Generator(device="cuda").manual_seed(6)
+    pending = []
+    where = (("batch 4, bucket 256", "short", ENGINE_LENGTHS[:ENGINE_MAX_BATCH], 256, 256),
+             ("bucket 2048, chunk 64", "long", (ENGINE_LONG_LEN,), 64, ENGINE_LONG_BUCKET))
+    for label, part, lens, nrows, n in where:
+        b = len(lens)
+        t = b * nrows * n
+        for name in ("aaq_quantize", "aaq_fake_quant"):
+            x = _linear_input(torch, g, t, 128) if name == "aaq_quantize" else \
+                torch.randn((t, 128), generator=g, device="cuda").to(torch.bfloat16)
+            kern = (lambda: aaq_quantize_kernel(x, bits=4, k_outliers=4)) if name == "aaq_quantize" \
+                else (lambda: aaq_fake_quant_kernel(x, 4, 4))
+            plain = (lambda: aaq_quantize_ref(x, 4, 4)) if name == "aaq_quantize" \
+                else (lambda: aaq_fake_quant_ref(x, 4, 4))
+            got, want = kern(), plain()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            if not all(_bitwise(torch, a, c) for a, c in zip(got, want)):
+                fail(f"{name} at {label}: not bitwise equal to its plain version")
+            row = _row(name, f"{label}: x ({t}, 128) bf16, bits 4, k 4")
+            pending.append((row, part, (name, (t, 128, 4, 4))))
+            row.ms, row.call_ms = time_ms(torch, kern), call_ms(torch, kern)
+            row.plain_ms = time_ms(torch, plain, iters=3)
+            row.bound_ms, row.bound_by = bound_ms(nbytes(x, *got), 0)
+            rows.setdefault(name, []).append(row)
+            log(row.line())
+        x = torch.randn((t, 128), generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((128, 128), generator=g, device="cuda") / math.sqrt(128)).to(torch.bfloat16)
+        q, sc, ov, oi = aaq_quantize_ref(x, 4, 4)
+        y = aaq_matmul_kernel(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)
+        want = aaq_matmul_ref(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)
+        err = (y.float() - want.float()).abs()
+        if not bool((err <= 2.0 ** -7 * want.float().abs() + 1e-4 * want.float().abs().max()).all()):
+            fail(f"aaq_matmul at {label}: max err {float(err.max()):.3e} over tolerance")
+        row = _row("aaq_matmul", f"{label}: q ({t}, 64) int4 packed, W (128, 128) bf16, bits 4, k 4")
+        pending.append((row, part, ("aaq_matmul", (t, 128, 128))))
+        row.max_abs_err = float(err.max())
+        fn = lambda: aaq_matmul_kernel(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)  # noqa: E731
+        row.ms, row.call_ms = time_ms(torch, fn), call_ms(torch, fn)
+        row.plain_ms = time_ms(torch, lambda: aaq_matmul_ref(q, sc, ov, oi, w, bits=4,
+                                                             out_dtype=torch.bfloat16), iters=3)
+        row.library_ms = time_ms(torch, lambda: x @ w)
+        row.bound_ms, row.bound_by = bound_ms(nbytes(q, sc, ov, oi, w, y), 2 * t * 128 * 128)
+        rows.setdefault("aaq_matmul", []).append(row)
+        log(row.line())
+        del x, q, sc, ov, oi, y, want, err
+        _flash_engine_row(torch, rows, pending, _tri_rows(torch, g, lens, nrows, n), lens,
+                          label, part, "tri",
+                          f"q,k,v ({b * nrows}, {n}, 4, 32) bf16 views, bias ({b}, 4, {n}, {n}) "
+                          f"bf16 transposed, block-broadcast, key lengths {list(lens)}")
+        if part == "short":
+            for kind in ("seq", "structure"):
+                _flash_engine_row(torch, rows, pending,
+                                  _seq_rows(torch, g, lens, n, structure=kind == "structure"),
+                                  lens, label, part, kind,
+                                  f"q,k,v ({b}, {n}, 16, 64) bf16 views, bias ({b}, 16, {n}, {n})"
+                                  f" f32 permuted, one per protein, key lengths {list(lens)} "
+                                  f"folded into it")
+        torch.cuda.empty_cache()
+    return pending
 
 
 def main() -> int:
@@ -764,10 +1266,25 @@ def main() -> int:
     for name, n in launches.items():
         rows[name][0].launches = n
     profile_folds(torch, cfg, params)
+    log(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 6. summary
+    # 6. the batching engine: the kernels at its new shapes, then graphs
+    # per key, batches of up to 4, the long fold
+    pending = check_engine_shapes(torch, rows)
+    eng_launches, tally, ltally, readings = serve_engine(torch, cfg, params)
+    for row, part, key in pending:
+        row.launches = (tally if part == "short" else ltally).get(key, 0)
+    log(f"engine launches (capture passes, short and long): {eng_launches}; at the new "
+        f"shapes: {[(r.name, r.shape.split(':')[0], r.launches) for r, _, _ in pending]}")
+    log(f"engine readings: {json.dumps(readings)}")
+    log(f"phase 6 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 7. summary
     log(f"total {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": [r[0].record() for r in rows.values()]}))
+    # each variant at its first timed shape, then every kernel at the engine's
+    # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs)
+    print(json.dumps({"kernels": [r[0].record() for r in rows.values()]
+                      + [row.record() for row, _, _ in pending]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,10 @@ def scale_for(m: torch.Tensor, bits: int) -> torch.Tensor:
     The divisor is a tensor on ``m``'s device: PyTorch's CUDA division by a
     Python scalar multiplies by the scalar's reciprocal, which can land one
     ulp away from the quotient the reference (and the CUDA kernel) computes.
+    It is filled on the device (no host copy, which a CUDA graph capture
+    does not allow).
     """
-    q = torch.tensor(float(qmax(bits)), dtype=m.dtype, device=m.device)
+    q = torch.full((), float(qmax(bits)), dtype=m.dtype, device=m.device)
     return torch.clamp_min(m / q, _EPS)
 
 

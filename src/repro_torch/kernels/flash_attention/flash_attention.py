@@ -68,7 +68,7 @@ def flash_mha_plain(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     ok = ok[None, None].expand(b, 1, sq, skv)
     if kv_valid_len is not None:
         ok = ok & (kpos < kv_valid_len.to(q.device)[:, None, None, None])
-    s = torch.where(ok, s, torch.tensor(NEG, device=q.device))
+    s = torch.where(ok, s, torch.full((), NEG, device=q.device))   # no host copy
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), torch.zeros((), device=q.device))
     l = p.sum(dim=-1, keepdim=True)

@@ -37,10 +37,12 @@ def _scores(q, kx, bias, b, scale, qpos, kpos, causal, window, kv_valid_len):
         ok &= kpos <= qpos
     if window is not None:
         ok &= kpos > qpos - window
-    s = torch.where(ok[None, None], s, torch.tensor(NEG, device=q.device))
+    # torch.full fills on the device: no host copy, so a CUDA graph can
+    # capture the plain version too
+    s = torch.where(ok[None, None], s, torch.full((), NEG, device=q.device))
     if kv_valid_len is not None:
         valid = kpos[None] < kv_valid_len[:, None, None]     # (B,1,Skv)
-        s = torch.where(valid[:, None], s, torch.tensor(NEG, device=q.device))
+        s = torch.where(valid[:, None], s, torch.full((), NEG, device=q.device))
     return s
 
 

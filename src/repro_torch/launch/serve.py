@@ -1,16 +1,28 @@
-"""Fold serving, one request at a time (port of the ``--mode ppm
---no-engine`` path of ``repro/launch/serve.py``).
+"""Fold serving (port of the ``--mode ppm`` half of
+``repro/launch/serve.py``).
 
-Each request is bucketed, padded to its bucket edge, folded under the
-chosen scheme and, with fidelity on, folded again under ``baseline_fp16``
-to print the TM-score between the two.  Latency is host time around the
-scheme's fold, with the card synchronised before each clock read.
+By default requests are served through the request-lifecycle
+``FoldClient``: ``submit()`` returns handles with priorities
+(``--priority-split``) and deadlines (``--deadline-s``), and batches run on
+the bucketed ``EngineCore`` (one CUDA graph per (bucket, launch batch,
+scheme, placement, chunk) key on the card, a dispatch/retire ring of
+``--inflight-depth``, occupancy-fitted launch sizes, token-budget batching
+with fill-or-timeout ``--batch-linger-ms``, AAQ-aware admission and the
+long-fold chunk planner ``--chunk-size``), pumped inline or by a
+background thread (``--driver``).  ``--no-engine`` folds one request at a
+time: each request is bucketed, padded to its bucket edge, folded under
+the chosen scheme and, with fidelity on, again under ``baseline_fp16`` for
+the TM-score between the two.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode ppm --no-engine
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode ppm
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode ppm \
+        --device cpu --n 4 --buckets 32,64 --max-batch 3
     PYTHONPATH=src python -m repro_torch.launch.serve --mode ppm --no-engine \
         --device cpu --n 2 --buckets 32,64
 
-The batching engine (``EngineCore``/``FoldClient``) is not ported yet.
+The HTTP front-end and fleet (``--listen``, ``--replicas``,
+``--max-restarts``, ``--metrics-port``) and mesh-sharded serving
+(``--mesh``, ``--shard-threshold``) are not ported: those flags raise.
 """
 from __future__ import annotations
 
@@ -28,7 +40,10 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.models.ppm import init_ppm, ppm_forward, tm_score
 from repro_torch.models.ppm.trunk import PPMConfig
-from repro_torch.serving import bucket_for, pad_to_bucket, parse_buckets
+from repro_torch.serving import (CSV_HEADER as ENGINE_CSV_HEADER, FoldClient,
+                                 bucket_for, calibrate, csv_row, load_cost_table,
+                                 pad_to_bucket, parse_buckets, parse_chunk_spec,
+                                 pipeline_overlaps)
 
 CSV_HEADER = "request,len,bucket,latency_ms,tm_vs_fp,kernel_backend"
 
@@ -96,11 +111,151 @@ def _sample_trace(n: int, min_len: int, max_len: int) -> list[np.ndarray]:
     return [sampler.sample(i) for i in range(n)]
 
 
+def priority_tiers(n: int, split: float) -> list[int]:
+    """Deterministic two-tier assignment: a ``split`` fraction of requests
+    (interleaved, not front-loaded) get priority 1, the rest 0."""
+    split = min(max(split, 0.0), 1.0)
+    return [1 if int((i + 1) * split) > int(i * split) else 0
+            for i in range(n)]
+
+
+#: flags of the reference's CLI whose subsystems are not ported, with the
+#: ROADMAP Queue 1 item that ports them
+NOT_PORTED = {
+    "listen": "the HTTP front-end (ROADMAP Queue 1 item 6, transport)",
+    "replicas": "the replica fleet (ROADMAP Queue 1 item 6, transport)",
+    "max_restarts": "the replica fleet (ROADMAP Queue 1 item 6, transport)",
+    "metrics_port": "the metrics HTTP endpoint (ROADMAP Queue 1 item 6, "
+                    "observability/httpd.py)",
+    "mesh": "mesh-sharded serving (ROADMAP Queue 1 item 11, multi-device)",
+    "shard_threshold": "mesh-sharded serving (ROADMAP Queue 1 item 11, "
+                       "multi-device)",
+}
+
+
+def _refuse_unported(args) -> None:
+    defaults = {"replicas": 1, "max_restarts": 0}
+    for flag, what in NOT_PORTED.items():
+        if getattr(args, flag) != defaults.get(flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} needs {what}, which is not ported "
+                f"to repro_torch yet")
+
+
+def serve_ppm_engine(args, cfg, params, seqs, buckets, dev) -> int:
+    """Serve ``seqs`` through ``FoldClient`` on ``dev``; prints the CSV of
+    every request and ``#`` summary lines."""
+    cost_model = None
+    if args.cost_table and not args.calibrate:
+        try:
+            cost_model = load_cost_table(args.cost_table)
+        except (FileNotFoundError, ValueError) as e:
+            print(f"error: {e}")
+            return 2
+    client = FoldClient(
+        params, cfg, args.scheme, buckets=buckets,
+        max_tokens_per_batch=args.max_tokens_per_batch,
+        max_batch=args.max_batch, mem_budget_mb=args.mem_budget_mb,
+        fidelity=not args.no_fidelity, kernels=args.kernels,
+        inflight_depth=args.inflight_depth,
+        linger_ms=args.batch_linger_ms,
+        adaptive_linger=not args.no_adaptive_linger,
+        chunk_size=args.chunk_size, cost_model=cost_model, device=dev)
+    client.tracer.set_metadata(
+        scheme=args.scheme, kernels=dispatch.describe(args.kernels, device=dev),
+        buckets=list(buckets), inflight_depth=args.inflight_depth,
+        device=str(dev), **client.core.placement.describe(),
+        **client.core.chunk.describe())
+    cm = client.core.cost_model
+    if args.calibrate:
+        calibrate(client.core)
+        print(f"# calibrated entries={cm.entry_count}", flush=True)
+    elif cost_model is not None:
+        warmed = client.core.warmup_from_table()
+        print(f"# cost table loaded {args.cost_table} "
+              f"entries={cm.entry_count} calibrated={cm.calibrated_count} "
+              f"warmed={warmed} executables", flush=True)
+    if args.warmup:
+        client.warmup()
+    client.metrics.record_cost_table(cm.entry_count, cm.calibrated_count,
+                                     cm.age_s())
+    # everything the table (or warmup) captured is warm; serving on top of
+    # it must add no capture
+    warm_compiles = client.core.compile_count
+    tiers = priority_tiers(len(seqs), args.priority_split)
+    t0 = time.perf_counter()
+    if args.driver == "thread":
+        client.start()
+    handles = [client.submit(s, priority=p, deadline_s=args.deadline_s)
+               for s, p in zip(seqs, tiers)]
+    if args.driver == "thread":
+        for h in handles:
+            if not h.done:
+                h.result(timeout=600.0)
+        client.stop()
+    else:
+        client.drive()
+    client.metrics.wall_s = time.perf_counter() - t0
+    results = sorted(client.metrics.results, key=lambda r: r.request_id)
+    print(ENGINE_CSV_HEADER)
+    for r in results:
+        print(csv_row(r))
+    s = client.metrics.summary()
+    chunks = sorted({r.chunk_size for r in results if r.ok})
+    print(f"# served={s['served']}/{s['requests']} "
+          f"rejected={s['rejected']} expired={s['expired']} "
+          f"compiles={s['compiles']} "
+          f"req/s={s['requests_per_s']:.2f} tok/s={s['tokens_per_s']:.1f} "
+          f"kernels={dispatch.describe(args.kernels, device=dev)} "
+          f"chunks={'/'.join(str(c) for c in chunks) or 'none'} "
+          f"max_est_act_mb={s['max_est_act_mb']:.1f}"
+          + (f" budget_mb={args.mem_budget_mb:.1f}"
+             if args.mem_budget_mb else ""))
+    print(f"# queue_wait_ms p50={s['queue_wait_ms']['p50']:.1f} "
+          f"p95={s['queue_wait_ms']['p95']:.1f} "
+          f"p99={s['queue_wait_ms']['p99']:.1f} "
+          f"| run_ms p50={s['run_ms']['p50']:.1f} "
+          f"p95={s['run_ms']['p95']:.1f} p99={s['run_ms']['p99']:.1f}")
+    p = s["pipeline"]
+    print(f"# pipeline inflight_depth={p['inflight_depth']} "
+          f"max_inflight={p['max_inflight']} batches={p['batches']} "
+          f"mean_occupancy={p['mean_batch_occupancy']:.3f} "
+          f"linger_ms={p['linger_ms']:.0f} linger_holds={p['linger_holds']}")
+    c = s["cost_model"]
+    print(f"# cost_model entries={c['table_entries']} "
+          f"calibrated={c['table_calibrated']} "
+          f"predictions={c['predictions']} "
+          f"pred_err_p50={c['prediction_error']['p50']:.2f} "
+          f"bad_holds={c['linger_bad_holds']} "
+          f"infeasible={sum(c['infeasible'].values())} "
+          f"adaptive_linger={'off' if args.no_adaptive_linger else 'on'} "
+          f"post_warmup_compiles={client.core.compile_count - warm_compiles}")
+    pool = client.core.pool_reserved_bytes()
+    print(f"# engine device={dev} captures={client.core.compile_count} "
+          f"pool_reserved_mb="
+          f"{'n/a' if pool is None else f'{pool / 2**20:.1f}'}")
+    if args.calibrate:
+        path = args.cost_table or "cost_table.json"
+        cm.save(path)
+        print(f"# cost table -> {path} entries={cm.entry_count} "
+              f"calibrated={cm.calibrated_count}")
+    for b in s["buckets"]:
+        print(f"# bucket={b['bucket']} n={b['requests']} "
+              f"compiles={b['compiles']} wait_ms={b['mean_queue_wait_ms']:.1f} "
+              f"run_ms={b['mean_run_ms']:.1f} waste={b['padding_waste']:.2f}")
+    if args.report:
+        client.metrics.save(args.report)
+        print(f"# report -> {args.report}")
+    if args.trace_out:
+        client.save_trace(args.trace_out)
+        print(f"# trace -> {args.trace_out} "
+              f"(pipeline_overlaps={pipeline_overlaps(client.tracer)})")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["ppm"], default="ppm")
-    ap.add_argument("--no-engine", action="store_true",
-                    help="sequential serving (the only path ported so far)")
     ap.add_argument("--scheme", default="lightnobel_aaq",
                     choices=["lightnobel_aaq", "baseline_fp16"])
     ap.add_argument("--kernels", choices=list(dispatch.BACKENDS),
@@ -110,30 +265,89 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=4)
     ap.add_argument("--min-len", type=int, default=24)
     ap.add_argument("--max-len", type=int, default=64)
-    ap.add_argument("--buckets", default="pow2",
-                    help="'pow2' or comma-separated edges, e.g. '32,64,96'")
-    ap.add_argument("--no-fidelity", action="store_true",
-                    help="skip the baseline_fp16 TM-score pass")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU runs only when asked for")
+    # -- ppm engine flags --
+    ap.add_argument("--no-engine", action="store_true",
+                    help="sequential serving, one request at a time")
+    ap.add_argument("--no-fidelity", action="store_true",
+                    help="skip the baseline_fp16 TM-score pass")
+    ap.add_argument("--buckets", default="pow2",
+                    help="'pow2' or comma-separated edges, e.g. '32,64,96'")
+    ap.add_argument("--max-tokens-per-batch", type=int, default=1024)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--mem-budget-mb", type=float, default=None,
+                    help="peak-activation budget for admission control")
+    ap.add_argument("--chunk-size", default="off", metavar="{off,auto,N}",
+                    help="long-fold chunked trunk: 'off' (default) runs the "
+                         "unchunked pair stack, an integer N runs row-chunked "
+                         "loops with that chunk on buckets > N, and 'auto' "
+                         "lets the memory planner pick the largest chunk per "
+                         "bucket that fits --mem-budget-mb")
+    ap.add_argument("--warmup", action="store_true",
+                    help="capture every bucket's {1, cap/2, cap} launch sizes "
+                         "before serving")
+    ap.add_argument("--inflight-depth", type=int, default=2,
+                    help="bounded dispatch/retire pipeline depth (1 = "
+                         "synchronous)")
+    ap.add_argument("--batch-linger-ms", type=float, default=0.0,
+                    help="fill-or-timeout CAP: hold an underfull batch up to "
+                         "this long past its most urgent arrival (0 = launch "
+                         "immediately)")
+    ap.add_argument("--no-adaptive-linger", action="store_true",
+                    help="hold underfull batches for the full fixed "
+                         "--batch-linger-ms budget")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="replay every cached executable with synthetic "
+                         "inputs, record median-of-k latencies in the cost "
+                         "model and write the table to --cost-table (default "
+                         "cost_table.json) after serving")
+    ap.add_argument("--cost-table", default=None, metavar="PATH",
+                    help="persisted cost-table JSON: with --calibrate, where "
+                         "to write it; without, load it and capture its keys "
+                         "before serving")
+    ap.add_argument("--priority-split", type=float, default=0.0,
+                    help="fraction of requests submitted at priority 1 "
+                         "(interleaved); the rest run at priority 0")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request queue deadline")
+    ap.add_argument("--driver", choices=["inline", "thread"], default="inline",
+                    help="pump the client inline after submitting, or on the "
+                         "background driver thread")
+    ap.add_argument("--report", default=None,
+                    help="write per-request metrics to this .csv/.json path")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the span trace as Chrome-trace/Perfetto JSON")
+    # -- the reference's flags whose subsystems are not ported: they raise --
+    ap.add_argument("--listen", default=None, metavar="HOST:PORT")
+    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--max-restarts", type=int, default=0)
+    ap.add_argument("--metrics-port", type=int, default=None)
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--shard-threshold", type=int, default=None)
     args = ap.parse_args(argv)
-    if not args.no_engine:
-        print("error: the batching engine is not ported yet; pass --no-engine")
-        return 2
+    _refuse_unported(args)
     try:
         buckets = parse_buckets(args.buckets, args.min_len, args.max_len)
     except ValueError:
         print(f"error: --buckets must be 'pow2' or comma-separated ints, "
               f"got {args.buckets!r}")
         return 2
+    try:
+        parse_chunk_spec(args.chunk_size)
+    except ValueError as e:
+        print(f"error: {e}")
+        return 2
     dev = resolve_device(args.device)
     cfg = reduce_ppm_config()
     params = init_ppm(cfg, seed=0, device=dev)
     seqs = _sample_trace(args.n, args.min_len, args.max_len)
     with dispatch.use_backend(args.kernels):
-        serve_ppm_sequential(cfg, params, seqs, buckets, scheme=args.scheme,
-                             fidelity=not args.no_fidelity, device=dev)
-    return 0
+        if args.no_engine:
+            serve_ppm_sequential(cfg, params, seqs, buckets, scheme=args.scheme,
+                                 fidelity=not args.no_fidelity, device=dev)
+            return 0
+        return serve_ppm_engine(args, cfg, params, seqs, buckets, dev)
 
 
 if __name__ == "__main__":

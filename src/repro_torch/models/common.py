@@ -75,10 +75,12 @@ def key_padding_bias(mask: torch.Tensor) -> torch.Tensor:
 
     NEG_INF underflows to exactly 0.0 through float32 softmax's exp, so
     padded keys contribute literal +0.0 to the normalizer.  Every masked
-    attention path (trunk, structure module) uses this helper.
+    attention path (trunk, structure module) uses this helper.  The two
+    constants are Python scalars, not tensors made on the device: building
+    a tensor from a host value is a host-to-device copy, which a CUDA graph
+    capture does not allow.
     """
-    return torch.where(mask, torch.tensor(0.0, device=mask.device),
-                       torch.tensor(NEG_INF, device=mask.device)).float()
+    return torch.where(mask, 0.0, NEG_INF).float()
 
 
 def _leaves(params):

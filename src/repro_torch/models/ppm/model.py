@@ -55,12 +55,15 @@ def input_embedding(p, aatype: torch.Tensor, cfg: PPMConfig):
 
 def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
                 scheme: QuantScheme | None = None, *,
-                mask: torch.Tensor | None = None):
+                mask: torch.Tensor | None = None,
+                chunk_size: int | None = None):
     """Full forward pass on ``aatype``'s device.  Returns dict with coords,
     distogram, s, z.
 
     ``mask`` (B, N) bool marks real tokens when ``aatype`` is padded to a
-    serving bucket; ``None`` is the unmasked path.
+    serving bucket; ``None`` is the unmasked path.  ``chunk_size`` routes
+    the trunk through the row-chunked pair stack (``chunking.py``), the
+    long-fold path the memory planner prices; None/0 is unchunked.
     """
     scheme = scheme or FP16Baseline()
     if mask is not None:
@@ -70,7 +73,8 @@ def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
     for r in range(cfg.recycles):
         s_in = s0 + (cm.layernorm(params["recycle_s_ln"], s) if r else 0.0)
         z_in = z0 + (cm.layernorm(params["recycle_z_ln"], z) if r else 0.0)
-        s, z = tk.trunk_apply(params["trunk"], s_in, z_in, cfg, scheme, mask=mask)
+        s, z = tk.trunk_apply(params["trunk"], s_in, z_in, cfg, scheme, mask=mask,
+                              chunk_size=chunk_size)
     coords, s_final = st.structure_apply(params["structure"], s, z,
                                          n_iter=cfg.ipa_iters, mask=mask)
     zsym = 0.5 * (z + z.transpose(1, 2))

@@ -12,7 +12,8 @@ the pair track (B, Ns, Ns, Hz) with
 Every pair-dataflow activation passes through the active quantization
 scheme at a named site; the sequence track is not quantized.  The trunk is
 a Python loop over per-block parameter dicts (the reference stacks them for
-``scan``); the row-chunked pair stack (``chunking.py``) is not ported yet.
+``scan``); ``trunk_apply(..., chunk_size=)`` runs the row-chunked pair
+stack (``chunking.py``).
 """
 from __future__ import annotations
 
@@ -133,6 +134,14 @@ def init_trunk(gen: torch.Generator, cfg: PPMConfig) -> list[cm.Params]:
 CHUNKED_ATTN_LEN = 256
 
 
+def rows_valid_len(lens: torch.Tensor, rows: int) -> torch.Tensor:
+    """(B,) key lengths -> (B*rows,): each protein's length repeated over
+    its ``rows`` flattened rows: ``lens.repeat_interleave(rows)``, written
+    as a broadcast so that no output size is read back from the card (a
+    CUDA graph capture allows no such read)."""
+    return lens[:, None].expand(lens.shape[0], rows).reshape(-1)
+
+
 def _pair_mask(mask):
     """(B, N) bool -> (B, N, N, 1) bool: True where both tokens are real."""
     return (mask[:, :, None] & mask[:, None, :])[..., None]
@@ -196,7 +205,7 @@ def tri_attn_apply(p, z, scheme: QuantScheme, starting: bool, sc: str,
         kv_valid = None
         if mask is not None:
             lens = mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)   # (B,)
-            kv_valid = lens.repeat_interleave(n)                          # (B*n,)
+            kv_valid = rows_valid_len(lens, n)                            # (B*n,)
         o = dispatch.attention(q.reshape(b_ * n, n, heads, dh),
                                k.reshape(b_ * n, n, heads, dh),
                                v.reshape(b_ * n, n, heads, dh),
@@ -234,7 +243,10 @@ def pair_transition_apply(p, z, scheme: QuantScheme, sc: str = "pair_trans"):
 # --------------------------------------------------------------------------
 # sequence ops (not quantized — the paper quantizes only the pair dataflow)
 # --------------------------------------------------------------------------
-def seq_attn_apply(p, s, z, heads: int, mask=None):
+def seq_attn_apply(p, s, z, heads: int, mask=None, pair_bias=None):
+    """``pair_bias`` lets the chunked path supply a pre-built (B,N,N,H)
+    bias table (``chunking.seq_pair_bias_chunked``); without it the bias is
+    projected here, as before."""
     b_, n, hm = s.shape
     dh = hm // heads
     sl = cm.layernorm(p["ln"], s)
@@ -245,7 +257,8 @@ def seq_attn_apply(p, s, z, heads: int, mask=None):
     v = v.reshape(b_, n, heads, dh)
     if mask is not None:
         v = v * mask[:, :, None, None].to(v.dtype)
-    bias = cm.dense(p["pair_bias"], cm.layernorm(p["pair_bias_ln"], z))
+    bias = pair_bias if pair_bias is not None else cm.dense(
+        p["pair_bias"], cm.layernorm(p["pair_bias_ln"], z))
     bias = bias.permute(0, 3, 1, 2).float()                  # (B,H,N,N)
     if mask is not None:
         # additive key-padding fold: real keys get literal +0.0
@@ -287,7 +300,16 @@ def block_apply(p, s, z, cfg: PPMConfig, scheme: QuantScheme, mask=None):
 
 
 def trunk_apply(blocks: list[cm.Params], s, z, cfg: PPMConfig,
-                scheme: QuantScheme, mask=None):
+                scheme: QuantScheme, mask=None, chunk_size: int | None = None):
+    """``chunk_size`` routes every block through the row-chunked pair stack
+    (``repro_torch.models.ppm.chunking``): same ops, same sites, O(N·chunk)
+    slabs instead of O(N²).  None/0 is the unchunked path."""
+    if chunk_size:
+        from repro_torch.models.ppm import chunking as ck   # imports this module
+        for p in blocks:
+            s, z = ck.block_apply_chunked(p, s, z, cfg, scheme, chunk_size,
+                                          mask=mask)
+        return s, z
     for p in blocks:
         s, z = block_apply(p, s, z, cfg, scheme, mask=mask)
     return s, z

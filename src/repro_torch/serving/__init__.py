@@ -1,4 +1,73 @@
-"""Fold-serving helpers of the sequential server (bucketing and padding);
-the batching engine is not ported yet."""
-from repro_torch.serving.scheduler import bucket_for, parse_buckets, pow2_buckets
-from repro_torch.serving.types import pad_to_bucket
+"""repro_torch.serving: request-lifecycle fold serving (port of
+``repro/serving``; the LM tenant, the HTTP transport and the fleet are not
+ported).
+
+``FoldClient`` is the serving surface: ``submit()`` returns a ``FoldHandle``
+(priority, deadline, ``cancel()``, blocking ``result()``), progress streams
+as typed ``FoldEvent``s, and batches run on the bucketed ``EngineCore``
+(one CUDA graph per (bucket, launch batch, scheme, placement, chunk) key on
+the card, token-budget continuous batching, AAQ-aware admission control,
+the long-fold chunk planner).  ``FoldEngine`` is the legacy blocking
+wrapper over the same client.
+"""
+from repro_torch.serving.admission import (ADMIT, DEFER, REJECT, AdmissionController,
+                                           AdmissionDecision)
+from repro_torch.serving.client import (ADMITTED, CANCELLED, DONE, EXPIRED,
+                                        HANDLE_STATES, LEGAL_TRANSITIONS, QUEUED,
+                                        REJECTED as HANDLE_REJECTED, RUNNING,
+                                        TERMINAL_STATES, FoldClient, FoldHandle)
+from repro_torch.serving.costmodel import (CostEntry, CostModel, calibrate,
+                                           load_cost_table)
+from repro_torch.serving.engine import (BatchExecutionError, EngineCore,
+                                        FoldEngine, InFlightBatch)
+from repro_torch.serving.events import (EVENT_KINDS, EVENT_ORDER, TERMINAL_EVENTS,
+                                        EventBus, EventStream, FoldEvent,
+                                        check_request_order)
+from repro_torch.serving.longfold import (DEFAULT_LONGFOLD_BUDGET_MB, ChunkPolicy,
+                                          chunk_candidates, parse_chunk_spec)
+from repro_torch.serving.metrics import (CSV_HEADER, CompileWatcher, EngineMetrics,
+                                         csv_row, percentiles,
+                                         reset_compile_watch)
+from repro_torch.serving.observability import (PROMETHEUS_CONTENT_TYPE,
+                                               MetricsRegistry, Span, Tracer,
+                                               pipeline_overlaps, span_tree,
+                                               validate_chrome_trace)
+from repro_torch.serving.placement import SINGLE, Placement, PlacementPolicy
+from repro_torch.serving.scheduler import (Rejection, ScheduledBatch,
+                                           TokenBudgetScheduler, bucket_for,
+                                           parse_buckets, pow2_buckets,
+                                           static_batch_for)
+from repro_torch.serving.types import (BatchDeviceOutput, FoldRequest, FoldResult,
+                                       LazyDistogram, pad_to_bucket)
+from repro_torch.serving.workload import FoldWorkload, Workload
+
+__all__ = [
+    # lifecycle client
+    "FoldClient", "FoldHandle", "HANDLE_STATES", "LEGAL_TRANSITIONS",
+    "TERMINAL_STATES", "QUEUED", "ADMITTED", "RUNNING", "DONE",
+    "HANDLE_REJECTED", "CANCELLED", "EXPIRED",
+    # events
+    "FoldEvent", "EventBus", "EventStream", "EVENT_KINDS", "EVENT_ORDER",
+    "TERMINAL_EVENTS", "check_request_order",
+    # placement (single device; mesh serving raises)
+    "Placement", "PlacementPolicy", "SINGLE",
+    # long-fold tier (chunked-trunk memory planning)
+    "ChunkPolicy", "parse_chunk_spec", "chunk_candidates",
+    "DEFAULT_LONGFOLD_BUDGET_MB",
+    # engine core + legacy wrapper
+    "EngineCore", "FoldEngine", "FoldRequest", "FoldResult",
+    "InFlightBatch", "BatchExecutionError", "LazyDistogram",
+    "BatchDeviceOutput",
+    "AdmissionController", "AdmissionDecision", "ADMIT", "DEFER", "REJECT",
+    "TokenBudgetScheduler", "ScheduledBatch", "Rejection", "pow2_buckets",
+    "parse_buckets", "bucket_for", "static_batch_for", "EngineMetrics",
+    "CompileWatcher", "CSV_HEADER", "csv_row", "percentiles", "pad_to_bucket",
+    "reset_compile_watch",
+    # measured cost model
+    "CostModel", "CostEntry", "calibrate", "load_cost_table",
+    # observability
+    "Span", "Tracer", "span_tree", "pipeline_overlaps",
+    "validate_chrome_trace", "MetricsRegistry", "PROMETHEUS_CONTENT_TYPE",
+    # workload substrate
+    "Workload", "FoldWorkload",
+]

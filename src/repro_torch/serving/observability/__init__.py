@@ -1,0 +1,33 @@
+"""repro_torch.serving.observability: tracing and metrics for the serving
+stack (port of ``repro/serving/observability``; the HTTP scrape endpoint
+``httpd.py`` is not ported).
+
+  * ``tracing``: per-request and per-batch ``Span`` trees recorded by a
+    bounded, clock-injectable ``Tracer``, exported as Chrome-trace/Perfetto
+    JSON (``--trace-out``); ``pipeline_overlaps`` counts the in-flight
+    ring's dispatch/retire overlap;
+  * ``registry``: labeled Counter/Gauge/Histogram instruments with
+    Prometheus text and JSON exposition (``FoldClient.metrics_text()`` /
+    ``metrics_json()``);
+  * ``profiler``: ``torch.profiler``/NVTX ranges around the engine's batch
+    phases (``annotate``).
+"""
+from repro_torch.serving.observability.profiler import annotate
+from repro_torch.serving.observability.registry import (FRACTION_BUCKETS,
+                                                        LATENCY_BUCKETS,
+                                                        PROMETHEUS_CONTENT_TYPE,
+                                                        Counter, Gauge, Histogram,
+                                                        MetricsRegistry)
+from repro_torch.serving.observability.tracing import (PROC_ENGINE, PROC_REQUESTS,
+                                                       Span, Tracer, iter_tree,
+                                                       pipeline_overlaps,
+                                                       span_tree,
+                                                       validate_chrome_trace)
+
+__all__ = [
+    "Span", "Tracer", "span_tree", "iter_tree", "pipeline_overlaps",
+    "validate_chrome_trace", "PROC_REQUESTS", "PROC_ENGINE",
+    "MetricsRegistry", "Counter", "Gauge", "Histogram",
+    "LATENCY_BUCKETS", "FRACTION_BUCKETS", "PROMETHEUS_CONTENT_TYPE",
+    "annotate",
+]

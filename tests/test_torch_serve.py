@@ -121,12 +121,16 @@ def test_serve_function_returns_finite_coords():
 
 
 def test_server_refuses_engine_mode_and_missing_card():
-    rc, lines = _serve(["--mode", "ppm", "--device", "cpu"])
-    assert rc == 2 and "not ported" in lines[0]
+    """The engine mode (the default) serves when the CPU is asked for, and
+    refuses to start without a card, as the sequential mode does."""
+    rc, lines = _serve(["--mode", "ppm", "--device", "cpu", "--n", "2", "--buckets", "32,64"])
+    assert rc == 0 and lines[0].startswith("request,len,bucket,batch,status")
+    assert [ln.split(",")[4] for ln in lines[1:3]] == ["ok", "ok"]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        serve.main(["--mode", "ppm", "--no-engine", "--n", "1"])
+    for argv in (["--no-engine"], []):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--mode", "ppm", "--n", "1", *argv])
 
 
 # --------------------------------------------------------------------------
