@@ -38,11 +38,29 @@ Phases, each fatal on failure:
      nothing and gives the same coords; a graph replay against the eager
      forward of the same key and inputs; main-path launches read from the
      capture pass (replays run no wrapper); every main-path kernel launched
-     and no plain version; then one 2,000-residue request in bucket 2,048
-     through the chunked key (chunk, wall, peak memory against the
-     planner's estimate, the memory reserved, the graph's capture time and
-     node count);
-  7. summary: one JSON line of the kernels, the card, and the last line
+     and no plain version; the chunked path's slabbed input embedding,
+     structure pair bias and distogram head against their unslabbed forms
+     at bucket 1,024; then one 2,000-residue request in bucket 2,048
+     through the chunked key (chunk, wall, the memory reserved, the graph's
+     capture time and node count), whose peak above what was held before
+     it must stay within the 4,096 MB budget it was admitted under, through
+     its graph and eager (the planner's estimate, the budget and both peaks
+     on one line), with the peak of each stage;
+  7. the fleet: ``FoldHTTPServer`` over a ``FleetRouter`` of 2 engine
+     replicas at full width on 127.0.0.1:0 (phase 6's short settings,
+     fidelity on, each replica warmed with one graph per key): two passes
+     of the 8 requests posted concurrently over HTTP, each followed over
+     SSE (legal order), decoded off the wire bitwise equal to its
+     replica's own result and TM >= 0.9995 against the sequential batch-1
+     fold; /healthz, /v1/fleet, /metrics and /metrics/replica/<i> scraped
+     (one capture per key per replica, none while serving); then replica 0
+     failed under a burst of 16 requests with ``max_restarts=1``: every
+     request ok, the requeued ones with one SUBMITTED, the rebuilt replica
+     capturing while replica 1 only replays, the old engine's graph pool
+     released; then one N = 250 fold under each of the five comparison
+     schemes through the sequential server (fold time, TM against
+     baseline_fp16; finite coords gated);
+  8. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -944,6 +962,7 @@ def _engine_short(torch, cfg, params, sampler):
     log(f"batch 4 in bucket 256 ({aaq}): {ms4:.1f} ms a launch by CUDA events, "
         f"{ms4 / b4.launched_batch:.1f} ms a request; "
         f"graph pool {core.pool_reserved_bytes() / 2**30:.3f} GiB")
+    readings["sequential"] = [(s, r.coords) for s, r in zip(seqs, seq_res)]
     return launches, dict(tally), readings
 
 
@@ -978,11 +997,15 @@ def _engine_long(torch, cfg, params, sampler):
         f"first pass {lwall:.1f} ms (capture {d['capture_ms']:.1f} ms with its eager warm-up, "
         f"instantiate {d['instantiate_ms']:.1f} ms, {d['nodes']} graph nodes), replay run_ms "
         f"{res.run_ms:.1f}")
-    log(f"long request: peak memory {lpeak / 2**30:.2f} GiB allocated ({(lpeak - base) / 2**30:.2f}"
-        f" GiB above the {base / 2**30:.2f} GiB held before it), graph pool "
-        f"{lcore.pool_reserved_bytes() / 2**30:.3f} GiB, memory_reserved "
-        f"{lreserved / 2**30:.3f} GiB after the key; the planner's estimate for chunk "
-        f"{res.chunk_size}: {est / 2**30:.2f} GiB ({est / 1e6:.0f} MB)")
+    budget = DEFAULT_LONGFOLD_BUDGET_MB * 1e6
+    log(f"long request: the planner's estimate {est / 1e6:.0f} MB, the budget it was admitted "
+        f"under {budget / 1e6:.0f} MB, the graph pass's peak {(lpeak - base) / 1e6:.0f} MB above "
+        f"the {base / 2**30:.2f} GiB held before it ({lpeak / 2**30:.2f} GiB allocated); graph "
+        f"pool {lcore.pool_reserved_bytes() / 2**30:.3f} GiB, memory_reserved "
+        f"{lreserved / 2**30:.3f} GiB after the key")
+    if lpeak - base > budget:
+        fail(f"long request: the graph pass peaked {(lpeak - base) / 1e6:.0f} MB above what was "
+             f"held before it, over the {budget / 1e6:.0f} MB budget it was admitted under")
     log(f"long request: launches {llaunch}; plain versions {lplain}; routed {lrouted}")
     _check_main_path("long request", llaunch, lplain, lrouted)
     if res.bucket != ENGINE_LONG_BUCKET or not res.chunk_size or not res.ok \
@@ -1004,16 +1027,24 @@ def _engine_long(torch, cfg, params, sampler):
     # what sets the peaks: the 1,000-residue fold unchunked in bucket 1,024
     # and the 2,000-residue fold chunked in bucket 2,048, eager, by stage
     memory_by_op(torch, cfg, params, sampler.sample(SERVE_N, length=LONG_LEN), 1024)
-    memory_by_op(torch, cfg, params, long_seq, ENGINE_LONG_BUCKET, chunk)
+    eager_peak = memory_by_op(torch, cfg, params, long_seq, ENGINE_LONG_BUCKET, chunk)
+    readings["long_eager_peak"] = eager_peak
+    log(f"long request, eager: the planner's estimate {est / 1e6:.0f} MB, the budget "
+        f"{budget / 1e6:.0f} MB, the whole fold's peak {eager_peak / 1e6:.0f} MB above what was "
+        f"held before it")
+    if eager_peak > budget:
+        fail(f"long request, eager: the fold peaked {eager_peak / 1e6:.0f} MB above what was held "
+             f"before it, over the {budget / 1e6:.0f} MB budget")
     return llaunch, dict(ltally), readings
 
 
-def memory_by_op(torch, cfg, params, seq, bucket, chunk=None) -> None:
+def memory_by_op(torch, cfg, params, seq, bucket, chunk=None) -> int:
     """One eager lightnobel_aaq fold with the peak device memory of each
     stage: the input embedding, each trunk op (the largest over the 48
-    blocks), the structure module, and what follows them (the distogram
-    head).  Each reading is the peak allocation during the call, as an
-    absolute and above what was held when the call began."""
+    blocks), the structure module and the distogram head.  Each reading is
+    the peak allocation during the call, as an absolute and above what was
+    held when the call began.  Returns the whole fold's peak above what was
+    held before it (read apart, in a second fold with no stage reset)."""
     from repro_torch.core import make_scheme
     from repro_torch.models.ppm import chunking as ck
     from repro_torch.models.ppm import model as md
@@ -1046,7 +1077,7 @@ def memory_by_op(torch, cfg, params, seq, bucket, chunk=None) -> None:
         torch.cuda.reset_peak_memory_stats()
         return out
 
-    targets = [(md, "input_embedding"), (st, "structure_apply")]
+    targets = [(md, "input_embedding"), (st, "structure_apply"), (md, "distogram_head")]
     targets += [(tk, n) for n in ("seq_attn_apply", "seq_transition_apply", "opm_apply",
                                   "tri_mul_apply", "tri_attn_apply", "pair_transition_apply")]
     targets += [(ck, n) for n in ("seq_pair_bias_chunked", "opm_chunked", "tri_mul_chunked",
@@ -1063,13 +1094,69 @@ def memory_by_op(torch, cfg, params, seq, bucket, chunk=None) -> None:
             out = md.ppm_forward(params, aat, cfg, make_scheme("lightnobel_aaq"), mask=mask,
                                  chunk_size=chunk)
         torch.cuda.synchronize()
-        rec["after the structure module (distogram head)"] = (
-            torch.cuda.max_memory_allocated(), torch.cuda.max_memory_allocated() - base)
         del out
+    # the whole fold: no stage resets the peak here
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out = md.ppm_forward(params, aat, cfg, make_scheme("lightnobel_aaq"), mask=mask,
+                             chunk_size=chunk)
+    torch.cuda.synchronize()
+    whole = torch.cuda.max_memory_allocated() - base
+    del out
     order = sorted(rec.items(), key=lambda kv: -kv[1][0])
     log(f"peak memory by stage, eager lightnobel_aaq fold of {len(seq)} residues in bucket "
         f"{bucket}, chunk {chunk or 'none'} ({base / 2**30:.2f} GiB held before it): "
-        + "; ".join(f"{name} {a / 2**30:.2f} GiB (+{d / 2**30:.2f})" for name, (a, d) in order))
+        + "; ".join(f"{name} {a / 2**30:.2f} GiB (+{d / 2**30:.2f})" for name, (a, d) in order)
+        + f"; the whole fold +{whole / 2**30:.2f} GiB ({whole / 1e6:.0f} MB)")
+    return whole
+
+
+def check_slabbed_stages(torch, cfg, params) -> None:
+    """The chunked path's slabbed input embedding, structure pair bias and
+    distogram head against their unslabbed forms on the card, at bucket
+    1,024 and chunk 64 on a pair tensor of the fold's scale: the embedding
+    (sums and a gather, no product) and each slab's LayerNorm and
+    symmetrization bitwise; the pair bias and the distogram, whose
+    projections cuBLAS may block differently for fewer rows, within one
+    bf16 ulp (2^-7 relative) plus 1e-3 of the largest output."""
+    from repro_torch.data.pipeline import ProteinSampler
+    from repro_torch.models import common as cm
+    from repro_torch.models.ppm import model as md
+    from repro_torch.models.ppm import structure as st
+    n, chunk = 1024, 64
+    aat = torch.from_numpy(ProteinSampler(seed=11).sample(7, length=n)[None]).cuda()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    z = torch.randn((1, n, n, cfg.hz), generator=g, device="cuda").to(cfg.torch_dtype)
+    ps, pd = params["structure"], params["distogram"]
+    with torch.inference_mode():
+        want, got = md.input_embedding(params, aat, cfg), md.input_embedding(params, aat, cfg, chunk)
+        if not all(_bitwise(torch, w, x) for w, x in zip(want, got)):
+            fail("slabbed input embedding not bitwise equal to the unslabbed one")
+        del want, got
+        ln, zsym = cm.layernorm(ps["ln_z"], z), 0.5 * (z + z.transpose(1, 2))
+        for rows in (slice(i, i + chunk) for i in range(0, n, chunk)):
+            if not _bitwise(torch, cm.layernorm(ps["ln_z"], z[:, rows]), ln[:, rows]):
+                fail(f"slabbed LayerNorm of the pair tensor differs at rows {rows}")
+            if not _bitwise(torch, 0.5 * (z[:, rows] + z[:, :, rows].transpose(1, 2)),
+                            zsym[:, rows]):
+                fail(f"slabbed symmetrization differs at rows {rows}")
+        del ln, zsym
+        errs = []
+        for name, fn in (("structure pair bias", lambda c: st.pair_bias(ps, z, c)),
+                         ("distogram head", lambda c: md.distogram_head(pd, z, c))):
+            want, got = fn(None).float(), fn(chunk).float()
+            err = (got - want).abs()
+            if not bool((err <= 2.0 ** -7 * want.abs() + 1e-3 * want.abs().max()).all()):
+                fail(f"slabbed {name}: max err {float(err.max()):.3e} over tolerance")
+            errs.append(f"{name} max|err| {float(err.max()):.3e} ({int((err > 0).sum())} of "
+                        f"{err.numel()} differ)")
+            del want, got, err
+    torch.cuda.synchronize()
+    log(f"slabbed stages at bucket {n}, chunk {chunk}: input embedding bitwise; LayerNorm and "
+        f"symmetrization bitwise on each of {n // chunk} slabs; " + "; ".join(errs)
+        + " (tolerance one bf16 ulp 2^-7 relative + 1e-3 of max|y|)")
 
 
 def np_finite(a) -> bool:
@@ -1215,6 +1302,254 @@ def check_engine_shapes(torch, rows: dict) -> list:
         torch.cuda.empty_cache()
     return pending
 
+# ---------------------------------------------------------------------------
+# phase 7: the fleet over HTTP, and the comparison schemes
+# ---------------------------------------------------------------------------
+def _metric_total(text: str, name: str) -> float:
+    """Sum of one series' samples in a Prometheus text body."""
+    return sum(float(ln.split()[-1]) for ln in text.splitlines()
+               if ln.startswith(name + "{") or ln.startswith(name + " "))
+
+
+def _gather(fn, args) -> list:
+    """``fn`` over ``args`` on one thread each (concurrent HTTP clients)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=len(args)) as pool:
+        return list(pool.map(fn, args))
+
+
+def _replays(core) -> int:
+    return sum(e.replays for e in core._executables.values())
+
+
+def serve_fleet(torch, cfg, params, sequential) -> dict:
+    """``FoldHTTPServer`` over a ``FleetRouter`` of 2 replicas at full width
+    on 127.0.0.1:0, phase 6's short settings, fidelity on.  Each replica is
+    warmed with the key ladder {1, 2, 4} of every bucket (every launch size
+    of a batch of up to 4 maps onto one), so that every capture precedes
+    serving: a pass of phase 6's 8 requests, posted concurrently and each
+    followed over SSE, then a second pass; each result decoded off the
+    wire, bitwise the serving replica's own and TM >= 0.9995 against the
+    sequential batch-1 fold.  Then replica 0 is failed (``mark_failed``,
+    as the reference's test does) under a burst of 16 requests with
+    ``max_restarts=1``: its queued requests are requeued under their ids
+    and served, the rebuilt replica captures the keys it is sent while
+    replica 1 only replays, and the old engine's graph pool is released.
+    Returns the kernel launches of the fleet's run (the warm-ups and the
+    rebuilt replica's captures; replays run no wrapper)."""
+    import urllib.request
+    import numpy as np
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.ppm import tm_score
+    from repro_torch.serving import (DEFAULT_LONGFOLD_BUDGET_MB, FleetRouter, FoldClient,
+                                     FoldHTTPServer, check_request_order)
+    from repro_torch.serving import events as ev
+    from repro_torch.serving.transport import protocol
+    from repro_torch.serving.transport.server import request_json
+    aaq = "lightnobel_aaq"
+    built = Counter()
+
+    def factory(i: int) -> FoldClient:
+        client = FoldClient(params, cfg, aaq, buckets=ENGINE_BUCKETS,
+                            max_batch=ENGINE_MAX_BATCH, inflight_depth=2, chunk_size="auto",
+                            mem_budget_mb=DEFAULT_LONGFOLD_BUDGET_MB, fidelity=True,
+                            device="cuda")
+        if not built[i]:            # a restart captures lazily, while serving
+            client.core.warmup(ladder=(1, 2, 4))
+        built[i] += 1
+        return client
+
+    torch.cuda.synchronize()
+    dispatch.reset_counters()
+    t0 = time.perf_counter()
+    router = FleetRouter(factory, 2, max_restarts=1)
+    warm_s = time.perf_counter() - t0
+    launches, plain, routed = _counts()
+    keys = {i: sorted(r.client.core._executables) for i, r in enumerate(router.replicas)}
+    for i, r in enumerate(router.replicas):
+        core = r.client.core
+        if core.compile_count != len(keys[i]) or len(keys[i]) != 18:
+            fail(f"fleet replica {i}: {core.compile_count} captures for {len(keys[i])} keys")
+    log(f"fleet: 2 replicas warmed in {warm_s:.1f} s, {len(keys[0])} keys each (buckets "
+        f"{ENGINE_BUCKETS} x launch sizes 1/2/4 x 2 schemes), one capture per key per replica; "
+        f"graph pools {[round(r.client.core.pool_reserved_bytes() / 2**30, 3) for r in router.replicas]}"
+        f" GiB, memory_reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+    _check_main_path("fleet warm-up", launches, plain, routed)
+    tm_ref = {tuple(s.tolist()): c for s, c in sequential}
+    server = FoldHTTPServer(router, port=0, host="127.0.0.1").start()
+    url = server.url
+
+    def post(seq):
+        t = time.perf_counter()
+        rid = request_json(f"{url}/v1/fold", method="POST",
+                           body={"sequence": seq.tolist()})["id"]
+        return rid, t
+
+    def follow(rid):
+        with urllib.request.urlopen(f"{url}/v1/fold/{rid}/events", timeout=600) as resp:
+            return protocol.parse_sse(resp.read()), time.perf_counter()
+
+    def http_pass(seqs, what):
+        t = time.perf_counter()
+        posted = _gather(post, list(seqs))
+        streams = _gather(follow, [rid for rid, _ in posted])
+        wall = time.perf_counter() - t
+        out = []
+        for (rid, t_post), (events, t_end), seq in zip(posted, streams, seqs):
+            check_request_order(events)
+            if events[-1].kind != ev.COMPLETED:
+                fail(f"{what}: request {rid} ended {events[-1].kind}")
+            st = request_json(f"{url}/v1/fold/{rid}")
+            rec = router.get(rid)
+            mine = rec.handle._result
+            wire = protocol.decode_array(st["result"]["coords"])
+            if st["state"] != "DONE" or not mine.ok or wire.tobytes() != mine.coords.tobytes():
+                fail(f"{what}: request {rid} not bitwise its replica's in-process result")
+            tm = float(tm_score(torch.from_numpy(wire), tm_ref[tuple(seq.tolist())]))
+            out.append(dict(rid=rid, replica=st["replica"], requeues=st["requeues"],
+                            events=events, tm=tm, ms=(t_end - t_post) * 1e3,
+                            run_ms=mine.run_ms, batch=mine.batch_size))
+        tms = [o["tm"] for o in out]
+        log(f"{what}: {len(out)} requests over HTTP in {wall * 1e3:.1f} ms; replicas "
+            f"{[o['replica'] for o in out]}, batches {[o['batch'] for o in out]}, requeues "
+            f"{[o['requeues'] for o in out]}; POST-to-terminal ms "
+            f"{[round(o['ms'], 1) for o in out]} (median {sorted(o['ms'] for o in out)[len(out) // 2]:.1f}); "
+            f"run_ms {[round(o['run_ms'], 1) for o in out]}; TM vs sequential batch 1 "
+            f"{[round(t, 5) for t in tms]} gate >= {ENGINE_TM_GATE}; SSE order legal, wire "
+            f"bitwise the replicas' own")
+        if min(tms) < ENGINE_TM_GATE:
+            fail(f"{what}: TM {min(tms):.5f} < {ENGINE_TM_GATE}")
+        return out
+
+    try:
+        seqs = [s for s, _ in sequential]
+        first = http_pass(seqs, "fleet first pass")
+        second = http_pass(seqs, "fleet second pass")
+        cores = [r.client.core for r in router.replicas]
+        for i, core in enumerate(cores):
+            text = urllib.request.urlopen(f"{url}/metrics/replica/{i}").read().decode()
+            scraped = _metric_total(text, "fold_compiles_total")
+            if core.compile_count != len(keys[i]) or scraped != len(keys[i]):
+                fail(f"fleet replica {i}: captures {core.compile_count}, scraped {scraped}, "
+                     f"for {len(keys[i])} keys after two passes")
+        hz, fleet = request_json(f"{url}/healthz"), request_json(f"{url}/v1/fleet")
+        text = urllib.request.urlopen(f"{url}/metrics").read().decode()
+        routed_total = _metric_total(text, "fleet_routed_total")
+        if not hz["ok"] or fleet["healthy"] != 2 or routed_total != 2 * len(seqs):
+            fail(f"fleet endpoints: healthz {hz}, fleet {fleet}, routed {routed_total}")
+        log(f"fleet endpoints: /healthz ok {hz['ok']}, replicas {[(r['index'], r['healthy'], r['restarts']) for r in hz['replicas']]}; "
+            f"/v1/fleet {fleet['replicas']} replicas, {fleet['healthy']} healthy; /metrics "
+            f"fleet_routed_total {routed_total:.0f}; /metrics/replica/<i> fold_compiles_total "
+            f"{[len(keys[i]) for i in range(2)]}: no capture in either pass")
+        # the lazy distogram of one request, materialized by a handler thread
+        rid = first[0]["rid"]
+        st = request_json(f"{url}/v1/fold/{rid}?distogram=1")
+        dist = protocol.decode_array(st["result"]["distogram"])
+        if dist.tobytes() != np.asarray(router.get(rid).handle._result.distogram).tobytes():
+            fail("fleet: the distogram over the wire differs from the replica's")
+        # two engines' graphs of one key on the same inputs (a finding)
+        from repro_torch.serving import pad_to_bucket
+        big = max(ENGINE_BUCKETS)
+        aat, mask = pad_to_bucket(seqs[:4], big, 4)
+        aat, mask = (torch.from_numpy(a).to(cores[0].device) for a in (aat, mask))
+        outs = [c._executables[(big, 4, aaq, "single", 0)].launch(aat, mask) for c in cores]
+        torch.cuda.synchronize()
+        log(f"fleet: the two replicas' graphs of key {big}|4|{aaq} give bitwise-equal coords: "
+            f"{_bitwise(torch, outs[0]['coords'], outs[1]['coords'])} (a finding, not a gate)")
+        del outs
+
+        # replica 0 fails under a burst; max_restarts=1 rebuilds it
+        old = router.replicas[0].client
+        old_pool = tuple(old.core.graph_pool)
+        old_pool_b = old.core.pool_reserved_bytes()
+        reserved_before = torch.cuda.memory_reserved()
+        captures1 = cores[1].compile_count
+        replays1 = _replays(cores[1])
+        burst = seqs + seqs
+        t = time.perf_counter()
+        posted = _gather(post, burst)
+        router.replicas[0].mark_failed()
+        requeued = router.check_health()
+        t_restart = time.perf_counter()
+        streams = _gather(follow, [rid for rid, _ in posted])
+        t_streams = time.perf_counter()
+        router.drain_wait(timeout=600.0)
+        router.join_released(timeout=600.0)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        burst_ms = (t_end - t) * 1e3
+        new = router.replicas[0].client
+        caps = [(e.describe()["key"], round(e.capture_ms), round(e.instantiate_ms))
+                for e in new.core._executables.values()]
+        log(f"fleet failure timeline: posted and restarted at {(t_restart - t) * 1e3:.1f} ms, "
+            f"every stream terminal at {(t_streams - t) * 1e3:.1f} ms, drained and the old "
+            f"client released at {(t_end - t) * 1e3:.1f} ms; the rebuilt replica's captures "
+            f"(key, ms with its warm-up, instantiate ms): {caps}; streams ended at "
+            f"{sorted(round((e - t) * 1e3) for _, e in streams)} ms")
+        for (rid, _), (events, _), seq in zip(posted, streams, burst):
+            check_request_order(events)
+            kinds = [e.kind for e in events]
+            res = router.get(rid).handle._result
+            if not res.ok or kinds[-1] != ev.COMPLETED or kinds.count(ev.SUBMITTED) != 1:
+                fail(f"fleet failure: request {rid} {res.status} events {kinds}")
+            tm = float(tm_score(torch.from_numpy(res.coords), tm_ref[tuple(seq.tolist())]))
+            if tm < ENGINE_TM_GATE:
+                fail(f"fleet failure: request {rid} TM {tm:.5f} < {ENGINE_TM_GATE}")
+        leaked = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg["segment_pool_id"]) == old_pool)
+        new_pool_b = new.core.pool_reserved_bytes()
+        reserved_after = torch.cuda.memory_reserved()
+        log(f"fleet failure: replica 0 failed under a burst of {len(burst)} requests; "
+            f"{len(requeued)} requeued under their ids {sorted(requeued)}; all {len(burst)} ok "
+            f"in {burst_ms:.1f} ms, each stream legal with one SUBMITTED; replica 0 rebuilt "
+            f"(restarts {router.replicas[0].restarts}) captured {new.core.compile_count} keys "
+            f"while replica 1 captured {cores[1].compile_count - captures1} and replayed "
+            f"{_replays(cores[1]) - replays1} launches; the old client released: "
+            f"{router.released == [old]}, its pool {old_pool_b / 2**30:.3f} GiB -> "
+            f"{leaked / 2**30:.3f} GiB left; new pool {new_pool_b / 2**30:.3f} GiB; "
+            f"memory_reserved {reserved_before / 2**30:.3f} -> {reserved_after / 2**30:.3f} GiB")
+        if not requeued or router.replicas[0].restarts != 1 or not new.core.compile_count:
+            fail(f"fleet failure: requeued {requeued}, restarts {router.replicas[0].restarts}, "
+                 f"captures on the rebuilt replica {new.core.compile_count}")
+        if cores[1].compile_count != captures1 or _replays(cores[1]) == replays1:
+            fail("fleet failure: replica 1 captured, or did not replay, during the restart")
+        if router.released != [old] or leaked or \
+                reserved_after > reserved_before - old_pool_b + new_pool_b + 2 ** 29:
+            fail(f"fleet failure: the old client's memory was not released (pool segments "
+                 f"left {leaked} B; memory_reserved {reserved_before} -> {reserved_after} B)")
+        # the whole phase's launches: the warm-ups, and the rebuilt replica's captures
+        launches, plain, routed = _counts()
+        _check_main_path("fleet", launches, plain, routed)
+    finally:
+        server.stop()
+        router.stop()
+    del router, old, new, cores
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fold_schemes(torch, cfg, params) -> None:
+    """One N = 250 request under each of the five comparison schemes through
+    the sequential server at full width, eager (plain PyTorch schemes; the
+    attention still runs the flash kernel): fold time and TM against
+    baseline_fp16.  Only finite coords are gated."""
+    from repro_torch.data.pipeline import ProteinSampler
+    from repro_torch.launch.serve import serve_ppm_sequential
+    seq = ProteinSampler(seed=11).sample(99, length=250)
+    rows = []
+    for name in ("smoothquant", "llm_int8", "ptq4protein", "tender", "mefold"):
+        serve_ppm_sequential(cfg, params, [seq], (256,), scheme=name, fidelity=False,
+                             device="cuda", emit=lambda *_: None)            # warm
+        (res,) = serve_ppm_sequential(cfg, params, [seq], (256,), scheme=name, fidelity=True,
+                                      device="cuda", emit=lambda *_: None)
+        if res.coords is None or not bool(torch.isfinite(res.coords).all()):
+            fail(f"scheme {name}: no finite coords")
+        rows.append(f"{name} {res.latency_ms:.1f} ms TM {res.tm_vs_fp:.4f}")
+    log(f"comparison schemes, N = 250 in bucket 256, sequential, eager, full width: "
+        + "; ".join(rows) + " (TM against baseline_fp16; finite coords gated)")
+
 
 def main() -> int:
     try:
@@ -1271,7 +1606,9 @@ def main() -> int:
     # 6. the batching engine: the kernels at its new shapes, then graphs
     # per key, batches of up to 4, the long fold
     pending = check_engine_shapes(torch, rows)
+    check_slabbed_stages(torch, cfg, params)
     eng_launches, tally, ltally, readings = serve_engine(torch, cfg, params)
+    sequential = readings.pop("sequential")
     for row, part, key in pending:
         row.launches = (tally if part == "short" else ltally).get(key, 0)
     log(f"engine launches (capture passes, short and long): {eng_launches}; at the new "
@@ -1279,7 +1616,14 @@ def main() -> int:
     log(f"engine readings: {json.dumps(readings)}")
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 7. summary
+    # 7. the fleet over HTTP (2 replicas of the engine) and the five
+    # comparison schemes
+    fleet_launches = serve_fleet(torch, cfg, params, sequential)
+    log(f"fleet launches (warm-ups and captures): {fleet_launches}")
+    fold_schemes(torch, cfg, params)
+    log(f"phase 7 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 8. summary
     log(f"total {time.perf_counter() - t_start:.1f}s")
     # each variant at its first timed shape, then every kernel at the engine's
     # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs)

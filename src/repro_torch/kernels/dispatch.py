@@ -8,7 +8,9 @@ model (seq attention, triangular attention, the structure module,
 The backend of a call is, in order:
 
   1. an explicit ``backend=`` argument,
-  2. the process-wide mode set by ``set_backend`` / ``use_backend`` (the
+  2. the calling thread's scoped mode (``use_backend``; each engine scopes
+     its own forward, and a fleet's replicas run theirs on their own driver
+     threads), else the process-wide mode (``set_backend``, the
      ``--kernels {kernel,ref,auto}`` flag),
   3. in ``auto`` mode, the device of the operands: the hand-written kernel
      on a CUDA tensor, at every shape; the plain reference on a CPU tensor.
@@ -27,6 +29,7 @@ fold launches.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -65,6 +68,7 @@ KERNEL_VARIANTS = {
 MAIN_PATH = ("aaq_quantize", "aaq_fake_quant", "aaq_matmul", "flash_mha")
 
 _MODE = AUTO
+_SCOPED = threading.local()          # .mode: the thread's use_backend mode
 
 counters: dict[str, int] = {
     "attention.kernel": 0,
@@ -105,24 +109,24 @@ def set_backend(mode: str) -> None:
 
 
 def get_backend() -> str:
-    return _MODE
+    """The calling thread's scoped mode, else the process-wide one."""
+    return getattr(_SCOPED, "mode", None) or _MODE
 
 
 @contextlib.contextmanager
 def use_backend(mode: str):
-    """Scoped ``set_backend``."""
-    global _MODE
-    prev = _MODE
-    _MODE = _check(mode)
+    """Scoped backend mode for the calling thread."""
+    prev = getattr(_SCOPED, "mode", None)
+    _SCOPED.mode = _check(mode)
     try:
         yield
     finally:
-        _MODE = prev
+        _SCOPED.mode = prev
 
 
 def resolve(device: torch.device, *, backend: str | None = None) -> str:
     """The backend a call on ``device`` takes: ``kernel`` or ``ref``."""
-    mode = _check(backend) if backend is not None else _MODE
+    mode = _check(backend) if backend is not None else get_backend()
     if mode != AUTO:
         return mode
     return KERNEL if torch.device(device).type == "cuda" else REF
@@ -139,7 +143,7 @@ def describe(backend: str | None = None, device: torch.device | str = "cuda") ->
     """Report label for the backend a mode resolves to on ``device``:
     ``kernel``, ``ref``, ``auto:kernel``/``auto:ref``; a kernel request on
     the CPU reads ``kernel-plain`` (the plain versions compute it)."""
-    mode = _check(backend) if backend is not None else _MODE
+    mode = _check(backend) if backend is not None else get_backend()
     inner = resolve(device, backend=mode)
     if inner == KERNEL and torch.device(device).type == "cpu":
         inner = "kernel-plain"

@@ -20,9 +20,21 @@ the TM-score between the two.
     PYTHONPATH=src python -m repro_torch.launch.serve --mode ppm --no-engine \
         --device cpu --n 2 --buckets 32,64
 
-The HTTP front-end and fleet (``--listen``, ``--replicas``,
-``--max-restarts``, ``--metrics-port``) and mesh-sharded serving
-(``--mesh``, ``--shard-threshold``) are not ported: those flags raise.
+``--listen HOST:PORT`` switches into a network server: an HTTP front-end
+(``FoldHTTPServer``) over a ``--replicas``-wide fleet of engine replicas
+(one ``FoldClient`` and driver thread each, sharing one copy of the
+weights) routed on live telemetry, with a per-replica restart budget
+(``--max-restarts``).  It ignores ``--n``, serves until SIGTERM/SIGINT or
+``--serve-for-s``, and prints the bound address as ``# listening ...``
+(port 0 binds an ephemeral port):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode ppm --device cpu \
+        --listen 127.0.0.1:0 --replicas 2 --buckets 32,48 --no-fidelity
+
+``--metrics-port`` serves the engine's Prometheus ``/metrics`` (and
+``/metrics.json``, ``/healthz``) while a trace is served.  Mesh-sharded
+serving (``--mesh``, ``--shard-threshold``) is not ported: those flags
+raise.
 """
 from __future__ import annotations
 
@@ -34,16 +46,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs import reduce_ppm_config
-from repro_torch.core import make_scheme
+from repro_torch.core import SCHEMES, make_scheme
 from repro_torch.data.pipeline import ProteinSampler
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.models.ppm import init_ppm, ppm_forward, tm_score
 from repro_torch.models.ppm.trunk import PPMConfig
-from repro_torch.serving import (CSV_HEADER as ENGINE_CSV_HEADER, FoldClient,
+from repro_torch.serving import (CSV_HEADER as ENGINE_CSV_HEADER, FleetRouter,
+                                 FoldClient, FoldHTTPServer, MetricsServer,
                                  bucket_for, calibrate, csv_row, load_cost_table,
                                  pad_to_bucket, parse_buckets, parse_chunk_spec,
                                  pipeline_overlaps)
+from repro_torch.serving.observability import parse_hostport
 
 CSV_HEADER = "request,len,bucket,latency_ms,tm_vs_fp,kernel_backend"
 
@@ -122,11 +136,6 @@ def priority_tiers(n: int, split: float) -> list[int]:
 #: flags of the reference's CLI whose subsystems are not ported, with the
 #: ROADMAP Queue 1 item that ports them
 NOT_PORTED = {
-    "listen": "the HTTP front-end (ROADMAP Queue 1 item 6, transport)",
-    "replicas": "the replica fleet (ROADMAP Queue 1 item 6, transport)",
-    "max_restarts": "the replica fleet (ROADMAP Queue 1 item 6, transport)",
-    "metrics_port": "the metrics HTTP endpoint (ROADMAP Queue 1 item 6, "
-                    "observability/httpd.py)",
     "mesh": "mesh-sharded serving (ROADMAP Queue 1 item 11, multi-device)",
     "shard_threshold": "mesh-sharded serving (ROADMAP Queue 1 item 11, "
                        "multi-device)",
@@ -134,12 +143,92 @@ NOT_PORTED = {
 
 
 def _refuse_unported(args) -> None:
-    defaults = {"replicas": 1, "max_restarts": 0}
     for flag, what in NOT_PORTED.items():
-        if getattr(args, flag) != defaults.get(flag):
+        if getattr(args, flag) is not None:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} needs {what}, which is not ported "
                 f"to repro_torch yet")
+
+
+def _make_client(args, cfg, params, buckets, dev, cost_model=None) -> FoldClient:
+    return FoldClient(
+        params, cfg, args.scheme, buckets=buckets,
+        max_tokens_per_batch=args.max_tokens_per_batch,
+        max_batch=args.max_batch, mem_budget_mb=args.mem_budget_mb,
+        fidelity=not args.no_fidelity, kernels=args.kernels,
+        inflight_depth=args.inflight_depth,
+        linger_ms=args.batch_linger_ms,
+        adaptive_linger=not args.no_adaptive_linger,
+        chunk_size=args.chunk_size, cost_model=cost_model, device=dev)
+
+
+def serve_http(args, cfg, params, buckets, dev) -> int:
+    """Network server mode (``--listen``): a FoldHTTPServer over a
+    ``--replicas``-wide FleetRouter, up until SIGTERM/SIGINT (or
+    ``--serve-for-s``).  Each replica is its own FoldClient and background
+    driver on ``dev``, all on the one copy of ``params``; the router
+    balances on live queue-depth/in-flight telemetry scraped from the
+    replicas' registries."""
+    import signal
+    import threading
+
+    try:
+        host, port = parse_hostport(args.listen)
+        if args.cost_table:
+            load_cost_table(args.cost_table)   # fail loudly before binding
+    except (ValueError, FileNotFoundError) as e:
+        print(f"error: {e}")
+        return 2
+
+    def factory(i: int) -> FoldClient:
+        # each replica binds its own copy of the persisted cost table (a
+        # CostModel is bound to exactly one core)
+        cost_model = (load_cost_table(args.cost_table)
+                      if args.cost_table else None)
+        client = _make_client(args, cfg, params, buckets, dev, cost_model)
+        client.tracer.set_metadata(
+            replica=i, scheme=args.scheme,
+            kernels=dispatch.describe(args.kernels, device=dev),
+            buckets=list(buckets), inflight_depth=args.inflight_depth,
+            device=str(dev), **client.core.placement.describe(),
+            **client.core.chunk.describe())
+        if cost_model is not None:
+            client.core.warmup_from_table()
+        if args.warmup:
+            client.warmup()
+        return client
+
+    router = FleetRouter(factory, args.replicas,
+                         max_restarts=args.max_restarts)
+    server = FoldHTTPServer(router, port=port, host=host).start()
+    # launchers scrape THIS line for the bound address (--listen HOST:0
+    # binds an ephemeral port)
+    print(f"# listening {server.url} replicas={args.replicas} "
+          f"buckets={','.join(map(str, buckets))} "
+          f"kernels={dispatch.describe(args.kernels, device=dev)}", flush=True)
+
+    done = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: done.set())
+    try:
+        done.wait(args.serve_for_s if args.serve_for_s > 0 else None)
+    except KeyboardInterrupt:
+        pass
+    print("# shutting down", flush=True)
+    server.stop()
+    router.stop(drain=True)
+    for r in router.replicas:
+        s = r.client.metrics.summary()
+        print(f"# replica={r.index} served={s['served']}/{s['requests']} "
+              f"rejected={s['rejected']} expired={s['expired']} "
+              f"cancelled={s['cancelled']} compiles={s['compiles']}")
+    if args.trace_out:
+        stem = args.trace_out[:-5] if args.trace_out.endswith(".json") \
+            else args.trace_out
+        for path in router.save_traces(stem):
+            print(f"# trace -> {path}")
+    print("# fleet shutdown complete", flush=True)
+    return 0
 
 
 def serve_ppm_engine(args, cfg, params, seqs, buckets, dev) -> int:
@@ -152,20 +241,16 @@ def serve_ppm_engine(args, cfg, params, seqs, buckets, dev) -> int:
         except (FileNotFoundError, ValueError) as e:
             print(f"error: {e}")
             return 2
-    client = FoldClient(
-        params, cfg, args.scheme, buckets=buckets,
-        max_tokens_per_batch=args.max_tokens_per_batch,
-        max_batch=args.max_batch, mem_budget_mb=args.mem_budget_mb,
-        fidelity=not args.no_fidelity, kernels=args.kernels,
-        inflight_depth=args.inflight_depth,
-        linger_ms=args.batch_linger_ms,
-        adaptive_linger=not args.no_adaptive_linger,
-        chunk_size=args.chunk_size, cost_model=cost_model, device=dev)
+    client = _make_client(args, cfg, params, buckets, dev, cost_model)
     client.tracer.set_metadata(
         scheme=args.scheme, kernels=dispatch.describe(args.kernels, device=dev),
         buckets=list(buckets), inflight_depth=args.inflight_depth,
         device=str(dev), **client.core.placement.describe(),
         **client.core.chunk.describe())
+    server = None
+    if args.metrics_port is not None:
+        server = MetricsServer(client, port=args.metrics_port).start()
+        print(f"# metrics endpoint {server.url}/metrics", flush=True)
     cm = client.core.cost_model
     if args.calibrate:
         calibrate(client.core)
@@ -250,14 +335,21 @@ def serve_ppm_engine(args, cfg, params, seqs, buckets, dev) -> int:
         client.save_trace(args.trace_out)
         print(f"# trace -> {args.trace_out} "
               f"(pipeline_overlaps={pipeline_overlaps(client.tracer)})")
+    if server is not None:
+        # hold the scrape endpoint open (a scraper polls for this marker,
+        # then reads /metrics before the process exits)
+        if args.metrics_hold_s > 0:
+            print(f"# metrics endpoint holding {args.metrics_hold_s:.0f}s "
+                  f"at {server.url}/metrics", flush=True)
+            time.sleep(args.metrics_hold_s)
+        server.stop()
     return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["ppm"], default="ppm")
-    ap.add_argument("--scheme", default="lightnobel_aaq",
-                    choices=["lightnobel_aaq", "baseline_fp16"])
+    ap.add_argument("--scheme", default="lightnobel_aaq", choices=list(SCHEMES))
     ap.add_argument("--kernels", choices=list(dispatch.BACKENDS),
                     default=dispatch.AUTO,
                     help="kernel backend: the CUDA kernels, the plain "
@@ -318,11 +410,32 @@ def main(argv=None) -> int:
                     help="write per-request metrics to this .csv/.json path")
     ap.add_argument("--trace-out", default=None,
                     help="write the span trace as Chrome-trace/Perfetto JSON")
+    # -- network serving (HTTP front-end + fleet) --
+    ap.add_argument("--listen", default=None, metavar="HOST:PORT",
+                    help="serve the fold API over HTTP on this address "
+                         "(port 0 = ephemeral; the bound address is "
+                         "printed as '# listening ...'); ignores --n and "
+                         "runs until SIGTERM/--serve-for-s")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the HTTP front-end; the "
+                         "router balances on live queue-depth/in-flight "
+                         "telemetry from each replica's registry")
+    ap.add_argument("--max-restarts", type=int, default=0,
+                    help="per-replica restart budget: a replica whose "
+                         "driver dies is rebuilt (fresh client + driver) "
+                         "at most this many times; its queued requests "
+                         "requeue under their original ids (0 = mark dead "
+                         "and drain, never revive)")
+    ap.add_argument("--serve-for-s", type=float, default=0.0,
+                    help="with --listen: exit after this many seconds "
+                         "(0 = run until SIGTERM/SIGINT)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus /metrics (+ /metrics.json, "
+                         "/healthz) on this port (0 = ephemeral)")
+    ap.add_argument("--metrics-hold-s", type=float, default=0.0,
+                    help="keep the --metrics-port endpoint up this long "
+                         "after serving finishes")
     # -- the reference's flags whose subsystems are not ported: they raise --
-    ap.add_argument("--listen", default=None, metavar="HOST:PORT")
-    ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--max-restarts", type=int, default=0)
-    ap.add_argument("--metrics-port", type=int, default=None)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--shard-threshold", type=int, default=None)
     args = ap.parse_args(argv)
@@ -338,9 +451,16 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"error: {e}")
         return 2
+    if args.calibrate and args.listen is not None:
+        print("error: --calibrate is an inline warmup mode; run it without "
+              "--listen, then point the server at the table with "
+              "--cost-table")
+        return 2
     dev = resolve_device(args.device)
     cfg = reduce_ppm_config()
     params = init_ppm(cfg, seed=0, device=dev)
+    if args.listen is not None and not args.no_engine:
+        return serve_http(args, cfg, params, buckets, dev)
     seqs = _sample_trace(args.n, args.min_len, args.max_len)
     with dispatch.use_backend(args.kernels):
         if args.no_engine:

@@ -18,10 +18,25 @@ Numerical contract (``tests/test_torch_chunking.py``):
     so only a matmul's blocking on a smaller row count can move a last bit.
   * AAQ: ``AAQScheme.act`` quantizes per token over channels, so a slab
     quantizes as its slice of the full tensor; parity is TM-gated (≥ 0.995).
+  * The five comparison schemes (tensor-, channel- or all-token-wide
+    statistics) are NOT chunk-exact: a slab's scales see the slab, not the
+    tensor.  Nor does the port's chunked fold follow the reference's under
+    them: incoming tri-mul slabs by columns with ``a`` resident where the
+    reference slabs by rows with ``b`` resident, so its slabs see other
+    statistics.  Under FP and AAQ every value is per position, and the
+    slabbing moves nothing.  No test bounds these two differences.
 
 The reference scans slabs with ``jax.lax.map``; here the scan is a Python
 loop writing each slab's result into one preallocated output, so a CUDA
 graph captured over a chunked forward holds (N / chunk) slabs of every op.
+Inside a block (``block_apply_chunked``) each pair op adds its slabs into
+the residual ``z`` in place (``into=``) once its full-width resident
+tensors are built: from then on a slab reads and writes only its own rows
+(its own columns for tri-mul's incoming and tri-attention's ending
+variants), and the in-place add rounds as ``z + out`` does.  So no op's
+full-size output coexists with ``z``, as XLA's buffer reuse arranges for
+the reference; what stays is what the planner prices (the residual, one
+resident operand, the bias tables, one slab).
 The slab views handed to the kernels keep the flash wrapper's 16-byte base
 and stride rule (a slab of a contiguous (B, N, N, H) tensor is a view whose
 strides are the full tensor's); the quantize ops copy a non-contiguous slab
@@ -50,22 +65,39 @@ def effective_chunk_size(n: int, chunk: int) -> int:
     return c
 
 
-def _scan_rows(fn, slabs, n: int, chunk: int) -> torch.Tensor:
+def _scan_rows(fn, slabs, n: int, chunk: int, into=None) -> torch.Tensor:
     """Map ``fn`` over row-chunks of a tuple of tensors.
 
     Every tensor of ``slabs`` has the row axis at position 1 (length
     ``n``); ``fn`` receives the tuple with that axis length ``chunk`` and
     returns one (B, chunk, ...) tensor.  The results are written into one
-    (B, n, ...) output.
+    (B, n, ...) output, or, with ``into``, added into ``into``'s rows in
+    place (``into`` is returned): ``fn`` must then read no row of ``into``
+    that an earlier slab wrote.  One slab covering all ``n`` rows is
+    ``fn``'s own result, uncopied: the unchunked form.
     """
-    out = None
+    if into is None and chunk == n:
+        return fn(tuple(slabs))
+    out = into
     for i in range(n // chunk):
         rows = slice(i * chunk, (i + 1) * chunk)
         y = fn(tuple(x[:, rows] for x in slabs))
+        if into is not None:
+            into[:, rows].add_(y)
+            continue
         if out is None:
             out = y.new_empty((y.shape[0], n, *y.shape[2:]))
         out[:, rows] = y
     return out
+
+
+def scan_row_slabs(fn, slabs, chunk: int | None) -> torch.Tensor:
+    """``_scan_rows`` at ``chunk``'s effective size: a row-local stage
+    outside the trunk (the input embedding, the structure module's pair
+    bias, the distogram head).  ``chunk`` None/0 is one slab of every row,
+    which is the unchunked expression itself."""
+    n = slabs[0].shape[1]
+    return _scan_rows(fn, slabs, n, effective_chunk_size(n, chunk or n))
 
 
 def _pair_ln(p, z_rows, scheme: QuantScheme, sc: str, key: str):
@@ -92,53 +124,60 @@ def _tri_mul_ab(p, z_rows, scheme: QuantScheme, sc: str, proj: str, gate: str,
 
 
 def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
-                    chunk: int, mask=None):
+                    chunk: int, mask=None, into=None):
     """Row-chunked triangular multiplication.
 
-    The partner operand (``b`` of the k-contraction) is full-width and
-    resident: the price of chunking tri-mul.  It is built slab by slab, so
-    the hz-wide layernorm intermediate never materializes at O(N²), and kept
-    in float32 in the layout of the per-slab products (the reference casts
-    it to float32 for every slab's product); the admission controller's
-    chunked estimator prices it at the scheme's ``{sc}.ab`` bits, as the
-    reference's does.
+    One operand of the k-contraction is full-width and resident: the price
+    of chunking tri-mul, which the admission controller's chunked estimator
+    prices at the scheme's ``{sc}.ab`` bits, as the reference's does.  It is
+    built slab by slab (the hz-wide layernorm intermediate never
+    materializes at O(N²)) in the config's dtype, as the reference keeps
+    it, and in the layout of the per-slab products, which multiply in that
+    dtype with float32 accumulation.
+
+    Outgoing, x[b,i,j,c] = sum_k a[b,i,k,c] * b[b,j,k,c]: the slabs are rows
+    i of z and ``b`` is resident, as in the reference.  Incoming, x[b,i,j,c]
+    = sum_k a[b,k,i,c] * b[b,k,j,c]: the slabs are columns j of z (rows of
+    its transpose) and ``a`` is resident, so that each slab reads and writes
+    only its own columns and ``into`` can take the slabs in place.  Every
+    operand value is computed per pair position, so both give the
+    reference's values; only the summation order of the products can move.
     """
     n = z.shape[1]
     c = effective_chunk_size(n, chunk)
+    res_proj, res_gate = ("b_proj", "b_gate") if outgoing else ("a_proj", "a_gate")
+    slab_proj, slab_gate = ("a_proj", "a_gate") if outgoing else ("b_proj", "b_gate")
 
-    # the partner in the layout of the per-slab products: b_t[b, c, r, m]
-    # = b[b, r, m, c] in float32, written slab by slab (r = the slab rows)
-    b_t = None
+    # the resident operand in the products' layout: part[b, c, r, m] =
+    # op[b, r, m, c], written slab by slab (r = the slab rows of z)
+    part = None
     for i in range(n // c):
         rows_i = slice(i * c, (i + 1) * c)
-        bb, _ = _tri_mul_ab(p, z[:, rows_i], scheme, sc, "b_proj", "b_gate",
+        rr, _ = _tri_mul_ab(p, z[:, rows_i], scheme, sc, res_proj, res_gate,
                             row_mask=None if mask is None else mask[:, rows_i],
                             mask=mask)
-        if b_t is None:
-            b_t = torch.empty((bb.shape[0], bb.shape[-1], n, n),
-                              dtype=torch.float32, device=bb.device)
-        b_t[:, :, rows_i] = bb.permute(0, 3, 1, 2)
-    # outgoing: x[b,i,j,c] = sum_k a[b,i,k,c] * b[b,j,k,c], so the product
-    # takes b_t's (j, k) planes transposed; incoming: x[b,i,j,c] = sum_k
-    # a[b,k,i,c] * b[b,k,j,c], b_t's (k, j) planes as they are
-    b_op = b_t.transpose(-1, -2) if outgoing else b_t
+        if part is None:
+            part = torch.empty((rr.shape[0], rr.shape[-1], n, n),
+                               dtype=rr.dtype, device=rr.device)
+        part[:, :, rows_i] = rr.permute(0, 3, 1, 2)
 
     def rows(slab):
         zc = slab[0]
         mc = slab[-1] if mask is not None else None
+        # outgoing: a of rows i; incoming: b of columns j, in the transposed
+        # (j, k) layout, and the output gate's zl of the same positions
+        xc, zl = _tri_mul_ab(p, zc, scheme, sc, slab_proj, slab_gate,
+                             row_mask=mc, mask=mask)
         if outgoing:
-            # a is row-local
-            ac, zl = _tri_mul_ab(p, zc, scheme, sc, "a_proj", "a_gate",
-                                 row_mask=mc, mask=mask)
+            # (B,th,C,k) @ (B,th,k,N): x of rows i, (B,th,C,N)
+            x = torch.matmul(xc.permute(0, 3, 1, 2), part.transpose(-1, -2))
+            x = x.permute(0, 2, 3, 1)
         else:
-            # the a columns for rows i come from the transposed slab (same
-            # values, (i,k) layout), while the output gate reads zl of the
-            # plain rows
-            ac, _ = _tri_mul_ab(p, slab[1], scheme, sc, "a_proj", "a_gate",
-                                row_mask=mc, mask=mask)
-            zl = _pair_ln(p, zc, scheme, sc, "ln_in")
-        x = torch.matmul(ac.float().permute(0, 3, 1, 2), b_op)   # (B,th,C,N)
-        x = x.permute(0, 2, 3, 1).to(zc.dtype)
+            # (B,th,N,k) @ (B,th,k,C): x of columns j, (B,th,N,C), laid out
+            # as the slab's transposed rows (B,C,N,th)
+            x = torch.matmul(part.transpose(-1, -2), xc.permute(0, 3, 2, 1))
+            x = x.permute(0, 3, 2, 1)
+        x = x.to(zc.dtype)
         x = scheme.act(x, f"{sc}.prod_pre_ln")              # Group A (large)
         xl = cm.layernorm(p["ln_out"], x)
         xl = scheme.act(xl, f"{sc}.post_ln")                # Group B
@@ -146,17 +185,18 @@ def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
         out = g * cm.dense(p["out"], xl, scheme, f"{sc}.post_ln")
         return scheme.act(out, f"{sc}.out")                 # Group C
 
-    slabs = [z] if outgoing else [z, z.transpose(1, 2)]
-    if mask is not None:
-        slabs.append(mask)
-    return _scan_rows(rows, tuple(slabs), n, c)
+    zs = z if outgoing else z.transpose(1, 2)
+    if into is not None and not outgoing:
+        into = into.transpose(1, 2)
+    out = _scan_rows(rows, (zs,) if mask is None else (zs, mask), n, c, into=into)
+    return out if outgoing else out.transpose(1, 2)
 
 
 # --------------------------------------------------------------------------
 # triangular attention
 # --------------------------------------------------------------------------
 def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
-                     heads: int, chunk: int, mask=None):
+                     heads: int, chunk: int, mask=None, into=None):
     """Row-chunked triangular attention.
 
     The (B,N,N,heads) bias table is full-width and resident (heads is
@@ -166,9 +206,12 @@ def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
     and the einsum path keeps the explicit softmax and its ``{sc}.probs``
     site.  The route is chosen from the FULL n, never the chunk: chunking
     must not change which kernel (and which AAQ sites) a bucket runs.
+    With ``into`` the slabs go into it in place once the bias table is
+    built (a row of attention reads only its own row of z).
     """
     if not starting:
         z = z.transpose(1, 2)
+        into = None if into is None else into.transpose(1, 2)
     b_, n, _, hz = z.shape
     c = effective_chunk_size(n, chunk)
     dh = hz // heads
@@ -217,7 +260,7 @@ def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
         g = torch.sigmoid(cm.dense(p["gate"], zl, scheme, f"{sc}.gate"))
         return cm.dense(p["out"], g * o, scheme, f"{sc}.proj_in")
 
-    out = _scan_rows(rows, (z,), n, c)
+    out = _scan_rows(rows, (z,), n, c, into=into)
     if not starting:
         out = out.transpose(1, 2)
     return out
@@ -227,16 +270,16 @@ def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
 # pair transition / OPM / seq-attention pair bias
 # --------------------------------------------------------------------------
 def pair_transition_chunked(p, z, scheme: QuantScheme, chunk: int,
-                            sc: str = "pair_trans"):
+                            sc: str = "pair_trans", into=None):
     """Pair transition is elementwise over (i, j): chunk rows directly."""
     n = z.shape[1]
     c = effective_chunk_size(n, chunk)
     return _scan_rows(
         lambda slab: tk.pair_transition_apply(p, slab[0], scheme, sc),
-        (z,), n, c)
+        (z,), n, c, into=into)
 
 
-def opm_chunked(p, s, chunk: int):
+def opm_chunked(p, s, chunk: int, into=None):
     """Outer-product-mean without the (B,N,N,32·32) slab: the a/b vectors
     are linear in N, only the per-chunk outer product materializes."""
     n = s.shape[1]
@@ -249,7 +292,7 @@ def opm_chunked(p, s, chunk: int):
                              b.float()).to(s.dtype)
         return cm.dense(p["out"], outer.reshape(*outer.shape[:3], -1))
 
-    return _scan_rows(rows, (a,), n, c)
+    return _scan_rows(rows, (a,), n, c, into=into)
 
 
 def seq_pair_bias_chunked(p, z, chunk: int):
@@ -271,21 +314,23 @@ def block_apply_chunked(p, s, z, cfg, scheme: QuantScheme, chunk: int,
     """``trunk.block_apply`` with every O(N²·H) pair op row-chunked.
 
     Op order, residual structure and quantization sites are those of the
-    unchunked block; only the materialization schedule changes.
+    unchunked block; only the materialization schedule changes.  Each pair
+    op adds its slabs into ``z`` IN PLACE (the caller hands ``z`` over, as
+    ``trunk_apply``'s does), which rounds as ``z + op``.
     """
     pb = seq_pair_bias_chunked(p["seq_attn"], z, chunk)
     s = s + tk.seq_attn_apply(p["seq_attn"], s, z, cfg.seq_heads, mask=mask,
                               pair_bias=pb)
+    del pb
     s = s + tk.seq_transition_apply(p["seq_trans"], s)
-    z = z + opm_chunked(p["opm"], s, chunk)
-    z = z + tri_mul_chunked(p["tri_mul_out"], z, scheme, True, "tri_mul_out",
-                            chunk, mask=mask)
-    z = z + tri_mul_chunked(p["tri_mul_in"], z, scheme, False, "tri_mul_in",
-                            chunk, mask=mask)
-    z = z + tri_attn_chunked(p["tri_attn_start"], z, scheme, True,
-                             "tri_attn_start", cfg.pair_heads, chunk,
-                             mask=mask)
-    z = z + tri_attn_chunked(p["tri_attn_end"], z, scheme, False,
-                             "tri_attn_end", cfg.pair_heads, chunk, mask=mask)
-    z = z + pair_transition_chunked(p["pair_trans"], z, scheme, chunk)
+    opm_chunked(p["opm"], s, chunk, into=z)
+    tri_mul_chunked(p["tri_mul_out"], z, scheme, True, "tri_mul_out", chunk,
+                    mask=mask, into=z)
+    tri_mul_chunked(p["tri_mul_in"], z, scheme, False, "tri_mul_in", chunk,
+                    mask=mask, into=z)
+    tri_attn_chunked(p["tri_attn_start"], z, scheme, True, "tri_attn_start",
+                     cfg.pair_heads, chunk, mask=mask, into=z)
+    tri_attn_chunked(p["tri_attn_end"], z, scheme, False, "tri_attn_end",
+                     cfg.pair_heads, chunk, mask=mask, into=z)
+    pair_transition_chunked(p["pair_trans"], z, scheme, chunk, into=z)
     return s, z

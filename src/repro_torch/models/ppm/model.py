@@ -12,6 +12,7 @@ import torch
 from repro_torch.core.schemes import FP16Baseline, QuantScheme
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
+from repro_torch.models.ppm import chunking as ck
 from repro_torch.models.ppm import structure as st
 from repro_torch.models.ppm import trunk as tk
 from repro_torch.models.ppm.trunk import PPMConfig
@@ -39,18 +40,34 @@ def init_ppm(cfg: PPMConfig, seed: int = 0, *, device=None) -> cm.Params:
     }
 
 
-def input_embedding(p, aatype: torch.Tensor, cfg: PPMConfig):
-    """aatype (B,N) int -> s0 (B,N,Hm), z0 (B,N,N,Hz)."""
+def input_embedding(p, aatype: torch.Tensor, cfg: PPMConfig,
+                    chunk_size: int | None = None):
+    """aatype (B,N) int -> s0 (B,N,Hm), z0 (B,N,N,Hz).
+
+    With ``chunk_size`` the pair sum is formed by row slabs written into
+    one output, so its two full-size addends never exist; each element is
+    the same sum in the same order.  Without, one slab holds every row.
+    """
     s0 = cm.embed(p["aa_embed"], aatype)
     li = cm.dense(p["left"], s0)
     ri = cm.dense(p["right"], s0)
-    z0 = li[:, :, None, :] + ri[:, None, :, :]
     n = aatype.shape[-1]
     pos = torch.arange(n, device=aatype.device)
     half = cfg.relpos_bins // 2
     rel = torch.clamp(pos[:, None] - pos[None, :], -half, half) + half
-    z0 = z0 + cm.embed(p["relpos"], rel)[None]
-    return s0.to(cfg.torch_dtype), z0.to(cfg.torch_dtype)
+    z0 = ck.scan_row_slabs(
+        lambda sl: (sl[0][:, :, None, :] + ri[:, None, :, :]
+                    + cm.embed(p["relpos"], sl[1])).to(cfg.torch_dtype),
+        (li, rel[None]), chunk_size)
+    return s0.to(cfg.torch_dtype), z0
+
+
+def distogram_head(p, z: torch.Tensor, chunk_size: int | None = None):
+    """Distogram logits of the symmetrized pair tensor; with ``chunk_size``
+    by row slabs (rows i of z with the matching columns for the transpose)
+    written into one output."""
+    return ck.scan_row_slabs(lambda sl: cm.dense(p, 0.5 * (sl[0] + sl[1])),
+                             (z, z.transpose(1, 2)), chunk_size)
 
 
 def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
@@ -63,22 +80,33 @@ def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
     ``mask`` (B, N) bool marks real tokens when ``aatype`` is padded to a
     serving bucket; ``None`` is the unmasked path.  ``chunk_size`` routes
     the trunk through the row-chunked pair stack (``chunking.py``), the
-    long-fold path the memory planner prices; None/0 is unchunked.
+    long-fold path the memory planner prices, and builds the input
+    embedding, the structure module's pair bias and the distogram head by
+    row slabs of the same chunk; None/0 is unchunked.
     """
     scheme = scheme or FP16Baseline()
     if mask is not None:
         mask = mask.to(torch.bool)
-    s0, z0 = input_embedding(params, aatype, cfg)
+    s0, z0 = input_embedding(params, aatype, cfg, chunk_size)
     s, z = s0, z0
     for r in range(cfg.recycles):
-        s_in = s0 + (cm.layernorm(params["recycle_s_ln"], s) if r else 0.0)
-        z_in = z0 + (cm.layernorm(params["recycle_z_ln"], z) if r else 0.0)
+        ds = cm.layernorm(params["recycle_s_ln"], s) if r else 0.0
+        dz = cm.layernorm(params["recycle_z_ln"], z) if r else 0.0
+        if r == cfg.recycles - 1:
+            # the last use of s0/z0: add into them in place (the same
+            # rounding as s0 + ds) and hand them over to the trunk
+            s_in, z_in = s0.add_(ds), z0.add_(dz)
+            s0 = z0 = None
+        else:
+            s_in, z_in = s0 + ds, z0 + dz
+        s = z = ds = dz = None
         s, z = tk.trunk_apply(params["trunk"], s_in, z_in, cfg, scheme, mask=mask,
                               chunk_size=chunk_size)
+        s_in = z_in = None
     coords, s_final = st.structure_apply(params["structure"], s, z,
-                                         n_iter=cfg.ipa_iters, mask=mask)
-    zsym = 0.5 * (z + z.transpose(1, 2))
-    distogram = cm.dense(params["distogram"], zsym)
+                                         n_iter=cfg.ipa_iters, mask=mask,
+                                         chunk_size=chunk_size)
+    distogram = distogram_head(params["distogram"], z, chunk_size)
     return {"coords": coords, "distogram": distogram, "s": s_final, "z": z}
 
 

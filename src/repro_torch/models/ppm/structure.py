@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
+from repro_torch.models.ppm.chunking import scan_row_slabs
 
 
 def init_structure(gen: torch.Generator, cfg) -> cm.Params:
@@ -34,17 +35,28 @@ def init_structure(gen: torch.Generator, cfg) -> cm.Params:
     }
 
 
-def structure_apply(p, s, z, n_iter: int = 4, mask=None):
+def pair_bias(p, z, chunk_size: int | None = None):
+    """The (B,N,N,H) pair bias ``dense(ln(z))``; with ``chunk_size`` by row
+    slabs written into one output, so the layernorm's float32 temporaries
+    are one slab's, not the pair tensor's."""
+    return scan_row_slabs(
+        lambda sl: cm.dense(p["pair_bias"], cm.layernorm(p["ln_z"], sl[0])),
+        (z,), chunk_size)
+
+
+def structure_apply(p, s, z, n_iter: int = 4, mask=None,
+                    chunk_size: int | None = None):
     """Returns (coords (B,N,3) f32, s_final).
 
     ``mask`` (B, N) bool marks real tokens; padded keys get the additive
-    -1e9 key-padding bias and their values are zeroed.
+    -1e9 key-padding bias and their values are zeroed.  ``chunk_size``
+    builds the pair bias by row slabs (``pair_bias``).
     """
     b, n, hm = s.shape
     heads = p["pair_bias"]["w"].shape[-1]
     dh = hm // heads
     t = torch.zeros((b, n, 3), dtype=torch.float32, device=s.device)
-    bias = cm.dense(p["pair_bias"], cm.layernorm(p["ln_z"], z))  # (B,N,N,H)
+    bias = pair_bias(p, z, chunk_size)                       # (B,N,N,H)
     bias = bias.permute(0, 3, 1, 2).float()
     key_bias = cm.key_padding_bias(mask) if mask is not None else None
     dist = torch.logaddexp(p["dist_w"].float(), torch.zeros((), device=s.device))  # softplus

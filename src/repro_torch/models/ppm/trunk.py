@@ -303,7 +303,10 @@ def trunk_apply(blocks: list[cm.Params], s, z, cfg: PPMConfig,
                 scheme: QuantScheme, mask=None, chunk_size: int | None = None):
     """``chunk_size`` routes every block through the row-chunked pair stack
     (``repro_torch.models.ppm.chunking``): same ops, same sites, O(N·chunk)
-    slabs instead of O(N²).  None/0 is the unchunked path."""
+    slabs instead of O(N²), each op's slabs added into ``z`` in place, so
+    the chunked path consumes ``z``: the caller hands over a tensor it owns
+    (``ppm_forward`` does).  None/0 is the unchunked path, which never
+    writes ``z``."""
     if chunk_size:
         from repro_torch.models.ppm import chunking as ck   # imports this module
         for p in blocks:

@@ -1,6 +1,5 @@
 """repro_torch.serving: request-lifecycle fold serving (port of
-``repro/serving``; the LM tenant, the HTTP transport and the fleet are not
-ported).
+``repro/serving``; the LM tenant is not ported).
 
 ``FoldClient`` is the serving surface: ``submit()`` returns a ``FoldHandle``
 (priority, deadline, ``cancel()``, blocking ``result()``), progress streams
@@ -8,7 +7,8 @@ as typed ``FoldEvent``s, and batches run on the bucketed ``EngineCore``
 (one CUDA graph per (bucket, launch batch, scheme, placement, chunk) key on
 the card, token-budget continuous batching, AAQ-aware admission control,
 the long-fold chunk planner).  ``FoldEngine`` is the legacy blocking
-wrapper over the same client.
+wrapper over the same client.  ``FoldHTTPServer`` serves a ``FleetRouter``
+of client replicas over HTTP.
 """
 from repro_torch.serving.admission import (ADMIT, DEFER, REJECT, AdmissionController,
                                            AdmissionDecision)
@@ -29,9 +29,9 @@ from repro_torch.serving.metrics import (CSV_HEADER, CompileWatcher, EngineMetri
                                          csv_row, percentiles,
                                          reset_compile_watch)
 from repro_torch.serving.observability import (PROMETHEUS_CONTENT_TYPE,
-                                               MetricsRegistry, Span, Tracer,
-                                               pipeline_overlaps, span_tree,
-                                               validate_chrome_trace)
+                                               MetricsRegistry, MetricsServer,
+                                               Span, Tracer, pipeline_overlaps,
+                                               span_tree, validate_chrome_trace)
 from repro_torch.serving.placement import SINGLE, Placement, PlacementPolicy
 from repro_torch.serving.scheduler import (Rejection, ScheduledBatch,
                                            TokenBudgetScheduler, bucket_for,
@@ -40,6 +40,9 @@ from repro_torch.serving.scheduler import (Rejection, ScheduledBatch,
 from repro_torch.serving.types import (BatchDeviceOutput, FoldRequest, FoldResult,
                                        LazyDistogram, pad_to_bucket)
 from repro_torch.serving.workload import FoldWorkload, Workload
+# transport last: it builds on client/events/observability above
+from repro_torch.serving.transport import (FleetRecord, FleetRouter,
+                                           FoldHTTPServer, ProtocolError, Replica)
 
 __all__ = [
     # lifecycle client
@@ -65,9 +68,13 @@ __all__ = [
     "reset_compile_watch",
     # measured cost model
     "CostModel", "CostEntry", "calibrate", "load_cost_table",
-    # observability
+    # observability (tracing + metrics registry + scrape endpoint)
     "Span", "Tracer", "span_tree", "pipeline_overlaps",
-    "validate_chrome_trace", "MetricsRegistry", "PROMETHEUS_CONTENT_TYPE",
+    "validate_chrome_trace", "MetricsRegistry", "MetricsServer",
+    "PROMETHEUS_CONTENT_TYPE",
     # workload substrate
     "Workload", "FoldWorkload",
+    # transport (HTTP front-end + fleet router)
+    "FoldHTTPServer", "FleetRouter", "FleetRecord", "Replica",
+    "ProtocolError",
 ]

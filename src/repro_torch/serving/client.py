@@ -664,6 +664,12 @@ class FoldClient:
             # or sees the closed bus and raises cleanly — never half-queues
             self.events.close()
 
+    def close(self) -> None:
+        """Stop (serving what was accepted) and release the engine's device
+        memory (``EngineCore.close``); the client serves nothing after."""
+        self.stop(drain=True)
+        self.core.close()
+
     @property
     def driving(self) -> bool:
         d = self._driver

@@ -45,6 +45,17 @@ stages and launches (replays) without waiting; ``retire`` waits for the
 OLDEST in-flight batch, makes one host copy of its coords, and hands each
 request a lazy distogram handle.
 
+Several engines in one process (a fleet's replicas, each pumped by its own
+driver thread) share the card: one process-wide lock (``CAPTURE_LOCK``)
+serializes every key's eager warm-up, the release of its cached blocks
+and its capture, so no ``empty_cache`` or device-wide sync of one engine
+runs during another's capture, and the wrappers' launch counters move
+only for the capturing engine while it holds the lock (replays pass no
+wrapper).  Replays take no lock and wait only on their own events and
+streams.  ``close()`` releases an engine's graphs, buffers and pool (a
+fleet restarting a dead replica calls it; the reference leaves the old
+client to the garbage collector, which on the card would keep its pool).
+
 Telemetry: ``batch_start`` (the end of queue wait) is stamped AFTER the
 executable is resolved, so a cold key's capture lands in ``queue_wait_ms``
 and its own ``compile_ms``, never in ``run_ms`` (launch to ready, host
@@ -54,6 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 import time
 from collections import deque
 from typing import Any, Callable
@@ -73,6 +85,10 @@ from repro_torch.serving.placement import PlacementPolicy
 from repro_torch.serving.scheduler import ScheduledBatch, static_batch_for
 from repro_torch.serving.types import FoldResult
 from repro_torch.serving.workload import FoldWorkload, Workload
+
+
+#: process-wide: one engine at a time warms up, releases and captures a key
+CAPTURE_LOCK = threading.Lock()
 
 
 class BatchExecutionError(RuntimeError):
@@ -170,6 +186,10 @@ class _Executable:
         return time.perf_counter() - t0
 
     def _capture(self) -> None:
+        with CAPTURE_LOCK:
+            self._capture_locked()
+
+    def _capture_locked(self) -> None:
         core = self.core
         self.static_in = self.synthetic_inputs()
         side = core.capture_stream()
@@ -191,7 +211,7 @@ class _Executable:
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         t1 = time.perf_counter()
         graph.instantiate()
-        torch.cuda.synchronize(core.device)
+        side.synchronize()
         self.instantiate_ms = (time.perf_counter() - t1) * 1e3
         self.nodes = _graph_node_count(graph)
         self.kernel_launches = {k: after[k] - before[k] for k in after}
@@ -446,6 +466,26 @@ class EngineCore:
             d["memory_reserved_bytes"] = torch.cuda.memory_reserved(self.device)
             d["memory_allocated_bytes"] = torch.cuda.memory_allocated(self.device)
         return d
+
+    def close(self) -> None:
+        """Release what the engine holds on the card: every key's graph and
+        static buffers, the pinned staging buffers and the graphs' pool,
+        whose segments go back to the driver.  The engine serves nothing
+        after this; an in-flight batch must have been retired first."""
+        if self._inflight:
+            raise RuntimeError(f"close() with {len(self._inflight)} batches in flight; "
+                               f"retire() them first")
+        with CAPTURE_LOCK:
+            for exe in self._executables.values():
+                exe.graph = None
+                exe.static_in, exe.static_out = (), {}
+            self._executables.clear()
+            self._staging.clear()
+            self.graph_pool = None
+            if self.device.type == "cuda":
+                if self._capture_stream is not None:
+                    self._capture_stream.synchronize()
+                torch.cuda.empty_cache()
 
     def pool_reserved_bytes(self) -> int | None:
         """Bytes the caching allocator holds in the graphs' shared pool (its

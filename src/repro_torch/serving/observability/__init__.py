@@ -1,6 +1,5 @@
 """repro_torch.serving.observability: tracing and metrics for the serving
-stack (port of ``repro/serving/observability``; the HTTP scrape endpoint
-``httpd.py`` is not ported).
+stack (port of ``repro/serving/observability``).
 
   * ``tracing``: per-request and per-batch ``Span`` trees recorded by a
     bounded, clock-injectable ``Tracer``, exported as Chrome-trace/Perfetto
@@ -9,9 +8,13 @@ stack (port of ``repro/serving/observability``; the HTTP scrape endpoint
   * ``registry``: labeled Counter/Gauge/Histogram instruments with
     Prometheus text and JSON exposition (``FoldClient.metrics_text()`` /
     ``metrics_json()``);
-  * ``profiler``: ``torch.profiler``/NVTX ranges around the engine's batch
-    phases (``annotate``).
+  * ``profiler`` + ``httpd``: ``torch.profiler``/NVTX ranges around the
+    engine's batch phases (``annotate``) and the optional stdlib scrape
+    endpoint (``--metrics-port``).
 """
+from repro_torch.serving.observability.httpd import (BackgroundHTTPServer,
+                                                     MetricsServer, QuietHandler,
+                                                     parse_hostport)
 from repro_torch.serving.observability.profiler import annotate
 from repro_torch.serving.observability.registry import (FRACTION_BUCKETS,
                                                         LATENCY_BUCKETS,
@@ -29,5 +32,6 @@ __all__ = [
     "validate_chrome_trace", "PROC_REQUESTS", "PROC_ENGINE",
     "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "LATENCY_BUCKETS", "FRACTION_BUCKETS", "PROMETHEUS_CONTENT_TYPE",
-    "annotate",
+    "MetricsServer", "BackgroundHTTPServer", "QuietHandler",
+    "parse_hostport", "annotate",
 ]

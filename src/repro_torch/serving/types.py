@@ -160,6 +160,9 @@ class FoldRequest:
     deadline_s: float | None = None    # relative budget from submit
     deadline_at: float | None = None   # absolute, client clock; set on submit
     cancelled: bool = False            # set by FoldHandle.cancel()
+    max_new_tokens: int | None = None  # LM decode only: generation budget
+                                       # (``aatype`` doubles as the prompt);
+                                       # a fold ignores it
 
     def __post_init__(self):
         self.aatype = np.asarray(self.aatype, np.int32)
@@ -167,6 +170,9 @@ class FoldRequest:
             raise ValueError(f"aatype must be 1-D, got {self.aatype.shape}")
         if self.deadline_s is not None and self.deadline_s <= 0:
             raise ValueError(f"deadline_s must be positive, got {self.deadline_s}")
+        if self.max_new_tokens is not None and self.max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, "
+                             f"got {self.max_new_tokens}")
 
     @property
     def length(self) -> int:
@@ -226,6 +232,40 @@ class FoldResult:
         if not self.bucket:
             return 0.0
         return 1.0 - self.length / self.bucket
+
+
+@dataclasses.dataclass
+class LMResult:
+    """Per-request decode outcome of the LM tenant (the reference keeps it
+    in ``repro/serving/lm.py``): the wire protocol encodes and decodes it,
+    so its fields are defined here ahead of the tenant itself."""
+
+    request_id: int
+    prompt_len: int
+    status: str = OK
+    reason: str = ""
+    tokens: np.ndarray | None = None   # (n,) int32 generated token ids
+    max_new_tokens: int = 0
+    priority: int = 0
+    queue_wait_ms: float = 0.0         # arrival -> slot join
+    compile_ms: float = 0.0            # decode-step captures it waited on
+    run_ms: float = 0.0                # its share of step wall time
+    steps: int = 0                     # decode steps it occupied a slot for
+    slot: int = -1
+    kv_bytes: int = 0                  # admission price of its KV slot
+    kernel_backend: str = ""
+    scheme: str = ""
+    logits_first: np.ndarray | None = None
+                                       # (V,) f32 logits of the first
+                                       # generated position
+
+    @property
+    def ok(self) -> bool:
+        return self.status == OK
+
+    @property
+    def new_tokens(self) -> int:
+        return 0 if self.tokens is None else int(len(self.tokens))
 
 
 def pad_to_bucket(seqs: list[np.ndarray], bucket: int,

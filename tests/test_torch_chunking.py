@@ -187,3 +187,92 @@ def test_capture_safe_helpers_match_their_old_forms_bitwise():
     for rows in (1, 7, 45):
         got, want = rows_valid_len(lens, rows), lens.repeat_interleave(rows)
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# the long fold's memory repair: slabbed stages, bf16 partner, in-place adds
+# --------------------------------------------------------------------------
+def _pair(b: int, n: int, hz: int, dtype=torch.float32, seed: int = 3):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((b, n, n, hz), generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("stage", ["input_embedding", "structure_pair_bias", "distogram_head"])
+@pytest.mark.parametrize("n,chunk", [(40, 16), (37, 8)])
+def test_slabbed_stages_match_unslabbed_bitwise(stage, n, chunk):
+    """The chunked path builds the input embedding, the structure module's
+    pair bias and the distogram head by row slabs (no full-size addend or
+    float32 LayerNorm temporary): in f32 on the CPU every element is the
+    same arithmetic in the same order, so the slabbed form is bitwise the
+    unslabbed one (37 is prime: one-row slabs)."""
+    from repro_torch.models.ppm import model as md
+    from repro_torch.models.ppm import structure as st
+    params = _params()[1]
+    if stage == "input_embedding":
+        aat = torch.from_numpy(_case(2, n)[0])
+        want, got = (md.input_embedding(params, aat, CFG, c) for c in (None, chunk))
+    else:
+        z = _pair(2, n, CFG.hz)
+        fn = ((lambda c: st.pair_bias(params["structure"], z, c)) if stage == "structure_pair_bias"
+              else (lambda c: md.distogram_head(params["distogram"], z, c)))
+        want, got = fn(None), fn(chunk)
+    for w, g in zip(want if isinstance(want, tuple) else (want,),
+                    got if isinstance(got, tuple) else (got,)):
+        assert w.dtype == g.dtype == torch.float32 and w.shape == g.shape
+        assert torch.equal(w.view(torch.int32), g.view(torch.int32)), stage
+
+
+@pytest.mark.parametrize("scheme", ["baseline_fp16", "lightnobel_aaq"])
+@pytest.mark.parametrize("outgoing", [True, False])
+def test_bf16_chunked_tri_mul_matches_float32_product(scheme, outgoing):
+    """At bf16 the chunked tri-mul keeps its resident operand in bf16 and
+    multiplies bf16 slabs with float32 accumulation; the unchunked op
+    multiplies float32 copies.  The inputs are bf16 values, so every product
+    is exact and only the summation order differs: at most one bf16 ulp of
+    the product, which the LayerNorm and projections carry to the output.
+    Tolerance: 2^-6 of the output's largest magnitude (two bf16 ulps)."""
+    from repro_torch.models.ppm import chunking as ck
+    from repro_torch.models.ppm import trunk as tk
+    from repro_torch.models.ppm import init_ppm
+    cfg = PPMConfig(**{**_TINY, "dtype": "bfloat16"})
+    p = init_ppm(cfg, seed=0, device="cpu")["trunk"][0]
+    sc = "tri_mul_out" if outgoing else "tri_mul_in"
+    z = _pair(2, 48, cfg.hz, torch.bfloat16)
+    mask = torch.from_numpy(_case(2, 48)[1])
+    want = tk.tri_mul_apply(p[sc], z, make_scheme(scheme), outgoing, sc, mask=mask)
+    got = ck.tri_mul_chunked(p[sc], z, make_scheme(scheme), outgoing, sc, 16, mask=mask)
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max()
+    assert float(err) <= 2.0 ** -6 * float(want.float().abs().max()), float(err)
+
+
+def test_in_place_block_matches_out_of_place_residual_adds_bitwise():
+    """``block_apply_chunked`` adds each op's slabs into z in place; the
+    residual adds ``z = z + op(z)`` of the same ops give the same bits."""
+    from repro_torch.models.ppm import chunking as ck
+    from repro_torch.models.ppm import trunk as tk
+    params = _params()[1]
+    p = params["trunk"][0]
+    aat, mask, _ = _case(2, 40)
+    mask = torch.from_numpy(mask)
+    g = torch.Generator().manual_seed(5)
+    s = torch.randn((2, 40, CFG.hm), generator=g)
+    z = _pair(2, 40, CFG.hz, seed=6)
+    scheme = make_scheme("lightnobel_aaq")
+    with torch.inference_mode():
+        s1, z1 = ck.block_apply_chunked(p, s, z.clone(), CFG, scheme, 16, mask=mask)
+        pb = ck.seq_pair_bias_chunked(p["seq_attn"], z, 16)
+        s2 = s + tk.seq_attn_apply(p["seq_attn"], s, z, CFG.seq_heads, mask=mask, pair_bias=pb)
+        s2 = s2 + tk.seq_transition_apply(p["seq_trans"], s2)
+        z2 = z + ck.opm_chunked(p["opm"], s2, 16)
+        z2 = z2 + ck.tri_mul_chunked(p["tri_mul_out"], z2, scheme, True, "tri_mul_out", 16,
+                                     mask=mask)
+        z2 = z2 + ck.tri_mul_chunked(p["tri_mul_in"], z2, scheme, False, "tri_mul_in", 16,
+                                     mask=mask)
+        z2 = z2 + ck.tri_attn_chunked(p["tri_attn_start"], z2, scheme, True, "tri_attn_start",
+                                      CFG.pair_heads, 16, mask=mask)
+        z2 = z2 + ck.tri_attn_chunked(p["tri_attn_end"], z2, scheme, False, "tri_attn_end",
+                                      CFG.pair_heads, 16, mask=mask)
+        z2 = z2 + ck.pair_transition_chunked(p["pair_trans"], z2, scheme, 16)
+    assert torch.equal(s1, s2)
+    assert torch.equal(z1.view(torch.int32), z2.view(torch.int32))

@@ -5,8 +5,9 @@ The same numpy inputs go through both packages.  Tolerances:
   * bitwise: int4 pack/unpack (all 256 bytes), quantize (inliers, scales,
     outlier values and indices, dequantize) on f32 and bf16 inputs including
     ties, the policy of every site, the bridge round trip;
-  * rtol/atol 1e-5: the float32 products (qmatmul, scheme linears), which
-    both sides sum in a different order.
+  * rtol/atol 1e-5: the float32 products (qmatmul, scheme linears, the
+    five comparison schemes' linears), which both sides sum in a different
+    order; the comparison schemes' ``act`` and ``weight`` are bitwise.
 """
 import numpy as np
 import pytest
@@ -167,15 +168,20 @@ def test_policy_for_every_site(site):
 
 
 def test_act_bytes_match_over_inventory():
+    """Every scheme of the reference's zoo is registered in the port and
+    prices the pair inventory identically (admission prices from it)."""
     cfg = jax_reduce_cfg()
-    for name in ("baseline_fp16", "lightnobel_aaq"):
+    assert list(tcore.SCHEMES) == list(jcore.SCHEMES)
+    for name in jcore.SCHEMES:
         js, ts = jcore.make_scheme(name), tcore.make_scheme(name)
+        assert ts.name == js.name == name
         for site, shape in jax_inventory(cfg, 48, batch=2):
             assert js.act_bytes(site, shape) == ts.act_bytes(site, shape)
             assert js.act_bits(site, shape[-1]) == ts.act_bits(site, shape[-1])
         assert js.weight_bits() == ts.weight_bits()
-    with pytest.raises(KeyError):
-        tcore.make_scheme("smoothquant")
+    for make in (jcore.make_scheme, tcore.make_scheme):
+        with pytest.raises(KeyError):
+            make("no_such_scheme")
 
 
 # --------------------------------------------------------------------------
@@ -203,6 +209,36 @@ def test_scheme_linear_and_act_match_reference(name, site):
     ty = ts.linear(_t(x), _t(w), _t(b), site).numpy()
     np.testing.assert_allclose(ty, jy, rtol=1e-5, atol=1e-5 * np.abs(jy).max())
     _bits_equal(np.asarray(js.act(jnp.asarray(x), site)), ts.act(_t(x), site).numpy())
+
+
+COMPARISON_SCHEMES = ["smoothquant", "llm_int8", "ptq4protein", "tender", "mefold"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", COMPARISON_SCHEMES)
+def test_comparison_scheme_matches_reference(name, dtype):
+    """The five comparison schemes, plain PyTorch against the reference's
+    jnp code on the same input: ``act`` and ``weight`` bitwise (the same
+    divisions, half-to-even rounding and clips; no exception was needed),
+    ``linear`` allclose 1e-5 (float32 sums in another order; SmoothQuant's
+    smoothing factor is a float power on both sides).  The input has an
+    outlier channel above LLM.int8's threshold and a (2, 9) token grid,
+    so token-, channel- and tensor-wide scales all differ."""
+    rng = np.random.default_rng(17)
+    x = 3 * _activations(2 * 9, 32, seed=19).reshape(2, 9, 32)
+    x[..., 5] += 9.0
+    w = (rng.standard_normal((32, 16)) / 4).astype(np.float32)
+    b = rng.standard_normal((16,)).astype(np.float32)
+    if dtype == "bfloat16":
+        x, w, b = (a.astype(ml_dtypes.bfloat16) for a in (x, w, b))
+    js, ts = jcore.make_scheme(name), tcore.make_scheme(name)
+    jx, jw, jb = jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)
+    tx, tw, tb = _t(x), _t(w), _t(b)
+    _bits_equal(np.asarray(js.act(jx, "tri_mul_out.ab")), _np(ts.act(tx, "tri_mul_out.ab")))
+    _bits_equal(np.asarray(js.weight(jw)), _np(ts.weight(tw)))
+    jy = np.asarray(js.linear(jx, jw, jb, "tri_mul_out.post_ln")).astype(np.float32)
+    ty = ts.linear(tx, tw, tb, "tri_mul_out.post_ln").float().numpy()
+    np.testing.assert_allclose(ty, jy, rtol=1e-5, atol=1e-5 * np.abs(jy).max())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
