@@ -13,7 +13,10 @@ Phases, each fatal on failure:
      main-path shape, the plain version's, the least time the card could
      take (``bound_ms``) and one PyTorch library call's; both forms of the
      AAQ quantize kernel (``aaq_quantize`` for the linears, the fake-quant
-     ``aaq_fake_quant`` for the ``act`` sites) bitwise;
+     ``aaq_fake_quant`` for the ``act`` sites) bitwise; and the LM decode
+     tenant's shapes: flash with one query row a slot against a 256-row
+     KV ring (``kv_valid_len`` 1, 17, 255, 256; GQA 16/2 at head dim 128),
+     a causal prefill, ``aaq_quantize`` on KV rows bitwise;
   4. whole forward, kernels vs the plain references, 2 blocks at full
      esmfold_ppm width, one padded request, with two controls that the
      lightnobel_aaq gate must reject;
@@ -45,7 +48,10 @@ Phases, each fatal on failure:
      capture time and node count), whose peak above what was held before
      it must stay within the 4,096 MB budget it was admitted under, through
      its graph and eager (the planner's estimate, the budget and both peaks
-     on one line), with the peak of each stage;
+     on one line), and so must its key's graph pool and the peak of
+     ``memory_reserved`` above its level before the request (warm-up,
+     capture and replay; pool/peak printed, and the segments outside the
+     pool that came with the key), with the peak of each stage;
   7. the fleet: ``FoldHTTPServer`` over a ``FleetRouter`` of 2 engine
      replicas at full width on 127.0.0.1:0 (phase 6's short settings,
      fidelity on, each replica warmed with one graph per key): two passes
@@ -60,7 +66,28 @@ Phases, each fatal on failure:
      released; then one N = 250 fold under each of the five comparison
      schemes through the sequential server (fold time, TM against
      baseline_fp16; finite coords gated);
-  8. summary: one JSON line of the kernels, the card, and the last line
+  8. the LM decode tenant: qwen1.5-0.5b at full width (24 layers, d_model
+     1,024, bf16, random weights from seed 0) through
+     ``LMClient(window=256, max_slots=4)`` over 6 prompts of 4-16 tokens,
+     16 new tokens each, under ``baseline_fp16`` and then
+     ``lightnobel_aaq``: all served, one CUDA graph captured at warm-up
+     and none after, 24 flash launches a captured step and under AAQ 48
+     ``aaq_quantize``, no plain version, KV bytes a request exactly the
+     reference's formula, layer 0's ring rows against the rows they came
+     from (raw: bitwise; AAQ: within half a quantization step), a graph
+     replay against the eager step bitwise (logits and ring), one request
+     alone against the same request in the batch bitwise; the served
+     step against the plain path on the card (``kernels="ref"``, same
+     weights): first logits within a limit set from readings, the first
+     token equal wherever the top-2 gap rules out a flip, under fp16 each
+     prompt's full-sequence prefill against the served first logits, and
+     ``unembed`` against the widened float32 product; the AAQ-vs-fp16
+     first-token logit drift printed, not gated; ``/v1/generate`` over
+     HTTP to 2 replicas (SSE token events in order, wire tokens bitwise
+     the in-process client's, ``workload="lm"`` series); then qwen2.5-3b
+     at full width (GQA 16/2, head dim 128) under AAQ on 2 prompts, also
+     against the plain path;
+  9. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -511,12 +538,99 @@ def check_flash(torch, rows: dict) -> None:
     timed(tri, "flash_mha", "tri: q,k,v (1024, 1024, 4, 32) bf16 views, "
           "bias (1, 4, 1024, 1024) bf16 transposed; error on 8 rows", plain=False,
           library=False, err=tri_err)
+    # its library yardstick on a quarter of the rows, scaled by 4: the bias
+    # expanded over all 1,024 rows would take 8.6 GB in bf16
+    sub = slice(0, 256)
+    mask = tri["bias"].expand(256, 4, 1024, 1024).clone()
+    mask[..., 1024 - 24:] = -1e30
+    qt, kt, vt = (a[sub].transpose(1, 2) for a in (tri["q"], tri["k"], tri["v"]))
+    rows["flash_mha"][-1].library_ms = 4 * time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), iters=5)
+    log(f"flash_mha tri N=1024: library_ms {rows['flash_mha'][-1].library_ms:.4f} (SDPA on "
+        f"256 of the 1,024 rows, the bias expanded over them, times 4)")
+    del mask, qt, kt, vt
     timed(by_name["seq N=2048"], "flash_mha", "seq: q,k,v (1, 2048, 16, 64) bf16, "
           "bias (1, 16, 2048, 2048) f32 permuted")
     c = by_name["tri N=256"]
     f32 = dict(c, q=c["q"].float(), k=c["k"].float(), v=c["v"].float())
     assert variant_for(f32["q"].dtype, 32) == "simt"
     timed(f32, "flash_mha_simt", "tri: q,k,v (256, 256, 4, 32) f32, bias (1, 4, 256, 256) bf16")
+
+
+def check_lm_kernels(torch, rows: dict) -> list:
+    """The flash and quantize kernels at the LM decode tenant's shapes
+    (phase 8's): decode attention, one query row against a 256-row KV ring
+    with a key length per slot (the first step's 1, a full ring), also with
+    GQA at head dim 128; a causal prefill; the KV-row quantize, bitwise.
+    Returns (row, launch tally key) for the rows phase 8's run counts."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.aaq_quant.aaq_quant import aaq_quantize_kernel
+    from repro_torch.kernels.aaq_quant.ref import aaq_quantize_ref
+    from repro_torch.kernels.flash_attention.flash_attention import (flash_mha_kernel,
+                                                                     flash_mha_plain)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    bf = torch.bfloat16
+    pending = []
+
+    def kv_case(hq, hkv, d, kvlen):
+        q = torch.randn((4, 1, hq, d), generator=g, device="cuda").to(bf)
+        k = torch.randn((4, 256, hkv, d), generator=g, device="cuda").to(bf)
+        v = torch.randn((4, 256, hkv, d), generator=g, device="cuda").to(bf)
+        return q, k, v, torch.tensor(kvlen, dtype=torch.int32, device="cuda")
+
+    cases = [("lm decode", "qwen1.5-0.5b", 16, 16, 64, [1, 17, 255, 256]),
+             ("lm decode GQA", "qwen2.5-3b", 16, 2, 128, [256, 100, 1, 37])]
+    for label, arch, hq, hkv, d, kvlen in cases:
+        q, k, v, kvl = kv_case(hq, hkv, d, kvlen)
+        o = flash_mha_kernel(q, k, v, None, kvl)
+        err = _flash_close(torch, o, flash_mha_plain(q, k, v, None, kvl), v, label)
+        row = _row("flash_mha", f"{label} ({arch}): q (4, 1, {hq}, {d}), k,v ring "
+                                f"(4, 256, {hkv}, {d}) bf16, kv_valid_len {kvlen}")
+        row.max_abs_err = err
+        fn = lambda: flash_mha_kernel(q, k, v, None, kvl)  # noqa: E731
+        row.ms, row.call_ms = time_ms(torch, fn), call_ms(torch, fn)
+        row.plain_ms = time_ms(torch, lambda: flash_mha_plain(q, k, v, None, kvl), iters=5)
+        # SDPA with the key lengths as a boolean mask and the KV heads repeated
+        keep = (torch.arange(256, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
+        kt, vt = (a.repeat_interleave(hq // hkv, dim=2).transpose(1, 2) for a in (k, v))
+        qt = q.transpose(1, 2)
+        row.library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep))
+        # what these key lengths need: their K/V rows read once, q and o
+        valid = int(kvl.sum())
+        row.bound_ms, row.bound_by = bound_ms(
+            nbytes(q, o, kvl) + 2 * valid * hkv * d * 2, 4 * valid * hq * d)
+        pending.append((row, ("flash_mha", ("lm", 4, 1, hq, d, None))))
+        log(row.line())
+    # a causal prefill (not on the served path: the tenant teacher-forces
+    # prompts through decode steps), held to its plain version only
+    q = torch.randn((2, 100, 16, 64), generator=g, device="cuda").to(bf)
+    k = torch.randn((2, 100, 16, 64), generator=g, device="cuda").to(bf)
+    v = torch.randn((2, 100, 16, 64), generator=g, device="cuda").to(bf)
+    err = _flash_close(torch, flash_mha_kernel(q, k, v, causal=True),
+                       flash_mha_plain(q, k, v, causal=True), v, "lm causal prefill")
+    log(f"flash_mha lm causal prefill q,k,v (2, 100, 16, 64) bf16: max|err| {err:.3e}")
+    # the KV rows: (slots x KV heads, head dim), group C (4 bits, no outliers)
+    for t, h, arch in ((64, 64, "qwen1.5-0.5b"), (8, 128, "qwen2.5-3b")):
+        x = torch.randn((t, h), generator=g, device="cuda").to(bf)
+        x[0] = 0                                      # an all-zero row
+        got = aaq_quantize_kernel(x, bits=4, k_outliers=0)
+        want = aaq_quantize_ref(x, 4, 0)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("inliers", "scales", "ovals", "oidx"), got, want):
+            if not _bitwise(torch, a, b):
+                fail(f"aaq_quantize {name} not bitwise equal on KV rows ({t}, {h})")
+        row = _row("aaq_quantize", f"lm KV rows ({arch}): x ({t}, {h}) bf16, bits 4, k 0")
+        fn = lambda: aaq_quantize_kernel(x, bits=4, k_outliers=0)  # noqa: E731
+        row.ms, row.call_ms = time_ms(torch, fn), call_ms(torch, fn)
+        row.plain_ms = time_ms(torch, lambda: aaq_quantize_ref(x, 4, 0), iters=5)
+        row.bound_ms, row.bound_by = bound_ms(nbytes(x, *got), 0)
+        pending.append((row, ("aaq_quantize", (t, h, 4, 0))))
+        log(row.line())
+    log("lm kernels: flash decode (Sq = 1 against a 256-row ring, kv_valid_len 1..256, "
+        "GQA 16/2 at D = 128) and a causal prefill held to flash_mha_plain; KV-row "
+        "aaq_quantize bitwise at (64, 64) and (8, 128)")
+    return pending
 
 
 # ---------------------------------------------------------------------------
@@ -675,7 +789,7 @@ def _device_us(evt) -> float:
 
 
 # the function that hands dispatch.attention its operands -> the attention it is
-_ATTN_CALLERS = {"seq_attn_apply": "seq", "structure_apply": "structure"}
+_ATTN_CALLERS = {"seq_attn_apply": "seq", "structure_apply": "structure", "attn_apply": "lm"}
 
 
 @contextlib.contextmanager
@@ -979,6 +1093,8 @@ def _engine_long(torch, cfg, params, sampler):
     long_seq = sampler.sample(300, length=ENGINE_LONG_LEN)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
+    reserved0 = torch.cuda.memory_reserved()
+    segments0 = {sg["address"] for sg in torch.cuda.memory_snapshot()}
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_counters()
     with launch_tally(full=True) as ltally:
@@ -989,6 +1105,7 @@ def _engine_long(torch, cfg, params, sampler):
     llaunch, lplain, lrouted = _counts()
     lpeak = torch.cuda.max_memory_allocated()
     lreserved = torch.cuda.memory_reserved()
+    growth = torch.cuda.max_memory_reserved() - reserved0
     est = lcore.admission.estimate_bytes(ENGINE_LONG_BUCKET, 1)
     (lexe,) = lcore._executables.values()
     d = lexe.describe()
@@ -1006,6 +1123,29 @@ def _engine_long(torch, cfg, params, sampler):
     if lpeak - base > budget:
         fail(f"long request: the graph pass peaked {(lpeak - base) / 1e6:.0f} MB above what was "
              f"held before it, over the {budget / 1e6:.0f} MB budget it was admitted under")
+    # what the card holds for the key beyond the fold's peak: the graph pool,
+    # and memory_reserved's growth from before the request (its peak over
+    # the eager warm-up, the capture and the replay), both in admission's MB
+    pool = lcore.pool_reserved_bytes()
+    log(f"long request: graph pool {pool / 1e6:.0f} MB for a fold peak of "
+        f"{(lpeak - base) / 1e6:.0f} MB: pool/peak {pool / (lpeak - base):.3f}; "
+        f"memory_reserved grew by at most {growth / 1e6:.0f} MB ({reserved0 / 2**30:.3f} GiB "
+        f"before the request, {lreserved / 2**30:.3f} GiB after it); budget "
+        f"{budget / 1e6:.0f} MB; on {torch.cuda.get_device_name(0)}")
+    pool_id = tuple(lcore.graph_pool)
+    outside = [sg for sg in torch.cuda.memory_snapshot() if sg["address"] not in segments0
+               and tuple(sg["segment_pool_id"]) != pool_id]
+    log(f"long request: {len(outside)} segments outside the graph pool appeared with the key, "
+        f"{sum(sg['total_size'] for sg in outside) / 1e6:.0f} MB: "
+        + "; ".join(f"{sg['total_size'] / 1e6:.1f} MB segment, {sg['allocated_size'] / 1e6:.1f} "
+                    f"MB allocated in blocks of "
+                    f"{[round(bl['size'] / 1e6, 1) for bl in sg['blocks'] if bl['state'] == 'active_allocated']} MB"
+                    for sg in sorted(outside, key=lambda sg: -sg["total_size"])[:6])
+        + f" (the replay's distogram copy is {res.length}² x 64 padded to {ENGINE_LONG_BUCKET}²: "
+        f"{ENGINE_LONG_BUCKET ** 2 * 64 * 2 / 1e6:.0f} MB in bf16)")
+    if pool > budget or growth > budget:
+        fail(f"long request: graph pool {pool / 1e6:.0f} MB or memory_reserved growth "
+             f"{growth / 1e6:.0f} MB over the {budget / 1e6:.0f} MB budget it was admitted under")
     log(f"long request: launches {llaunch}; plain versions {lplain}; routed {lrouted}")
     _check_main_path("long request", llaunch, lplain, lrouted)
     if res.bucket != ENGINE_LONG_BUCKET or not res.chunk_size or not res.ok \
@@ -1019,7 +1159,8 @@ def _engine_long(torch, cfg, params, sampler):
     log(f"long request, second fold (a replay): {lwall2:.1f} ms wall, run_ms {res2.run_ms:.1f}")
     readings = dict(long_chunk=res.chunk_size, long_wall_ms=lwall2, long_peak=lpeak - base,
                     long_est=est, long_capture_ms=d["capture_ms"], long_nodes=d["nodes"],
-                    long_pool=lcore.pool_reserved_bytes(), long_reserved=lreserved)
+                    long_pool=pool, long_reserved=lreserved, long_reserved_growth=growth,
+                    long_pool_over_peak=pool / (lpeak - base))
     chunk = res.chunk_size
     del long_client, lcore, lexe, res, res2
     gc.collect()
@@ -1551,6 +1692,406 @@ def fold_schemes(torch, cfg, params) -> None:
         + "; ".join(rows) + " (TM against baseline_fp16; finite coords gated)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the LM decode tenant, one CUDA graph per scheme
+# ---------------------------------------------------------------------------
+def _lm_prompts(vocab: int, n: int):
+    import numpy as np
+    rng = np.random.default_rng(11)          # the reference example's trace
+    return [rng.integers(0, vocab, size=int(rng.integers(4, 17))).astype(np.int32)
+            for _ in range(n)]
+
+
+def _lm_model(torch, arch: str):
+    from repro_torch.configs import get_config
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    log(f"{arch}: {cfg.layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, "
+        f"{cm.count_params(params) / 1e9:.3f}B params ({cm.param_bytes(params) / 2**30:.2f} GiB) "
+        f"from seed 0 in {time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def _lm_serve(torch, cfg, params, scheme, prompts, max_new, tally_into=None):
+    """One ``LMClient`` (window 256, 4 slots): warm-up (the one capture)
+    and the trace, with the counters zeroed just before and read just
+    after.  Gates: every request served, one capture and none after the
+    warm-up, flash on every layer of the captured step and, under AAQ, two
+    aaq_quantize launches a layer, no plain version, no launch outside
+    the graph while serving."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import CompileWatcher, LMClient
+    client = LMClient(params, cfg, scheme, window=256, max_slots=4,
+                      default_max_new_tokens=max_new, device="cuda")
+    core = client.core
+    watch = CompileWatcher()
+    dispatch.reset_counters()
+    with launch_tally(full=True) as tally:
+        t0 = time.perf_counter()
+        client.warmup()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        captured = watch.delta()
+        watch.mark()
+        t0 = time.perf_counter()
+        results = client.run(prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, plain, routed = _counts()
+    if tally_into is not None:
+        tally_into.update(tally)
+    (exe,) = core._executables.values()
+    per_step = exe.kernel_launches
+    quant = scheme != "baseline_fp16"
+    flash = "flash_mha" if cfg.hd in (16, 32, 64, 128) else "flash_mha_simt"
+    want = {k: 0 for k in per_step}
+    want[flash] = cfg.layers
+    if quant:
+        want["aaq_quantize"] = 2 * cfg.layers
+    s = client.metrics.summary()
+    # the step's device time: one replay by CUDA events (it writes ring row 0,
+    # which the KV-row check leaves out)
+    zeros = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    replay_ms = sorted(exe.timed_ms(zeros, zeros, clock=time.perf_counter) for _ in range(5))[2]
+    log(f"lm {cfg.name} {scheme}: {s['served']}/{len(prompts)} served, {s['tokens']} tokens in "
+        f"{s['steps']} steps, wall {wall * 1e3:.1f} ms ({1e3 * wall / max(1, s['steps']):.2f} ms "
+        f"a step with its host work, the replay {replay_ms:.3f} ms by CUDA events, "
+        f"{s['tokens'] / wall:.1f} tokens/s); warm-up {capture_ms:.0f} ms ({captured} "
+        f"capture, {exe.nodes} graph nodes), {watch.delta()} captures while serving; kernel "
+        f"launches in the graph (a step) {per_step}; wrapper launches of the run {launches} "
+        f"(warm-up and capture; replays run no wrapper), replayed "
+        f"{ {k: v for k, v in core.replayed_launches.items() if v} }; plain {plain}")
+    if s["served"] != len(prompts) or not all(r.ok for r in results):
+        fail(f"lm {cfg.name} {scheme}: served {s['served']} of {len(prompts)}")
+    if captured != 1 or watch.delta() or core.compile_count != 1:
+        fail(f"lm {cfg.name} {scheme}: {captured} captures at warm-up, {watch.delta()} after")
+    if per_step != want:
+        fail(f"lm {cfg.name} {scheme}: captured step launches {per_step}, want {want}")
+    if any(plain.values()) or routed["attention.ref"] or routed["quantize.ref"]:
+        fail(f"lm {cfg.name} {scheme}: a plain version ran: {plain} {routed}")
+    if launches[flash] == 0 or (quant and launches["aaq_quantize"] == 0):
+        fail(f"lm {cfg.name} {scheme}: a kernel of the path never launched: {launches}")
+    return client, results, dict(wall_s=wall, steps=s["steps"], tokens=s["tokens"],
+                                 step_ms=1e3 * wall / max(1, s["steps"]), replay_ms=replay_ms,
+                                 tokens_per_s=s["tokens"] / wall,
+                                 kv_bytes=core.admission.bytes_per_request)
+
+
+def _lm_profile(torch, client) -> None:
+    """Where a decode step's time goes: 5 replays of the step's graph under
+    torch.profiler, the device-busy share of their wall time and the
+    kernels that take the most device time.  Not gated: it reads "not
+    measured" when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    (exe,) = client.core._executables.values()
+    zeros = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    exe.launch(zeros, zeros)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            exe.launch(zeros, zeros)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+               if _device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    what = f"lm {client.core.cfg.name} {client.core.scheme.name} profile of 5 replays"
+    if not kernels:
+        log(f"{what}: wall {wall:.2f} ms; the profiler recorded no device time (not measured)")
+        return
+    busy = sum(us for _, us, _ in kernels) / 1e3
+    log(f"{what}: wall {wall:.2f} ms, device busy {busy:.2f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(c for _, _, c in kernels) / 5:.0f} device kernels a step; by device time a step: "
+        + "; ".join(f"{us / 5e3:.3f} ms {n // 5}x {name[:60]}"
+                    for name, us, n in sorted(kernels, key=lambda k: -k[1])[:6]))
+
+
+def _lm_graph_vs_eager(torch, client) -> None:
+    """One step replayed by the graph against the same step run eagerly,
+    from the same KV ring: logits and the ring after it bitwise."""
+    core = client.core
+    (exe,) = core._executables.values()
+    tokens = torch.tensor([5, 17, 0, 900], dtype=torch.int32, device="cuda") % core.cfg.vocab
+    positions = torch.tensor([3, 40, 0, 255], dtype=torch.int32, device="cuda")
+    before = {k: v.clone() for k, v in core.cache.items()}
+    eager = exe._forward(tokens, positions)["logits"].clone()
+    ring_eager = {k: v.clone() for k, v in core.cache.items()}
+    for k, v in core.cache.items():
+        v.copy_(before[k])
+    graph = exe.launch(tokens, positions)["logits"]
+    torch.cuda.synchronize()
+    same = _bitwise(torch, graph, eager) and all(
+        torch.equal(core.cache[k], ring_eager[k]) for k in core.cache)
+    log(f"lm {core.cfg.name} {core.scheme.name}: graph replay vs the eager step, logits and KV "
+        f"ring bitwise equal: {same}")
+    if not same:
+        fail(f"lm {core.cfg.name} {core.scheme.name}: graph replay differs from the eager step")
+
+
+def _lm_kv_rows(torch, client, prompts, results) -> None:
+    """Layer 0's ring after the trace: each slot's rows are the K/V rows of
+    the tokens its last occupant fed, recomputed here at the step's shape
+    (4 slots); raw rows bitwise, quantized rows dequantized within half a
+    quantization step (their f32 scale / 2) of the row they came from.
+    Row 0 is left out: a slot that went idle fed token 0 at position 0 in
+    every later step, as the reference's idle slots do."""
+    import numpy as np
+    from repro_torch.core.qtensor import unpack_int4
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.lm import _kv_policy
+    core = client.core
+    cfg, params, cache = core.cfg, core.params, core.cache
+    last = {}
+    for r in results:                         # the last occupant of each slot
+        if r.slot not in last or r.request_id > last[r.slot].request_id:
+            last[r.slot] = r
+    fed = {slot: np.concatenate([prompts[r.request_id], r.tokens[:-1]])
+           for slot, r in last.items()}
+    pol = _kv_policy(core.scheme)
+    p0 = params["blocks"][0]
+    worst, rows = 0.0, 0
+    for j in range(1, max(len(f) for f in fed.values())):
+        tok = [int(fed[i][j]) if i in fed and j < len(fed[i]) else 0 for i in range(4)]
+        x = cm.embed(params["embed"], torch.tensor(tok, device="cuda").long()[:, None])
+        pos = torch.full((4, 1), j, dtype=torch.int32, device="cuda")
+        with torch.inference_mode():
+            _, k, v = tf.qkv(p0["attn"], tf.apply_norm(p0["attn_norm"], x, cfg), cfg, pos)
+        for i in range(4):
+            if i not in fed or j >= len(fed[i]):
+                continue
+            for name, src in (("k", k), ("v", v)):
+                want = src[i, 0]                                      # (Hkv, hd)
+                if pol is None:
+                    if not _bitwise(torch, cache[name][0, i, j % 256], want):
+                        fail(f"lm KV ring: raw {name} row of slot {i} at {j} differs")
+                    continue
+                q = unpack_int4(cache[f"{name}_inliers"][0, i, j % 256]).float()
+                sc = cache[f"{name}_scales"][0, i, j % 256]
+                err = ((q * sc - want.float()).abs() / sc).max()
+                worst = max(worst, float(err))
+                rows += 1
+    log(f"lm {cfg.name} {core.scheme.name}: layer 0's KV ring after the trace, "
+        + ("raw rows bitwise the recomputed K/V rows" if pol is None else
+           f"{rows} dequantized rows within {worst:.4f} of a quantization step of the rows "
+           f"they came from (gate 0.5)"))
+    if pol is not None and worst > 0.5 + 1e-5:
+        fail(f"lm KV ring: a dequantized row is {worst:.4f} steps from its source")
+
+
+#: phase 8's limits on the served decode against the plain path on the card,
+#: set from the readings on the H100 80GB HBM3 at 700 W (PERF.md, section 6):
+#: max |logits_first(kernels) - logits_first(kernels="ref")| read 0.049 under
+#: fp16 and 0.218 / 0.322 under AAQ (qwen1.5-0.5b / qwen2.5-3b: one INT4 step
+#: flips where the K/V row moved by one bf16 ulp); the AAQ limit stays under
+#: the 0.91 that the AAQ-vs-fp16 drift reads, so a ring that skipped
+#: quantization on one side fails it.  Prefill vs the served first logits
+#: read 0.049, unembed vs the widened product 4.8e-6 / 1.0e-5.
+LM_PLAIN_FIRST_TOL = {"baseline_fp16": 0.2, "lightnobel_aaq": 0.5}
+LM_PREFILL_TOL = 0.2
+LM_UNEMBED_TOL = 1e-4
+
+
+def _lm_vs_plain(torch, client, prompts, results) -> dict:
+    """The served decode against plain paths on the card, same weights:
+    an ``LMClient`` with ``kernels="ref"`` (plain attention and
+    ``quantize_ref``, every other op the same) on the same prompts; under
+    fp16 also each prompt's full-sequence prefill under the plain backend
+    (causal attention over the prompt: no ring, no per-slot positions,
+    no ``index_put_``) against the served first logits; and ``unembed``
+    (``torch.mm`` with a float32 output) against the product of the
+    operands widened to float32.  Token streams are compared, not gated
+    whole: flash rounds its probabilities to bf16 for the tensor cores,
+    the plain path keeps them in float32, and a one-ulp difference carried
+    through every layer flips near-tied greedy picks.  Where the first
+    logits' top-2 gap exceeds twice the measured difference the first
+    token cannot flip, and must be equal.  Launches here are comparisons:
+    the counted run is over."""
+    import numpy as np
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import LMClient
+    core = client.core
+    cfg, params, scheme = core.cfg, core.params, core.scheme.name
+    ref = LMClient(params, cfg, scheme, window=core.window, max_slots=core.max_slots,
+                   default_max_new_tokens=client.default_max_new_tokens,
+                   kernels=dispatch.REF, device="cuda")
+    try:
+        ref_res = ref.run(prompts)
+    finally:
+        ref.close()
+    diffs = [float(np.max(np.abs(a.logits_first - b.logits_first)))
+             for a, b in zip(results, ref_res)]
+    gaps = [float(np.diff(np.sort(b.logits_first)[-2:])[0]) for b in ref_res]
+    same = sum(int(np.array_equal(a.tokens, b.tokens)) for a, b in zip(results, ref_res))
+    sure = [i for i, (d, g) in enumerate(zip(diffs, gaps)) if g > 2 * d]
+    flipped = [i for i in sure if results[i].tokens[0] != ref_res[i].tokens[0]]
+    out = dict(first=max(diffs), streams=same, sure=len(sure), flipped=flipped)
+    with torch.inference_mode(), dispatch.use_backend(dispatch.REF):
+        if scheme == "baseline_fp16":
+            pre = [lm.prefill_fn(params, {"tokens": torch.tensor(pr[None], device="cuda").long()},
+                                 cfg)[0, 0].cpu().numpy() for pr in prompts]
+            out["prefill"] = max(float(np.max(np.abs(a - r.logits_first)))
+                                 for a, r in zip(pre, results))
+            out["prefill_plain"] = max(float(np.max(np.abs(a - r.logits_first)))
+                                       for a, r in zip(pre, ref_res))
+        g = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn((4, 1, cfg.d_model), generator=g, device="cuda").to(cfg.torch_dtype)
+        e = (params["embed"]["e"] if cfg.tie_embeddings else params["lm_head"]["w"].t())
+        want = x.float() @ e.float().t()
+        out["unembed"] = float((tf.unembed(params, x, cfg) - want).abs().max())
+    tol = LM_PLAIN_FIRST_TOL[scheme]
+    log(f"lm {cfg.name} {scheme}: served (kernels) vs the plain path on the card (kernels=ref, "
+        f"same weights and prompts): max |logits_first| difference {out['first']:.4e} (limit "
+        f"{tol}); identical token streams {same}/{len(prompts)}; first token equal in the "
+        f"{len(sure)} requests whose top-2 gap exceeds twice their difference: "
+        f"{not flipped} (gaps {[f'{v:.3e}' for v in gaps]})"
+        + (f"; full-sequence prefill (plain) vs served logits_first {out['prefill']:.4e}, vs "
+           f"the plain path's {out['prefill_plain']:.4e} (limit {LM_PREFILL_TOL})"
+           if "prefill" in out else "")
+        + f"; unembed vs the widened float32 product {out['unembed']:.4e} "
+        f"(limit {LM_UNEMBED_TOL})")
+    if not (out["first"] <= tol and out["unembed"] <= LM_UNEMBED_TOL) or flipped:
+        fail(f"lm {cfg.name} {scheme}: the served step departs from the plain path: {out}")
+    if "prefill" in out and not max(out["prefill"], out["prefill_plain"]) <= LM_PREFILL_TOL:
+        fail(f"lm {cfg.name} {scheme}: prefill departs from the served first logits: {out}")
+    return out
+
+
+def serve_lm(torch, lm_pending) -> dict:
+    """Phase 8 (see the module docstring).  Returns the launches by variant
+    of its counted runs and fills the launches of the LM kernel rows."""
+    import gc
+    import numpy as np
+    from repro_torch.serving.lm import KV_SITE
+    cfg, params = _lm_model(torch, "qwen1.5-0.5b")
+    prompts = _lm_prompts(cfg.vocab, 6)
+    tally = Counter()
+    total = Counter()
+    runs = {}
+    for scheme in ("baseline_fp16", "lightnobel_aaq"):
+        client, results, reading = _lm_serve(torch, cfg, params, scheme, prompts, 16, tally)
+        total.update(_counts()[0])
+        bits = client.core.scheme.act_bits(KV_SITE, cfg.hd)
+        formula = math.ceil(cfg.layers * 2 * 256 * cfg.n_kv_heads * cfg.hd * bits / 8)
+        if reading["kv_bytes"] != formula or any(r.kv_bytes != formula for r in results):
+            fail(f"lm {scheme}: KV bytes {reading['kv_bytes']} != {formula}")
+        _lm_kv_rows(torch, client, prompts, results)
+        _lm_graph_vs_eager(torch, client)
+        _lm_profile(torch, client)
+        _lm_vs_plain(torch, client, prompts, results)
+        # one request alone against the same request in the batch
+        k = 3
+        solo = client.run([prompts[k]])[0]
+        same = (np.array_equal(solo.tokens, results[k].tokens)
+                and solo.logits_first.tobytes() == results[k].logits_first.tobytes())
+        log(f"lm {scheme}: request {k} alone vs in the batch of 4 slots: token stream and "
+            f"first logits bitwise equal: {same}")
+        if not same or client.core.compile_count != 1:
+            fail(f"lm {scheme}: request {k} alone differs from its batched run")
+        runs[scheme] = (results, reading)
+        client.close()
+    fp_res, fp = runs["baseline_fp16"]
+    aq_res, aq = runs["lightnobel_aaq"]
+    drift = max(float(np.max(np.abs(a.logits_first - f.logits_first)))
+                for a, f in zip(aq_res, fp_res))
+    agree = sum(int(np.array_equal(a.tokens, f.tokens)) for a, f in zip(aq_res, fp_res))
+    log(f"lm {cfg.name}: KV bytes a request fp16 {fp['kv_bytes']} / aaq {aq['kv_bytes']} = "
+        f"{fp['kv_bytes'] / aq['kv_bytes']:.3f}x; step {fp['step_ms']:.2f} / {aq['step_ms']:.2f} ms "
+        f"(host clock, a step of 4 slots with its host work), replay {fp['replay_ms']:.3f} / "
+        f"{aq['replay_ms']:.3f} ms (CUDA events); {fp['tokens_per_s']:.1f} / "
+        f"{aq['tokens_per_s']:.1f} decoded tokens/s; max |logits_first(aaq) - "
+        f"logits_first(fp16)| = {drift:.4e} (not gated: random full-width bf16 weights), "
+        f"identical token streams {agree}/{len(prompts)}; on {torch.cuda.get_device_name(0)}")
+    if not math.isfinite(drift):
+        fail(f"lm: logits drift {drift}")
+    http_fleet_lm(torch, cfg, params, prompts[:4], {r.request_id: r for r in aq_res})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # GQA at head dim 128 on the tensor-core flash: qwen2.5-3b, 2 prompts
+    cfg3, params3 = _lm_model(torch, "qwen2.5-3b")
+    prompts3 = _lm_prompts(cfg3.vocab, 2)
+    client, res3, r3 = _lm_serve(torch, cfg3, params3, "lightnobel_aaq", prompts3, 8, tally)
+    total.update(_counts()[0])
+    _lm_vs_plain(torch, client, prompts3, res3)
+    log(f"lm {cfg3.name} lightnobel_aaq: {r3['step_ms']:.2f} ms a step (replay "
+        f"{r3['replay_ms']:.3f} ms), "
+        f"{r3['tokens_per_s']:.1f} tokens/s, KV bytes a request {r3['kv_bytes']}")
+    client.close()
+    del params3, client
+    gc.collect()
+    torch.cuda.empty_cache()
+    for row, key in lm_pending:
+        row.launches = tally.get(key, 0)
+    return dict(total)
+
+
+def http_fleet_lm(torch, cfg, params, prompts, inproc) -> None:
+    """``/v1/generate`` over HTTP to 2 LM replicas on 127.0.0.1:0: SSE token
+    events in order for each request, the wire tokens bitwise the in-process
+    client's, ``/metrics/replica/<i>`` carrying ``workload="lm"`` series."""
+    import urllib.request
+    from repro_torch.serving import FleetRouter, FoldHTTPServer, LMClient, check_request_order
+    from repro_torch.serving import events as ev
+    from repro_torch.serving.transport import protocol
+    from repro_torch.serving.transport.server import request_json
+
+    def factory(i):
+        c = LMClient(params, cfg, "lightnobel_aaq", window=256, max_slots=4,
+                     default_max_new_tokens=16, device="cuda")
+        c.warmup()
+        return c
+
+    router = FleetRouter(factory, 2)
+    server = FoldHTTPServer(router, port=0, host="127.0.0.1").start()
+    url = server.url
+    try:
+        def post(p):
+            return request_json(f"{url}/v1/generate", method="POST",
+                                body={"prompt": p.tolist()})["id"]
+
+        def follow(rid):
+            with urllib.request.urlopen(f"{url}/v1/generate/{rid}/events", timeout=600) as resp:
+                return protocol.parse_sse(resp.read())
+
+        t0 = time.perf_counter()
+        rids = _gather(post, prompts)
+        streams = _gather(follow, rids)
+        wall = (time.perf_counter() - t0) * 1e3
+        for k, (rid, events) in enumerate(zip(rids, streams)):
+            check_request_order(events)
+            toks = [e for e in events if e.kind == ev.TOKEN]
+            st = request_json(f"{url}/v1/generate/{rid}")
+            wire = st["result"]["tokens"]
+            if (events[-1].kind != ev.COMPLETED or [t.data["step"] for t in toks] != list(range(16))
+                    or [t.data["token"] for t in toks] != wire
+                    or wire != [int(t) for t in inproc[k].tokens]):
+                fail(f"lm http: request {rid} tokens {wire} not the in-process client's "
+                     f"{inproc[k].tokens.tolist()} or its events out of order")
+        texts = [urllib.request.urlopen(f"{url}/metrics/replica/{i}").read().decode()
+                 for i in range(2)]
+        fleet = request_json(f"{url}/v1/fleet")
+        labelled = [sum(1 for ln in t.splitlines() if ln.startswith("lm_") and 'workload="lm"' in ln)
+                    for t in texts]
+        served = [_metric_total(t, "lm_requests_total") for t in texts]
+        if fleet["workloads"] != ["lm", "lm"] or min(labelled) == 0 or sum(served) != len(prompts):
+            fail(f"lm http: fleet {fleet}, workload-labelled series {labelled}, served {served}")
+        log(f"lm http: {len(prompts)} /v1/generate requests to 2 replicas in {wall:.1f} ms, "
+            f"SSE token events in order, wire tokens bitwise the in-process client's; "
+            f"replicas served {served}; workload=\"lm\" series {labelled}")
+    finally:
+        server.stop()
+        router.stop()
+        for r in router.replicas:
+            r.client.close()
+
+
 def main() -> int:
     try:
         import torch
@@ -1590,6 +2131,7 @@ def main() -> int:
     check_quantize(torch, rows)
     check_matmul(torch, rows)
     check_flash(torch, rows)
+    lm_pending = check_lm_kernels(torch, rows)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f}s")
 
     # 4. whole forward, kernels vs plain references
@@ -1623,12 +2165,20 @@ def main() -> int:
     fold_schemes(torch, cfg, params)
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 8. summary
+    # 8. the LM decode tenant: qwen1.5-0.5b at full width under both
+    # schemes, /v1/generate over HTTP, qwen2.5-3b at full width
+    del params, sequential
+    lm_launches = serve_lm(torch, lm_pending)
+    log(f"lm launches (warm-ups and captures): {lm_launches}")
+    log(f"phase 8 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 9. summary
     log(f"total {time.perf_counter() - t_start:.1f}s")
     # each variant at its first timed shape, then every kernel at the engine's
     # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs)
     print(json.dumps({"kernels": [r[0].record() for r in rows.values()]
-                      + [row.record() for row, _, _ in pending]}))
+                      + [row.record() for row, _, _ in pending]
+                      + [row.record() for row, _ in lm_pending]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

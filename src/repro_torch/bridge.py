@@ -1,9 +1,10 @@
-"""Parameter bridge: the JAX reference's parameter pytree, as nested dicts
-of numpy arrays, to the port's parameters and back.
+"""Parameter bridge: the JAX reference's parameter pytrees, as nested dicts
+of numpy arrays, to the port's parameters (and the fold's back).
 
 The reference stacks the trunk's blocks on a leading axis for ``scan``
-(``trunk.<leaf>`` of shape ``(blocks, ...)``); the port keeps one dict per
-block (``trunk[i].<leaf>``).  Dense weights keep the ``(in, out)`` layout.
+(``trunk.<leaf>`` of shape ``(blocks, ...)``), and an LM's ``blocks`` too
+when its config scans layers (a list otherwise); the port keeps one dict per
+block (``trunk[i].<leaf>``, ``blocks[i].<leaf>``).  Dense weights keep the ``(in, out)`` layout.
 bfloat16 arrays (numpy's ``bfloat16`` extension type) move bit for bit.
 This module imports neither JAX nor the reference: callers convert with
 ``np.asarray`` first.
@@ -44,6 +45,22 @@ def params_from_numpy(tree: dict[str, Any], cfg, device=None, dtype=None) -> dic
     stacked = tree["trunk"]
     out["trunk"] = [_map(stacked, lambda a, i=i: conv(np.asarray(a)[i]))
                     for i in range(cfg.blocks)]
+    return out
+
+
+def lm_params_from_numpy(tree: dict[str, Any], cfg, device=None, dtype=None) -> dict:
+    """Reference LM pytree (``repro.models.lm.init_params``, numpy leaves):
+    ``embed``, ``final_norm``, ``blocks`` and ``lm_head`` when the embedding
+    is not tied -> port params on ``device`` (default CUDA)."""
+    dev = resolve_device(device)
+    conv = lambda a: _to_tensor(np.asarray(a), dev, dtype)  # noqa: E731
+    out = {k: _map(v, conv) for k, v in tree.items() if k != "blocks"}
+    blocks = tree["blocks"]
+    if isinstance(blocks, dict):          # stacked for scan
+        out["blocks"] = [_map(blocks, lambda a, i=i: conv(np.asarray(a)[i]))
+                         for i in range(cfg.layers)]
+    else:
+        out["blocks"] = [_map(b, conv) for b in blocks]
     return out
 
 

@@ -1,10 +1,11 @@
 """Kernel dispatch: one routing point between the CUDA kernels and the plain
 PyTorch references (port of ``repro/kernels/dispatch.py``).
 
-Every attention, quantized-matmul and fake-quant call site of the folding
-model (seq attention, triangular attention, the structure module,
-``AAQScheme.linear`` and ``AAQScheme.act``) goes through ``attention`` /
-``quantized_linear`` / ``fake_quant``.
+Every attention, quantized-matmul, fake-quant and quantize call site (the
+folding model's seq attention, triangular attention, structure module,
+``AAQScheme.linear`` and ``AAQScheme.act``; the LM's attention and its
+quantized KV cache) goes through ``attention`` / ``quantized_linear`` /
+``fake_quant`` / ``quantize``.
 The backend of a call is, in order:
 
   1. an explicit ``backend=`` argument,
@@ -35,10 +36,11 @@ import torch
 
 from repro_torch.core.qmatmul import qmatmul_fused_ref
 from repro_torch.core.quantize import fake_quant as fake_quant_ref
+from repro_torch.core.quantize import quantize as quantize_ref
 from repro_torch.kernels.aaq_matmul import aaq_matmul as _aaq_matmul_mod
 from repro_torch.kernels.aaq_matmul.ops import aaq_linear
 from repro_torch.kernels.aaq_quant import aaq_quant as _aaq_quant_mod
-from repro_torch.kernels.aaq_quant.ops import aaq_fake_quant
+from repro_torch.kernels.aaq_quant.ops import aaq_fake_quant, aaq_quantize
 from repro_torch.kernels.flash_attention import flash_attention as _flash_mod
 from repro_torch.kernels.flash_attention.flash_attention import flash_mha_kernel
 from repro_torch.kernels.flash_attention.ref import mha_chunked
@@ -77,6 +79,8 @@ counters: dict[str, int] = {
     "qmatmul.ref": 0,
     "fakequant.kernel": 0,
     "fakequant.ref": 0,
+    "quantize.kernel": 0,
+    "quantize.ref": 0,
 }
 
 
@@ -198,3 +202,17 @@ def fake_quant(x, *, bits: int, k_outliers: int, backend=None):
         return aaq_fake_quant(x, bits, k_outliers)
     counters["fakequant.ref"] += 1
     return fake_quant_ref(x, bits, k_outliers)
+
+
+def quantize(x, *, bits: int, k_outliers: int, backend=None):
+    """AAQ quantize  x -> QTensor (token axis -1), the packed form the LM's
+    KV cache stores.
+
+    Kernel path: the aaq_quantize CUDA kernel.  Ref path:
+    ``quantize.quantize`` (the reference dataflow).
+    """
+    if resolve(x.device, backend=backend) == KERNEL:
+        counters["quantize.kernel"] += 1
+        return aaq_quantize(x, bits, k_outliers)
+    counters["quantize.ref"] += 1
+    return quantize_ref(x, bits, k_outliers)

@@ -1,5 +1,4 @@
-"""Fold serving (port of the ``--mode ppm`` half of
-``repro/launch/serve.py``).
+"""Fold and LM-decode serving (port of ``repro/launch/serve.py``).
 
 By default requests are served through the request-lifecycle
 ``FoldClient``: ``submit()`` returns handles with priorities
@@ -31,6 +30,17 @@ weights) routed on live telemetry, with a per-replica restart budget
     PYTHONPATH=src python -m repro_torch.launch.serve --mode ppm --device cpu \
         --listen 127.0.0.1:0 --replicas 2 --buckets 32,48 --no-fidelity
 
+``--mode lm`` serves the LM decode tenant (``LMClient``: continuous
+per-token batching over ``--batch`` slots, a ``--window``-row KV ring,
+AAQ-quantized with ``--quant-kv``) on the ``--arch`` dense config with
+random weights from seed 0: at full width on the card, reduced to float32
+on the CPU.  With ``--listen`` the fleet answers ``POST /v1/generate``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --device cpu \
+        --n 6 --tokens 8 --window 64 --quant-kv --drift-tol 0.25
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --quant-kv \
+        --arch qwen1.5-0.5b --window 256 --batch 4 --tokens 16
+
 ``--metrics-port`` serves the engine's Prometheus ``/metrics`` (and
 ``/metrics.json``, ``/healthz``) while a trace is served.  Mesh-sharded
 serving (``--mesh``, ``--shard-threshold``) is not ported: those flags
@@ -45,15 +55,17 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import reduce_ppm_config
+from repro_torch.configs import get_config, reduce_config, reduce_ppm_config
 from repro_torch.core import SCHEMES, make_scheme
 from repro_torch.data.pipeline import ProteinSampler
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
+from repro_torch.models import lm
 from repro_torch.models.ppm import init_ppm, ppm_forward, tm_score
 from repro_torch.models.ppm.trunk import PPMConfig
-from repro_torch.serving import (CSV_HEADER as ENGINE_CSV_HEADER, FleetRouter,
-                                 FoldClient, FoldHTTPServer, MetricsServer,
+from repro_torch.serving import (CSV_HEADER as ENGINE_CSV_HEADER, LM_CSV_HEADER,
+                                 FleetRouter, FoldClient, FoldHTTPServer, LMClient,
+                                 MetricsServer, lm_csv_row,
                                  bucket_for, calibrate, csv_row, load_cost_table,
                                  pad_to_bucket, parse_buckets, parse_chunk_spec,
                                  pipeline_overlaps)
@@ -169,9 +181,6 @@ def serve_http(args, cfg, params, buckets, dev) -> int:
     driver on ``dev``, all on the one copy of ``params``; the router
     balances on live queue-depth/in-flight telemetry scraped from the
     replicas' registries."""
-    import signal
-    import threading
-
     try:
         host, port = parse_hostport(args.listen)
         if args.cost_table:
@@ -198,15 +207,24 @@ def serve_http(args, cfg, params, buckets, dev) -> int:
             client.warmup()
         return client
 
-    router = FleetRouter(factory, args.replicas,
-                         max_restarts=args.max_restarts)
+    return _run_fleet(args, factory, host, port,
+                      f"replicas={args.replicas} buckets={','.join(map(str, buckets))} "
+                      f"kernels={dispatch.describe(args.kernels, device=dev)}",
+                      lambda r, s: f"compiles={s['compiles']}")
+
+
+def _run_fleet(args, factory, host, port, banner: str, summary) -> int:
+    """Serve a ``--replicas``-wide fleet of ``factory``'s clients over HTTP
+    until SIGTERM/SIGINT (or ``--serve-for-s``), then drain it and print one
+    line per replica (ending in ``summary(replica, metrics summary)``)."""
+    import signal
+    import threading
+
+    router = FleetRouter(factory, args.replicas, max_restarts=args.max_restarts)
     server = FoldHTTPServer(router, port=port, host=host).start()
     # launchers scrape THIS line for the bound address (--listen HOST:0
     # binds an ephemeral port)
-    print(f"# listening {server.url} replicas={args.replicas} "
-          f"buckets={','.join(map(str, buckets))} "
-          f"kernels={dispatch.describe(args.kernels, device=dev)}", flush=True)
-
+    print(f"# listening {server.url} {banner}", flush=True)
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())
@@ -221,7 +239,7 @@ def serve_http(args, cfg, params, buckets, dev) -> int:
         s = r.client.metrics.summary()
         print(f"# replica={r.index} served={s['served']}/{s['requests']} "
               f"rejected={s['rejected']} expired={s['expired']} "
-              f"cancelled={s['cancelled']} compiles={s['compiles']}")
+              f"cancelled={s['cancelled']} {summary(r, s)}")
     if args.trace_out:
         stem = args.trace_out[:-5] if args.trace_out.endswith(".json") \
             else args.trace_out
@@ -346,9 +364,140 @@ def serve_ppm_engine(args, cfg, params, seqs, buckets, dev) -> int:
     return 0
 
 
+def _lm_prompts(args, cfg) -> list[np.ndarray]:
+    """Deterministic synthetic prompt trace (the reference's seed and rule)."""
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(args.n):
+        plen = int(rng.integers(4, max(args.prompt_len, 4) + 1))
+        out.append(rng.integers(0, cfg.vocab, size=plen).astype(np.int32))
+    return out
+
+
+def _lm_model(args, dev):
+    """The ``--arch`` config and random parameters from seed 0: full width
+    in the config's dtype on the card, reduced to float32 on the CPU (the
+    reference's ``--mode lm`` config)."""
+    cfg = get_config(args.arch)
+    if dev.type == "cpu":
+        cfg = reduce_config(cfg).replace(dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, lm.init_params(gen, cfg)
+
+
+def _lm_client(args, cfg, params, dev, scheme: str) -> LMClient:
+    return LMClient(params, cfg, scheme, window=args.window, max_slots=args.batch,
+                    mem_budget_mb=args.mem_budget_mb, kernels=args.kernels,
+                    default_max_new_tokens=args.tokens, device=dev)
+
+
+def serve_lm_http(args, cfg, params, dev) -> int:
+    """``--mode lm --listen``: the fold path's HTTP front-end and fleet
+    router with an ``LMClient`` per replica.  ``POST /v1/generate``
+    submits, tokens stream as SSE ``token`` events, ``/metrics`` carries
+    ``workload="lm"`` series."""
+    try:
+        host, port = parse_hostport(args.listen)
+    except ValueError as e:
+        print(f"error: {e}")
+        return 2
+    scheme = "lightnobel_aaq" if args.quant_kv else "baseline_fp16"
+
+    def factory(i: int) -> LMClient:
+        client = _lm_client(args, cfg, params, dev, scheme)
+        client.tracer.set_metadata(
+            replica=i, workload="lm", arch=args.arch, scheme=scheme,
+            window=args.window, max_slots=args.batch, device=str(dev),
+            kernels=dispatch.describe(args.kernels, device=dev))
+        if args.warmup:
+            client.warmup()
+        return client
+
+    return _run_fleet(
+        args, factory, host, port,
+        f"workload=lm replicas={args.replicas} arch={cfg.name} scheme={scheme} "
+        f"window={args.window} slots={args.batch} "
+        f"kernels={dispatch.describe(args.kernels, device=dev)}",
+        lambda r, s: f"tokens={s['tokens']} restarts={r.restarts}")
+
+
+def serve_lm(args, dev) -> int:
+    """LM decode through the serving substrate: continuous per-token
+    batching over ``--batch`` slots with the KV cache AAQ-quantized when
+    ``--quant-kv`` is set (admission then prices requests at the scheme's
+    KV bits per value)."""
+    cfg, params = _lm_model(args, dev)
+    if args.listen is not None:
+        return serve_lm_http(args, cfg, params, dev)
+    scheme = "lightnobel_aaq" if args.quant_kv else "baseline_fp16"
+    client = _lm_client(args, cfg, params, dev, scheme)
+    client.tracer.set_metadata(workload="lm", arch=args.arch, scheme=scheme,
+                               window=args.window, max_slots=args.batch,
+                               device=str(dev),
+                               kernels=dispatch.describe(args.kernels, device=dev))
+    if args.warmup:
+        client.warmup()
+    prompts = _lm_prompts(args, cfg)
+    tiers = priority_tiers(len(prompts), args.priority_split)
+    t0 = time.perf_counter()
+    if args.driver == "thread":
+        client.start()
+        handles = [client.submit(p, priority=pr, deadline_s=args.deadline_s)
+                   for p, pr in zip(prompts, tiers)]
+        for h in handles:
+            if not h.done:
+                h.result(timeout=600.0)
+        client.stop()
+    else:
+        for p, pr in zip(prompts, tiers):
+            client.submit(p, priority=pr, deadline_s=args.deadline_s)
+        client.drive()
+    client.metrics.wall_s = time.perf_counter() - t0
+    results = sorted(client.metrics.results, key=lambda r: r.request_id)
+    print(LM_CSV_HEADER)
+    for r in results:
+        print(lm_csv_row(r))
+    s = client.metrics.summary()
+    adm = client.core.admission
+    print(f"# workload=lm arch={cfg.name} scheme={scheme} device={dev} "
+          f"served={s['served']}/{s['requests']} rejected={s['rejected']} "
+          f"expired={s['expired']} tokens={s['tokens']} "
+          f"tok/s={s['tokens_per_s']:.1f} compiles={s['compiles']} "
+          f"kv_bits_per_value={adm.bits_per_value:.1f} "
+          f"kv_bytes_per_req={adm.bytes_per_request} "
+          f"kernels={dispatch.describe(args.kernels, device=dev)}"
+          + (f" budget_mb={args.mem_budget_mb:.1f}"
+             if args.mem_budget_mb else ""))
+    print(f"# queue_wait_ms p50={s['queue_wait_ms']['p50']:.1f} "
+          f"p95={s['queue_wait_ms']['p95']:.1f} "
+          f"| run_ms p50={s['run_ms']['p50']:.1f} "
+          f"p95={s['run_ms']['p95']:.1f}")
+    if args.report:
+        client.metrics.save(args.report)
+        print(f"# report -> {args.report}")
+    if args.trace_out:
+        client.save_trace(args.trace_out)
+        print(f"# trace -> {args.trace_out}")
+    if args.quant_kv and args.drift_tol is not None:
+        # fp16 twin on the same prompts: the quantized-KV run must stay
+        # within --drift-tol of it on first-generated-token logits
+        twin = _lm_client(args, cfg, params, dev, "baseline_fp16")
+        ref = {r.request_id: r for r in twin.run(prompts)}
+        drift = max((float(np.max(np.abs(r.logits_first - ref[i].logits_first)))
+                     for i, r in enumerate(results)
+                     if r.ok and ref[i].ok and r.logits_first is not None),
+                    default=0.0)
+        ok = drift <= args.drift_tol
+        print(f"# kv_drift max|logits_first - fp16|={drift:.4e} "
+              f"tol={args.drift_tol:.4e} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["ppm"], default="ppm")
+    ap.add_argument("--mode", choices=["ppm", "lm"], default="ppm")
     ap.add_argument("--scheme", default="lightnobel_aaq", choices=list(SCHEMES))
     ap.add_argument("--kernels", choices=list(dispatch.BACKENDS),
                     default=dispatch.AUTO,
@@ -435,6 +584,27 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-hold-s", type=float, default=0.0,
                     help="keep the --metrics-port endpoint up this long "
                          "after serving finishes")
+    # -- lm mode (decode through the substrate) --
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    help="lm: a dense architecture (full width on the card, "
+                         "reduced float32 on the CPU)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="lm: decode slots (the continuous batch width)")
+    ap.add_argument("--tokens", type=int, default=32,
+                    help="lm: default max_new_tokens per request")
+    ap.add_argument("--quant-kv", action="store_true",
+                    help="lm: AAQ-quantize the KV cache (scheme "
+                         "lightnobel_aaq; admission prices requests at the "
+                         "scheme's KV bits-per-value)")
+    ap.add_argument("--window", type=int, default=128,
+                    help="lm: ring KV window (prompt+generation must fit)")
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="lm: max synthetic prompt length (lengths drawn "
+                         "in [4, this])")
+    ap.add_argument("--drift-tol", type=float, default=None,
+                    help="lm + --quant-kv: run an fp16-KV twin on the same "
+                         "prompts and exit 1 if max first-token logit drift "
+                         "exceeds this")
     # -- the reference's flags whose subsystems are not ported: they raise --
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--shard-threshold", type=int, default=None)
@@ -457,6 +627,9 @@ def main(argv=None) -> int:
               "--cost-table")
         return 2
     dev = resolve_device(args.device)
+    if args.mode == "lm":
+        with dispatch.use_backend(args.kernels):
+            return serve_lm(args, dev)
     cfg = reduce_ppm_config()
     params = init_ppm(cfg, seed=0, device=dev)
     if args.listen is not None and not args.no_engine:

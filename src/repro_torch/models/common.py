@@ -34,6 +34,10 @@ def ln_init(dim: int, dtype=torch.float32, device=None) -> Params:
             "b": torch.zeros((dim,), dtype=dtype, device=device)}
 
 
+def rms_init(dim: int, dtype=torch.float32, device=None) -> Params:
+    return {"g": torch.ones((dim,), dtype=dtype, device=device)}
+
+
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=torch.float32) -> Params:
     e = torch.randn((vocab, dim), generator=gen, device=gen.device) * 0.02
     return {"e": e.to(dtype)}
@@ -60,8 +64,57 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["g"] + p["b"]).to(x.dtype)
 
 
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * p["g"]).to(x.dtype)
+
+
 def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
     return p["e"][ids]
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with every product accumulated in float32 and a float32
+    result (``jnp.dot(..., preferred_element_type=jnp.float32)``).  On the
+    card a bf16 product keeps its bf16 operands (``out_dtype``); the CPU has
+    no such product, so there the operands are widened (exact for bf16)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.device.type == "cuda" and x.dtype == w.dtype:
+        lead = x.shape[:-1]
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*lead, w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               rotary_frac: float = 1.0) -> torch.Tensor:
+    rot_dim = int(head_dim * rotary_frac)
+    return 1.0 / (theta ** (torch.arange(0, rot_dim, 2, dtype=torch.float32) / rot_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+               rotary_frac: float = 1.0) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).
+
+    Rotates interleaved pairs (``x[..., 0::2]``, ``x[..., 1::2]``) of the
+    leading ``rotary_frac`` of the head dim (ChatGLM's partial rotary)."""
+    d = x.shape[-1]
+    rot = int(d * rotary_frac)
+    rot -= rot % 2
+    inv = 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32,
+                                        device=x.device) / rot))
+    ang = positions[..., None].float() * inv                   # (..., S, rot/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    o1, o2 = x1 * cos - x2 * sin, x1 * sin + x2 * cos
+    out = torch.stack([o1, o2], dim=-1).reshape(*x1.shape[:-1], rot).to(x.dtype)
+    return torch.cat([out, xp], dim=-1) if rot < d else out
 
 
 # --------------------------------------------------------------------------
@@ -81,6 +134,17 @@ def key_padding_bias(mask: torch.Tensor) -> torch.Tensor:
     capture does not allow.
     """
     return torch.where(mask, 0.0, NEG_INF).float()
+
+
+def causal_mask(q_len: int, kv_len: int, *, window: int | None = None,
+                q_offset: int = 0, device=None) -> torch.Tensor:
+    """(q_len, kv_len) additive mask. ``window`` = sliding-window attention."""
+    qpos = torch.arange(q_len, device=device)[:, None] + q_offset
+    kpos = torch.arange(kv_len, device=device)[None, :]
+    ok = kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return torch.where(ok, 0.0, NEG_INF).float()
 
 
 def _leaves(params):

@@ -20,11 +20,15 @@ Numerical contract (``tests/test_torch_chunking.py``):
     quantizes as its slice of the full tensor; parity is TM-gated (≥ 0.995).
   * The five comparison schemes (tensor-, channel- or all-token-wide
     statistics) are NOT chunk-exact: a slab's scales see the slab, not the
-    tensor.  Nor does the port's chunked fold follow the reference's under
-    them: incoming tri-mul slabs by columns with ``a`` resident where the
-    reference slabs by rows with ``b`` resident, so its slabs see other
-    statistics.  Under FP and AAQ every value is per position, and the
-    slabbing moves nothing.  No test bounds these two differences.
+    tensor.  Incoming tri-mul slabs by columns with ``a`` resident where
+    the reference slabs by rows with ``b`` resident, so its slabs see other
+    statistics than the reference's; under FP and AAQ every value is per
+    position and the slabbing moves nothing.  The difference is bounded:
+    ``test_comparison_schemes_chunked_match_jax_chunked`` holds the port's
+    chunked fold to the reference's chunked fold at TM >= 0.995 under each
+    of the five (N = 64, slabs of 16).  The planner prices the resident
+    operand as the reference does; which operand it is does not change
+    its size.
 
 The reference scans slabs with ``jax.lax.map``; here the scan is a Python
 loop writing each slab's result into one preallocated output, so a CUDA
@@ -281,15 +285,20 @@ def pair_transition_chunked(p, z, scheme: QuantScheme, chunk: int,
 
 def opm_chunked(p, s, chunk: int, into=None):
     """Outer-product-mean without the (B,N,N,32·32) slab: the a/b vectors
-    are linear in N, only the per-chunk outer product materializes."""
+    are linear in N, only the per-chunk outer product materializes.
+
+    The outer product is formed in ``a``'s dtype directly: a product of two
+    bf16 values is exact in float32, so rounding it once to bf16 gives the
+    reference's float32 einsum rounded to bf16, bit for bit, without its
+    float32 slab (512 MiB a slab at N = 2,048, chunk 64, which gave the
+    graph pool a segment of its own)."""
     n = s.shape[1]
     c = effective_chunk_size(n, chunk)
     sl = cm.layernorm(p["ln"], s)
     a, b = cm.dense(p["a"], sl), cm.dense(p["b"], sl)       # (B,N,32)
 
     def rows(slab):
-        outer = torch.einsum("bic,bjd->bijcd", slab[0].float(),
-                             b.float()).to(s.dtype)
+        outer = slab[0][:, :, None, :, None] * b[:, None, :, None, :]
         return cm.dense(p["out"], outer.reshape(*outer.shape[:3], -1))
 
     return _scan_rows(rows, (a,), n, c, into=into)

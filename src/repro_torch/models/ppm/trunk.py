@@ -259,10 +259,11 @@ def seq_attn_apply(p, s, z, heads: int, mask=None, pair_bias=None):
         v = v * mask[:, :, None, None].to(v.dtype)
     bias = pair_bias if pair_bias is not None else cm.dense(
         p["pair_bias"], cm.layernorm(p["pair_bias_ln"], z))
-    bias = bias.permute(0, 3, 1, 2).float()                  # (B,H,N,N)
+    bias = bias.permute(0, 3, 1, 2).to(torch.float32, copy=True)   # (B,H,N,N)
     if mask is not None:
-        # additive key-padding fold: real keys get literal +0.0
-        bias = bias + cm.key_padding_bias(mask)[:, None, None, :]
+        # additive key-padding fold: real keys get literal +0.0; in place,
+        # so that one (B,H,N,N) float32 table exists, not two
+        bias.add_(cm.key_padding_bias(mask)[:, None, None, :])
     o = dispatch.attention(q, k, v, bias=bias)
     o = o.reshape(b_, n, hm).to(s.dtype)
     g = torch.sigmoid(cm.dense(p["gate"], sl))

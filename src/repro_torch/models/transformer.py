@@ -1,0 +1,248 @@
+"""Decoder-only transformer, the dense half (port of
+``repro/models/transformer.py``).
+
+GQA with decoupled head_dim, optional QKV bias, RoPE (partial rotary for
+ChatGLM's 2D scheme), RMS/LayerNorm, (Si/Ge)GLU MLPs, sliding window, and a
+ring-buffer KV cache for decode with the AAQ hooks of the reference: the
+KV cache and the residual stream can be routed through token-wise
+quantization.  Prefill, the lockstep ``decode_step`` and the served decode
+step (``serving.lm``) run the one ``block_apply``; decode hands
+``attn_apply`` a ring that it writes in place.  Attention goes through ``dispatch.attention`` (the CUDA
+flash kernel on the card).
+
+Parameters are the reference's pytree with one change: ``blocks`` is a list
+of per-layer dicts (the reference stacks them on a leading axis for
+``scan``; ``bridge.lm_params_from_numpy`` unstacks).  The reference's
+``parallel.sharding.constrain`` is a no-op on one card and is left out.
+``chunked_xent`` and ``lm_loss`` wait for training (ROADMAP Queue 1
+item 10).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.policy import DISABLED, AAQConfig
+from repro_torch.kernels import dispatch
+from repro_torch.models import common as cm
+
+Params = dict[str, Any]
+
+
+# --------------------------------------------------------------------------
+# init (random, from a torch.Generator: not jax.random's numbers)
+# --------------------------------------------------------------------------
+def init_attn(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d, hd, dt = cfg.d_model, cfg.hd, cfg.torch_dtype
+    return {
+        "q": cm.dense_init(gen, d, cfg.n_heads * hd, bias=cfg.qkv_bias, dtype=dt),
+        "k": cm.dense_init(gen, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=dt),
+        "v": cm.dense_init(gen, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=dt),
+        "o": cm.dense_init(gen, cfg.n_heads * hd, d, dtype=dt),
+    }
+
+
+def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff: int | None = None) -> Params:
+    d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.torch_dtype
+    p = {"up": cm.dense_init(gen, d, f, dtype=dt),
+         "down": cm.dense_init(gen, f, d, dtype=dt)}
+    if cfg.act.endswith("_glu"):
+        p["gate"] = cm.dense_init(gen, d, f, dtype=dt)
+    return p
+
+
+def _norm_init(cfg: ArchConfig, device) -> Params:
+    init = cm.rms_init if cfg.norm == "rms" else cm.ln_init
+    return init(cfg.d_model, cfg.torch_dtype, device)
+
+
+def init_block(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    return {"attn_norm": _norm_init(cfg, gen.device), "attn": init_attn(gen, cfg),
+            "mlp_norm": _norm_init(cfg, gen.device), "mlp": init_mlp(gen, cfg)}
+
+
+def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    p: Params = {"embed": cm.embed_init(gen, cfg.vocab, cfg.d_model, cfg.torch_dtype),
+                 "final_norm": _norm_init(cfg, gen.device),
+                 "blocks": [init_block(gen, cfg) for _ in range(cfg.layers)]}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = cm.dense_init(gen, cfg.d_model, cfg.vocab, dtype=cfg.torch_dtype)
+    return p
+
+
+# --------------------------------------------------------------------------
+# apply
+# --------------------------------------------------------------------------
+def apply_norm(p, x, cfg: ArchConfig):
+    return (cm.rmsnorm if cfg.norm == "rms" else cm.layernorm)(p, x)
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name.startswith("silu"):
+        return F.silu(x)
+    if name.startswith("gelu"):
+        return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+    return F.relu(x)
+
+
+def mlp_apply(p, x, cfg: ArchConfig):
+    if cfg.act.endswith("_glu"):
+        h = _act(cfg.act, cm.dense(p["gate"], x)) * cm.dense(p["up"], x)
+    else:
+        h = _act(cfg.act, cm.dense(p["up"], x))
+    return cm.dense(p["down"], h)
+
+
+def qkv(p, x, cfg: ArchConfig, positions):
+    """q (B,S,Hq,hd), k and v (B,S,Hkv,hd), rotary applied."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = cm.dense(p["q"], x).reshape(b, s, hq, hd)
+    k = cm.dense(p["k"], x).reshape(b, s, hkv, hd)
+    v = cm.dense(p["v"], x).reshape(b, s, hkv, hd)
+    if cfg.rotary_frac > 0:
+        q = cm.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_frac)
+        k = cm.apply_rope(k, positions, cfg.rope_theta, cfg.rotary_frac)
+    return q, k, v
+
+
+def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
+               aaq: AAQConfig = DISABLED, causal=True, window=None, bias=None):
+    """Self-attention of ``x`` (B, S, D).  Without a cache, over ``x``
+    itself (causal, windowed where ``cfg.window``).  With one, decode: the
+    cache takes the new K/V rows (``cache.append(k, v)`` -> the ring K/V
+    (B, W, Hkv, hd) in ``k``'s dtype and ``kv_valid_len`` (B,)) and q
+    attends over the ring.  ``LockstepRing`` is ``decode_step``'s cache,
+    ``serving.lm``'s per-slot ring the served one; both write in place."""
+    b, s, _ = x.shape
+    q, k, v = qkv(p, x, cfg, positions)
+    k = aaq.act(k, "lm.kv_cache")
+    v = aaq.act(v, "lm.kv_cache")
+    if cache is None:
+        window = window if window is not None else cfg.window
+        o = dispatch.attention(q, k, v, bias=bias, causal=causal, window=window)
+    else:
+        kd, vd, kvlen = cache.append(k, v)
+        o = dispatch.attention(q, kd, vd, kv_valid_len=kvlen, causal=False)
+    o = o.reshape(b, s, cfg.n_heads * cfg.hd)
+    return cm.dense(p["o"], o)
+
+
+class LockstepRing:
+    """Layer ``li`` of an ``init_cache`` cache, for ``decode_step``: every
+    row of the batch at position ``cache['pos']``.  ``append`` writes the s
+    new rows at the ring position in place (raw, or INT8 rows and f32
+    scales through ``_quant_kv_row``) and returns the ring, dequantized."""
+
+    def __init__(self, cache: Params, li: int):
+        self.cache, self.li = cache, li
+
+    def append(self, k, v):
+        c, li = self.cache, self.li
+        b, s = k.shape[:2]
+        w = c["k"].shape[2]
+        pos = c["pos"]
+        # dynamic_update_slice clamps the start so that the s rows fit
+        start = torch.clamp(pos % w, max=w - s)
+        rows = start + torch.arange(s, device=k.device)
+        kvlen = torch.clamp(pos + 1, max=w).to(torch.int32).expand(b)
+        ring = []
+        for name, x in (("k", k), ("v", v)):
+            if f"{name}_scale" in c:
+                xq, xs = _quant_kv_row(x)
+                c[f"{name}_scale"][li].index_copy_(1, rows, xs)
+                c[name][li].index_copy_(1, rows, xq)
+                ring.append(c[name][li].to(x.dtype) * c[f"{name}_scale"][li].to(x.dtype))
+            else:
+                c[name][li].index_copy_(1, rows, x.to(c[name].dtype))
+                ring.append(c[name][li].to(x.dtype))
+        return ring[0], ring[1], kvlen
+
+
+def _quant_kv_row(x: torch.Tensor):
+    """Token-wise symmetric INT8 over the head dim: (B,S,H,hd) ->
+    (int8 values, f32 scales (B,S,H,1)).  The division is by a tensor, an
+    IEEE quotient as in the reference (see ``quantize.scale_for``)."""
+    xf = x.float()
+    m = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(m / torch.full((), 127.0, device=x.device), 1e-12)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def block_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
+                aaq: AAQConfig = DISABLED):
+    h = aaq.act(x, "lm.pre_ln")           # residual stream (Group A analogue)
+    x = x + attn_apply(p["attn"], apply_norm(p["attn_norm"], h, cfg), cfg,
+                       positions=positions, cache=cache, aaq=aaq)
+    mlp_in = apply_norm(p["mlp_norm"], aaq.act(x, "lm.pre_ln"), cfg)
+    return x + mlp_apply(p["mlp"], mlp_in, cfg)
+
+
+# --------------------------------------------------------------------------
+# full model: forward / prefill / decode
+# --------------------------------------------------------------------------
+def unembed(params, x, cfg: ArchConfig):
+    """Logits in float32, every product accumulated in float32 (a bf16
+    ``x @ E.T`` would round the logits and flip greedy argmax)."""
+    if cfg.tie_embeddings:
+        return cm.matmul_f32(x, params["embed"]["e"].to(x.dtype).t())
+    return cm.matmul_f32(x, params["lm_head"]["w"].to(x.dtype))
+
+
+def lm_hidden(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED):
+    """Full-sequence forward of ``batch['tokens']`` (B, S) -> final hidden
+    states (B, S, D)."""
+    x = cm.embed(params["embed"], batch["tokens"])
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for p in params["blocks"]:
+        x = block_apply(p, x, cfg, positions=positions, aaq=aaq)
+    return apply_norm(params["final_norm"], x, cfg)
+
+
+def lm_forward(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED,
+               last_only=False):
+    """Full-sequence forward -> logits (B, S, V) f32, or the last position
+    only (the serving-prefill case)."""
+    x = lm_hidden(params, batch, cfg, aaq=aaq)
+    if last_only:
+        x = x[:, -1:]
+    return unembed(params, x, cfg)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
+               quantized: bool = False, device=None) -> Params:
+    """Ring-buffer KV cache; SWA archs allocate only ``window`` rows.
+    ``quantized=True``: INT8 rows + per-token f32 scales."""
+    w = min(max_len, cfg.window) if cfg.window else max_len
+    dt = dtype or cfg.torch_dtype
+    shape = (cfg.layers, batch, w, cfg.n_kv_heads, cfg.hd)
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    if quantized:
+        sshape = (cfg.layers, batch, w, cfg.n_kv_heads, 1)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+                "pos": pos}
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device), "pos": pos}
+
+
+def decode_step(params, batch, cache, cfg: ArchConfig, *,
+                aaq: AAQConfig = DISABLED):
+    """One-token decode of a lockstep batch: ``batch['tokens']`` (B, 1), cache from
+    ``init_cache`` (every row at position ``cache['pos']``), written in place.
+    Returns (logits (B, 1, V) f32, the cache with ``pos`` advanced)."""
+    x = cm.embed(params["embed"], batch["tokens"])            # (B,1,D)
+    positions = cache["pos"].reshape(1, 1).expand(x.shape[0], 1)
+    for li, p in enumerate(params["blocks"]):
+        x = block_apply(p, x, cfg, positions=positions, cache=LockstepRing(cache, li),
+                        aaq=aaq)
+    x = apply_norm(params["final_norm"], x, cfg)
+    cache["pos"] = cache["pos"] + 1
+    return unembed(params, x, cfg), cache

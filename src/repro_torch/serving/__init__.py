@@ -1,5 +1,4 @@
-"""repro_torch.serving: request-lifecycle fold serving (port of
-``repro/serving``; the LM tenant is not ported).
+"""repro_torch.serving: request-lifecycle serving (port of ``repro/serving``).
 
 ``FoldClient`` is the serving surface: ``submit()`` returns a ``FoldHandle``
 (priority, deadline, ``cancel()``, blocking ``result()``), progress streams
@@ -7,8 +6,9 @@ as typed ``FoldEvent``s, and batches run on the bucketed ``EngineCore``
 (one CUDA graph per (bucket, launch batch, scheme, placement, chunk) key on
 the card, token-budget continuous batching, AAQ-aware admission control,
 the long-fold chunk planner).  ``FoldEngine`` is the legacy blocking
-wrapper over the same client.  ``FoldHTTPServer`` serves a ``FleetRouter``
-of client replicas over HTTP.
+wrapper over the same client.  ``LMClient`` serves the LM decode tenant
+(``serving/lm.py``) through the same substrate, one CUDA graph per scheme.
+``FoldHTTPServer`` serves a ``FleetRouter`` of client replicas over HTTP.
 """
 from repro_torch.serving.admission import (ADMIT, DEFER, REJECT, AdmissionController,
                                            AdmissionDecision)
@@ -23,6 +23,9 @@ from repro_torch.serving.engine import (BatchExecutionError, EngineCore,
 from repro_torch.serving.events import (EVENT_KINDS, EVENT_ORDER, TERMINAL_EVENTS,
                                         EventBus, EventStream, FoldEvent,
                                         check_request_order)
+from repro_torch.serving.lm import (KV_SITE, LM_CSV_HEADER, LMClient,
+                                    LMDecodeWorkload, LMEngineCore, LMKVAdmission,
+                                    LMMetrics, lm_csv_row)
 from repro_torch.serving.longfold import (DEFAULT_LONGFOLD_BUDGET_MB, ChunkPolicy,
                                           chunk_candidates, parse_chunk_spec)
 from repro_torch.serving.metrics import (CSV_HEADER, CompileWatcher, EngineMetrics,
@@ -38,7 +41,7 @@ from repro_torch.serving.scheduler import (Rejection, ScheduledBatch,
                                            parse_buckets, pow2_buckets,
                                            static_batch_for)
 from repro_torch.serving.types import (BatchDeviceOutput, FoldRequest, FoldResult,
-                                       LazyDistogram, pad_to_bucket)
+                                       LazyDistogram, LMResult, pad_to_bucket)
 from repro_torch.serving.workload import FoldWorkload, Workload
 # transport last: it builds on client/events/observability above
 from repro_torch.serving.transport import (FleetRecord, FleetRouter,
@@ -74,6 +77,9 @@ __all__ = [
     "PROMETHEUS_CONTENT_TYPE",
     # workload substrate
     "Workload", "FoldWorkload",
+    # LM decode tenant
+    "LMClient", "LMEngineCore", "LMDecodeWorkload", "LMKVAdmission",
+    "LMMetrics", "LMResult", "LM_CSV_HEADER", "lm_csv_row", "KV_SITE",
     # transport (HTTP front-end + fleet router)
     "FoldHTTPServer", "FleetRouter", "FleetRecord", "Replica",
     "ProtocolError",

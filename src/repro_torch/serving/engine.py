@@ -136,8 +136,9 @@ def _graph_node_count(graph) -> int:
 
 class _Executable:
     """One executable-cache key: a CUDA graph on the card, an eager closure
-    on the CPU.  ``launch(aatype, mask)`` returns fresh output tensors and,
-    on the card, the CUDA event ``ready`` recorded after their copies."""
+    on the CPU.  ``launch(*inputs)`` (the workload's ``input_specs`` order)
+    returns fresh copies of the workload's ``output_keys`` and, on the
+    card, the CUDA event ``ready`` recorded after their copies."""
 
     def __init__(self, core: "EngineCore", key: tuple, scheme: QuantScheme,
                  chunk: int):
@@ -161,11 +162,11 @@ class _Executable:
     def on_card(self) -> bool:
         return self.core.device.type == "cuda"
 
-    def _forward(self, aat, mask):
+    def _forward(self, *inputs):
         core = self.core
         with torch.inference_mode(), dispatch.use_backend(core.kernels):
             return core.workload.forward(self.scheme, self.chunk, core.params,
-                                         aat, mask)
+                                         *inputs)
 
     def synthetic_inputs(self) -> tuple:
         """Full-occupancy inputs of the key's shape on the engine's device:
@@ -215,21 +216,20 @@ class _Executable:
         self.instantiate_ms = (time.perf_counter() - t1) * 1e3
         self.nodes = _graph_node_count(graph)
         self.kernel_launches = {k: after[k] - before[k] for k in after}
-        keep = ("coords", "distogram") if core.keep_distogram else ("coords",)
         # only the outputs read after a replay stay referenced; the rest of
         # the graph's memory returns to the shared pool
-        self.static_out = {k: out[k] for k in keep}
+        self.static_out = {k: out[k] for k in core.workload.output_keys()}
         self.graph = graph
 
-    def launch(self, aat, mask) -> dict:
+    def launch(self, *inputs) -> dict:
         """Stage the inputs, run the key, copy the outputs out (card: all in
         stream order, nothing waited for; CPU: eager)."""
         if not self.on_card:
-            out = self._forward(aat, mask)
-            return {**{k: out[k] for k in ("coords", "distogram")}, "ready": None}
-        s_aat, s_mask = self.static_in
-        s_aat.copy_(aat, non_blocking=True)
-        s_mask.copy_(mask, non_blocking=True)
+            out = self._forward(*inputs)
+            return {**{k: out[k] for k in self.core.workload.output_keys()},
+                    "ready": None}
+        for static, host in zip(self.static_in, inputs):
+            static.copy_(host, non_blocking=True)
         self.graph.replay()
         self.replays += 1
         self.core.note_replay(self.kernel_launches)
@@ -238,16 +238,16 @@ class _Executable:
         out["ready"].record()
         return out
 
-    def timed_ms(self, aat, mask, *, clock) -> float:
+    def timed_ms(self, *inputs, clock) -> float:
         """One launch's latency: CUDA events around the replay on the card,
         the engine clock on the CPU."""
         if not self.on_card:
             t0 = clock()
-            self.launch(aat, mask)
+            self.launch(*inputs)
             return (clock() - t0) * 1e3
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self.launch(aat, mask)
+        out = self.launch(*inputs)
         end.record()
         out["ready"].synchronize()
         end.synchronize()

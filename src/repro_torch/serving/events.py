@@ -31,19 +31,24 @@ SUBMITTED = "submitted"      # accepted into the queue (or straight to REJECTED)
 DEFERRED = "deferred"        # admission stopped its batch; still queued
 SCHEDULED = "scheduled"      # picked into a ScheduledBatch (handle: ADMITTED)
 BATCH_START = "batch_start"  # its batch began executing (handle: RUNNING)
+TOKEN = "token"              # LM decode emitted one token (repeats; carries
+                             # step index + token id in ``data``)
 BATCH_DONE = "batch_done"    # its batch finished (telemetry: run/compile ms)
 COMPLETED = "completed"      # result available (handle: DONE)
 REJECTED = "rejected"        # never servable (too long / over budget alone)
 CANCELLED = "cancelled"      # handle.cancel() won before admission
 EXPIRED = "expired"          # deadline passed while queued
 
-EVENT_KINDS = (SUBMITTED, DEFERRED, SCHEDULED, BATCH_START, BATCH_DONE,
-               COMPLETED, REJECTED, CANCELLED, EXPIRED)
+EVENT_KINDS = (SUBMITTED, DEFERRED, SCHEDULED, BATCH_START, TOKEN,
+               BATCH_DONE, COMPLETED, REJECTED, CANCELLED, EXPIRED)
 
 # the per-request order contract tests assert: every event kind maps to a
-# rank, and a request's event ranks must be non-decreasing (DEFERRED may
-# repeat; terminal kinds share the top rank and appear at most once)
+# rank, and a request's event ranks must be non-decreasing (DEFERRED and
+# TOKEN may repeat; terminal kinds share the top rank and appear at most
+# once).  TOKEN shares BATCH_START's rank: tokens stream strictly between a
+# decode request joining the running batch and its retirement.
 EVENT_ORDER = {SUBMITTED: 0, DEFERRED: 1, SCHEDULED: 2, BATCH_START: 3,
+               TOKEN: 3,
                BATCH_DONE: 4, COMPLETED: 5, REJECTED: 5, CANCELLED: 5,
                EXPIRED: 5}
 TERMINAL_EVENTS = (COMPLETED, REJECTED, CANCELLED, EXPIRED)

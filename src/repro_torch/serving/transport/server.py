@@ -40,9 +40,9 @@ a slow or abandoned consumer (including a parked SSE stream) never blocks
 the serving pump or shutdown.  They never read a device buffer a later
 graph replay can overwrite: results are host arrays, and a ``?distogram=1``
 status materializes the request's ``LazyDistogram`` from the copy the
-engine made of its batch's output right after the replay.  The port has
-no LM tenant yet, so ``/v1/generate`` on a fold fleet submits the prompt
-as a fold, as the reference's fold fleet does.
+engine made of its batch's output right after the replay.
+``/v1/generate`` on a fleet of ``LMClient`` replicas decodes; on a fold
+fleet it submits the prompt as a fold, as the reference's fold fleet does.
 """
 from __future__ import annotations
 

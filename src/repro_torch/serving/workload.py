@@ -1,6 +1,6 @@
 """The ``Workload`` protocol: what a model family provides to be served by
-the substrate (port of ``repro/serving/workload.py``; the LM decode tenant
-is not ported).
+the substrate (port of ``repro/serving/workload.py``).  ``FoldWorkload`` is
+here; the LM decode tenant's ``LMDecodeWorkload`` is in ``serving/lm.py``.
 
 A workload owns the five things that differ between model families;
 everything else (queues, priorities, deadlines, cancellation, events,
@@ -16,6 +16,9 @@ tracing, metrics plumbing) is substrate:
     activation bytes.
   * **retire hooks**: ``block_on`` (what to wait for), ``transfer`` (the
     device->host move, including the lazy distogram), ``build_results``.
+  * **result/event types**: ``result_type`` plus any event kinds beyond the
+    shared lifecycle vocabulary (``extra_event_kinds``; LM decode adds
+    ``TOKEN``).
 """
 from __future__ import annotations
 
@@ -45,6 +48,10 @@ class Workload:
 
     #: short label
     name = "workload"
+    #: per-request result type the client/transport surface
+    result_type: type = FoldResult
+    #: event kinds beyond the shared lifecycle vocabulary (LM adds TOKEN)
+    extra_event_kinds: tuple[str, ...] = ()
 
     def __init__(self):
         self.core: Any = None
@@ -64,6 +71,11 @@ class Workload:
         """One batch step.  ``scheme``/``chunk`` are fixed per executable
         (part of the host engine's cache key), ``params`` + ``inputs`` are
         tensors."""
+        raise NotImplementedError
+
+    def output_keys(self) -> tuple[str, ...]:
+        """The outputs of ``forward`` a launch hands back (copied out of a
+        graph's static buffers right after each replay)."""
         raise NotImplementedError
 
     # -- batch formation ------------------------------------------------------
@@ -108,6 +120,9 @@ class FoldWorkload(Workload):
     def forward(self, scheme, chunk, params, aatype, mask):
         return ppm_forward(params, aatype, self.core.cfg, scheme, mask=mask,
                            chunk_size=chunk or None)
+
+    def output_keys(self) -> tuple[str, ...]:
+        return ("coords", "distogram") if self.core.keep_distogram else ("coords",)
 
     # -- batch formation ------------------------------------------------------
     def pad_inputs(self, requests: tuple, bucket: int,

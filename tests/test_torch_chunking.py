@@ -168,6 +168,25 @@ def test_chunked_forward_matches_jax_chunked(scheme, b, n, chunk):
         assert min(tms) >= 0.995, tms
 
 
+COMPARISON_SCHEMES = ("smoothquant", "llm_int8", "ptq4protein", "tender", "mefold")
+
+
+@pytest.mark.parametrize("scheme", COMPARISON_SCHEMES)
+def test_comparison_schemes_chunked_match_jax_chunked(scheme):
+    """The five comparison schemes take tensor-, channel- or all-token-wide
+    statistics, so a slab's scales see the slab: the port's chunked fold
+    must slab as the reference's does to see the same statistics.  Held by
+    the AAQ gate of ``test_chunked_forward_matches_jax_chunked`` (TM >=
+    0.995), at N = 64 in slabs of 16."""
+    b, n, chunk = 1, 64, 16
+    aat, mask, lens = _case(b, n)
+    out = jax_ppm_forward(_params()[0], jnp.asarray(aat), JCFG, jax_make_scheme(scheme),
+                          mask=jnp.asarray(mask), chunk_size=chunk)
+    got = _port(scheme, b, n, chunk, "auto")
+    tms = _tm_rows(got["coords"], np.asarray(out["coords"]), lens)
+    assert min(tms) >= 0.995, tms
+
+
 # --------------------------------------------------------------------------
 # the capture-safe forms of the forward's helpers
 # --------------------------------------------------------------------------
@@ -220,6 +239,25 @@ def test_slabbed_stages_match_unslabbed_bitwise(stage, n, chunk):
                     got if isinstance(got, tuple) else (got,)):
         assert w.dtype == g.dtype == torch.float32 and w.shape == g.shape
         assert torch.equal(w.view(torch.int32), g.view(torch.int32)), stage
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_chunked_opm_outer_product_is_the_float32_einsum_rounded(dtype):
+    """The chunked OPM forms its outer product in the activations' dtype:
+    bitwise the float32 einsum rounded to that dtype (a product of two bf16
+    values is exact in float32), and so the chunked OPM is bitwise the
+    unchunked one."""
+    from repro_torch.models.ppm import chunking as ck
+    from repro_torch.models.ppm import trunk as tk
+    g = torch.Generator().manual_seed(5)
+    a = (torch.randn((2, 9, 32), generator=g) * 3).to(dtype)
+    b = (torch.randn((2, 11, 32), generator=g) * 3).to(dtype)
+    want = torch.einsum("bic,bjd->bijcd", a.float(), b.float()).to(dtype)
+    got = a[:, :, None, :, None] * b[:, None, :, None, :]
+    assert got.dtype == dtype and torch.equal(got, want)
+    p = _params()[1]["trunk"][0]["opm"]
+    s = torch.randn((2, 24, CFG.hm), generator=g)
+    assert torch.equal(ck.opm_chunked(p, s, 8), tk.opm_apply(p, s))
 
 
 @pytest.mark.parametrize("scheme", ["baseline_fp16", "lightnobel_aaq"])

@@ -414,7 +414,8 @@ def test_dispatch_routes_by_mode_and_device():
     ref_fq = dispatch.fake_quant(x, bits=4, k_outliers=4)
     assert dispatch.counters == {"attention.kernel": 0, "attention.ref": 1,
                                  "qmatmul.kernel": 0, "qmatmul.ref": 1,
-                                 "fakequant.kernel": 0, "fakequant.ref": 1}
+                                 "fakequant.kernel": 0, "fakequant.ref": 1,
+                                 "quantize.kernel": 0, "quantize.ref": 0}
     with dispatch.use_backend("kernel"):
         assert dispatch.attention_is_kernel(cpu)
         assert dispatch.describe(device="cpu") == "kernel-plain"
@@ -437,6 +438,14 @@ def test_dispatch_routes_by_mode_and_device():
     assert dispatch.describe("ref", device="cuda") == "ref"
     with pytest.raises(ValueError):
         dispatch.set_backend("pallas")
+    # the LM's KV-row quantize: the reference dataflow on the CPU, the
+    # kernel's plain version when the kernel is asked for; the same QTensor
+    dispatch.reset_counters()
+    qt_ref = dispatch.quantize(x, bits=4, k_outliers=0)
+    qt_ker = dispatch.quantize(x, bits=4, k_outliers=0, backend="kernel")
+    assert (dispatch.counters["quantize.ref"], dispatch.counters["quantize.kernel"]) == (1, 1)
+    assert dispatch.plain_counts()["aaq_quantize"] == 1
+    assert torch.equal(qt_ref.inliers, qt_ker.inliers) and torch.equal(qt_ref.scales, qt_ker.scales)
     dispatch.reset_counters()
     assert sum(dispatch.plain_counts().values()) == 0
 
