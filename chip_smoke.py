@@ -6,7 +6,9 @@
 Phases, each fatal on failure:
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA
      and nvcc versions; no CUDA device -> exit 1;
-  2. build: the CUDA kernels from ``src/repro_torch/csrc``;
+  2. build: the CUDA kernels from ``src/repro_torch/csrc``; ptxas's
+     registers and spills of every tensor-core flash instantiation
+     printed, and a spill fails;
   3. each kernel variant against its plain PyTorch version on the card at
      the main path's shapes and at long N (seq attention at N = 1024 and
      2048, triangular attention at N = 1024), with its time at every
@@ -16,7 +18,12 @@ Phases, each fatal on failure:
      ``aaq_fake_quant`` for the ``act`` sites) bitwise; and the LM decode
      tenant's shapes: flash with one query row a slot against a 256-row
      KV ring (``kv_valid_len`` 1, 17, 255, 256; GQA 16/2 at head dim 128),
-     a causal prefill, ``aaq_quantize`` on KV rows bitwise;
+     a causal prefill, ``aaq_quantize`` on KV rows bitwise; and flash at the
+     model zoo's shapes (phase 9's): phi-3's head dim 96, DeepSeek's MLA at
+     192 with v at 128 padded, RecurrentGemma's 256 with MQA and a 2,048
+     window and its decode row against a 2,048-row ring, whisper's 1,500
+     encoder frames and the cross attention onto them, mixtral's GQA 48/8
+     with a 4,096 window, each timed against SDPA;
   4. whole forward, kernels vs the plain references, 2 blocks at full
      esmfold_ppm width, one padded request, with two controls that the
      lightnobel_aaq gate must reject;
@@ -87,7 +94,26 @@ Phases, each fatal on failure:
      the in-process client's, ``workload="lm"`` series); then qwen2.5-3b
      at full width (GQA 16/2, head dim 128) under AAQ on 2 prompts, also
      against the plain path;
-  9. summary: one JSON line of the kernels, the card, and the last line
+  9. the rest of the model zoo through ``models.lm``: deepseek-v2-lite-16b
+     (27 layers, MLA + MoE), recurrentgemma-9b (38), mamba2-780m (48),
+     whisper-base (6 + 6, 1,500 frames), phi-3-vision-4.2b (32, 256 image
+     embeddings) at full width and mixtral-8x22b at full width and 2 of its
+     56 layers (one card cannot hold the rest), each alone, bf16, random
+     weights from seed 0 made on the card, its memory released before the
+     next.  Each: ``prefill_fn`` on 2 prompts of 512 positions (2,560 for
+     recurrentgemma, 1 x 4,608 for mixtral, so that their windows engage;
+     whisper's decoder 64 tokens) on the kernel route against the plain
+     route (same weights) within a limit set from readings, and for the
+     MoE models the top-k choices that differ between the routes counted
+     layer by layer and the kernel route rerun with the plain route's
+     choices forced, within a tighter limit; 16 tokens
+     decoded from an empty ``make_cache`` against ``prefill_fn`` on the same
+     16 tokens within a limit set from readings; flash launches a prefill
+     and a decode step equal to the attention calls the config implies (0
+     for mamba2), no plain attention on the kernel route; ``AAQConfig()``
+     against ``DISABLED`` finite, its drift printed; prefill ms, decode-step
+     ms and peak memory printed;
+ 10. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -2092,6 +2118,436 @@ def http_fleet_lm(torch, cfg, params, prompts, inproc) -> None:
             r.client.close()
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (zoo shapes) and phase 9: the rest of the model zoo
+# ---------------------------------------------------------------------------
+def _zoo_key(q, k) -> tuple:
+    """A flash launch's tally key in phase 9: (Sq, Hq, D, Skv, Hkv)."""
+    return (q.shape[1], q.shape[2], q.shape[3], k.shape[1], k.shape[2])
+
+
+def _valid_pairs(b, sq, skv, causal, window, kvlen) -> int:
+    """(query, key) pairs that these masks leave, over the batch."""
+    qpos = range(sq)
+    if kvlen is not None:
+        return int(sum(int(n) for n in kvlen.tolist())) * sq
+    total = 0
+    for qp in qpos:
+        hi = min(skv, qp + 1) if causal else skv
+        lo = max(0, qp - window + 1) if window is not None else 0
+        total += max(0, hi - lo)
+    return b * total
+
+
+# (label, arch, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, kv_valid_len)
+ZOO_FLASH = (
+    ("phi-3 prefill", "phi-3-vision-4.2b", 2, 512, 512, 32, 32, 96, 96, True, None, None),
+    ("recurrentgemma prefill", "recurrentgemma-9b", 2, 2560, 2560, 16, 1, 256, 256, True,
+     2048, None),
+    ("recurrentgemma decode", "recurrentgemma-9b", 4, 1, 2048, 16, 1, 256, 256, False, None,
+     [1, 700, 1401, 2048]),
+    ("MLA prefill", "deepseek-v2-lite-16b", 2, 512, 512, 16, 16, 192, 128, True, None, None),
+    ("whisper encoder self", "whisper-base", 2, 1500, 1500, 8, 8, 64, 64, False, None, None),
+    ("whisper cross", "whisper-base", 2, 64, 1500, 8, 8, 64, 64, False, None, None),
+    ("mixtral prefill", "mixtral-8x22b", 1, 4608, 4608, 48, 8, 128, 128, True, 4096, None),
+)
+
+
+def check_zoo_flash(torch, rows: dict) -> list:
+    """Flash at the model zoo's shapes (phase 9's): head dims 96, 192 (MLA:
+    v at 128, padded with zeros to 192 as ``dispatch.attention`` does, the
+    output sliced back) and 256 (MQA, window 2,048, and its decode against a
+    2,048-row ring), the whisper encoder's 1,500 frames and the cross
+    attention onto them, mixtral's GQA 48/8 with a 4,096 window.  Each held
+    to ``flash_mha_plain`` (on the unpadded v) and timed: ``bound_ms``
+    counts the pairs the masks leave and v and o at their own head dim;
+    ``library_ms`` is SDPA (KV heads repeated, the window or key lengths as
+    a boolean mask).  Returns (row, phase-9 tally key) pairs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import (flash_mha_kernel,
+                                                                     flash_mha_plain)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    bf = torch.bfloat16
+    pending = []
+    for (label, arch, b, sq, skv, hq, hkv, d, dv, causal, window, kvlen) in ZOO_FLASH:
+        q = torch.randn((b, sq, hq, d), generator=g, device="cuda").to(bf)
+        k = torch.randn((b, skv, hkv, d), generator=g, device="cuda").to(bf)
+        v = torch.randn((b, skv, hkv, dv), generator=g, device="cuda").to(bf)
+        kvl = None if kvlen is None else torch.tensor(kvlen, dtype=torch.int32, device="cuda")
+        vp = F.pad(v, (0, d - dv)) if dv < d else v
+        scale = 1.0 / math.sqrt(d)
+        kw = dict(causal=causal, window=window, softmax_scale=scale)
+
+        def kern(q=q, k=k, vp=vp, kvl=kvl, kw=kw):
+            return flash_mha_kernel(q, k, vp, None, kvl, **kw)
+
+        def plain(q=q, k=k, v=v, kvl=kvl, kw=kw):
+            return flash_mha_plain(q, k, v, None, kvl, **kw)
+
+        o = kern()[..., :dv]
+        err = _flash_close(torch, o, plain(), v, f"{label} ({arch})")
+        shape = (f"{label} ({arch}): q ({b}, {sq}, {hq}, {d}), k ({b}, {skv}, {hkv}, {d}), "
+                 f"v ({b}, {skv}, {hkv}, {dv}{', padded to ' + str(d) if dv < d else ''}) bf16"
+                 f"{', causal' if causal else ''}{f', window {window}' if window else ''}"
+                 f"{f', kv_valid_len {kvlen}' if kvlen else ''}")
+        row = _row("flash_mha", shape)
+        row.max_abs_err = err
+        row.ms, row.call_ms = time_ms(torch, kern), call_ms(torch, kern)
+        row.plain_ms = time_ms(torch, plain, iters=3)
+        qt = q.transpose(1, 2)
+        kt, vt = (a.repeat_interleave(hq // hkv, dim=2).transpose(1, 2) for a in (k, v))
+        mask = None
+        if kvl is not None:
+            mask = (torch.arange(skv, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
+        elif window is not None:
+            qp = torch.arange(sq, device="cuda")[:, None]
+            kp = torch.arange(skv, device="cuda")[None, :]
+            mask = (kp <= qp) & (kp > qp - window)
+        row.library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=scale))
+        del kt, vt, mask
+        # each input read once (at a decode row, only the K/V rows the key
+        # lengths keep), the output written once, v and o at their own width
+        kv_bytes = (2 * hkv * (d + dv) * sum(kvlen) if kvlen else nbytes(k, v))
+        pairs = _valid_pairs(b, sq, skv, causal, window, kvl)
+        row.bound_ms, row.bound_by = bound_ms(nbytes(q, o, kvl) + kv_bytes,
+                                              2 * pairs * hq * (d + dv))
+        pending.append((row, _zoo_key(q, k)))
+        log(row.line())
+    log(f"flash_mha zoo shapes: allclose on {len(ZOO_FLASH)} cases (D = 64/96/128/192/256, "
+        f"MLA v padded 128 -> 192, MQA 16/1 and GQA 48/8, windows 2,048 and 4,096, a decode "
+        f"row against a 2,048-row ring, cross attention onto 1,500 frames)")
+    return pending
+
+
+# phase 9: (arch, layers on the card (None: all), batch, prompt tokens);
+# phi-3's 512 positions are 256 image embeddings and 256 tokens, whisper's
+# decoder prompt is 64 tokens against its 1,500 encoder frames
+ZOO_MODELS = (
+    ("deepseek-v2-lite-16b", None, 2, 512),
+    ("recurrentgemma-9b", None, 2, 2560),
+    ("mamba2-780m", None, 2, 512),
+    ("whisper-base", None, 2, 64),
+    ("phi-3-vision-4.2b", None, 2, 256),
+    ("mixtral-8x22b", 2, 1, 4608),
+)
+ZOO_DECODE_TOKENS = 16
+#: limits of phase 9 on max |last-position logits|, set from readings
+#: (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W): the kernel route against
+#: the plain route on the same weights (bf16 roundings apart; mamba2 has no
+#: attention, so its two routes are the same code), and 16 decode steps
+#: against a prefill of the same 16 tokens (other products, other bf16
+#: roundings).  Each lies between the model's reading and its control's,
+#: a fault the gate must catch (``_zoo_fault``; the controls are gated
+#: above the limits too).  Readings / controls: prefill deepseek 0.930 /
+#: 2.447 (router flips: 7,813 of its 26 x 1,024 top-6 choices differ between
+#: the routes; ``ZOO_FORCED_TOL`` holds the rest), recurrentgemma 0.157 / 0.545, whisper 0.0150 / 0.357, phi-3
+#: 0.103 / 5.85, mixtral 0.0300 / 3.37; decode 0.245 / 3.06, 0.227 / 3.39,
+#: mamba2 0.195 / 4.74, 0.0140 / 0.233, 0.0913 / 2.43, 0.0327 / 2.13.
+ZOO_PREFILL_TOL = {"deepseek-v2-lite-16b": 1.5, "recurrentgemma-9b": 0.3,
+                   "mamba2-780m": 0.0, "whisper-base": 0.07, "phi-3-vision-4.2b": 0.5,
+                   "mixtral-8x22b": 0.3}
+ZOO_DECODE_TOL = {"deepseek-v2-lite-16b": 0.8, "recurrentgemma-9b": 0.8,
+                  "mamba2-780m": 0.6, "whisper-base": 0.06, "phi-3-vision-4.2b": 0.45,
+                  "mixtral-8x22b": 0.25}
+#: the flash fault of each model's prefill control: the argument it gets wrong
+ZOO_PREFILL_FAULT = {"deepseek-v2-lite-16b": "softmax scale 1/sqrt(v's 128), not 1/sqrt(192)",
+                     "recurrentgemma-9b": "window dropped", "mixtral-8x22b": "window dropped",
+                     "whisper-base": "causal dropped", "phi-3-vision-4.2b": "causal dropped"}
+ZOO_DECODE_FAULT = "the newest ring row dropped from kv_valid_len"
+#: MoE prefill: limit on max |last-position logits| between the kernel
+#: route with its routing forced to the plain route's top-k choices
+#: (``_routing``) and the plain route, so that a router flip, which moves
+#: a token's whole expert share, is told apart from the attention's bf16
+#: roundings; the prefill control is run forced too and gated above it.
+#: Readings / controls (NVIDIA H100 80GB HBM3, 700 W): deepseek 0.0868 /
+#: 2.04, mixtral 0.0305 / 1.67 (49 of its 2 x 4,608 top-2 choices flip).
+ZOO_FORCED_TOL = {"deepseek-v2-lite-16b": 0.3, "mixtral-8x22b": 0.15}
+ZOO_SSM_DECODE_FAULT = "the conv state not carried between steps"
+
+
+@contextlib.contextmanager
+def _zoo_fault(torch, arch: str, step: str):
+    """Flash with one argument wrong, for a control run: in a prefill the
+    model's ``ZOO_PREFILL_FAULT``, in a decode step the newest ring row
+    dropped from ``kv_valid_len``; mamba2's decode (no attention) with its
+    conv state dropped at every step."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import ssm
+    fl, conv = dispatch.flash_mha_kernel, ssm._causal_conv
+    if arch == "mamba2-780m":
+        with swapped(ssm, "_causal_conv", lambda xbc, w, b, state=None: conv(xbc, w, b)):
+            yield
+        return
+
+    def faulty(q, k, v, bias=None, kvl=None, **kw):
+        fault = ZOO_PREFILL_FAULT[arch]
+        if step == "decode":
+            if kvl is not None:          # the self-attention ring, not the cross
+                kvl = torch.clamp(kvl - 1, min=1)
+        elif fault.startswith("softmax"):
+            kw["softmax_scale"] = kw["softmax_scale"] * math.sqrt(192 / 128)
+        elif fault == "window dropped":
+            kw["window"] = None
+        elif fault == "causal dropped":
+            kw["causal"] = False
+        return fl(q, k, v, bias, kvl, **kw)
+
+    with swapped(dispatch, "flash_mha_kernel", faulty):
+        yield
+
+
+@contextlib.contextmanager
+def _routing(torch, force=None):
+    """Record each MoE layer's top-k choices (expert indices, in call
+    order) into the list yielded; with ``force`` (such a list from another
+    run) each layer takes those choices instead, at this run's gate values."""
+    from repro_torch.models import moe
+    top_k, seen = moe._top_k, []
+
+    def routed(gates, k):
+        if force is None:
+            v, i = top_k(gates, k)
+        else:
+            i = force[len(seen)]
+            v = torch.gather(gates, -1, i)
+        seen.append(i)
+        return v, i
+
+    with swapped(moe, "_top_k", routed):
+        yield seen
+
+
+def _zoo_routes(torch, arch, params, batch, cfg, ref, ref_route) -> dict:
+    """An MoE prefill's routing on the kernel route against the plain
+    route's (``ref_route``, which gave ``ref``): the tokens a layer whose
+    set of top-k experts differs, and max |logits - ref| with the kernel
+    route's routing forced to the plain route's, for the model and for its
+    prefill control."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    with dispatch.use_backend("kernel"):
+        with _routing(torch) as kern_route:
+            lm.prefill_fn(params, batch, cfg)
+        with _routing(torch, force=ref_route):
+            forced = lm.prefill_fn(params, batch, cfg)
+        with _zoo_fault(torch, arch, "prefill"), _routing(torch, force=ref_route):
+            c_forced = lm.prefill_fn(params, batch, cfg)
+    flips = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+             for a, b in zip(kern_route, ref_route)]
+    return dict(tokens=ref_route[0][..., 0].numel(), flips=flips,
+                forced=float((forced - ref).abs().max()),
+                control_forced=float((c_forced - ref).abs().max()))
+
+
+def _zoo_attn_calls(cfg, step: str) -> int:
+    """Attention calls a prefill or a decode step of ``cfg`` makes."""
+    if cfg.kind == "ssm":
+        return 0
+    if cfg.kind == "hybrid":
+        return cfg.layers // cfg.hybrid.attn_every
+    if cfg.kind == "encdec":     # encoder self (prefill only), decoder self, cross
+        return (cfg.enc_layers if step == "prefill" else 0) + 2 * cfg.layers
+    return cfg.layers
+
+
+def _zoo_batch(torch, cfg, b, s, seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(np.int64))
+             .cuda()}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.kind == "vlm":
+        batch["image_embeds"] = torch.randn((b, cfg.n_image_tokens, cfg.d_model), generator=g,
+                                            device="cuda").to(cfg.torch_dtype)
+    if cfg.kind == "encdec":
+        batch["audio_frames"] = torch.randn((b, cfg.n_audio_frames, cfg.d_model), generator=g,
+                                            device="cuda").to(cfg.torch_dtype)
+    return batch
+
+
+def _zoo_counted(torch, fn, tally):
+    """Run ``fn`` with every counter zeroed just before and read just after;
+    flash launches also tallied by (Sq, Hq, D, Skv, Hkv)."""
+    from repro_torch.kernels import dispatch
+    fl = dispatch.flash_mha_kernel
+
+    def fl_counted(q, k, v, bias=None, kvl=None, **kw):
+        tally[_zoo_key(q, k)] += 1
+        return fl(q, k, v, bias, kvl, **kw)
+
+    dispatch.reset_counters()
+    with swapped(dispatch, "flash_mha_kernel", fl_counted):
+        out = fn()
+        torch.cuda.synchronize()
+    return out, _counts()
+
+
+def _zoo_model(torch, arch, layers, b, s, tally) -> dict:
+    """One model of phase 9 (see the module docstring); returns its readings."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import DISABLED, AAQConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import common as cm
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(layers=layers)
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    n_params = cm.count_params(params)
+    log(f"zoo {arch}: {cfg.kind}, {cfg.layers} layers{' (reduced: layers)' if layers else ''}, "
+        f"d_model {cfg.d_model}, {n_params / 1e9:.3f}B params "
+        f"({cm.param_bytes(params) / 2**30:.2f} GiB bf16) from seed 0 in "
+        f"{time.perf_counter() - t0:.1f}s")
+    batch = _zoo_batch(torch, cfg, b, s)
+    want = _zoo_attn_calls(cfg, "prefill")
+    torch.cuda.reset_peak_memory_stats()
+    with dispatch.use_backend("kernel"):
+        logits, (launches, plain, routed) = _zoo_counted(
+            torch, lambda: lm.prefill_fn(params, batch, cfg), tally)
+        t0 = time.perf_counter()
+        lm.prefill_fn(params, batch, cfg)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        aaq = lm.prefill_fn(params, batch, cfg, AAQConfig())
+    if (launches["flash_mha"] != want or launches["flash_mha_simt"] or any(plain.values())
+            or routed["attention.ref"]):
+        fail(f"zoo {arch}: prefill launched flash {launches['flash_mha']} times (want {want}), "
+             f"simt {launches['flash_mha_simt']}, plain {plain}, routed {routed}")
+    with dispatch.use_backend("ref"), _routing(torch) as ref_route:
+        ref = lm.prefill_fn(params, batch, cfg)
+    d_ref = float((logits - ref).abs().max())
+    drift = float((aaq - logits).abs().max())
+    c_ref = None
+    if want:
+        with dispatch.use_backend("kernel"), _zoo_fault(torch, arch, "prefill"):
+            c_ref = float((lm.prefill_fn(params, batch, cfg) - ref).abs().max())
+    routes = _zoo_routes(torch, arch, params, batch, cfg, ref, ref_route) \
+        if cfg.kind == "moe" else None
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(aaq).all())
+    # 16 decode steps from an empty cache against a prefill of the same
+    # tokens; MoE at a capacity that seats every token (capacity_factor
+    # E/k), since 16 prefill tokens a row can overflow an expert and drop
+    # where one decode token never does (the reference's semantics)
+    if cfg.kind == "moe":
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    toks = batch["tokens"][:, :ZOO_DECODE_TOKENS]
+    max_len = cfg.hybrid.window if cfg.kind == "hybrid" else ZOO_DECODE_TOKENS
+    cache = lm.make_cache(cfg, b, max_len, device="cuda")
+    dbatch = {"tokens": toks}
+    if cfg.kind == "encdec":
+        dbatch["audio_frames"] = batch["audio_frames"]
+        cache["enc_out"].copy_(ed.encode(params, batch["audio_frames"], cfg))
+    step_want = _zoo_attn_calls(cfg, "decode")
+    step_ms = []
+    with dispatch.use_backend("kernel"):
+        for t in range(ZOO_DECODE_TOKENS):
+            t0 = time.perf_counter()
+            (dl, cache), (launches, plain, routed) = _zoo_counted(
+                torch, lambda t=t: lm.decode_fn(params, {"tokens": toks[:, t:t + 1]}, cache,
+                                                cfg), tally)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if (launches["flash_mha"] != step_want or any(plain.values())
+                    or routed["attention.ref"]):
+                fail(f"zoo {arch}: decode step {t} launched flash {launches['flash_mha']} "
+                     f"times (want {step_want}), plain {plain}, routed {routed}")
+        full = lm.prefill_fn(params, dbatch, cfg)
+        c_dec = None
+        if step_want or cfg.kind == "ssm":
+            cache = lm.make_cache(cfg, b, max_len, device="cuda")
+            if cfg.kind == "encdec":
+                cache["enc_out"].copy_(ed.encode(params, batch["audio_frames"], cfg))
+            with _zoo_fault(torch, arch, "decode"):
+                for t in range(ZOO_DECODE_TOKENS):
+                    cl, cache = lm.decode_fn(params, {"tokens": toks[:, t:t + 1]}, cache, cfg)
+            c_dec = float((cl - full).abs().max())
+    d_dec = float((dl - full).abs().max())
+    finite = finite and bool(torch.isfinite(dl).all())
+    out = dict(arch=arch, kind=cfg.kind, layers=cfg.layers, params_b=n_params / 1e9,
+               flash_prefill=want, flash_step=step_want, prefill_ms=prefill_ms,
+               step_ms=sorted(step_ms)[len(step_ms) // 2], peak_gib=peak / 2**30,
+               peak_above_params_gib=(peak - held) / 2**30, kernel_vs_plain=d_ref,
+               control_prefill=c_ref, decode_vs_prefill=d_dec, control_decode=c_dec,
+               aaq_drift=drift, logits_absmax=float(ref.abs().max()), routes=routes)
+    log(f"zoo {arch}: prefill {b}x{s} {prefill_ms:.1f} ms, flash {want} a prefill"
+        f"{' (attention-free: no flash call)' if not want else ''}, {step_want} a decode step; "
+        f"decode step {out['step_ms']:.2f} ms (median of {ZOO_DECODE_TOKENS}, host clock, "
+        f"eager); peak {out['peak_gib']:.2f} GiB ({out['peak_above_params_gib']:.2f} above "
+        f"the params); max|logits kernel - plain route| {d_ref:.4e} (limit "
+        f"{ZOO_PREFILL_TOL[arch]}; control, {ZOO_PREFILL_FAULT.get(arch, 'none')}: {c_ref}), "
+        f"max|decode - prefill| after {ZOO_DECODE_TOKENS} tokens {d_dec:.4e} (limit "
+        f"{ZOO_DECODE_TOL[arch]}; control, "
+        f"{ZOO_SSM_DECODE_FAULT if cfg.kind == 'ssm' else ZOO_DECODE_FAULT}: {c_dec}), "
+        f"max|logits| {out['logits_absmax']:.3f}, AAQ vs DISABLED drift {drift:.4e} (not gated)")
+    if routes:
+        log(f"zoo {arch}: prefill routing, kernel route vs plain route: tokens whose top-"
+            f"{cfg.moe.top_k} experts differ, of {routes['tokens']} a layer, by MoE layer "
+            f"{routes['flips']} ({sum(routes['flips'])} in all); max|logits kernel route with the "
+            f"plain route's routing forced - plain route| {routes['forced']:.4e} (limit "
+            f"{ZOO_FORCED_TOL[arch]}; control forced too, {ZOO_PREFILL_FAULT[arch]}: "
+            f"{routes['control_forced']})")
+        if not routes["forced"] <= ZOO_FORCED_TOL[arch] < routes["control_forced"]:
+            fail(f"zoo {arch}: forced routing: kernel vs plain {routes['forced']}, control "
+                 f"{routes['control_forced']}, limit {ZOO_FORCED_TOL[arch]}")
+    if not finite or d_ref > ZOO_PREFILL_TOL[arch] or d_dec > ZOO_DECODE_TOL[arch]:
+        fail(f"zoo {arch}: finite {finite}, kernel vs plain {d_ref}, decode vs prefill {d_dec}")
+    if ((c_ref is not None and not c_ref > ZOO_PREFILL_TOL[arch])
+            or not c_dec > ZOO_DECODE_TOL[arch]):
+        fail(f"zoo {arch}: a control passed its gate: prefill {c_ref}, decode {c_dec}")
+    del params, cache, batch, logits, ref, aaq, dl, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_zoo(torch, zoo_pending, card: str) -> dict:
+    """Phase 9 (see the module docstring).  Returns the launches by variant of
+    its counted runs and fills the launches of the zoo kernel rows; ``card``
+    is the nvidia-smi name and power limit, printed with the readings."""
+    tally = Counter()
+    total = Counter()
+    t0 = time.perf_counter()
+    readings = []
+    for arch, layers, b, s in ZOO_MODELS:
+        before = Counter(tally)
+        readings.append(_zoo_model(torch, arch, layers, b, s, tally))
+        total["flash_mha"] += sum((tally - before).values())
+    for row, key in zoo_pending:
+        row.launches = tally.get(key, 0)
+    if total["flash_mha"] == 0:
+        fail("zoo: flash was never launched")
+    log(f"zoo readings on {card}: {json.dumps(readings)}")
+    log(f"phase 9 wall {time.perf_counter() - t0:.1f}s")
+    return dict(total)
+
+
+def flash_resources(build) -> None:
+    """Phase 2's ptxas readout: registers a thread and spilled bytes of each
+    tensor-core flash instantiation ``flash_tc_kernel<D, bias kind>`` (bias
+    kind 0 none, 1 f32, 2 bf16); a spill fails."""
+    import re
+    res = {}
+    for name, (regs, spill) in build.ptxas_resources().items():
+        if m := re.search(r"flash_tc_kernelILi(\d+)ELi(\d)E", name):
+            res[(int(m[1]), int(m[2]))] = (regs, spill)
+    if not res:
+        fail("build: ptxas reported no flash_tc_kernel instantiation")
+    by_d = {d: " / ".join(f"{res[d, b][0]}" for b in range(3) if (d, b) in res)
+            for d in sorted({d for d, _ in res})}
+    log("build: flash_tc_kernel registers a thread (ptxas, sm_90a; no bias / f32 / bf16 bias): "
+        + ", ".join(f"D={d} {r}" for d, r in by_d.items())
+        + f"; spilled bytes {sorted({s for _, s in res.values()})}")
+    if spilled := {k: v for k, v in res.items() if v[1]}:
+        fail(f"build: flash_tc_kernel spills registers at (D, bias kind) {spilled}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2125,6 +2581,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f}s "
         f"({'built' if build.build_seconds is not None else 'cached'}) from "
         f"{[str(s.relative_to(ROOT)) for s in build.sources()]}")
+    flash_resources(build)
 
     # 3. kernels vs plain versions, timed at every main-path shape
     rows: dict[str, list[KernelRow]] = {}
@@ -2132,6 +2589,7 @@ def main() -> int:
     check_matmul(torch, rows)
     check_flash(torch, rows)
     lm_pending = check_lm_kernels(torch, rows)
+    zoo_pending = check_zoo_flash(torch, rows)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f}s")
 
     # 4. whole forward, kernels vs plain references
@@ -2172,13 +2630,20 @@ def main() -> int:
     log(f"lm launches (warm-ups and captures): {lm_launches}")
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 9. summary
+    # 9. the rest of the model zoo at full width (mixtral at 2 of 56 layers)
+    zoo_launches = serve_zoo(torch, zoo_pending, smi)
+    log(f"zoo launches (one prefill and 16 decode steps a model): {zoo_launches}")
+    log(f"phase 9 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 10. summary
     log(f"total {time.perf_counter() - t_start:.1f}s")
     # each variant at its first timed shape, then every kernel at the engine's
-    # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs)
+    # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs), the
+    # LM decode shapes, the zoo's shapes
     print(json.dumps({"kernels": [r[0].record() for r in rows.values()]
                       + [row.record() for row, _, _ in pending]
-                      + [row.record() for row, _ in lm_pending]}))
+                      + [row.record() for row, _ in lm_pending]
+                      + [row.record() for row, _ in zoo_pending]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 of numpy arrays, to the port's parameters (and the fold's back).
 
 The reference stacks the trunk's blocks on a leading axis for ``scan``
-(``trunk.<leaf>`` of shape ``(blocks, ...)``), and an LM's ``blocks`` too
-when its config scans layers (a list otherwise); the port keeps one dict per
-block (``trunk[i].<leaf>``, ``blocks[i].<leaf>``).  Dense weights keep the ``(in, out)`` layout.
+(``trunk.<leaf>`` of shape ``(blocks, ...)``), and an LM's ``blocks`` (and a
+hybrid's ``periods``) too when its config scans layers (a list otherwise);
+the port keeps one dict per block (``trunk[i].<leaf>``, ``blocks[i].<leaf>``).
+Dense weights keep the ``(in, out)`` layout.
 bfloat16 arrays (numpy's ``bfloat16`` extension type) move bit for bit.
 This module imports neither JAX nor the reference: callers convert with
 ``np.asarray`` first.
@@ -33,7 +34,15 @@ def _to_tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
     return fn(tree)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree
 
 
 def params_from_numpy(tree: dict[str, Any], cfg, device=None, dtype=None) -> dict:
@@ -48,19 +57,29 @@ def params_from_numpy(tree: dict[str, Any], cfg, device=None, dtype=None) -> dic
     return out
 
 
+#: LM entries that the reference stacks on a leading axis for ``scan`` (a
+#: list when the config does not scan): the layers, and the hybrid's periods
+_LM_STACKED = ("blocks", "periods")
+
+
 def lm_params_from_numpy(tree: dict[str, Any], cfg, device=None, dtype=None) -> dict:
-    """Reference LM pytree (``repro.models.lm.init_params``, numpy leaves):
-    ``embed``, ``final_norm``, ``blocks`` and ``lm_head`` when the embedding
-    is not tied -> port params on ``device`` (default CUDA)."""
+    """Reference LM pytree (``repro.models.lm.init_params``, numpy leaves),
+    any kind -> port params on ``device`` (default CUDA).  ``blocks`` (and
+    the hybrid's ``periods``, dicts ``b0..``) stacked for ``scan`` become
+    lists of per-layer dicts, one per index of the leading axis; lists
+    (the layers the reference does not scan: the hybrid's ``tail``, the
+    enc-dec's ``enc_blocks``/``dec_blocks``) stay lists; every other entry
+    (``first_block``, norms, embeddings, ``lm_head``) converts leaf by leaf.
+    The MoE experts keep their own stacked axis inside each block."""
     dev = resolve_device(device)
     conv = lambda a: _to_tensor(np.asarray(a), dev, dtype)  # noqa: E731
-    out = {k: _map(v, conv) for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
-    if isinstance(blocks, dict):          # stacked for scan
-        out["blocks"] = [_map(blocks, lambda a, i=i: conv(np.asarray(a)[i]))
-                         for i in range(cfg.layers)]
-    else:
-        out["blocks"] = [_map(b, conv) for b in blocks]
+    out = {}
+    for k, v in tree.items():
+        if k in _LM_STACKED and isinstance(v, dict):
+            n = np.asarray(_first_leaf(v)).shape[0]
+            out[k] = [_map(v, lambda a, i=i: conv(np.asarray(a)[i])) for i in range(n)]
+        else:
+            out[k] = _map(v, conv)
     return out
 
 

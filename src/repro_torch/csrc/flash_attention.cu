@@ -18,7 +18,7 @@
 // the state in registers.  Two variants, chosen by a fixed rule on the
 // type and head dim:
 //
-// bf16 q/k/v, D in {16, 32, 64, 128} (the main path): flash_tc_kernel,
+// bf16 q/k/v, D in {16, 32, 64, 96, 128, 192, 256} (the main path): flash_tc_kernel,
 //   FlashAttention-2 on the tensor cores.  Bound on the H100: bytes.  At
 //   the triangular-attention shape (B*N = 256 rows, N = 256, 4 heads,
 //   D = 32) a call is 4*B*N*H*N*N*D = 8.6 GFLOP against ~67 MB of q, k, v, o
@@ -48,6 +48,13 @@
 //     window are skipped (their probabilities are exactly 0).
 //   - The output is staged through shared memory and written 16 bytes a
 //     thread.
+//   - Head dims 96 to 256 (the LM zoo: phi-3-vision 96, DeepSeek's MLA 192,
+//     RecurrentGemma 256) take one head a block (4 warps).  Above 128 the
+//     O accumulator is D/2 floats a thread (128 at D = 256), so the key tile
+//     halves to 32 and a warp reloads its Q fragments from shared memory
+//     for each tile instead of holding them; the block then takes 99 KB of
+//     shared memory at D = 256 (119 KB with an f32 bias), which the launch
+//     opts into past the default 48 KB.
 //
 // float32 q/k/v or D = 8: flash_simt_kernel, both products on the CUDA
 //   cores in float32 out of shared memory (one block per (row, head,
@@ -255,28 +262,34 @@ int launch_typed(const Params& p, int d, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 namespace tc {
 
-constexpr int RG = 4, BQ = 16 * RG, BKV = 64;   // warps a head, query rows, keys a tile
-constexpr int BRS = BKV + 8;                    // row stride of an unpacked bias tile (floats)
+constexpr int RG = 4, BQ = 16 * RG;             // warps a head, query rows
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D> __host__ __device__ constexpr int max_threads() {
   return D <= 32 ? 512 : (D == 64 ? 256 : 128);
 }
+// Keys a tile.  At D > 128 the O accumulator alone is D/2 floats a thread,
+// so the tile halves (the S fragment with it) to stay inside 255 registers.
+template <int D> __host__ __device__ constexpr int kv_tile() { return D > 128 ? 32 : 64; }
+// Up to D = 128 a warp keeps its Q fragments in registers for the whole
+// loop; above, it reloads them from shared memory for each key tile.
+template <int D> __host__ __device__ constexpr bool q_in_regs() { return D <= 128; }
 template <int BK> __host__ __device__ constexpr int bias_bytes() {
   return BK == 1 ? 4 : (BK == 2 ? 2 : 0);
 }
 
 // Bytes of one bias tile: packed, the raw [BQ][BKV][hb] rows (16 bytes hold
-// two keys of all hb heads); unpacked, float32 [hb][BQ][BRS].
-template <int BK> __host__ __device__ int bias_tile_bytes(int hb, int packed) {
+// two keys of all hb heads); unpacked, float32 [hb][BQ][BKV + 8].
+template <int BK, int BKV> __host__ __device__ int bias_tile_bytes(int hb, int packed) {
   if (BK == 0) return 0;
-  return packed ? BQ * BKV * hb * bias_bytes<BK>() : hb * BQ * BRS * 4;
+  return packed ? BQ * BKV * hb * bias_bytes<BK>() : hb * BQ * (BKV + 8) * 4;
 }
 
 template <int D, int BK> size_t smem_bytes(int hb, int packed) {
+  constexpr int BKV = kv_tile<D>();
   const size_t tile = static_cast<size_t>(hb) * BKV * (D + 8) * 2;    // one K or V tile
   return static_cast<size_t>(hb) * BQ * (D + 8) * 2 +
-         2 * (2 * tile + bias_tile_bytes<BK>(hb, packed));
+         2 * (2 * tile + bias_tile_bytes<BK, BKV>(hb, packed));
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -296,7 +309,7 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, uns
 __device__ __forceinline__ int bias_chunk(int r, int ch) { return ch ^ ((r & 1) << 2); }
 
 // Bias of keys (j, j + 1), j even, for head slot hs at tile row r.
-template <int BK>
+template <int BK, int BKV>
 __device__ __forceinline__ float2 bias_pair(const unsigned char* bs, int packed, int hb, int hs,
                                             int r, int j) {
   if (packed) {               // 16 bytes: keys j, j + 1 x all heads (hb * bias_bytes == 8)
@@ -312,7 +325,7 @@ __device__ __forceinline__ float2 bias_pair(const unsigned char* bs, int packed,
                     : make_float2(__uint_as_float(w0 << 16), __uint_as_float(w1 << 16));
     }
   }
-  return *reinterpret_cast<const float2*>(bs + ((hs * BQ + r) * BRS + j) * 4);
+  return *reinterpret_cast<const float2*>(bs + ((hs * BQ + r) * (BKV + 8) + j) * 4);
 }
 
 template <int D, int BK>
@@ -321,10 +334,11 @@ flash_tc_kernel(const Params p) {
   constexpr int DS = D + 8;                       // smem row stride: no bank conflicts
   constexpr int CPR = D / 8;                      // 16-byte chunks a (position, head) row
   constexpr int ES = bias_bytes<BK>();
+  constexpr int BKV = kv_tile<D>(), BRS = BKV + 8, NT = BKV / 8;  // keys, bias row, n-tiles
   extern __shared__ __align__(16) unsigned char smem[];
   const int hb = p.hb, nthreads = 32 * RG * hb, packed = p.packed_bias;
   const int tile = hb * BKV * DS;                 // elements of one K or V tile
-  const int stage_bytes = 4 * tile + bias_tile_bytes<BK>(hb, packed);
+  const int stage_bytes = 4 * tile + bias_tile_bytes<BK, BKV>(hb, packed);
   bf16* qs = reinterpret_cast<bf16*>(smem);       // [hb][BQ][DS]
   unsigned char* stages = smem + hb * BQ * DS * 2;
   auto ks_of = [&](int st) { return reinterpret_cast<bf16*>(stages + st * stage_bytes); };
@@ -411,8 +425,9 @@ flash_tc_kernel(const Params p) {
   for (int dn = 0; dn < D / 8; ++dn)
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[dn][j] = 0.f;
-  unsigned qa[D / 16][4];
+  unsigned qa[q_in_regs<D>() ? D / 16 : 1][4];
   const int mat = lane >> 3, r8 = lane & 7;
+  const bf16* qw = qs + (hs * BQ + rg * 16 + (lane & 15)) * DS + 8 * (lane >> 4);
 
   if (kv_start < kv_end) issue(kv_start, 0);
   hopper::cp_async_commit();                      // Q and the first tile
@@ -426,29 +441,31 @@ flash_tc_kernel(const Params p) {
     if (more) load_bias(kv0 + BKV, st ^ 1);
     hopper::cp_async_wait<1>();
     __syncthreads();                              // this tile (and Q) visible
-    if (it == 0) {
+    if constexpr (q_in_regs<D>()) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        hopper::ldsm_x4(qa[kk], qs + (hs * BQ + rg * 16 + (lane & 15)) * DS + kk * 16 +
-                                    8 * (lane >> 4));
+        for (int kk = 0; kk < D / 16; ++kk) hopper::ldsm_x4(qa[kk], qw + kk * 16);
+      }
     }
     const bf16* ks = ks_of(st) + hs * BKV * DS;
     const bf16* vs = vs_of(st) + hs * BKV * DS;
     const unsigned char* bs = bs_of(st);
 
-    float s[8][4];
+    float s[NT][4];
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
+    for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[ni][j] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      const unsigned(&qf)[4] = qa[q_in_regs<D>() ? kk : 0];
+      if constexpr (!q_in_regs<D>()) hopper::ldsm_x4(qa[0], qw + kk * 16);
 #pragma unroll
-      for (int nj = 0; nj < 8; nj += 2) {
+      for (int nj = 0; nj < NT; nj += 2) {
         unsigned bk[4];
         hopper::ldsm_x4(bk, ks + (nj * 8 + 8 * (mat >> 1) + r8) * DS + kk * 16 + 8 * (mat & 1));
-        hopper::mma_bf16(s[nj], qa[kk], bk[0], bk[1]);
-        hopper::mma_bf16(s[nj + 1], qa[kk], bk[2], bk[3]);
+        hopper::mma_bf16(s[nj], qf, bk[0], bk[1]);
+        hopper::mma_bf16(s[nj + 1], qf, bk[2], bk[3]);
       }
     }
 
@@ -458,13 +475,13 @@ flash_tc_kernel(const Params p) {
     unsigned good = 0xffffffffu;
     float mt[2] = {NEG, NEG};
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
+    for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {            // rows g, g + 8
         const int r = rg * 16 + g + 8 * e2, j = ni * 8 + 2 * c;
         float2 x = make_float2(s[ni][2 * e2] * p.scale, s[ni][2 * e2 + 1] * p.scale);
         if constexpr (BK != 0) {
-          const float2 bv = bias_pair<BK>(bs, packed, hb, hs, r, j);
+          const float2 bv = bias_pair<BK, BKV>(bs, packed, hb, hs, r, j);
           x.x += bv.x;
           x.y += bv.y;
         }
@@ -495,7 +512,7 @@ flash_tc_kernel(const Params p) {
       m[i] = m_new;
     }
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
+    for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float pv = (good >> (ni * 4 + e)) & 1u ? ex2(s[ni][e] - m[e >> 1]) : 0.f;
@@ -512,7 +529,7 @@ flash_tc_kernel(const Params p) {
 
     // O += (P_hi + P_lo) V, 16 keys a step
 #pragma unroll
-    for (int j2 = 0; j2 < 4; ++j2) {
+    for (int j2 = 0; j2 < BKV / 16; ++j2) {
       unsigned ahi[4], alo[4];
       split_bf16(s[2 * j2][0], s[2 * j2][1], ahi[0], alo[0]);
       split_bf16(s[2 * j2][2], s[2 * j2][3], ahi[1], alo[1]);
@@ -628,7 +645,7 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
 // a contiguous (B, Sq, Hq, D) tensor of q's type.  kvlen is null or (B,)
 // int32.  Returns the launch status (hopper::status).
 //
-// flash_mha_launch: bf16 q, k, v (qkv_is_bf16 = 1), D in {16, 32, 64, 128},
+// flash_mha_launch: bf16 q, k, v (qkv_is_bf16 = 1), D in {16, 32, 64, 96, 128, 192, 256},
 // every base pointer and every (b, s, h) stride 16-byte aligned.
 extern "C" int flash_mha_launch(const void* q, const void* k, const void* v, const void* bias,
                                 const void* kvlen, void* o, int qkv_is_bf16, int bias_kind,
@@ -649,7 +666,10 @@ extern "C" int flash_mha_launch(const void* q, const void* k, const void* v, con
     case 16: return tc::launch_bias<16>(p, s);
     case 32: return tc::launch_bias<32>(p, s);
     case 64: return tc::launch_bias<64>(p, s);
+    case 96: return tc::launch_bias<96>(p, s);
     case 128: return tc::launch_bias<128>(p, s);
+    case 192: return tc::launch_bias<192>(p, s);
+    case 256: return tc::launch_bias<256>(p, s);
     default: return hopper::status(cudaErrorInvalidValue, 1);
   }
 }

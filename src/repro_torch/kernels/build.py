@@ -5,7 +5,8 @@ all started together, and the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes``.  Nothing here runs at
 import time: the first launch of a kernel builds the library, and the
 library is cached under ``<repo>/build/`` by a hash of the sources and
-flags, so a second process reuses it.
+flags, so a second process reuses it.  ptxas's resource report (registers
+and spills of every kernel) is kept beside the library (``ptxas_resources``).
 
 No ``--use_fast_math``: the quantize kernel divides with IEEE rounding
 (``inl / sigma``, ``m / qmax``), as the reference does, and is held to it
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,11 +49,12 @@ SIGNATURES: dict[str, list] = {
     # q, k, v, bias, kvlen, o, qkv_is_bf16, bias_kind, B, Sq, Skv, Hq, Hkv, D,
     # Bb, q strides (b,s,h), k strides, v strides, bias strides (b,h,q,k),
     # causal, window, scale, stream
-    "flash_mha_launch": _FLASH,            # bf16, D in 16..128, tensor cores
+    "flash_mha_launch": _FLASH,            # bf16, D in 16..256, tensor cores
     "flash_mha_simt_launch": _FLASH,       # f32 or D = 8, CUDA cores
 }
 
 _LIB: ctypes.CDLL | None = None
+PTXAS_REPORT = "ptxas.txt"
 build_seconds: float | None = None   # wall time of this process's build (None: cached)
 
 
@@ -102,13 +105,15 @@ def _build(lib: Path, srcs: list[Path]) -> None:
         procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True))
                  for cmd in compile_commands(nvcc, srcs, tmpd)]
-        errors = []
+        errors, reports = [], []
         for cmd, p in procs:
             out, _ = p.communicate()
+            reports.append(out)
             if p.returncode:
                 errors.append(f"$ {' '.join(cmd)}\n{out}")
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        (lib.parent / PTXAS_REPORT).write_text("".join(reports))
         staged = tmpd / lib.name
         res = subprocess.run(link_command(nvcc, [tmpd / f"{s.stem}.o" for s in srcs], staged),
                              capture_output=True, text=True)
@@ -117,12 +122,32 @@ def _build(lib: Path, srcs: list[Path]) -> None:
         os.replace(staged, lib)       # atomic: a concurrent loader sees all or nothing
 
 
+def _lib_path() -> Path:
+    return BUILD_DIR / f"repro_torch_kernels-{_digest(sources())}" / "libreprokernels.so"
+
+
+def ptxas_resources() -> dict[str, tuple[int, int]]:
+    """The built library's kernels, by mangled name: (registers a thread,
+    bytes spilled: stores plus loads), from ptxas's report."""
+    out: dict[str, tuple[int, int]] = {}
+    name, spill = None, 0
+    for line in (_lib_path().parent / PTXAS_REPORT).read_text().splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name, spill = m[1], 0
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = int(m[1]) + int(m[2])
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out[name] = (int(m[1]), spill)
+            name = None
+    return out
+
+
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _LIB, build_seconds
     if _LIB is None:
         srcs = sources()
-        lib = BUILD_DIR / f"repro_torch_kernels-{_digest(srcs)}" / "libreprokernels.so"
+        lib = _lib_path()
         if not lib.exists():
             t0 = time.perf_counter()
             _build(lib, srcs)

@@ -33,6 +33,7 @@ import contextlib
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.qmatmul import qmatmul_fused_ref
 from repro_torch.core.quantize import fake_quant as fake_quant_ref
@@ -159,15 +160,23 @@ def describe(backend: str | None = None, device: torch.device | str = "cuda") ->
 # --------------------------------------------------------------------------
 def attention(q, k, v, *, bias=None, causal=False, window=None,
               kv_valid_len=None, softmax_scale=None, q_chunk=512, backend=None):
-    """Token-wise MHA: q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D); bias (Bb,Hq,Sq,Skv)
-    with block batch-broadcast (bias row t covers B//Bb consecutive q rows).
+    """Token-wise MHA: q (B,Sq,Hq,D); k (B,Skv,Hkv,D); v (B,Skv,Hkv,Dv) with
+    Dv <= D; bias (Bb,Hq,Sq,Skv) with block batch-broadcast (bias row t
+    covers B//Bb consecutive q rows).  -> (B,Sq,Hq,Dv).
 
-    Kernel path: the CUDA flash kernel.  Ref path: ``mha_chunked``.
+    Kernel path: the CUDA flash kernel.  The kernel takes one head dim, so
+    a narrower v (MLA: q/k 192, v 128) is padded with zero columns to D and
+    the output sliced back: exact, the padded columns are sums of zeros.
+    Ref path: ``mha_chunked``, v as it is.
     """
     if resolve(q.device, backend=backend) == KERNEL:
         counters["attention.kernel"] += 1
-        return flash_mha_kernel(q, k, v, bias, kv_valid_len, causal=causal,
-                                window=window, softmax_scale=softmax_scale)
+        dv = v.shape[-1]
+        if dv < q.shape[-1]:
+            v = F.pad(v, (0, q.shape[-1] - dv))
+        o = flash_mha_kernel(q, k, v, bias, kv_valid_len, causal=causal,
+                             window=window, softmax_scale=softmax_scale)
+        return o if o.shape[-1] == dv else o[..., :dv]
     counters["attention.ref"] += 1
     return mha_chunked(q, k, v, bias=bias, causal=causal, window=window,
                        kv_valid_len=kv_valid_len, softmax_scale=softmax_scale,

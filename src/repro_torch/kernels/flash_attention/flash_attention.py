@@ -7,12 +7,16 @@ float32 (m, l, o) state in registers; the TPU kernel's sequential KV grid
 axis has no CUDA counterpart.  Two variants, chosen by a fixed rule on the
 type and head dim (:func:`variant_for`) and counted apart:
 
-* bf16 q/k/v with D in {16, 32, 64, 128} (every main-path call): the
-  tensor-core kernel, FlashAttention-2 with ``mma.sync`` (QK^T and a PV
-  product split into P_hi + P_lo, so P is not rounded to bf16), K/V/bias
-  tiles through a two-stage ``cp.async`` ring.  It reads q, k and v 16 bytes
-  at a time, so it needs 16-byte aligned base pointers and strides.
-* f32 q/k/v, or D = 8: the SIMT kernel, float32 on the CUDA cores.
+* bf16 q/k/v with D in {16, 32, 64, 96, 128, 192, 256} (every main-path
+  call; 96 to 256 are the LM zoo's head dims): the tensor-core kernel,
+  FlashAttention-2 with ``mma.sync`` (QK^T and a PV product split into
+  P_hi + P_lo, so P is not rounded to bf16), K/V/bias tiles through a
+  two-stage ``cp.async`` ring.  It reads q, k and v 16 bytes at a time, so
+  it needs 16-byte aligned base pointers and strides.
+* f32 q/k/v with D in {8, 16, 32, 64, 128}, or bf16 at D = 8: the SIMT
+  kernel, float32 on the CUDA cores.
+
+A head dim neither variant takes raises.
 
 Additive bias (f32 or bf16, any strides) is broadcast by block, GQA, causal,
 sliding window and ``kv_valid_len`` are one predicate each.  Strides are
@@ -32,12 +36,13 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import _block_broadcast_bias
 
 NEG = -1e30
-HEAD_DIMS = (8, 16, 32, 64, 128)
-TC_HEAD_DIMS = (16, 32, 64, 128)
+TC_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
+SIMT_HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = tuple(sorted(set(TC_HEAD_DIMS) | set(SIMT_HEAD_DIMS)))
 TC, SIMT = "tc", "simt"
 INT32_MAX = 2 ** 31 - 1
 launches = 0        # tensor-core kernel launches (bf16, D in TC_HEAD_DIMS)
-simt_launches = 0   # SIMT kernel launches (f32, or D = 8)
+simt_launches = 0   # SIMT kernel launches (f32, or bf16 at D = 8)
 plain_calls = 0     # calls that computed the plain version (CPU tensors)
 
 
@@ -128,6 +133,9 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     if hkv == 0 or hq % hkv:
         raise ValueError(f"flash_mha_kernel: Hq={hq} not a multiple of Hkv={hkv}")
     variant = variant_for(q.dtype, d)
+    if variant == SIMT and d not in SIMT_HEAD_DIMS:
+        raise ValueError(f"flash_mha_kernel: {q.dtype} at head dim {d}: the SIMT kernel "
+                         f"takes {SIMT_HEAD_DIMS}, the tensor-core kernel bf16 at {TC_HEAD_DIMS}")
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.stride(-1) != 1:
             raise ValueError(f"flash_mha_kernel: {name} head dim must have unit stride")

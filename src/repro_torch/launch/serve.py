@@ -425,7 +425,13 @@ def serve_lm(args, dev) -> int:
     """LM decode through the serving substrate: continuous per-token
     batching over ``--batch`` slots with the KV cache AAQ-quantized when
     ``--quant-kv`` is set (admission then prices requests at the scheme's
-    KV bits per value)."""
+    KV bits per value).  Only the dense decoder configs: another kind is
+    refused (exit 2) before any weights are made, as the reference does."""
+    kind = get_config(args.arch).kind
+    if kind != "dense":
+        print(f"error: --mode lm serves dense decoder archs through the "
+              f"substrate; {args.arch!r} is kind={kind!r}")
+        return 2
     cfg, params = _lm_model(args, dev)
     if args.listen is not None:
         return serve_lm_http(args, cfg, params, dev)

@@ -1,12 +1,13 @@
-"""Unified architecture API, the dense kind (port of ``repro/models/lm.py``).
+"""Unified architecture API (port of ``repro/models/lm.py``), dispatched on
+``ArchConfig.kind`` (dense, vlm, moe, ssm, hybrid, encdec):
 
     init_params(gen, cfg)                      -> params
     prefill_fn(params, batch, cfg, aaq)        -> last-position logits
+    make_cache(cfg, batch_size, max_len)       -> cache (on the card unless device="cpu")
     decode_fn(params, batch, cache, cfg, aaq)  -> (logits, cache')
-    make_cache(cfg, batch_size, max_len)       -> cache
 
-The other kinds (MoE, SSM, hybrid, enc-dec, VLM) are ROADMAP Queue 1 item 9;
-``loss_fn`` waits for training (item 10).
+Caches are written in place (``decode_fn`` returns the same object with
+``pos`` advanced).  ``loss_fn`` waits for training (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -14,34 +15,129 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import DISABLED, AAQConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import common as cm
+from repro_torch.models import encdec as ed
+from repro_torch.models import hybrid as hy
+from repro_torch.models import moe as me
+from repro_torch.models import ssm as sm
 from repro_torch.models import transformer as tf
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.kind != "dense":
-        raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (ROADMAP Queue 1 item 9); "
-            "the port runs the dense transformer")
+def _dense_first(cfg: ArchConfig) -> bool:
+    return cfg.kind == "moe" and bool(cfg.moe.dense_first_layer_ff)
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig):
     """Random parameters from ``gen`` (made on ``gen.device``)."""
-    _dense_only(cfg)
-    return tf.init_lm(gen, cfg)
+    if cfg.kind in ("dense", "vlm"):
+        return tf.init_lm(gen, cfg)
+    if cfg.kind == "moe":
+        scan_cfg = cfg.replace(layers=cfg.layers - 1) if _dense_first(cfg) else cfg
+        p = tf.init_lm(gen, scan_cfg, init_block_fn=me.moe_block_init)
+        if _dense_first(cfg):
+            dev = gen.device
+            p["first_block"] = {
+                "attn_norm": tf._norm_init(cfg, dev),
+                "attn": me.init_mla(gen, cfg) if cfg.mla else tf.init_attn(gen, cfg),
+                "mlp_norm": tf._norm_init(cfg, dev),
+                "mlp": tf.init_mlp(gen, cfg, d_ff=cfg.moe.dense_first_layer_ff),
+            }
+        return p
+    if cfg.kind == "ssm":
+        return tf.init_lm(gen, cfg, init_block_fn=sm.init_ssm_block)
+    if cfg.kind == "hybrid":
+        return hy.init_hybrid_lm(gen, cfg)
+    if cfg.kind == "encdec":
+        return ed.init_encdec(gen, cfg)
+    raise ValueError(cfg.kind)
+
+
+def _moe_first_block_fn(p, x, cfg, *, positions, cache=None, aaq=DISABLED):
+    """DeepSeek layer 0: MLA attention + a *dense* FFN."""
+    hn = tf.apply_norm(p["attn_norm"], aaq.act(x, "lm.pre_ln"), cfg)
+    if cfg.mla:
+        a = me.mla_apply(p["attn"], hn, cfg, positions=positions, cache=cache, aaq=aaq)
+    else:
+        a = tf.attn_apply(p["attn"], hn, cfg, positions=positions, cache=cache, aaq=aaq)
+    x = x + a
+    return x + tf.mlp_apply(p["mlp"], tf.apply_norm(p["mlp_norm"], aaq.act(x, "lm.pre_ln"),
+                                                    cfg), cfg)
+
+
+def _block_fn_for(cfg: ArchConfig):
+    if cfg.kind == "moe":
+        return me.moe_block_apply
+    if cfg.kind == "ssm":
+        return sm.ssm_block_apply
+    return tf.block_apply
+
+
+def loss_fn(params, batch, cfg: ArchConfig, aaq: AAQConfig = DISABLED):
+    raise NotImplementedError("loss_fn is training, not ported yet (ROADMAP Queue 1 item 10)")
 
 
 def prefill_fn(params, batch, cfg: ArchConfig, aaq: AAQConfig = DISABLED):
-    """Full-sequence forward -> logits of the last position (B, 1, V)."""
-    _dense_only(cfg)
-    return tf.lm_forward(params, batch, cfg, aaq=aaq, last_only=True)
+    """Full-sequence forward -> logits of the last position (B, 1, V) f32.
+    ``batch``: 'tokens' (B, S); the VLM's 'image_embeds' (B, n_image, D)
+    and the enc-dec's 'audio_frames' (B, n_frames, D) where the kind has them."""
+    if cfg.kind == "hybrid":
+        return hy.hybrid_forward(params, batch, cfg, aaq=aaq, last_only=True)
+    if cfg.kind == "encdec":
+        enc = ed.encode(params, batch["audio_frames"], cfg, aaq)
+        return ed.decode_full(params, batch["tokens"], enc, cfg, aaq, last_only=True)
+    if _dense_first(cfg):
+        x = tf._embed_inputs(params, batch, cfg)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        x = _moe_first_block_fn(params["first_block"], x, cfg, positions=positions, aaq=aaq)
+        for p in params["blocks"]:
+            x = me.moe_block_apply(p, x, cfg, positions=positions, aaq=aaq)
+        x = tf.apply_norm(params["final_norm"], x, cfg)
+        return tf.unembed(params, x[:, -1:], cfg)
+    return tf.lm_forward(params, batch, cfg, aaq=aaq, block_fn=_block_fn_for(cfg),
+                         last_only=True)
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                quantized: bool = False, device=None):
-    _dense_only(cfg)
-    return tf.init_cache(cfg, batch, max_len, dtype, quantized=quantized, device=device)
+    """The decode cache of ``cfg``'s kind, the reference's shapes, on
+    ``device`` (default CUDA); ``quantized`` (INT8 K/V rows) applies to the
+    dense and VLM kinds."""
+    device = resolve_device(device)
+    if cfg.kind in ("dense", "vlm"):
+        return tf.init_cache(cfg, batch, max_len, dtype, quantized=quantized, device=device)
+    if cfg.kind == "moe":
+        if cfg.mla:
+            return me.init_mla_cache(cfg, batch, max_len, dtype, device=device)
+        return tf.init_cache(cfg, batch, min(max_len, cfg.window or max_len), dtype,
+                             device=device)
+    if cfg.kind == "ssm":
+        return sm.init_ssm_cache(cfg, batch, max_len, dtype, device=device)
+    if cfg.kind == "hybrid":
+        return hy.init_hybrid_cache(cfg, batch, max_len, dtype, device=device)
+    if cfg.kind == "encdec":
+        return ed.init_encdec_cache(cfg, batch, max_len, dtype, device=device)
+    raise ValueError(cfg.kind)
 
 
 def decode_fn(params, batch, cache, cfg: ArchConfig, aaq: AAQConfig = DISABLED):
-    _dense_only(cfg)
-    return tf.decode_step(params, batch, cache, cfg, aaq=aaq)
+    """One token a row: ``batch['tokens']`` (B, 1) -> (logits (B, 1, V) f32,
+    the cache, written in place, ``pos`` advanced)."""
+    if cfg.kind == "hybrid":
+        return hy.hybrid_decode_step(params, batch, cache, cfg, aaq=aaq)
+    if cfg.kind == "encdec":
+        return ed.encdec_decode_step(params, batch, cache, cfg, aaq=aaq)
+    if _dense_first(cfg):
+        # the cache's layer 0 is the dense first block's, 1.. the MoE blocks'
+        x = cm.embed(params["embed"], batch["tokens"])
+        positions = cache["pos"].reshape(1, 1).expand(x.shape[0], 1)
+        x = _moe_first_block_fn(params["first_block"], x, cfg, positions=positions,
+                                cache=tf.LockstepRing(cache, 0), aaq=aaq)
+        for li, p in enumerate(params["blocks"]):
+            x = me.moe_block_apply(p, x, cfg, positions=positions,
+                                   cache=tf.LockstepRing(cache, li + 1), aaq=aaq)
+        x = tf.apply_norm(params["final_norm"], x, cfg)
+        cache["pos"] = cache["pos"] + 1
+        return tf.unembed(params, x, cfg), cache
+    return tf.decode_step(params, batch, cache, cfg, aaq=aaq, block_fn=_block_fn_for(cfg))

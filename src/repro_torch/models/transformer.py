@@ -1,5 +1,7 @@
-"""Decoder-only transformer, the dense half (port of
-``repro/models/transformer.py``).
+"""Generic decoder-only transformer (port of ``repro/models/transformer.py``):
+the dense and VLM members of the zoo, and the attention blocks and the
+forward/decode drivers that the MoE, SSM, hybrid and enc-dec models reuse
+(``block_fn``).
 
 GQA with decoupled head_dim, optional QKV bias, RoPE (partial rotary for
 ChatGLM's 2D scheme), RMS/LayerNorm, (Si/Ge)GLU MLPs, sliding window, and a
@@ -12,7 +14,9 @@ flash kernel on the card).
 
 Parameters are the reference's pytree with one change: ``blocks`` is a list
 of per-layer dicts (the reference stacks them on a leading axis for
-``scan``; ``bridge.lm_params_from_numpy`` unstacks).  The reference's
+``scan``; ``bridge.lm_params_from_numpy`` unstacks).  A ``block_fn`` takes
+``(p, x, cfg, *, positions, cache=None, aaq)`` and returns the new ``x``;
+in decode it writes its layer of the cache in place.  The reference's
 ``parallel.sharding.constrain`` is a no-op on one card and is left out.
 ``chunked_xent`` and ``lm_loss`` wait for training (ROADMAP Queue 1
 item 10).
@@ -64,10 +68,11 @@ def init_block(gen: torch.Generator, cfg: ArchConfig) -> Params:
             "mlp_norm": _norm_init(cfg, gen.device), "mlp": init_mlp(gen, cfg)}
 
 
-def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
+def init_lm(gen: torch.Generator, cfg: ArchConfig, init_block_fn=None) -> Params:
+    init_block_fn = init_block_fn or init_block
     p: Params = {"embed": cm.embed_init(gen, cfg.vocab, cfg.d_model, cfg.torch_dtype),
                  "final_norm": _norm_init(cfg, gen.device),
-                 "blocks": [init_block(gen, cfg) for _ in range(cfg.layers)]}
+                 "blocks": [init_block_fn(gen, cfg) for _ in range(cfg.layers)]}
     if not cfg.tie_embeddings:
         p["lm_head"] = cm.dense_init(gen, cfg.d_model, cfg.vocab, dtype=cfg.torch_dtype)
     return p
@@ -132,34 +137,43 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
 
 
 class LockstepRing:
-    """Layer ``li`` of an ``init_cache`` cache, for ``decode_step``: every
-    row of the batch at position ``cache['pos']``.  ``append`` writes the s
-    new rows at the ring position in place (raw, or INT8 rows and f32
-    scales through ``_quant_kv_row``) and returns the ring, dequantized."""
+    """Layer ``li`` of a decode cache (every entry but ``pos`` with a leading
+    layer axis; ``li=None``: ``cache`` holds one layer's entries and
+    ``pos``), for a lockstep batch: every row at position ``cache['pos']``.
+    ``ring[name]`` is the layer's entry (a view: writes reach the cache);
+    ``write`` puts s new rows (B, s, ...) at the ring position in place and
+    returns the ring; ``append`` does so for K and V (raw, or INT8 rows and
+    f32 scales through ``_quant_kv_row``) and returns them dequantized with
+    ``kv_valid_len``."""
 
-    def __init__(self, cache: Params, li: int):
+    def __init__(self, cache: Params, li: int | None = None):
         self.cache, self.li = cache, li
 
-    def append(self, k, v):
-        c, li = self.cache, self.li
-        b, s = k.shape[:2]
-        w = c["k"].shape[2]
-        pos = c["pos"]
+    def __getitem__(self, name: str) -> torch.Tensor:
+        a = self.cache[name]
+        return a if self.li is None else a[self.li]
+
+    def kv_valid_len(self, b: int, w: int) -> torch.Tensor:
+        return torch.clamp(self.cache["pos"] + 1, max=w).to(torch.int32).expand(b)
+
+    def write(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        ring = self[name]
+        s, w = x.shape[1], ring.shape[1]
         # dynamic_update_slice clamps the start so that the s rows fit
-        start = torch.clamp(pos % w, max=w - s)
-        rows = start + torch.arange(s, device=k.device)
-        kvlen = torch.clamp(pos + 1, max=w).to(torch.int32).expand(b)
-        ring = []
+        start = torch.clamp(self.cache["pos"] % w, max=w - s)
+        ring.index_copy_(1, start + torch.arange(s, device=x.device), x.to(ring.dtype))
+        return ring
+
+    def append(self, k, v):
+        out = []
         for name, x in (("k", k), ("v", v)):
-            if f"{name}_scale" in c:
+            if f"{name}_scale" in self.cache:
                 xq, xs = _quant_kv_row(x)
-                c[f"{name}_scale"][li].index_copy_(1, rows, xs)
-                c[name][li].index_copy_(1, rows, xq)
-                ring.append(c[name][li].to(x.dtype) * c[f"{name}_scale"][li].to(x.dtype))
+                scale = self.write(f"{name}_scale", xs)
+                out.append(self.write(name, xq).to(x.dtype) * scale.to(x.dtype))
             else:
-                c[name][li].index_copy_(1, rows, x.to(c[name].dtype))
-                ring.append(c[name][li].to(x.dtype))
-        return ring[0], ring[1], kvlen
+                out.append(self.write(name, x).to(x.dtype))
+        return out[0], out[1], self.kv_valid_len(k.shape[0], out[0].shape[1])
 
 
 def _quant_kv_row(x: torch.Tensor):
@@ -193,22 +207,33 @@ def unembed(params, x, cfg: ArchConfig):
     return cm.matmul_f32(x, params["lm_head"]["w"].to(x.dtype))
 
 
-def lm_hidden(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED):
-    """Full-sequence forward of ``batch['tokens']`` (B, S) -> final hidden
-    states (B, S, D)."""
+def _embed_inputs(params, batch, cfg: ArchConfig):
+    """Token embedding; the VLM stub prepends precomputed patch embeddings."""
     x = cm.embed(params["embed"], batch["tokens"])
+    if cfg.n_image_tokens and "image_embeds" in batch:
+        x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
+def lm_hidden(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED,
+              block_fn=None):
+    """Full-sequence forward of ``batch['tokens']`` (B, S) (after
+    ``batch['image_embeds']`` where the VLM has them) -> final hidden
+    states (B, S, D)."""
+    block_fn = block_fn or block_apply
+    x = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for p in params["blocks"]:
-        x = block_apply(p, x, cfg, positions=positions, aaq=aaq)
+        x = block_fn(p, x, cfg, positions=positions, aaq=aaq)
     return apply_norm(params["final_norm"], x, cfg)
 
 
 def lm_forward(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED,
-               last_only=False):
+               block_fn=None, last_only=False):
     """Full-sequence forward -> logits (B, S, V) f32, or the last position
     only (the serving-prefill case)."""
-    x = lm_hidden(params, batch, cfg, aaq=aaq)
+    x = lm_hidden(params, batch, cfg, aaq=aaq, block_fn=block_fn)
     if last_only:
         x = x[:, -1:]
     return unembed(params, x, cfg)
@@ -234,15 +259,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
 
 
 def decode_step(params, batch, cache, cfg: ArchConfig, *,
-                aaq: AAQConfig = DISABLED):
+                aaq: AAQConfig = DISABLED, block_fn=None):
     """One-token decode of a lockstep batch: ``batch['tokens']`` (B, 1), cache from
     ``init_cache`` (every row at position ``cache['pos']``), written in place.
+    Structure-agnostic: every cache entry but ``pos`` has a leading layer
+    axis, and ``block_fn`` gets its layer as a ``LockstepRing`` (the dense
+    {'k','v'} cache, MLA's {'latent','k_rope'}, the SSM's {'state','conv'}).
     Returns (logits (B, 1, V) f32, the cache with ``pos`` advanced)."""
+    block_fn = block_fn or block_apply
     x = cm.embed(params["embed"], batch["tokens"])            # (B,1,D)
     positions = cache["pos"].reshape(1, 1).expand(x.shape[0], 1)
     for li, p in enumerate(params["blocks"]):
-        x = block_apply(p, x, cfg, positions=positions, cache=LockstepRing(cache, li),
-                        aaq=aaq)
+        x = block_fn(p, x, cfg, positions=positions, cache=LockstepRing(cache, li), aaq=aaq)
     x = apply_norm(params["final_norm"], x, cfg)
     cache["pos"] = cache["pos"] + 1
     return unembed(params, x, cfg), cache

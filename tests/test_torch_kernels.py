@@ -467,6 +467,26 @@ def test_build_commands_target_hopper_without_fast_math(tmp_path):
     assert build.BUILD_DIR.name == "build"
 
 
+def test_ptxas_report_gives_registers_and_spills(tmp_path, monkeypatch):
+    """``-Xptxas -v`` is on, and the report kept beside the library parses
+    into (registers, spilled bytes) per kernel."""
+    assert "-Xptxas" in build.NVCC_FLAGS and "-v" in build.NVCC_FLAGS
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    lib = build._lib_path()
+    lib.parent.mkdir(parents=True)
+    (lib.parent / build.PTXAS_REPORT).write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1aILi256ELi2EEv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aILi256ELi2EEv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1bv\n"
+        "    24 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 24 bytes cumulative stack size\n")
+    assert build.ptxas_resources() == {"_Z1aILi256ELi2EEv": (255, 0), "_Z1bv": (168, 24)}
+
+
 def test_ctypes_signatures_match_the_c_entry_points():
     text = "\n".join(s.read_text() for s in build.sources())
     for name, argtypes in build.SIGNATURES.items():

@@ -409,3 +409,32 @@ def test_cli_mode_lm_listen_answers_generate():
     assert [ln.split()[1] for ln in lines if ln.startswith("# replica=")] == \
         ["replica=0", "replica=1"]
     assert lines[-1] == "# fleet shutdown complete"
+
+
+_ZOO = ("phi-3-vision-4.2b", "deepseek-v2-lite-16b", "mixtral-8x22b", "recurrentgemma-9b",
+        "mamba2-780m", "whisper-base")
+
+
+@pytest.mark.parametrize("arch", _ZOO)
+def test_cli_mode_lm_refuses_a_non_dense_arch_before_making_weights(arch, capsys,
+                                                                   monkeypatch):
+    """The reference's message and exit code 2; no parameters are made."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    def no_weights(*a, **k):
+        raise AssertionError("weights were made for a refused arch")
+    monkeypatch.setattr(lm, "init_params", no_weights)
+    assert serve.main(["--mode", "lm", "--device", "cpu", "--arch", arch]) == 2
+    kind = get_config(arch).kind
+    assert capsys.readouterr().out.strip() == (
+        f"error: --mode lm serves dense decoder archs through the substrate; "
+        f"{arch!r} is kind={kind!r}")
+
+
+def test_cli_mode_lm_refusal_exits_2():
+    proc = _lm_cli(["--arch", "mixtral-8x22b"])
+    out, _ = proc.communicate(timeout=120)
+    assert proc.returncode == 2, out
+    assert out.strip().endswith("'mixtral-8x22b' is kind='moe'")
