@@ -16,7 +16,10 @@ Phases, each fatal on failure:
      take (``bound_ms``) and one PyTorch library call's; both forms of the
      AAQ quantize kernel (``aaq_quantize`` for the linears, the fake-quant
      ``aaq_fake_quant`` for the ``act`` sites) bitwise; and the LM decode
-     tenant's shapes: flash with one query row a slot against a 256-row
+     tenant's shapes: both quantize forms at the LM zoo's residual widths
+     (1,024 to 6,144, bf16 and f32, bits 4 and 8, k 0 and 4) bitwise and
+     timed, and at the training run's (phase 10) shapes; flash with one
+     query row a slot against a 256-row
      KV ring (``kv_valid_len`` 1, 17, 255, 256; GQA 16/2 at head dim 128),
      a causal prefill, ``aaq_quantize`` on KV rows bitwise; and flash at the
      model zoo's shapes (phase 9's): phi-3's head dim 96, DeepSeek's MLA at
@@ -112,8 +115,33 @@ Phases, each fatal on failure:
      and a decode step equal to the attention calls the config implies (0
      for mamba2), no plain attention on the kernel route; ``AAQConfig()``
      against ``DISABLED`` finite, its drift printed; prefill ms, decode-step
-     ms and peak memory printed;
- 10. summary: one JSON line of the kernels, the card, and the last line
+     ms and peak memory printed; the ``AAQConfig()`` prefill launches
+     ``aaq_fake_quant`` once for each act call the config implies (residual
+     rows up to 6,144 wide) and runs no plain fake-quant, and its logits are
+     bitwise those of the same prefill with only the act sites on the plain
+     version;
+ 10. training (float32, ``deterministic algorithms`` on): (a) qwen1.5-0.5b
+     at full width through ``repro_torch.launch.train.main`` (``--batch 8
+     --seq 64 --lr 1e-3 --aaq-ste``, 8 steps) uninterrupted, then with
+     ``--ckpt-every 4 --fail-at 6``: losses finite, a held-out batch
+     scoring better under the final weights than the initial, one restart
+     from the step-3 checkpoint, final parameters and optimizer state
+     bitwise the uninterrupted run's, ``aaq_fake_quant`` launched once an
+     act call (4 a layer, twice: the remat recomputes each block), no flash
+     launch and the attention's plain version counted (``ref_grad``) once a
+     call; step ms, checkpoint snapshot and write ms and bytes, peak
+     memory; (b) one step's loss and gradients on the kernel route against
+     the plain route (same weights and batch) within a limit, which a
+     control (a straight-through estimator whose backward zeroes the first
+     act site's gradient) must exceed; (c) one ``make_train_step`` step
+     (loss, backward, AdamW) of deepseek-v2-lite-16b, recurrentgemma-9b
+     (3 layers: one period, so that its attention layer runs), mamba2-780m,
+     whisper-base and phi-3-vision-4.2b at full width and 2 layers and
+     mixtral-8x22b at full width and 1 layer (2 would need 87 GB of
+     parameters, gradients and moments in float32) under ``--aaq-ste``'s
+     config: loss and gradient norm finite, the norm above 0, the kernel at
+     every act site, no plain fake-quant; step ms and peak memory;
+ 11. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -124,6 +152,8 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -132,6 +162,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# phase 10 runs under torch.use_deterministic_algorithms, whose cuBLAS
+# products need this workspace setting before CUDA initialises (32 MiB, the
+# size PyTorch takes on Hopper without it)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # published peaks of one H100 SXM (dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -183,6 +217,14 @@ MATMUL_SHAPES = ((128, 4), (128, 128), (128, 384), (128, 512), (512, 128))
 # linears' and acts' most common), group C at H = 128 and at the pair
 # transition's H = 512, group A (acts only)
 QUANT_SHAPES = ((128, 4, 4), (128, 4, 0), (512, 4, 0), (128, 8, 4))
+# the LM zoo's residual-stream widths above 512 (lm.pre_ln rows: qwen1.5-0.5b,
+# mamba2, qwen2.5/deepseek, phi-3, chatglm3/recurrentgemma, mistral-nemo,
+# mixtral), each at about 64k tokens of 1,024 columns' worth
+QUANT_WIDE = (1024, 1536, 2048, 3072, 4096, 5120, 6144)
+QUANT_WIDE_ELEMS = 65536 * 1024
+# phase 10's fake-quant shapes on qwen1.5-0.5b (batch 8 x 64 tokens, f32):
+# the residual rows (group A) and the K/V head rows (group C)
+TRAIN_QUANT_SHAPES = ((512, 1024, 8, 4), (8192, 64, 4, 0))
 
 
 def log(msg: str) -> None:
@@ -379,6 +421,90 @@ def check_quantize(torch, rows: dict) -> None:
             nbytes(x, *(out if isinstance(out, tuple) else (out,))), 0)
         rows.setdefault(name, []).append(row)
         log(row.line())
+
+
+def _quant_pair(torch, x, bits, k, what) -> None:
+    """Both quantize forms on ``x``, bitwise against their plain versions."""
+    from repro_torch.kernels.aaq_quant.aaq_quant import (aaq_fake_quant_kernel,
+                                                         aaq_quantize_kernel)
+    from repro_torch.kernels.aaq_quant.ref import aaq_fake_quant_ref, aaq_quantize_ref
+    for name, a, b in zip(("inliers", "scales", "ovals", "oidx"),
+                          aaq_quantize_kernel(x, bits=bits, k_outliers=k),
+                          aaq_quantize_ref(x, bits, k)):
+        if not _bitwise(torch, a, b):
+            fail(f"aaq_quantize {name} not bitwise equal at {what}")
+    got = aaq_fake_quant_kernel(x, bits, k)
+    if got.dtype != x.dtype or not _bitwise(torch, got, aaq_fake_quant_ref(x, bits, k)):
+        fail(f"aaq_fake_quant x_hat not bitwise equal at {what}")
+
+
+def _timed_quant_row(torch, name, x, bits, k, shape) -> KernelRow:
+    from repro_torch.kernels.aaq_quant.aaq_quant import (aaq_fake_quant_kernel,
+                                                         aaq_quantize_kernel)
+    from repro_torch.kernels.aaq_quant.ref import aaq_fake_quant_ref, aaq_quantize_ref
+    if name == "aaq_quantize":
+        kern = lambda: aaq_quantize_kernel(x, bits=bits, k_outliers=k)  # noqa: E731
+        plain = lambda: aaq_quantize_ref(x, bits, k)                    # noqa: E731
+    else:
+        kern = lambda: aaq_fake_quant_kernel(x, bits, k)                # noqa: E731
+        plain = lambda: aaq_fake_quant_ref(x, bits, k)                  # noqa: E731
+    out = kern()
+    row = _row(name, shape)
+    row.ms = time_ms(torch, kern)
+    row.call_ms = call_ms(torch, kern)
+    row.plain_ms = time_ms(torch, plain, iters=2, warmup=1)
+    row.bound_ms, row.bound_by = bound_ms(
+        nbytes(x, *(out if isinstance(out, tuple) else (out,))), 0)
+    return row
+
+
+def check_quantize_wide(torch) -> list:
+    """Both quantize forms at the LM zoo's residual widths (``QUANT_WIDE``,
+    one warp a token, chunks strided by 512) in bf16 and f32, bits 4 and 8,
+    k 0 and 4, about 64M values a call, bitwise against their plain versions
+    (with all-zero rows, ties across lanes, equal maxima on both sides of a
+    512-column chunk boundary, more than 4 equal maxima in a row) and
+    timed; then at phase 10's training shapes.  No PyTorch call computes
+    this function (``library_ms`` none).  Returns two lists of (row, tally
+    key) for the kernels JSON: each width's bf16 bits-8 k-4 rows of both
+    forms (the residual site's group A: phase 9's AAQ prefills launch the
+    fake-quant form there, and nothing launches ``aaq_quantize`` at these
+    widths), and the training rows (phase 10's launches)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    pending = []
+    n = 0
+    for h in QUANT_WIDE:
+        t = QUANT_WIDE_ELEMS // h
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn((t, h), generator=g, device="cuda") * 2).to(dt)
+            x[:8] = 0                                               # all-zero rows
+            x[8:16, : h // 2] = 1.5                                 # ties on every lane
+            x[16, 5], x[17, h - 1] = 60.0, -60.0
+            x[18, 511], x[18, 512], x[18, h - 1] = 9.0, -9.0, 9.0   # across a chunk edge
+            x[19, ::97] = 50.0                                      # > 4 equal maxima
+            dname = str(dt).removeprefix("torch.")
+            for bits in (4, 8):
+                for k in (0, 4):
+                    _quant_pair(torch, x, bits, k, f"T={t} H={h} bits={bits} k={k} {dname}")
+                    n += 2
+                    for name in ("aaq_quantize", "aaq_fake_quant"):
+                        row = _timed_quant_row(torch, name, x, bits, k,
+                                               f"x ({t}, {h}) {dname}, bits {bits}, k {k}")
+                        log(row.line())
+                        if dt == torch.bfloat16 and bits == 8 and k == 4:
+                            pending.append((row, (name, h, "bfloat16", bits, k)))
+            del x
+    log(f"aaq_quantize, aaq_fake_quant: bitwise equal to their plain versions at the "
+        f"{len(QUANT_WIDE)} wide widths ({n} calls: bf16 and f32, bits 4/8, k 0/4)")
+    train_pending = []
+    for t, h, bits, k in TRAIN_QUANT_SHAPES:
+        x = torch.randn((t, h), generator=g, device="cuda")
+        _quant_pair(torch, x, bits, k, f"the training shape T={t} H={h} f32")
+        row = _timed_quant_row(torch, "aaq_fake_quant", x, bits, k,
+                               f"x ({t}, {h}) float32, bits {bits}, k {k} (training)")
+        log(row.line())
+        train_pending.append((row, (t, h, "float32", bits, k)))
+    return pending, train_pending
 
 
 def check_matmul(torch, rows: dict) -> None:
@@ -2351,6 +2477,65 @@ def _zoo_attn_calls(cfg, step: str) -> int:
     return cfg.layers
 
 
+def _act_calls(cfg) -> int:
+    """``AAQConfig.act`` calls a forward of ``cfg`` makes: 2 residual sites a
+    layer, then 2 K/V (or MLA latent) sites an attention layer, 1 state
+    site an SSD or RG-LRU layer; the enc-dec's self-attention K/V only."""
+    if cfg.kind == "ssm":
+        return 2 * cfg.layers
+    if cfg.kind == "hybrid":
+        return 2 * cfg.layers + 2 * (cfg.layers // cfg.hybrid.attn_every)
+    if cfg.kind == "encdec":
+        return 2 * (cfg.enc_layers + cfg.layers)
+    return 4 * cfg.layers
+
+
+@contextlib.contextmanager
+def _fq_tally(torch, tally):
+    """Count ``aaq_fake_quant`` calls by (T, H, dtype, bits, k) into ``tally``."""
+    from repro_torch.kernels.aaq_quant import ops
+    fk = ops.aaq_fake_quant_kernel
+
+    def counted(x, bits, k_outliers):
+        tally[(*x.shape, str(x.dtype).removeprefix("torch."), bits, k_outliers)] += 1
+        return fk(x, bits, k_outliers)
+
+    with swapped(ops, "aaq_fake_quant_kernel", counted):
+        yield
+
+
+def _zoo_aaq_prefill(torch, arch, params, batch, cfg, fq_tally):
+    """The ``AAQConfig()`` prefill on the kernel route: ``aaq_fake_quant``
+    launched once an act call, no plain fake-quant, and logits bitwise those
+    of the same prefill with only the act sites on the plain version
+    (``backend="ref"`` on those calls; attention stays on the kernel)."""
+    from repro_torch.core.policy import AAQConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    fq = dispatch.fake_quant
+    with dispatch.use_backend("kernel"):
+        dispatch.reset_counters()
+        with _fq_tally(torch, fq_tally):
+            aaq = lm.prefill_fn(params, batch, cfg, AAQConfig())
+            torch.cuda.synchronize()
+        launches, plain, routed = _counts()
+        with swapped(dispatch, "fake_quant", lambda x, *, bits, k_outliers, backend=None:
+                     fq(x, bits=bits, k_outliers=k_outliers, backend="ref")):
+            acts_plain = lm.prefill_fn(params, batch, cfg, AAQConfig())
+    want = _act_calls(cfg)
+    if (launches["aaq_fake_quant"] != want or plain["aaq_fake_quant"]
+            or routed["fakequant.ref"] or routed["fakequant.ref_grad"]):
+        fail(f"zoo {arch}: the AAQ prefill launched aaq_fake_quant {launches['aaq_fake_quant']} "
+             f"times (want {want}, one an act call), plain {plain}, routed {routed}")
+    if not _bitwise(torch, aaq, acts_plain):
+        fail(f"zoo {arch}: AAQ prefill logits with the kernel's fake-quant differ from those "
+             f"with the plain fake-quant by {float((aaq - acts_plain).abs().max())}")
+    log(f"zoo {arch}: AAQConfig() prefill: aaq_fake_quant launched {want} times (one an act "
+        f"call), no plain fake-quant; logits bitwise equal with the act sites on the plain "
+        f"version")
+    return aaq
+
+
 def _zoo_batch(torch, cfg, b, s, seed=0):
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -2383,11 +2568,10 @@ def _zoo_counted(torch, fn, tally):
     return out, _counts()
 
 
-def _zoo_model(torch, arch, layers, b, s, tally) -> dict:
+def _zoo_model(torch, arch, layers, b, s, tally, fq_tally) -> dict:
     """One model of phase 9 (see the module docstring); returns its readings."""
     import gc
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import DISABLED, AAQConfig
     from repro_torch.kernels import dispatch
     from repro_torch.models import common as cm
     from repro_torch.models import encdec as ed
@@ -2415,7 +2599,7 @@ def _zoo_model(torch, arch, layers, b, s, tally) -> dict:
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated()
-        aaq = lm.prefill_fn(params, batch, cfg, AAQConfig())
+    aaq = _zoo_aaq_prefill(torch, arch, params, batch, cfg, fq_tally)
     if (launches["flash_mha"] != want or launches["flash_mha_simt"] or any(plain.values())
             or routed["attention.ref"]):
         fail(f"zoo {arch}: prefill launched flash {launches['flash_mha']} times (want {want}), "
@@ -2507,25 +2691,308 @@ def _zoo_model(torch, arch, layers, b, s, tally) -> dict:
     return out
 
 
-def serve_zoo(torch, zoo_pending, card: str) -> dict:
+def serve_zoo(torch, zoo_pending, wide_pending, card: str) -> dict:
     """Phase 9 (see the module docstring).  Returns the launches by variant of
-    its counted runs and fills the launches of the zoo kernel rows; ``card``
-    is the nvidia-smi name and power limit, printed with the readings."""
+    its counted runs and fills the launches of the zoo kernel rows and of
+    the wide quantize rows (its AAQ prefills' fake-quant of bf16 residual
+    rows, bits 8, k 4, by width); ``card`` is the nvidia-smi name and power
+    limit, printed with the readings."""
     tally = Counter()
+    fq_tally = Counter()
     total = Counter()
     t0 = time.perf_counter()
     readings = []
     for arch, layers, b, s in ZOO_MODELS:
         before = Counter(tally)
-        readings.append(_zoo_model(torch, arch, layers, b, s, tally))
+        readings.append(_zoo_model(torch, arch, layers, b, s, tally, fq_tally))
         total["flash_mha"] += sum((tally - before).values())
+    total["aaq_fake_quant"] = sum(fq_tally.values())
     for row, key in zoo_pending:
         row.launches = tally.get(key, 0)
-    if total["flash_mha"] == 0:
-        fail("zoo: flash was never launched")
+    for row, (name, *key) in wide_pending:      # (H, dtype, bits, k), at any T
+        row.launches = sum(n for (_, *fq_key), n in fq_tally.items()
+                           if fq_key == key) if name == "aaq_fake_quant" else 0
+    log(f"zoo fake-quant launches by (T, H, dtype, bits, k): {dict(fq_tally)}")
+    if total["flash_mha"] == 0 or total["aaq_fake_quant"] == 0:
+        fail(f"zoo: a kernel was never launched: {dict(total)}")
     log(f"zoo readings on {card}: {json.dumps(readings)}")
     log(f"phase 9 wall {time.perf_counter() - t0:.1f}s")
     return dict(total)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+TRAIN_ARGV = ("--arch", "qwen1.5-0.5b", "--batch", "8", "--seq", "64", "--lr", "1e-3",
+              "--aaq-ste", "--steps", "8")
+TRAIN_FAIL = ("--ckpt-every", "4", "--fail-at", "6")
+TRAIN_HELD_OUT = 100          # the step whose batch phase 10 holds out
+#: phase 10(b): limit on max over gradient leaves of max|kernel route - plain
+#: route| / max|plain route| (and on the loss's relative difference).  The
+#: two routes differ only in the fake-quant, which the kernel computes
+#: bitwise, and the run is deterministic: the prediction is 0.  The
+#: control (the first act site's gradient zeroed) must exceed it.
+TRAIN_ROUTE_TOL = 1e-5
+#: phase 10(c): (arch, layers) at full width, one train step each
+TRAIN_ZOO = (("deepseek-v2-lite-16b", 2), ("recurrentgemma-9b", 3), ("mamba2-780m", 2),
+             ("whisper-base", 2), ("phi-3-vision-4.2b", 2), ("mixtral-8x22b", 1))
+TRAIN_ZOO_BATCH, TRAIN_ZOO_SEQ = 2, 64
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _train_passes(cfg) -> tuple[int, int]:
+    """(act calls, attention calls) of one training forward and its
+    recomputation: the remat recomputes the layers the reference remats
+    (every layer where the config scans them, but DeepSeek's dense first
+    block; the hybrid's periods, not its tail; nothing of the enc-dec)."""
+    acts = _act_calls(cfg)
+    attn = _zoo_attn_calls(cfg, "prefill")
+    if cfg.kind == "encdec":
+        return acts, attn
+    if cfg.kind == "hybrid":
+        per = cfg.hybrid.attn_every
+        n = cfg.layers // per
+        return acts + n * (2 * per + 2), attn + n
+    if cfg.kind == "moe" and cfg.moe.dense_first_layer_ff:
+        return acts + 4 * (cfg.layers - 1), attn + cfg.layers - 1
+    return 2 * acts, 2 * attn
+
+
+def _tree_equal(torch, a, b) -> bool:
+    from repro_torch.tree import leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(_bitwise(torch, x, y) if x.is_floating_point()
+                                      else bool(torch.equal(x, y)) for x, y in zip(la, lb))
+
+
+def _grad_gap(torch, got, want) -> float:
+    """max over leaves of max|got - want| / max|want|."""
+    from repro_torch.tree import leaves
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(leaves(got), leaves(want)))
+
+
+def _train_qwen(torch, fq_tally) -> tuple[dict, object]:
+    """Phase 10(a): the launcher uninterrupted, then through a failure and
+    a restart; returns its readings and the uninterrupted run's state."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AAQConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm
+    cfg = get_config("qwen1.5-0.5b").replace(dtype="float32")
+    # the per-step losses are of different batches (their spread, ~0.05 at
+    # this learning rate, hides the trend): the loss falls when a batch the
+    # run never sees (step 100's) scores better under the final weights
+    # than under the initial ones (the launcher's, from seed 0)
+    held_batch = {k: torch.from_numpy(v).cuda() for k, v in
+                  SyntheticLM(cfg.vocab, 64, 8, seed=0).batch(TRAIN_HELD_OUT).items()}
+
+    def held_loss(params) -> float:
+        with torch.no_grad():
+            return float(lm.loss_fn(params, held_batch, cfg, aaq=AAQConfig(ste=True)))
+
+    held_first = held_loss(lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg))
+    ckdir = ROOT / "build" / "phase10_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dispatch.reset_counters()
+    with _fq_tally(torch, fq_tally):
+        clean = train.main([*TRAIN_ARGV, "--ckpt-every", "1000",
+                            "--ckpt-dir", str(ckdir / "clean")])
+        torch.cuda.synchronize()
+    launches, plain, routed = _counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    failed = train.main([*TRAIN_ARGV, *TRAIN_FAIL, "--ckpt-dir", str(ckdir / "failed")])
+    acts, attn = _train_passes(cfg)
+    held_last = held_loss(clean.state[0])
+    steps = len(clean.losses)
+    losses = clean.losses
+    same = _tree_equal(torch, clean.state, failed.state)
+    saves = failed.driver.saves
+    step_ms = sorted(h["step_ms"] for h in clean.driver.history[1:])
+    out = dict(losses=losses, held_out_first=held_first, held_out_last=held_last,
+               restarts=failed.driver.restarts,
+               starts=failed.driver.starts,
+               resumed_equal=same, fake_quant_launches=launches["aaq_fake_quant"],
+               want_fake_quant=steps * acts, attention_ref_grad=routed["attention.ref_grad"],
+               want_attention=steps * attn, flash=launches["flash_mha"] + launches["flash_mha_simt"],
+               plain=plain, step_ms_median=step_ms[len(step_ms) // 2],
+               first_step_ms=clean.driver.history[0]["step_ms"], peak_gib=peak / 2**30,
+               saves=saves, replayed_losses_equal=failed.losses[6:] == losses[4:])
+    log(f"train qwen1.5-0.5b (full width, f32, 8 x 64 tokens, --aaq-ste): losses {losses}; "
+        f"held-out batch under the initial / final weights {held_first!r} / {held_last!r}; "
+        f"step {out['step_ms_median']:.1f} ms (median of steps 1-7, host clock around a "
+        f"synchronised step; step 0 {out['first_step_ms']:.1f} ms); peak "
+        f"{out['peak_gib']:.2f} GiB above what was held before; aaq_fake_quant "
+        f"{launches['aaq_fake_quant']} launches (want {steps} x {acts}), attention plain "
+        f"(ref_grad) {routed['attention.ref_grad']} (want {steps} x {attn}), flash "
+        f"{out['flash']}; restart: restarts {out['restarts']}, starts {out['starts']}, "
+        f"final params and AdamW state bitwise the uninterrupted run's: {same}; saves "
+        f"{saves}")
+    ok = (all(math.isfinite(x) for x in losses) and held_last < held_first
+          and out["restarts"] == 1 and out["starts"] == [0, 4] and same
+          and out["replayed_losses_equal"]
+          and launches["aaq_fake_quant"] == steps * acts and not any(plain.values())
+          and routed["fakequant.ref"] == 0 and routed["fakequant.ref_grad"] == 0
+          and routed["attention.ref_grad"] == steps * attn and out["flash"] == 0
+          and routed["attention.kernel"] == 0 and len(saves) == 2)
+    if not ok:
+        fail(f"train qwen1.5-0.5b: {out}")
+    del failed
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return out, clean.state
+
+
+def _train_routes(torch, params) -> dict:
+    """Phase 10(b): one step's loss and gradients on the kernel route
+    against the plain route, and the zeroed-site control against the plain
+    route, on the same weights and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import policy
+    from repro_torch.core.policy import AAQConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import value_and_grad
+    cfg = get_config("qwen1.5-0.5b").replace(dtype="float32")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in SyntheticLM(cfg.vocab, 64, 8, seed=0).batch(TRAIN_HELD_OUT).items()}
+    aaq = AAQConfig(enabled=True, ste=True)
+    ste = policy._fake_quant_ste
+
+    class ZeroGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, bits, k):
+            return dispatch.fake_quant(x, bits=bits, k_outliers=k)
+
+        @staticmethod
+        def backward(ctx, g):
+            return torch.zeros_like(g), None, None
+
+    calls = []
+
+    def first_zeroed(x, bits, k):
+        calls.append(1)
+        return (ZeroGrad.apply if len(calls) == 1 else ste)(x, bits, k)
+
+    def run(mode, control=False):
+        dispatch.set_backend(mode)
+        try:
+            if control:
+                with swapped(policy, "_fake_quant_ste", first_zeroed):
+                    return value_and_grad(params, batch, cfg, aaq=aaq)
+            return value_and_grad(params, batch, cfg, aaq=aaq)
+        finally:
+            dispatch.set_backend("auto")
+
+    dispatch.reset_counters()
+    loss_k, g_k = run("auto")
+    kern_launches = dispatch.launch_counts()["aaq_fake_quant"]
+    loss_p, g_p = run("ref")
+    plain_calls = dispatch.counters["fakequant.ref"]
+    out = dict(loss_kernel=float(loss_k), loss_plain=float(loss_p),
+               grad_gap=_grad_gap(torch, g_k, g_p),
+               loss_gap=abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+               kernel_launches=kern_launches, plain_fake_quant=plain_calls)
+    del g_k
+    loss_c, g_c = run("auto", control=True)
+    out["control_grad_gap"] = _grad_gap(torch, g_c, g_p)
+    del g_c, g_p
+    log(f"train routes, qwen1.5-0.5b one step: loss kernel route {out['loss_kernel']!r}, "
+        f"plain route {out['loss_plain']!r}; max over leaves of max|grad kernel - plain| / "
+        f"max|plain| {out['grad_gap']:.3e} (limit {TRAIN_ROUTE_TOL}; control, the first act "
+        f"site's gradient zeroed: {out['control_grad_gap']:.3e}); fake-quant kernel launches "
+        f"{kern_launches}, plain route's plain fake-quant {plain_calls}")
+    if not (out["grad_gap"] <= TRAIN_ROUTE_TOL and out["loss_gap"] <= TRAIN_ROUTE_TOL
+            < out["control_grad_gap"] and kern_launches > 0 and plain_calls > 0):
+        fail(f"train routes: {out}")
+    return out
+
+
+def _train_zoo_model(torch, arch, layers) -> dict:
+    """Phase 10(c): one train step of ``arch`` at full width."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AAQConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    cfg = get_config(arch).replace(layers=layers, dtype="float32")
+    if cfg.kind == "encdec":
+        cfg = cfg.replace(enc_layers=layers)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adamw.init(params)
+    n_params = cm.count_params(params)
+    b, s = TRAIN_ZOO_BATCH, TRAIN_ZOO_SEQ
+    batch = _zoo_batch(torch, cfg, b, s, seed=1)
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    for k in ("image_embeds", "audio_frames"):
+        if k in batch:
+            batch[k] = batch[k].float()
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3), aaq=AAQConfig(enabled=True, ste=True),
+                           microbatches=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_counters()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, plain, routed = _counts()
+    acts, attn = _train_passes(cfg)
+    out = dict(arch=arch, kind=cfg.kind, layers=layers, params_b=n_params / 1e9, loss=loss,
+               grad_norm=gnorm, step_ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               fake_quant=launches["aaq_fake_quant"], want_fake_quant=acts,
+               attention_ref_grad=routed["attention.ref_grad"], want_attention=attn)
+    log(f"train {arch}: {cfg.kind}, {layers} layers at full width (d_model {cfg.d_model}), "
+        f"{n_params / 1e9:.3f}B params, f32, {b} x {s} tokens: loss {loss:.4f}, grad norm "
+        f"{gnorm:.4e}, step {ms:.1f} ms (host clock, first step), peak {out['peak_gib']:.2f} "
+        f"GiB; aaq_fake_quant {launches['aaq_fake_quant']} launches (want {acts}), attention "
+        f"plain (ref_grad) {routed['attention.ref_grad']} (want {attn})")
+    ok = (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0
+          and launches["aaq_fake_quant"] == acts and not any(plain.values())
+          and routed["fakequant.ref"] == 0 and routed["fakequant.ref_grad"] == 0
+          and routed["attention.ref_grad"] == attn and routed["attention.kernel"] == 0
+          and launches["flash_mha"] == 0 and launches["flash_mha_simt"] == 0)
+    if not ok:
+        fail(f"train {arch}: {out} plain {plain} routed {routed}")
+    del params, opt, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(torch, train_pending, card: str) -> dict:
+    """Phase 10 (see the module docstring).  Returns the launches by variant
+    of the uninterrupted qwen run and fills the launches of the training
+    quantize rows; ``card`` is the nvidia-smi name and power limit."""
+    import gc
+    t0 = time.perf_counter()
+    fq_tally = Counter()
+    with _deterministic(torch):
+        qwen, state = _train_qwen(torch, fq_tally)
+        routes = _train_routes(torch, state[0])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    for row, key in train_pending:
+        row.launches = fq_tally.get(key, 0)
+    zoo = [_train_zoo_model(torch, arch, layers) for arch, layers in TRAIN_ZOO]
+    log(f"train readings on {card}: {json.dumps(dict(qwen=qwen, routes=routes, zoo=zoo))}")
+    log(f"phase 10 wall {time.perf_counter() - t0:.1f}s")
+    return {"aaq_fake_quant": sum(fq_tally.values())}
 
 
 def flash_resources(build) -> None:
@@ -2590,6 +3057,7 @@ def main() -> int:
     check_flash(torch, rows)
     lm_pending = check_lm_kernels(torch, rows)
     zoo_pending = check_zoo_flash(torch, rows)
+    wide_pending, train_pending = check_quantize_wide(torch)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f}s")
 
     # 4. whole forward, kernels vs plain references
@@ -2631,19 +3099,28 @@ def main() -> int:
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f}s")
 
     # 9. the rest of the model zoo at full width (mixtral at 2 of 56 layers)
-    zoo_launches = serve_zoo(torch, zoo_pending, smi)
+    zoo_launches = serve_zoo(torch, zoo_pending, wide_pending, smi)
     log(f"zoo launches (one prefill and 16 decode steps a model): {zoo_launches}")
     log(f"phase 9 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 10. summary
+    # 10. training: qwen1.5-0.5b through a failure and a restart, the kernel
+    # route against the plain route, one step of each other kind
+    train_launches = train_phase(torch, train_pending, smi)
+    log(f"train launches (the uninterrupted qwen run): {train_launches}")
+    log(f"phase 10 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 11. summary
     log(f"total {time.perf_counter() - t_start:.1f}s")
     # each variant at its first timed shape, then every kernel at the engine's
     # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs), the
-    # LM decode shapes, the zoo's shapes
+    # LM decode shapes, the zoo's shapes, the quantize forms at the zoo's
+    # residual widths (bf16, bits 8, k 4) and at the training shapes
     print(json.dumps({"kernels": [r[0].record() for r in rows.values()]
                       + [row.record() for row, _, _ in pending]
                       + [row.record() for row, _ in lm_pending]
-                      + [row.record() for row, _ in zoo_pending]}))
+                      + [row.record() for row, _ in zoo_pending]
+                      + [row.record() for row, _ in wide_pending]
+                      + [row.record() for row, _ in train_pending]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,164 @@
+"""Atomic, async checkpointing (port of ``repro/checkpoint/checkpointing.py``),
+on the reference's on-disk layout, so a checkpoint the reference wrote
+restores into the port and back.
+
+Layout per step:  <dir>/step_<n>/
+    manifest.json           treedef, shapes, dtypes, step metadata
+    arr_<i>.npy             one file per leaf (host-local full array)
+
+Leaves are numbered in ``jax.tree`` flatten order (dict keys sorted, lists
+in order; ``repro_torch.tree.leaves``).  The port keeps a scanned stack of
+layers as a list of per-layer dicts where the reference stacks them on a
+leading axis, so its leaves line up with a reference tree only where both
+have that shape (the optimizer state, flat parameter dicts); ``restore``
+checks every shape against the template.
+
+Guarantees:
+  * atomicity: writes land in ``.tmp-step_<n>`` and are renamed only after
+    the manifest is fsynced; a crash mid-save never corrupts the latest step,
+  * retention: the ``keep_last_k`` newest steps are kept, older ones removed
+    after a successful save (never before),
+  * async: ``AsyncCheckpointer.save_async`` copies the tensors to the host
+    (blocking only for the copy) and writes on a worker thread.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.tree import leaves, unflatten
+
+
+def _host(leaf, snapshot: bool = False) -> np.ndarray:
+    """A leaf as a host numpy array (bf16 tensors as numpy's bfloat16);
+    ``snapshot``: never a view of the leaf's memory (a device leaf's host
+    copy is one already)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        t = t.clone() if snapshot and t.device.type == "cpu" else t.cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes   # numpy's bfloat16 type
+            return t.view(torch.int16).numpy().view(np.uint16).view(ml_dtypes.bfloat16)
+        return t.numpy()
+    return np.array(leaf) if snapshot else np.asarray(leaf)
+
+
+def _treedef(tree) -> str:
+    """A description of the tree's shape for the manifest (the reference
+    writes JAX's ``PyTreeDef``; neither side parses it back)."""
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {_treedef(tree[k])}" for k in sorted(tree)) + "}"
+    if isinstance(tree, (list, tuple)):
+        return "[" + ", ".join(_treedef(v) for v in tree) + "]"
+    return "*"
+
+
+def save(ckpt_dir: str, step: int, tree, keep_last_k: int = 3) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = os.path.join(ckpt_dir, f".tmp-step_{step:08d}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    flat = leaves(tree)
+    manifest = {"step": step, "treedef": _treedef(tree), "n_leaves": len(flat),
+                "dtypes": [], "shapes": []}
+    for i, leaf in enumerate(flat):
+        arr = _host(leaf)
+        np.save(os.path.join(tmp, f"arr_{i}.npy"), arr)
+        manifest["dtypes"].append(str(arr.dtype))
+        manifest["shapes"].append(list(arr.shape))
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    _gc(ckpt_dir, keep_last_k)
+    return final
+
+
+def _gc(ckpt_dir: str, keep_last_k: int) -> None:
+    steps = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+    for d in steps[:-keep_last_k]:
+        shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+
+
+class AsyncCheckpointer:
+    """Snapshot to the host synchronously, write to disk on a worker thread.
+
+    ``records`` gets one dict a finished save: its step, the host snapshot's
+    and the write's wall time (ms) and the bytes of the arrays."""
+
+    def __init__(self, ckpt_dir: str, keep_last_k: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep_last_k = keep_last_k
+        self.records: list[dict] = []
+        self._thread: threading.Thread | None = None
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def save_async(self, step: int, tree) -> None:
+        self.wait()                                   # one in flight
+        t0 = time.perf_counter()
+        flat = [_host(x, snapshot=True) for x in leaves(tree)]
+        rec = {"step": step, "snapshot_ms": (time.perf_counter() - t0) * 1e3,
+               "bytes": sum(a.nbytes for a in flat)}
+
+        def write():
+            t1 = time.perf_counter()
+            save(self.ckpt_dir, step, unflatten(tree, flat), self.keep_last_k)
+            rec["write_ms"] = (time.perf_counter() - t1) * 1e3
+            self.records.append(rec)
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+    return int(steps[-1].split("_")[1]) if steps else None
+
+
+def _like(arr: np.ndarray, template):
+    """``arr`` as the template leaf's kind: a tensor of its dtype on its
+    device, else a numpy array."""
+    if not isinstance(template, torch.Tensor):
+        return arr
+    if tuple(arr.shape) != tuple(template.shape):
+        raise ValueError(f"checkpoint leaf of shape {arr.shape} does not match the "
+                         f"template's {tuple(template.shape)}")
+    if arr.dtype.name == "bfloat16":      # (ascontiguousarray makes a 0-d array 1-d)
+        t = torch.from_numpy(arr.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.reshape(arr.shape).to(device=template.device, dtype=template.dtype)
+
+
+def restore(ckpt_dir: str, template, step: int | None = None):
+    """Restore onto the template's tree: (step, tree), each tensor leaf on
+    its template leaf's device and dtype."""
+    step = step if step is not None else latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    flat = leaves(template)
+    if len(flat) != manifest["n_leaves"]:
+        raise ValueError(f"template has {len(flat)} leaves, checkpoint "
+                         f"{manifest['n_leaves']}")
+    arrs = [_like(np.load(os.path.join(d, f"arr_{i}.npy")), t) for i, t in enumerate(flat)]
+    return step, unflatten(template, arrs)

@@ -72,6 +72,7 @@ class ArchConfig:
     window: int | None = None     # sliding-window attention
     tie_embeddings: bool = False
     max_seq: int = 131072
+    scan_layers: bool = True      # the reference scans (and remats) its layers
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
@@ -81,6 +82,7 @@ class ArchConfig:
     n_audio_frames: int = 0       # encdec: encoder input frames
     enc_layers: int = 0           # encdec: encoder depth
     dtype: str = "bfloat16"
+    train_microbatches: int = 1   # gradient-accumulation steps per train_step
     source: str = ""              # provenance note [hf/arXiv]
 
     @property

@@ -10,7 +10,7 @@ CONFIG = ArchConfig(
     name="deepseek-v2-lite-16b", kind="moe",
     layers=27, d_model=2048, n_heads=16, n_kv_heads=16, d_ff=1408,
     vocab=102400, act="silu_glu", norm="rms",
-    rope_theta=10000.0, max_seq=163840,
+    rope_theta=10000.0, max_seq=163840, train_microbatches=4,
     moe=MoEConfig(n_experts=64, top_k=6, n_shared=2, expert_ff=1408,
                   dense_first_layer_ff=10944),
     mla=MLAConfig(kv_lora_rank=512, qk_nope_head_dim=128,

@@ -7,6 +7,7 @@ CONFIG = ArchConfig(
     layers=56, d_model=6144, n_heads=48, n_kv_heads=8, d_ff=16384,
     vocab=32768, head_dim=128, act="silu_glu", norm="rms",
     rope_theta=1000000.0, window=4096, max_seq=65536,
+    train_microbatches=8,
     moe=MoEConfig(n_experts=8, top_k=2, n_shared=0, expert_ff=16384),
     source="arXiv:2401.04088",
 )

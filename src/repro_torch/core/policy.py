@@ -8,8 +8,10 @@ dataflow belongs to one of three groups:
     Group C  everything else (gates, probs, small)   -> INT4 inliers, 0 outliers
 
 The table maps site names (strings in the model code) to groups.  It is
-copied exactly from the reference.  The straight-through training path
-(``ste``) and calibration stats are not ported yet.
+copied exactly from the reference.  ``AAQConfig.act`` routes through
+``dispatch.fake_quant`` (the ``aaq_fake_quant`` kernel on the card), or its
+straight-through form ``quantize.fake_quant_ste`` when ``ste`` is set (the
+training path).
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from typing import Mapping
 import torch
 
 from repro_torch.core.qtensor import QTensor
-from repro_torch.core.quantize import fake_quant as _fake_quant, quantize as _quantize_fn
+from repro_torch.core.quantize import fake_quant_ste as _fake_quant_ste
+from repro_torch.core.quantize import quantize as _quantize_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +71,8 @@ class AAQConfig:
     enabled: bool = True
     site_table: tuple[tuple[str, QuantPolicy], ...] = DEFAULT_SITE_TABLE
     overrides: Mapping[str, QuantPolicy] | None = None   # exact-name overrides
+    ste: bool = False            # straight-through grads (training path)
+    collect_stats: bool = False  # calibration mode (core.calibration)
 
     def policy_for(self, site: str) -> QuantPolicy:
         if not self.enabled:
@@ -80,11 +85,17 @@ class AAQConfig:
         return NO_QUANT
 
     def act(self, x: torch.Tensor, site: str) -> torch.Tensor:
-        """Fake-quant an activation at ``site`` (reference dataflow)."""
+        """Fake-quant an activation at ``site``, routed by ``dispatch``: the
+        ``aaq_fake_quant`` kernel on a CUDA tensor, the reference dataflow
+        on a CPU one; with ``ste``, under straight-through gradients."""
         pol = self.policy_for(site)
         if not pol.enabled:
             return x
-        return _fake_quant(x, pol.bits, pol.k_outliers).to(x.dtype)
+        if self.ste:
+            return _fake_quant_ste(x, pol.bits, pol.k_outliers).to(x.dtype)
+        # dispatch imports core (its plain versions): import it at call time
+        from repro_torch.kernels import dispatch
+        return dispatch.fake_quant(x, bits=pol.bits, k_outliers=pol.k_outliers).to(x.dtype)
 
     def quantize(self, x: torch.Tensor, site: str) -> QTensor | torch.Tensor:
         pol = self.policy_for(site)

@@ -8,7 +8,9 @@ are held to.  Two rules keep it bitwise with the JAX reference:
     promise one;
   * ``torch.round`` rounds half to even, like ``jnp.round``.
 
-``fake_quant_ste`` (the training path) is not ported yet.
+``fake_quant_ste`` is the training path's fake-quant: the straight-through
+estimator (forward ``dispatch.fake_quant``, the CUDA kernel on the card;
+backward the identity), the reference's one custom gradient.
 """
 from __future__ import annotations
 
@@ -88,6 +90,28 @@ def dequantize(qt: QTensor) -> torch.Tensor:
 def fake_quant(x: torch.Tensor, bits: int, k_outliers: int) -> torch.Tensor:
     """quantize -> dequantize round trip (accuracy evaluation path)."""
     return dequantize(quantize(x, bits, k_outliers))
+
+
+class _FakeQuantSTE(torch.autograd.Function):
+    """``jax.custom_vjp`` of the reference's ``fake_quant_ste``: forward the
+    routed fake-quant (autograd runs it with grad mode off, so on a CUDA
+    tensor it is the ``aaq_fake_quant`` kernel), backward the incoming
+    gradient unchanged.  Nothing is saved for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, bits, k_outliers):
+        # dispatch imports core (its plain versions): import it at call time
+        from repro_torch.kernels import dispatch
+        return dispatch.fake_quant(x, bits=bits, k_outliers=k_outliers)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None              # straight-through estimator
+
+
+def fake_quant_ste(x: torch.Tensor, bits: int, k_outliers: int) -> torch.Tensor:
+    """Fake-quant with straight-through gradients (the training path)."""
+    return _FakeQuantSTE.apply(x, bits, k_outliers)
 
 
 def quant_rmse(x: torch.Tensor, bits: int, k_outliers: int) -> torch.Tensor:

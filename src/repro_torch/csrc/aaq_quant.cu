@@ -26,7 +26,7 @@
 //     serves 4 tokens; 32 at H = 512), and each lane owns 16 consecutive
 //     columns, read with 16-byte loads (two for bf16, four for f32).
 //   - Each value becomes one integer key ordered as (|x| desc, column asc):
-//     |x|'s bits, then 512 - column, then the sign in bit 0 (so the key
+//     |x|'s bits, then 8192 - column, then the sign in bit 0 (so the key
 //     also carries the value back).  bf16 input fits a 32-bit key (15 bits
 //     of |x|), f32 a 64-bit one.  Absent columns are key 0, below all.
 //   - A lane sorts its 16 keys in four quads (5 max/min pairs each) and
@@ -47,10 +47,21 @@
 //   - q leaves in one 8-byte (int4) or 16-byte (int8) store per lane, the
 //     group's first lane writes scale, ovals (8 B) and oidx (16 B) with one
 //     store each; x_hat leaves in 16-byte stores.
-// H <= 512; the rows must be 16-byte aligned (the wrapper checks), so H is a
-// multiple of 8 (bf16) or 4 (f32); a ragged last lane is masked per 16-byte
-// chunk, and q rows that are not a multiple of the vector width are stored
-// byte by byte.  Token offsets are 64-bit.
+// Rows wider than 512 (the LM zoo's residual stream, up to 8,192 columns)
+// take a second design, one warp per token (aaq_*_rows): each lane walks
+// ceil(H / 512) chunks of 16 columns, strided by 512 so that a warp's
+// 16-byte loads stay contiguous, folds each chunk's sorted 4-list into its
+// running top 4, and the same 5-level butterfly merges the lanes.  The
+// inlier max then needs no second walk over the row: the merges also
+// carry the fifth largest key of what they have seen (the largest of the
+// minima a merge drops), and the inlier max is the (k+1)-th key's |x| (the
+// fifth for k = 4).  A second walk re-reads the row (from L2) to quantize
+// and store; the row is never held whole in registers (at H = 6,144 in
+// f32 that would be 192 values a lane).
+// H <= 8,192; the rows must be 16-byte aligned (the wrapper checks), so H
+// is a multiple of 8 (bf16) or 4 (f32); a ragged last lane is masked per
+// 16-byte chunk, and q rows that are not a multiple of the vector width
+// are stored byte by byte.  Token offsets are 64-bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -63,7 +74,9 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kEps = 1e-12f;
 constexpr int kThreads = 256;
-constexpr int kCols = 16;                 // columns a lane owns
+constexpr int kCols = 16;                 // columns a lane owns (a chunk)
+constexpr int kNarrowH = 32 * kCols;      // widest row of the lane-group design
+constexpr int kMaxH = 8192;               // widest row (the key's column field)
 constexpr unsigned kFull = 0xffffffffu;
 
 // The key type of an input type: 15 bits of a bf16 |x| fit above the
@@ -72,14 +85,15 @@ template <typename T> struct Io;
 template <> struct Io<bf16> { using Key = unsigned; };
 template <> struct Io<float> { using Key = unsigned long long; };
 
-// u: the value's float32 bits; col < 512.
+// u: the value's float32 bits; col < kMaxH, so kMaxH - col fits bits 1-14,
+// below a bf16 |x|'s 15 bits (16-30).
 __device__ __forceinline__ unsigned make_key(unsigned u, int col, unsigned) {
-  return (u & 0x7fff0000u) | (static_cast<unsigned>(512 - col) << 1) | (u >> 31);
+  return (u & 0x7fff0000u) | (static_cast<unsigned>(kMaxH - col) << 1) | (u >> 31);
 }
 __device__ __forceinline__ unsigned long long make_key(unsigned u, int col,
                                                        unsigned long long) {
   return (static_cast<unsigned long long>(u & 0x7fffffffu) << 32) |
-         (static_cast<unsigned>(512 - col) << 1) | (u >> 31);
+         (static_cast<unsigned>(kMaxH - col) << 1) | (u >> 31);
 }
 // The float32 bits and the column a key was made from.
 __device__ __forceinline__ unsigned key_value(unsigned k) {
@@ -89,7 +103,7 @@ __device__ __forceinline__ unsigned key_value(unsigned long long k) {
   return static_cast<unsigned>(k >> 32) | (static_cast<unsigned>(k) << 31);
 }
 template <typename Key> __device__ __forceinline__ int key_col(Key k) {
-  return 512 - static_cast<int>((static_cast<unsigned>(k) >> 1) & 0x3ffu);
+  return kMaxH - static_cast<int>((static_cast<unsigned>(k) >> 1) & 0x3fffu);
 }
 
 // hi >= lo afterwards.
@@ -116,6 +130,19 @@ template <typename Key> __device__ __forceinline__ void merge4(Key (&a)[4], cons
   order(a[1], a[3]);
   order(a[0], a[1]);
   order(a[2], a[3]);
+}
+
+// merge4, and f <- the largest key of the union of a, b and f's set that
+// the top 4 leave out: the minima of the half-cleaner's pairs are the
+// union's bottom 4, so the fifth key is the largest of them or f.
+template <typename Key>
+__device__ __forceinline__ void merge4_fifth(Key (&a)[4], const Key (&b)[4], Key& f) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const Key lo = a[j] > b[3 - j] ? b[3 - j] : a[j];
+    f = f > lo ? f : lo;
+  }
+  merge4(a, b);
 }
 
 template <typename T> __device__ __forceinline__ void load_lane(const T* row, int c0, int h,
@@ -168,79 +195,17 @@ template <> __device__ __forceinline__ void store_lane<float>(float* row, int c0
   }
 }
 
-// G lanes per token (a power of two, G * 16 >= H).  kFake: write x_hat
-// only; otherwise q, scale, ovals (T, max(k,1)) and oidx (T, max(k,1)).
-template <typename T, int G, bool kFake>
-__device__ __forceinline__ void quant_body(const T* __restrict__ x, int8_t* __restrict__ q,
-                                           float* __restrict__ scale,
-                                           bf16* __restrict__ ovals,
-                                           int32_t* __restrict__ oidx, T* __restrict__ xhat,
-                                           int n_tokens, int h, int bits, int k) {
-  using Key = typename Io<T>::Key;
-  const int gl = threadIdx.x & (G - 1);
-  const int64_t token = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / G;
-  const bool live = token < n_tokens;     // dead groups still join the shuffles
-  const int c0 = gl * kCols;
-
-  unsigned u[kCols];                      // float32 bits of the lane's values
-  if (live) {
-    load_lane<T>(x + token * h, c0, h, u);
-  } else {
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) u[i] = 0;
-  }
-
-  // top 4 keys of the token, descending, on every lane of the group: four
-  // sorted quads of the lane's keys merged in a tree, then log2(G) butterfly
-  // levels across the group
-  Key t[4] = {0, 0, 0, 0};
-  unsigned outs = 0;                      // bit i: column c0 + i is an outlier
-  if (k > 0) {
-    Key quad[4][4];
-#pragma unroll
-    for (int i = 0; i < kCols; ++i)
-      quad[i / 4][i % 4] = c0 + i < h ? make_key(u[i], c0 + i, Key{}) : Key{0};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sort4(quad[j]);
-    merge4(quad[0], quad[1]);
-    merge4(quad[2], quad[3]);
-    merge4(quad[0], quad[2]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) t[j] = quad[0][j];
-#pragma unroll
-    for (int off = 1; off < G; off <<= 1) {
-      Key p[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p[j] = __shfl_xor_sync(kFull, t[j], off);
-      merge4(t, p);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const unsigned d = static_cast<unsigned>(key_col(t[j]) - c0);
-      if (j < k && d < kCols) outs |= 1u << d;
-    }
-  }
-
-  float m = 0.f;
-#pragma unroll
-  for (int i = 0; i < kCols; ++i)
-    if (!(outs >> i & 1u)) m = fmaxf(m, fabsf(__uint_as_float(u[i])));
-#pragma unroll
-  for (int off = 1; off < G; off <<= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
-  if (!live) return;
-
-  const float qm = static_cast<float>((1 << (bits - 1)) - 1);
-  const float sigma = fmaxf(m / qm, kEps);          // IEEE division (no fast-math)
-  // q = rint(v / sigma) with the IEEE quotient, without dividing each value:
-  // |v / sigma| <= qmax < 128 for an inlier, and v * RN(1 / sigma) lies
-  // within 1.5 * 2^-23 * 128 < 2^-15 of the rounded quotient, so both round
-  // to the same integer unless the product lies within 2^-13 of a
-  // half-integer.  Those values (rare), and every value of a token whose
-  // 1 / sigma would be subnormal, take the IEEE division.  Outliers' q is 0
-  // whatever their product.
-  const float rcp = 1.f / sigma;
-  const bool tiny_rcp = !(sigma < 0x1p+120f);
-  int qi[kCols];
+// q = rint(v / sigma) of a lane's 16 values, 0 at the outlier columns
+// (bit i of outs), with the IEEE quotient but without dividing each value:
+// |v / sigma| <= qmax < 128 for an inlier, and v * RN(1 / sigma) lies
+// within 1.5 * 2^-23 * 128 < 2^-15 of the rounded quotient, so both round
+// to the same integer unless the product lies within 2^-13 of a
+// half-integer.  Those values (rare), and every value of a token whose
+// 1 / sigma would be subnormal, take the IEEE division.  Outliers' q is 0
+// whatever their product.
+__device__ __forceinline__ void quant_lane(const unsigned (&u)[kCols], unsigned outs,
+                                           float sigma, float rcp, bool tiny_rcp, float qm,
+                                           int (&qi)[kCols]) {
 #pragma unroll
   for (int i = 0; i < kCols; ++i) {
     const float v = __uint_as_float(u[i]);
@@ -248,18 +213,27 @@ __device__ __forceinline__ void quant_body(const T* __restrict__ x, int8_t* __re
     if (tiny_rcp || fabsf(p - (floorf(p) + 0.5f)) < 0x1p-13f) p = v / sigma;
     qi[i] = outs >> i & 1u ? 0 : static_cast<int>(fminf(fmaxf(rintf(p), -qm), qm));
   }
+}
 
-  if constexpr (kFake) {
-    float r[kCols];
+// x_hat of a lane: q * sigma in float32, each outlier float(bf16(x)),
+// rounded once to T.
+template <typename T>
+__device__ __forceinline__ void store_fake_lane(T* row, int c0, int h, const unsigned (&u)[kCols],
+                                                unsigned outs, const int (&qi)[kCols],
+                                                float sigma) {
+  float r[kCols];
 #pragma unroll
-    for (int i = 0; i < kCols; ++i)
-      r[i] = outs >> i & 1u ? __bfloat162float(__float2bfloat16_rn(__uint_as_float(u[i])))
-                            : static_cast<float>(qi[i]) * sigma;
-    store_lane<T>(xhat + token * h, c0, h, r);
-    return;
-  }
+  for (int i = 0; i < kCols; ++i)
+    r[i] = outs >> i & 1u ? __bfloat162float(__float2bfloat16_rn(__uint_as_float(u[i])))
+                          : static_cast<float>(qi[i]) * sigma;
+  store_lane<T>(row, c0, h, r);
+}
 
-  if (bits == 4) {                        // 16 values -> 8 bytes, low nibble = even column
+// q of a lane's 16 columns: 8 bytes (int4, low nibble = even column) or
+// 16 bytes (int8).
+__device__ __forceinline__ void store_q_lane(int8_t* __restrict__ q, int64_t token, int c0,
+                                             int h, int bits, const int (&qi)[kCols]) {
+  if (bits == 4) {
     unsigned w[2] = {0, 0};
 #pragma unroll
     for (int b = 0; b < 8; ++b)
@@ -273,7 +247,7 @@ __device__ __forceinline__ void quant_body(const T* __restrict__ x, int8_t* __re
       for (int b = 0; b < 8; ++b)
         if (c0 + 2 * b < h) dst[b] = static_cast<int8_t>(w[b >> 2] >> (8 * (b & 3)));
     }
-  } else {                                // 16 values -> 16 bytes
+  } else {
     unsigned w[4] = {0, 0, 0, 0};
 #pragma unroll
     for (int i = 0; i < kCols; ++i)
@@ -287,7 +261,14 @@ __device__ __forceinline__ void quant_body(const T* __restrict__ x, int8_t* __re
         if (c0 + i < h) dst[i] = static_cast<int8_t>(w[i >> 2] >> (8 * (i & 3)));
     }
   }
-  if (gl != 0) return;
+}
+
+// A token's scale and outliers (ovals, oidx: (T, max(k,1)); k = 0 writes
+// zero dummies), from its top-4 keys t, by one lane.
+template <typename Key>
+__device__ __forceinline__ void store_meta(float* __restrict__ scale, bf16* __restrict__ ovals,
+                                           int32_t* __restrict__ oidx, int64_t token,
+                                           float sigma, const Key (&t)[4], int k) {
   scale[token] = sigma;
   if (k == 4) {
     unsigned short ob[4];
@@ -314,6 +295,172 @@ __device__ __forceinline__ void quant_body(const T* __restrict__ x, int8_t* __re
   }
 }
 
+// The top-k columns among a lane's 16 from column c0: bit i for c0 + i.
+template <typename Key>
+__device__ __forceinline__ unsigned outlier_mask(const Key (&t)[4], int k, int c0) {
+  unsigned outs = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned d = static_cast<unsigned>(key_col(t[j]) - c0);
+    if (j < k && d < kCols) outs |= 1u << d;
+  }
+  return outs;
+}
+
+// A lane's 16 keys from column c0 (absent columns: key 0), sorted into the
+// lane's top 4, descending; f takes the largest key left out.
+template <typename Key>
+__device__ __forceinline__ void lane_top4(const unsigned (&u)[kCols], int c0, int h,
+                                          Key (&top)[4], Key& f) {
+  Key quad[4][4];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i)
+    quad[i / 4][i % 4] = c0 + i < h ? make_key(u[i], c0 + i, Key{}) : Key{0};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sort4(quad[j]);
+  merge4_fifth(quad[0], quad[1], f);
+  merge4_fifth(quad[2], quad[3], f);
+  merge4_fifth(quad[0], quad[2], f);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) top[j] = quad[0][j];
+}
+
+// G lanes per token (a power of two, G * 16 >= H, H <= 512).  kFake: write
+// x_hat only; otherwise q, scale, ovals (T, max(k,1)) and oidx (T, max(k,1)).
+template <typename T, int G, bool kFake>
+__device__ __forceinline__ void quant_body(const T* __restrict__ x, int8_t* __restrict__ q,
+                                           float* __restrict__ scale,
+                                           bf16* __restrict__ ovals,
+                                           int32_t* __restrict__ oidx, T* __restrict__ xhat,
+                                           int n_tokens, int h, int bits, int k) {
+  using Key = typename Io<T>::Key;
+  const int gl = threadIdx.x & (G - 1);
+  const int64_t token = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / G;
+  const bool live = token < n_tokens;     // dead groups still join the shuffles
+  const int c0 = gl * kCols;
+
+  unsigned u[kCols];                      // float32 bits of the lane's values
+  if (live) {
+    load_lane<T>(x + token * h, c0, h, u);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) u[i] = 0;
+  }
+
+  // top 4 keys of the token, descending, on every lane of the group: four
+  // sorted quads of the lane's keys merged in a tree, then log2(G) butterfly
+  // levels across the group
+  Key t[4] = {0, 0, 0, 0};
+  unsigned outs = 0;                      // bit i: column c0 + i is an outlier
+  if (k > 0) {
+    Key unused = 0;
+    lane_top4(u, c0, h, t, unused);
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1) {
+      Key p[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[j] = __shfl_xor_sync(kFull, t[j], off);
+      merge4(t, p);
+    }
+    outs = outlier_mask(t, k, c0);
+  }
+
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i)
+    if (!(outs >> i & 1u)) m = fmaxf(m, fabsf(__uint_as_float(u[i])));
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+  if (!live) return;
+
+  const float qm = static_cast<float>((1 << (bits - 1)) - 1);
+  const float sigma = fmaxf(m / qm, kEps);          // IEEE division (no fast-math)
+  int qi[kCols];
+  quant_lane(u, outs, sigma, 1.f / sigma, !(sigma < 0x1p+120f), qm, qi);
+  if constexpr (kFake) {
+    store_fake_lane<T>(xhat + token * h, c0, h, u, outs, qi, sigma);
+    return;
+  }
+  store_q_lane(q, token, c0, h, bits, qi);
+  if (gl == 0) store_meta(scale, ovals, oidx, token, sigma, t, k);
+}
+
+// One warp per token, H in (512, 8192]: a lane owns columns c0 + 16 of
+// every 512-column chunk (c0 = 16 * lane).  The first walk gives the top 4
+// keys and the fifth (k > 0), or the row's max |x| (k = 0); the second
+// re-reads the row to quantize and store.  Outputs as quant_body's.
+template <typename T, bool kFake>
+__device__ __forceinline__ void quant_rows_body(const T* __restrict__ x,
+                                                int8_t* __restrict__ q,
+                                                float* __restrict__ scale,
+                                                bf16* __restrict__ ovals,
+                                                int32_t* __restrict__ oidx,
+                                                T* __restrict__ xhat, int n_tokens, int h,
+                                                int bits, int k) {
+  using Key = typename Io<T>::Key;
+  const int lane = threadIdx.x & 31;
+  const int64_t token = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  if (token >= n_tokens) return;          // the whole warp: no shuffle is left waiting
+  const T* row = x + token * h;
+  const int n_chunks = (h + kNarrowH - 1) / kNarrowH;
+
+  Key t[4] = {0, 0, 0, 0};
+  Key fifth = 0;                          // largest key outside t
+  float mx = 0.f;                         // k = 0: max |x| of the row
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int c0 = ch * kNarrowH + lane * kCols;
+    unsigned u[kCols];
+    load_lane<T>(row, c0, h, u);
+    if (k == 0) {
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) mx = fmaxf(mx, fabsf(__uint_as_float(u[i])));
+      continue;
+    }
+    Key c[4];
+    lane_top4(u, c0, h, c, fifth);
+    merge4_fifth(t, c, fifth);
+  }
+  float m;
+  if (k > 0) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      Key p[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[j] = __shfl_xor_sync(kFull, t[j], off);
+      const Key pf = __shfl_xor_sync(kFull, fifth, off);
+      fifth = fifth > pf ? fifth : pf;
+      merge4_fifth(t, p, fifth);
+    }
+    // the inlier max: the |x| of the (k+1)-th key (key 0, no such column: 0)
+    const Key next = k == 1 ? t[1] : k == 2 ? t[2] : k == 3 ? t[3] : fifth;
+    m = fabsf(__uint_as_float(key_value(next)));
+  } else {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    m = mx;
+  }
+
+  const float qm = static_cast<float>((1 << (bits - 1)) - 1);
+  const float sigma = fmaxf(m / qm, kEps);          // IEEE division (no fast-math)
+  const float rcp = 1.f / sigma;
+  const bool tiny_rcp = !(sigma < 0x1p+120f);
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int c0 = ch * kNarrowH + lane * kCols;
+    if (c0 >= h) break;
+    unsigned u[kCols];
+    load_lane<T>(row, c0, h, u);
+    const unsigned outs = outlier_mask(t, k, c0);
+    int qi[kCols];
+    quant_lane(u, outs, sigma, rcp, tiny_rcp, qm, qi);
+    if constexpr (kFake) {
+      store_fake_lane<T>(xhat + token * h, c0, h, u, outs, qi, sigma);
+    } else {
+      store_q_lane(q, token, c0, h, bits, qi);
+    }
+  }
+  if (!kFake && lane == 0) store_meta(scale, ovals, oidx, token, sigma, t, k);
+}
+
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 aaq_quantize_lanes(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
@@ -329,10 +476,26 @@ aaq_fake_quant_lanes(const T* __restrict__ x, T* __restrict__ xhat, int n_tokens
   quant_body<T, G, true>(x, nullptr, nullptr, nullptr, nullptr, xhat, n_tokens, h, bits, k);
 }
 
-// Lanes a token takes: the least power of two with 16 columns each >= h.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+aaq_quantize_rows(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
+                  bf16* __restrict__ ovals, int32_t* __restrict__ oidx, int n_tokens, int h,
+                  int bits, int k) {
+  quant_rows_body<T, false>(x, q, scale, ovals, oidx, nullptr, n_tokens, h, bits, k);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+aaq_fake_quant_rows(const T* __restrict__ x, T* __restrict__ xhat, int n_tokens, int h,
+                    int bits, int k) {
+  quant_rows_body<T, true>(x, nullptr, nullptr, nullptr, nullptr, xhat, n_tokens, h, bits, k);
+}
+
+// Lanes a token takes: the least power of two with 16 columns each >= h
+// (32, a warp, for every H above 512).
 int lanes_for(int h) {
   int g = 1;
-  while (g * kCols < h) g <<= 1;
+  while (g < 32 && g * kCols < h) g <<= 1;
   return g;
 }
 
@@ -350,6 +513,11 @@ void launch_quantize(const void* x, void* q, void* scale, void* ovals, void* oid
   auto* sp = static_cast<float*>(scale);
   auto* op = static_cast<bf16*>(ovals);
   auto* ip = static_cast<int32_t*>(oidx);
+  if (h > kNarrowH) {
+    aaq_quantize_rows<T><<<grid_for(n_tokens, 32), kThreads, 0, s>>>(
+        xp, qp, sp, op, ip, n_tokens, h, bits, k);
+    return;
+  }
 #define AAQ_Q(G) aaq_quantize_lanes<T, G><<<grid_for(n_tokens, G), kThreads, 0, s>>>( \
       xp, qp, sp, op, ip, n_tokens, h, bits, k)
   switch (g) {
@@ -369,6 +537,11 @@ void launch_fake_quant(const void* x, void* xhat, int n_tokens, int h, int bits,
   const int g = lanes_for(h);
   auto* xp = static_cast<const T*>(x);
   auto* op = static_cast<T*>(xhat);
+  if (h > kNarrowH) {
+    aaq_fake_quant_rows<T><<<grid_for(n_tokens, 32), kThreads, 0, s>>>(
+        xp, op, n_tokens, h, bits, k);
+    return;
+  }
 #define AAQ_F(G) aaq_fake_quant_lanes<T, G><<<grid_for(n_tokens, G), kThreads, 0, s>>>( \
       xp, op, n_tokens, h, bits, k)
   switch (g) {
@@ -383,13 +556,13 @@ void launch_fake_quant(const void* x, void* xhat, int n_tokens, int h, int bits,
 }
 
 bool args_ok(int h, int bits, int k) {
-  return h > 0 && h <= 32 * kCols && (bits == 4 || bits == 8) && !(bits == 4 && h % 2) &&
+  return h > 0 && h <= kMaxH && (bits == 4 || bits == 8) && !(bits == 4 && h % 2) &&
          k >= 0 && k <= 4 && k <= h;
 }
 
 }  // namespace
 
-// x (T, H) bf16 or f32, contiguous, 16-byte aligned rows; H <= 512, even
+// x (T, H) bf16 or f32, contiguous, 16-byte aligned rows; H <= 8192, even
 // when bits == 4; k <= 4.  q (T, H/2 or H) int8; scale (T) f32; ovals
 // (T, max(k,1)) bf16; oidx (T, max(k,1)) int32.  Returns a launch status
 // (hopper::status).

@@ -16,6 +16,8 @@ W's type and counted apart:
 
 On a CUDA tensor the wrapper launches the kernel or raises.  On a CPU
 tensor it computes the plain version (``ref.aaq_matmul_ref``) instead.
+The kernel has no backward: an operand that requires grad under grad mode
+is refused (``build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ def aaq_matmul_kernel(inliers, scales, ovals, oidx, w, *, bits: int,
         plain_calls += 1
         return aaq_matmul_ref(inliers, scales, ovals, oidx, w, bits=bits,
                               out_dtype=out_dtype)
+    build.refuse_grad("aaq_matmul_kernel", scales, ovals, w)
     if inliers.device.type != "cuda":
         raise ValueError(f"aaq_matmul_kernel: unsupported device {inliers.device}")
     t, hp = inliers.shape

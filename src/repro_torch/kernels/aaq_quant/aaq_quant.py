@@ -2,13 +2,21 @@
 output forms.
 
 Replaces ``repro/kernels/aaq_quant/aaq_quant.py:aaq_quantize_pallas``.  The
-kernel (``csrc/aaq_quant.cu``) gives each token a group of H/16 lanes (a
-power of two), each owning 16 consecutive columns read with 16-byte loads;
-every lane keeps the sorted top 4 of its (|x|, column) keys and butterfly
-shuffles merge the lists, so ties go to the lower index; one more butterfly
-gives the inlier max, then round-half-even of the IEEE quotient x / scale
-(a reciprocal product, divided exactly near rounding ties) produces the
-inliers, bitwise with the plain version.  Its bound on the H100 is bytes.
+kernel (``csrc/aaq_quant.cu``) gives each token of a row up to 512 wide a
+group of H/16 lanes (a power of two), each owning 16 consecutive columns
+read with 16-byte loads; every lane keeps the sorted top 4 of its
+(|x|, column) keys and butterfly shuffles merge the lists, so ties go to
+the lower index; one more butterfly gives the inlier max, then
+round-half-even of the IEEE quotient x / scale (a reciprocal product,
+divided exactly near rounding ties) produces the inliers, bitwise with the
+plain version.  A wider row (up to ``MAX_H``, the LM zoo's residual
+stream) takes one warp, each lane walking 16-column chunks strided by 512;
+the merges also carry the fifth key, which gives the inlier max, and a
+second walk re-reads the row to quantize.  Its bound on the H100 is bytes.
+
+No kernel has a backward: a wrapper refuses (``build.refuse_grad``) an
+input that requires grad while grad mode is on, so a gradient can never
+silently stop at a kernel's output.
 
 * ``aaq_quantize_kernel`` writes q (nibble-packed for 4 bits), the scales
   and the outliers: the input of ``aaq_matmul``.
@@ -26,7 +34,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.aaq_quant.ref import aaq_fake_quant_ref, aaq_quantize_ref
 
-MAX_H = 512
+MAX_H = 8192
 launches = 0            # aaq_quantize kernel launches (CUDA tensors only)
 fake_launches = 0       # aaq_fake_quant kernel launches
 plain_calls = 0         # aaq_quantize calls that computed the plain version (CPU)
@@ -64,6 +72,7 @@ def aaq_quantize_kernel(x: torch.Tensor, *, bits: int, k_outliers: int):
     if x.device.type == "cpu":
         plain_calls += 1
         return aaq_quantize_ref(x, bits, k_outliers)
+    build.refuse_grad("aaq_quantize_kernel", x)
     if x.device.type != "cuda":
         raise ValueError(f"aaq_quantize_kernel: unsupported device {x.device}")
     t, h = _launch_shape(x, bits, k_outliers, "aaq_quantize_kernel")
@@ -91,6 +100,7 @@ def aaq_fake_quant_kernel(x: torch.Tensor, bits: int, k_outliers: int) -> torch.
     if x.device.type == "cpu":
         fake_plain_calls += 1
         return aaq_fake_quant_ref(x, bits, k_outliers)
+    build.refuse_grad("aaq_fake_quant_kernel", x)
     if x.device.type != "cuda":
         raise ValueError(f"aaq_fake_quant_kernel: unsupported device {x.device}")
     t, h = _launch_shape(x, bits, k_outliers, "aaq_fake_quant_kernel")

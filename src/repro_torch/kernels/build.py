@@ -24,6 +24,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -174,3 +176,16 @@ def check(err: int, what: str) -> None:
         code, step = err & 0xFFFF, err >> 16
         where = f" at step {step} ({LAUNCH_STEPS[step]})" if step in LAUNCH_STEPS else ""
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}{where}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """No kernel of the port has a backward, and its output carries no
+    ``grad_fn``: raise when grad mode is on and an input requires grad,
+    before anything touches a device, instead of cutting the gradient of
+    everything upstream.  Differentiable callers run a plain version
+    (``dispatch``'s rule) or a ``torch.autograd.Function`` whose forward
+    calls the kernel with grad mode off (the AAQ straight-through
+    estimator)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: an input requires grad and the kernel has no backward; "
+                           "run the plain version (dispatch backend 'auto' or 'ref')")

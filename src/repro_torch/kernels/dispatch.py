@@ -21,7 +21,24 @@ reference's ``--kernels ref``).  ``kernel`` on a CPU tensor runs the
 kernel-shaped dataflow with each kernel's plain version, as the reference's
 ``pallas`` mode does in interpret mode off-TPU.
 
-Counters: ``counters`` counts routed calls per backend; each kernel wrapper
+Gradients.  No kernel has a backward (the Pallas kernels have none either:
+the reference's training differentiates its plain attention, and its one
+custom gradient is the AAQ straight-through estimator).  So, decided by the
+operands alone and never by a failed build or launch:
+
+  * in ``auto`` mode, a call whose tensor operands include one that
+    requires grad while grad mode is on takes the plain reference, on any
+    device, counted under ``<op>.ref_grad`` (``attention.ref_grad`` for the
+    LM's attention in training), not under ``<op>.ref``;
+  * an explicit ``kernel`` request with such operands reaches the kernel
+    wrapper, which raises (``build.refuse_grad``): a kernel's output has no
+    ``grad_fn``, and a silent launch would cut the gradient of everything
+    upstream;
+  * ``core.quantize.fake_quant_ste`` calls ``fake_quant`` from the forward
+    of a ``torch.autograd.Function``, where grad mode is off, so its
+    forward is the kernel on a CUDA tensor and its backward the identity.
+
+Counters: ``counters`` counts routed calls per route; each kernel wrapper
 module counts the CUDA launches of each of its kernel variants and the
 calls that computed a plain version on the CPU (``launch_counts`` per
 variant / ``plain_counts`` per kernel).  ``MAIN_PATH`` names the variants a
@@ -73,16 +90,11 @@ MAIN_PATH = ("aaq_quantize", "aaq_fake_quant", "aaq_matmul", "flash_mha")
 _MODE = AUTO
 _SCOPED = threading.local()          # .mode: the thread's use_backend mode
 
-counters: dict[str, int] = {
-    "attention.kernel": 0,
-    "attention.ref": 0,
-    "qmatmul.kernel": 0,
-    "qmatmul.ref": 0,
-    "fakequant.kernel": 0,
-    "fakequant.ref": 0,
-    "quantize.kernel": 0,
-    "quantize.ref": 0,
-}
+#: routed calls: ``<op>.kernel``, ``<op>.ref`` and ``<op>.ref_grad`` (the
+#: plain reference taken in ``auto`` mode because an operand requires grad)
+counters: dict[str, int] = {f"{op}.{route}": 0
+                            for op in ("attention", "qmatmul", "fakequant", "quantize")
+                            for route in ("kernel", "ref", "ref_grad")}
 
 
 def reset_counters() -> None:
@@ -137,6 +149,22 @@ def resolve(device: torch.device, *, backend: str | None = None) -> str:
     return KERNEL if torch.device(device).type == "cuda" else REF
 
 
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _route(op: str, device: torch.device, backend: str | None, operands) -> bool:
+    """Count and decide one routed call of ``op``: True for the kernel."""
+    mode = _check(backend) if backend is not None else get_backend()
+    if mode == AUTO and _needs_grad(operands):
+        counters[f"{op}.ref_grad"] += 1
+        return False
+    kernel = resolve(device, backend=mode) == KERNEL
+    counters[f"{op}.{KERNEL if kernel else REF}"] += 1
+    return kernel
+
+
 def attention_is_kernel(device: torch.device, *, backend: str | None = None) -> bool:
     """Will ``attention`` take the kernel path on this device?  Triangular
     attention uses this to pick its rows-as-batch dataflow before building
@@ -167,17 +195,16 @@ def attention(q, k, v, *, bias=None, causal=False, window=None,
     Kernel path: the CUDA flash kernel.  The kernel takes one head dim, so
     a narrower v (MLA: q/k 192, v 128) is padded with zero columns to D and
     the output sliced back: exact, the padded columns are sums of zeros.
-    Ref path: ``mha_chunked``, v as it is.
+    Ref path: ``mha_chunked``, v as it is (and the path of operands that
+    require grad in ``auto`` mode: the reference's training attention).
     """
-    if resolve(q.device, backend=backend) == KERNEL:
-        counters["attention.kernel"] += 1
+    if _route("attention", q.device, backend, (q, k, v, bias)):
         dv = v.shape[-1]
         if dv < q.shape[-1]:
             v = F.pad(v, (0, q.shape[-1] - dv))
         o = flash_mha_kernel(q, k, v, bias, kv_valid_len, causal=causal,
                              window=window, softmax_scale=softmax_scale)
         return o if o.shape[-1] == dv else o[..., :dv]
-    counters["attention.ref"] += 1
     return mha_chunked(q, k, v, bias=bias, causal=causal, window=window,
                        kv_valid_len=kv_valid_len, softmax_scale=softmax_scale,
                        q_chunk=q_chunk)
@@ -191,11 +218,9 @@ def quantized_linear(x, w, *, bits: int, k_outliers: int, bias=None,
     inliers with the deferred per-token scale.  Ref path:
     ``qmatmul_fused_ref`` (the same integer-path math in plain PyTorch).
     """
-    if resolve(x.device, backend=backend) == KERNEL:
-        counters["qmatmul.kernel"] += 1
+    if _route("qmatmul", x.device, backend, (x, w)):
         y = aaq_linear(x, w, bits=bits, k_outliers=k_outliers)
     else:
-        counters["qmatmul.ref"] += 1
         y = qmatmul_fused_ref(x, w, bits, k_outliers)
     return y if bias is None else y + bias
 
@@ -205,11 +230,11 @@ def fake_quant(x, *, bits: int, k_outliers: int, backend=None):
 
     Kernel path: the aaq_fake_quant CUDA kernel (one launch, x_hat is all it
     writes).  Ref path: ``quantize.fake_quant`` (the reference dataflow).
+    ``quantize.fake_quant_ste`` wraps this call in a straight-through
+    gradient.
     """
-    if resolve(x.device, backend=backend) == KERNEL:
-        counters["fakequant.kernel"] += 1
+    if _route("fakequant", x.device, backend, (x,)):
         return aaq_fake_quant(x, bits, k_outliers)
-    counters["fakequant.ref"] += 1
     return fake_quant_ref(x, bits, k_outliers)
 
 
@@ -220,8 +245,6 @@ def quantize(x, *, bits: int, k_outliers: int, backend=None):
     Kernel path: the aaq_quantize CUDA kernel.  Ref path:
     ``quantize.quantize`` (the reference dataflow).
     """
-    if resolve(x.device, backend=backend) == KERNEL:
-        counters["quantize.kernel"] += 1
+    if _route("quantize", x.device, backend, (x,)):
         return aaq_quantize(x, bits, k_outliers)
-    counters["quantize.ref"] += 1
     return quantize_ref(x, bits, k_outliers)

@@ -25,6 +25,8 @@ trunk's operands at any length it folds are taken as they are.
 
 On a CUDA tensor the wrapper launches the kernel or raises.  On a CPU
 tensor it computes :func:`flash_mha_plain`, the kernel's plain version.
+The kernel has no backward: an operand that requires grad under grad mode
+is refused (``build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -176,6 +178,7 @@ def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
         plain_calls += 1
         return flash_mha_plain(q, k, v, bias, kv_valid_len, causal=causal,
                                window=window, softmax_scale=softmax_scale)
+    build.refuse_grad("flash_mha_kernel", q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_kernel: unsupported device {q.device}")
     args = _flash_launch_args(q, k, v, bias, kv_valid_len, causal=causal, window=window,

@@ -106,15 +106,25 @@ def _unembed(params, x):
 
 
 def decode_full(params, tokens, enc_out, cfg: ArchConfig, aaq: AAQConfig = DISABLED,
-                last_only=False):
+                last_only=False, return_hidden=False):
     s = tokens.shape[1]
     x = cm.embed(params["embed"], tokens) + params["pos_dec"]["e"][:s][None].to(cfg.torch_dtype)
     for p in params["dec_blocks"]:
         x = _dec_block(p, x, enc_out, cfg, aaq)
     x = cm.layernorm(params["final_norm"], x)
+    if return_hidden:
+        return x
     if last_only:
         x = x[:, -1:]
     return _unembed(params, x)
+
+
+def encdec_loss(params, batch, cfg: ArchConfig, aaq: AAQConfig = DISABLED, remat=False):
+    """Decoder cross-entropy against ``batch['labels']``; ``remat`` is
+    accepted and ignored, as in the reference (its layers are not scanned)."""
+    enc_out = encode(params, batch["audio_frames"], cfg, aaq)
+    x = decode_full(params, batch["tokens"], enc_out, cfg, aaq, return_hidden=True)
+    return tf.chunked_xent(params, x, batch["labels"], cfg)     # tied: _unembed's product
 
 
 def init_encdec_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=None):

@@ -142,18 +142,30 @@ def init_hybrid_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 
 def hybrid_forward(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED,
-                   last_only=False):
+                   remat=False, last_only=False, return_hidden=False):
+    """Logits (B, S, V) f32 (the last position only with ``last_only``),
+    or the final hidden states with ``return_hidden``.  ``remat``: each
+    period recomputed in the backward (the reference's scan body), the
+    tail as it is."""
     x = cm.embed(params["embed"], batch["tokens"])
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for period in params["periods"]:
-        x = _period_apply(period, x, cfg, positions, aaq)
+        x = tf.rematted(lambda y, period=period: _period_apply(period, y, cfg, positions, aaq),
+                        remat)(x)
     for p in params["tail"]:
         x = rglru_block_apply(p, x, cfg, positions=positions, aaq=aaq)
     x = tf.apply_norm(params["final_norm"], x, cfg)
+    if return_hidden:
+        return x
     if last_only:
         x = x[:, -1:]
     return tf.unembed(params, x, cfg)
+
+
+def hybrid_loss(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED, remat=True):
+    x = hybrid_forward(params, batch, cfg, aaq=aaq, remat=remat, return_hidden=True)
+    return tf.chunked_xent(params, x, batch["labels"], cfg)
 
 
 def _rnn_cache(cfg: ArchConfig, lead: tuple, batch: int, dt, device) -> Params:

@@ -5,9 +5,10 @@
     prefill_fn(params, batch, cfg, aaq)        -> last-position logits
     make_cache(cfg, batch_size, max_len)       -> cache (on the card unless device="cpu")
     decode_fn(params, batch, cache, cfg, aaq)  -> (logits, cache')
+    loss_fn(params, batch, cfg, aaq, remat)    -> scalar loss (training)
 
 Caches are written in place (``decode_fn`` returns the same object with
-``pos`` advanced).  ``loss_fn`` waits for training (ROADMAP Queue 1 item 10).
+``pos`` advanced).
 """
 from __future__ import annotations
 
@@ -73,8 +74,32 @@ def _block_fn_for(cfg: ArchConfig):
     return tf.block_apply
 
 
-def loss_fn(params, batch, cfg: ArchConfig, aaq: AAQConfig = DISABLED):
-    raise NotImplementedError("loss_fn is training, not ported yet (ROADMAP Queue 1 item 10)")
+def loss_fn(params, batch, cfg: ArchConfig, aaq: AAQConfig = DISABLED, remat: bool = True):
+    """Mean next-token cross-entropy of ``batch`` ('tokens', 'labels' (B, S),
+    and the kind's 'image_embeds' or 'audio_frames'), differentiable in the
+    parameters.  ``remat``: blocks recomputed in the backward, as the
+    reference's ``jax.checkpoint`` (each scanned layer; a hybrid's periods;
+    not the enc-dec).  Train with ``AAQConfig(ste=True)`` or ``DISABLED``."""
+    if cfg.kind == "hybrid":
+        return hy.hybrid_loss(params, batch, cfg, aaq=aaq, remat=remat)
+    if cfg.kind == "encdec":
+        return ed.encdec_loss(params, batch, cfg, aaq=aaq, remat=remat)
+    if _dense_first(cfg):
+        return _moe_loss_with_first(params, batch, cfg, aaq, remat)
+    return tf.lm_loss(params, batch, cfg, aaq=aaq, block_fn=_block_fn_for(cfg), remat=remat)
+
+
+def _moe_loss_with_first(params, batch, cfg, aaq, remat):
+    """DeepSeek: the dense first block as it is, the MoE blocks rematted."""
+    x = tf._embed_inputs(params, batch, cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    x = _moe_first_block_fn(params["first_block"], x, cfg, positions=positions, aaq=aaq)
+    for p in params["blocks"]:
+        x = tf.rematted(lambda y, p=p: me.moe_block_apply(p, y, cfg, positions=positions,
+                                                          aaq=aaq), remat)(x)
+    x = tf.apply_norm(params["final_norm"], x, cfg)
+    return tf.chunked_xent(params, x, batch["labels"], cfg)
 
 
 def prefill_fn(params, batch, cfg: ArchConfig, aaq: AAQConfig = DISABLED):

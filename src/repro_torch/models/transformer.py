@@ -18,8 +18,10 @@ of per-layer dicts (the reference stacks them on a leading axis for
 ``(p, x, cfg, *, positions, cache=None, aaq)`` and returns the new ``x``;
 in decode it writes its layer of the cache in place.  The reference's
 ``parallel.sharding.constrain`` is a no-op on one card and is left out.
-``chunked_xent`` and ``lm_loss`` wait for training (ROADMAP Queue 1
-item 10).
+Training: ``lm_hidden(remat=True)`` checkpoints each block
+(``torch.utils.checkpoint``, non-reentrant: ``jax.checkpoint`` of the
+scanned body), ``chunked_xent`` is the loss without the full (B, S, V)
+logits, ``lm_loss`` the two together.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import DISABLED, AAQConfig
@@ -215,17 +218,30 @@ def _embed_inputs(params, batch, cfg: ArchConfig):
     return x
 
 
+def rematted(fn, remat: bool):
+    """``fn`` (tensors -> tensor), recomputed in the backward instead of
+    keeping its activations when ``remat`` (``jax.checkpoint``): the
+    non-reentrant ``torch.utils.checkpoint``, which lets gradients reach
+    the parameters ``fn`` closes over."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def lm_hidden(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED,
-              block_fn=None):
+              block_fn=None, remat=False):
     """Full-sequence forward of ``batch['tokens']`` (B, S) (after
     ``batch['image_embeds']`` where the VLM has them) -> final hidden
-    states (B, S, D)."""
+    states (B, S, D).  ``remat``: each block recomputed in the backward,
+    where the config scans its layers (the reference remats the scan body)."""
     block_fn = block_fn or block_apply
     x = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for p in params["blocks"]:
-        x = block_fn(p, x, cfg, positions=positions, aaq=aaq)
+        step = rematted(lambda y, p=p: block_fn(p, y, cfg, positions=positions, aaq=aaq),
+                        remat and cfg.scan_layers)
+        x = step(x)
     return apply_norm(params["final_norm"], x, cfg)
 
 
@@ -237,6 +253,41 @@ def lm_forward(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED,
     if last_only:
         x = x[:, -1:]
     return unembed(params, x, cfg)
+
+
+def chunked_xent(params, x, labels, cfg: ArchConfig, chunk: int = 1024):
+    """Mean next-token cross-entropy of hidden states ``x`` (B, S, D)
+    against ``labels`` (B, S) (positions with a label < 0 masked out),
+    without the full (B, S, V) logits: the unembedding and the float32
+    log-softmax run per sequence chunk under a checkpoint, so at most
+    (B, chunk, V) logits are live and the backward recomputes each chunk.
+    A sequence that ``chunk`` does not divide is one chunk."""
+    s = x.shape[1]
+    if s % chunk:
+        chunk = s
+
+    def one(xx, ll):
+        logp = torch.log_softmax(unembed(params, xx, cfg), dim=-1)      # float32
+        mask = (ll >= 0).float()
+        nll = -torch.gather(logp, -1, ll.clamp_min(0).long()[..., None])[..., 0]
+        return torch.stack([torch.sum(nll * mask), torch.sum(mask)])
+
+    sums = [checkpoint(one, x[:, i:i + chunk], labels[:, i:i + chunk], use_reentrant=False)
+            for i in range(0, s, chunk)]
+    total = sums[0]
+    for t in sums[1:]:
+        total = total + t
+    return total[0] / torch.clamp_min(total[1], 1.0)
+
+
+def lm_loss(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED,
+            block_fn=None, remat=True):
+    """Mean cross-entropy of a decoder-only forward; the VLM's image
+    positions carry no label and are dropped."""
+    x = lm_hidden(params, batch, cfg, aaq=aaq, block_fn=block_fn, remat=remat)
+    if cfg.n_image_tokens and "image_embeds" in batch:
+        x = x[:, cfg.n_image_tokens:]                         # text positions
+    return chunked_xent(params, x, batch["labels"], cfg)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,

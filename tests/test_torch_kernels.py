@@ -197,7 +197,7 @@ def _lane_model_top4(x, key_bits):
     u = np.zeros((t, 16 * g), np.uint64)
     u[:, :h] = x.view(np.uint32)
     col = np.arange(16 * g, dtype=np.uint64)
-    low = ((np.uint64(512) - col) << np.uint64(1)) | (u >> np.uint64(31))
+    low = ((np.uint64(8192) - col) << np.uint64(1)) | (u >> np.uint64(31))
     if key_bits == 32:
         key = (u & np.uint64(0x7FFF0000)) | low
     else:
@@ -230,7 +230,7 @@ def test_lane_merge_model_picks_the_reference_top4(h, key_bits):
         x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
     top = _lane_model_top4(x, key_bits)
     assert (top == top[:, :1]).all()                      # every lane holds the same list
-    cols = 512 - ((top >> np.uint64(1)) & np.uint64(0x3FF)).astype(np.int64)
+    cols = 8192 - ((top >> np.uint64(1)) & np.uint64(0x3FFF)).astype(np.int64)
     g = top.shape[1]
     top, lane_cols = top[:, 0], cols
     cols = cols[:, 0]
@@ -250,6 +250,83 @@ def test_lane_merge_model_picks_the_reference_top4(h, key_bits):
         want_mask = np.zeros_like(x, bool)
         np.put_along_axis(want_mask, want[:, :k], True, -1)
         np.testing.assert_array_equal(mask.reshape(x.shape[0], -1)[:, : x.shape[1]], want_mask)
+
+
+def _merge4_fifth(a, b, f):
+    """merge4, and the largest key the merged top 4 leave out (the minima of
+    the half-cleaner's pairs are the union's bottom 4)."""
+    f = np.maximum(f, np.minimum(a, b[..., ::-1]).max(-1))
+    return _merge4(a, b), f
+
+
+def _rows_model(x, key_bits, k):
+    """The kernel's design for rows wider than 512 (``quant_rows_body``),
+    in numpy: one warp a token, lane l owning columns 16 l .. 16 l + 15 of
+    every 512-column chunk; each chunk's sorted 4-list folded into the
+    lane's running top 4 with the fifth key carried, then 5 butterfly
+    levels.  Returns (top-4 keys (T, 32, 4), inlier max |x| (T, 32))."""
+    t, h = x.shape
+    nch = -(-h // 512)
+    u = np.zeros((t, nch * 512), np.uint64)
+    u[:, :h] = x.view(np.uint32)
+    col = np.arange(nch * 512, dtype=np.uint64)
+    low = ((np.uint64(8192) - col) << np.uint64(1)) | (u >> np.uint64(31))
+    if key_bits == 32:
+        key = (u & np.uint64(0x7FFF0000)) | low
+    else:
+        key = ((u & np.uint64(0x7FFFFFFF)) << np.uint64(32)) | low
+    key[:, h:] = 0
+    key = key.reshape(t, nch, 32, 4, 4)                   # (token, chunk, lane, quad, 4)
+    top = np.zeros((t, 32, 4), np.uint64)
+    fifth = np.zeros((t, 32), np.uint64)
+    for ch in range(nch):
+        quad = key[:, ch].copy()
+        for i, j in ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)):
+            _order(quad, i, j)
+        a, fifth = _merge4_fifth(quad[:, :, 0], quad[:, :, 1], fifth)
+        b, fifth = _merge4_fifth(quad[:, :, 2], quad[:, :, 3], fifth)
+        c, fifth = _merge4_fifth(a, b, fifth)
+        top, fifth = _merge4_fifth(top, c, fifth)
+    off = 1
+    while off < 32:
+        partner = np.arange(32) ^ off
+        fifth = np.maximum(fifth, fifth[:, partner])
+        top, fifth = _merge4_fifth(top, top[:, partner, :], fifth)
+        off *= 2
+    nxt = fifth if k == 4 else top[:, :, k]
+    if key_bits == 32:
+        bits = nxt & np.uint64(0x7FFF0000)
+    else:
+        bits = nxt >> np.uint64(32)
+    return top, bits.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("key_bits", [32, 64])
+@pytest.mark.parametrize("h", [520, 1024, 1536, 6144, 8192])
+def test_wide_row_model_picks_the_reference_outliers_and_inlier_max(h, key_bits):
+    """The wide-row design gives every lane the reference's top-4 columns
+    and values (ties to the lower index) and, from the carried fifth key,
+    the inlier max the reference computes (max |x| with the top k zeroed)."""
+    from repro_torch.core.quantize import topk_lower_index
+    rng = np.random.default_rng(h + key_bits)
+    x = rng.integers(-3, 4, (40, h)).astype(np.float32)             # ties everywhere
+    x[20:] = (rng.standard_normal((20, h)) * 2).astype(np.float32)
+    x[0] = 0.0
+    x[1, : h // 2] = 1.5
+    x[2, 7], x[2, h - 1] = 4.0, -4.0                                 # chunk ends
+    x[3, 511], x[3, 512], x[3, 1023 % h] = 9.0, -9.0, 9.0            # across chunks
+    x[4, ::97] = 50.0                                                # > 4 equal maxima
+    if key_bits == 32:
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    want = topk_lower_index(torch.from_numpy(np.abs(x)), 4).numpy()
+    for k in (1, 2, 3, 4):
+        top, m = _rows_model(x, key_bits, k)
+        assert (top == top[:, :1]).all() and (m == m[:, :1]).all()
+        cols = 8192 - ((top[:, 0] >> np.uint64(1)) & np.uint64(0x3FFF)).astype(np.int64)
+        np.testing.assert_array_equal(cols, want)
+        inl = np.abs(x).copy()
+        np.put_along_axis(inl, want[:, :k], 0.0, -1)
+        np.testing.assert_array_equal(m[:, 0], inl.max(-1))
 
 
 # --------------------------------------------------------------------------
@@ -413,9 +490,11 @@ def test_dispatch_routes_by_mode_and_device():
     dispatch.quantized_linear(x, w, bits=4, k_outliers=4)
     ref_fq = dispatch.fake_quant(x, bits=4, k_outliers=4)
     assert dispatch.counters == {"attention.kernel": 0, "attention.ref": 1,
-                                 "qmatmul.kernel": 0, "qmatmul.ref": 1,
+                                 "attention.ref_grad": 0,
+                                 "qmatmul.kernel": 0, "qmatmul.ref": 1, "qmatmul.ref_grad": 0,
                                  "fakequant.kernel": 0, "fakequant.ref": 1,
-                                 "quantize.kernel": 0, "quantize.ref": 0}
+                                 "fakequant.ref_grad": 0,
+                                 "quantize.kernel": 0, "quantize.ref": 0, "quantize.ref_grad": 0}
     with dispatch.use_backend("kernel"):
         assert dispatch.attention_is_kernel(cpu)
         assert dispatch.describe(device="cpu") == "kernel-plain"

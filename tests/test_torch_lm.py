@@ -39,8 +39,8 @@ from repro_torch.models import transformer as tf  # noqa: E402
 
 #: the dense decoder-only configs, the ones ``--mode lm`` serves
 DENSE_NAMES = tuple(n for n in ARCH_NAMES if get_config(n).kind == "dense")
-#: reference fields that only training reads (ROADMAP Queue 1 item 10); the
-#: port's ``ArchConfig`` leaves them out until that slice reads them
+#: reference fields that only training reads: the port's ``ArchConfig``
+#: carries them since the training slice (``launch/steps.py``, remat)
 _TRAINING_FIELDS = ("scan_layers", "train_microbatches")
 
 @pytest.fixture(autouse=True, scope="module")
@@ -64,22 +64,21 @@ def _params(jcfg, tcfg):
 
 
 def _fields(cfg) -> dict:
-    """Every dataclass field of a config but the training-only ones, the
+    """Every dataclass field of a config, the training ones included, the
     nested family configs as dicts."""
     return {f.name: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
-            for f in dataclasses.fields(cfg) if f.name not in _TRAINING_FIELDS
-            for v in (getattr(cfg, f.name),)}
+            for f in dataclasses.fields(cfg) for v in (getattr(cfg, f.name),)}
 
 
 def test_dense_configs_match_the_reference_fields():
     """Every config of the zoo (all ten) and its reduced CPU form carry the
-    reference's numbers, field for field (the training-only fields apart),
-    with the derived properties."""
+    reference's numbers, field for field (the training fields too), with
+    the derived properties."""
     assert ARCH_NAMES == tuple(jax_arch_names) and len(ARCH_NAMES) == 10
     assert DENSE_NAMES == tuple(n for n in jax_arch_names
                                 if jax_get_config(n).kind == "dense")
-    assert not {f.name for f in dataclasses.fields(get_config("qwen2.5-3b"))} \
-        & set(_TRAINING_FIELDS)
+    assert {f.name for f in dataclasses.fields(get_config("qwen2.5-3b"))} \
+        >= set(_TRAINING_FIELDS)
     for name in ARCH_NAMES:
         j, t = jax_get_config(name), get_config(name)
         for jc, tc in ((j, t), (jax_reduce_config(j), reduce_config(t))):

@@ -14,7 +14,8 @@ Gates:
     of the op-by-op one);
   * ``decode_fn`` over 8 steps from an empty ``make_cache``: every step's
     logits allclose 1e-4, and the cache's shapes and dtypes the reference's.
-  * the unified API's entry points: ``loss_fn`` names ROADMAP item 10.
+  * the unified API's entry points: ``loss_fn`` trains every kind
+    (parity in ``test_torch_train_loss*.py``).
 """
 import numpy as np
 import pytest
@@ -148,6 +149,11 @@ def test_make_cache_defaults_to_the_card(name):
 
 
 def test_loss_fn_waits_for_training():
+    """The training slice has landed: ``loss_fn`` gives the mean token
+    cross-entropy, finite, near log(vocab) for random weights."""
     _, tcfg, _, tp = _model("mamba2-780m")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        lm.loss_fn(tp, {}, tcfg)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg).items()}
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    loss = lm.loss_fn(tp, batch, tcfg)
+    assert loss.dim() == 0 and torch.isfinite(loss)
+    assert abs(float(loss) - np.log(tcfg.vocab)) < 1.0
