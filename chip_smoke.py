@@ -2,6 +2,11 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-only   # phases 1, 2, 11 and 12 alone
+
+``--mesh-only`` runs the build and the mesh tier alone: on a host of two
+cards or more that is the run of phase 11(c) across them, without the
+phases that need one card.
 
 Phases, each fatal on failure:
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA
@@ -141,13 +146,31 @@ Phases, each fatal on failure:
      parameters, gradients and moments in float32) under ``--aaq-ste``'s
      config: loss and gradient norm finite, the norm above 0, the kernel at
      every act site, no plain fake-quant; step ms and peak memory;
- 11. summary: one JSON line of the kernels, the card, and the last line
+ 11. the mesh-sharded fold tier (``FoldClient(mesh=..., shard_threshold=256)``,
+     full esmfold_ppm width, random weights from seed 0): (a) a 1x1 mesh
+     over NCCL through the engine, the batch-1 and batch-4 keys of bucket
+     256 captured as graphs with their collectives, coords bitwise or TM
+     >= 0.9995 against the single placement, the second pass capturing
+     nothing, the collectives a fold (calls and bytes) printed; (b) 2 and 4
+     ranks on this card over the host-staged gloo route (started
+     processes, eager; 8 blocks), the N = 250 fold under AAQ and FP: TM >=
+     0.9995 against the single placement, each rank's launches those of
+     the single fold variant by variant, each rank's pinned pair shard
+     1/W of the pair tensor, each rank's peak printed beside the admission
+     estimate; at W = 2 also the AAQ fold at chunk 64 against the same
+     chunked fold on one device (TM >= 0.9995; each rank the kernels only,
+     every rank the same launches, printed beside the single fold's); (c)
+     with two cards or more, W = min(cards, 4) over NCCL across them, the
+     chunked fold too; then the pair kernels at a rank's shapes (W = 2,
+     4), against their plain versions and timed;
+ 12. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -1531,59 +1554,13 @@ def check_engine_shapes(torch, rows: dict) -> list:
     chunk-64 slabs of bucket 2,048, against its plain version and timed.
     Returns (row, part, launch tally key) for each row, whose launches the
     engine's capture passes give."""
-    from repro_torch.kernels.aaq_matmul.aaq_matmul import aaq_matmul_kernel
-    from repro_torch.kernels.aaq_matmul.ref import aaq_matmul_ref
-    from repro_torch.kernels.aaq_quant.aaq_quant import aaq_fake_quant_kernel, aaq_quantize_kernel
-    from repro_torch.kernels.aaq_quant.ref import aaq_fake_quant_ref, aaq_quantize_ref
     g = torch.Generator(device="cuda").manual_seed(6)
     pending = []
     where = (("batch 4, bucket 256", "short", ENGINE_LENGTHS[:ENGINE_MAX_BATCH], 256, 256),
              ("bucket 2048, chunk 64", "long", (ENGINE_LONG_LEN,), 64, ENGINE_LONG_BUCKET))
     for label, part, lens, nrows, n in where:
         b = len(lens)
-        t = b * nrows * n
-        for name in ("aaq_quantize", "aaq_fake_quant"):
-            x = _linear_input(torch, g, t, 128) if name == "aaq_quantize" else \
-                torch.randn((t, 128), generator=g, device="cuda").to(torch.bfloat16)
-            kern = (lambda: aaq_quantize_kernel(x, bits=4, k_outliers=4)) if name == "aaq_quantize" \
-                else (lambda: aaq_fake_quant_kernel(x, 4, 4))
-            plain = (lambda: aaq_quantize_ref(x, 4, 4)) if name == "aaq_quantize" \
-                else (lambda: aaq_fake_quant_ref(x, 4, 4))
-            got, want = kern(), plain()
-            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-            if not all(_bitwise(torch, a, c) for a, c in zip(got, want)):
-                fail(f"{name} at {label}: not bitwise equal to its plain version")
-            row = _row(name, f"{label}: x ({t}, 128) bf16, bits 4, k 4")
-            pending.append((row, part, (name, (t, 128, 4, 4))))
-            row.ms, row.call_ms = time_ms(torch, kern), call_ms(torch, kern)
-            row.plain_ms = time_ms(torch, plain, iters=3)
-            row.bound_ms, row.bound_by = bound_ms(nbytes(x, *got), 0)
-            rows.setdefault(name, []).append(row)
-            log(row.line())
-        x = torch.randn((t, 128), generator=g, device="cuda").to(torch.bfloat16)
-        w = (torch.randn((128, 128), generator=g, device="cuda") / math.sqrt(128)).to(torch.bfloat16)
-        q, sc, ov, oi = aaq_quantize_ref(x, 4, 4)
-        y = aaq_matmul_kernel(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)
-        want = aaq_matmul_ref(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)
-        err = (y.float() - want.float()).abs()
-        if not bool((err <= 2.0 ** -7 * want.float().abs() + 1e-4 * want.float().abs().max()).all()):
-            fail(f"aaq_matmul at {label}: max err {float(err.max()):.3e} over tolerance")
-        row = _row("aaq_matmul", f"{label}: q ({t}, 64) int4 packed, W (128, 128) bf16, bits 4, k 4")
-        pending.append((row, part, ("aaq_matmul", (t, 128, 128))))
-        row.max_abs_err = float(err.max())
-        fn = lambda: aaq_matmul_kernel(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)  # noqa: E731
-        row.ms, row.call_ms = time_ms(torch, fn), call_ms(torch, fn)
-        row.plain_ms = time_ms(torch, lambda: aaq_matmul_ref(q, sc, ov, oi, w, bits=4,
-                                                             out_dtype=torch.bfloat16), iters=3)
-        row.library_ms = time_ms(torch, lambda: x @ w)
-        row.bound_ms, row.bound_by = bound_ms(nbytes(q, sc, ov, oi, w, y), 2 * t * 128 * 128)
-        rows.setdefault("aaq_matmul", []).append(row)
-        log(row.line())
-        del x, q, sc, ov, oi, y, want, err
-        _flash_engine_row(torch, rows, pending, _tri_rows(torch, g, lens, nrows, n), lens,
-                          label, part, "tri",
-                          f"q,k,v ({b * nrows}, {n}, 4, 32) bf16 views, bias ({b}, 4, {n}, {n}) "
-                          f"bf16 transposed, block-broadcast, key lengths {list(lens)}")
+        _pair_kernels_at(torch, g, rows, pending, label, part, lens, nrows, n)
         if part == "short":
             for kind in ("seq", "structure"):
                 _flash_engine_row(torch, rows, pending,
@@ -1594,6 +1571,63 @@ def check_engine_shapes(torch, rows: dict) -> list:
                                   f"folded into it")
         torch.cuda.empty_cache()
     return pending
+
+
+def _pair_kernels_at(torch, g, rows, pending, label, part, lens, nrows, n) -> None:
+    """The pair track's kernels where each protein of ``lens`` (bucket
+    ``n``) runs ``nrows`` rows of its pair tensor: the quantize forms and
+    ``aaq_matmul`` on (b * nrows * n, 128) tokens and triangular attention
+    over nrows rows a protein, each against its plain version and timed;
+    appends (row, part, launch tally key) to ``pending``."""
+    from repro_torch.kernels.aaq_matmul.aaq_matmul import aaq_matmul_kernel
+    from repro_torch.kernels.aaq_matmul.ref import aaq_matmul_ref
+    from repro_torch.kernels.aaq_quant.aaq_quant import aaq_fake_quant_kernel, aaq_quantize_kernel
+    from repro_torch.kernels.aaq_quant.ref import aaq_fake_quant_ref, aaq_quantize_ref
+    b = len(lens)
+    t = b * nrows * n
+    for name in ("aaq_quantize", "aaq_fake_quant"):
+        x = _linear_input(torch, g, t, 128) if name == "aaq_quantize" else \
+            torch.randn((t, 128), generator=g, device="cuda").to(torch.bfloat16)
+        kern = (lambda: aaq_quantize_kernel(x, bits=4, k_outliers=4)) if name == "aaq_quantize" \
+            else (lambda: aaq_fake_quant_kernel(x, 4, 4))
+        plain = (lambda: aaq_quantize_ref(x, 4, 4)) if name == "aaq_quantize" \
+            else (lambda: aaq_fake_quant_ref(x, 4, 4))
+        got, want = kern(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        if not all(_bitwise(torch, a, c) for a, c in zip(got, want)):
+            fail(f"{name} at {label}: not bitwise equal to its plain version")
+        row = _row(name, f"{label}: x ({t}, 128) bf16, bits 4, k 4")
+        pending.append((row, part, (name, (t, 128, 4, 4))))
+        row.ms, row.call_ms = time_ms(torch, kern), call_ms(torch, kern)
+        row.plain_ms = time_ms(torch, plain, iters=3)
+        row.bound_ms, row.bound_by = bound_ms(nbytes(x, *got), 0)
+        rows.setdefault(name, []).append(row)
+        log(row.line())
+    x = torch.randn((t, 128), generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((128, 128), generator=g, device="cuda") / math.sqrt(128)).to(torch.bfloat16)
+    q, sc, ov, oi = aaq_quantize_ref(x, 4, 4)
+    y = aaq_matmul_kernel(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)
+    want = aaq_matmul_ref(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)
+    err = (y.float() - want.float()).abs()
+    if not bool((err <= 2.0 ** -7 * want.float().abs() + 1e-4 * want.float().abs().max()).all()):
+        fail(f"aaq_matmul at {label}: max err {float(err.max()):.3e} over tolerance")
+    row = _row("aaq_matmul", f"{label}: q ({t}, 64) int4 packed, W (128, 128) bf16, bits 4, k 4")
+    pending.append((row, part, ("aaq_matmul", (t, 128, 128))))
+    row.max_abs_err = float(err.max())
+    fn = lambda: aaq_matmul_kernel(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)  # noqa: E731
+    row.ms, row.call_ms = time_ms(torch, fn), call_ms(torch, fn)
+    row.plain_ms = time_ms(torch, lambda: aaq_matmul_ref(q, sc, ov, oi, w, bits=4,
+                                                         out_dtype=torch.bfloat16), iters=3)
+    row.library_ms = time_ms(torch, lambda: x @ w)
+    row.bound_ms, row.bound_by = bound_ms(nbytes(q, sc, ov, oi, w, y), 2 * t * 128 * 128)
+    rows.setdefault("aaq_matmul", []).append(row)
+    log(row.line())
+    del x, q, sc, ov, oi, y, want, err
+    _flash_engine_row(torch, rows, pending, _tri_rows(torch, g, lens, nrows, n), lens,
+                      label, part, "tri",
+                      f"q,k,v ({b * nrows}, {n}, 4, 32) bf16 views, bias ({b}, 4, {n}, {n}) "
+                      f"bf16 transposed, block-broadcast, key lengths {list(lens)}")
+
 
 # ---------------------------------------------------------------------------
 # phase 7: the fleet over HTTP, and the comparison schemes
@@ -3015,7 +3049,264 @@ def flash_resources(build) -> None:
         fail(f"build: flash_tc_kernel spills registers at (D, bias kind) {spilled}")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 11: the mesh-sharded fold tier
+# ---------------------------------------------------------------------------
+MESH_BUCKET = 256
+# (a): the first request alone (the batch-1 key), then all four (batch 4)
+MESH_LENGTHS = (250, 241, 233, 226)
+# (b) and (c): model ranks on one card (host-staged gloo, eager) and across
+# cards (NCCL, graphs); full width at this depth, each rank a process
+MESH_WIDTHS = (2, 4)
+MESH_BLOCKS = 8
+# the chunked sharded fold: slabs of 64 rows of i inside a rank's j shard
+MESH_CHUNK = 64
+# TM floor of a sharded fold against the same fold on one device: the
+# phase-4 floor, since only the placement differs
+MESH_TM_GATE = 0.9995
+
+
+def _mesh_serve(client, seqs) -> list:
+    """``seqs[0]`` alone (a batch of 1), then all of ``seqs`` (one batch)."""
+    first = client.submit(seqs[0])
+    client.drive()
+    handles = [client.submit(s) for s in seqs]
+    client.drive()
+    out = [first.result()] + [h.result() for h in handles]
+    if not all(r.ok for r in out):
+        fail(f"phase 11: a request was not served: {[r.status for r in out]}")
+    return out
+
+
+def _mesh_tm(torch, what, got, want) -> list:
+    """Each result's TM against its single-device twin (1.0 where the
+    coords are bitwise); fails under ``MESH_TM_GATE``."""
+    from repro_torch.models.ppm import tm_score
+    tms = [1.0 if np_equal(a.coords, b.coords) else
+           float(tm_score(torch.from_numpy(a.coords), torch.from_numpy(b.coords)))
+           for a, b in zip(got, want)]
+    if min(tms) < MESH_TM_GATE or not all(np_finite(a.coords) for a in got):
+        fail(f"{what}: TM against the single placement {tms} (gate {MESH_TM_GATE})")
+    return tms
+
+
+def _mesh_nccl_1x1(torch, cfg, params, seqs) -> dict:
+    """(a): the engine on a 1x1 mesh over NCCL at threshold 256, keys
+    captured as graphs with their collectives; returns the counted run's
+    launches."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.serving import FoldClient
+    from repro_torch.serving.placement import ServingMesh
+    kw = dict(buckets=(MESH_BUCKET,), max_tokens_per_batch=len(seqs) * MESH_BUCKET,
+              max_batch=len(seqs), device="cuda")
+    single = FoldClient(params, cfg, "lightnobel_aaq", **kw)
+    want = _mesh_serve(single, seqs)
+    t0 = time.perf_counter()
+    _mesh_serve(single, seqs)
+    wall_single = (time.perf_counter() - t0) * 1e3
+    nodes_single = sorted((e.batch, e.nodes) for e in single.core._executables.values())
+    single.close()
+    mesh = ServingMesh(1, 1, backend="nccl")
+    client = FoldClient(params, cfg, "lightnobel_aaq", mesh=mesh,
+                        shard_threshold=MESH_BUCKET, **kw)
+    dispatch.reset_counters()
+    coll.reset_counts()
+    t0 = time.perf_counter()
+    first = _mesh_serve(client, seqs)
+    wall = (time.perf_counter() - t0) * 1e3
+    launches, plain, routed = _counts()
+    _check_main_path("phase 11(a), 1x1 over NCCL", launches, plain, routed)
+    core = client.core
+    keys = list(core._executables.values())
+    if core.compile_count != 2 or sorted(e.batch for e in keys) != [1, len(seqs)] \
+            or any(e.graph is None or e.shard is None for e in keys):
+        fail(f"phase 11(a): expected two sharded graph keys, got "
+             f"{[(e.key, e.graph is not None) for e in keys]}")
+    if {r.placement for r in first} != {"mesh:1x1"}:
+        fail(f"phase 11(a): placements {[r.placement for r in first]}")
+    t0 = time.perf_counter()
+    second = _mesh_serve(client, seqs)
+    wall2 = (time.perf_counter() - t0) * 1e3
+    if core.compile_count != 2:
+        fail(f"phase 11(a): the second pass captured {core.compile_count - 2} keys")
+    if not all(np_equal(a.coords, b.coords) for a, b in zip(first, second)):
+        fail("phase 11(a): the second pass's coords differ from the first's")
+    tms = _mesh_tm(torch, "phase 11(a)", first, want)
+    for e in sorted(keys, key=lambda e: e.batch):
+        c = {k: v for k, v in e.collectives.items() if v["calls"]}
+        log(f"phase 11(a): key {e.key}: {e.nodes} graph nodes, capture {e.capture_ms:.0f} ms, "
+            f"collectives a fold {c} ({sum(v['bytes'] for v in c.values()) / 2**20:.1f} MiB "
+            f"handed to them a rank)")
+    log(f"phase 11(a): 1x1 over NCCL: 2 captures then 0, placements mesh:1x1, TM against "
+        f"the single placement {tms} (1.0 = bitwise); wall {wall:.0f} ms with captures, "
+        f"{wall2:.0f} ms replayed ({len(seqs) + 1} requests; the single placement's "
+        f"replays {wall_single:.0f} ms, its graph nodes by batch {nodes_single})")
+    client.close()
+    mesh.close()
+    return launches
+
+
+def _mesh_ranks(torch, cfg, params, seq, width, backend, what, chunked) -> tuple:
+    """(b)/(c): one N = 250 fold under AAQ and then FP on a 1 x ``width``
+    mesh against the same fold on one device, and with ``chunked`` the AAQ
+    fold at chunk ``MESH_CHUNK`` against the chunked fold on one device.
+    Gates each rank's launches (unchunked: those of the single fold's
+    graph, variant by variant: every op runs once a rank, at the shard's
+    shapes; twice over NCCL, whose keys are graphs too: warm-up and
+    capture; chunked: the same on every rank and the single fold's
+    variants, since an op whose slabs run inside the j shard runs fewer of
+    them), no plain call, its pinned pair shard (1/width of the pair
+    tensor) and the TM; prints each rank's peak beside the admission
+    estimate.  Returns (rank 0's launch tally of the unchunked AAQ fold,
+    by shape; rank 0's launches of all its folds)."""
+    from repro_torch.serving import FoldClient
+    from repro_torch.serving.placement import ServingMesh
+    mesh = ServingMesh(1, width, backend=backend)
+    t0 = time.perf_counter()
+    mesh.bind("cuda")
+    log(f"{what}: {width} ranks up in {time.perf_counter() - t0:.1f}s (route {mesh.route})")
+    kw = dict(buckets=(MESH_BUCKET,), max_batch=1, device="cuda")
+    tally_aaq, total = None, Counter()
+    runs = [("lightnobel_aaq", None), ("baseline_fp16", None)]
+    if chunked:
+        runs.append(("lightnobel_aaq", MESH_CHUNK))
+    for scheme, chunk in runs:
+        name = scheme if chunk is None else f"{scheme} at chunk {chunk}"
+        single = FoldClient(params, cfg, scheme, chunk_size=chunk, **kw)
+        want = single.submit(seq).result()
+        (exe,) = single.core._executables.values()
+        solo = {k: v * (2 if mesh.graphs else 1) for k, v in exe.kernel_launches.items()}
+        est1 = single.core.admission.estimate_bytes(MESH_BUCKET, 1)
+        single.close()
+        t0 = time.perf_counter()
+        client = FoldClient(params, cfg, scheme, mesh=mesh, shard_threshold=MESH_BUCKET,
+                            chunk_size=chunk, **kw)
+        t_params = (time.perf_counter() - t0) * 1e3
+        mesh.rank_stats(reset=True)
+        t0 = time.perf_counter()
+        with launch_tally(full=True) as tally:
+            got = client.submit(seq).result()
+        wall = (time.perf_counter() - t0) * 1e3
+        stats = mesh.rank_stats()
+        if not got.ok or got.placement != f"mesh:1x{width}":
+            fail(f"{what} {name}: {got.status} on {got.placement}")
+        key = next(iter(client.core._executables))
+        if key[-1] != (chunk or 0):
+            fail(f"{what} {name}: the sharded key {key} is not at chunk {chunk or 0}")
+        tm = _mesh_tm(torch, f"{what} {name}", [got], [want])[0]
+        pair = (1, MESH_BUCKET, MESH_BUCKET // width, cfg.hz)
+        est = client.core.admission.estimate_bytes(MESH_BUCKET, 1)
+        for st in stats:
+            routed = st["routes"]
+            if chunk is None:
+                launched_ok = st["launches"] == solo
+            else:
+                launched_ok = (st["launches"] == stats[0]["launches"]
+                               and {k for k, v in st["launches"].items() if v}
+                               == {k for k, v in solo.items() if v})
+            if not launched_ok or any(st["plain"].values()) or \
+                    any(routed[f"{op}.ref"] for op in ("attention", "qmatmul", "fakequant")):
+                fail(f"{what} {name} rank {st['rank']}: launches {st['launches']} plain "
+                     f"{st['plain']} routed {routed}; the single fold launched {solo}")
+            if st["pair"] != pair:
+                fail(f"{what} {name} rank {st['rank']}: pinned pair shard {st['pair']}, "
+                     f"expected {pair}")
+        c = {k: v for k, v in stats[0]["collectives"].items() if v["calls"]}
+        log(f"{what} {name}: TM {tm:.6f} against one device; {wall:.0f} ms (the client's "
+            f"bind with its parameter broadcast {t_params:.0f} ms); every rank "
+            f"launched {stats[0]['launches']} (the single fold {solo}); pair shard {pair} "
+            f"a rank (1/{width}); peak above the rank's baseline "
+            f"{[round(st['peak_bytes'] / 2**20, 1) for st in stats]} MiB by rank against "
+            f"the admission estimate {est / 2**20:.1f} MiB a device ({est1 / 2**20:.1f} on "
+            f"one); collectives a rank {c}")
+        total.update(stats[0]["launches"])
+        if scheme == "lightnobel_aaq" and chunk is None:
+            tally_aaq = Counter(tally)
+        client.close()
+    mesh.close()
+    return tally_aaq, dict(total)
+
+
+def _mesh_refusal(torch) -> None:
+    """A mesh of more ranks than cards is refused on the card ("needs N
+    devices"), unless the host-staged route is asked for."""
+    from repro_torch.serving.placement import make_serving_mesh
+    over = torch.cuda.device_count() + 1
+    try:
+        make_serving_mesh(f"1x{over}", device="cuda")
+    except ValueError as e:
+        if f"needs {over} devices" not in str(e):
+            fail(f"phase 11: --mesh 1x{over} refused with {e}")
+    else:
+        fail(f"phase 11: --mesh 1x{over} was not refused on {over - 1} card(s)")
+    make_serving_mesh(f"1x{over}", device="cuda", backend="gloo")
+    log(f"phase 11: --mesh 1x{over} refused on {over - 1} card(s) (needs {over} devices); "
+        f"the host-staged route takes it when asked for")
+
+
+def serve_mesh(torch, rows: dict) -> tuple:
+    """Phase 11 (see the module docstring).  Returns (the kernel rows at
+    the shard's shapes with their launches a rank, the launches of the
+    counted runs by variant)."""
+    import gc
+    from repro_torch.configs import get_ppm_config
+    from repro_torch.data.pipeline import ProteinSampler
+    from repro_torch.models.ppm import init_ppm
+    t0 = time.perf_counter()
+    cfg = get_ppm_config()
+    sampler = ProteinSampler(seed=11)
+    seqs = [sampler.sample(300 + i, length=n) for i, n in enumerate(MESH_LENGTHS)]
+    params = init_ppm(cfg, seed=0, device="cuda")
+    _mesh_refusal(torch)
+    launches = Counter(_mesh_nccl_1x1(torch, cfg, params, seqs))
+    log(f"phase 11(a) done at {time.perf_counter() - t0:.1f}s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, blocks=MESH_BLOCKS)
+    params = init_ppm(cut, seed=0, device="cuda")
+    tallies = {}
+    for width in MESH_WIDTHS:
+        tallies[width], counted = _mesh_ranks(
+            torch, cut, params, seqs[0], width, "gloo",
+            f"phase 11(b), 1x{width} on one card over host-staged gloo", width == 2)
+        launches.update(counted)
+        log(f"phase 11(b) {width} ranks done at {time.perf_counter() - t0:.1f}s")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        width = min(cards, 4)
+        _, counted = _mesh_ranks(torch, cut, params, seqs[0], width, "nccl",
+                                 f"phase 11(c), 1x{width} across {width} cards over NCCL",
+                                 True)
+        launches.update(counted)
+    else:
+        log("phase 11(c): one card visible; NCCL across cards not run")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernels at a rank's shapes: the rows-as-batch and token views of
+    # the bucket-256 pair tensor shrink to N/W rows
+    g = torch.Generator(device="cuda").manual_seed(11)
+    pending = []
+    for width in MESH_WIDTHS:
+        _pair_kernels_at(torch, g, rows, pending,
+                         f"mesh 1x{width}, bucket 256, a rank ({MESH_BLOCKS} blocks)",
+                         width, (MESH_LENGTHS[0],), MESH_BUCKET // width, MESH_BUCKET)
+    for row, width, key in pending:
+        row.launches = tallies[width].get(key, 0)
+        if row.launches == 0:
+            fail(f"phase 11: no launch a rank at {row.name} [{row.shape}]")
+    torch.cuda.empty_cache()
+    log(f"phase 11 wall {time.perf_counter() - t0:.1f}s")
+    return [row for row, _, _ in pending], dict(launches)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="smoke test of the port on the card")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build the kernels and run phase 11 (the mesh tier) alone")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -3049,6 +3340,8 @@ def main() -> int:
         f"({'built' if build.build_seconds is not None else 'cached'}) from "
         f"{[str(s.relative_to(ROOT)) for s in build.sources()]}")
     flash_resources(build)
+    if args.mesh_only:
+        return mesh_only(torch, smi, t_start)
 
     # 3. kernels vs plain versions, timed at every main-path shape
     rows: dict[str, list[KernelRow]] = {}
@@ -3109,22 +3402,47 @@ def main() -> int:
     log(f"train launches (the uninterrupted qwen run): {train_launches}")
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 11. summary
+    # 11. the mesh-sharded fold tier: 1x1 over NCCL through graphs, 2 and 4
+    # ranks on this card over the host-staged gloo route, NCCL across cards
+    mesh_rows, mesh_launches = serve_mesh(torch, rows)
+    log(f"mesh launches (rank 0's counted runs): {mesh_launches}")
+    log(f"phase 11 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 12. summary
     log(f"total {time.perf_counter() - t_start:.1f}s")
     # each variant at its first timed shape, then every kernel at the engine's
     # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs), the
     # LM decode shapes, the zoo's shapes, the quantize forms at the zoo's
-    # residual widths (bf16, bits 8, k 4) and at the training shapes
+    # residual widths (bf16, bits 8, k 4) and at the training shapes, and
+    # the pair kernels at a mesh rank's shapes (1x2, 1x4)
     print(json.dumps({"kernels": [r[0].record() for r in rows.values()]
                       + [row.record() for row, _, _ in pending]
                       + [row.record() for row, _ in lm_pending]
                       + [row.record() for row, _ in zoo_pending]
                       + [row.record() for row, _ in wide_pending]
-                      + [row.record() for row, _ in train_pending]}))
+                      + [row.record() for row, _ in train_pending]
+                      + [row.record() for row in mesh_rows]}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print(ok_line(torch))
+    return 0
+
+
+def ok_line(torch) -> str:
+    return json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}})
+
+
+def mesh_only(torch, smi, t_start) -> int:
+    """``--mesh-only``: phase 11 after the build, then its kernel rows,
+    the card and the last line."""
+    mesh_rows, mesh_launches = serve_mesh(torch, {})
+    log(f"mesh launches (rank 0's counted runs): {mesh_launches}")
+    log(f"phase 11 done at {time.perf_counter() - t_start:.1f}s")
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": [row.record() for row in mesh_rows]}))
+    print(smi)
+    print(ok_line(torch))
     return 0
 
 

@@ -21,6 +21,14 @@ whole tensor (``repro/models/ppm/chunking.py``, module docstring), and the
 port's incoming tri-mul slabs by columns where the reference's slabs by
 rows, so chunked folds under them differ between the two packages as well
 (``repro_torch/models/ppm/chunking.py``, module docstring).
+
+On the mesh-sharded forward (``repro_torch.parallel.sharding``) a rank
+holds part of each pair activation, where the reference's GSPMD program
+reduces over the whole tensor.  So every statistic taken over more than
+one token (PTQ4Protein's tensor maximum, Tender's and LLM.int8()'s channel
+maxima, SmoothQuant's all-token maximum) goes through ``global_amax``: a
+maximum over the model group inside a ``sharded`` scope, the local one
+outside.  Token-wise statistics and the weights' (replicated) need none.
 """
 from __future__ import annotations
 
@@ -31,18 +39,24 @@ import torch
 
 from repro_torch.core.policy import AAQConfig
 from repro_torch.core.qtensor import qmax
+from repro_torch.parallel.sharding import global_amax
 
 _EPS = 1e-12
 
 
-def _sym_quant(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
+def _sym_quant(x: torch.Tensor, bits: int, axis=None,
+               global_stat: bool = False) -> torch.Tensor:
     """Uniform symmetric fake-quant with scales over ``axis`` (None: the
-    whole tensor); rounds half to even as ``jnp.round`` does."""
+    whole tensor); rounds half to even as ``jnp.round`` does.
+    ``global_stat``: the maximum spans tokens of an activation, so it is
+    taken over the whole of a sharded one (``global_amax``)."""
     xf = x.float()
     if axis is None:
         m = xf.abs().max()
     else:
         m = xf.abs().amax(dim=axis, keepdim=True)
+    if global_stat:
+        m = global_amax(m)
     s = torch.clamp(m / qmax(bits), min=_EPS)
     return (torch.clamp(torch.round(xf / s), -qmax(bits), qmax(bits)) * s).to(x.dtype)
 
@@ -132,7 +146,7 @@ class SmoothQuantScheme(QuantScheme):
 
     def linear(self, x, w, b=None, site=""):
         xf, wf = x.float(), w.float()
-        ax = xf.reshape(-1, xf.shape[-1]).abs().amax(dim=0)
+        ax = global_amax(xf.reshape(-1, xf.shape[-1]).abs().amax(dim=0))
         aw = wf.abs().amax(dim=1)
         s = (torch.clamp(ax, min=_EPS) ** self.alpha
              / torch.clamp(aw, min=_EPS) ** (1 - self.alpha))
@@ -156,7 +170,7 @@ class LLMInt8Scheme(QuantScheme):
 
     def _decompose(self, x):
         flat = x.float().reshape(-1, x.shape[-1]).abs()
-        return flat.amax(dim=0) > self.threshold                   # (H,)
+        return global_amax(flat.amax(dim=0)) > self.threshold      # (H,)
 
     def act(self, x, site):
         oc = self._decompose(x)
@@ -187,7 +201,7 @@ class PTQ4ProteinScheme(QuantScheme):
     name = "ptq4protein"
 
     def act(self, x, site):
-        return _sym_quant(x, 8, axis=None)
+        return _sym_quant(x, 8, axis=None, global_stat=True)
 
     def weight(self, w, name=""):
         return _sym_quant(w, 8, axis=None)
@@ -204,7 +218,8 @@ class TenderScheme(QuantScheme):
     name = "tender"
 
     def act(self, x, site):
-        return _sym_quant(x, 4, axis=tuple(range(x.ndim - 1)))   # per-channel
+        return _sym_quant(x, 4, axis=tuple(range(x.ndim - 1)),   # per-channel
+                          global_stat=True)
 
     def weight(self, w, name=""):
         return _sym_quant(w, 4, axis=0)

@@ -42,9 +42,19 @@ on the CPU.  With ``--listen`` the fleet answers ``POST /v1/generate``:
         --arch qwen1.5-0.5b --window 256 --batch 4 --tokens 16
 
 ``--metrics-port`` serves the engine's Prometheus ``/metrics`` (and
-``/metrics.json``, ``/healthz``) while a trace is served.  Mesh-sharded
-serving (``--mesh``, ``--shard-threshold``) is not ported: those flags
-raise.
+``/metrics.json``, ``/healthz``) while a trace is served.
+
+``--mesh DxM --shard-threshold T`` serves buckets of T and above on a
+(data, model) mesh with the pair tensor split on j over the M model ranks
+(``serving.placement``), and the rest on rank 0 alone; the two flags go
+together.  Alone, the command starts its other ranks itself (one process
+each, gloo on the CPU; on the card NCCL, one card a rank: a mesh larger
+than the visible cards exits 2 with "needs N devices"); under
+``torchrun`` it uses the group it is given, rank 0 serving and the others
+running the worker loop:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode ppm --device cpu \
+        --n 4 --buckets 32,64 --mesh 1x2 --shard-threshold 64
 """
 from __future__ import annotations
 
@@ -69,7 +79,9 @@ from repro_torch.serving import (CSV_HEADER as ENGINE_CSV_HEADER, LM_CSV_HEADER,
                                  bucket_for, calibrate, csv_row, load_cost_table,
                                  pad_to_bucket, parse_buckets, parse_chunk_spec,
                                  pipeline_overlaps)
+from repro_torch.serving.engine import serve_worker
 from repro_torch.serving.observability import parse_hostport
+from repro_torch.serving.placement import make_serving_mesh
 
 CSV_HEADER = "request,len,bucket,latency_ms,tm_vs_fp,kernel_backend"
 
@@ -145,29 +157,19 @@ def priority_tiers(n: int, split: float) -> list[int]:
             for i in range(n)]
 
 
-#: flags of the reference's CLI whose subsystems are not ported, with the
-#: ROADMAP Queue 1 item that ports them
-NOT_PORTED = {
-    "mesh": "mesh-sharded serving (ROADMAP Queue 1 item 11, multi-device)",
-    "shard_threshold": "mesh-sharded serving (ROADMAP Queue 1 item 11, "
-                       "multi-device)",
-}
+#: --listen with --mesh: each fleet replica would be its own mesh
+LISTEN_MESH = ("--listen with --mesh (each fleet replica its own mesh) is not "
+               "ported to repro_torch yet (ROADMAP Queue 1 item 11)")
 
 
-def _refuse_unported(args) -> None:
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} needs {what}, which is not ported "
-                f"to repro_torch yet")
-
-
-def _make_client(args, cfg, params, buckets, dev, cost_model=None) -> FoldClient:
+def _make_client(args, cfg, params, buckets, dev, cost_model=None,
+                 mesh=None) -> FoldClient:
     return FoldClient(
         params, cfg, args.scheme, buckets=buckets,
         max_tokens_per_batch=args.max_tokens_per_batch,
         max_batch=args.max_batch, mem_budget_mb=args.mem_budget_mb,
         fidelity=not args.no_fidelity, kernels=args.kernels,
+        mesh=mesh, shard_threshold=None if mesh is None else args.shard_threshold,
         inflight_depth=args.inflight_depth,
         linger_ms=args.batch_linger_ms,
         adaptive_linger=not args.no_adaptive_linger,
@@ -249,8 +251,9 @@ def _run_fleet(args, factory, host, port, banner: str, summary) -> int:
     return 0
 
 
-def serve_ppm_engine(args, cfg, params, seqs, buckets, dev) -> int:
-    """Serve ``seqs`` through ``FoldClient`` on ``dev``; prints the CSV of
+def serve_ppm_engine(args, cfg, params, seqs, buckets, dev, mesh=None) -> int:
+    """Serve ``seqs`` through ``FoldClient`` on ``dev`` (sharding buckets
+    of ``--shard-threshold`` and above over ``mesh``); prints the CSV of
     every request and ``#`` summary lines."""
     cost_model = None
     if args.cost_table and not args.calibrate:
@@ -259,7 +262,7 @@ def serve_ppm_engine(args, cfg, params, seqs, buckets, dev) -> int:
         except (FileNotFoundError, ValueError) as e:
             print(f"error: {e}")
             return 2
-    client = _make_client(args, cfg, params, buckets, dev, cost_model)
+    client = _make_client(args, cfg, params, buckets, dev, cost_model, mesh)
     client.tracer.set_metadata(
         scheme=args.scheme, kernels=dispatch.describe(args.kernels, device=dev),
         buckets=list(buckets), inflight_depth=args.inflight_depth,
@@ -361,6 +364,7 @@ def serve_ppm_engine(args, cfg, params, seqs, buckets, dev) -> int:
                   f"at {server.url}/metrics", flush=True)
             time.sleep(args.metrics_hold_s)
         server.stop()
+    client.close()
     return 0
 
 
@@ -611,11 +615,13 @@ def main(argv=None) -> int:
                     help="lm + --quant-kv: run an fp16-KV twin on the same "
                          "prompts and exit 1 if max first-token logit drift "
                          "exceeds this")
-    # -- the reference's flags whose subsystems are not ported: they raise --
-    ap.add_argument("--mesh", default=None)
-    ap.add_argument("--shard-threshold", type=int, default=None)
+    # -- mesh-sharded serving --
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="ppm: serve on a (data x model) mesh of ranks, the "
+                         "pair tensor split on j over the model ranks")
+    ap.add_argument("--shard-threshold", type=int, default=None,
+                    help="ppm: buckets at/above this go to the mesh")
     args = ap.parse_args(argv)
-    _refuse_unported(args)
     try:
         buckets = parse_buckets(args.buckets, args.min_len, args.max_len)
     except ValueError:
@@ -636,17 +642,37 @@ def main(argv=None) -> int:
     if args.mode == "lm":
         with dispatch.use_backend(args.kernels):
             return serve_lm(args, dev)
+    mesh = None
+    if not args.no_engine:
+        if (args.mesh is None) != (args.shard_threshold is None):
+            print("error: --mesh and --shard-threshold must be given together "
+                  "(one without the other shards nothing)")
+            return 2
+        if args.mesh is not None and args.listen is not None:
+            raise NotImplementedError(LISTEN_MESH)
+        try:
+            mesh = make_serving_mesh(args.mesh, device=dev)
+        except ValueError as e:
+            print(f"error: {e}")
+            return 2
+    if mesh is not None and mesh.bind(dev).rank != 0:
+        serve_worker(mesh)                 # a torchrun rank other than 0
+        return 0
     cfg = reduce_ppm_config()
     params = init_ppm(cfg, seed=0, device=dev)
     if args.listen is not None and not args.no_engine:
         return serve_http(args, cfg, params, buckets, dev)
     seqs = _sample_trace(args.n, args.min_len, args.max_len)
-    with dispatch.use_backend(args.kernels):
-        if args.no_engine:
-            serve_ppm_sequential(cfg, params, seqs, buckets, scheme=args.scheme,
-                                 fidelity=not args.no_fidelity, device=dev)
-            return 0
-        return serve_ppm_engine(args, cfg, params, seqs, buckets, dev)
+    try:
+        with dispatch.use_backend(args.kernels):
+            if args.no_engine:
+                serve_ppm_sequential(cfg, params, seqs, buckets, scheme=args.scheme,
+                                     fidelity=not args.no_fidelity, device=dev)
+                return 0
+            return serve_ppm_engine(args, cfg, params, seqs, buckets, dev, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
 
 
 if __name__ == "__main__":

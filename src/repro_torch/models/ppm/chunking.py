@@ -45,6 +45,18 @@ The slab views handed to the kernels keep the flash wrapper's 16-byte base
 and stride rule (a slab of a contiguous (B, N, N, H) tensor is a view whose
 strides are the full tensor's); the quantize ops copy a non-contiguous slab
 to a contiguous (T, H) matrix themselves (``aaq_quant/ops.py``).
+
+Chunked and sharded together (``shard``, ``trunk.py``'s docstring): z is
+the rank's columns j0:j1 and the slabs split i inside that shard, as the
+reference's module docstring has it, so a chunked bucket keeps its chunk
+and gains the shard.  What the single path streams slab by slab is
+fetched slab by slab: outgoing tri-mul's ``a`` is gathered a slab at a
+time, its resident ``b`` (only rows j0:j1 now: 1/W of the single path's)
+arrives by an all-to-all a slab at a time, incoming tri-mul's resident
+``a`` is gathered a slab at a time into the one buffer, and the starting
+node's rows travel to the rank that attends over them and back a slab at
+a time.  Above its own shard a rank then holds what the chunked single
+path holds: one resident tri-mul operand, the bias tables, one slab.
 """
 from __future__ import annotations
 
@@ -115,20 +127,31 @@ def _pair_ln(p, z_rows, scheme: QuantScheme, sc: str, key: str):
 # triangular multiplication
 # --------------------------------------------------------------------------
 def _tri_mul_ab(p, z_rows, scheme: QuantScheme, sc: str, proj: str, gate: str,
-                row_mask=None, mask=None):
-    """The a/b operand of tri-mul for one row slab; returns (ab, zl)."""
+                row_mask=None, col_mask=None):
+    """The a/b operand of tri-mul for one row slab; returns (ab, zl).
+    ``row_mask``/``col_mask`` are the (B, rows)/(B, cols) token masks of
+    the slab's two axes (None: unmasked)."""
     zl = _pair_ln(p, z_rows, scheme, sc, "ln_in")
     ab = (torch.sigmoid(cm.dense(p[gate], zl, scheme, f"{sc}.gate"))
           * cm.dense(p[proj], zl, scheme, f"{sc}.post_ln"))
     ab = scheme.act(ab, f"{sc}.ab")                         # Group C
-    if mask is not None:
-        pm = (row_mask[:, :, None] & mask[:, None, :])[..., None]
+    if col_mask is not None:
+        pm = (row_mask[:, :, None] & col_mask[:, None, :])[..., None]
         ab = ab * pm.to(ab.dtype)
     return ab, zl
 
 
+def _rank_rows(x, shard, s: int, c: int):
+    """Rows s*c:(s+1)*c of every rank's row shard of ``x`` (rows on axis
+    1, N of them): (B, W*c, ...), rank 0's rows first.  The slab ``s`` of
+    the rows each rank owns under a row shard, in all-to-all order."""
+    w = 1 if shard is None else shard.size
+    v = x.unflatten(1, (w, x.shape[1] // w))[:, :, s * c:(s + 1) * c]
+    return v.flatten(1, 2)
+
+
 def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
-                    chunk: int, mask=None, into=None):
+                    chunk: int, mask=None, into=None, shard=None):
     """Row-chunked triangular multiplication.
 
     One operand of the k-contraction is full-width and resident: the price
@@ -146,22 +169,40 @@ def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
     only its own columns and ``into`` can take the slabs in place.  Every
     operand value is computed per pair position, so both give the
     reference's values; only the summation order of the products can move.
+
+    Under ``shard`` (z the rank's columns j0:j1): outgoing keeps only the
+    rows j0:j1 of ``b`` resident, (B, th, N/W, N), each slab of them sent
+    by the all-to-all from the ranks that hold its k, and gathers each
+    slab's ``a`` over k; incoming gathers the resident ``a`` slab by slab
+    into the one (B, th, N, N) buffer and takes its column slabs locally.
     """
     n = z.shape[1]
-    c = effective_chunk_size(n, chunk)
+    col_mask = mask if mask is None or shard is None else mask[:, shard.cols(n)]
     res_proj, res_gate = ("b_proj", "b_gate") if outgoing else ("a_proj", "a_gate")
     slab_proj, slab_gate = ("a_proj", "a_gate") if outgoing else ("b_proj", "b_gate")
 
     # the resident operand in the products' layout: part[b, c, r, m] =
-    # op[b, r, m, c], written slab by slab (r = the slab rows of z)
+    # op[b, r, m, c], written slab by slab.  Incoming: r = the slab rows
+    # of z (every rank's slab gathered over m).  Outgoing: r = rows j0:j1;
+    # a slab computes those rows of every rank's row shard on the local
+    # columns, and the all-to-all hands each rank its own rows over every m.
+    w = 1 if shard is None else shard.size
+    nr = n // w if outgoing else n            # the resident operand's rows
+    c = effective_chunk_size(nr, chunk)
     part = None
-    for i in range(n // c):
+    for i in range(nr // c):
         rows_i = slice(i * c, (i + 1) * c)
-        rr, _ = _tri_mul_ab(p, z[:, rows_i], scheme, sc, res_proj, res_gate,
-                            row_mask=None if mask is None else mask[:, rows_i],
-                            mask=mask)
+        if outgoing:
+            zr = _rank_rows(z, shard, i, c)
+            rm = None if mask is None else _rank_rows(mask, shard, i, c)
+        else:
+            zr, rm = z[:, rows_i], None if mask is None else mask[:, rows_i]
+        rr, _ = _tri_mul_ab(p, zr, scheme, sc, res_proj, res_gate,
+                            row_mask=rm, col_mask=col_mask)
+        if shard is not None:
+            rr = shard.cols_to_rows(rr) if outgoing else shard.gather(rr, 2)
         if part is None:
-            part = torch.empty((rr.shape[0], rr.shape[-1], n, n),
+            part = torch.empty((rr.shape[0], rr.shape[-1], nr, n),
                                dtype=rr.dtype, device=rr.device)
         part[:, :, rows_i] = rr.permute(0, 3, 1, 2)
 
@@ -171,7 +212,9 @@ def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
         # outgoing: a of rows i; incoming: b of columns j, in the transposed
         # (j, k) layout, and the output gate's zl of the same positions
         xc, zl = _tri_mul_ab(p, zc, scheme, sc, slab_proj, slab_gate,
-                             row_mask=mc, mask=mask)
+                             row_mask=mc, col_mask=col_mask if outgoing else mask)
+        if outgoing and shard is not None:
+            xc = shard.gather(xc, 2)                        # a over every k
         if outgoing:
             # (B,th,C,k) @ (B,th,k,N): x of rows i, (B,th,C,N)
             x = torch.matmul(xc.permute(0, 3, 1, 2), part.transpose(-1, -2))
@@ -192,7 +235,10 @@ def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
     zs = z if outgoing else z.transpose(1, 2)
     if into is not None and not outgoing:
         into = into.transpose(1, 2)
-    out = _scan_rows(rows, (zs,) if mask is None else (zs, mask), n, c, into=into)
+    ms = col_mask if not outgoing else mask
+    rows_n = zs.shape[1]
+    out = _scan_rows(rows, (zs,) if mask is None else (zs, ms), rows_n,
+                     effective_chunk_size(rows_n, chunk), into=into)
     return out if outgoing else out.transpose(1, 2)
 
 
@@ -200,7 +246,7 @@ def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
 # triangular attention
 # --------------------------------------------------------------------------
 def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
-                     heads: int, chunk: int, mask=None, into=None):
+                     heads: int, chunk: int, mask=None, into=None, shard=None):
     """Row-chunked triangular attention.
 
     The (B,N,N,heads) bias table is full-width and resident (heads is
@@ -212,19 +258,31 @@ def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
     must not change which kernel (and which AAQ sites) a bucket runs.
     With ``into`` the slabs go into it in place once the bias table is
     built (a row of attention reads only its own row of z).
+
+    Under ``shard`` (z the rank's columns j0:j1) the bias table is built on
+    the shard and gathered.  The ending node's rows are the shard's own
+    columns; the starting node's rows i are split over the ranks, and each
+    slab of a rank's rows arrives by an all-to-all (its row over every
+    column) and its output goes back the same way into ``z``'s columns.
     """
     if not starting:
         z = z.transpose(1, 2)
         into = None if into is None else into.transpose(1, 2)
-    b_, n, _, hz = z.shape
-    c = effective_chunk_size(n, chunk)
+    b_, r, n, hz = z.shape                     # r rows of n positions
+    exchange = starting and shard is not None
+    if exchange:                                # z holds every row i, the
+        r, n = r // shard.size, r               # rank attends over N/W
+    c = effective_chunk_size(r, chunk)
     dh = hz // heads
 
     def bias_rows(slab):
         zl = _pair_ln(p, slab[0], scheme, sc, "ln")
         return cm.dense(p["bias"], zl, scheme, f"{sc}.post_ln")
 
-    bias = _scan_rows(bias_rows, (z,), n, c)                # (B,N,N,H)
+    bias = _scan_rows(bias_rows, (z,), z.shape[1],
+                      effective_chunk_size(z.shape[1], chunk))
+    if shard is not None:                       # (B,N,N,H) on every rank
+        bias = shard.gather(bias, 2 if starting else 1)
     bias_t = bias.permute(0, 3, 1, 2)                       # (B,H,N,N)
 
     tokenwise = n >= tk.CHUNKED_ATTN_LEN or dispatch.attention_is_kernel(z.device)
@@ -235,6 +293,10 @@ def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
 
     def rows(slab):
         zc = slab[0]                                        # (B,C,N,hz)
+        if exchange:
+            # every rank's slab s of its rows, over this rank's columns ->
+            # this rank's slab over every column
+            zc = shard.cols_to_rows(zc)
         zl = _pair_ln(p, zc, scheme, sc, "ln")
         qkv = cm.dense(p["qkv"], zl, scheme, f"{sc}.qkv_in")
         q, k, v = torch.split(qkv, hz, dim=-1)
@@ -262,9 +324,23 @@ def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
                              v.float()).to(zc.dtype)
         o = scheme.act(o.reshape(b_, c, n, hz), f"{sc}.av")  # Group C
         g = torch.sigmoid(cm.dense(p["gate"], zl, scheme, f"{sc}.gate"))
-        return cm.dense(p["out"], g * o, scheme, f"{sc}.proj_in")
+        out = cm.dense(p["out"], g * o, scheme, f"{sc}.proj_in")
+        return shard.rows_to_cols(out) if exchange else out
 
-    out = _scan_rows(rows, (z,), n, c, into=into)
+    if exchange:
+        # slab s: rows s*c:(s+1)*c of every rank's row shard, in
+        # all-to-all order; its output goes back to the same rows of z
+        w = shard.size
+        out = into if into is not None else torch.empty_like(z)
+        for s in range(r // c):
+            y = rows((_rank_rows(z, shard, s, c),)).unflatten(1, (w, c))
+            dst = out.unflatten(1, (w, r))[:, :, s * c:(s + 1) * c]
+            if into is not None:
+                dst.add_(y)
+            else:
+                dst.copy_(y)
+        return out
+    out = _scan_rows(rows, (z,), r, c, into=into)
     if not starting:
         out = out.transpose(1, 2)
     return out
@@ -283,7 +359,7 @@ def pair_transition_chunked(p, z, scheme: QuantScheme, chunk: int,
         (z,), n, c, into=into)
 
 
-def opm_chunked(p, s, chunk: int, into=None):
+def opm_chunked(p, s, chunk: int, into=None, shard=None):
     """Outer-product-mean without the (B,N,N,32·32) slab: the a/b vectors
     are linear in N, only the per-chunk outer product materializes.
 
@@ -296,6 +372,8 @@ def opm_chunked(p, s, chunk: int, into=None):
     c = effective_chunk_size(n, chunk)
     sl = cm.layernorm(p["ln"], s)
     a, b = cm.dense(p["a"], sl), cm.dense(p["b"], sl)       # (B,N,32)
+    if shard is not None:
+        b = b[:, shard.cols(n)]                             # columns j0:j1
 
     def rows(slab):
         outer = slab[0][:, :, None, :, None] * b[:, None, :, None, :]
@@ -304,22 +382,24 @@ def opm_chunked(p, s, chunk: int, into=None):
     return _scan_rows(rows, (a,), n, c, into=into)
 
 
-def seq_pair_bias_chunked(p, z, chunk: int):
+def seq_pair_bias_chunked(p, z, chunk: int, shard=None):
     """Sequence attention's (B,N,N,seq_heads) pair bias, built slab by slab
-    so the full hz-wide ln(z) intermediate never materializes."""
+    so the full hz-wide ln(z) intermediate never materializes (on
+    ``shard``'s columns, then gathered)."""
     n = z.shape[1]
     c = effective_chunk_size(n, chunk)
-    return _scan_rows(
+    bias = _scan_rows(
         lambda slab: cm.dense(p["pair_bias"],
                               cm.layernorm(p["pair_bias_ln"], slab[0])),
         (z,), n, c)
+    return bias if shard is None else shard.gather(bias, 2)
 
 
 # --------------------------------------------------------------------------
 # one folding block, chunked
 # --------------------------------------------------------------------------
 def block_apply_chunked(p, s, z, cfg, scheme: QuantScheme, chunk: int,
-                        mask=None):
+                        mask=None, shard=None):
     """``trunk.block_apply`` with every O(N²·H) pair op row-chunked.
 
     Op order, residual structure and quantization sites are those of the
@@ -327,19 +407,19 @@ def block_apply_chunked(p, s, z, cfg, scheme: QuantScheme, chunk: int,
     op adds its slabs into ``z`` IN PLACE (the caller hands ``z`` over, as
     ``trunk_apply``'s does), which rounds as ``z + op``.
     """
-    pb = seq_pair_bias_chunked(p["seq_attn"], z, chunk)
+    pb = seq_pair_bias_chunked(p["seq_attn"], z, chunk, shard=shard)
     s = s + tk.seq_attn_apply(p["seq_attn"], s, z, cfg.seq_heads, mask=mask,
                               pair_bias=pb)
     del pb
     s = s + tk.seq_transition_apply(p["seq_trans"], s)
-    opm_chunked(p["opm"], s, chunk, into=z)
+    opm_chunked(p["opm"], s, chunk, into=z, shard=shard)
     tri_mul_chunked(p["tri_mul_out"], z, scheme, True, "tri_mul_out", chunk,
-                    mask=mask, into=z)
+                    mask=mask, into=z, shard=shard)
     tri_mul_chunked(p["tri_mul_in"], z, scheme, False, "tri_mul_in", chunk,
-                    mask=mask, into=z)
+                    mask=mask, into=z, shard=shard)
     tri_attn_chunked(p["tri_attn_start"], z, scheme, True, "tri_attn_start",
-                     cfg.pair_heads, chunk, mask=mask, into=z)
+                     cfg.pair_heads, chunk, mask=mask, into=z, shard=shard)
     tri_attn_chunked(p["tri_attn_end"], z, scheme, False, "tri_attn_end",
-                     cfg.pair_heads, chunk, mask=mask, into=z)
+                     cfg.pair_heads, chunk, mask=mask, into=z, shard=shard)
     pair_transition_chunked(p["pair_trans"], z, scheme, chunk, into=z)
     return s, z

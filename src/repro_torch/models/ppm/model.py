@@ -16,6 +16,7 @@ from repro_torch.models.ppm import chunking as ck
 from repro_torch.models.ppm import structure as st
 from repro_torch.models.ppm import trunk as tk
 from repro_torch.models.ppm.trunk import PPMConfig
+from repro_torch.parallel import sharding as sh
 
 
 def init_ppm(cfg: PPMConfig, seed: int = 0, *, device=None) -> cm.Params:
@@ -41,12 +42,13 @@ def init_ppm(cfg: PPMConfig, seed: int = 0, *, device=None) -> cm.Params:
 
 
 def input_embedding(p, aatype: torch.Tensor, cfg: PPMConfig,
-                    chunk_size: int | None = None):
+                    chunk_size: int | None = None, shard=None):
     """aatype (B,N) int -> s0 (B,N,Hm), z0 (B,N,N,Hz).
 
     With ``chunk_size`` the pair sum is formed by row slabs written into
     one output, so its two full-size addends never exist; each element is
     the same sum in the same order.  Without, one slab holds every row.
+    Under ``shard`` z0 is made on the rank's columns only, (B,N,N/W,Hz).
     """
     s0 = cm.embed(p["aa_embed"], aatype)
     li = cm.dense(p["left"], s0)
@@ -55,6 +57,8 @@ def input_embedding(p, aatype: torch.Tensor, cfg: PPMConfig,
     pos = torch.arange(n, device=aatype.device)
     half = cfg.relpos_bins // 2
     rel = torch.clamp(pos[:, None] - pos[None, :], -half, half) + half
+    if shard is not None:
+        ri, rel = ri[:, shard.cols(n)], rel[:, shard.cols(n)]
     z0 = ck.scan_row_slabs(
         lambda sl: (sl[0][:, :, None, :] + ri[:, None, :, :]
                     + cm.embed(p["relpos"], sl[1])).to(cfg.torch_dtype),
@@ -62,18 +66,24 @@ def input_embedding(p, aatype: torch.Tensor, cfg: PPMConfig,
     return s0.to(cfg.torch_dtype), z0
 
 
-def distogram_head(p, z: torch.Tensor, chunk_size: int | None = None):
+def distogram_head(p, z: torch.Tensor, chunk_size: int | None = None,
+                   shard=None):
     """Distogram logits of the symmetrized pair tensor; with ``chunk_size``
     by row slabs (rows i of z with the matching columns for the transpose)
-    written into one output."""
-    return ck.scan_row_slabs(lambda sl: cm.dense(p, 0.5 * (sl[0] + sl[1])),
-                             (z, z.transpose(1, 2)), chunk_size)
+    written into one output.  Under ``shard`` the transpose's columns j0:j1
+    are z's rows j0:j1 (an all-to-all), and the rank's columns of the
+    logits are gathered to the group's rank 0 (``None`` on the others)."""
+    zt = z.transpose(1, 2) if shard is None else shard.cols_to_rows(z).transpose(1, 2)
+    d = ck.scan_row_slabs(lambda sl: cm.dense(p, 0.5 * (sl[0] + sl[1])),
+                          (z, zt), chunk_size)
+    return d if shard is None else shard.gather_to_root(d, 2)
 
 
 def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
                 scheme: QuantScheme | None = None, *,
                 mask: torch.Tensor | None = None,
-                chunk_size: int | None = None):
+                chunk_size: int | None = None, shard=None,
+                distogram: bool = True):
     """Full forward pass on ``aatype``'s device.  Returns dict with coords,
     distogram, s, z.
 
@@ -83,11 +93,23 @@ def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
     long-fold path the memory planner prices, and builds the input
     embedding, the structure module's pair bias and the distogram head by
     row slabs of the same chunk; None/0 is unchunked.
+
+    ``shard`` (``repro_torch.parallel.sharding.PairShard``) runs this
+    rank's part of the mesh-sharded forward: the pair tensor split on j
+    over the model group (``trunk.py``), ``z`` in the result the rank's
+    columns, coords on every rank, the distogram on the group's rank 0
+    only.  ``distogram=False`` skips the head (``None`` in the result).
     """
     scheme = scheme or FP16Baseline()
     if mask is not None:
         mask = mask.to(torch.bool)
-    s0, z0 = input_embedding(params, aatype, cfg, chunk_size)
+    with sh.sharded(shard, aatype.shape[-1]):
+        return _forward(params, aatype, cfg, scheme, mask, chunk_size, shard,
+                        distogram)
+
+
+def _forward(params, aatype, cfg, scheme, mask, chunk_size, shard, distogram):
+    s0, z0 = input_embedding(params, aatype, cfg, chunk_size, shard)
     s, z = s0, z0
     for r in range(cfg.recycles):
         ds = cm.layernorm(params["recycle_s_ln"], s) if r else 0.0
@@ -101,13 +123,14 @@ def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
             s_in, z_in = s0 + ds, z0 + dz
         s = z = ds = dz = None
         s, z = tk.trunk_apply(params["trunk"], s_in, z_in, cfg, scheme, mask=mask,
-                              chunk_size=chunk_size)
+                              chunk_size=chunk_size, shard=shard)
         s_in = z_in = None
     coords, s_final = st.structure_apply(params["structure"], s, z,
                                          n_iter=cfg.ipa_iters, mask=mask,
-                                         chunk_size=chunk_size)
-    distogram = distogram_head(params["distogram"], z, chunk_size)
-    return {"coords": coords, "distogram": distogram, "s": s_final, "z": z}
+                                         chunk_size=chunk_size, shard=shard)
+    disto = (distogram_head(params["distogram"], z, chunk_size, shard)
+             if distogram else None)
+    return {"coords": coords, "distogram": disto, "s": s_final, "z": z}
 
 
 # --------------------------------------------------------------------------

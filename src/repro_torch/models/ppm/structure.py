@@ -45,18 +45,22 @@ def pair_bias(p, z, chunk_size: int | None = None):
 
 
 def structure_apply(p, s, z, n_iter: int = 4, mask=None,
-                    chunk_size: int | None = None):
+                    chunk_size: int | None = None, shard=None):
     """Returns (coords (B,N,3) f32, s_final).
 
     ``mask`` (B, N) bool marks real tokens; padded keys get the additive
     -1e9 key-padding bias and their values are zeroed.  ``chunk_size``
-    builds the pair bias by row slabs (``pair_bias``).
+    builds the pair bias by row slabs (``pair_bias``).  Under ``shard``
+    (``z`` the rank's columns) the (B,N,N,H) bias is built on the shard
+    and gathered, never z; the rest is replicated.
     """
     b, n, hm = s.shape
     heads = p["pair_bias"]["w"].shape[-1]
     dh = hm // heads
     t = torch.zeros((b, n, 3), dtype=torch.float32, device=s.device)
     bias = pair_bias(p, z, chunk_size)                       # (B,N,N,H)
+    if shard is not None:
+        bias = shard.gather(bias, 2)
     bias = bias.permute(0, 3, 1, 2).float()
     key_bias = cm.key_padding_bias(mask) if mask is not None else None
     dist = torch.logaddexp(p["dist_w"].float(), torch.zeros((), device=s.device))  # softplus

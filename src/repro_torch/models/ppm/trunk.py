@@ -14,6 +14,25 @@ scheme at a named site; the sequence track is not quantized.  The trunk is
 a Python loop over per-block parameter dicts (the reference stacks them for
 ``scan``); ``trunk_apply(..., chunk_size=)`` runs the row-chunked pair
 stack (``chunking.py``).
+
+Every op takes ``shard`` (``repro_torch.parallel.sharding.PairShard``):
+the pair tensor then holds this rank's columns j0:j1 of z, (B, N, N/W,
+Hz), with ``s`` replicated, and each op fetches what its contraction
+needs from the model group (the reference's GSPMD partitioning of the
+same ops, made explicit):
+
+  * pair transition, the OPM update and every AAQ site: nothing (AAQ is
+    token-wise, so each pair position is local; OPM's ``s`` is whole);
+  * tri-mul incoming (x_ij = sum_k a_ki b_kj): ``a`` gathered, ``b`` local;
+  * tri-mul outgoing (x_ij = sum_k a_ik b_jk): ``a`` gathered and ``b``'s
+    rows j0:j1 over every k (an all-to-all);
+  * tri-attention, ending node (attends over i at a fixed j): local, with
+    its (B, N, N, heads) bias gathered; starting node (attends over k along
+    row i): an all-to-all to a row shard and back, the bias gathered;
+  * sequence attention's pair bias: projected on the shard, then gathered.
+
+A gather concatenates and changes no sum, so with ``shard`` of one rank
+the ops compute what the unsharded ops do.
 """
 from __future__ import annotations
 
@@ -24,6 +43,7 @@ import torch
 from repro_torch.core.schemes import QuantScheme
 from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
+from repro_torch.parallel import sharding as sh
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -142,16 +162,18 @@ def rows_valid_len(lens: torch.Tensor, rows: int) -> torch.Tensor:
     return lens[:, None].expand(lens.shape[0], rows).reshape(-1)
 
 
-def _pair_mask(mask):
-    """(B, N) bool -> (B, N, N, 1) bool: True where both tokens are real."""
-    return (mask[:, :, None] & mask[:, None, :])[..., None]
+def _pair_mask(mask, shard=None):
+    """(B, N) bool -> (B, N, N, 1) bool: True where both tokens are real
+    (columns j0:j1 only under ``shard``)."""
+    cols = mask if shard is None else mask[:, shard.cols(mask.shape[1])]
+    return (mask[:, :, None] & cols[:, None, :])[..., None]
 
 
 # --------------------------------------------------------------------------
 # pair ops (with AAQ sites)
 # --------------------------------------------------------------------------
 def tri_mul_apply(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
-                  mask=None):
+                  mask=None, shard=None):
     """Triangular multiplication. sc = site prefix ('tri_mul_out' etc.)."""
     z = scheme.act(z, f"{sc}.pre_ln")                       # Group A
     zl = cm.layernorm(p["ln_in"], z)
@@ -164,9 +186,13 @@ def tri_mul_apply(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
     b = scheme.act(b, f"{sc}.ab")
     if mask is not None:
         # zero padded pair rows so the k-contraction only adds exact zeros
-        pm = _pair_mask(mask).to(a.dtype)
+        pm = _pair_mask(mask, shard).to(a.dtype)
         a = a * pm
         b = b * pm
+    if shard is not None:
+        a = shard.gather(a, 2)                  # every k (outgoing) / i (incoming)
+        if outgoing:
+            b = shard.cols_to_rows(b)           # rows j0:j1, every k
     eq = "bikc,bjkc->bijc" if outgoing else "bkic,bkjc->bijc"
     x = torch.einsum(eq, a.float(), b.float()).to(z.dtype)
     x = scheme.act(x, f"{sc}.prod_pre_ln")                  # Group A (large)
@@ -178,24 +204,32 @@ def tri_mul_apply(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
 
 
 def tri_attn_apply(p, z, scheme: QuantScheme, starting: bool, sc: str,
-                   heads: int, mask=None):
-    """Triangular attention; ending-node = starting-node on transposed pair."""
+                   heads: int, mask=None, shard=None):
+    """Triangular attention; ending-node = starting-node on transposed pair.
+
+    It runs on rows: (B, R, N, Hz) with R = N, or under ``shard`` R = N/W
+    (the ending node's transposed column shard, the starting node's row
+    shard fetched by an all-to-all)."""
     if not starting:
         z = z.transpose(1, 2)
+    elif shard is not None:
+        z = shard.cols_to_rows(z)
     z = scheme.act(z, f"{sc}.pre_ln")                       # Group A
     zl = cm.layernorm(p["ln"], z)
     zl = scheme.act(zl, f"{sc}.post_ln")                    # Group B
-    b_, n, _, hz = zl.shape
+    b_, r, n, hz = zl.shape
     dh = hz // heads
     qkv = cm.dense(p["qkv"], zl, scheme, f"{sc}.qkv_in")
     q, k, v = torch.split(qkv, hz, dim=-1)
-    q = q.reshape(b_, n, n, heads, dh)
-    k = k.reshape(b_, n, n, heads, dh)
-    v = v.reshape(b_, n, n, heads, dh)
+    q = q.reshape(b_, r, n, heads, dh)
+    k = k.reshape(b_, r, n, heads, dh)
+    v = v.reshape(b_, r, n, heads, dh)
     if mask is not None:
         # padded keys: zero v so that 0 * garbage never becomes NaN
         v = v * mask[:, None, :, None, None].to(v.dtype)
-    bias = cm.dense(p["bias"], zl, scheme, f"{sc}.post_ln")  # (B,N,N,H)
+    bias = cm.dense(p["bias"], zl, scheme, f"{sc}.post_ln")  # (B,R,N,H)
+    if shard is not None:
+        bias = shard.gather(bias, 1)                         # (B,N,N,H)
     # starting node: logits[b,h,i,j,k] = q_ij . k_ik + bias_jk
     if n >= CHUNKED_ATTN_LEN or dispatch.attention_is_kernel(z.device):
         # token-wise MHA: rows are batch; the (B,H,N,N) bias is broadcast
@@ -205,14 +239,14 @@ def tri_attn_apply(p, z, scheme: QuantScheme, starting: bool, sc: str,
         kv_valid = None
         if mask is not None:
             lens = mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)   # (B,)
-            kv_valid = rows_valid_len(lens, n)                            # (B*n,)
-        o = dispatch.attention(q.reshape(b_ * n, n, heads, dh),
-                               k.reshape(b_ * n, n, heads, dh),
-                               v.reshape(b_ * n, n, heads, dh),
+            kv_valid = rows_valid_len(lens, r)                            # (B*r,)
+        o = dispatch.attention(q.reshape(b_ * r, n, heads, dh),
+                               k.reshape(b_ * r, n, heads, dh),
+                               v.reshape(b_ * r, n, heads, dh),
                                bias=bias.permute(0, 3, 1, 2),
                                kv_valid_len=kv_valid,
                                causal=False, q_chunk=512)
-        o = o.reshape(b_, n, n, heads, dh).to(z.dtype)
+        o = o.reshape(b_, r, n, heads, dh).to(z.dtype)
     else:
         logits = torch.einsum("bijhd,bikhd->bhijk", q.float(),
                               k.float()) / torch.sqrt(torch.tensor(float(dh)))
@@ -223,11 +257,13 @@ def tri_attn_apply(p, z, scheme: QuantScheme, starting: bool, sc: str,
         probs = scheme.act(probs, f"{sc}.probs")            # Group C
         o = torch.einsum("bhijk,bikhd->bijhd", probs.float(),
                          v.float()).to(z.dtype)
-    o = scheme.act(o.reshape(b_, n, n, hz), f"{sc}.av")     # Group C
+    o = scheme.act(o.reshape(b_, r, n, hz), f"{sc}.av")     # Group C
     g = torch.sigmoid(cm.dense(p["gate"], zl, scheme, f"{sc}.gate"))
     out = cm.dense(p["out"], g * o, scheme, f"{sc}.proj_in")
     if not starting:
         out = out.transpose(1, 2)
+    elif shard is not None:
+        out = shard.rows_to_cols(out)
     return out
 
 
@@ -243,10 +279,11 @@ def pair_transition_apply(p, z, scheme: QuantScheme, sc: str = "pair_trans"):
 # --------------------------------------------------------------------------
 # sequence ops (not quantized — the paper quantizes only the pair dataflow)
 # --------------------------------------------------------------------------
-def seq_attn_apply(p, s, z, heads: int, mask=None, pair_bias=None):
+def seq_attn_apply(p, s, z, heads: int, mask=None, pair_bias=None,
+                   shard=None):
     """``pair_bias`` lets the chunked path supply a pre-built (B,N,N,H)
     bias table (``chunking.seq_pair_bias_chunked``); without it the bias is
-    projected here, as before."""
+    projected here, on ``shard``'s columns and then gathered."""
     b_, n, hm = s.shape
     dh = hm // heads
     sl = cm.layernorm(p["ln"], s)
@@ -257,8 +294,11 @@ def seq_attn_apply(p, s, z, heads: int, mask=None, pair_bias=None):
     v = v.reshape(b_, n, heads, dh)
     if mask is not None:
         v = v * mask[:, :, None, None].to(v.dtype)
-    bias = pair_bias if pair_bias is not None else cm.dense(
-        p["pair_bias"], cm.layernorm(p["pair_bias_ln"], z))
+    bias = pair_bias
+    if bias is None:
+        bias = cm.dense(p["pair_bias"], cm.layernorm(p["pair_bias_ln"], z))
+        if shard is not None:
+            bias = shard.gather(bias, 2)
     bias = bias.permute(0, 3, 1, 2).to(torch.float32, copy=True)   # (B,H,N,N)
     if mask is not None:
         # additive key-padding fold: real keys get literal +0.0; in place,
@@ -274,9 +314,11 @@ def seq_transition_apply(p, s):
     return cm.dense(p["down"], torch.relu(cm.dense(p["up"], cm.layernorm(p["ln"], s))))
 
 
-def opm_apply(p, s):
+def opm_apply(p, s, shard=None):
     sl = cm.layernorm(p["ln"], s)
     a, b = cm.dense(p["a"], sl), cm.dense(p["b"], sl)       # (B,N,32)
+    if shard is not None:
+        b = b[:, shard.cols(b.shape[1])]                    # columns j0:j1
     outer = torch.einsum("bic,bjd->bijcd", a.float(), b.float()).to(s.dtype)
     return cm.dense(p["out"], outer.reshape(*outer.shape[:3], -1))
 
@@ -284,36 +326,44 @@ def opm_apply(p, s):
 # --------------------------------------------------------------------------
 # one folding block
 # --------------------------------------------------------------------------
-def block_apply(p, s, z, cfg: PPMConfig, scheme: QuantScheme, mask=None):
-    s = s + seq_attn_apply(p["seq_attn"], s, z, cfg.seq_heads, mask=mask)
+def block_apply(p, s, z, cfg: PPMConfig, scheme: QuantScheme, mask=None,
+                shard=None):
+    s = s + seq_attn_apply(p["seq_attn"], s, z, cfg.seq_heads, mask=mask,
+                           shard=shard)
     s = s + seq_transition_apply(p["seq_trans"], s)
-    z = z + opm_apply(p["opm"], s)
+    z = z + opm_apply(p["opm"], s, shard=shard)
     z = z + tri_mul_apply(p["tri_mul_out"], z, scheme, True, "tri_mul_out",
-                          mask=mask)
+                          mask=mask, shard=shard)
     z = z + tri_mul_apply(p["tri_mul_in"], z, scheme, False, "tri_mul_in",
-                          mask=mask)
+                          mask=mask, shard=shard)
     z = z + tri_attn_apply(p["tri_attn_start"], z, scheme, True,
-                           "tri_attn_start", cfg.pair_heads, mask=mask)
+                           "tri_attn_start", cfg.pair_heads, mask=mask,
+                           shard=shard)
     z = z + tri_attn_apply(p["tri_attn_end"], z, scheme, False,
-                           "tri_attn_end", cfg.pair_heads, mask=mask)
+                           "tri_attn_end", cfg.pair_heads, mask=mask,
+                           shard=shard)
     z = z + pair_transition_apply(p["pair_trans"], z, scheme)
     return s, z
 
 
 def trunk_apply(blocks: list[cm.Params], s, z, cfg: PPMConfig,
-                scheme: QuantScheme, mask=None, chunk_size: int | None = None):
+                scheme: QuantScheme, mask=None, chunk_size: int | None = None,
+                shard=None):
     """``chunk_size`` routes every block through the row-chunked pair stack
     (``repro_torch.models.ppm.chunking``): same ops, same sites, O(N·chunk)
     slabs instead of O(N²), each op's slabs added into ``z`` in place, so
     the chunked path consumes ``z``: the caller hands over a tensor it owns
     (``ppm_forward`` does).  None/0 is the unchunked path, which never
-    writes ``z``."""
+    writes ``z``.  ``shard``: ``z`` is this rank's column shard (module
+    docstring), pinned at every block boundary (``constrain``)."""
     if chunk_size:
         from repro_torch.models.ppm import chunking as ck   # imports this module
         for p in blocks:
             s, z = ck.block_apply_chunked(p, s, z, cfg, scheme, chunk_size,
-                                          mask=mask)
+                                          mask=mask, shard=shard)
+            z = sh.constrain(z, "pair")
         return s, z
     for p in blocks:
-        s, z = block_apply(p, s, z, cfg, scheme, mask=mask)
+        s, z = block_apply(p, s, z, cfg, scheme, mask=mask, shard=shard)
+        z = sh.constrain(z, "pair")
     return s, z

@@ -35,7 +35,9 @@ from repro_torch.serving.observability import (PROMETHEUS_CONTENT_TYPE,
                                                MetricsRegistry, MetricsServer,
                                                Span, Tracer, pipeline_overlaps,
                                                span_tree, validate_chrome_trace)
-from repro_torch.serving.placement import SINGLE, Placement, PlacementPolicy
+from repro_torch.serving.placement import (SHARDED, SINGLE, SINGLE_PLACEMENT, Placement,
+                                           PlacementPolicy, ServingMesh,
+                                           make_serving_mesh, parse_mesh_spec)
 from repro_torch.serving.scheduler import (Rejection, ScheduledBatch,
                                            TokenBudgetScheduler, bucket_for,
                                            parse_buckets, pow2_buckets,
@@ -55,8 +57,9 @@ __all__ = [
     # events
     "FoldEvent", "EventBus", "EventStream", "EVENT_KINDS", "EVENT_ORDER",
     "TERMINAL_EVENTS", "check_request_order",
-    # placement (single device; mesh serving raises)
-    "Placement", "PlacementPolicy", "SINGLE",
+    # placement (single device, or the pair tensor sharded over a mesh)
+    "Placement", "PlacementPolicy", "SINGLE", "SHARDED", "SINGLE_PLACEMENT",
+    "ServingMesh", "make_serving_mesh", "parse_mesh_spec",
     # long-fold tier (chunked-trunk memory planning)
     "ChunkPolicy", "parse_chunk_spec", "chunk_candidates",
     "DEFAULT_LONGFOLD_BUDGET_MB",

@@ -56,6 +56,23 @@ streams.  ``close()`` releases an engine's graphs, buffers and pool (a
 fleet restarting a dead replica calls it; the reference leaves the old
 client to the garbage collector, which on the card would keep its pool).
 
+One controller over many processes (``mesh=``/``shard_threshold=``,
+``serving.placement``).  JAX drives a mesh from one process; torch runs one
+process a rank.  Rank 0 runs the client, scheduler, admission, metrics and
+this core; ranks > 0 run ``serve_worker``, a loop over the commands rank 0
+broadcasts: ``bind`` (a worker core like this one, the parameters
+broadcast once), ``build`` (a sharded key's warm-up and capture, on every
+rank in the same order, each under its own ``CAPTURE_LOCK``), ``run`` (a
+launch: the key and the staged inputs), ``close`` and ``exit``.  Every rank
+runs its shard of the key's forward (``PairShard``); rank 0 keeps the
+result.  A sharded key's cache key is ``(bucket, batch, scheme,
+"mesh:DxM", chunk)``.  Over NCCL it is one CUDA graph a rank with the
+collectives inside it; over the host-staged gloo route (several ranks on
+one card, asked for with ``backend="gloo"``, no memory budget) and on the
+CPU it runs eagerly, still counted as a key.  Ranks
+of a ``data`` axis above 1 compute replicated results, as under GSPMD.
+Buckets the policy keeps ``SINGLE`` run on rank 0 alone.
+
 Telemetry: ``batch_start`` (the end of queue wait) is stamped AFTER the
 executable is resolved, so a cold key's capture lands in ``queue_wait_ms``
 and its own ``compile_ms``, never in ``run_ms`` (launch to ready, host
@@ -65,8 +82,10 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
 import threading
 import time
+import traceback
 from collections import deque
 from typing import Any, Callable
 
@@ -76,6 +95,7 @@ import torch
 from repro_torch.core.schemes import FP16Baseline, QuantScheme, make_scheme
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
+from repro_torch.parallel import collectives as coll
 from repro_torch.serving.costmodel import CostModel
 from repro_torch.serving.longfold import ChunkPolicy
 from repro_torch.serving.metrics import note_capture, reset_compile_watch
@@ -141,18 +161,22 @@ class _Executable:
     card, the CUDA event ``ready`` recorded after their copies."""
 
     def __init__(self, core: "EngineCore", key: tuple, scheme: QuantScheme,
-                 chunk: int):
+                 chunk: int, sharded: bool = False):
         self.core = core
         self.key = key
         self.bucket, self.batch = key[0], key[1]
         self.scheme = scheme
         self.chunk = chunk
+        #: this rank's place in the model group (a sharded key), else None
+        self.shard = core.mesh.pair_shard() if sharded else None
         self.graph = None
         self.static_in: tuple = ()
         self.static_out: dict = {}
         #: kernel launches per variant captured into the graph: every
         #: replay runs them again without passing through the wrappers
         self.kernel_launches: dict[str, int] = {}
+        #: collectives (calls and bytes by name) captured into the graph
+        self.collectives: dict[str, dict[str, int]] = {}
         self.capture_ms = 0.0          # warm-up + capture, host clock
         self.instantiate_ms = 0.0
         self.nodes: int | None = None
@@ -162,11 +186,18 @@ class _Executable:
     def on_card(self) -> bool:
         return self.core.device.type == "cuda"
 
+    @property
+    def graphed(self) -> bool:
+        """A CUDA graph: on the card, unless the key's collectives take the
+        host-staged route."""
+        return self.on_card and (self.shard is None or self.core.mesh.graphs)
+
     def _forward(self, *inputs):
         core = self.core
+        kw = {} if self.shard is None else {"shard": self.shard}
         with torch.inference_mode(), dispatch.use_backend(core.kernels):
             return core.workload.forward(self.scheme, self.chunk, core.params,
-                                         *inputs)
+                                         *inputs, **kw)
 
     def synthetic_inputs(self) -> tuple:
         """Full-occupancy inputs of the key's shape on the engine's device:
@@ -179,9 +210,12 @@ class _Executable:
         return tuple(out)
 
     def build(self) -> float:
-        """Capture (card) or register (CPU); returns seconds spent."""
+        """Capture (a graph) or register (eager); returns seconds spent.
+        The controller has every worker build a sharded key with it."""
         t0 = time.perf_counter()
-        if self.on_card:
+        if self.shard is not None and not self.core.worker:
+            self.core.mesh.send(("build", self.core.mesh_eid, self.key))
+        if self.graphed:
             self._capture()
         note_capture()
         return time.perf_counter() - t0
@@ -204,11 +238,13 @@ class _Executable:
         torch.cuda.empty_cache()
         # keep the cudaGraph_t: instantiate apart from the capture, count nodes
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = dispatch.launch_counts()
+        before, coll_before = dispatch.launch_counts(), coll.counts()
         with torch.cuda.graph(graph, pool=core.graph_pool, stream=side,
                               capture_error_mode="thread_local"):
             out = self._forward(*self.static_in)
-        after = dispatch.launch_counts()
+        after, coll_after = dispatch.launch_counts(), coll.counts()
+        self.collectives = {k: {f: coll_after[k][f] - coll_before[k][f] for f in v}
+                            for k, v in coll_after.items()}
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         t1 = time.perf_counter()
         graph.instantiate()
@@ -216,18 +252,33 @@ class _Executable:
         self.instantiate_ms = (time.perf_counter() - t1) * 1e3
         self.nodes = _graph_node_count(graph)
         self.kernel_launches = {k: after[k] - before[k] for k in after}
-        # only the outputs read after a replay stay referenced; the rest of
-        # the graph's memory returns to the shared pool
-        self.static_out = {k: out[k] for k in core.workload.output_keys()}
+        # only the outputs read after a replay stay referenced (on a worker
+        # none: rank 0 keeps the result); the rest of the graph's memory
+        # returns to the shared pool
+        self.static_out = ({} if core.worker else
+                           {k: out[k] for k in core.workload.output_keys()})
         self.graph = graph
 
     def launch(self, *inputs) -> dict:
-        """Stage the inputs, run the key, copy the outputs out (card: all in
-        stream order, nothing waited for; CPU: eager)."""
-        if not self.on_card:
+        """Stage the inputs, run the key, copy the outputs out (graph: all
+        in stream order, nothing waited for; eager on the CPU or, with
+        host-staged collectives, on the card).  The controller first sends
+        a sharded launch's key and inputs to every worker."""
+        core = self.core
+        if self.shard is not None and not core.worker:
+            core.mesh.send(("run", core.mesh_eid, self.key,
+                            tuple(t.numpy() for t in inputs)))
+        if not self.graphed:
+            if self.on_card:
+                inputs = tuple(t.to(core.device, non_blocking=True) for t in inputs)
             out = self._forward(*inputs)
-            return {**{k: out[k] for k in self.core.workload.output_keys()},
-                    "ready": None}
+            res = {} if core.worker else {k: out[k] for k in core.workload.output_keys()}
+            if self.on_card:
+                res["ready"] = torch.cuda.Event()
+                res["ready"].record()
+            else:
+                res["ready"] = None
+            return res
         for static, host in zip(self.static_in, inputs):
             static.copy_(host, non_blocking=True)
         self.graph.replay()
@@ -256,7 +307,8 @@ class _Executable:
     def describe(self) -> dict:
         return {"key": "|".join(map(str, self.key)), "capture_ms": self.capture_ms,
                 "instantiate_ms": self.instantiate_ms, "nodes": self.nodes,
-                "replays": self.replays, "kernel_launches": dict(self.kernel_launches)}
+                "replays": self.replays, "kernel_launches": dict(self.kernel_launches),
+                "collectives": dict(self.collectives)}
 
 
 class EngineCore:
@@ -273,7 +325,7 @@ class EngineCore:
                  tracer: Tracer | None = None,
                  workload: Workload | None = None,
                  cost_model: CostModel | None = None,
-                 device=None):
+                 device=None, worker: bool = False):
         from repro_torch.serving.scheduler import pow2_buckets
         if inflight_depth < 1:
             raise ValueError(f"inflight_depth must be >= 1, "
@@ -301,9 +353,22 @@ class EngineCore:
             raise ValueError(f"kernels must be one of {dispatch.BACKENDS}, "
                              f"got {kernels!r}")
         self.kernels = kernels
-        # raises NotImplementedError on a mesh or a shard threshold
         self.placement = PlacementPolicy(mesh=mesh,
                                          shard_threshold=shard_threshold)
+        #: a worker rank's core (``serve_worker``): it runs the keys rank 0
+        #: sends and keeps no result
+        self.worker = worker
+        self.mesh = None
+        self.mesh_eid = None
+        if self.placement.mesh is not None:
+            if mem_budget_mb is not None and self.placement.mesh.colocated_on(self.device):
+                raise ValueError(
+                    f"{self.placement.mesh.label} on the host-staged route puts every "
+                    f"rank on one card, where admission prices one rank a device: "
+                    f"it takes no memory budget (serve on a card a rank, over NCCL)")
+            self.mesh = self.placement.mesh.bind(self.device)
+            if self.mesh.device is not None and self.device.type == "cuda":
+                self.device = self.mesh.device
         budget = None if mem_budget_mb is None else int(mem_budget_mb * 1e6)
         self.workload = (FoldWorkload() if workload is None
                          else workload).bind(self)
@@ -338,6 +403,12 @@ class EngineCore:
         self._staging: dict[tuple[int, int, int], tuple] = {}
         self.replayed_launches: dict[str, int] = {
             k: 0 for k in dispatch.KERNEL_VARIANTS}
+        self._worker_ready: deque = deque()
+        if self.mesh is not None and not worker:
+            self.mesh_eid = self.mesh.open_engine(self, dict(
+                cfg=cfg, scheme=self.scheme, buckets=self.buckets,
+                kernels=kernels, keep_distogram=keep_distogram,
+                shard_threshold=shard_threshold, inflight_depth=inflight_depth))
 
     # -- shape policy -----------------------------------------------------
     def bucket_for(self, length: int) -> int | None:
@@ -403,15 +474,17 @@ class EngineCore:
         placement = self.placement.placement_for(bucket)
         chunk = self.chunk.chunk_for(bucket) or 0
         key = (bucket, batch, scheme.name, placement.label, chunk)
+        return self._executable_for(key, scheme, placement.sharded)
+
+    def _executable_for(self, key: tuple, scheme: QuantScheme, sharded: bool):
         if key in self._executables:
             return self._executables[key], 0.0
-        exe = _Executable(self, key, scheme, chunk)
+        exe = _Executable(self, key, scheme, key[4], sharded)
         compile_s = exe.build()
         self._executables[key] = exe
         self._compile_count += 1
-        self.metrics.record_compile(bucket, compile_s * 1e3,
-                                    scheme=scheme.name,
-                                    placement=placement.label)
+        self.metrics.record_compile(key[0], compile_s * 1e3,
+                                    scheme=scheme.name, placement=key[3])
         self.cost_model.record_compile(key, compile_s * 1e3)
         return exe, compile_s
 
@@ -454,6 +527,23 @@ class EngineCore:
             warmed += 1
         return warmed
 
+    # -- a worker rank (serve_worker) ----------------------------------------
+    def worker_launch(self, key: tuple, inputs: tuple | None) -> None:
+        """Run (``inputs``) or only build (None) the key rank 0 sent: its
+        scheme is this core's or the fidelity twin's."""
+        scheme = self.scheme if key[2] == self.scheme.name else self._fp_scheme
+        exe, _ = self._executable_for(key, scheme, sharded=True)
+        if inputs is None:
+            return
+        # a staging slot is reused only after the launch that last used it
+        if len(self._worker_ready) >= self.inflight_depth:
+            ready = self._worker_ready.popleft()
+            if ready is not None:
+                ready.synchronize()
+        seq = self._batch_seq
+        self._batch_seq += 1
+        self._worker_ready.append(exe.launch(*self._stage(seq, inputs))["ready"])
+
     def describe(self) -> dict:
         """Engine facts: device, keys with their capture cost, and on the
         card the graph pool's reserved bytes."""
@@ -461,6 +551,8 @@ class EngineCore:
              "scheme": self.scheme.name, "compile_count": self._compile_count,
              "keys": [e.describe() for e in self._executables.values()],
              "replayed_launches": dict(self.replayed_launches)}
+        if self.mesh is not None:
+            d["mesh"] = self.mesh.describe()
         if self.device.type == "cuda":
             d["pool_reserved_bytes"] = self.pool_reserved_bytes()
             d["memory_reserved_bytes"] = torch.cuda.memory_reserved(self.device)
@@ -475,6 +567,13 @@ class EngineCore:
         if self._inflight:
             raise RuntimeError(f"close() with {len(self._inflight)} batches in flight; "
                                f"retire() them first")
+        if self.mesh_eid is not None and self.mesh.bound:
+            self.mesh.send(("close", self.mesh_eid))
+            self.mesh_eid = None
+        while self._worker_ready:
+            ready = self._worker_ready.popleft()
+            if ready is not None:
+                ready.synchronize()
         with CAPTURE_LOCK:
             for exe in self._executables.values():
                 exe.graph = None
@@ -659,6 +758,45 @@ class EngineCore:
                 "dispatch()/retire() when pipelining")
         self.dispatch(batch)
         return self.retire()
+
+
+def serve_worker(mesh) -> None:
+    """A worker rank's loop (ranks > 0 of a ``ServingMesh``): carry out the
+    commands rank 0 broadcasts until ``exit`` (module docstring).  A
+    failure ends the process, so that rank 0's collective fails instead of
+    waiting for it."""
+    cores: dict[int, EngineCore] = {}
+    try:
+        while True:
+            msg = mesh.recv()
+            op = msg[0]
+            if op == "exit":
+                break
+            if op == "bind":
+                _, eid, spec, shapes = msg
+                params = mesh.broadcast_params(shapes)
+                cores[eid] = EngineCore(
+                    params, spec["cfg"], spec["scheme"], buckets=spec["buckets"],
+                    kernels=spec["kernels"], keep_distogram=spec["keep_distogram"],
+                    mesh=mesh, shard_threshold=spec["shard_threshold"],
+                    inflight_depth=spec["inflight_depth"], device=mesh.device,
+                    worker=True)
+            elif op == "build":
+                cores[msg[1]].worker_launch(msg[2], None)
+            elif op == "run":
+                cores[msg[1]].worker_launch(msg[2], msg[3])
+            elif op == "close":
+                cores.pop(msg[1]).close()
+            elif op == "stats":
+                mesh.gather_stats(msg[1])
+            else:
+                raise ValueError(f"unknown mesh command {op!r}")
+    except BaseException:
+        traceback.print_exc()
+        os._exit(1)
+    for core in cores.values():
+        core.close()
+    mesh.leave()
 
 
 def _first_leaf(tree):

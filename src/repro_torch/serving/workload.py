@@ -117,9 +117,12 @@ class FoldWorkload(Workload):
     def input_specs(self, bucket: int, batch: int) -> tuple:
         return (((batch, bucket), torch.int32), ((batch, bucket), torch.bool))
 
-    def forward(self, scheme, chunk, params, aatype, mask):
+    def forward(self, scheme, chunk, params, aatype, mask, shard=None):
+        # a sharded key: this rank's shard of the fold; the distogram head
+        # runs (on a mesh, gathered to rank 0) only when it is kept
         return ppm_forward(params, aatype, self.core.cfg, scheme, mask=mask,
-                           chunk_size=chunk or None)
+                           chunk_size=chunk or None, shard=shard,
+                           distogram=self.core.keep_distogram)
 
     def output_keys(self) -> tuple[str, ...]:
         return ("coords", "distogram") if self.core.keep_distogram else ("coords",)

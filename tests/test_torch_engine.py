@@ -15,7 +15,11 @@ Gates:
     bridged parameters: ``baseline_fp16`` allclose 1e-4, ``lightnobel_aaq``
     TM >= 0.995;
   * a steady-state second pass registers no new executable key;
-  * mesh-sharded serving raises (not ported); the HTTP front-end and the
+  * the mesh flags: one without the other exits 2 as the reference's CLI
+    does, ``--listen`` with ``--mesh`` raises (not ported), and ``--mesh 1x2
+    --shard-threshold 64`` serves on two CPU ranks with rows labelled
+    ``mesh:1x2`` (the sharded fold itself is
+    ``tests/test_torch_sharded_fold.py``'s); the HTTP front-end and the
     fleet are ``tests/test_torch_transport.py``'s.
 """
 import contextlib
@@ -341,17 +345,20 @@ def test_steady_state_second_pass_adds_no_key():
 
 
 # --------------------------------------------------------------------------
-# what is not ported raises; the card is the default
+# the mesh flags; what is not ported raises; the card is the default
 # --------------------------------------------------------------------------
 def test_unported_serving_surfaces_raise():
     cfg = reduce_ppm_config()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        EngineCore({}, cfg, buckets=(32,), mesh=object(), shard_threshold=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(ValueError, match="together"):
         FoldClient({}, cfg, buckets=(32,), shard_threshold=32, device="cpu")
-    for argv in (["--mesh", "1x1"], ["--shard-threshold", "64"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            serve.main(["--mode", "ppm", "--device", "cpu", *argv])
+    for argv in (["--mesh", "1x2"], ["--shard-threshold", "64"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(["--mode", "ppm", "--device", "cpu", *argv])
+        assert rc == 2 and "must be given together" in out.getvalue()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        serve.main(["--mode", "ppm", "--device", "cpu", "--listen", "127.0.0.1:0",
+                    "--mesh", "1x2", "--shard-threshold", "64"])
     with pytest.raises(ValueError, match="params live on"):
         EngineCore(init_ppm(cfg, seed=0, device="cpu"), cfg, device="meta")
     if not torch.cuda.is_available():
@@ -359,6 +366,22 @@ def test_unported_serving_surfaces_raise():
             EngineCore({}, cfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             FoldClient({}, cfg)
+
+
+def test_mesh_cli_serves_on_cpu():
+    """``--mesh 1x2 --shard-threshold 64`` starts its second rank itself and
+    serves bucket 64 on the mesh, bucket 32 on rank 0 alone."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--mode", "ppm", "--device", "cpu", "--n", "4", "--buckets",
+                         "32,64", "--min-len", "24", "--max-len", "64", "--max-batch", "2",
+                         "--no-fidelity", "--mesh", "1x2", "--shard-threshold", "64"])
+    assert rc == 0
+    rows = [line.split(",") for line in out.getvalue().splitlines()[1:]
+            if line and not line.startswith("#")]
+    assert len(rows) == 4 and all(r[4] == "ok" for r in rows)
+    labels = {int(r[2]): r[-2] for r in rows}
+    assert labels.get(64) == "mesh:1x2" and labels.get(32, "single") == "single"
 
 
 def test_engine_cli_serves_on_cpu(tmp_path):
