@@ -2,11 +2,11 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --mesh-only   # phases 1, 2, 11 and 12 alone
+    python3 chip_smoke.py --mesh-only   # phases 1, 2, 11, 12 and 13 alone
 
-``--mesh-only`` runs the build and the mesh tier alone: on a host of two
-cards or more that is the run of phase 11(c) across them, without the
-phases that need one card.
+``--mesh-only`` runs the build, the mesh tier and multi-device training
+alone: on a host of two cards or more that is the run of phases 11(c) and
+12(b) across them, without the phases that need one card.
 
 Phases, each fatal on failure:
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA
@@ -163,7 +163,30 @@ Phases, each fatal on failure:
      with two cards or more, W = min(cards, 4) over NCCL across them, the
      chunked fold too; then the pair kernels at a rank's shapes (W = 2,
      4), against their plain versions and timed;
- 12. summary: one JSON line of the kernels, the card, and the last line
+ 12. multi-device training (``launch.train --model-parallel``, the
+     reference's GSPMD step as DTensors; qwen1.5-0.5b at full width,
+     float32, 8 x 64 tokens, deterministic algorithms): ``--model-parallel``
+     with more ranks than cards refused ("needs N devices"); (a) three
+     ``--aaq-ste`` steps on a 1x1 mesh over NCCL against the same steps
+     unsharded: losses, parameters and AdamW state bitwise or within 1e-6
+     relative, ``aaq_fake_quant`` once an act call, no plain fake-quant;
+     (b) with two cards or more, one rank a card: ``--model-parallel 2``
+     (and 4 on four cards) under ``DISABLED`` within 1e-4 relative of one
+     card's losses and under ``--aaq-ste`` within a sanity bound (1e-3:
+     the loss moves ~2e-4 for any change of fake-quant bins at these
+     weights), the first act site's output on rank 0's rows bitwise one
+     card's (its input is), which a control (rank 0 skips its act sites)
+     must fail; on every
+     rank one ``aaq_fake_quant`` launch an act call and no plain
+     fake-quant; each rank's peak memory, collectives a step (calls,
+     bytes) and step times printed; a run failed at step 3 and restarted
+     bitwise the uninterrupted one; on four cards the 2x2 run's checkpoint
+     resumed on a 1x2 mesh bitwise (``resume_elastic``), ``gpipe_loss`` at
+     pod 4 (24 layers, 6 a stage) within 2e-4 of ``loss_fn``, and
+     ``ring_ag_matmul_ws`` on 4 ranks within 2e-4 of ``x @ w`` (every
+     gate of (b) read, then the phase fails if any failed); then
+     ``aaq_fake_quant`` at a rank's training shapes, bitwise and timed;
+ 13. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -3302,11 +3325,469 @@ def serve_mesh(torch, rows: dict) -> tuple:
     return [row for row, _, _ in pending], dict(launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: multi-device training (the sharded train step, GPipe, the ring
+# matmuls, elastic resume)
+# ---------------------------------------------------------------------------
+MT_ARGV = ("--arch", "qwen1.5-0.5b", "--batch", "8", "--seq", "64", "--lr", "1e-3",
+           "--deterministic", "--ckpt-every", "1000")
+MT_STEPS = 3
+#: the sharded run's losses against one card's under DISABLED (the
+#: reference's gate for its sharded step, ``tests/test_distributed.py``)
+MT_FP_TOL = 1e-4
+#: ... and under ``--aaq-ste``, relative: a sanity bound, not a fault
+#: detector.  The H100 read 1.88e-4 at 2x2 and 5.44e-5 at 1x4, and a rank
+#: that skips its act sites 2.45e-4: at these random full-width weights
+#: the whole AAQ-vs-DISABLED gap of the loss is 2.5e-4, and the products'
+#: partial sums, added in another order, move values across fake-quant
+#: bins that a loss this flat turns into gaps of that size (DISABLED reads
+#: 3.9e-7).  The fault gate is ``_first_act``'s, bitwise.
+MT_AAQ_TOL = 1e-3
+#: the 1x1 mesh's losses and parameters against phase 10's unsharded steps:
+#: bitwise expected (every op the same on the whole tensor), else this
+MT_1X1_TOL = 1e-6
+#: GPipe against ``loss_fn``, the ring matmul against ``x @ w`` (relative
+#: to the largest entry): the reference's gates
+MT_GPIPE_TOL = 2e-4
+MT_RING_TOL = 2e-4
+MT_GPIPE_POD = 4
+MT_RING_SHAPE = (4096, 8192, 4096)     # (m, k, n)
+
+
+def _mt_args(steps, aaq, *extra) -> list:
+    return [*MT_ARGV, "--steps", str(steps), *(("--aaq-ste",) if aaq else ()), *extra]
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _losses_gap(a, b) -> float:
+    return max(_rel(x, y) for x, y in zip(a, b)) if len(a) == len(b) else math.inf
+
+
+def _state_gap(torch, a, b) -> float:
+    """max over leaves of max|a - b| / max|b| (0 where bitwise)."""
+    from repro_torch.tree import leaves
+    gap = 0.0
+    for x, y in zip(leaves(a), leaves(b)):
+        y = y.to(x.device)
+        if not _bitwise(torch, x, y):
+            gap = max(gap, float((x.float() - y.float()).abs().max())
+                      / max(float(y.float().abs().max()), 1e-30))
+    return gap
+
+
+def _mt_refusal(torch) -> None:
+    """``--model-parallel`` with more ranks than cards is refused."""
+    from repro_torch.launch import train
+    over = torch.cuda.device_count() + 1
+    try:
+        train.main(_mt_args(1, False, "--model-parallel", str(over)))
+    except ValueError as e:
+        if f"needs {over} devices" not in str(e):
+            fail(f"phase 12: --model-parallel {over} refused with {e}")
+    else:
+        fail(f"phase 12: --model-parallel {over} was not refused on {over - 1} card(s)")
+    log(f"phase 12: --model-parallel {over} refused on {over - 1} card(s) "
+        f"(needs {over} devices)")
+
+
+@contextlib.contextmanager
+def _one_rank_nccl():
+    """A process group of this process alone over NCCL (a 1x1 mesh)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lmesh
+    d, init = lmesh.rendezvous()
+    lmesh.init_train_group(0, 1, init, "cuda")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _mt_1x1(torch, tally) -> dict:
+    """(a): three steps through ``launch.train`` on a 1x1 mesh over NCCL
+    against the same three steps unsharded (phase 10's path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    cfg = get_config("qwen1.5-0.5b").replace(dtype="float32")
+    ck = ROOT / "build" / "phase12_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    with _deterministic(torch):
+        plain = train.main(_mt_args(MT_STEPS, True, "--ckpt-dir", str(ck / "plain")))
+        with _one_rank_nccl():
+            dispatch.reset_counters()
+            with _fq_tally(torch, tally):
+                got = train.main(_mt_args(MT_STEPS, True, "--gather-state",
+                                          "--ckpt-dir", str(ck / "mesh")))
+            launches, plain_calls, routed = _counts()
+    shutil.rmtree(ck, ignore_errors=True)
+    acts, _ = _train_passes(cfg)
+    lg, sg = _losses_gap(got.losses, plain.losses), _state_gap(torch, got.state, plain.state)
+    out = dict(mesh=got.mesh, losses=got.losses, unsharded=plain.losses, loss_gap=lg,
+               state_gap=sg, bitwise=lg == 0 and sg == 0,
+               fake_quant=launches["aaq_fake_quant"], want_fake_quant=MT_STEPS * acts,
+               step_ms=[round(h["step_ms"], 1) for h in got.driver.history],
+               unsharded_step_ms=[round(h["step_ms"], 1) for h in plain.driver.history])
+    log(f"phase 12(a), 1x1 over NCCL, qwen1.5-0.5b full width f32, 8 x 64, --aaq-ste, "
+        f"{MT_STEPS} steps: losses {got.losses} against unsharded {plain.losses}; max "
+        f"relative gap losses {lg:.3e}, parameters and AdamW state {sg:.3e} (bitwise: "
+        f"{out['bitwise']}; limit {MT_1X1_TOL}); aaq_fake_quant {out['fake_quant']} launches "
+        f"(want {MT_STEPS} x {acts}), plain fake-quant {plain_calls['aaq_fake_quant']}; step "
+        f"ms {out['step_ms']} (unsharded {out['unsharded_step_ms']})")
+    if not (got.mesh == (1, 1) and lg <= MT_1X1_TOL and sg <= MT_1X1_TOL
+            and launches["aaq_fake_quant"] == MT_STEPS * acts
+            and not any(plain_calls.values()) and routed["fakequant.ref"] == 0
+            and routed["fakequant.ref_grad"] == 0):
+        fail(f"phase 12(a): {out} plain {plain_calls} routed {routed}")
+    return out
+
+
+@contextlib.contextmanager
+def _first_act(torch, rec: dict):
+    """Record the first act site's input and output of a run into ``rec``
+    (rank 0's local rows of a DTensor: rank 0 sits at coordinate 0 of
+    every mesh dim, so its rows are the leading slice of each sharded
+    dim).  The first site fake-quantizes the embedding's rows, which the
+    vocabulary-parallel lookup makes bitwise one card's (it adds zeros):
+    its output is the one place where a sharded AAQ run must be bitwise
+    one card's."""
+    from repro_torch.core import policy
+    from repro_torch.parallel import sharding as sh
+    inner = policy._fake_quant_ste
+
+    def first(x, bits, k_outliers):
+        y = inner(x, bits, k_outliers)
+        if not rec:
+            def local(t):
+                return (t.to_local() if sh.is_dtensor(t) else t).detach().clone()
+            rec.update(x=local(x), y=local(y), bits=bits, k=k_outliers)
+        return y
+
+    with swapped(policy, "_fake_quant_ste", first):
+        yield
+
+
+def _first_same(torch, got: dict, want: dict) -> tuple:
+    """(input bitwise, output bitwise): rank 0's first-site rows against
+    the same rows of one card's run."""
+    sl = tuple(slice(0, n) for n in got["x"].shape)
+    return (_bitwise(torch, got["x"], want["x"][sl].contiguous()),
+            _bitwise(torch, got["y"].contiguous(), want["y"][sl].contiguous()))
+
+
+def _mt_run(torch, mp, aaq, steps, report, *extra, tally=None, skip_rank0_acts=False,
+            first=None):
+    """``launch.train --model-parallel mp`` with this process as rank 0 (the
+    launcher starts ranks 1..W-1 on the other cards); returns (the run,
+    every rank's ``--report``).  ``first``: a dict ``_first_act`` fills."""
+    from repro_torch.core import policy
+    from repro_torch.launch import train
+    shutil.rmtree(report, ignore_errors=True)
+    argv = _mt_args(steps, aaq, "--model-parallel", str(mp), "--report", str(report), *extra)
+    skip = (swapped(policy, "_fake_quant_ste", lambda x, bits, k: x) if skip_rank0_acts
+            else contextlib.nullcontext())
+    count = _fq_tally(torch, tally) if tally is not None else contextlib.nullcontext()
+    rec = _first_act(torch, first) if first is not None else contextlib.nullcontext()
+    with skip, count, rec:                  # (the recorder wraps the skip)
+        run = train.main(argv)
+    reps = [json.loads(p.read_text()) for p in sorted(Path(report).glob("rank*.json"))]
+    return run, reps
+
+
+def _mt_rank_line(what, reps) -> str:
+    return "; ".join(
+        f"rank {r['rank']}: peak {r['peak_bytes'] / 2**30:.2f} GiB above what it held "
+        f"(one card 8.87), "
+        f"step ms {[round(x, 1) for x in r['step_ms']]}, collectives a step "
+        f"{ {k: (v['calls'], round(v['bytes'] / 2**20, 2)) for k, v in r['collectives_a_step'].items()} } "
+        f"(calls, MiB)" for r in reps)
+
+
+def _mt_check_ranks(what, reps, steps, acts, aaq) -> None:
+    for r in reps:
+        fq = r["launches"]["aaq_fake_quant"]
+        if (fq != (steps * acts if aaq else 0) or any(r["plain"].values())
+                or r["routed"]["fakequant.ref"] or r["routed"]["fakequant.ref_grad"]):
+            fail(f"{what} rank {r['rank']}: aaq_fake_quant {fq} (want {steps} x {acts}), "
+                 f"plain {r['plain']}, routed {r['routed']}")
+
+
+def _mt_meshes(torch, tallies) -> dict:
+    """(b): with two cards or more, the sharded runs at model 2 (and 4 on
+    four cards) against one card's, the restart, the control, elastic
+    resume, GPipe and the ring matmul."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    cfg = get_config("qwen1.5-0.5b").replace(dtype="float32")
+    acts, _ = _train_passes(cfg)
+    cards = torch.cuda.device_count()
+    base = ROOT / "build" / "phase12"
+    shutil.rmtree(base, ignore_errors=True)
+    out = {}
+    bad = []         # every gate of (b) is read in one run, then the phase fails
+    with _deterministic(torch):
+        one_fp = train.main(_mt_args(MT_STEPS, False, "--ckpt-dir", str(base / "one_fp")))
+        one_first = {}
+        with _first_act(torch, one_first):
+            one_aaq = train.main(_mt_args(MT_STEPS, True, "--ckpt-dir", str(base / "one_aaq")))
+        one_fp.state = one_aaq.state = None               # their losses are what is kept
+        for mp in (2, 4) if cards >= 4 else (2,):
+            t0 = time.perf_counter()
+            fp, fp_reps = _mt_run(torch, mp, False, MT_STEPS, base / f"rep_fp{mp}",
+                                  "--ckpt-dir", str(base / f"fp{mp}"))
+            tallies[fp.mesh] = Counter()
+            first = {}
+            aaq, aaq_reps = _mt_run(torch, mp, True, MT_STEPS, base / f"rep_aaq{mp}",
+                                    "--ckpt-dir", str(base / f"aaq{mp}"), "--ckpt-every", "2",
+                                    tally=tallies[fp.mesh], first=first)
+            f_in, f_out = _first_same(torch, first, one_first)
+            fp.state = aaq.state = None                   # (rank 0's DTensors, on the card)
+            what = f"phase 12(b), --model-parallel {mp} on a {fp.mesh} mesh"
+            _mt_check_ranks(what, fp_reps, MT_STEPS, acts, False)
+            _mt_check_ranks(what, aaq_reps, MT_STEPS, acts, True)
+            g_fp, g_aaq = _losses_gap(fp.losses, one_fp.losses), _losses_gap(aaq.losses,
+                                                                              one_aaq.losses)
+            out[f"mp{mp}"] = dict(mesh=fp.mesh, fp_losses=fp.losses, aaq_losses=aaq.losses,
+                                  fp_gap=g_fp, aaq_gap=g_aaq, first_input_bitwise=f_in,
+                                  first_output_bitwise=f_out, fp_ranks=fp_reps,
+                                  aaq_ranks=aaq_reps)
+            log(f"{what}: DISABLED losses {fp.losses} against one card's {one_fp.losses} "
+                f"(max relative gap {g_fp:.3e}, limit {MT_FP_TOL}); --aaq-ste {aaq.losses} "
+                f"against {one_aaq.losses} ({g_aaq:.3e}, bound {MT_AAQ_TOL}); the first act "
+                f"site on rank 0's rows {tuple(first['x'].shape)}: input bitwise one card's "
+                f"{f_in}, fake-quant output bitwise {f_out}; every rank aaq_fake_quant "
+                f"{MT_STEPS} x {acts}, no plain fake-quant; {time.perf_counter() - t0:.1f}s")
+            log(f"{what}, --aaq-ste: {_mt_rank_line(what, aaq_reps)}")
+            if not (g_fp <= MT_FP_TOL and g_aaq <= MT_AAQ_TOL and f_in and f_out):
+                bad.append(f"{what}: loss gaps {g_fp} / {g_aaq}, first act site input "
+                           f"bitwise {f_in}, output bitwise {f_out}")
+            if mp == 2:
+                failed, _ = _mt_run(torch, 2, True, 4, base / "rep_failed", "--fail-at", "3",
+                                    "--ckpt-every", "2", "--gather-state",
+                                    "--ckpt-dir", str(base / "failed"))
+                full, _ = _mt_run(torch, 2, True, 4, base / "rep_full", "--gather-state",
+                                  "--ckpt-dir", str(base / "full"))
+                same = _tree_equal(torch, failed.state, full.state)
+                failed.state = full.state = None
+                ctl_first = {}
+                ctl, _ = _mt_run(torch, 2, True, MT_STEPS, base / "rep_ctl",
+                                 "--ckpt-dir", str(base / "ctl"), skip_rank0_acts=True,
+                                 first=ctl_first)
+                g_ctl = _losses_gap(ctl.losses, one_aaq.losses)
+                c_in, c_out = _first_same(torch, ctl_first, one_first)
+                out["restart"] = dict(restarts=failed.driver.restarts,
+                                      starts=failed.driver.starts, bitwise=same,
+                                      losses=failed.losses, full=full.losses)
+                out["control"] = dict(gap=g_ctl, first_input_bitwise=c_in,
+                                      first_output_bitwise=c_out)
+                log(f"{what}: failed at step 3 and restarted (restarts "
+                    f"{failed.driver.restarts}, starts {failed.driver.starts}), final "
+                    f"parameters and AdamW state bitwise the uninterrupted run's: {same}; "
+                    f"control (rank 0 skips its act sites): losses {ctl.losses}, gap "
+                    f"{g_ctl:.3e} against one card's; the first act site's input bitwise "
+                    f"{c_in}, output bitwise {c_out} (must be False)")
+                if not (same and failed.driver.restarts == 1 and failed.driver.starts == [0, 2]
+                        and failed.losses[-1] == full.losses[-1] and c_in and not c_out):
+                    bad.append(f"{what}: restart {out['restart']} control {out['control']}")
+                ckpt_2x2 = base / "aaq2"
+    if cards >= 4:
+        out["elastic"] = _rank_job_run(torch, "elastic", 2, str(ckpt_2x2))
+        out["gpipe"] = _rank_job_run(torch, "gpipe", MT_GPIPE_POD, "")
+        out["ring"] = _rank_job_run(torch, "ring", 4, "")
+        e, g, r = out["elastic"], out["gpipe"], out["ring"]
+        if not (e["bitwise"] and e["mesh"] == (1, 2) and e["microbatch_scale"] == 2):
+            bad.append(f"phase 12(b) elastic: {e}")
+        if not g["gap"] <= MT_GPIPE_TOL:
+            bad.append(f"phase 12(b) gpipe: {g}")
+        if not r["gap"] <= MT_RING_TOL:
+            bad.append(f"phase 12(b) ring: {r}")
+    else:
+        log(f"phase 12(b): {cards} cards; elastic resume from 2x2, GPipe at pod 4 and the "
+            f"ring on 4 ranks need four")
+    shutil.rmtree(base, ignore_errors=True)
+    if bad:
+        fail("; ".join(bad))
+    return out
+
+
+# the rank jobs of (b): rank 0 is this process, ranks 1.. processes of this
+# script (``--rank-job``) on the other cards
+def _rank_job_run(torch, job, world, arg) -> dict:
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lmesh
+    d, init = lmesh.rendezvous()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--rank-job", job,
+                               "--rank", str(r), "--world", str(world), "--init", init,
+                               "--arg", arg, "--parent", str(os.getpid())],
+                              stdout=subprocess.DEVNULL) for r in range(1, world)]
+    t0 = time.perf_counter()
+    ok = False
+    try:
+        lmesh.init_train_group(0, world, init, "cuda")
+        res = _RANK_JOBS[job](torch, 0, world, arg)
+        dist.barrier()
+        ok = True
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if ok:
+            lmesh.stop_ranks(procs)
+        else:
+            for p in procs:
+                p.kill()
+                p.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    bad = [p.returncode for p in procs if p.returncode]
+    if bad:
+        fail(f"phase 12(b) {job}: ranks exited {bad}")
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 12(b) {job} on {world} ranks: {json.dumps(res)}")
+    return res
+
+
+def _job_elastic(torch, rank, world, ckpt_dir) -> dict:
+    """The 2x2 run's latest checkpoint restored onto a 1x2 mesh: every leaf
+    gathered bitwise the checkpoint's array."""
+    import numpy as np
+    from repro_torch.checkpoint import checkpointing as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.elastic import plan_for_devices, resume_elastic
+    from repro_torch.tree import leaves
+    cfg = get_config("qwen1.5-0.5b").replace(dtype="float32")
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    template = (params, adamw.init(params))
+    plan = plan_for_devices(world, model_parallel=2, old_data=2)
+    step, tree, mesh = resume_elastic(ckpt_dir, template, plan, cfg)
+    d = Path(ckpt_dir) / f"step_{step:08d}"
+    same = all(np.array_equal(sh.to_global(x).cpu().numpy(), np.load(d / f"arr_{i}.npy"))
+               for i, x in enumerate(leaves(tree)))
+    return dict(step=step, mesh=tuple(mesh.shape), microbatch_scale=plan.microbatch_scale,
+                leaves=len(leaves(tree)), bitwise=same)
+
+
+def _job_gpipe(torch, rank, world, _arg) -> dict:
+    """``gpipe_loss`` over ``pod`` = world (24 layers, 24/world a stage),
+    4 microbatches, against ``loss_fn`` on one card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel.pipeline import gpipe_loss
+    cfg = get_config("qwen1.5-0.5b").replace(dtype="float32")
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in SyntheticLM(cfg.vocab, 64, 8, seed=0).batch(0).items()}
+    mesh = make_mesh((world,), ("pod",))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = float(gpipe_loss(params, batch, cfg, mesh=mesh, n_micro=4))
+        ms = (time.perf_counter() - t0) * 1e3
+        want = float(lm.loss_fn(params, batch, cfg, remat=False))
+    return dict(pod=world, layers=cfg.layers, gpipe=got, loss_fn=want, gap=_rel(got, want),
+                ms=ms)
+
+
+def _job_ring(torch, rank, world, _arg) -> dict:
+    """``ring_ag_matmul_ws`` on ``world`` ranks (each its k-block of x, w
+    whole) against ``x @ w`` on one card, timed."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import overlap
+    m, k, n = MT_RING_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((m, k), generator=g, device="cuda")
+    w = torch.randn((k, n), generator=g, device="cuda")
+    group = make_mesh((world,), ("model",)).get_group(0)
+    kl = k // world
+    xs = x[:, rank * kl:(rank + 1) * kl].contiguous()
+    got = overlap.ring_ag_matmul_ws(xs, w, group)
+    want = x @ w
+    gap = float((got - want).abs().max()) / float(want.abs().max())
+    ring_ms = call_ms(torch, lambda: overlap.ring_ag_matmul_ws(xs, w, group), iters=5, warmup=1)
+    dense_ms = call_ms(torch, lambda: x @ w, iters=5, warmup=1)
+    return dict(shape=MT_RING_SHAPE, ranks=world, gap=gap, ring_ms=ring_ms,
+                one_card_matmul_ms=dense_ms)
+
+
+_RANK_JOBS = {"elastic": _job_elastic, "gpipe": _job_gpipe, "ring": _job_ring}
+
+
+def rank_job(args) -> int:
+    """A started rank of a phase 12(b) job: joins the group, runs the job,
+    prints nothing."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import mesh as lmesh
+    lmesh._watch_parent(args.parent)
+    lmesh.init_train_group(args.rank, args.world, args.init, "cuda")
+    _RANK_JOBS[args.rank_job](torch, args.rank, args.world, args.arg)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _mt_rows(torch, tallies) -> list:
+    """``aaq_fake_quant`` at a rank's training shapes, from rank 0's tally of
+    each mesh's --aaq-ste run, bitwise against the plain version and
+    timed; launches a step a rank."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for mesh, tally in tallies.items():
+        for (t, h, dt, bits, k), n in sorted(tally.items()):
+            x = torch.randn((t, h), generator=g, device="cuda")
+            _quant_pair(torch, x, bits, k, f"the {mesh} training shape T={t} H={h}")
+            row = _timed_quant_row(torch, "aaq_fake_quant", x, bits, k,
+                                   f"x ({t}, {h}) float32, bits {bits}, k {k} (training, a "
+                                   f"rank of a {mesh[0]}x{mesh[1]} mesh)")
+            row.launches = n // MT_STEPS
+            log(row.line() + f" launches a step a rank {row.launches}")
+            rows.append(row)
+    return rows
+
+
+def train_mesh(torch, card: str) -> tuple:
+    """Phase 12 (see the module docstring).  Returns (the training quantize
+    rows at a rank's shapes, the launches by variant of rank 0's counted
+    runs)."""
+    t0 = time.perf_counter()
+    _mt_refusal(torch)
+    tallies = {(1, 1): Counter()}
+    one = _mt_1x1(torch, tallies[(1, 1)])
+    log(f"phase 12(a) done at {time.perf_counter() - t0:.1f}s")
+    multi = {}
+    if torch.cuda.device_count() >= 2:
+        multi = _mt_meshes(torch, tallies)
+    else:
+        log("phase 12(b): one card visible; sharded training across cards not run")
+    rows = _mt_rows(torch, tallies)
+    log(f"phase 12 readings on {card}: {json.dumps(dict(one_by_one=one, meshes=multi))}")
+    log(f"phase 12 wall {time.perf_counter() - t0:.1f}s")
+    return rows, {"aaq_fake_quant": sum(sum(t.values()) for t in tallies.values())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke test of the port on the card")
     ap.add_argument("--mesh-only", action="store_true",
-                    help="build the kernels and run phase 11 (the mesh tier) alone")
+                    help="build the kernels and run phases 11 and 12 (the mesh tier and "
+                         "multi-device training) alone")
+    # a started rank of a phase 12(b) job (``_rank_job_run``)
+    ap.add_argument("--rank-job", choices=sorted(_RANK_JOBS), help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--init", help=argparse.SUPPRESS)
+    ap.add_argument("--arg", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--parent", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank_job:
+        return rank_job(args)
     try:
         import torch
     except ImportError:
@@ -3408,20 +3889,28 @@ def main(argv=None) -> int:
     log(f"mesh launches (rank 0's counted runs): {mesh_launches}")
     log(f"phase 11 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 12. summary
+    # 12. multi-device training: a 1x1 mesh over NCCL, and across cards
+    # where there are two or more
+    mt_rows, mt_launches = train_mesh(torch, smi)
+    log(f"multi-device training launches (rank 0's counted runs): {mt_launches}")
+    log(f"phase 12 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 13. summary
     log(f"total {time.perf_counter() - t_start:.1f}s")
     # each variant at its first timed shape, then every kernel at the engine's
     # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs), the
     # LM decode shapes, the zoo's shapes, the quantize forms at the zoo's
-    # residual widths (bf16, bits 8, k 4) and at the training shapes, and
-    # the pair kernels at a mesh rank's shapes (1x2, 1x4)
+    # residual widths (bf16, bits 8, k 4) and at the training shapes, the
+    # pair kernels at a mesh rank's shapes (1x2, 1x4), and the fake-quant at
+    # a training rank's shapes
     print(json.dumps({"kernels": [r[0].record() for r in rows.values()]
                       + [row.record() for row, _, _ in pending]
                       + [row.record() for row, _ in lm_pending]
                       + [row.record() for row, _ in zoo_pending]
                       + [row.record() for row, _ in wide_pending]
                       + [row.record() for row, _ in train_pending]
-                      + [row.record() for row in mesh_rows]}))
+                      + [row.record() for row in mesh_rows]
+                      + [row.record() for row in mt_rows]}))
     print(smi)
     print(ok_line(torch))
     return 0
@@ -3434,13 +3923,17 @@ def ok_line(torch) -> str:
 
 
 def mesh_only(torch, smi, t_start) -> int:
-    """``--mesh-only``: phase 11 after the build, then its kernel rows,
-    the card and the last line."""
+    """``--mesh-only``: phases 11 and 12 after the build, then their kernel
+    rows, the card and the last line."""
     mesh_rows, mesh_launches = serve_mesh(torch, {})
     log(f"mesh launches (rank 0's counted runs): {mesh_launches}")
     log(f"phase 11 done at {time.perf_counter() - t_start:.1f}s")
+    mt_rows, mt_launches = train_mesh(torch, smi)
+    log(f"multi-device training launches (rank 0's counted runs): {mt_launches}")
+    log(f"phase 12 done at {time.perf_counter() - t_start:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": [row.record() for row in mesh_rows]}))
+    print(json.dumps({"kernels": [row.record() for row in mesh_rows]
+                      + [row.record() for row in mt_rows]}))
     print(smi)
     print(ok_line(torch))
     return 0

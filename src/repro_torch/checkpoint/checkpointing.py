@@ -20,6 +20,14 @@ Guarantees:
     after a successful save (never before),
   * async: ``AsyncCheckpointer.save_async`` copies the tensors to the host
     (blocking only for the copy) and writes on a worker thread.
+
+Sharded state (DTensor leaves, a ``--model-parallel`` run): a checkpoint
+holds the host view, the whole array a leaf, as the reference's does, so it
+is mesh-agnostic.  Every rank gathers each DTensor leaf (``full_tensor``)
+on the caller's thread, in leaf order (a collective on the writer thread
+could hang its peers), and only global rank 0 writes.  ``restore(...,
+shardings=)`` distributes each leaf to its ``NamedSharding``'s placements;
+a DTensor template leaf without one takes the template's.
 """
 from __future__ import annotations
 
@@ -32,15 +40,24 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.parallel import sharding as sh
 from repro_torch.tree import leaves, unflatten
 
 
+def _writer() -> bool:
+    """Does this process write checkpoints (global rank 0, or no group)?"""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host(leaf, snapshot: bool = False) -> np.ndarray:
-    """A leaf as a host numpy array (bf16 tensors as numpy's bfloat16);
-    ``snapshot``: never a view of the leaf's memory (a device leaf's host
-    copy is one already)."""
+    """A leaf as a host numpy array (bf16 tensors as numpy's bfloat16; a
+    DTensor gathered whole first, a collective); ``snapshot``: never a
+    view of the leaf's memory (a device leaf's host copy is one already)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if sh.is_dtensor(t):
+            t = t.full_tensor()
         t = t.clone() if snapshot and t.device.type == "cpu" else t.cpu()
         if t.dtype == torch.bfloat16:
             import ml_dtypes   # numpy's bfloat16 type
@@ -59,9 +76,30 @@ def _treedef(tree) -> str:
     return "*"
 
 
+def _gathered(tree, snapshot: bool = False) -> list | None:
+    """The writer's host arrays of ``tree``'s leaves (None on another
+    rank); every rank takes part in each DTensor leaf's gather, in leaf
+    order, and only the writer copies it to the host."""
+    if _writer():
+        return [_host(x, snapshot) for x in leaves(tree)]
+    for x in leaves(tree):
+        if sh.is_dtensor(x):
+            x.full_tensor()                 # the writer's gather needs this rank
+    return None
+
+
 def save(ckpt_dir: str, step: int, tree, keep_last_k: int = 3) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write ``tree`` as step ``step``; with a process group, every rank
+    calls it (DTensor leaves are gathered) and rank 0 alone writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if any(sh.is_dtensor(x) for x in leaves(tree)):
+        flat = _gathered(tree)
+        if flat is None:
+            return final
+        tree = unflatten(tree, flat)
+    if not _writer():
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp-step_{step:08d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -111,7 +149,10 @@ class AsyncCheckpointer:
     def save_async(self, step: int, tree) -> None:
         self.wait()                                   # one in flight
         t0 = time.perf_counter()
-        flat = [_host(x, snapshot=True) for x in leaves(tree)]
+        # DTensor leaves gather here, on the caller's thread, on every rank
+        flat = _gathered(tree, snapshot=True)
+        if flat is None:
+            return
         rec = {"step": step, "snapshot_ms": (time.perf_counter() - t0) * 1e3,
                "bytes": sum(a.nbytes for a in flat)}
 
@@ -132,24 +173,41 @@ def latest_step(ckpt_dir: str) -> int | None:
     return int(steps[-1].split("_")[1]) if steps else None
 
 
-def _like(arr: np.ndarray, template):
-    """``arr`` as the template leaf's kind: a tensor of its dtype on its
-    device, else a numpy array."""
-    if not isinstance(template, torch.Tensor):
-        return arr
-    if tuple(arr.shape) != tuple(template.shape):
-        raise ValueError(f"checkpoint leaf of shape {arr.shape} does not match the "
-                         f"template's {tuple(template.shape)}")
+def _tensor(arr: np.ndarray, dtype, device) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":      # (ascontiguousarray makes a 0-d array 1-d)
         t = torch.from_numpy(arr.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.reshape(arr.shape).to(device=template.device, dtype=template.dtype)
+    return t.reshape(arr.shape).to(device=device, dtype=dtype or t.dtype)
 
 
-def restore(ckpt_dir: str, template, step: int | None = None):
+def _like(arr: np.ndarray, template, sharding=None):
+    """``arr`` as the template leaf's kind: a tensor of its dtype on its
+    device, else a numpy array; a DTensor of ``sharding``'s placements
+    (else a DTensor template's) on that mesh, each rank keeping its shard."""
+    if isinstance(template, torch.Tensor) and tuple(arr.shape) != tuple(template.shape):
+        raise ValueError(f"checkpoint leaf of shape {arr.shape} does not match the "
+                         f"template's {tuple(template.shape)}")
+    if sharding is not None:
+        mesh, to = sharding.mesh, sharding.placements
+    elif sh.is_dtensor(template):
+        mesh, to = template.device_mesh, tuple(template.placements)
+    elif isinstance(template, torch.Tensor):
+        return _tensor(arr, template.dtype, template.device)
+    else:
+        return arr
+    from torch.distributed.tensor import distribute_tensor
+    dtype = template.dtype if isinstance(template, torch.Tensor) else None
+    return distribute_tensor(_tensor(arr, dtype, mesh.device_type), mesh, to,
+                             src_data_rank=None)
+
+
+def restore(ckpt_dir: str, template, step: int | None = None, shardings=None):
     """Restore onto the template's tree: (step, tree), each tensor leaf on
-    its template leaf's device and dtype."""
+    its template leaf's device and dtype; with ``shardings`` (a
+    ``NamedSharding`` tree of the template's shape, possibly on another
+    mesh than the one that saved: the elastic path) each leaf distributed
+    to its placements."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -160,5 +218,7 @@ def restore(ckpt_dir: str, template, step: int | None = None):
     if len(flat) != manifest["n_leaves"]:
         raise ValueError(f"template has {len(flat)} leaves, checkpoint "
                          f"{manifest['n_leaves']}")
-    arrs = [_like(np.load(os.path.join(d, f"arr_{i}.npy")), t) for i, t in enumerate(flat)]
+    shards = leaves(shardings) if shardings is not None else [None] * len(flat)
+    arrs = [_like(np.load(os.path.join(d, f"arr_{i}.npy")), t, s)
+            for i, (t, s) in enumerate(zip(flat, shards))]
     return step, unflatten(template, arrs)

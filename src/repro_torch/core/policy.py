@@ -87,7 +87,9 @@ class AAQConfig:
     def act(self, x: torch.Tensor, site: str) -> torch.Tensor:
         """Fake-quant an activation at ``site``, routed by ``dispatch``: the
         ``aaq_fake_quant`` kernel on a CUDA tensor, the reference dataflow
-        on a CPU one; with ``ste``, under straight-through gradients."""
+        on a CPU one; with ``ste``, under straight-through gradients.  A
+        DTensor (a sharded train step) is quantized as each rank's whole
+        rows, one routed call a rank."""
         pol = self.policy_for(site)
         if not pol.enabled:
             return x
@@ -95,7 +97,9 @@ class AAQConfig:
             return _fake_quant_ste(x, pol.bits, pol.k_outliers).to(x.dtype)
         # dispatch imports core (its plain versions): import it at call time
         from repro_torch.kernels import dispatch
-        return dispatch.fake_quant(x, bits=pol.bits, k_outliers=pol.k_outliers).to(x.dtype)
+        from repro_torch.parallel import sharding as sh
+        return sh.on_rows("fake_quant", lambda t: dispatch.fake_quant(
+            t, bits=pol.bits, k_outliers=pol.k_outliers), x).to(x.dtype)
 
     def quantize(self, x: torch.Tensor, site: str) -> QTensor | torch.Tensor:
         pol = self.policy_for(site)

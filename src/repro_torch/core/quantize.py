@@ -110,8 +110,12 @@ class _FakeQuantSTE(torch.autograd.Function):
 
 
 def fake_quant_ste(x: torch.Tensor, bits: int, k_outliers: int) -> torch.Tensor:
-    """Fake-quant with straight-through gradients (the training path)."""
-    return _FakeQuantSTE.apply(x, bits, k_outliers)
+    """Fake-quant with straight-through gradients (the training path).  A
+    DTensor (a sharded train step) runs the estimator on each rank's
+    local rows, its last dim made whole first (``sharding.on_rows``):
+    fake-quant is token-wise, so a row must sit on one rank."""
+    from repro_torch.parallel import sharding as sh
+    return sh.on_rows("fake_quant", lambda t: _FakeQuantSTE.apply(t, bits, k_outliers), x)
 
 
 def quant_rmse(x: torch.Tensor, bits: int, k_outliers: int) -> torch.Tensor:

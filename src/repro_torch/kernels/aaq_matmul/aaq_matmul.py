@@ -37,6 +37,7 @@ def aaq_matmul_kernel(inliers, scales, ovals, oidx, w, *, bits: int,
     """inliers (T, H/2 or H) int8, scales (T,1) f32, ovals (T,k) bf16,
     oidx (T,k) int32, w (H, D) -> y (T, D) in ``out_dtype``."""
     global launches, f32_launches, plain_calls
+    build.refuse_dtensor("aaq_matmul_kernel", inliers, scales, ovals, oidx, w)
     if inliers.device.type == "cpu":
         plain_calls += 1
         return aaq_matmul_ref(inliers, scales, ovals, oidx, w, bits=bits,

@@ -16,7 +16,8 @@ second walk re-reads the row to quantize.  Its bound on the H100 is bytes.
 
 No kernel has a backward: a wrapper refuses (``build.refuse_grad``) an
 input that requires grad while grad mode is on, so a gradient can never
-silently stop at a kernel's output.
+silently stop at a kernel's output.  Nor does a wrapper take a DTensor
+(``build.refuse_dtensor``): a sharded caller hands it each rank's rows.
 
 * ``aaq_quantize_kernel`` writes q (nibble-packed for 4 bits), the scales
   and the outliers: the input of ``aaq_matmul``.
@@ -69,6 +70,7 @@ def _stream(dev: torch.device) -> int:
 def aaq_quantize_kernel(x: torch.Tensor, *, bits: int, k_outliers: int):
     """x (T, H) bf16/f32 -> (inliers, scales (T,1), ovals (T,k), oidx (T,k))."""
     global launches, plain_calls
+    build.refuse_dtensor("aaq_quantize_kernel", x)
     if x.device.type == "cpu":
         plain_calls += 1
         return aaq_quantize_ref(x, bits, k_outliers)
@@ -97,6 +99,7 @@ def aaq_fake_quant_kernel(x: torch.Tensor, bits: int, k_outliers: int) -> torch.
     """x (T, H) bf16/f32 -> x_hat (T, H) in x's dtype: bitwise
     ``quantize.fake_quant(x, bits, k_outliers)``."""
     global fake_launches, fake_plain_calls
+    build.refuse_dtensor("aaq_fake_quant_kernel", x)
     if x.device.type == "cpu":
         fake_plain_calls += 1
         return aaq_fake_quant_ref(x, bits, k_outliers)

@@ -20,6 +20,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -176,6 +177,19 @@ def check(err: int, what: str) -> None:
         code, step = err & 0xFFFF, err >> 16
         where = f" at step {step} ({LAUNCH_STEPS[step]})" if step in LAUNCH_STEPS else ""
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}{where}")
+
+
+def refuse_dtensor(what: str, *tensors) -> None:
+    """A kernel reads its operands' storage, which on a DTensor is one
+    rank's shard: raise before anything reads it, whatever the device
+    (on the CPU the plain version would otherwise compute on the DTensor
+    unseen).  A sharded caller hands the kernel each rank's local rows
+    (``parallel.sharding.on_rows``).  (No DTensor exists before
+    ``torch.distributed.tensor`` is imported.)"""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is not None and any(isinstance(t, mod.DTensor) for t in tensors):
+        raise TypeError(f"{what}: got a DTensor; a kernel takes local tensors "
+                        "(run it on each rank's rows, parallel.sharding.on_rows)")
 
 
 def refuse_grad(what: str, *tensors) -> None:

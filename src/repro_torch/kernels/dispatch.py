@@ -38,6 +38,11 @@ operands alone and never by a failed build or launch:
     of a ``torch.autograd.Function``, where grad mode is off, so its
     forward is the kernel on a CUDA tensor and its backward the identity.
 
+DTensors.  Every routed call takes local tensors and raises on a DTensor
+(``build.refuse_dtensor``): a sharded train step runs attention and
+fake-quant on each rank's local rows (``parallel.sharding.local_attention``
+and ``on_rows``, at the model's attention and act sites).
+
 Counters: ``counters`` counts routed calls per route; each kernel wrapper
 module counts the CUDA launches of each of its kernel variants and the
 calls that computed a plain version on the CPU (``launch_counts`` per
@@ -55,6 +60,7 @@ import torch.nn.functional as F
 from repro_torch.core.qmatmul import qmatmul_fused_ref
 from repro_torch.core.quantize import fake_quant as fake_quant_ref
 from repro_torch.core.quantize import quantize as quantize_ref
+from repro_torch.kernels import build
 from repro_torch.kernels.aaq_matmul import aaq_matmul as _aaq_matmul_mod
 from repro_torch.kernels.aaq_matmul.ops import aaq_linear
 from repro_torch.kernels.aaq_quant import aaq_quant as _aaq_quant_mod
@@ -155,7 +161,9 @@ def _needs_grad(tensors) -> bool:
 
 
 def _route(op: str, device: torch.device, backend: str | None, operands) -> bool:
-    """Count and decide one routed call of ``op``: True for the kernel."""
+    """Count and decide one routed call of ``op``: True for the kernel.
+    Local tensors only: a DTensor operand raises on either route."""
+    build.refuse_dtensor(op, *operands)
     mode = _check(backend) if backend is not None else get_backend()
     if mode == AUTO and _needs_grad(operands):
         counters[f"{op}.ref_grad"] += 1

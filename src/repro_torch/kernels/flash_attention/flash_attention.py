@@ -174,6 +174,7 @@ def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
                      window=None, softmax_scale=None):
     """q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D); bias (Bb,Hq,Sq,Skv); -> (B,Sq,Hq,D)."""
     global launches, simt_launches, plain_calls
+    build.refuse_dtensor("flash_mha_kernel", q, k, v, bias, kv_valid_len)
     if q.device.type == "cpu":
         plain_calls += 1
         return flash_mha_plain(q, k, v, bias, kv_valid_len, causal=causal,

@@ -15,6 +15,14 @@ worker loop (``serving.engine.serve_worker``) until rank 0 sends
 ``exit``.  The compute groups time out after ``TIMEOUT_S`` (a rank that
 died fails its peers' collectives instead of hanging them); a started rank
 also leaves when the process that started it is gone.
+
+Training ranks (``launch.train --model-parallel``) start the same way:
+``training_world`` counts them (every card on CUDA, one a card, and more
+ranks than cards refused with "needs N devices"; M on the CPU),
+``start_train_ranks`` starts ranks 1..W-1 as ``python -m
+repro_torch.launch.train`` with the caller's arguments, and
+``init_train_group`` joins one (NCCL on the card, one card a rank; gloo on
+the CPU).
 """
 from __future__ import annotations
 
@@ -137,6 +145,47 @@ def _watch_parent(pid: int) -> None:
                 os._exit(3)
             time.sleep(1.0)
     threading.Thread(target=watch, daemon=True, name="parent-watch").start()
+
+
+# --------------------------------------------------------------------------
+# the ranks of a training mesh
+# --------------------------------------------------------------------------
+def training_world(model: int, device_type: str) -> int:
+    """Ranks a ``--model-parallel model`` run takes when no group exists:
+    every card on CUDA (one rank a card; fewer cards than ``model`` is
+    refused), ``model`` ranks on the CPU."""
+    if device_type == "cuda":
+        cards = torch.cuda.device_count()
+        if model > cards:
+            raise ValueError(f"--model-parallel {model} needs {model} devices but only "
+                             f"{cards} visible (one process a rank, one card a rank: NCCL "
+                             f"refuses two ranks on one card)")
+        return cards - cards % model
+    return model
+
+
+def init_train_group(rank: int, world: int, init_method: str, device_type: str) -> None:
+    """Join a training mesh's group as ``rank``: on CUDA card ``rank`` over
+    NCCL (gloo beside it for host barriers), on the CPU gloo."""
+    backend = "gloo"
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+        backend = "cpu:gloo,cuda:nccl"
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+
+
+def start_train_ranks(world: int, argv: list[str], init_method: str) -> list:
+    """Start ranks 1..world-1 of a training run as ``python -m
+    repro_torch.launch.train <argv>``, each told its rank and the
+    rendezvous; each leaves when its parent is gone."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(SRC), env.get("PYTHONPATH", "")) if p)
+    base = [sys.executable, "-m", "repro_torch.launch.train", *argv,
+            "--world", str(world), "--init", init_method,
+            "--threads", str(torch.get_num_threads()), "--parent", str(os.getpid())]
+    return [subprocess.Popen([*base, "--rank", str(r)], env=env) for r in range(1, world)]
 
 
 def main(argv=None) -> int:

@@ -13,6 +13,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.parallel import sharding as sh
+
 Params = dict[str, Any]
 
 
@@ -27,6 +29,11 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = Fals
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
     return p
+
+
+def as_made(path: tuple, part):
+    """The default ``place`` of the model inits: a part as it was made."""
+    return part
 
 
 def ln_init(dim: int, dtype=torch.float32, device=None) -> Params:
@@ -50,7 +57,7 @@ def dense(p: Params, x: torch.Tensor, scheme=None, site: str = "") -> torch.Tens
     """Linear layer routed through the active quantization scheme."""
     if scheme is not None:
         return scheme.linear(x, p["w"].to(x.dtype), p.get("b"), site)
-    y = torch.matmul(x, p["w"].to(x.dtype))      # f32 accumulation, x's dtype out
+    y = sh.fold_matmul(x, p["w"].to(x.dtype))    # f32 accumulation, x's dtype out
     return y if "b" not in p else y + p["b"].to(x.dtype)
 
 
@@ -71,7 +78,11 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
-    return p["e"][ids]
+    """Rows ``ids`` of the table; a DTensor table (a sharded train step)
+    looks up vocabulary-parallel (``sharding.embedding``)."""
+    if sh.is_dtensor(p["e"]):
+        return sh.embedding(ids, p["e"])
+    return torch.nn.functional.embedding(ids, p["e"])
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -80,7 +91,7 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     card a bf16 product keeps its bf16 operands (``out_dtype``); the CPU has
     no such product, so there the operands are widened (exact for bf16)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return torch.matmul(x, w)
+        return sh.fold_matmul(x, w)
     if x.device.type == "cuda" and x.dtype == w.dtype:
         lead = x.shape[:-1]
         y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)

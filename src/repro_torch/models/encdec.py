@@ -20,6 +20,7 @@ from repro_torch.core.policy import DISABLED, AAQConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
+from repro_torch.parallel import sharding as sh
 
 Params = dict[str, Any]
 
@@ -37,15 +38,18 @@ def init_dec_block(gen: torch.Generator, cfg: ArchConfig) -> Params:
     return p
 
 
-def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> Params:
+def init_encdec(gen: torch.Generator, cfg: ArchConfig, place=cm.as_made) -> Params:
+    """``place``: as ``transformer.init_lm``'s, a part at a time."""
     dt, dev = cfg.torch_dtype, gen.device
     return {
-        "embed": cm.embed_init(gen, cfg.vocab, cfg.d_model, dt),
-        "pos_dec": cm.embed_init(gen, cfg.max_seq, cfg.d_model, dt),
-        "enc_blocks": [init_enc_block(gen, cfg) for _ in range(cfg.enc_layers)],
-        "enc_norm": cm.ln_init(cfg.d_model, dt, dev),
-        "dec_blocks": [init_dec_block(gen, cfg) for _ in range(cfg.layers)],
-        "final_norm": cm.ln_init(cfg.d_model, dt, dev),
+        "embed": place(("embed",), cm.embed_init(gen, cfg.vocab, cfg.d_model, dt)),
+        "pos_dec": place(("pos_dec",), cm.embed_init(gen, cfg.max_seq, cfg.d_model, dt)),
+        "enc_blocks": [place(("enc_blocks", i), init_enc_block(gen, cfg))
+                       for i in range(cfg.enc_layers)],
+        "enc_norm": place(("enc_norm",), cm.ln_init(cfg.d_model, dt, dev)),
+        "dec_blocks": [place(("dec_blocks", i), init_dec_block(gen, cfg))
+                       for i in range(cfg.layers)],
+        "final_norm": place(("final_norm",), cm.ln_init(cfg.d_model, dt, dev)),
     }
 
 
@@ -65,7 +69,7 @@ def _self_attn(p, x, cfg, causal, cache=None, aaq: AAQConfig = DISABLED):
     k = aaq.act(cm.dense(p["k"], x).reshape(b, s, hkv, hd), "lm.kv_cache")
     v = aaq.act(cm.dense(p["v"], x).reshape(b, s, hkv, hd), "lm.kv_cache")
     if cache is None:
-        o = dispatch.attention(q, k, v, causal=causal)
+        o = sh.local_attention(dispatch.attention, q, k, v, causal=causal)
     else:
         kd, vd, kvlen = cache.append(k, v)
         o = dispatch.attention(q, kd, vd, kv_valid_len=kvlen, causal=False)
@@ -79,7 +83,7 @@ def _cross_attn(p, x, enc_out, cfg):
     q = cm.dense(p["q"], x).reshape(b, s, hq, hd)
     k = cm.dense(p["k"], enc_out).reshape(b, se, hkv, hd)
     v = cm.dense(p["v"], enc_out).reshape(b, se, hkv, hd)
-    o = dispatch.attention(q, k, v, causal=False)
+    o = sh.local_attention(dispatch.attention, q, k, v, causal=False)
     return cm.dense(p["o"], o.reshape(b, s, hq * hd))
 
 
@@ -110,7 +114,7 @@ def decode_full(params, tokens, enc_out, cfg: ArchConfig, aaq: AAQConfig = DISAB
     s = tokens.shape[1]
     x = cm.embed(params["embed"], tokens) + params["pos_dec"]["e"][:s][None].to(cfg.torch_dtype)
     for p in params["dec_blocks"]:
-        x = _dec_block(p, x, enc_out, cfg, aaq)
+        x = sh.constrain(_dec_block(p, x, enc_out, cfg, aaq), "residual")
     x = cm.layernorm(params["final_norm"], x)
     if return_hidden:
         return x

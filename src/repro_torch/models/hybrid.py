@@ -24,6 +24,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import DISABLED, AAQConfig
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
+from repro_torch.parallel import sharding as sh
 
 Params = dict[str, Any]
 _C = 8.0   # RG-LRU decay sharpness constant (Griffin paper)
@@ -129,15 +130,16 @@ def _period_apply(period, x, cfg, positions, aaq, caches=None):
     return x
 
 
-def init_hybrid_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
+def init_hybrid_lm(gen: torch.Generator, cfg: ArchConfig, place=cm.as_made) -> Params:
+    """``place``: as ``transformer.init_lm``'s, a part at a time."""
     n_periods, tail = _n_periods_tail(cfg)
     dt, dev = cfg.torch_dtype, gen.device
-    p = {"embed": cm.embed_init(gen, cfg.vocab, cfg.d_model, dt),
-         "periods": [_init_period(gen, cfg) for _ in range(n_periods)],
-         "tail": [init_rglru_block(gen, cfg) for _ in range(tail)],
-         "final_norm": tf._norm_init(cfg, dev)}
+    p = {"embed": place(("embed",), cm.embed_init(gen, cfg.vocab, cfg.d_model, dt)),
+         "periods": [place(("periods", i), _init_period(gen, cfg)) for i in range(n_periods)],
+         "tail": [place(("tail", i), init_rglru_block(gen, cfg)) for i in range(tail)],
+         "final_norm": place(("final_norm",), tf._norm_init(cfg, dev))}
     if not cfg.tie_embeddings:
-        p["lm_head"] = cm.dense_init(gen, cfg.d_model, cfg.vocab, dtype=dt)
+        p["lm_head"] = place(("lm_head",), cm.dense_init(gen, cfg.d_model, cfg.vocab, dtype=dt))
     return p
 
 
@@ -151,16 +153,17 @@ def hybrid_forward(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for period in params["periods"]:
-        x = tf.rematted(lambda y, period=period: _period_apply(period, y, cfg, positions, aaq),
-                        remat)(x)
+        x = tf.rematted(lambda y, period=period: sh.constrain(
+            _period_apply(period, y, cfg, positions, aaq), "residual"), remat)(x)
     for p in params["tail"]:
-        x = rglru_block_apply(p, x, cfg, positions=positions, aaq=aaq)
+        x = sh.constrain(rglru_block_apply(p, x, cfg, positions=positions, aaq=aaq),
+                         "residual")
     x = tf.apply_norm(params["final_norm"], x, cfg)
     if return_hidden:
         return x
     if last_only:
         x = x[:, -1:]
-    return tf.unembed(params, x, cfg)
+    return sh.constrain(tf.unembed(params, x, cfg), "logits")
 
 
 def hybrid_loss(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED, remat=True):

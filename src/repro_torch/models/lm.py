@@ -23,34 +23,37 @@ from repro_torch.models import hybrid as hy
 from repro_torch.models import moe as me
 from repro_torch.models import ssm as sm
 from repro_torch.models import transformer as tf
+from repro_torch.parallel import sharding as sh
 
 
 def _dense_first(cfg: ArchConfig) -> bool:
     return cfg.kind == "moe" and bool(cfg.moe.dense_first_layer_ff)
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig):
-    """Random parameters from ``gen`` (made on ``gen.device``)."""
+def init_params(gen: torch.Generator, cfg: ArchConfig, place=cm.as_made):
+    """Random parameters from ``gen`` (made on ``gen.device``).
+    ``place(path, part)`` takes each top-level part (the embedding, each
+    block, ...) as it is made (``transformer.init_lm``)."""
     if cfg.kind in ("dense", "vlm"):
-        return tf.init_lm(gen, cfg)
+        return tf.init_lm(gen, cfg, place=place)
     if cfg.kind == "moe":
         scan_cfg = cfg.replace(layers=cfg.layers - 1) if _dense_first(cfg) else cfg
-        p = tf.init_lm(gen, scan_cfg, init_block_fn=me.moe_block_init)
+        p = tf.init_lm(gen, scan_cfg, init_block_fn=me.moe_block_init, place=place)
         if _dense_first(cfg):
             dev = gen.device
-            p["first_block"] = {
+            p["first_block"] = place(("first_block",), {
                 "attn_norm": tf._norm_init(cfg, dev),
                 "attn": me.init_mla(gen, cfg) if cfg.mla else tf.init_attn(gen, cfg),
                 "mlp_norm": tf._norm_init(cfg, dev),
                 "mlp": tf.init_mlp(gen, cfg, d_ff=cfg.moe.dense_first_layer_ff),
-            }
+            })
         return p
     if cfg.kind == "ssm":
-        return tf.init_lm(gen, cfg, init_block_fn=sm.init_ssm_block)
+        return tf.init_lm(gen, cfg, init_block_fn=sm.init_ssm_block, place=place)
     if cfg.kind == "hybrid":
-        return hy.init_hybrid_lm(gen, cfg)
+        return hy.init_hybrid_lm(gen, cfg, place=place)
     if cfg.kind == "encdec":
-        return ed.init_encdec(gen, cfg)
+        return ed.init_encdec(gen, cfg, place=place)
     raise ValueError(cfg.kind)
 
 
@@ -96,8 +99,8 @@ def _moe_loss_with_first(params, batch, cfg, aaq, remat):
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     x = _moe_first_block_fn(params["first_block"], x, cfg, positions=positions, aaq=aaq)
     for p in params["blocks"]:
-        x = tf.rematted(lambda y, p=p: me.moe_block_apply(p, y, cfg, positions=positions,
-                                                          aaq=aaq), remat)(x)
+        x = tf.rematted(lambda y, p=p: sh.constrain(
+            me.moe_block_apply(p, y, cfg, positions=positions, aaq=aaq), "residual"), remat)(x)
     x = tf.apply_norm(params["final_norm"], x, cfg)
     return tf.chunked_xent(params, x, batch["labels"], cfg)
 
@@ -117,9 +120,10 @@ def prefill_fn(params, batch, cfg: ArchConfig, aaq: AAQConfig = DISABLED):
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         x = _moe_first_block_fn(params["first_block"], x, cfg, positions=positions, aaq=aaq)
         for p in params["blocks"]:
-            x = me.moe_block_apply(p, x, cfg, positions=positions, aaq=aaq)
+            x = sh.constrain(me.moe_block_apply(p, x, cfg, positions=positions, aaq=aaq),
+                             "residual")
         x = tf.apply_norm(params["final_norm"], x, cfg)
-        return tf.unembed(params, x[:, -1:], cfg)
+        return sh.constrain(tf.unembed(params, x[:, -1:], cfg), "logits")
     return tf.lm_forward(params, batch, cfg, aaq=aaq, block_fn=_block_fn_for(cfg),
                          last_only=True)
 

@@ -6,9 +6,13 @@ Dispatch is the GShard dense-einsum formulation: one-hot dispatch/combine
 tensors with static per-expert capacity, enforced per routing group of
 ``MOE_GROUP`` tokens.  The experts of a block are stacked on a leading
 axis (``experts.up.w`` is (E, d, f)) and run as batched products.  The
-reference reads the group size from its mesh rules (``moe_group``); on one
-card the port keeps the default, and its sharding constraints are the
-identity (mesh rules are ROADMAP Queue 1 item 11).
+group size comes from the active mesh rules (``moe_group``, else
+``MOE_GROUP``), and the reference's constraints sit where its do
+(``moe_tokens``, ``moe_xe``, ``moe_hidden``): a sharded train step
+redistributes its DTensors there.  The routing itself (top-k, the
+cumulative seat counts) runs on each rank's whole groups
+(``sharding.on_local``): DTensor's ``cumsum`` over a dim that two mesh
+dims shard is wrong in this PyTorch.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from repro_torch.core.policy import DISABLED, AAQConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
+from repro_torch.parallel import sharding as sh
 
 Params = dict[str, Any]
 MOE_GROUP = 512   # tokens per routing group (capacity enforced per group)
@@ -56,6 +61,7 @@ def _expert_ffn(p, xe, cfg: ArchConfig):
         h = tf._act(cfg.act, torch.bmm(xe, p["gate"]["w"].to(xe.dtype))) * up
     else:
         h = tf._act(cfg.act, up)
+    h = sh.constrain(h, "moe_hidden")
     return torch.bmm(h, p["down"]["w"].to(xe.dtype))
 
 
@@ -103,17 +109,19 @@ def moe_apply(p, x, cfg: ArchConfig):
     moe = cfg.moe
     b, s, d = x.shape
     t, e, k = b * s, moe.n_experts, moe.top_k
-    grp = min(MOE_GROUP, t)
+    grp = min(int(sh.rule_value("moe_group", MOE_GROUP)), t)
     while t % grp:
         grp //= 2
     ng = t // grp
     cap = max(4, int(math.ceil(grp * k / e * moe.capacity_factor)))
-    xt = x.reshape(ng, grp, d)
+    xt = sh.constrain(x.reshape(ng, grp, d), "moe_tokens")
     gates = torch.softmax(cm.dense(p["router"], xt).float(), dim=-1)   # (ng,G,E)
-    disp, combine = _dispatch_tensors(gates, k, cap)
+    disp, combine = sh.on_local("moe_dispatch", lambda g: _dispatch_tensors(g, k, cap),
+                                gates, keep=(0,), n_out=2)
     xe = torch.einsum("ngec,ngd->necd", disp.to(x.dtype), xt)          # (ng,E,C,d)
+    xe = sh.constrain(xe, "moe_xe")
     ye = _expert_ffn(p["experts"], xe.transpose(0, 1).reshape(e, ng * cap, d), cfg)
-    ye = ye.reshape(e, ng, cap, d).transpose(0, 1)
+    ye = sh.constrain(ye.reshape(e, ng, cap, d).transpose(0, 1), "moe_xe")
     y = torch.einsum("ngec,necd->ngd", combine.to(x.dtype), ye).reshape(t, d)
     if moe.n_shared:
         y = y + tf.mlp_apply(p["shared"], x.reshape(t, d), cfg)
@@ -189,7 +197,8 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None, aaq: AAQConfig = 
     scale = 1.0 / math.sqrt(dn + dr)
     if cache is None:
         k, v = _mla_qkv_from_latent(p, latent, k_rope, cfg)
-        o = dispatch.attention(q, k, v, causal=True, softmax_scale=scale)
+        o = sh.local_attention(dispatch.attention, q, k, v, causal=True,
+                               softmax_scale=scale)
     else:
         cl = cache.write("latent", latent)
         cr = cache.write("k_rope", k_rope)

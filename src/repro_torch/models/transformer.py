@@ -17,7 +17,10 @@ of per-layer dicts (the reference stacks them on a leading axis for
 ``scan``; ``bridge.lm_params_from_numpy`` unstacks).  A ``block_fn`` takes
 ``(p, x, cfg, *, positions, cache=None, aaq)`` and returns the new ``x``;
 in decode it writes its layer of the cache in place.  The reference's
-``parallel.sharding.constrain`` is a no-op on one card and is left out.
+sharding constraints sit where its do (``residual`` at every layer
+boundary, ``logits``, ``kv_cache``): ``parallel.sharding.constrain``
+redistributes a DTensor to the active rule (a sharded train step) and
+passes anything else through.
 Training: ``lm_hidden(remat=True)`` checkpoints each block
 (``torch.utils.checkpoint``, non-reentrant: ``jax.checkpoint`` of the
 scanned body), ``chunked_xent`` is the loss without the full (B, S, V)
@@ -35,6 +38,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import DISABLED, AAQConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import constrain as _constrain
 
 Params = dict[str, Any]
 
@@ -71,13 +76,20 @@ def init_block(gen: torch.Generator, cfg: ArchConfig) -> Params:
             "mlp_norm": _norm_init(cfg, gen.device), "mlp": init_mlp(gen, cfg)}
 
 
-def init_lm(gen: torch.Generator, cfg: ArchConfig, init_block_fn=None) -> Params:
+def init_lm(gen: torch.Generator, cfg: ArchConfig, init_block_fn=None,
+            place=cm.as_made) -> Params:
+    """``place(path, part)`` takes each top-level part (the embedding, each
+    block, ...) as it is made: a sharded run distributes it there, so no
+    device holds the whole model at once."""
     init_block_fn = init_block_fn or init_block
-    p: Params = {"embed": cm.embed_init(gen, cfg.vocab, cfg.d_model, cfg.torch_dtype),
-                 "final_norm": _norm_init(cfg, gen.device),
-                 "blocks": [init_block_fn(gen, cfg) for _ in range(cfg.layers)]}
+    p: Params = {"embed": place(("embed",), cm.embed_init(gen, cfg.vocab, cfg.d_model,
+                                                           cfg.torch_dtype)),
+                 "final_norm": place(("final_norm",), _norm_init(cfg, gen.device)),
+                 "blocks": [place(("blocks", i), init_block_fn(gen, cfg))
+                            for i in range(cfg.layers)]}
     if not cfg.tie_embeddings:
-        p["lm_head"] = cm.dense_init(gen, cfg.d_model, cfg.vocab, dtype=cfg.torch_dtype)
+        p["lm_head"] = place(("lm_head",), cm.dense_init(gen, cfg.d_model, cfg.vocab,
+                                                          dtype=cfg.torch_dtype))
     return p
 
 
@@ -131,7 +143,8 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
     v = aaq.act(v, "lm.kv_cache")
     if cache is None:
         window = window if window is not None else cfg.window
-        o = dispatch.attention(q, k, v, bias=bias, causal=causal, window=window)
+        o = sh.local_attention(dispatch.attention, q, k, v, bias=bias, causal=causal,
+                               window=window)
     else:
         kd, vd, kvlen = cache.append(k, v)
         o = dispatch.attention(q, kd, vd, kv_valid_len=kvlen, causal=False)
@@ -161,6 +174,7 @@ class LockstepRing:
 
     def write(self, name: str, x: torch.Tensor) -> torch.Tensor:
         ring = self[name]
+        x = _constrain(x, "kv_cache")
         s, w = x.shape[1], ring.shape[1]
         # dynamic_update_slice clamps the start so that the s rows fit
         start = torch.clamp(self.cache["pos"] % w, max=w - s)
@@ -235,12 +249,13 @@ def lm_hidden(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED,
     states (B, S, D).  ``remat``: each block recomputed in the backward,
     where the config scans its layers (the reference remats the scan body)."""
     block_fn = block_fn or block_apply
-    x = _embed_inputs(params, batch, cfg)
+    x = _constrain(_embed_inputs(params, batch, cfg), "residual")
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for p in params["blocks"]:
-        step = rematted(lambda y, p=p: block_fn(p, y, cfg, positions=positions, aaq=aaq),
-                        remat and cfg.scan_layers)
+        step = rematted(lambda y, p=p: _constrain(
+            block_fn(p, y, cfg, positions=positions, aaq=aaq), "residual"),
+            remat and cfg.scan_layers)
         x = step(x)
     return apply_norm(params["final_norm"], x, cfg)
 
@@ -252,7 +267,7 @@ def lm_forward(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED,
     x = lm_hidden(params, batch, cfg, aaq=aaq, block_fn=block_fn)
     if last_only:
         x = x[:, -1:]
-    return unembed(params, x, cfg)
+    return _constrain(unembed(params, x, cfg), "logits")
 
 
 def chunked_xent(params, x, labels, cfg: ArchConfig, chunk: int = 1024):
@@ -265,9 +280,10 @@ def chunked_xent(params, x, labels, cfg: ArchConfig, chunk: int = 1024):
     s = x.shape[1]
     if s % chunk:
         chunk = s
+    x = sh.foldable(x)            # a sharded sequence gathered before it is sliced
 
     def one(xx, ll):
-        logp = torch.log_softmax(unembed(params, xx, cfg), dim=-1)      # float32
+        logp = torch.log_softmax(_constrain(unembed(params, xx, cfg), "logits"), dim=-1)
         mask = (ll >= 0).float()
         nll = -torch.gather(logp, -1, ll.clamp_min(0).long()[..., None])[..., 0]
         return torch.stack([torch.sum(nll * mask), torch.sum(mask)])

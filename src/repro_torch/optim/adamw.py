@@ -7,6 +7,12 @@ precision discipline), and ``step`` is an int32 scalar tensor.  ``update``
 follows the reference's arithmetic leaf by leaf and writes the new values
 into the parameter and moment tensors in place (an optimizer step must not
 hold a second copy of a model that fills the card); it returns them.
+
+On DTensors (a sharded train step) the moments take their parameter's
+placements (``opt_state_shardings``: ZeRO-by-TP), ``step`` is replicated,
+``global_norm`` is the whole tree's norm on every rank (each shard's sum
+of squares reduced over its mesh), and the update runs on each rank's
+shards in place.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.parallel import sharding as sh
 from repro_torch.tree import leaves, tree_map
 
 
@@ -29,28 +36,39 @@ class AdamWConfig:
 
 
 def init(params) -> dict[str, Any]:
-    f32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
-    dev = leaves(params)[0].device
-    return {"m": tree_map(f32, params), "v": tree_map(f32, params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    f32 = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+    first = leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if sh.is_dtensor(first):
+        step = sh.distribute(step, first.device_mesh, sh.P())
+    return {"m": tree_map(f32, params), "v": tree_map(f32, params), "step": step}
 
 
 def global_norm(tree) -> torch.Tensor:
     total = None
-    for x in leaves(tree):
-        s = torch.sum(torch.square(x.float()))
-        total = s if total is None else total + s
-    return torch.sqrt(total)
+    with sh.mixed_ops(tree):
+        for x in leaves(tree):
+            s = torch.sum(torch.square(x.float()))
+            if sh.is_dtensor(s):               # a shard's sum -> the whole leaf's
+                s = sh.redistribute(s, sh.placements(sh.P(), s.device_mesh))
+            total = s if total is None else total + s
+        return torch.sqrt(total)
 
 
 @torch.no_grad()
 def update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     """Returns (params, state, metrics), the tensors updated in place;
     ``metrics['grad_norm']`` is the norm before clipping."""
+    with sh.mixed_ops(params):
+        return _update(params, grads, state, cfg, lr_scale)
+
+
+def _update(params, grads, state, cfg: AdamWConfig, lr_scale):
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=gnorm.device)
+    lr = cfg.lr * (lr_scale.float() if isinstance(lr_scale, torch.Tensor) else
+                   torch.as_tensor(lr_scale, dtype=torch.float32, device=gnorm.device))
     s = step.float()
     bc1 = 1 - torch.pow(torch.full((), cfg.b1, device=s.device), s)
     bc2 = 1 - torch.pow(torch.full((), cfg.b2, device=s.device), s)

@@ -12,25 +12,36 @@ Off the launcher's default path (``--grad-compress``).  It quantizes
 through ``core.quantize.fake_quant``, the plain reference dataflow, as the
 reference does: its rows can be vocabulary-wide (a tied unembedding's last
 axis is 151,936 for qwen1.5-0.5b), beyond any row the quantize kernel takes.
+A DTensor gradient (a sharded train step) is quantized as each rank's
+whole rows (``sharding.on_rows``: a sharded last dim is gathered first);
+its residual keeps the gradient's placements.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.quantize import fake_quant
+from repro_torch.parallel import sharding as sh
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
 def init_state(params):
     """Error-feedback residuals, one float32 tensor per parameter."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                    params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+
+
+def _rows_fake_quant(gf, bits: int, k_outliers: int):
+    flat = gf.reshape(-1, gf.shape[-1]) if gf.dim() > 1 else gf.reshape(1, -1)
+    return fake_quant(flat, bits, k_outliers).reshape(gf.shape)
 
 
 def _quant_one(g, r, bits: int, k_outliers: int):
     gf = g.float() + r
-    flat = gf.reshape(-1, gf.shape[-1]) if gf.dim() > 1 else gf.reshape(1, -1)
-    q = fake_quant(flat, bits, k_outliers).reshape(gf.shape)
+    if sh.is_dtensor(gf):
+        q = sh.redistribute(sh.on_rows("grad_compress", lambda t: _rows_fake_quant(
+            t, bits, k_outliers), gf), gf.placements)
+    else:
+        q = _rows_fake_quant(gf, bits, k_outliers)
     return q.to(g.dtype), gf - q
 
 

@@ -1,2 +1,2 @@
-"""repro_torch.runtime — the fault-tolerant training driver (port of
-``repro.runtime``; ``elastic.py`` is multi-device, ROADMAP Queue 1 item 11)."""
+"""repro_torch.runtime — the fault-tolerant training driver and elastic
+resume onto a resized mesh (port of ``repro.runtime``)."""

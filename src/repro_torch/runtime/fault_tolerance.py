@@ -62,14 +62,19 @@ class TrainingDriver:
     train_step_fn: (state, step) -> (state, metrics)
     state is any tree of tensors, e.g. (params, opt_state): saved and
     restored whole.  ``init_state_fn`` makes a fresh state, which a restart
-    uses as the template it restores the latest checkpoint into.
+    uses as the template it restores the latest checkpoint into (DTensor
+    leaves onto their placements).  ``barrier``: called before a (re)start
+    looks for the latest checkpoint, so that in a run of several ranks
+    every rank has finished the save rank 0 writes.
     """
 
     def __init__(self, cfg: DriverConfig,
                  train_step_fn: Callable[[Any, int], tuple[Any, dict]],
                  init_state_fn: Callable[[], Any],
-                 on_straggler: Callable[[int], None] | None = None):
+                 on_straggler: Callable[[int], None] | None = None,
+                 barrier: Callable[[], Any] | None = None):
         self.cfg = cfg
+        self.barrier = barrier
         self.train_step_fn = train_step_fn
         self.init_state_fn = init_state_fn
         self.watch = StragglerWatch()
@@ -82,6 +87,8 @@ class TrainingDriver:
 
     def _resume(self):
         template = self.init_state_fn()
+        if self.barrier is not None:
+            self.barrier()
         last = ckpt.latest_step(self.cfg.ckpt_dir)
         if last is None:
             return 0, template

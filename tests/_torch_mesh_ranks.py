@@ -1,0 +1,265 @@
+"""Spawned gloo ranks for the port's sharded-training tests
+(``test_torch_train_mesh.py``, ``test_torch_pipeline_overlap.py``).
+
+``run_ranks(world, fn, *args)`` runs ``fn(rank, world, *args)`` in
+``world`` processes of one torch thread each that meet at a ``file://``
+rendezvous in a fresh directory, and returns the list of what each rank's
+``fn`` returned (picklable values).  A rank that raises fails the call with
+its traceback; the group times out after 120 s, so a rank that dies fails
+its peers instead of hanging them.  The ranks import neither JAX nor the
+reference: the tests hand them numpy trees.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import shutil
+import tempfile
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _main(rank, world, init, out_dir, fn, args):
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=120))
+        res = fn(rank, world, *args)
+        dist.barrier()
+        dist.destroy_process_group()
+        out = ("ok", res)
+    except BaseException:
+        out = ("error", traceback.format_exc())
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_ranks(world: int, fn, *args) -> list:
+    d = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_main, args=(r, world, f"file://{d}/rdv", d, fn, args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+            if p.is_alive():
+                p.kill()
+        outs = []
+        for r in range(world):
+            path = os.path.join(d, f"rank{r}.pkl")
+            if not os.path.exists(path):
+                raise RuntimeError(f"rank {r} left no result (exit code {procs[r].exitcode})")
+            with open(path, "rb") as f:
+                outs.append(pickle.load(f))
+        errors = [f"rank {r}:\n{o[1]}" for r, o in enumerate(outs) if o[0] == "error"]
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return [o[1] for o in outs]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def host(x) -> np.ndarray:
+    """A tensor (a DTensor gathered whole: a collective) as numpy."""
+    from repro_torch.parallel import sharding as sh
+    return sh.to_global(x).detach().cpu().numpy()
+
+
+# --------------------------------------------------------------------------
+# rank-side scenarios
+# --------------------------------------------------------------------------
+def _cfg(name: str):
+    from repro_torch.configs import get_config, reduce_config
+    return reduce_config(get_config(name)).replace(dtype="float32")
+
+
+def one_step(cfg, params, batch, aaq, mesh=None, microbatches=1):
+    """One ``make_train_step`` step (lr 1e-2) of ``params`` on ``batch``
+    (numpy): on one device, or sharded on ``mesh`` (parameters, moments and
+    batch distributed by the reference's specs, the act rules active).
+    -> (loss, params after the step as numpy, fake-quant calls routed)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.tree import leaves, unflatten
+    b = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+    if mesh is not None:
+        psh = sh.param_shardings(params, mesh, cfg)
+        params = unflatten(params, [sh.distribute(t, s.mesh, s.spec)
+                                    for t, s in zip(leaves(params), leaves(psh))])
+        n, s = b["tokens"].shape
+        bspec = sh.batch_specs(cfg, ShapeSpec("t", s, n, "train"), mesh)["batch"]
+        b = {k: sh.distribute(v, mesh, bspec[k]) for k, v in b.items()}
+    opt = adamw.init(params)
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-2), aaq=aaq, microbatches=microbatches)
+    dispatch.reset_counters()
+    rules = sh.default_act_rules(mesh, "train", cfg) if mesh is not None else None
+    with sh.act_rules(rules):
+        params, opt, metrics = step(params, opt, b)
+    fq = dispatch.counters["fakequant.ref"] + dispatch.counters["fakequant.kernel"]
+    return float(host(metrics["loss"])), [host(p) for p in leaves(params)], fq
+
+
+def sharded_steps(rank, world, jobs):
+    """Each job (arch, numpy params, numpy batch, ste, mesh shape): one
+    sharded step.  Rank 0 returns (loss, params) a job; every rank its
+    fake-quant calls and the redistributions ``sharding`` counted."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.core.policy import DISABLED, AAQConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as sh
+    out = []
+    for arch, tree, batch, ste, shape in jobs:
+        cfg = _cfg(arch)
+        mesh = make_mesh(shape, ("data", "model"))
+        params = lm_params_from_numpy(tree, cfg, device="cpu")
+        sh.REDISTRIBUTED.clear()
+        loss, ps, fq = one_step(cfg, params, batch, AAQConfig(ste=True) if ste else DISABLED,
+                                mesh)
+        out.append({"loss": loss, "params": ps if rank == 0 else None, "fq": fq,
+                    "moved": dict(sh.REDISTRIBUTED)})
+    return out
+
+
+def grad_placements(rank, world, tree, batch):
+    """``value_and_grad`` of the reduced qwen on a (1, world) mesh: its
+    gradients on their parameters' placements, and, asked through
+    ``grad_shardings`` for every leaf replicated, replicated with the same
+    values; then one ``make_train_step`` step with ``grad_shardings`` the
+    parameters' own shardings against the step without it."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.tree import leaves, unflatten
+    cfg = _cfg("qwen1.5-0.5b")
+    mesh = make_mesh((1, world), ("data", "model"))
+    params = lm_params_from_numpy(tree, cfg, device="cpu")
+    psh = sh.param_shardings(params, mesh, cfg)
+    params = unflatten(params, [sh.distribute(t, s.mesh, s.spec)
+                                for t, s in zip(leaves(params), leaves(psh))])
+    n, s = batch["tokens"].shape
+    bspec = sh.batch_specs(cfg, ShapeSpec("t", s, n, "train"), mesh)["batch"]
+    b = {k: sh.distribute(torch.from_numpy(np.ascontiguousarray(v)), mesh, bspec[k])
+         for k, v in batch.items()}
+    rep = sh.to_shardings(mesh, sh._map_with_path(lambda _, t: sh.P(*[None] * t.dim()),
+                                                  params))
+    with sh.act_rules(sh.default_act_rules(mesh, "train", cfg)):
+        loss, grads = value_and_grad(params, b, cfg)
+        loss_r, grads_r = value_and_grad(params, b, cfg, grad_shardings=rep)
+        gap = max(float((sh.to_global(x) - sh.to_global(y)).abs().max())
+                  for x, y in zip(leaves(grads), leaves(grads_r)))
+        steps = []
+        for gs in (None, psh):
+            state = (unflatten(params, [p.clone() for p in leaves(params)]), None)
+            state = (state[0], adamw.init(state[0]))
+            p1, _, _ = make_train_step(cfg, adamw.AdamWConfig(lr=1e-2),
+                                       grad_shardings=gs)(*state, b)
+            steps.append([host(x) for x in leaves(p1)])
+    return {"loss": float(host(loss)), "loss_r": float(host(loss_r)), "gap": gap,
+            "params": [str(x.placements) for x in leaves(params)],
+            "grads": [str(x.placements) for x in leaves(grads)],
+            "grads_r": [str(x.placements) for x in leaves(grads_r)],
+            "steps_equal": all(np.array_equal(x, y) for x, y in zip(*steps))}
+
+
+def steps_and_grad_placements(rank, world, jobs, tree, batch):
+    """``sharded_steps(jobs)``, then ``grad_placements(tree, batch)``."""
+    return sharded_steps(rank, world, jobs), grad_placements(rank, world, tree, batch)
+
+
+def gpipe_rings_save(rank, world, tree, batch, xw, n_micro, save_tree, ckpt_dir):
+    """GPipe on a (pod=2, data=world/2) mesh: the loss, and the gradients
+    of this rank's stage layers (rank 0 also the parameters every rank
+    uses); then the three ring matmuls on a 1-D ``model`` mesh of every
+    rank, each rank holding its k-block of x (and of w); then
+    ``elastic_save`` of ``save_tree``."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import overlap
+    from repro_torch.parallel.pipeline import gpipe_loss
+    from repro_torch.tree import leaves
+    cfg = _cfg("qwen1.5-0.5b").replace(layers=4, tie_embeddings=False)
+    params = lm_params_from_numpy(tree, cfg, device="cpu")
+    mesh = make_mesh((2, world // 2), ("pod", "data"))
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    coll.reset_counts()
+    loss = gpipe_loss(params, b, cfg, mesh=mesh, n_micro=n_micro)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    permutes = coll.counts()["permute"]["calls"]
+    stage = mesh.get_local_rank(0)
+    per = cfg.layers // 2
+    own = [f"blocks.{i}." for i in range(stage * per, (stage + 1) * per)]
+    names = _leaf_names(params)
+    keep = {n: (g.numpy() if g is not None else None) for n, g in zip(names, grads)
+            if any(n.startswith(o) for o in own) or (rank == 0 and not n.startswith("blocks."))}
+    out = {"loss": float(loss), "grads": keep, "permutes": permutes}
+    # the ring matmuls: x (m, k) and w (k, n), rank r's k-block of each
+    x, w = (torch.from_numpy(a) for a in xw)
+    group = make_mesh((world,), ("model",)).get_group(0)
+    kl = x.shape[1] // world
+    xs, ws = x[:, rank * kl:(rank + 1) * kl].contiguous(), w[rank * kl:(rank + 1) * kl]
+    coll.reset_counts()
+    out["ring_ag"] = overlap.ring_ag_matmul(xs, ws.contiguous(), group).numpy()
+    out["ring_ws"] = overlap.ring_ag_matmul_ws(xs, w, group).numpy()
+    out["psum_scatter"] = overlap.psum_scatter_matmul(xs, ws, group).numpy()
+    out["ring_counts"] = {k: v["calls"] for k, v in coll.counts().items() if v["calls"]}
+    out["saved"] = elastic_save(rank, world, save_tree, ckpt_dir)
+    return out
+
+
+def _leaf_names(tree, path=""):
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{path}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{path}{i}.")]
+    return [path[:-1]]
+
+
+def elastic_save(rank, world, tree, ckpt_dir):
+    """The reduced qwen parameters distributed on a (2, 2) mesh, saved
+    (rank 0 writes the host view)."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.checkpoint import checkpointing as ckpt
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.tree import leaves, unflatten
+    cfg = _cfg("qwen1.5-0.5b")
+    params = lm_params_from_numpy(tree, cfg, device="cpu")
+    mesh = make_mesh((2, 2), ("data", "model"))
+    psh = sh.param_shardings(params, mesh, cfg)
+    dp = unflatten(params, [sh.distribute(t, s.mesh, s.spec)
+                            for t, s in zip(leaves(params), leaves(psh))])
+    ckpt.save(ckpt_dir, 42, dp)
+    return [str(p.placements) for p in leaves(dp)][:3]
+
+
+def elastic_resume(rank, world, tree, ckpt_dir):
+    """``plan_for_devices`` for these ranks at model 2 (from data 2) and
+    ``resume_elastic`` onto its mesh: the step, the plan, every leaf
+    gathered, and this rank's placements."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.runtime.elastic import plan_for_devices, resume_elastic
+    from repro_torch.tree import leaves
+    cfg = _cfg("qwen1.5-0.5b")
+    template = lm_params_from_numpy(tree, cfg, device="cpu")
+    plan = plan_for_devices(world, model_parallel=2, old_data=2)
+    step, restored, mesh = resume_elastic(ckpt_dir, template, plan, cfg)
+    return {"step": step, "scale": plan.microbatch_scale, "mesh": tuple(mesh.shape),
+            "leaves": [host(x) for x in leaves(restored)],
+            "placements": [str(x.placements) for x in leaves(restored)]}

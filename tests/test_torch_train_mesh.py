@@ -1,0 +1,238 @@
+"""The port's sharded train step (``launch/steps.py`` on DTensors laid out
+by ``parallel/sharding.py``) on spawned gloo ranks, at the reduced configs
+in float32, against the port's single-device step and the JAX reference's
+loss on the same numpy parameters (the reference's ``init_params``,
+bridged) and batch.
+
+Gates:
+  * at (2, 2) and (1, 4) (qwen1.5-0.5b; deepseek-v2-lite-16b, MoE with its
+    experts over ``model``, at (2, 2)): the sharded step's loss within
+    1e-4 relative of the single-device step's and, under ``DISABLED``, of
+    the reference's; under ``AAQConfig(ste=True)`` within 1e-4 relative of
+    the single-device step (readings 0 to 4.5e-6: see ``AAQ_RTOL``); the
+    parameters after the step allclose 1e-5;
+  * every rank routes exactly the single-device step's fake-quant calls
+    (one an act site: each rank quantizes its own rows);
+  * one step of every other kind at 1 x 2 against its single-device step;
+  * the gradients on their parameters' placements, or on
+    ``grad_shardings``' when given;
+  * ``python -m repro_torch.launch.train --device cpu --model-parallel 2``
+    end to end: its losses within 1e-4 of ``--model-parallel 1``, and a
+    run failed at step 3 and restarted from its checkpoint ends bitwise
+    where the uninterrupted run does;
+  * a kernel wrapper handed a DTensor raises, and ``dispatch.fake_quant``
+    quantizes a DTensor's rows as the plain version does.
+"""
+import os
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+from _torch_mesh_ranks import (_cfg, one_step, run_ranks, sharded_steps,  # noqa: E402
+                               steps_and_grad_placements)
+from _torch_train_parity import batch_for  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduce_config as jax_reduce_config  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro_torch.bridge import lm_params_from_numpy  # noqa: E402
+from repro_torch.configs import ARCH_NAMES  # noqa: E402
+from repro_torch.core.policy import DISABLED, AAQConfig  # noqa: E402
+
+RTOL = 1e-4
+#: sharded vs single-device loss under AAQ's straight-through fake-quant:
+#: read 0 (qwen), 3.5e-7 (deepseek), 4.5e-6 (mixtral) at 1 x 2 and 2 x 2;
+#: a fake-quant bin that flips with a sum's order moves it by more
+AAQ_RTOL = 1e-4
+DENSE, MOE = "qwen1.5-0.5b", "deepseek-v2-lite-16b"
+JOBS4 = [(DENSE, (2, 2)), (MOE, (2, 2)), (DENSE, (1, 4))]
+OTHERS = [n for n in ARCH_NAMES if n not in (DENSE, MOE)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _tree(name):
+    jcfg = jax_reduce_config(jax_get_config(name)).replace(dtype="float32")
+    return jcfg, jax.tree.map(np.asarray, jlm.init_params(jax.random.PRNGKey(0), jcfg))
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    out = {}
+    for name in ARCH_NAMES:
+        jcfg, tree = _tree(name)
+        out[name] = (jcfg, tree, batch_for(_cfg(name), b=8, s=16))
+    return out
+
+
+@pytest.fixture(scope="module")
+def four_ranks(inputs):
+    """One spawn of 4 ranks: each (arch, mesh) under DISABLED and AAQ."""
+    jobs = [(a, inputs[a][1], inputs[a][2], ste, shape)
+            for a, shape in JOBS4 for ste in (False, True)]
+    res = run_ranks(4, sharded_steps, jobs)
+    return {(a, shape, ste): [r[i] for r in res]
+            for i, (a, _, _, ste, shape) in enumerate(jobs)}
+
+
+@pytest.fixture(scope="module")
+def two_ranks(inputs):
+    """One spawn of 2 ranks: every other kind, one step at 1 x 2; then
+    qwen's gradient placements (``grad_placements``)."""
+    jobs = [(a, inputs[a][1], inputs[a][2], False, (1, 2)) for a in OTHERS]
+    res = run_ranks(2, steps_and_grad_placements, jobs, inputs[DENSE][1], inputs[DENSE][2])
+    out = {a: [r[0][i] for r in res] for i, a in enumerate(OTHERS)}
+    out["grad_placements"] = [r[1] for r in res]
+    return out
+
+
+def _single(inputs, name, ste):
+    cfg = _cfg(name)
+    _, tree, batch = inputs[name]
+    return one_step(cfg, lm_params_from_numpy(tree, cfg, device="cpu"), batch,
+                    AAQConfig(ste=True) if ste else DISABLED)
+
+
+@pytest.mark.parametrize("ste", (False, True), ids=("fp", "aaq"))
+@pytest.mark.parametrize("name,shape", JOBS4, ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else v)
+def test_sharded_step_matches_single_and_reference(four_ranks, inputs, name, shape, ste):
+    ranks = four_ranks[(name, shape, ste)]
+    loss, params, fq = _single(inputs, name, ste)
+    got = ranks[0]
+    np.testing.assert_allclose(got["loss"], loss, rtol=AAQ_RTOL if ste else RTOL)
+    if not ste:
+        jcfg, tree, batch = inputs[name]
+        want = jlm.loss_fn(jax.tree.map(jnp.asarray, tree),
+                           {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
+        np.testing.assert_allclose(got["loss"], float(want), rtol=RTOL)
+    assert len(got["params"]) == len(params)
+    for a, b in zip(got["params"], params):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    # every rank quantizes its own rows: the single step's act calls, each
+    assert fq == (16 if name == DENSE else 12) * ste
+    assert [r["fq"] for r in ranks] == [fq] * 4
+    assert all(r["loss"] == got["loss"] for r in ranks)
+
+
+@pytest.mark.parametrize("name", OTHERS)
+def test_every_other_kind_steps_at_1x2(two_ranks, inputs, name):
+    ranks = two_ranks[name]
+    loss, params, _ = _single(inputs, name, False)
+    np.testing.assert_allclose(ranks[0]["loss"], loss, rtol=RTOL)
+    for a, b in zip(ranks[0]["params"], params):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    assert ranks[1]["loss"] == ranks[0]["loss"]
+
+
+def test_grad_shardings_places_the_gradients(two_ranks):
+    """``value_and_grad``'s gradients take their parameters' placements
+    (a partial sum reduced, a shard scattered), or ``grad_shardings``'
+    when given (here every leaf replicated: the same values); and a
+    ``make_train_step`` given the parameters' own shardings steps
+    bitwise as it does without them."""
+    for r in two_ranks["grad_placements"]:
+        assert r["grads"] == r["params"]
+        assert any("Shard" in p for p in r["params"])
+        assert set(r["grads_r"]) == {"(Replicate(), Replicate())"}
+        assert r["loss_r"] == r["loss"]
+        assert r["gap"] <= 1e-6
+        assert r["steps_equal"]
+
+
+def _train(tmp_path, *extra):
+    from repro_torch.launch import train
+    return train.main(["--device", "cpu", "--reduced", "--steps", "4", "--batch", "8",
+                       "--seq", "32", "--ckpt-every", "2", *extra])
+
+
+def test_launch_train_model_parallel_end_to_end(tmp_path, capsys):
+    """``--model-parallel 2`` alone starts its second rank itself; its
+    losses match one device's; a failure at step 3 restarts every rank
+    from the step-1 checkpoint and ends bitwise where the uninterrupted
+    run does."""
+    from repro_torch.tree import leaves
+    one = _train(tmp_path, "--ckpt-dir", str(tmp_path / "one"))
+    full = _train(tmp_path, "--model-parallel", "2", "--gather-state",
+                  "--ckpt-dir", str(tmp_path / "full"))
+    assert full.mesh == (1, 2) and one.mesh is None
+    np.testing.assert_allclose(full.losses, one.losses, rtol=RTOL)
+    failed = _train(tmp_path, "--model-parallel", "2", "--fail-at", "3", "--gather-state",
+                    "--ckpt-dir", str(tmp_path / "failed"))
+    assert failed.driver.restarts == 1 and failed.driver.starts == [0, 2]
+    assert failed.losses[-1] == full.losses[-1]
+    for a, b in zip(leaves(failed.state), leaves(full.state)):
+        assert not isinstance(a, torch.distributed.tensor.DTensor)
+        assert torch.equal(a, b)
+    # rank 0 alone prints (the failed run: 3 steps, then 2 replayed), and
+    # alone writes the checkpoints
+    out = capsys.readouterr().out
+    assert out.count("done: 4 steps") == 2 and out.count("done: 5 steps") == 1
+    assert sorted(os.listdir(tmp_path / "full")) == ["step_00000001", "step_00000003"]
+
+
+def test_model_parallel_refuses_more_ranks_than_cards(monkeypatch):
+    from repro_torch.launch import mesh as lmesh
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        lmesh.training_world(2, "cuda")
+    assert lmesh.training_world(2, "cpu") == 2
+
+
+def test_kernel_wrappers_refuse_dtensors(tmp_path):
+    """A DTensor reaches no kernel wrapper (its storage is one rank's
+    shard): each raises, and so does ``dispatch`` on either route; the act
+    site (``AAQConfig.act``, through ``sharding.on_rows``) quantizes the
+    DTensor's rows on the rank, as the plain version does on the whole
+    tensor."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.aaq_matmul.aaq_matmul import aaq_matmul_kernel
+    from repro_torch.kernels.aaq_quant.aaq_quant import (aaq_fake_quant_kernel,
+                                                         aaq_quantize_kernel)
+    from repro_torch.kernels.flash_attention.flash_attention import flash_mha_kernel
+    from repro_torch.core.quantize import fake_quant
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv", rank=0,
+                            world_size=1)
+    try:
+        mesh = DeviceMesh("cpu", [0])
+        x = torch.randn(8, 64, generator=torch.Generator().manual_seed(0))
+        dx = distribute_tensor(x, mesh, [Shard(0)])
+        for call in (lambda: aaq_fake_quant_kernel(dx, 8, 4),
+                     lambda: aaq_quantize_kernel(dx, bits=8, k_outliers=4),
+                     lambda: aaq_matmul_kernel(dx, dx, dx, dx, dx, bits=8),
+                     lambda: flash_mha_kernel(dx[None, :, None], dx[None, :, None],
+                                              dx[None, :, None])):
+            with pytest.raises(TypeError, match="DTensor"):
+                call()
+        dispatch.reset_counters()
+        for backend in (dispatch.REF, dispatch.KERNEL):
+            with pytest.raises(TypeError, match="DTensor"):
+                dispatch.fake_quant(dx, bits=8, k_outliers=4, backend=backend)
+            with pytest.raises(TypeError, match="DTensor"):
+                dispatch.attention(dx[None, :, None], dx[None, :, None], dx[None, :, None],
+                                   backend=backend)
+        assert not any(dispatch.counters.values())
+        aaq = AAQConfig(enabled=True)
+        pol = aaq.policy_for("lm.pre_ln")
+        assert pol.enabled
+        got = aaq.act(dx, "lm.pre_ln")
+        assert torch.equal(got.full_tensor(), fake_quant(x, pol.bits, pol.k_outliers))
+        assert dispatch.counters["fakequant.ref"] == 1
+    finally:
+        dist.destroy_process_group()

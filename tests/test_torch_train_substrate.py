@@ -189,9 +189,14 @@ def test_launcher_resume_equals_uninterrupted_bitwise(tmp_path, capsys):
     assert "restarts=1 stragglers=" in out and "done: 10 steps" in out
 
 
-def test_launcher_refuses_model_parallel_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train.main(["--model-parallel", "2", "--device", "cpu"])
+def test_launcher_refuses_model_parallel_naming_item_11(monkeypatch):
+    """Item 11.1 ported ``--model-parallel``: on the card it takes one rank a
+    card, so more ranks than cards are refused before anything starts (the
+    sharded run itself: ``test_torch_train_mesh.py``)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        train.main(["--model-parallel", "2"])
 
 
 def test_launcher_defaults_to_the_card():
