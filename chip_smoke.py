@@ -2,11 +2,14 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --mesh-only   # phases 1, 2, 11, 12 and 13 alone
+    python3 chip_smoke.py --mesh-only   # phases 1, 2, 11, 12, 13 and 16 alone
+    python3 chip_smoke.py --mesh-only --phases 11,13
 
-``--mesh-only`` runs the build, the mesh tier and multi-device training
-alone: on a host of two cards or more that is the run of phases 11(c) and
-12(b) across them, without the phases that need one card.
+``--mesh-only`` runs the build, the mesh tier, multi-device training and
+the fleet on a mesh alone: on a host of two cards or more that is the run
+of phases 11(c), 12(b) and 13 (two replicas on a 1x2 mesh) across them,
+without the phases that need one card.  ``--phases`` picks some of 11,
+12 and 13.
 
 Phases, each fatal on failure:
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA
@@ -186,7 +189,28 @@ Phases, each fatal on failure:
      ``ring_ag_matmul_ws`` on 4 ranks within 2e-4 of ``x @ w`` (every
      gate of (b) read, then the phase fails if any failed); then
      ``aaq_fake_quant`` at a rank's training shapes, bitwise and timed;
- 13. summary: one JSON line of the kernels, the card, and the last line
+ 13. the fleet on one shared mesh (``--listen`` with ``--mesh``): two
+     replicas of ``launch.serve``'s own factory, warmed, at full
+     esmfold_ppm width on one 1x1 mesh over NCCL (1x2 across two cards
+     under ``--mesh-only``), threshold 256, behind ``FoldHTTPServer``: 6
+     requests of 226-250 residues posted, replica 0 failed with them
+     queued (requeued, rebuilt on the same rank processes), served, then a
+     second pass; each request TM >= 0.9995 against its single-device
+     sequential fold, the wire bitwise in-process, every rank holding only
+     the live engines, captures equal to keys and none in the second
+     pass, every main-path kernel launched, the rank processes gone once
+     the mesh closes;
+ 14. the examples (``python -m repro_torch.examples.quickstart`` and
+     ``fold_server``) as processes on the card, both at once: each exits 0
+     after its own assertions with every main-path kernel launched;
+ 15. the dry-run: ``launch.dryrun.lower_cell`` on the fake 16 x 16
+     production mesh for qwen1.5-0.5b x train_4k, qwen1.5-0.5b x
+     decode_32k with the INT8 KV cache, deepseek-v2-lite-16b x decode_32k
+     and esmfold_ppm x ns256, each roofline line with the card's
+     constants; then phase 10's qwen step traced on one device and run for
+     real under ``FlopCounterMode``: the FLOP counts equal, the trace's
+     peak beside ``max_memory_allocated``;
+ 16. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -3651,7 +3675,7 @@ def _rank_job_run(torch, job, world, arg) -> dict:
 
 def _job_elastic(torch, rank, world, ckpt_dir) -> dict:
     """The 2x2 run's latest checkpoint restored onto a 1x2 mesh: every leaf
-    gathered bitwise the checkpoint's array."""
+    gathered (and its layers stacked) bitwise the checkpoint's array."""
     import numpy as np
     from repro_torch.checkpoint import checkpointing as ckpt
     from repro_torch.configs import get_config
@@ -3659,15 +3683,16 @@ def _job_elastic(torch, rank, world, ckpt_dir) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.parallel import sharding as sh
     from repro_torch.runtime.elastic import plan_for_devices, resume_elastic
-    from repro_torch.tree import leaves
+    from repro_torch.tree import leaves, tree_map
     cfg = get_config("qwen1.5-0.5b").replace(dtype="float32")
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     template = (params, adamw.init(params))
     plan = plan_for_devices(world, model_parallel=2, old_data=2)
     step, tree, mesh = resume_elastic(ckpt_dir, template, plan, cfg)
     d = Path(ckpt_dir) / f"step_{step:08d}"
-    same = all(np.array_equal(sh.to_global(x).cpu().numpy(), np.load(d / f"arr_{i}.npy"))
-               for i, x in enumerate(leaves(tree)))
+    host = ckpt.stack_layers(tree_map(lambda x: sh.to_global(x).cpu().numpy(), tree), cfg)
+    same = all(np.array_equal(x, np.load(d / f"arr_{i}.npy"))
+               for i, x in enumerate(leaves(host)))
     return dict(step=step, mesh=tuple(mesh.shape), microbatch_scale=plan.microbatch_scale,
                 leaves=len(leaves(tree)), bitwise=same)
 
@@ -3773,11 +3798,282 @@ def train_mesh(torch, card: str) -> tuple:
     return rows, {"aaq_fake_quant": sum(sum(t.values()) for t in tallies.values())}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the fleet on one shared mesh (``--listen`` with ``--mesh``)
+# ---------------------------------------------------------------------------
+#: six requests of bucket 256, every one sharded over the mesh
+MFLEET_LENGTHS = (250, 246, 241, 237, 233, 226)
+
+
+def serve_fleet_mesh(torch, width: int) -> dict:
+    """Two replicas of ``launch.serve``'s own factory (``--warmup``, no
+    fidelity) on ONE 1 x ``width`` mesh over NCCL at threshold 256, at full
+    esmfold_ppm width, behind ``FoldHTTPServer``: the 6 requests posted,
+    replica 0 failed before anything is served (its queued requests
+    requeued, the replica rebuilt on the same rank processes), then served;
+    a second pass.  Gates: each request's TM >= 0.9995 against its
+    single-device sequential fold; the wire bitwise the serving replica's
+    own result; every rank holds only the live engines (the old one
+    closed on the workers too); each replica's captures equal its keys,
+    none in the second pass; every main-path kernel launched, no plain
+    version; the mesh's rank processes gone once it is closed; and the CLI
+    refusing ``--listen --mesh`` wider than the cards.  Returns the counted
+    launches."""
+    import gc
+    import io
+    import urllib.request
+    from repro_torch.configs import get_ppm_config
+    from repro_torch.data.pipeline import ProteinSampler
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.models.ppm import init_ppm, tm_score
+    from repro_torch.serving import (FleetRouter, FoldHTTPServer, check_request_order,
+                                     make_serving_mesh)
+    from repro_torch.serving import events as ev
+    from repro_torch.serving.transport import protocol
+    from repro_torch.serving.transport.server import request_json
+    t0 = time.perf_counter()
+    what = f"phase 13, 2 replicas on one 1x{width} mesh"
+    # the CLI refuses a fleet's mesh larger than the cards, as a lone mesh
+    over = torch.cuda.device_count() + 1
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--mode", "ppm", "--listen", "127.0.0.1:0", "--replicas", "2",
+                         "--mesh", f"1x{over}", "--shard-threshold", str(MESH_BUCKET)])
+    if rc != 2 or f"needs {over} devices" not in out.getvalue():
+        fail(f"{what}: --listen --mesh 1x{over} gave {rc}: {out.getvalue()!r}")
+    log(f"{what}: --listen --replicas 2 --mesh 1x{over} refused: {out.getvalue().strip()}")
+    cfg = get_ppm_config()
+    params = init_ppm(cfg, seed=0, device="cuda")
+    sampler = ProteinSampler(seed=11)
+    seqs = [sampler.sample(500 + i, length=n) for i, n in enumerate(MFLEET_LENGTHS)]
+    want = serve.serve_ppm_sequential(cfg, params, seqs, (MESH_BUCKET,), fidelity=False,
+                                      device="cuda", emit=lambda *_: None)
+    dev = torch.device("cuda")
+    args = serve.parser().parse_args(
+        ["--mode", "ppm", "--buckets", str(MESH_BUCKET), "--max-batch", "4", "--no-fidelity",
+         "--warmup", "--mesh", f"1x{width}", "--shard-threshold", str(MESH_BUCKET)])
+    mesh = make_serving_mesh(args.mesh, device=dev).bind(dev)
+    procs = list(mesh._procs)
+    dispatch.reset_counters()
+    t1 = time.perf_counter()
+    router = FleetRouter(serve.fold_replica_factory(args, cfg, params, (MESH_BUCKET,), dev,
+                                                    mesh), 2, autostart=False, max_restarts=1)
+    warm_s = time.perf_counter() - t1
+    server = FoldHTTPServer(router, port=0, host="127.0.0.1").start()
+    url = server.url
+
+    def post(seq):
+        return request_json(f"{url}/v1/fold", method="POST",
+                            body={"sequence": seq.tolist()})["id"]
+
+    def follow(rid):
+        with urllib.request.urlopen(f"{url}/v1/fold/{rid}/events", timeout=600) as resp:
+            return protocol.parse_sse(resp.read())
+
+    def check(rids, label):
+        tms = []
+        for rid, events, ref in zip(rids, _gather(follow, rids), want):
+            check_request_order(events)
+            st = request_json(f"{url}/v1/fold/{rid}")
+            mine = router.get(rid).handle._result
+            wire = protocol.decode_array(st["result"]["coords"])
+            if events[-1].kind != ev.COMPLETED or not mine.ok or \
+                    st["result"]["placement"] != f"mesh:1x{width}":
+                fail(f"{what}, {label}: request {rid} {events[-1].kind} "
+                     f"{st['result']['placement']}")
+            if wire.tobytes() != mine.coords.tobytes():
+                fail(f"{what}, {label}: request {rid}'s wire is not its in-process result")
+            tms.append(float(tm_score(torch.from_numpy(wire), ref.coords)))
+        if min(tms) < MESH_TM_GATE:
+            fail(f"{what}, {label}: TM {tms} against the sequential folds (gate {MESH_TM_GATE})")
+        return tms
+
+    try:
+        keys = [sorted(r.client.core._executables) for r in router.replicas]
+        log(f"{what}: {len(procs)} rank process(es) started, 2 replicas warmed in "
+            f"{warm_s:.1f} s, keys {[len(k) for k in keys]}, engines on the mesh "
+            f"{[r.client.core.mesh_eid for r in router.replicas]}")
+        rids = [post(s) for s in seqs]
+        old = router.replicas[0].client
+        router.replicas[0].mark_failed()
+        requeued = router.check_health()
+        router.start()
+        t2 = time.perf_counter()
+        first = check(rids, "first pass")
+        router.drain_wait(timeout=600.0)
+        router.join_released(timeout=600.0)
+        first_ms = (time.perf_counter() - t2) * 1e3
+        new = router.replicas[0].client
+        if not requeued or router.replicas[0].restarts != 1 or new is old or \
+                router.released != [old] or old.core.mesh_eid is not None:
+            fail(f"{what}: requeued {requeued}, restarts {router.replicas[0].restarts}, "
+                 f"released {len(router.released)}")
+        caps = [r.client.core.compile_count for r in router.replicas]
+        t3 = time.perf_counter()
+        second = check([post(s) for s in seqs], "second pass")
+        router.drain_wait(timeout=600.0)
+        second_ms = (time.perf_counter() - t3) * 1e3
+        cores = [r.client.core for r in router.replicas]
+        if [c.compile_count for c in cores] != caps or \
+                any(c.compile_count != len(c._executables) for c in cores):
+            fail(f"{what}: captures {[c.compile_count for c in cores]} (before the second "
+                 f"pass {caps}) for keys {[len(c._executables) for c in cores]}")
+        live = sorted(c.mesh_eid for c in cores)
+        stats = mesh.rank_stats()
+        if any(s["engines"] != live for s in stats):
+            fail(f"{what}: engines by rank {[s['engines'] for s in stats]}, live {live}")
+        launches, plain, routed = _counts()
+        _check_main_path(what, launches, plain, routed)
+        log(f"{what}: replica 0 failed with {len(requeued)} requests queued, requeued "
+            f"{sorted(requeued)}, rebuilt on the same ranks (engine {new.core.mesh_eid}); "
+            f"first pass {first_ms:.0f} ms, TM against the sequential folds "
+            f"{[round(t, 5) for t in first]}; second pass {second_ms:.0f} ms, no capture, TM "
+            f"{[round(t, 5) for t in second]}; wire bitwise in-process; engines on every rank "
+            f"{live}; captures {[c.compile_count for c in cores]}; launches {launches}")
+    finally:
+        server.stop()
+        router.stop()
+        # the engines (their graphs, on every rank) go before the mesh: a
+        # communicator is not torn down under graphs that captured its
+        # collectives (the CLI's fleet does the same)
+        for r in router.replicas:
+            r.client.close()
+        mesh.close()
+    for p in procs:
+        p.wait(timeout=60)
+    if any(p.poll() is None for p in procs):
+        fail(f"{what}: a rank process outlived the mesh")
+    log(f"{what}: the mesh closed and its {len(procs)} rank process(es) gone; "
+        f"phase wall {time.perf_counter() - t0:.1f}s")
+    del router, old, new, cores, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the examples
+# ---------------------------------------------------------------------------
+EXAMPLES = ("quickstart", "fold_server")
+#: each kernel an example's fold runs, as the variants that may serve it
+EXAMPLE_KERNELS = (("aaq_quantize",), ("aaq_fake_quant",), ("aaq_matmul", "aaq_matmul_f32"),
+                   ("flash_mha", "flash_mha_simt"))
+
+
+def run_examples(torch) -> None:
+    """``python -m repro_torch.examples.<name>`` for each example, both at
+    once, on the card: each must exit 0 after its own assertions, with
+    every kernel its path runs launched and no plain version."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {name: subprocess.Popen([sys.executable, "-m", f"repro_torch.examples.{name}"],
+                                    cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name in EXAMPLES}
+    for name, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            fail(f"phase 14: {name} did not finish in 600 s:\n{out[-3000:]}")
+        lines = out.strip().splitlines()
+        if proc.returncode != 0 or not lines or not lines[-1].startswith("# launches "):
+            fail(f"phase 14: {name} exited {proc.returncode}:\n{out[-3000:]}")
+        launched, plain = (json.loads(p) for p in
+                           lines[-1].removeprefix("# launches ").split(" plain "))
+        # the reduced config is float32: the products and flash take their
+        # f32 variants
+        if any(not any(launched[v] for v in family) for family in EXAMPLE_KERNELS) \
+                or any(plain.values()):
+            fail(f"phase 14: {name}: launches {launched}, plain {plain}")
+        log(f"phase 14: {name} exited 0 at {time.perf_counter() - t0:.1f}s; "
+            + " | ".join(ln for ln in lines if ln.startswith(("TM-score", "pair-activation",
+                                                              "# tails", "# http", "# steady"))))
+        log(f"phase 14: {name} launches {launched}")
+    log(f"phase 14 wall {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the dry-run, and its count held against the card
+# ---------------------------------------------------------------------------
+#: (arch, shape, --quant-kv) traced on the fake 16 x 16 production mesh
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False), ("qwen1.5-0.5b", "decode_32k", True),
+                ("deepseek-v2-lite-16b", "decode_32k", False), ("esmfold_ppm", "ns256", False))
+
+
+def dry_run(torch) -> None:
+    """``dryrun.lower_cell`` on the fake 16 x 16 mesh (fake CUDA tensors,
+    nothing allocated) for each of ``DRYRUN_CELLS``, its roofline line
+    printed with the card's constants; then phase 10's qwen1.5-0.5b step
+    (8 x 64 tokens, float32, ``DISABLED``, one device) traced the same way
+    and run for real on the card under ``FlopCounterMode`` on the same
+    (plain) route: the FLOP counts must be equal; the trace's peak printed
+    beside the real step's ``max_memory_allocated``."""
+    import gc
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeSpec, get_config, shapes_for
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    for arch, name, qkv in DRYRUN_CELLS:
+        shape = next(s for s in shapes_for(arch) if s.name == name)
+        rec = dryrun.lower_cell(arch, shape, quantized_kv=qkv)
+        tag = f"{arch} x {name} x single{' --quant-kv' if qkv else ''}"
+        c = rec["collectives"]
+        log(f"phase 15: {dryrun.roofline_line(tag, rec)}; flops/dev "
+            f"{rec['cost']['flops_per_dev']:.0f}, bytes/dev {rec['cost']['bytes_per_dev']:.4e} "
+            f"(widened copies {rec['cost']['widen_bytes_per_dev']:.4e}), "
+            f"collectives {c['counts']} ({sum(c['per_device_bytes'].values()) / 2**30:.3f} GiB "
+            f"a device), mem {rec['mem']}, model_flops {rec['roofline']['model_flops']:.4e}, "
+            f"useful {rec['roofline']['useful_fraction']:.3f}, roofline fraction "
+            f"{rec['roofline']['roofline_fraction']:.4f}, device {rec['device']}")
+        if rec["chips"] != 256 or rec["cost"]["flops_per_dev"] <= 0 or \
+                (arch != "esmfold_ppm" and not c["counts"]):
+            fail(f"phase 15: {tag}: {rec['chips']} chips, {rec['cost']}, {c['counts']}")
+    cfg = get_config("qwen1.5-0.5b").replace(dtype="float32")
+    shape = ShapeSpec("phase10", 64, 8, "train")
+    rec = dryrun.lower_cell("qwen1.5-0.5b", shape, cfg=cfg, mesh_shape=())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adamw.init(params)
+    batch = {k: torch.zeros((8, 64), dtype=torch.int32, device="cuda")
+             for k in ("tokens", "labels")}
+    with dispatch.use_backend("ref"), FlopCounterMode(display=False) as fc:
+        make_train_step(cfg)(params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    est = rec["mem"]["peak_bytes_per_dev"]
+    real = fc.get_total_flops()
+    log(f"phase 15: phase 10's step (qwen1.5-0.5b f32, 8 x 64, DISABLED, one device): traced "
+        f"FLOPs {rec['cost']['flops_per_dev']:.0f}, FlopCounterMode on the card {real}; the "
+        f"trace's peak {est / 2**30:.3f} GiB (arguments {rec['mem']['argument_bytes_per_dev'] / 2**30:.3f}), "
+        f"the card's max_memory_allocated above what was held {peak / 2**30:.3f} GiB, ratio "
+        f"{est / peak:.3f}; trace {rec['trace_s']} s")
+    if rec["cost"]["flops_per_dev"] != real or real <= 0:
+        fail(f"phase 15: traced FLOPs {rec['cost']['flops_per_dev']} != the card's {real}")
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 15 wall {time.perf_counter() - t0:.1f}s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke test of the port on the card")
     ap.add_argument("--mesh-only", action="store_true",
-                    help="build the kernels and run phases 11 and 12 (the mesh tier and "
-                         "multi-device training) alone")
+                    help="build the kernels and run phases 11, 12 and 13 (the mesh tier, "
+                         "multi-device training, the fleet on a mesh) alone")
+    ap.add_argument("--phases", default="11,12,13",
+                    help="with --mesh-only: the phases of 11, 12 and 13 to run "
+                         "(default all three)")
     # a started rank of a phase 12(b) job (``_rank_job_run``)
     ap.add_argument("--rank-job", choices=sorted(_RANK_JOBS), help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
@@ -3822,7 +4118,7 @@ def main(argv=None) -> int:
         f"{[str(s.relative_to(ROOT)) for s in build.sources()]}")
     flash_resources(build)
     if args.mesh_only:
-        return mesh_only(torch, smi, t_start)
+        return mesh_only(torch, smi, t_start, {int(x) for x in args.phases.split(",")})
 
     # 3. kernels vs plain versions, timed at every main-path shape
     rows: dict[str, list[KernelRow]] = {}
@@ -3895,7 +4191,17 @@ def main(argv=None) -> int:
     log(f"multi-device training launches (rank 0's counted runs): {mt_launches}")
     log(f"phase 12 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 13. summary
+    # 13. the fleet on one shared mesh; 14. the examples; 15. the dry-run
+    fm_launches = serve_fleet_mesh(torch, 1)
+    log(f"fleet-on-a-mesh launches (warm-ups and the rebuilt replica's captures): "
+        f"{fm_launches}")
+    log(f"phase 13 done at {time.perf_counter() - t_start:.1f}s")
+    run_examples(torch)
+    log(f"phase 14 done at {time.perf_counter() - t_start:.1f}s")
+    dry_run(torch)
+    log(f"phase 15 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 16. summary
     log(f"total {time.perf_counter() - t_start:.1f}s")
     # each variant at its first timed shape, then every kernel at the engine's
     # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs), the
@@ -3922,15 +4228,29 @@ def ok_line(torch) -> str:
                                               "count": torch.cuda.device_count()}})
 
 
-def mesh_only(torch, smi, t_start) -> int:
-    """``--mesh-only``: phases 11 and 12 after the build, then their kernel
-    rows, the card and the last line."""
-    mesh_rows, mesh_launches = serve_mesh(torch, {})
-    log(f"mesh launches (rank 0's counted runs): {mesh_launches}")
-    log(f"phase 11 done at {time.perf_counter() - t_start:.1f}s")
-    mt_rows, mt_launches = train_mesh(torch, smi)
-    log(f"multi-device training launches (rank 0's counted runs): {mt_launches}")
-    log(f"phase 12 done at {time.perf_counter() - t_start:.1f}s")
+def mesh_only(torch, smi, t_start, phases) -> int:
+    """``--mesh-only``: ``phases`` of 11 and 12 after the build, and 13 on a
+    1x2 mesh where there are two cards, then the kernel rows of 11 and 12,
+    the card and the last line."""
+    if not phases or phases - {11, 12, 13}:
+        fail(f"--phases takes 11, 12 and 13, not {sorted(phases)}")
+    mesh_rows = mt_rows = []
+    if 11 in phases:
+        mesh_rows, mesh_launches = serve_mesh(torch, {})
+        log(f"mesh launches (rank 0's counted runs): {mesh_launches}")
+        log(f"phase 11 done at {time.perf_counter() - t_start:.1f}s")
+    if 12 in phases:
+        mt_rows, mt_launches = train_mesh(torch, smi)
+        log(f"multi-device training launches (rank 0's counted runs): {mt_launches}")
+        log(f"phase 12 done at {time.perf_counter() - t_start:.1f}s")
+    if 13 in phases:
+        if torch.cuda.device_count() >= 2:
+            fm_launches = serve_fleet_mesh(torch, 2)
+            log(f"fleet-on-a-mesh launches (warm-ups and the rebuilt replica's captures): "
+                f"{fm_launches}")
+            log(f"phase 13 done at {time.perf_counter() - t_start:.1f}s")
+        else:
+            log("phase 13: one card visible; the fleet on a 1x2 mesh not run")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [row.record() for row in mesh_rows]
                       + [row.record() for row in mt_rows]}))

@@ -1,17 +1,23 @@
 """Atomic, async checkpointing (port of ``repro/checkpoint/checkpointing.py``),
 on the reference's on-disk layout, so a checkpoint the reference wrote
-restores into the port and back.
+restores into the port and back, for every config.
 
 Layout per step:  <dir>/step_<n>/
     manifest.json           treedef, shapes, dtypes, step metadata
     arr_<i>.npy             one file per leaf (host-local full array)
 
 Leaves are numbered in ``jax.tree`` flatten order (dict keys sorted, lists
-in order; ``repro_torch.tree.leaves``).  The port keeps a scanned stack of
-layers as a list of per-layer dicts where the reference stacks them on a
-leading axis, so its leaves line up with a reference tree only where both
-have that shape (the optimizer state, flat parameter dicts); ``restore``
-checks every shape against the template.
+in order; ``repro_torch.tree.leaves``).  The reference stacks an LM's
+``blocks`` on a leading layer axis when its config scans layers
+(``scan_layers``, every config but recurrentgemma's and whisper's) and a
+hybrid's ``periods`` always; the port keeps lists of per-layer dicts.  Given
+the model's config (``cfg=``), ``save`` stacks each such list into the
+reference's leaves on the host, wherever it sits in the tree (the
+parameters and the AdamW moments that mirror them), and ``restore`` splits
+them back; MoE's dense ``first_block`` and the lists the reference keeps
+(a hybrid's ``tail``, the enc-dec's blocks) stay as they are
+(``stacked_entries``).  Without ``cfg`` the tree is written as it is.
+``restore`` checks every shape against the template.
 
 Guarantees:
   * atomicity: writes land in ``.tmp-step_<n>`` and are renamed only after
@@ -24,10 +30,12 @@ Guarantees:
 Sharded state (DTensor leaves, a ``--model-parallel`` run): a checkpoint
 holds the host view, the whole array a leaf, as the reference's does, so it
 is mesh-agnostic.  Every rank gathers each DTensor leaf (``full_tensor``)
-on the caller's thread, in leaf order (a collective on the writer thread
-could hang its peers), and only global rank 0 writes.  ``restore(...,
-shardings=)`` distributes each leaf to its ``NamedSharding``'s placements;
-a DTensor template leaf without one takes the template's.
+on the caller's thread, one leaf at a time in leaf order (a collective on
+the writer thread could hang its peers), only global rank 0 copies it to
+the host and writes, and the layers stack there.  ``restore(...,
+shardings=)`` splits a stacked array on the host and distributes each
+layer's leaf to its ``NamedSharding``'s placements; a DTensor template leaf
+without one takes the template's.
 """
 from __future__ import annotations
 
@@ -76,6 +84,52 @@ def _treedef(tree) -> str:
     return "*"
 
 
+def stacked_entries(cfg) -> tuple[str, ...]:
+    """The dict entries the reference stacks on a leading layer axis for
+    ``cfg`` (none without one): a hybrid's ``periods`` always, ``blocks``
+    when the config scans its layers (``repro/models/transformer.py``
+    ``init_lm``, ``repro/models/hybrid.py`` ``init_hybrid_lm``)."""
+    if cfg is None:
+        return ()
+    return ("blocks", "periods") if cfg.scan_layers else ("periods",)
+
+
+class _Layers:
+    """One leaf of the reference's tree that the port holds a layer at a
+    time: the per-layer parts, in layer order."""
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = parts
+
+
+def _combine(layers: list, combine):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _combine([lay[k] for lay in layers], combine) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_combine([lay[i] for lay in layers], combine) for i in range(len(first))]
+    return combine(layers)
+
+
+def _stacked(tree, keys: tuple[str, ...], combine):
+    """``tree`` in the reference's layout: each ``keys`` entry that is a
+    list of per-layer dicts becomes one dict of that structure whose leaves
+    are ``combine`` of the layers' leaves."""
+    if isinstance(tree, dict):
+        return {k: (_combine(v, combine) if k in keys and isinstance(v, list) and v
+                    else _stacked(v, keys, combine)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_stacked(v, keys, combine) for v in tree]
+    return tree
+
+
+def stack_layers(tree, cfg):
+    """A tree of host arrays in the reference's layout for ``cfg``: the
+    lists of ``stacked_entries(cfg)`` stacked on a leading axis."""
+    return _stacked(tree, stacked_entries(cfg), np.stack)
+
+
 def _gathered(tree, snapshot: bool = False) -> list | None:
     """The writer's host arrays of ``tree``'s leaves (None on another
     rank); every rank takes part in each DTensor leaf's gather, in leaf
@@ -88,17 +142,15 @@ def _gathered(tree, snapshot: bool = False) -> list | None:
     return None
 
 
-def save(ckpt_dir: str, step: int, tree, keep_last_k: int = 3) -> str:
-    """Write ``tree`` as step ``step``; with a process group, every rank
-    calls it (DTensor leaves are gathered) and rank 0 alone writes."""
+def save(ckpt_dir: str, step: int, tree, keep_last_k: int = 3, cfg=None) -> str:
+    """Write ``tree`` as step ``step``, its layers stacked as the reference
+    stacks ``cfg``'s; with a process group, every rank calls it (DTensor
+    leaves are gathered) and rank 0 alone writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
-    if any(sh.is_dtensor(x) for x in leaves(tree)):
-        flat = _gathered(tree)
-        if flat is None:
-            return final
-        tree = unflatten(tree, flat)
-    if not _writer():
+    flat = _gathered(tree)
+    if flat is None:
         return final
+    tree = stack_layers(unflatten(tree, flat), cfg)
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp-step_{step:08d}")
     if os.path.exists(tmp):
@@ -107,8 +159,7 @@ def save(ckpt_dir: str, step: int, tree, keep_last_k: int = 3) -> str:
     flat = leaves(tree)
     manifest = {"step": step, "treedef": _treedef(tree), "n_leaves": len(flat),
                 "dtypes": [], "shapes": []}
-    for i, leaf in enumerate(flat):
-        arr = _host(leaf)
+    for i, arr in enumerate(flat):
         np.save(os.path.join(tmp, f"arr_{i}.npy"), arr)
         manifest["dtypes"].append(str(arr.dtype))
         manifest["shapes"].append(list(arr.shape))
@@ -135,9 +186,10 @@ class AsyncCheckpointer:
     ``records`` gets one dict a finished save: its step, the host snapshot's
     and the write's wall time (ms) and the bytes of the arrays."""
 
-    def __init__(self, ckpt_dir: str, keep_last_k: int = 3):
+    def __init__(self, ckpt_dir: str, keep_last_k: int = 3, cfg=None):
         self.ckpt_dir = ckpt_dir
         self.keep_last_k = keep_last_k
+        self.cfg = cfg
         self.records: list[dict] = []
         self._thread: threading.Thread | None = None
 
@@ -158,7 +210,7 @@ class AsyncCheckpointer:
 
         def write():
             t1 = time.perf_counter()
-            save(self.ckpt_dir, step, unflatten(tree, flat), self.keep_last_k)
+            save(self.ckpt_dir, step, unflatten(tree, flat), self.keep_last_k, self.cfg)
             rec["write_ms"] = (time.perf_counter() - t1) * 1e3
             self.records.append(rec)
 
@@ -202,9 +254,10 @@ def _like(arr: np.ndarray, template, sharding=None):
                              src_data_rank=None)
 
 
-def restore(ckpt_dir: str, template, step: int | None = None, shardings=None):
+def restore(ckpt_dir: str, template, step: int | None = None, shardings=None, cfg=None):
     """Restore onto the template's tree: (step, tree), each tensor leaf on
-    its template leaf's device and dtype; with ``shardings`` (a
+    its template leaf's device and dtype, the layers ``save`` stacked for
+    ``cfg`` split back (on the host); with ``shardings`` (a
     ``NamedSharding`` tree of the template's shape, possibly on another
     mesh than the one that saved: the elastic path) each leaf distributed
     to its placements."""
@@ -215,10 +268,22 @@ def restore(ckpt_dir: str, template, step: int | None = None, shardings=None):
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     flat = leaves(template)
-    if len(flat) != manifest["n_leaves"]:
-        raise ValueError(f"template has {len(flat)} leaves, checkpoint "
+    # each file's template leaves, by their place in ``flat``
+    slots = leaves(_stacked(unflatten(template, list(range(len(flat)))),
+                            stacked_entries(cfg), _Layers))
+    if len(slots) != manifest["n_leaves"]:
+        raise ValueError(f"template has {len(slots)} leaves, checkpoint "
                          f"{manifest['n_leaves']}")
     shards = leaves(shardings) if shardings is not None else [None] * len(flat)
-    arrs = [_like(np.load(os.path.join(d, f"arr_{i}.npy")), t, s)
-            for i, (t, s) in enumerate(zip(flat, shards))]
-    return step, unflatten(template, arrs)
+    out = [None] * len(flat)
+    for i, slot in enumerate(slots):
+        arr = np.load(os.path.join(d, f"arr_{i}.npy"))
+        if not isinstance(slot, _Layers):
+            out[slot] = _like(arr, flat[slot], shards[slot])
+            continue
+        if arr.shape[:1] != (len(slot.parts),):
+            raise ValueError(f"checkpoint leaf of shape {arr.shape} does not stack "
+                             f"the template's {len(slot.parts)} layers")
+        for layer, j in zip(arr, slot.parts):
+            out[j] = _like(layer, flat[j], shards[j])
+    return step, unflatten(template, out)

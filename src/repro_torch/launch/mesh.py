@@ -69,12 +69,12 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
                       mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
     """Single pod: (data=16, model=16) = 256 ranks.  Multi-pod: (pod=2,
     data=16, model=16) = 512 ranks."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device_type=device_type)
 
 
 def make_host_mesh(model: int | None = None):

@@ -157,11 +157,6 @@ def priority_tiers(n: int, split: float) -> list[int]:
             for i in range(n)]
 
 
-#: --listen with --mesh: each fleet replica would be its own mesh
-LISTEN_MESH = ("--listen with --mesh (each fleet replica its own mesh) is not "
-               "ported to repro_torch yet (ROADMAP Queue 1 item 11)")
-
-
 def _make_client(args, cfg, params, buckets, dev, cost_model=None,
                  mesh=None) -> FoldClient:
     return FoldClient(
@@ -176,27 +171,22 @@ def _make_client(args, cfg, params, buckets, dev, cost_model=None,
         chunk_size=args.chunk_size, cost_model=cost_model, device=dev)
 
 
-def serve_http(args, cfg, params, buckets, dev) -> int:
-    """Network server mode (``--listen``): a FoldHTTPServer over a
-    ``--replicas``-wide FleetRouter, up until SIGTERM/SIGINT (or
-    ``--serve-for-s``).  Each replica is its own FoldClient and background
-    driver on ``dev``, all on the one copy of ``params``; the router
-    balances on live queue-depth/in-flight telemetry scraped from the
-    replicas' registries."""
-    try:
-        host, port = parse_hostport(args.listen)
-        if args.cost_table:
-            load_cost_table(args.cost_table)   # fail loudly before binding
-    except (ValueError, FileNotFoundError) as e:
-        print(f"error: {e}")
-        return 2
-
+def fold_replica_factory(args, cfg, params, buckets, dev, mesh=None):
+    """The fleet's replica factory (``i -> FoldClient``) of ``--listen``:
+    each replica its own FoldClient on ``dev``, all on the one copy of
+    ``params``.  With ``mesh`` (bound by the caller) every replica opens
+    its own engine on that one mesh, as the reference's replicas all span
+    the same first D*M devices: a fleet takes D*M ranks whatever
+    ``--replicas`` is, and a rebuilt replica opens a new engine on the
+    same ranks (the old one is closed on every rank when the fleet
+    releases its client).  No client closes the mesh: its maker does, once
+    the fleet has stopped."""
     def factory(i: int) -> FoldClient:
         # each replica binds its own copy of the persisted cost table (a
         # CostModel is bound to exactly one core)
         cost_model = (load_cost_table(args.cost_table)
                       if args.cost_table else None)
-        client = _make_client(args, cfg, params, buckets, dev, cost_model)
+        client = _make_client(args, cfg, params, buckets, dev, cost_model, mesh)
         client.tracer.set_metadata(
             replica=i, scheme=args.scheme,
             kernels=dispatch.describe(args.kernels, device=dev),
@@ -209,9 +199,27 @@ def serve_http(args, cfg, params, buckets, dev) -> int:
             client.warmup()
         return client
 
+    return factory
+
+
+def serve_http(args, cfg, params, buckets, dev, mesh=None) -> int:
+    """Network server mode (``--listen``): a FoldHTTPServer over a
+    ``--replicas``-wide FleetRouter of ``fold_replica_factory``'s clients
+    (on ``mesh`` when given), up until SIGTERM/SIGINT (or
+    ``--serve-for-s``); the router balances on live queue-depth/in-flight
+    telemetry scraped from the replicas' registries."""
+    try:
+        host, port = parse_hostport(args.listen)
+        if args.cost_table:
+            load_cost_table(args.cost_table)   # fail loudly before binding
+    except (ValueError, FileNotFoundError) as e:
+        print(f"error: {e}")
+        return 2
+    factory = fold_replica_factory(args, cfg, params, buckets, dev, mesh)
     return _run_fleet(args, factory, host, port,
                       f"replicas={args.replicas} buckets={','.join(map(str, buckets))} "
-                      f"kernels={dispatch.describe(args.kernels, device=dev)}",
+                      f"kernels={dispatch.describe(args.kernels, device=dev)}"
+                      + ("" if mesh is None else f" {mesh.label}"),
                       lambda r, s: f"compiles={s['compiles']}")
 
 
@@ -223,30 +231,42 @@ def _run_fleet(args, factory, host, port, banner: str, summary) -> int:
     import threading
 
     router = FleetRouter(factory, args.replicas, max_restarts=args.max_restarts)
-    server = FoldHTTPServer(router, port=port, host=host).start()
-    # launchers scrape THIS line for the bound address (--listen HOST:0
-    # binds an ephemeral port)
-    print(f"# listening {server.url} {banner}", flush=True)
-    done = threading.Event()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        signal.signal(sig, lambda *_: done.set())
+    server = None
     try:
-        done.wait(args.serve_for_s if args.serve_for_s > 0 else None)
-    except KeyboardInterrupt:
-        pass
-    print("# shutting down", flush=True)
-    server.stop()
-    router.stop(drain=True)
-    for r in router.replicas:
-        s = r.client.metrics.summary()
-        print(f"# replica={r.index} served={s['served']}/{s['requests']} "
-              f"rejected={s['rejected']} expired={s['expired']} "
-              f"cancelled={s['cancelled']} {summary(r, s)}")
-    if args.trace_out:
-        stem = args.trace_out[:-5] if args.trace_out.endswith(".json") \
-            else args.trace_out
-        for path in router.save_traces(stem):
-            print(f"# trace -> {path}")
+        server = FoldHTTPServer(router, port=port, host=host).start()
+        # launchers scrape THIS line for the bound address (--listen HOST:0
+        # binds an ephemeral port)
+        print(f"# listening {server.url} {banner}", flush=True)
+        done = threading.Event()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, lambda *_: done.set())
+        try:
+            done.wait(args.serve_for_s if args.serve_for_s > 0 else None)
+        except KeyboardInterrupt:
+            pass
+        print("# shutting down", flush=True)
+        server.stop()
+        router.stop(drain=True)
+        for r in router.replicas:
+            s = r.client.metrics.summary()
+            print(f"# replica={r.index} served={s['served']}/{s['requests']} "
+                  f"rejected={s['rejected']} expired={s['expired']} "
+                  f"cancelled={s['cancelled']} {summary(r, s)}")
+        if args.trace_out:
+            stem = args.trace_out[:-5] if args.trace_out.endswith(".json") \
+                else args.trace_out
+            for path in router.save_traces(stem):
+                print(f"# trace -> {path}")
+    finally:
+        # release every replica's engine (its graphs, and on a mesh its
+        # engine on every rank) before the caller closes the mesh, on every
+        # way out: a communicator is not torn down under graphs that
+        # captured its collectives
+        if server is not None:
+            server.stop()
+        router.stop(drain=False)
+        for r in router.replicas:
+            r.client.close()
     print("# fleet shutdown complete", flush=True)
     return 0
 
@@ -505,7 +525,8 @@ def serve_lm(args, dev) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    """The serving CLI's flags (``main``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["ppm", "lm"], default="ppm")
     ap.add_argument("--scheme", default="lightnobel_aaq", choices=list(SCHEMES))
@@ -621,7 +642,11 @@ def main(argv=None) -> int:
                          "pair tensor split on j over the model ranks")
     ap.add_argument("--shard-threshold", type=int, default=None,
                     help="ppm: buckets at/above this go to the mesh")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
     try:
         buckets = parse_buckets(args.buckets, args.min_len, args.max_len)
     except ValueError:
@@ -648,8 +673,6 @@ def main(argv=None) -> int:
             print("error: --mesh and --shard-threshold must be given together "
                   "(one without the other shards nothing)")
             return 2
-        if args.mesh is not None and args.listen is not None:
-            raise NotImplementedError(LISTEN_MESH)
         try:
             mesh = make_serving_mesh(args.mesh, device=dev)
         except ValueError as e:
@@ -660,10 +683,10 @@ def main(argv=None) -> int:
         return 0
     cfg = reduce_ppm_config()
     params = init_ppm(cfg, seed=0, device=dev)
-    if args.listen is not None and not args.no_engine:
-        return serve_http(args, cfg, params, buckets, dev)
     seqs = _sample_trace(args.n, args.min_len, args.max_len)
     try:
+        if args.listen is not None and not args.no_engine:
+            return serve_http(args, cfg, params, buckets, dev, mesh)
         with dispatch.use_backend(args.kernels):
             if args.no_engine:
                 serve_ppm_sequential(cfg, params, seqs, buckets, scheme=args.scheme,

@@ -78,14 +78,22 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     n_micro = microbatches or cfg.train_microbatches
 
+    def micro(v, i):
+        """Microbatch ``i`` of ``v``: its i-th slice of rows as the
+        reference's reshape cuts them; a batch sharded on its rows takes
+        every ``n_micro``-th row from ``i`` instead, so that each rank's
+        rows stay its own (DTensor cannot cut a sharded dim in uneven
+        blocks; the sum over the microbatches is the same)."""
+        if sh.is_dtensor(v):
+            return v.reshape(v.shape[0] // n_micro, n_micro, *v.shape[1:])[:, i]
+        return v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i]
+
     def train_step(params, opt_state, batch):
         if n_micro > 1:
-            mb = {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])
-                  for k, v in batch.items()}
             lsum, gsum = None, None
             for i in range(n_micro):
-                loss, grads = value_and_grad(params, {k: v[i] for k, v in mb.items()}, cfg,
-                                             aaq=aaq, remat=remat,
+                loss, grads = value_and_grad(params, {k: micro(v, i) for k, v in batch.items()},
+                                             cfg, aaq=aaq, remat=remat,
                                              grad_shardings=grad_shardings)
                 g = [x.float() for x in leaves(grads)]
                 gsum = g if gsum is None else [a.add_(b) for a, b in zip(gsum, g)]
@@ -118,12 +126,13 @@ def make_serve_step(cfg: ArchConfig, aaq: AAQConfig = DISABLED):
     return serve_step
 
 
-def make_fold_step(cfg, scheme: QuantScheme | None = None):
-    """PPM inference step (the paper's workload)."""
+def make_fold_step(cfg, scheme: QuantScheme | None = None, shard=None):
+    """PPM inference step (the paper's workload); ``shard``
+    (``sharding.PairShard``) runs this rank's part of the j-sharded fold."""
     from repro_torch.models.ppm import ppm_forward
 
     def fold_step(params, aatype):
-        out = ppm_forward(params, aatype, cfg, scheme or FP16Baseline())
+        out = ppm_forward(params, aatype, cfg, scheme or FP16Baseline(), shard=shard)
         return {"coords": out["coords"], "distogram": out["distogram"]}
 
     return fold_step

@@ -272,7 +272,7 @@ def _train(args, cfg, dev: torch.device, sharded: bool) -> TrainRun:
 
     driver = TrainingDriver(
         DriverConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
-                     ckpt_dir=args.ckpt_dir, fail_at_step=args.fail_at),
+                     ckpt_dir=args.ckpt_dir, fail_at_step=args.fail_at, arch=cfg),
         train_one, init_state, barrier=dist.barrier if sharded else None)
     prev = dispatch.get_backend()
     dispatch.set_backend(args.kernels)      # process-wide: backward runs on autograd's threads

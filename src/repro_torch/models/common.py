@@ -89,14 +89,18 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with every product accumulated in float32 and a float32
     result (``jnp.dot(..., preferred_element_type=jnp.float32)``).  On the
     card a bf16 product keeps its bf16 operands (``out_dtype``); the CPU has
-    no such product, so there the operands are widened (exact for bf16)."""
+    no such product, and DTensor no sharding rule for it, so there the
+    operands are widened (exact for bf16; the dry-run counts the copies
+    apart, ``sharding.widening``)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return sh.fold_matmul(x, w)
-    if x.device.type == "cuda" and x.dtype == w.dtype:
+    if x.device.type == "cuda" and x.dtype == w.dtype and not sh.is_dtensor(x):
         lead = x.shape[:-1]
         y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return y.reshape(*lead, w.shape[-1])
-    return torch.matmul(x.float(), w.float())
+    with sh.widening():
+        x, w = x.float(), w.float()
+    return sh.fold_matmul(x, w)
 
 
 # --------------------------------------------------------------------------

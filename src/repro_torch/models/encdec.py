@@ -63,28 +63,25 @@ def _sinusoid(n: int, d: int, device=None) -> torch.Tensor:
 def _self_attn(p, x, cfg, causal, cache=None, aaq: AAQConfig = DISABLED):
     """Self-attention; with ``cache`` (this layer's ``LockstepRing``), one
     decode step over the ring."""
-    b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = cm.dense(p["q"], x).reshape(b, s, hq, hd)
-    k = aaq.act(cm.dense(p["k"], x).reshape(b, s, hkv, hd), "lm.kv_cache")
-    v = aaq.act(cm.dense(p["v"], x).reshape(b, s, hkv, hd), "lm.kv_cache")
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    q = sh.split_heads(cm.dense(p["q"], x), hq)
+    k = aaq.act(sh.split_heads(cm.dense(p["k"], x), hkv), "lm.kv_cache")
+    v = aaq.act(sh.split_heads(cm.dense(p["v"], x), hkv), "lm.kv_cache")
     if cache is None:
         o = sh.local_attention(dispatch.attention, q, k, v, causal=causal)
     else:
         kd, vd, kvlen = cache.append(k, v)
-        o = dispatch.attention(q, kd, vd, kv_valid_len=kvlen, causal=False)
-    return cm.dense(p["o"], o.reshape(b, s, hq * hd))
+        o = sh.local_attention(dispatch.attention, q, kd, vd, kv_valid_len=kvlen, causal=False)
+    return cm.dense(p["o"], sh.merge_heads(o))
 
 
 def _cross_attn(p, x, enc_out, cfg):
-    b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    se = enc_out.shape[1]
-    q = cm.dense(p["q"], x).reshape(b, s, hq, hd)
-    k = cm.dense(p["k"], enc_out).reshape(b, se, hkv, hd)
-    v = cm.dense(p["v"], enc_out).reshape(b, se, hkv, hd)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    q = sh.split_heads(cm.dense(p["q"], x), hq)
+    k = sh.split_heads(cm.dense(p["k"], enc_out), hkv)
+    v = sh.split_heads(cm.dense(p["v"], enc_out), hkv)
     o = sh.local_attention(dispatch.attention, q, k, v, causal=False)
-    return cm.dense(p["o"], o.reshape(b, s, hq * hd))
+    return cm.dense(p["o"], sh.merge_heads(o))
 
 
 def encode(params, frames, cfg: ArchConfig, aaq: AAQConfig = DISABLED):
@@ -148,7 +145,9 @@ def encdec_decode_step(params, batch, cache, cfg: ArchConfig, aaq: AAQConfig = D
     output; the cache is written in place.  Returns (logits (B, 1, V) f32,
     the cache with ``pos`` advanced)."""
     pos = cache["pos"]
-    pos_emb = params["pos_dec"]["e"][torch.clamp(pos, max=cfg.max_seq - 1)]
+    # a gather, not an index by a 0-d tensor (no host read of ``pos``)
+    row = torch.clamp(pos, max=cfg.max_seq - 1).reshape(1).long()
+    pos_emb = params["pos_dec"]["e"].index_select(0, row)[0]
     x = cm.embed(params["embed"], batch["tokens"]) + pos_emb[None, None].to(cfg.torch_dtype)
     enc_out = cache["enc_out"].to(x.dtype)
     for li, p in enumerate(params["dec_blocks"]):

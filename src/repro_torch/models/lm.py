@@ -170,3 +170,50 @@ def decode_fn(params, batch, cache, cfg: ArchConfig, aaq: AAQConfig = DISABLED):
         cache["pos"] = cache["pos"] + 1
         return tf.unembed(params, x, cfg), cache
     return tf.decode_step(params, batch, cache, cfg, aaq=aaq, block_fn=_block_fn_for(cfg))
+
+
+# --------------------------------------------------------------------------
+# dry-run specs (shapes and dtypes, nothing allocated)
+# --------------------------------------------------------------------------
+def _meta(tree):
+    """Each tensor of ``tree`` as a ``meta`` tensor of its shape and dtype."""
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_meta(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    return tree
+
+
+def param_specs(cfg: ArchConfig):
+    """The parameters' shapes and dtypes as ``meta`` tensors, without
+    allocating (``init_params`` traced on fake tensors): the reference's
+    ``eval_shape`` over its init, with the port's per-layer lists."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return _meta(init_params(torch.Generator().manual_seed(0), cfg))
+
+
+def input_specs(cfg: ArchConfig, shape, quantized_kv: bool = False) -> dict:
+    """``meta`` stand-ins for every input of this cell's step
+    (``configs.ShapeSpec``): the batch, and a decode step's cache."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, dt = torch.int32, cfg.torch_dtype
+    spec = lambda *shp, dtype=i32: torch.empty(shp, dtype=dtype, device="meta")  # noqa: E731
+    if shape.step in ("train", "prefill"):
+        n_tok = s - cfg.n_image_tokens if cfg.kind == "vlm" else s
+        batch = {"tokens": spec(b, n_tok)}
+        if shape.step == "train":
+            batch["labels"] = spec(b, n_tok)
+        if cfg.kind == "vlm":
+            batch["image_embeds"] = spec(b, cfg.n_image_tokens, cfg.d_model, dtype=dt)
+        if cfg.kind == "encdec":
+            batch["audio_frames"] = spec(b, cfg.n_audio_frames, cfg.d_model, dtype=dt)
+        return {"batch": batch}
+    if shape.step == "decode":
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            cache = _meta(make_cache(cfg, b, s, quantized=quantized_kv, device="cpu"))
+        return {"batch": {"tokens": spec(b, 1)}, "cache": cache}
+    raise ValueError(shape.step)

@@ -122,7 +122,10 @@ def moe_apply(p, x, cfg: ArchConfig):
     xe = sh.constrain(xe, "moe_xe")
     ye = _expert_ffn(p["experts"], xe.transpose(0, 1).reshape(e, ng * cap, d), cfg)
     ye = sh.constrain(ye.reshape(e, ng, cap, d).transpose(0, 1), "moe_xe")
-    y = torch.einsum("ngec,necd->ngd", combine.to(x.dtype), ye).reshape(t, d)
+    # each group combines its own tokens: on each rank's groups (DTensor in
+    # PyTorch 2.11 cannot fold the einsum's sharded group dim)
+    y = sh.on_local("moe_combine", lambda c, v: torch.einsum("ngec,necd->ngd", c, v),
+                    combine.to(x.dtype), ye, keep=(0,)).reshape(t, d)
     if moe.n_shared:
         y = y + tf.mlp_apply(p["shared"], x.reshape(t, d), cfg)
     return y.reshape(b, s, d)
@@ -203,9 +206,10 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None, aaq: AAQConfig = 
         cl = cache.write("latent", latent)
         cr = cache.write("k_rope", k_rope)
         k, v = _mla_qkv_from_latent(p, cl.to(x.dtype), cr.to(x.dtype), cfg)
-        o = dispatch.attention(q, k, v, kv_valid_len=cache.kv_valid_len(b, cl.shape[1]),
+        o = sh.local_attention(dispatch.attention, q, k, v,
+                               kv_valid_len=cache.kv_valid_len(b, cl.shape[1]),
                                causal=False, softmax_scale=scale)
-    return cm.dense(p["o"], o.reshape(b, s, h * m.v_head_dim))
+    return cm.dense(p["o"], sh.merge_heads(o))
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=None):

@@ -118,11 +118,10 @@ def mlp_apply(p, x, cfg: ArchConfig):
 
 def qkv(p, x, cfg: ArchConfig, positions):
     """q (B,S,Hq,hd), k and v (B,S,Hkv,hd), rotary applied."""
-    b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = cm.dense(p["q"], x).reshape(b, s, hq, hd)
-    k = cm.dense(p["k"], x).reshape(b, s, hkv, hd)
-    v = cm.dense(p["v"], x).reshape(b, s, hkv, hd)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    q = sh.split_heads(cm.dense(p["q"], x), hq)
+    k = sh.split_heads(cm.dense(p["k"], x), hkv)
+    v = sh.split_heads(cm.dense(p["v"], x), hkv)
     if cfg.rotary_frac > 0:
         q = cm.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_frac)
         k = cm.apply_rope(k, positions, cfg.rope_theta, cfg.rotary_frac)
@@ -137,7 +136,6 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
     (B, W, Hkv, hd) in ``k``'s dtype and ``kv_valid_len`` (B,)) and q
     attends over the ring.  ``LockstepRing`` is ``decode_step``'s cache,
     ``serving.lm``'s per-slot ring the served one; both write in place."""
-    b, s, _ = x.shape
     q, k, v = qkv(p, x, cfg, positions)
     k = aaq.act(k, "lm.kv_cache")
     v = aaq.act(v, "lm.kv_cache")
@@ -147,8 +145,8 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
                                window=window)
     else:
         kd, vd, kvlen = cache.append(k, v)
-        o = dispatch.attention(q, kd, vd, kv_valid_len=kvlen, causal=False)
-    o = o.reshape(b, s, cfg.n_heads * cfg.hd)
+        o = sh.local_attention(dispatch.attention, q, kd, vd, kv_valid_len=kvlen, causal=False)
+    o = sh.merge_heads(o)
     return cm.dense(p["o"], o)
 
 
@@ -178,7 +176,15 @@ class LockstepRing:
         s, w = x.shape[1], ring.shape[1]
         # dynamic_update_slice clamps the start so that the s rows fit
         start = torch.clamp(self.cache["pos"] % w, max=w - s)
-        ring.index_copy_(1, start + torch.arange(s, device=x.device), x.to(ring.dtype))
+        rows = start + torch.arange(s, device=x.device)
+        if sh.is_dtensor(ring) and sh.unsharded_dim(ring, 1):
+            # DTensor has no rule for index_copy_ in every PyTorch (2.11):
+            # each rank writes its shard of the rows into its shard of the
+            # ring, whose positions are all its own
+            x = sh.redistribute(x.to(ring.dtype), tuple(ring.placements))
+            ring.to_local().index_copy_(1, sh.to_local(rows), x.to_local())
+            return ring
+        ring.index_copy_(1, rows, x.to(ring.dtype))
         return ring
 
     def append(self, k, v):

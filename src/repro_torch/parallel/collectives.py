@@ -253,11 +253,16 @@ _FUNCOL = {"all_reduce": "all_reduce", "all_reduce_coalesced": "all_reduce",
 def counting_dtensor():
     """A scope (a ``TorchDispatchMode``) that counts every functional
     collective DTensor issues, forward and backward, into ``counts()``
-    under its kind's name, with the bytes of its input."""
+    under its kind's name, with the bytes of its input: those of a
+    redistribution inside an op too (a DTensor op is handed back to
+    DTensor with the mode still active, so its local ops pass here)."""
+    from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class _Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if DTensor in types:
+                return NotImplemented
             ns = getattr(func, "namespace", "")
             if ns == "_c10d_functional":
                 name = _FUNCOL.get(func._opname)

@@ -441,6 +441,18 @@ def to_global(x):
     return x.full_tensor() if is_dtensor(x) else x
 
 
+def to_local(x):
+    """A DTensor's local shard (a replicated one's whole value); anything
+    else as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def unsharded_dim(x, dim: int) -> bool:
+    """Is no mesh dim sharding tensor dim ``dim`` of the DTensor ``x``?"""
+    from torch.distributed.tensor import Shard
+    return not any(isinstance(p, Shard) and p.dim == dim for p in x.placements)
+
+
 def redistribute(x, to: tuple):
     """``x`` (a DTensor) with ``to`` placements (itself where it has them)."""
     if tuple(x.placements) == tuple(to):
@@ -528,6 +540,26 @@ def foldable(x):
     return redistribute(x, to)
 
 
+_WIDEN = threading.local()
+
+
+@contextlib.contextmanager
+def widening():
+    """Scope the casts that widen a bf16 product's operands to float32
+    where the product cannot keep them bf16 (``common.matmul_f32``), so
+    that the dry-run counts those copies apart (``widening_now``)."""
+    prev = getattr(_WIDEN, "on", False)
+    _WIDEN.on = True
+    try:
+        yield
+    finally:
+        _WIDEN.on = prev
+
+
+def widening_now() -> bool:
+    return getattr(_WIDEN, "on", False)
+
+
 def fold_matmul(x, w):
     """``torch.matmul(x, w)`` of a (…, K) activation and a (K, N) weight
     that DTensor can fold both ways: ``x`` made ``foldable`` first, and the
@@ -599,13 +631,56 @@ def local_attention(attend, q, k, v, **kw):
     (row, head), so a rank needs only whole sequences, and the plain
     version's merges of batch and heads never meet DTensor's planner.  The
     heads stay sharded where q's and k's head counts both divide the mesh
-    dims that shard them, and there is no bias; else only the rows do."""
+    dims that shard them, and there is no bias; else only the rows do.  A
+    decode step's ``kv_valid_len`` (one entry a row) is split with the rows."""
     if not is_dtensor(q):
         return attend(q, k, v, **kw)
-    heads = (kw.get("bias") is None and kw.get("kv_valid_len") is None
-             and _heads_split(q, k))
+    kvlen = kw.pop("kv_valid_len", None)
+    if kvlen is not None:
+        if not is_dtensor(kvlen):
+            kvlen = distribute(kvlen, q.device_mesh, P(None))
+        return on_local("attention", lambda q, k, v, n: attend(q, k, v, kv_valid_len=n, **kw),
+                        q, k, v, kvlen, keep=(0,))
+    heads = kw.get("bias") is None and _heads_split(q, k)
     return on_local("attention", lambda *a: attend(*a, **kw), q, k, v,
                     keep=(0, 2) if heads else (0,))
+
+
+def split_heads(x, heads: int):
+    """``x`` (..., heads * hd) as (..., heads, hd).  A DTensor whose last
+    dim is sharded over more ranks than divide ``heads`` (8 K/V heads on a
+    16-wide model axis) is gathered on that dim first: DTensor cannot cut
+    a head across ranks, where GSPMD shards the head dim instead."""
+    if is_dtensor(x) and heads > 1:
+        from torch.distributed.tensor import Replicate, Shard
+        last = x.dim() - 1
+        split = [isinstance(p, Shard) and p.dim == last for p in x.placements]
+        n = math.prod(x.device_mesh.size(i) for i, s in enumerate(split) if s)
+        if heads % n:
+            _note("heads")
+            x = redistribute(x, tuple(Replicate() if s else p
+                                      for p, s in zip(x.placements, split)))
+    return x.reshape(*x.shape[:-1], heads, x.shape[-1] // heads)
+
+
+class _MergeHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.heads = x.shape[-2]
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, ctx.heads)
+
+
+def merge_heads(x):
+    """``x`` (..., heads, hd) as (..., heads * hd); a DTensor's gradient
+    comes back through ``split_heads`` (gathered where DTensor cannot cut
+    its shard into the heads)."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    return _MergeHeads.apply(x)
 
 
 def _heads_split(q, k) -> bool:

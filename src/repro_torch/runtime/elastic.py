@@ -44,8 +44,9 @@ def plan_for_devices(n_devices: int, model_parallel: int, old_data: int,
 
 def resume_elastic(ckpt_dir: str, template, plan: ElasticPlan, cfg=None):
     """Restore the latest checkpoint onto the new mesh (the process group
-    must hold exactly its ranks): (step, tree of DTensors, mesh)."""
+    must hold exactly its ranks): (step, tree of DTensors, mesh).  ``cfg``
+    also names the layers the checkpoint stacks (``checkpointing.restore``)."""
     mesh = make_mesh(plan.mesh_shape, plan.mesh_axes)
     shardings = sh.param_shardings(template, mesh, cfg)
-    step, tree = ckpt.restore(ckpt_dir, template, shardings=shardings)
+    step, tree = ckpt.restore(ckpt_dir, template, shardings=shardings, cfg=cfg)
     return step, tree, mesh

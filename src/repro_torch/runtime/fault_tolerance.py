@@ -54,6 +54,7 @@ class DriverConfig:
     keep_last_k: int = 3
     fail_at_step: int | None = None      # simulate preemption once
     max_restarts: int = 3
+    arch: Any = None                     # the model's config: checkpoints stack its layers
 
 
 class TrainingDriver:
@@ -92,7 +93,7 @@ class TrainingDriver:
         last = ckpt.latest_step(self.cfg.ckpt_dir)
         if last is None:
             return 0, template
-        step, state = ckpt.restore(self.cfg.ckpt_dir, template)
+        step, state = ckpt.restore(self.cfg.ckpt_dir, template, cfg=self.cfg.arch)
         return step + 1, state
 
     def run(self):
@@ -108,7 +109,7 @@ class TrainingDriver:
     def _run_once(self):
         start, state = self._resume()
         self.starts.append(start)
-        saver = ckpt.AsyncCheckpointer(self.cfg.ckpt_dir, self.cfg.keep_last_k)
+        saver = ckpt.AsyncCheckpointer(self.cfg.ckpt_dir, self.cfg.keep_last_k, self.cfg.arch)
         # the save in flight finishes before a restart looks for the latest
         # step (the failure is simulated in this process: its writer thread
         # would otherwise race the restart's restore)

@@ -17,7 +17,7 @@ from repro_torch.serving.client import (ADMITTED, CANCELLED, DONE, EXPIRED,
                                         REJECTED as HANDLE_REJECTED, RUNNING,
                                         TERMINAL_STATES, FoldClient, FoldHandle)
 from repro_torch.serving.costmodel import (CostEntry, CostModel, calibrate,
-                                           load_cost_table)
+                                           load_cost_table, prediction_error_factor)
 from repro_torch.serving.engine import (BatchExecutionError, EngineCore,
                                         FoldEngine, InFlightBatch)
 from repro_torch.serving.events import (EVENT_KINDS, EVENT_ORDER, TERMINAL_EVENTS,
@@ -73,7 +73,7 @@ __all__ = [
     "CompileWatcher", "CSV_HEADER", "csv_row", "percentiles", "pad_to_bucket",
     "reset_compile_watch",
     # measured cost model
-    "CostModel", "CostEntry", "calibrate", "load_cost_table",
+    "CostModel", "CostEntry", "calibrate", "load_cost_table", "prediction_error_factor",
     # observability (tracing + metrics registry + scrape endpoint)
     "Span", "Tracer", "span_tree", "pipeline_overlaps",
     "validate_chrome_trace", "MetricsRegistry", "MetricsServer",

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import platform
 import sys
@@ -386,3 +387,11 @@ def load_cost_table(path: str) -> CostModel:
         raise FileNotFoundError(f"cost table {path} does not exist "
                                 f"(run --calibrate to create one)")
     return CostModel.from_file(path)
+
+
+def prediction_error_factor(predicted_ms: float, actual_ms: float) -> float:
+    """Symmetric error factor: max(p/a, a/p); 1.0 is perfect, 2.0 means
+    off by 2x in either direction (inf when either is not positive)."""
+    if predicted_ms <= 0.0 or actual_ms <= 0.0:
+        return math.inf
+    return max(predicted_ms / actual_ms, actual_ms / predicted_ms)

@@ -71,7 +71,11 @@ collectives inside it; over the host-staged gloo route (several ranks on
 one card, asked for with ``backend="gloo"``, no memory budget) and on the
 CPU it runs eagerly, still counted as a key.  Ranks
 of a ``data`` axis above 1 compute replicated results, as under GSPMD.
-Buckets the policy keeps ``SINGLE`` run on rank 0 alone.
+Buckets the policy keeps ``SINGLE`` run on rank 0 alone.  Several cores
+may share one mesh (a fleet's replicas), each under its own engine id: a
+sharded key's command and rank 0's part of it (the capture, or the
+enqueue of its replay or eager forward) run under the mesh's ``lock``, so
+that every rank sees the cores' commands and collectives in one order.
 
 Telemetry: ``batch_start`` (the end of queue wait) is stamped AFTER the
 executable is resolved, so a cold key's capture lands in ``queue_wait_ms``
@@ -80,6 +84,7 @@ clock; with depth > 1 it includes time queued behind the previous batch).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import os
@@ -209,14 +214,22 @@ class _Executable:
                        else torch.zeros(shape, dtype=dtype, device=dev))
         return tuple(out)
 
+    def _commanding(self):
+        """The mesh's lock where the controller commands this key (a
+        sharded key off a worker): the command and its launch go together."""
+        if self.shard is not None and not self.core.worker:
+            return self.core.mesh.lock
+        return contextlib.nullcontext()
+
     def build(self) -> float:
         """Capture (a graph) or register (eager); returns seconds spent.
         The controller has every worker build a sharded key with it."""
         t0 = time.perf_counter()
-        if self.shard is not None and not self.core.worker:
-            self.core.mesh.send(("build", self.core.mesh_eid, self.key))
-        if self.graphed:
-            self._capture()
+        with self._commanding():
+            if self.shard is not None and not self.core.worker:
+                self.core.mesh.send(("build", self.core.mesh_eid, self.key))
+            if self.graphed:
+                self._capture()
         note_capture()
         return time.perf_counter() - t0
 
@@ -263,7 +276,12 @@ class _Executable:
         """Stage the inputs, run the key, copy the outputs out (graph: all
         in stream order, nothing waited for; eager on the CPU or, with
         host-staged collectives, on the card).  The controller first sends
-        a sharded launch's key and inputs to every worker."""
+        a sharded launch's key and inputs to every worker, holding the
+        mesh's lock until its own part is enqueued."""
+        with self._commanding():
+            return self._launch(*inputs)
+
+    def _launch(self, *inputs) -> dict:
         core = self.core
         if self.shard is not None and not core.worker:
             core.mesh.send(("run", core.mesh_eid, self.key,
@@ -559,16 +577,21 @@ class EngineCore:
             d["memory_allocated_bytes"] = torch.cuda.memory_allocated(self.device)
         return d
 
-    def close(self) -> None:
+    def close(self, *, discard_inflight: bool = False) -> None:
         """Release what the engine holds on the card: every key's graph and
         static buffers, the pinned staging buffers and the graphs' pool,
         whose segments go back to the driver.  The engine serves nothing
-        after this; an in-flight batch must have been retired first."""
-        if self._inflight:
+        after this; an in-flight batch must have been retired first, or,
+        with ``discard_inflight`` (a mesh's teardown), is waited for on the
+        card and dropped."""
+        if self._inflight and not discard_inflight:
             raise RuntimeError(f"close() with {len(self._inflight)} batches in flight; "
                                f"retire() them first")
+        if self._inflight and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._inflight.clear()
         if self.mesh_eid is not None and self.mesh.bound:
-            self.mesh.send(("close", self.mesh_eid))
+            self.mesh.close_engine(self.mesh_eid)
             self.mesh_eid = None
         while self._worker_ready:
             ready = self._worker_ready.popleft()
@@ -781,12 +804,14 @@ def serve_worker(mesh) -> None:
                     mesh=mesh, shard_threshold=spec["shard_threshold"],
                     inflight_depth=spec["inflight_depth"], device=mesh.device,
                     worker=True)
+                mesh.engines.add(eid)
             elif op == "build":
                 cores[msg[1]].worker_launch(msg[2], None)
             elif op == "run":
                 cores[msg[1]].worker_launch(msg[2], msg[3])
             elif op == "close":
                 cores.pop(msg[1]).close()
+                mesh.engines.discard(msg[1])
             elif op == "stats":
                 mesh.gather_stats(msg[1])
             else:

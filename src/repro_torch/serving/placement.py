@@ -31,6 +31,14 @@ or, with none, starts the other ranks itself (``launch.mesh``) over a
 capture on every rank at a key's first use) and ``send`` (each launch's
 key and inputs broadcast to the workers).
 
+Several engines may share one mesh (a fleet's replicas under ``--listen
+--mesh``, as the reference's replicas all span the same first D*M
+devices): each opens its own engine id, and the mesh-wide ``lock`` makes
+a command atomic with rank 0's part of it (a launch's ``send`` through
+the enqueue of its replay or eager forward), so that every worker sees
+the engines' commands, and the communicators their collectives, in one
+order.
+
 Routes: the CPU takes gloo.  On CUDA a mesh serves over NCCL, one card a
 rank (rank r on ``cuda:r``, keys captured as CUDA graphs with their
 collectives inside); NCCL refuses two ranks on one card ("Duplicate GPU
@@ -50,6 +58,7 @@ import datetime
 import math
 import os
 import shutil
+import threading
 from typing import Any
 
 import torch
@@ -176,7 +185,12 @@ class ServingMesh:
         self._owns_group = False
         self._control = None              # gloo group carrying the commands
         self._next_engine = 0
+        self.engines: set[int] = set()    # the live engines' ids on this rank
+        self._cores: dict[int, object] = {}   # rank 0: the live engines by id
         self._base_bytes = 0              # allocated at the last stats reset
+        #: rank 0: held from a command's send through the enqueue of its
+        #: own part, so that the engines sharing the mesh take turns
+        self.lock = threading.RLock()
 
     @property
     def label(self) -> str:
@@ -265,8 +279,9 @@ class ServingMesh:
 
     # -- the command channel (rank 0 -> every rank) ------------------------
     def send(self, msg) -> None:
-        dist.broadcast_object_list([msg], src=0, group=self._control,
-                                   device=torch.device("cpu"))
+        with self.lock:
+            dist.broadcast_object_list([msg], src=0, group=self._control,
+                                       device=torch.device("cpu"))
 
     def recv(self):
         box = [None]
@@ -278,12 +293,22 @@ class ServingMesh:
         """Rank 0: have every worker build an engine like ``core`` (``spec``:
         its constructor's arguments) and broadcast the parameters once;
         returns the engine's id on the mesh."""
-        eid = self._next_engine
-        self._next_engine += 1
         shapes = tr.tree_map(lambda t: _Leaf(tuple(t.shape), t.dtype), core.params)
-        self.send(("bind", eid, spec, shapes))
-        self.broadcast_params(core.params)
+        with self.lock:
+            eid = self._next_engine
+            self._next_engine += 1
+            self.send(("bind", eid, spec, shapes))
+            self.broadcast_params(core.params)
+            self.engines.add(eid)
+            self._cores[eid] = core
         return eid
+
+    def close_engine(self, eid: int) -> None:
+        """Rank 0: have every worker close engine ``eid`` (the mesh stays)."""
+        with self.lock:
+            self.send(("close", eid))
+            self.engines.discard(eid)
+            self._cores.pop(eid, None)
 
     def broadcast_params(self, params):
         """Rank 0 sends ``params``; a worker passes the ``_Leaf`` tree it
@@ -300,9 +325,11 @@ class ServingMesh:
     def local_stats(self, reset: bool = False) -> dict:
         """This rank's counters since the last reset: kernel launches and
         plain calls by variant, collectives by name, the pair shard the
-        trunk last pinned, and on the card the peak allocated above what
-        was allocated at the reset.  ``reset`` zeroes them after reading."""
-        out = {"rank": self.rank, "launches": dispatch.launch_counts(),
+        trunk last pinned, the live engines' ids, and on the card the peak
+        allocated above what was allocated at the reset.  ``reset`` zeroes
+        the counters after reading."""
+        out = {"rank": self.rank, "engines": sorted(self.engines),
+               "launches": dispatch.launch_counts(),
                "routes": dict(dispatch.counters),
                "plain": dispatch.plain_counts(), "collectives": coll.counts(),
                "pair": sh.PINNED.get("pair"), "peak_bytes": None}
@@ -321,8 +348,9 @@ class ServingMesh:
 
     def rank_stats(self, reset: bool = False) -> list[dict]:
         """Rank 0: every rank's ``local_stats``, in rank order."""
-        self.send(("stats", reset))
-        return self.gather_stats(reset)
+        with self.lock:
+            self.send(("stats", reset))
+            return self.gather_stats(reset)
 
     def gather_stats(self, reset: bool) -> list[dict] | None:
         mine = self.local_stats(reset)
@@ -339,13 +367,19 @@ class ServingMesh:
                                timeout=datetime.timedelta(seconds=60))
 
     def close(self) -> None:
-        """Rank 0: stop the workers (they leave their loop), leave the
-        process group it made and wait for the ranks it started."""
+        """Rank 0: close every engine still open on the mesh (its graphs
+        here and on every worker: NCCL waits forever to tear down a
+        communicator that live graphs captured), stop the workers (they
+        leave their loop), leave the process group it made and wait for
+        the ranks it started."""
         if not self.bound or self.rank != 0:
             return
         try:
-            self.send(("exit",))
-            self.leave()
+            for core in list(self._cores.values()):
+                core.close(discard_inflight=True)
+            with self.lock:
+                self.send(("exit",))
+                self.leave()
         finally:
             self.device_mesh = None
             if self._owns_group and dist.is_initialized():

@@ -179,6 +179,124 @@ def steps_and_grad_placements(rank, world, jobs, tree, batch):
     return sharded_steps(rank, world, jobs), grad_placements(rank, world, tree, batch)
 
 
+def elastic_stacked(rank, world, name, ckpt_dir):
+    """The reference's checkpoint of ``name``'s parameters and AdamW state
+    (its layers stacked on a leading axis) resumed by ``resume_elastic``
+    onto a 1 x ``world`` mesh over the port's own fresh state: the step,
+    the mesh, every leaf gathered, and this rank's placements."""
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import plan_for_devices, resume_elastic
+    from repro_torch.tree import leaves
+    cfg = _cfg(name)
+    params = lm.init_params(torch.Generator().manual_seed(1), cfg)
+    plan = plan_for_devices(world, model_parallel=world, old_data=1)
+    step, restored, mesh = resume_elastic(ckpt_dir, (params, adamw.init(params)), plan, cfg)
+    return {"step": step, "mesh": tuple(mesh.shape),
+            "leaves": [host(x) for x in leaves(restored)],
+            "placements": [str(x.placements) for x in leaves(restored)]}
+
+
+def step_collectives(rank, world, tree, batch):
+    """One train step of the reduced qwen (``DISABLED``) on a (1, world)
+    mesh, as ``launch.train`` lays it out: the collectives it ran, calls by
+    name (DTensor's, counted by ``counting_dtensor``, and the explicit ones)."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as sh
+    cfg = _cfg("qwen1.5-0.5b")
+    mesh = make_mesh((1, world), ("data", "model"))
+    params = sh.distribute_params(lm_params_from_numpy(tree, cfg, device="cpu"), mesh, cfg)
+    n, s = batch["tokens"].shape
+    bspec = sh.batch_specs(cfg, ShapeSpec("t", s, n, "train"), mesh)["batch"]
+    b = {k: sh.distribute(torch.from_numpy(np.ascontiguousarray(v)), mesh, bspec[k])
+         for k, v in batch.items()}
+    opt = adamw.init(params)
+    coll.reset_counts()
+    with sh.act_rules(sh.default_act_rules(mesh, "train", cfg)), dispatch.use_backend("ref"), \
+            coll.counting_dtensor():
+        make_train_step(cfg)(params, opt, b)
+    return {k: v["calls"] for k, v in coll.counts().items() if v["calls"]}
+
+
+def serve_steps(cfg, params, batch, cache, n_decode, quantized_kv, mesh=None):
+    """A prefill step of ``batch`` (numpy), then ``n_decode`` decode steps
+    from ``cache`` (numpy leaves of ``lm.make_cache``), a column of
+    ``batch['tokens']`` each: on one device, or laid out on ``mesh`` as the
+    dry-run lays out a prefill and a decode cell.  -> (the prefill's
+    logits, each decode step's logits, the cache's leaves after them), as
+    numpy."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.dryrun import _spec_leaves
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.tree import leaves, unflatten
+    b = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+    n, s = b["tokens"].shape
+    c = unflatten(lm.make_cache(cfg, n, s, quantized=quantized_kv, device="cpu"),
+                  [torch.from_numpy(np.array(a)) for a in cache])
+    prules = drules = None
+    if mesh is not None:
+        params = sh.distribute_params(params, mesh, cfg)
+        pspec = sh.batch_specs(cfg, ShapeSpec("p", s, n, "prefill"), mesh)["batch"]
+        b = {k: sh.distribute(v, mesh, pspec[k]) for k, v in b.items()}
+        dspecs = sh.batch_specs(cfg, ShapeSpec("d", s, n, "decode"), mesh,
+                                quantized_kv=quantized_kv)
+        cspec = dspecs["cache"]
+        c = unflatten(c, [sh.distribute(t, mesh, sp)
+                          for t, sp in zip(leaves(c), _spec_leaves(cspec))])
+        prules = sh.default_act_rules(mesh, "prefill", cfg)
+        drules = sh.default_act_rules(mesh, "decode", cfg)
+        if "k" in cspec:
+            drules["kv_cache"] = sh.P(*cspec["k"][1:])
+        tspec = dspecs["batch"]["tokens"]
+    with torch.no_grad(), dispatch.use_backend("ref"), sh.mixed_ops(params):
+        with sh.act_rules(prules):
+            prefill = host(make_prefill_step(cfg)(params, b))
+        logits = []
+        with sh.act_rules(drules):
+            for i in range(n_decode):
+                tok = torch.from_numpy(np.ascontiguousarray(batch["tokens"][:, i:i + 1]))
+                if mesh is not None:
+                    tok = sh.distribute(tok, mesh, tspec)
+                out, c = make_serve_step(cfg)(params, {"tokens": tok}, c)
+                logits.append(host(out))
+    return prefill, logits, [host(t) for t in leaves(c)]
+
+
+def sharded_serve_steps(rank, world, jobs):
+    """Each job (arch, numpy params, numpy batch, numpy cache leaves,
+    decode steps, quantized KV): ``serve_steps`` on a (1, world) mesh;
+    rank 0 returns the results."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, world), ("data", "model"))
+    out = []
+    for arch, tree, batch, cache, n_decode, qkv in jobs:
+        cfg = _cfg(arch)
+        res = serve_steps(cfg, lm_params_from_numpy(tree, cfg, device="cpu"), batch, cache,
+                          n_decode, qkv, mesh)
+        out.append(res if rank == 0 else None)
+    return out
+
+
+def steps_grads_and_elastic(rank, world, jobs, tree, batch, stacked, ckpt_dir, serve_jobs):
+    """``steps_and_grad_placements``, then ``elastic_stacked(stacked)``,
+    then ``step_collectives(tree, batch)``, then
+    ``sharded_serve_steps(serve_jobs)``."""
+    return (*steps_and_grad_placements(rank, world, jobs, tree, batch),
+            elastic_stacked(rank, world, stacked, ckpt_dir),
+            step_collectives(rank, world, tree, batch),
+            sharded_serve_steps(rank, world, serve_jobs))
+
+
 def gpipe_rings_save(rank, world, tree, batch, xw, n_micro, save_tree, ckpt_dir):
     """GPipe on a (pod=2, data=world/2) mesh: the loss, and the gradients
     of this rank's stage layers (rank 0 also the parameters every rank
@@ -245,7 +363,7 @@ def elastic_save(rank, world, tree, ckpt_dir):
     psh = sh.param_shardings(params, mesh, cfg)
     dp = unflatten(params, [sh.distribute(t, s.mesh, s.spec)
                             for t, s in zip(leaves(params), leaves(psh))])
-    ckpt.save(ckpt_dir, 42, dp)
+    ckpt.save(ckpt_dir, 42, dp, cfg=cfg)
     return [str(p.placements) for p in leaves(dp)][:3]
 
 

@@ -345,7 +345,7 @@ def test_steady_state_second_pass_adds_no_key():
 
 
 # --------------------------------------------------------------------------
-# the mesh flags; what is not ported raises; the card is the default
+# the mesh flags (--listen with --mesh starts); the card is the default
 # --------------------------------------------------------------------------
 def test_unported_serving_surfaces_raise():
     cfg = reduce_ppm_config()
@@ -356,9 +356,13 @@ def test_unported_serving_surfaces_raise():
         with contextlib.redirect_stdout(out):
             rc = serve.main(["--mode", "ppm", "--device", "cpu", *argv])
         assert rc == 2 and "must be given together" in out.getvalue()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        serve.main(["--mode", "ppm", "--device", "cpu", "--listen", "127.0.0.1:0",
-                    "--mesh", "1x2", "--shard-threshold", "64"])
+    # item 11.2 ported --listen with --mesh: the fleet starts on one mesh
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--mode", "ppm", "--device", "cpu", "--listen", "127.0.0.1:0",
+                         "--mesh", "1x2", "--shard-threshold", "64", "--serve-for-s", "0.1"])
+    assert rc == 0 and "mesh:1x2" in out.getvalue().split("# listening ")[1].splitlines()[0]
+    assert "# fleet shutdown complete" in out.getvalue()
     with pytest.raises(ValueError, match="params live on"):
         EngineCore(init_ppm(cfg, seed=0, device="cpu"), cfg, device="meta")
     if not torch.cuda.is_available():

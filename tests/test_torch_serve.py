@@ -134,7 +134,7 @@ def test_server_refuses_engine_mode_and_missing_card():
 
 
 # --------------------------------------------------------------------------
-# import isolation: no JAX, nothing of the JAX package
+# import isolation: no JAX, nothing of the JAX package, not its benchmarks
 # --------------------------------------------------------------------------
 _ISOLATION = r"""
 import importlib, pkgutil, sys
@@ -143,7 +143,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
+             if m in ("jax", "repro", "benchmarks")
+             or m.startswith(("jax.", "jaxlib", "repro.", "benchmarks.")))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -170,10 +171,11 @@ def _imported_roots(path):
 
 
 def test_chip_smoke_and_port_sources_import_no_jax():
+    banned = {"jax", "jaxlib", "repro", "benchmarks"}
     roots = _imported_roots(ROOT / "chip_smoke.py")
-    assert "repro_torch" in roots and not roots & {"jax", "jaxlib", "repro"}
+    assert "repro_torch" in roots and not roots & banned
     for py in (SRC / "repro_torch").rglob("*.py"):
-        assert not _imported_roots(py) & {"jax", "jaxlib", "repro"}, py
+        assert not _imported_roots(py) & banned, py
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -20,6 +20,17 @@ Gates:
     end to end: its losses within 1e-4 of ``--model-parallel 1``, and a
     run failed at step 3 and restarted from its checkpoint ends bitwise
     where the uninterrupted run does;
+  * the reference's checkpoint of deepseek (its ``blocks`` stacked on a
+    leading axis, the dense ``first_block`` apart) with its AdamW state,
+    resumed by ``resume_elastic`` on a 1 x 2 mesh: every leaf gathered
+    bitwise the reference's, unstacked by the bridge;
+  * the dry-run's count of the collectives of reduced qwen's train step
+    traced on a fake 1 x 2 mesh equals, kind by kind, what the same step
+    ran on 2 gloo ranks (``counting_dtensor``);
+  * a prefill step and two decode steps laid out on a 1 x 2 mesh as the
+    dry-run lays out its cells (qwen with the INT8 KV cache, deepseek's
+    MLA cache, whisper's), from a random cache: the logits and the cache
+    after them allclose 1e-5 to the same steps on one device;
   * a kernel wrapper handed a DTensor raises, and ``dispatch.fake_quant``
     quantizes a DTensor's rows as the plain version does.
 """
@@ -36,12 +47,14 @@ import jax.numpy as jnp  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(__file__))
 
-from _torch_mesh_ranks import (_cfg, one_step, run_ranks, sharded_steps,  # noqa: E402
-                               steps_and_grad_placements)
+from _torch_mesh_ranks import (_cfg, one_step, run_ranks, serve_steps,  # noqa: E402
+                               sharded_steps, steps_grads_and_elastic)
 from _torch_train_parity import batch_for  # noqa: E402
+from repro.checkpoint import checkpointing as jckpt  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import reduce_config as jax_reduce_config  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
 from repro_torch.bridge import lm_params_from_numpy  # noqa: E402
 from repro_torch.configs import ARCH_NAMES  # noqa: E402
 from repro_torch.core.policy import DISABLED, AAQConfig  # noqa: E402
@@ -53,6 +66,8 @@ RTOL = 1e-4
 AAQ_RTOL = 1e-4
 DENSE, MOE = "qwen1.5-0.5b", "deepseek-v2-lite-16b"
 JOBS4 = [(DENSE, (2, 2)), (MOE, (2, 2)), (DENSE, (1, 4))]
+#: (arch, INT8 KV cache) of the sharded prefill and decode steps
+SERVE = [(DENSE, True), (MOE, False), ("whisper-base", False)]
 OTHERS = [n for n in ARCH_NAMES if n not in (DENSE, MOE)]
 
 
@@ -88,14 +103,64 @@ def four_ranks(inputs):
             for i, (a, _, _, ste, shape) in enumerate(jobs)}
 
 
+def _reference_state(name):
+    """The reference's (params, AdamW state) of ``name`` after one update."""
+    jcfg = jax_reduce_config(jax_get_config(name)).replace(dtype="float32")
+    jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    jo = jadamw.init(jp)
+    jp, jo, _ = jadamw.update(jp, jax.tree.map(lambda a: a * 0.5 + 0.1, jp), jo,
+                              jadamw.AdamWConfig(lr=0.1))
+    return jp, jo
+
+
+def _cache(name, qkv, b, s, seed=3):
+    """The leaves of ``lm.make_cache`` for ``name``, random (float and int8
+    leaves), every ``pos`` at 5: a decode step reads five written rows."""
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    rng = np.random.default_rng(seed)
+
+    def fill(t):
+        if isinstance(t, dict):
+            return {k: torch.full_like(v, 5) if k == "pos" else fill(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [fill(v) for v in t]
+        if t.dtype.is_floating_point:
+            return torch.from_numpy(0.5 * rng.standard_normal(tuple(t.shape))).to(t.dtype)
+        if t.dtype == torch.int8:
+            return torch.from_numpy(rng.integers(-127, 128, tuple(t.shape)).astype(np.int8))
+        return t
+
+    return [t.numpy() for t in leaves(fill(lm.make_cache(_cfg(name), b, s, quantized=qkv,
+                                                          device="cpu")))]
+
+
+def _serve_job(inputs, name, qkv):
+    _, tree, batch = inputs[name]
+    batch = {k: v for k, v in batch.items() if k != "labels"}
+    n, s = batch["tokens"].shape
+    return (name, tree, batch, _cache(name, qkv, n, s), 2, qkv)
+
+
 @pytest.fixture(scope="module")
-def two_ranks(inputs):
+def two_ranks(inputs, tmp_path_factory):
     """One spawn of 2 ranks: every other kind, one step at 1 x 2; then
-    qwen's gradient placements (``grad_placements``)."""
+    qwen's gradient placements (``grad_placements``); then the reference's
+    checkpoint of deepseek (layers stacked) resumed elastically at 1 x 2;
+    then the collectives of qwen's step; then the prefill and decode steps
+    of ``SERVE`` at 1 x 2."""
     jobs = [(a, inputs[a][1], inputs[a][2], False, (1, 2)) for a in OTHERS]
-    res = run_ranks(2, steps_and_grad_placements, jobs, inputs[DENSE][1], inputs[DENSE][2])
+    ckpt_dir = str(tmp_path_factory.mktemp("stacked_ckpt"))
+    state = _reference_state(MOE)
+    jckpt.save(ckpt_dir, 7, state)
+    serve_jobs = [_serve_job(inputs, a, qkv) for a, qkv in SERVE]
+    res = run_ranks(2, steps_grads_and_elastic, jobs, inputs[DENSE][1], inputs[DENSE][2],
+                    MOE, ckpt_dir, serve_jobs)
     out = {a: [r[0][i] for r in res] for i, a in enumerate(OTHERS)}
     out["grad_placements"] = [r[1] for r in res]
+    out["elastic"] = ([r[2] for r in res], state)
+    out["collectives"] = [r[3] for r in res]
+    out["serve"] = dict(zip((a for a, _ in SERVE), zip(res[0][4], serve_jobs)))
     return out
 
 
@@ -151,6 +216,68 @@ def test_grad_shardings_places_the_gradients(two_ranks):
         assert r["loss_r"] == r["loss"]
         assert r["gap"] <= 1e-6
         assert r["steps_equal"]
+
+
+#: ``collectives.counts()`` names -> the dry-run's kinds
+_KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+          "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+          "permute": "collective-permute", "broadcast": "broadcast", "gather": "gather"}
+
+
+def test_dry_run_collectives_equal_a_real_1x2_step(two_ranks, inputs):
+    """Reduced qwen's train step (8 x 16 tokens, ``DISABLED``) traced on a
+    fake 1 x 2 mesh by the dry-run: its collective calls, kind by kind,
+    equal those the same step ran on each of 2 gloo ranks."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    n, s = inputs[DENSE][2]["tokens"].shape
+    rec = dryrun.lower_cell(DENSE, ShapeSpec("t", s, n, "train"), cfg=_cfg(DENSE),
+                            mesh_shape=(1, 2))
+    want = rec["collectives"]["counts"]
+    assert want.get("all-gather", 0) > 0
+    for got in two_ranks["collectives"]:
+        assert {_KINDS[k]: v for k, v in got.items()} == want
+
+
+@pytest.mark.parametrize("name", [a for a, _ in SERVE])
+def test_sharded_prefill_and_decode_match_one_device(two_ranks, name):
+    """The prefill step and two decode steps, sharded on 1 x 2 as the
+    dry-run shards its cells (read on the CPU: logits within 3.1e-6, the
+    cache within 1.7e-6, of one device's), against one device."""
+    (prefill, logits, cache), (_, tree, batch, cache0, n_decode, qkv) = \
+        two_ranks["serve"][name]
+    cfg = _cfg(name)
+    want = serve_steps(cfg, lm_params_from_numpy(tree, cfg, device="cpu"), batch, cache0,
+                       n_decode, qkv)
+    np.testing.assert_allclose(prefill, want[0], rtol=1e-5, atol=1e-5)
+    assert len(logits) == n_decode
+    for a, b in zip(logits, want[1]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    assert len(cache) == len(want[2])
+    for a, b in zip(cache, want[2]):
+        assert a.dtype == b.dtype
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_elastic_resume_of_a_stacked_reference_checkpoint(two_ranks):
+    """The reference's checkpoint of reduced deepseek's parameters and AdamW
+    state (``blocks`` stacked, ``first_block`` apart) resumed by
+    ``resume_elastic`` on a 1 x 2 mesh: the step, and every leaf gathered
+    bitwise the reference's leaf, unstacked by the bridge; its experts
+    sharded over ``model``."""
+    from repro_torch.tree import leaves
+    ranks, (jp, jo) = two_ranks["elastic"]
+    cfg = _cfg(MOE)
+    conv = lambda t: lm_params_from_numpy(jax.tree.map(np.asarray, t), cfg,  # noqa: E731
+                                          device="cpu")
+    want = [np.asarray(x) for x in leaves((conv(jp), {"m": conv(jo["m"]), "v": conv(jo["v"]),
+                                                      "step": np.asarray(jo["step"])}))]
+    for r in ranks:
+        assert r["step"] == 7 and r["mesh"] == (1, 2)
+        assert len(r["leaves"]) == len(want)
+        for g, w in zip(r["leaves"], want):
+            np.testing.assert_array_equal(g, w)
+        assert any("Shard" in p for p in r["placements"])
 
 
 def _train(tmp_path, *extra):

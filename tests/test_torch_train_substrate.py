@@ -124,17 +124,61 @@ def test_reference_checkpoint_restores_into_the_port_bitwise(tmp_path):
                               jadamw.AdamWConfig(lr=0.1))
     jckpt.save(str(tmp_path / "ref"), 3, (jp, jo))
     tp = lm.init_params(torch.Generator().manual_seed(0), tcfg)
-    step, (rp, ro) = ckpt.restore(str(tmp_path / "ref"), (tp, adamw.init(tp)))
+    step, (rp, ro) = ckpt.restore(str(tmp_path / "ref"), (tp, adamw.init(tp)), cfg=tcfg)
     assert step == 3 and int(ro["step"]) == 1 and ro["step"].dtype == torch.int32
     want = jax.tree.leaves((jp, jo))
     got = leaves((rp, ro))
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    ckpt.save(str(tmp_path / "port"), 4, (rp, ro))
+    ckpt.save(str(tmp_path / "port"), 4, (rp, ro), cfg=tcfg)
     step, back = jckpt.restore(str(tmp_path / "port"), (jp, jo))
     assert step == 4
     for g, w in zip(jax.tree.leaves(back), want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+def _port_layout(tree, cfg):
+    """The reference's (params, AdamW state) in the port's layout (the
+    bridge unstacks ``blocks``/``periods``), as CPU tensors."""
+    from repro_torch.bridge import lm_params_from_numpy
+    p, o = jax.tree.map(np.asarray, tree)
+    conv = lambda t: lm_params_from_numpy(t, cfg, device="cpu")  # noqa: E731
+    return conv(p), {"m": conv(o["m"]), "v": conv(o["v"]),
+                     "step": torch.from_numpy(np.array(o["step"]))}
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-v2-lite-16b", "recurrentgemma-9b"])
+def test_stacked_layer_checkpoints_cross_both_ways_bitwise(tmp_path, arch):
+    """Configs whose layers the reference stacks on a leading axis (qwen's
+    and deepseek's ``blocks`` under ``scan_layers``, deepseek's dense
+    ``first_block`` apart; recurrentgemma's ``periods``): the reference's
+    save of its parameters and AdamW state after one update restores into
+    the port's fresh per-layer lists bitwise (against the bridge's
+    unstacking), and the port's save of them restores into the
+    reference's template bitwise, with the reference's leaf count."""
+    jcfg = jax_reduce_config(jax_get_config(arch)).replace(dtype="float32")
+    tcfg = reduce_config(get_config(arch)).replace(dtype="float32")
+    assert tcfg.scan_layers == jcfg.scan_layers
+    jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    jo = jadamw.init(jp)
+    jp, jo, _ = jadamw.update(jp, jax.tree.map(lambda a: a * 0.5 + 0.1, jp), jo,
+                              jadamw.AdamWConfig(lr=0.1))
+    jckpt.save(str(tmp_path / "ref"), 3, (jp, jo))
+    tp = lm.init_params(torch.Generator().manual_seed(1), tcfg)
+    template = (tp, adamw.init(tp))
+    with pytest.raises(ValueError, match="leaves|shape"):   # the layout is the config's
+        ckpt.restore(str(tmp_path / "ref"), template)
+    step, got = ckpt.restore(str(tmp_path / "ref"), template, cfg=tcfg)
+    assert step == 3
+    want = _port_layout((jp, jo), tcfg)
+    _equal(got, want)
+    ckpt.save(str(tmp_path / "port"), 4, got, cfg=tcfg)
+    step, back = jckpt.restore(str(tmp_path / "port"), (jp, jo))
+    assert step == 4
+    ref = jax.tree.leaves((jp, jo))
+    assert len(leaves(ckpt.stack_layers(got, tcfg))) == len(ref)
+    for g, w in zip(jax.tree.leaves(back), ref):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
