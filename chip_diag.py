@@ -10,10 +10,13 @@ then the reduced config's fold of ``examples/fold_server``'s first protein
 (26 residues, bucket 32) alone against the same protein in act one's
 batch of 4, under AAQ and the unquantized scheme, on the kernel route
 (``auto``) and the plain route (``ref``): bitwise or not, the largest
-coordinate gap and the TM; then, op by op, the first ops whose output
-rows for that protein differ (``inputs equal`` names an op that is itself
-batch-variant).  Ops run through a kernel wrapper (ctypes) do not pass the
-dispatcher, so a kernel that differs shows as the next op's inputs.
+coordinate gap and the TM; and for each, every op of the batch-4 fold run
+again on the first quarter of its inputs' rows (dim 0, where an input's
+dim 0 is the output's): an op whose output's first quarter then differs
+follows the row count in itself, whatever its inputs.  Ops run through a
+kernel wrapper (ctypes) do not pass the dispatcher.  All of it twice:
+with the fold's float32 products a batch row at a time
+(``device.rows_alone``, as the fold runs) and without.
 
 ``dryrun``: ``launch.dryrun.lower_cell`` of qwen1.5-0.5b x train_4k on the
 fake 16 x 16 mesh at 1 and 2 layers (vocabulary 4,096) and at 1 layer
@@ -40,6 +43,7 @@ def _print(*a) -> None:
 
 
 def batch(torch) -> None:
+    import contextlib
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.configs import reduce_ppm_config
     from repro_torch.core.schemes import make_scheme
@@ -83,67 +87,62 @@ def batch(torch) -> None:
     batch4 = [trace[i] for i in (0, 2, 3, 4)]           # act one's batch of bucket 32
     schemes = {"aaq": make_scheme("lightnobel_aaq"), "fp": make_scheme("baseline_fp16")}
 
-    class Record(TorchDispatchMode):
+    def fold(seqs, route, scheme, mode=None):
+        aat, mask = pad_to_bucket(seqs, 32, len(seqs))
+        aat, mask = torch.from_numpy(aat).to(dev), torch.from_numpy(mask).to(dev)
+        with torch.inference_mode(), dispatch.use_backend(route), \
+                mode if mode is not None else contextlib.nullcontext():
+            return ppm_forward(params, aat, cfg, scheme, mask=mask, distogram=False)["coords"]
+
+    class Intrinsic(TorchDispatchMode):
+        """Each op again on the first quarter of its rows (dim 0)."""
+
         def __init__(self):
             super().__init__()
-            self.ops = []
+            self.ops, self.variant = 0, {}
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
-            ins = [a for a in list(args) + list(kwargs.values()) if isinstance(a, torch.Tensor)]
-            outs = [o for o in (out if isinstance(out, (list, tuple)) else [out])
-                    if isinstance(o, torch.Tensor)]
-            self.ops.append((str(func), [i.detach().clone() for i in ins],
-                             [o.detach().clone() for o in outs]))
+            name = str(func)
+            if (not isinstance(out, torch.Tensor) or not out.is_floating_point()
+                    or out.dim() == 0 or out.shape[0] % 4 or "empty" in name
+                    or func._schema.is_mutable or any(r.alias_info is not None
+                                                      for r in func._schema.returns)):
+                return out
+            q = out.shape[0] // 4
+            rows = [isinstance(a, torch.Tensor) and a.dim() and a.shape[0] == out.shape[0]
+                    for a in args]
+            if not any(rows):
+                return out
+            self.ops += 1
+            part = func(*(a[:q] if r else a for a, r in zip(args, rows)), **kwargs)
+            if not torch.equal(part, out[:q]):
+                key = (name, tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor)),
+                       str(out.dtype))
+                self.variant[key] = self.variant.get(key, 0) + 1
             return out
 
-    def fold(seqs, route, scheme, rec=None):
-        aat, mask = pad_to_bucket(seqs, 32, len(seqs))
-        aat, mask = torch.from_numpy(aat).to(dev), torch.from_numpy(mask).to(dev)
-        with torch.inference_mode(), dispatch.use_backend(route):
-            if rec is None:
-                return ppm_forward(params, aat, cfg, scheme, mask=mask,
-                                   distogram=False)["coords"]
-            with rec:
-                return ppm_forward(params, aat, cfg, scheme, mask=mask,
-                                   distogram=False)["coords"]
-
-    def first_rows_equal(a, b):
-        """``a`` of batch 1 against ``b``'s first rows of batch 4 (None where
-        the shapes do not say which rows are the protein's)."""
-        if a.dim() and a.dim() == b.dim() and a.shape[1:] == b.shape[1:] \
-                and b.shape[0] == 4 * a.shape[0]:
-            return torch.equal(a, b[:a.shape[0]])
-        return None
-
+    from repro_torch import device as dev_mod
+    from repro_torch.models.ppm import model as ppm_model
     n0 = len(trace[0])
-    for route in ("auto", "ref"):
-        for name, scheme in schemes.items():
-            c1 = fold([trace[0]], route, scheme)[0, :n0].float().cpu()
-            c4 = fold(batch4, route, scheme)[0, :n0].float().cpu()
-            _print(f"fold {route} {name}: batch-1 coords bitwise batch-4's: "
-                   f"{torch.equal(c1, c4)}, max |d| {(c1 - c4).abs().max().item():.3e}, "
-                   f"TM {float(tm_score(c1, c4)):.6f}")
-        r1, r4 = Record(), Record()
-        fold([trace[0]], route, schemes["aaq"], r1)
-        fold(batch4, route, schemes["aaq"], r4)
-        _print(f"{route}: {len(r1.ops)} ops at batch 1, {len(r4.ops)} at batch 4")
-        shown = 0
-        for i, ((f1, i1, o1), (f4, i4, o4)) in enumerate(zip(r1.ops, r4.ops)):
-            if f1 != f4:
-                _print(f"  op {i}: the op sequences part: {f1} against {f4}")
-                break
-            if "empty" in f1:               # uninitialised memory: no value to compare
-                continue
-            ins_eq = [first_rows_equal(a, b) for a, b in zip(i1, i4)]
-            if any(first_rows_equal(a, b) is False for a, b in zip(o1, o4)):
-                why = "inputs equal" if False not in ins_eq else "inputs differ"
-                _print(f"  op {i} {f1}: output rows differ ({why}); inputs "
-                       f"{[(tuple(a.shape), str(a.dtype)) for a in i4]} equal {ins_eq}")
-                shown += 1
-                if shown == 6:
-                    break
+    for alone in (True, False):
+        ppm_model.rows_alone = dev_mod.rows_alone if alone else contextlib.nullcontext
+        _print(f"-- a float32 fold's products a batch row at a time (rows_alone): {alone}")
+        for route in ("auto", "ref"):
+            for name, scheme in schemes.items():
+                c1 = fold([trace[0]], route, scheme)[0, :n0].float().cpu()
+                c4 = fold(batch4, route, scheme)[0, :n0].float().cpu()
+                _print(f"fold {route} {name}: batch-1 coords bitwise batch-4's: "
+                       f"{torch.equal(c1, c4)}, max |d| {(c1 - c4).abs().max().item():.3e}, "
+                       f"TM {float(tm_score(c1, c4)):.6f}")
+                mode = Intrinsic()
+                fold(batch4, route, scheme, mode)
+                _print(f"  {route} {name}, batch 4: {mode.ops} ops run again on their first "
+                       f"quarter; {len(mode.variant)} kinds of op differ in themselves"
+                       + "".join(f"\n    {op} {dt} inputs {shapes}: {n} calls"
+                                 for (op, shapes, dt), n in sorted(mode.variant.items())))
+    ppm_model.rows_alone = dev_mod.rows_alone
 
 
 def dryrun_flops(torch) -> None:

@@ -187,7 +187,12 @@ Phases, each fatal on failure:
      resumed on a 1x2 mesh bitwise (``resume_elastic``), ``gpipe_loss`` at
      pod 4 (24 layers, 6 a stage) within 2e-4 of ``loss_fn``, and
      ``ring_ag_matmul_ws`` on 4 ranks within 2e-4 of ``x @ w`` (every
-     gate of (b) read, then the phase fails if any failed); then
+     gate of (b) read, then the phase fails if any failed); (c) a sharded
+     prefill and 4 decode steps (phi-3-vision-4.2b, its ring sharded on
+     its K/V heads; chatglm3-6b, on the head dim; full width at 2 layers,
+     float32, 4 rows, a 256-row ring) on a 1x1 mesh over NCCL bitwise the
+     same steps on one card, and with two cards or more on a 1xW mesh (W
+     up to 4) across them within 1e-4 relative on the logits; then
      ``aaq_fake_quant`` at a rank's training shapes, bitwise and timed;
  13. the fleet on one shared mesh (``--listen`` with ``--mesh``): two
      replicas of ``launch.serve``'s own factory, warmed, at full
@@ -203,13 +208,18 @@ Phases, each fatal on failure:
  14. the examples (``python -m repro_torch.examples.quickstart`` and
      ``fold_server``) as processes on the card, both at once: each exits 0
      after its own assertions with every main-path kernel launched;
- 15. the dry-run: ``launch.dryrun.lower_cell`` on the fake 16 x 16
-     production mesh for qwen1.5-0.5b x train_4k, qwen1.5-0.5b x
-     decode_32k with the INT8 KV cache, deepseek-v2-lite-16b x decode_32k
-     and esmfold_ppm x ns256, each roofline line with the card's
-     constants; then phase 10's qwen step traced on one device and run for
-     real under ``FlopCounterMode``: the FLOP counts equal, the trace's
-     peak beside ``max_memory_allocated``;
+ 15. the dry-run: ``python -m repro_torch.launch.dryrun`` on the fake
+     16 x 16 production mesh, a process a cell, all at once, for
+     qwen1.5-0.5b x train_4k, qwen1.5-0.5b x decode_32k with the INT8 KV
+     cache, deepseek-v2-lite-16b x decode_32k and x train_4k, esmfold_ppm
+     x ns256, phi-3-vision-4.2b and chatglm3-6b x decode_32k and
+     qwen2.5-3b x prefill_32k, each roofline line with the card's
+     constants, the widened copies and the largest storage beside the
+     peak, which must be at or under the cell's bound (twice the
+     reference's own dry-run peak, at least it plus 1 GB); then phase 10's
+     qwen step traced on one device and run for real under
+     ``FlopCounterMode``: the FLOP counts equal, the trace's peak beside
+     ``max_memory_allocated``;
  16. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -3638,8 +3648,8 @@ def _mt_meshes(torch, tallies) -> dict:
     return out
 
 
-# the rank jobs of (b): rank 0 is this process, ranks 1.. processes of this
-# script (``--rank-job``) on the other cards
+# the rank jobs of (b) and (c): rank 0 is this process, ranks 1.. processes
+# of this script (``--rank-job``) on the other cards
 def _rank_job_run(torch, job, world, arg) -> dict:
     import torch.distributed as dist
     from repro_torch.launch import mesh as lmesh
@@ -3667,9 +3677,9 @@ def _rank_job_run(torch, job, world, arg) -> dict:
         shutil.rmtree(d, ignore_errors=True)
     bad = [p.returncode for p in procs if p.returncode]
     if bad:
-        fail(f"phase 12(b) {job}: ranks exited {bad}")
+        fail(f"phase 12 {job}: ranks exited {bad}")
     res["wall_s"] = time.perf_counter() - t0
-    log(f"phase 12(b) {job} on {world} ranks: {json.dumps(res)}")
+    log(f"phase 12 {job} on {world} ranks: {json.dumps(res)}")
     return res
 
 
@@ -3741,11 +3751,134 @@ def _job_ring(torch, rank, world, _arg) -> dict:
                 one_card_matmul_ms=dense_ms)
 
 
-_RANK_JOBS = {"elastic": _job_elastic, "gpipe": _job_gpipe, "ring": _job_ring}
+# (c): a sharded prefill and decode on cards, full width at 2 layers in
+# float32: phi-3's ring sharded on its 32 K/V heads, chatglm3's 2 K/V heads
+# on the head dim (128).  The route of each: phi-3's head dim 96 has no
+# float32 flash variant (the SIMT kernel takes 8-64 and 128), so phi-3 runs
+# the plain attention; chatglm3 the kernels (its decode's head-dim scores
+# are plain PyTorch on either route)
+MD_ARCHS = (("phi-3-vision-4.2b", "ref"), ("chatglm3-6b", "auto"))
+MD_BATCH, MD_PROMPT, MD_RING, MD_POS, MD_STEPS = 4, 32, 256, 100, 4
+#: the sharded steps' logits against one card's, relative to the largest:
+#: the reference's gate for its sharded steps (``MT_FP_TOL``)
+MD_TOL = 1e-4
+#: the one card's logits of (c), by arch: rank 0 holds them for the job
+_MD_ONE: dict = {}
+
+
+def _md_steps(torch, arch, mesh=None) -> list:
+    """A prefill of ``MD_PROMPT`` tokens a row, then ``MD_STEPS`` decode steps
+    from a random ring of ``MD_RING`` positions at ``MD_POS`` (the same
+    numbers on every rank), on one card or laid out on ``mesh`` as the
+    dry-run lays out its cells; -> every step's logits, whole, on the
+    card."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.dryrun import _spec_leaves
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.tree import leaves, unflatten
+    cfg = get_config(arch).replace(layers=2, dtype="float32")
+    place = ((lambda path, part: sh.distribute_params(part, mesh, cfg, path))
+             if mesh is not None else cm.as_made)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, place=place)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (MD_BATCH, MD_PROMPT + MD_STEPS), generator=g,
+                           device="cuda", dtype=torch.int32)
+    cache = lm.make_cache(cfg, MD_BATCH, MD_RING, device="cuda")
+    for t in leaves(cache):
+        if t.is_floating_point():
+            t.copy_(0.5 * torch.randn(t.shape, generator=g, device="cuda"))
+    cache["pos"].fill_(MD_POS)
+    batch = {"tokens": tokens[:, :MD_PROMPT]}
+    prules = drules = None
+    if mesh is not None:
+        bspec = sh.batch_specs(cfg, ShapeSpec("p", MD_PROMPT, MD_BATCH, "prefill"), mesh)
+        dspecs = sh.batch_specs(cfg, ShapeSpec("d", MD_RING, MD_BATCH, "decode"), mesh)
+        batch = {k: sh.distribute(v, mesh, bspec["batch"][k]) for k, v in batch.items()}
+        cache = unflatten(cache, [sh.distribute(t, mesh, sp) for t, sp in
+                                  zip(leaves(cache), _spec_leaves(dspecs["cache"]))])
+        prules = sh.default_act_rules(mesh, "prefill", cfg)
+        drules = sh.default_act_rules(mesh, "decode", cfg)
+        drules["kv_cache"] = sh.P(*dspecs["cache"]["k"][1:])
+    out = []
+    route = dict(MD_ARCHS)[arch]
+    with torch.no_grad(), sh.mixed_ops(params), dispatch.use_backend(route):
+        with sh.act_rules(prules):
+            out.append(sh.to_global(lm.prefill_fn(params, batch, cfg)))
+        with sh.act_rules(drules):
+            for i in range(MD_STEPS):
+                tok = tokens[:, MD_PROMPT + i:MD_PROMPT + i + 1].contiguous()
+                if mesh is not None:
+                    tok = sh.distribute(tok, mesh, dspecs["batch"]["tokens"])
+                logits, cache = lm.decode_fn(params, {"tokens": tok}, cache, cfg)
+                out.append(sh.to_global(logits))
+        ring = str(cache["k"].placements) if sh.is_dtensor(cache["k"]) else None
+    torch.cuda.synchronize()
+    return out, ring
+
+
+def _md_gap(torch, got, want) -> float:
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def _job_decode(torch, rank, world, _arg) -> dict:
+    """(c) across cards: ``_md_steps`` of each of ``MD_ARCHS`` on a
+    (1, world) mesh; rank 0 holds them against one card's."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, world), ("data", "model"))
+    res = {}
+    for arch, _ in MD_ARCHS:
+        got, ring = _md_steps(torch, arch, mesh)
+        if rank == 0:
+            res[arch] = dict(ring=ring, gap=_md_gap(torch, got, _MD_ONE[arch]))
+    return res
+
+
+def _md_decode(torch) -> tuple:
+    """(c): the sharded prefill and decode steps on a 1x1 mesh over NCCL
+    against one card's, bitwise; with two cards or more, on a 1xW mesh (W
+    the cards, up to 4) across them, within ``MD_TOL``.  -> (the readings,
+    the gates that failed)."""
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    bad = []
+    for arch, _ in MD_ARCHS:
+        _MD_ONE[arch], _ = _md_steps(torch, arch)
+        with _one_rank_nccl():
+            got, ring = _md_steps(torch, arch, make_mesh((1, 1), ("data", "model")))
+        same = all(_bitwise(torch, a, b) for a, b in zip(got, _MD_ONE[arch]))
+        out[arch] = dict(one_by_one_bitwise=same, ring_1x1=ring)
+        if not same:
+            bad.append(f"{arch} on a 1x1 mesh: not bitwise one card's (max relative gap "
+                       f"{_md_gap(torch, got, _MD_ONE[arch]):.3e})")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = min(cards, 4)
+        res = _rank_job_run(torch, "decode", world, "")
+        for arch, _ in MD_ARCHS:
+            r = res[arch]
+            out[arch].update({f"gap_1x{world}": r["gap"], f"ring_1x{world}": r["ring"]})
+            if not r["gap"] <= MD_TOL:
+                bad.append(f"{arch} on a 1x{world} mesh: max relative gap {r['gap']:.3e} "
+                           f"above {MD_TOL}")
+    else:
+        log("phase 12(c): one card visible; the sharded decode across cards not run")
+    log(f"phase 12(c), the sharded prefill and {MD_STEPS} decode steps ({MD_BATCH} rows, "
+        f"{MD_PROMPT}-token prompts, a {MD_RING}-row ring at {MD_POS}), full width at 2 "
+        f"layers f32, against one card: {json.dumps(out)}")
+    _MD_ONE.clear()
+    return out, [f"phase 12(c): {b}" for b in bad]
+
+
+_RANK_JOBS = {"elastic": _job_elastic, "gpipe": _job_gpipe, "ring": _job_ring,
+              "decode": _job_decode}
 
 
 def rank_job(args) -> int:
-    """A started rank of a phase 12(b) job: joins the group, runs the job,
+    """A started rank of a phase 12 job: joins the group, runs the job,
     prints nothing."""
     import torch
     import torch.distributed as dist
@@ -3787,13 +3920,21 @@ def train_mesh(torch, card: str) -> tuple:
     tallies = {(1, 1): Counter()}
     one = _mt_1x1(torch, tallies[(1, 1)])
     log(f"phase 12(a) done at {time.perf_counter() - t0:.1f}s")
+    decode, decode_bad = _md_decode(torch)
+    log(f"phase 12(c) done at {time.perf_counter() - t0:.1f}s")
     multi = {}
     if torch.cuda.device_count() >= 2:
-        multi = _mt_meshes(torch, tallies)
+        try:
+            multi = _mt_meshes(torch, tallies)
+        finally:
+            if decode_bad:
+                log("; ".join(decode_bad))
     else:
         log("phase 12(b): one card visible; sharded training across cards not run")
+    if decode_bad:
+        fail("; ".join(decode_bad))
     rows = _mt_rows(torch, tallies)
-    log(f"phase 12 readings on {card}: {json.dumps(dict(one_by_one=one, meshes=multi))}")
+    log(f"phase 12 readings on {card}: {json.dumps(dict(one_by_one=one, meshes=multi, decode=decode))}")
     log(f"phase 12 wall {time.perf_counter() - t0:.1f}s")
     return rows, {"aaq_fake_quant": sum(sum(t.values()) for t in tallies.values())}
 
@@ -3998,43 +4139,69 @@ def run_examples(torch) -> None:
 # ---------------------------------------------------------------------------
 # phase 15: the dry-run, and its count held against the card
 # ---------------------------------------------------------------------------
-#: (arch, shape, --quant-kv) traced on the fake 16 x 16 production mesh
-DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False), ("qwen1.5-0.5b", "decode_32k", True),
-                ("deepseek-v2-lite-16b", "decode_32k", False), ("esmfold_ppm", "ns256", False))
+#: (arch, shape, --quant-kv, bound on peak_bytes_per_dev in GB or None)
+#: traced on the fake 16 x 16 production mesh.  A bound is max(2x, x + 1
+#: GB) of the reference's own dry-run peak x for the cell
+#: (``repro.launch.dryrun --all``, XLA's memory_analysis, JAX 0.9.0 on the
+#: CPU's 512 forced host devices): qwen1.5-0.5b x train_4k 4.08 GB,
+#: deepseek-v2-lite-16b x decode_32k 6.30, phi-3-vision-4.2b x decode_32k
+#: 23.06, chatglm3-6b x decode_32k 2.66, qwen2.5-3b x prefill_32k 1.23,
+#: deepseek-v2-lite-16b x train_4k 5.24.  None: reported, not gated (the
+#: INT8 ring is not a reference cell; the fold runs the serving tier's
+#: sharding, the parameters whole)
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False, 8.16),
+                ("qwen1.5-0.5b", "decode_32k", True, None),
+                ("deepseek-v2-lite-16b", "decode_32k", False, 12.60),
+                ("esmfold_ppm", "ns256", False, None),
+                ("phi-3-vision-4.2b", "decode_32k", False, 46.12),
+                ("chatglm3-6b", "decode_32k", False, 5.32),
+                ("qwen2.5-3b", "prefill_32k", False, 2.46),
+                ("deepseek-v2-lite-16b", "train_4k", False, 10.48))
 
 
-def dry_run(torch) -> None:
-    """``dryrun.lower_cell`` on the fake 16 x 16 mesh (fake CUDA tensors,
-    nothing allocated) for each of ``DRYRUN_CELLS``, its roofline line
-    printed with the card's constants; then phase 10's qwen1.5-0.5b step
-    (8 x 64 tokens, float32, ``DISABLED``, one device) traced the same way
-    and run for real on the card under ``FlopCounterMode`` on the same
-    (plain) route: the FLOP counts must be equal; the trace's peak printed
-    beside the real step's ``max_memory_allocated``."""
+def _dry_cells() -> tuple:
+    """Each of ``DRYRUN_CELLS`` traced by ``python -m
+    repro_torch.launch.dryrun`` in a process of its own, all at once (each
+    process its own fake process group; the deepseek train cell alone
+    takes the better part of the phase); -> ([(cell, record, its line)],
+    the cells that failed)."""
+    out_dir = ROOT / "build" / "phase15"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    for i, (arch, name, qkv, bound) in enumerate(DRYRUN_CELLS):
+        out = out_dir / f"cell{i}.jsonl"
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                name, "--mesh", "single", "--out", str(out), *(("--quant-kv",) if qkv else ())]
+        procs.append((subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True), out))
+    res, bad = [], []
+    for cell, (proc, out) in zip(DRYRUN_CELLS, procs):
+        stdout, stderr = proc.communicate(timeout=600)
+        line = next((ln for ln in stdout.splitlines() if ln.startswith("[ok]")), None)
+        if proc.returncode or line is None:
+            bad.append(f"{cell[:3]} exited {proc.returncode}: {stdout[-2000:]} "
+                       f"{stderr[-2000:]}")
+            continue
+        res.append((cell, json.loads(out.read_text().splitlines()[-1]), line))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return res, bad
+
+
+def _dry_phase10(torch, dryrun) -> None:
+    """Phase 10's qwen1.5-0.5b step (8 x 64 tokens, float32, ``DISABLED``,
+    one device) traced by the dry-run and run for real on the card under
+    ``FlopCounterMode`` on the same (plain) route: the FLOP counts must be
+    equal; the trace's peak printed beside the real step's
+    ``max_memory_allocated``."""
     import gc
     from torch.utils.flop_counter import FlopCounterMode
-    from repro_torch.configs import ShapeSpec, get_config, shapes_for
+    from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.kernels import dispatch
-    from repro_torch.launch import dryrun
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.optim import adamw
-    t0 = time.perf_counter()
-    for arch, name, qkv in DRYRUN_CELLS:
-        shape = next(s for s in shapes_for(arch) if s.name == name)
-        rec = dryrun.lower_cell(arch, shape, quantized_kv=qkv)
-        tag = f"{arch} x {name} x single{' --quant-kv' if qkv else ''}"
-        c = rec["collectives"]
-        log(f"phase 15: {dryrun.roofline_line(tag, rec)}; flops/dev "
-            f"{rec['cost']['flops_per_dev']:.0f}, bytes/dev {rec['cost']['bytes_per_dev']:.4e} "
-            f"(widened copies {rec['cost']['widen_bytes_per_dev']:.4e}), "
-            f"collectives {c['counts']} ({sum(c['per_device_bytes'].values()) / 2**30:.3f} GiB "
-            f"a device), mem {rec['mem']}, model_flops {rec['roofline']['model_flops']:.4e}, "
-            f"useful {rec['roofline']['useful_fraction']:.3f}, roofline fraction "
-            f"{rec['roofline']['roofline_fraction']:.4f}, device {rec['device']}")
-        if rec["chips"] != 256 or rec["cost"]["flops_per_dev"] <= 0 or \
-                (arch != "esmfold_ppm" and not c["counts"]):
-            fail(f"phase 15: {tag}: {rec['chips']} chips, {rec['cost']}, {c['counts']}")
     cfg = get_config("qwen1.5-0.5b").replace(dtype="float32")
     shape = ShapeSpec("phase10", 64, 8, "train")
     rec = dryrun.lower_cell("qwen1.5-0.5b", shape, cfg=cfg, mesh_shape=())
@@ -4063,6 +4230,39 @@ def dry_run(torch) -> None:
     del params, opt, batch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def dry_run(torch) -> None:
+    """``launch.dryrun`` on the fake 16 x 16 mesh (fake CUDA tensors,
+    nothing allocated) for each of ``DRYRUN_CELLS``, its roofline line
+    printed with the card's constants, beside each peak the widened float32
+    copies and the largest storage an op made; a cell whose peak exceeds
+    its bound fails the phase (every cell is read first); then
+    ``_dry_phase10``."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    cells, bad = _dry_cells()
+    for (arch, name, qkv, bound), rec, line in cells:
+        tag = f"{arch} x {name} x single{' --quant-kv' if qkv else ''}"
+        c = rec["collectives"]
+        peak = rec["mem"]["peak_bytes_per_dev"] / 1e9
+        log(f"phase 15: {line}; flops/dev "
+            f"{rec['cost']['flops_per_dev']:.0f}, bytes/dev {rec['cost']['bytes_per_dev']:.4e} "
+            f"(widened copies {rec['cost']['widen_bytes_per_dev']:.4e}), "
+            f"collectives {c['counts']} ({sum(c['per_device_bytes'].values()) / 2**30:.3f} GiB "
+            f"a device), mem {rec['mem']}, model_flops {rec['roofline']['model_flops']:.4e}, "
+            f"useful {rec['roofline']['useful_fraction']:.3f}, roofline fraction "
+            f"{rec['roofline']['roofline_fraction']:.4f}, device {rec['device']}; peak "
+            f"{peak:.3f} GB against the bound {bound} GB")
+        if rec["chips"] != 256 or rec["cost"]["flops_per_dev"] <= 0 or \
+                (arch != "esmfold_ppm" and not c["counts"]):
+            bad.append(f"{tag}: {rec['chips']} chips, {rec['cost']}, {c['counts']}")
+        if bound is not None and peak > bound:
+            bad.append(f"{tag}: peak {peak:.3f} GB a device above the bound {bound} GB")
+    log(f"phase 15 cells wall {time.perf_counter() - t0:.1f}s")
+    if bad:
+        fail("phase 15: " + "; ".join(bad))
+    _dry_phase10(torch, dryrun)
     log(f"phase 15 wall {time.perf_counter() - t0:.1f}s")
 
 
@@ -4074,7 +4274,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="11,12,13",
                     help="with --mesh-only: the phases of 11, 12 and 13 to run "
                          "(default all three)")
-    # a started rank of a phase 12(b) job (``_rank_job_run``)
+    # a started rank of a phase 12 job (``_rank_job_run``)
     ap.add_argument("--rank-job", choices=sorted(_RANK_JOBS), help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, help=argparse.SUPPRESS)

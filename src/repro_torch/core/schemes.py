@@ -38,6 +38,7 @@ import math
 import torch
 
 from repro_torch.core.policy import AAQConfig
+from repro_torch.device import per_row
 from repro_torch.core.qtensor import qmax
 from repro_torch.parallel.sharding import global_amax
 
@@ -63,8 +64,10 @@ def _sym_quant(x: torch.Tensor, bits: int, axis=None,
 
 def _matmul_f32_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with float32 accumulation, result in x's dtype (the reference's
-    ``jnp.dot(..., preferred_element_type=f32).astype(x.dtype)``)."""
-    return torch.matmul(x, w.to(x.dtype))
+    ``jnp.dot(..., preferred_element_type=f32).astype(x.dtype)``); a row at
+    a time in a fold's float32 batch on the card (``device.per_row``)."""
+    w = w.to(x.dtype)
+    return per_row(lambda t: torch.matmul(t, w), x)
 
 
 class QuantScheme:

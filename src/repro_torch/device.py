@@ -6,6 +6,9 @@ for it (``device="cpu"``), as the CPU parity tests do.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 
@@ -26,3 +29,36 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "pass device='cpu' to run the plain PyTorch path explicitly")
     set_precise_matmul()
     return dev
+
+
+_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def rows_alone(on: bool = True):
+    """A scope (a float32 fold: ``ppm_forward``) in which ``per_row`` runs a
+    product on the card one batch row at a time.  cuBLAS picks a product's
+    algorithm by its shape, so a batch of 4 would round a row otherwise
+    than the same row alone, and the ~1e-6 it moves flips AAQ bins
+    downstream; a row alone is the batch-1 product, so a fold's rows are
+    bitwise the same protein folded alone.  ``on`` False (a bf16 fold: the
+    main path, bitwise across batches already), the CPU and everything
+    outside the scope are unchanged."""
+    prev = getattr(_ROWS, "on", False)
+    _ROWS.on = on
+    try:
+        yield
+    finally:
+        _ROWS.on = prev
+
+
+def per_row(fn, *xs):
+    """``fn(*xs)`` (a product of tensors that share their leading batch dim,
+    row by row independent), one row at a time and concatenated where a
+    ``rows_alone`` scope is on and ``xs[0]`` is a CUDA batch of more than
+    one row (a float32 fold's products, and its fp16 ones under the
+    baseline scheme); else ``fn(*xs)``."""
+    x = xs[0]
+    if not (getattr(_ROWS, "on", False) and x.is_cuda and x.dim() >= 3 and x.shape[0] > 1):
+        return fn(*xs)
+    return torch.cat([fn(*(t[i:i + 1] for t in xs)) for i in range(x.shape[0])])

@@ -28,6 +28,8 @@ mode one by one):
     broadcast or gather moves (g-1)/g of its result, as an all-gather);
   * the peak of live bytes: every storage an op makes is held until it is
     freed (a finalizer on the storage), the step's inputs from the start;
+    apart, as a diagnostic (not a key of the record), the largest storage
+    an op made and that op (``largest``);
   * apart, the bytes of the float32 copies ``common.matmul_f32`` makes of
     bf16 operands where a product cannot keep them bf16 (a DTensor, or the
     CPU): the card's product reads them as bf16, so these copies, the
@@ -172,9 +174,12 @@ class CostMode(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._out: dict[int, int] = {}
+        #: the largest storage an op made (the step's inputs aside): (bytes,
+        #: the op, the shape and dtype of the tensor it made), or None
+        self.largest: tuple[int, str, tuple, str] | None = None
 
     # -- storages ------------------------------------------------------------
-    def _hold(self, t: torch.Tensor) -> int | None:
+    def _hold(self, t: torch.Tensor, op: str = "input") -> int | None:
         try:
             s = t.untyped_storage()
         except (RuntimeError, NotImplementedError):
@@ -185,6 +190,8 @@ class CostMode(TorchDispatchMode):
             self._live[key] = n
             self.live += n
             self.peak = max(self.peak, self.live)
+            if op != "input" and (self.largest is None or n > self.largest[0]):
+                self.largest = (n, op, tuple(t.shape), str(t.dtype).removeprefix("torch."))
             weakref.finalize(s, self._free, key)
         return key
 
@@ -242,7 +249,7 @@ class CostMode(TorchDispatchMode):
         self.ops += 1
         outs = _tensors(out)
         for t in outs:
-            self._hold(t)
+            self._hold(t, name)
         if sh.widening_now():
             self.widen_bytes += sum(_nbytes(t) for t in outs)
         packet = func._overloadpacket

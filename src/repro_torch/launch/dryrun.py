@@ -261,16 +261,18 @@ def _fold_cell(shape, mesh, aaq, dev, mode, cfg=None):
 
 def lower_cell(arch: str, shape: ShapeSpec, multi_pod: bool = False,
                aaq: AAQConfig = DISABLED, quantized_kv: bool = False, *,
-               cfg=None, mesh_shape=None) -> dict:
+               cfg=None, mesh_shape=None, mode: ca.CostMode | None = None) -> dict:
     """Trace one cell on fake tensors; returns the record dict.
 
     ``cfg`` replaces the architecture's config (a reduced one in tests);
     ``mesh_shape`` replaces the production mesh: a (data, model) shape,
-    or ``()`` for one device with no mesh (plain tensors)."""
+    or ``()`` for one device with no mesh (plain tensors).  ``mode``: the
+    (fresh) ``CostMode`` to count with, for a caller that reads its
+    diagnostics (``largest``) after."""
     dev = default_device()
     where = ("multi" if multi_pod else "single") if mesh_shape is None else mesh_shape
     t0 = time.monotonic()
-    mode = ca.CostMode()
+    mode = mode if mode is not None else ca.CostMode()
     from torch._subclasses.fake_tensor import FakeTensorMode
     with fake_mesh(where, dev) as mesh, _index_math_on_host(), FakeTensorMode(), \
             dispatch.use_backend("ref"):
@@ -306,12 +308,19 @@ def lower_cell(arch: str, shape: ShapeSpec, multi_pod: bool = False,
     return rec
 
 
-def roofline_line(tag: str, rec: dict) -> str:
+def roofline_line(tag: str, rec: dict, mode: ca.CostMode | None = None) -> str:
+    """The cell's line; with its ``CostMode``, the widened copies and the
+    largest storage an op made (and that op) beside the peak."""
     r = rec["roofline"]
+    extra = ""
+    if mode is not None and mode.largest is not None:
+        n, op, shape, dt = mode.largest
+        extra = (f" widened={rec['cost']['widen_bytes_per_dev'] / 1e9:.3f}GB "
+                 f"largest={n / 1e9:.3f}GB {op}{list(shape)} {dt}")
     return (f"[ok]   {tag}: peak/dev={rec['mem']['peak_bytes_per_dev'] / 1e9:.2f}GB "
             f"t=(c {r['t_compute_s']:.3e}, m {r['t_memory_s']:.3e}, "
             f"l {r['t_collective_s']:.3e}) bound={r['bottleneck']} "
-            f"trace={rec['trace_s']}s")
+            f"trace={rec['trace_s']}s{extra}")
 
 
 def main(argv=None) -> int:
@@ -357,8 +366,10 @@ def main(argv=None) -> int:
                     print(f"[skip] {tag}: {reason}", flush=True)
                     continue
                 try:
-                    rec = lower_cell(arch, shape, mp, aaq=aaq, quantized_kv=args.quant_kv)
-                    print(roofline_line(tag, rec), flush=True)
+                    mode = ca.CostMode()
+                    rec = lower_cell(arch, shape, mp, aaq=aaq, quantized_kv=args.quant_kv,
+                                     mode=mode)
+                    print(roofline_line(tag, rec, mode), flush=True)
                     record(rec)
                 except Exception as e:
                     traceback.print_exc()

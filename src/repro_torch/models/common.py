@@ -13,6 +13,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.device import per_row
 from repro_torch.parallel import sharding as sh
 
 Params = dict[str, Any]
@@ -57,7 +58,8 @@ def dense(p: Params, x: torch.Tensor, scheme=None, site: str = "") -> torch.Tens
     """Linear layer routed through the active quantization scheme."""
     if scheme is not None:
         return scheme.linear(x, p["w"].to(x.dtype), p.get("b"), site)
-    y = sh.fold_matmul(x, p["w"].to(x.dtype))    # f32 accumulation, x's dtype out
+    w = p["w"].to(x.dtype)
+    y = per_row(lambda t: sh.fold_matmul(t, w), x)   # f32 accumulation, x's dtype out
     return y if "b" not in p else y + p["b"].to(x.dtype)
 
 

@@ -109,7 +109,8 @@ def _unembed(params, x):
 def decode_full(params, tokens, enc_out, cfg: ArchConfig, aaq: AAQConfig = DISABLED,
                 last_only=False, return_hidden=False):
     s = tokens.shape[1]
-    x = cm.embed(params["embed"], tokens) + params["pos_dec"]["e"][:s][None].to(cfg.torch_dtype)
+    x = sh.constrain(cm.embed(params["embed"], tokens), "residual")   # as lm_hidden pins it
+    x = x + params["pos_dec"]["e"][:s][None].to(cfg.torch_dtype)
     for p in params["dec_blocks"]:
         x = sh.constrain(_dec_block(p, x, enc_out, cfg, aaq), "residual")
     x = cm.layernorm(params["final_norm"], x)

@@ -149,7 +149,9 @@ def hybrid_forward(params, batch, cfg: ArchConfig, *, aaq: AAQConfig = DISABLED,
     or the final hidden states with ``return_hidden``.  ``remat``: each
     period recomputed in the backward (the reference's scan body), the
     tail as it is."""
-    x = cm.embed(params["embed"], batch["tokens"])
+    # (pinned as ``transformer.lm_hidden`` pins it: a sharded lookup is a
+    # partial sum that every product after it would carry)
+    x = sh.constrain(cm.embed(params["embed"], batch["tokens"]), "residual")
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for period in params["periods"]:

@@ -93,8 +93,11 @@ def loss_fn(params, batch, cfg: ArchConfig, aaq: AAQConfig = DISABLED, remat: bo
 
 
 def _moe_loss_with_first(params, batch, cfg, aaq, remat):
-    """DeepSeek: the dense first block as it is, the MoE blocks rematted."""
-    x = tf._embed_inputs(params, batch, cfg)
+    """DeepSeek: the dense first block as it is, the MoE blocks rematted.
+    The embedding's output is pinned to the residual's layout, as
+    ``lm_hidden`` pins it (a sharded step's lookup is a partial sum over
+    the vocabulary's shards, which every later product would carry)."""
+    x = sh.constrain(tf._embed_inputs(params, batch, cfg), "residual")
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     x = _moe_first_block_fn(params["first_block"], x, cfg, positions=positions, aaq=aaq)
@@ -115,7 +118,7 @@ def prefill_fn(params, batch, cfg: ArchConfig, aaq: AAQConfig = DISABLED):
         enc = ed.encode(params, batch["audio_frames"], cfg, aaq)
         return ed.decode_full(params, batch["tokens"], enc, cfg, aaq, last_only=True)
     if _dense_first(cfg):
-        x = tf._embed_inputs(params, batch, cfg)
+        x = sh.constrain(tf._embed_inputs(params, batch, cfg), "residual")
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         x = _moe_first_block_fn(params["first_block"], x, cfg, positions=positions, aaq=aaq)

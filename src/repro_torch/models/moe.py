@@ -10,9 +10,10 @@ group size comes from the active mesh rules (``moe_group``, else
 ``MOE_GROUP``), and the reference's constraints sit where its do
 (``moe_tokens``, ``moe_xe``, ``moe_hidden``): a sharded train step
 redistributes its DTensors there.  The routing itself (top-k, the
-cumulative seat counts) runs on each rank's whole groups
-(``sharding.on_local``): DTensor's ``cumsum`` over a dim that two mesh
-dims shard is wrong in this PyTorch.
+cumulative seat counts), the dispatch into the experts' seats and the
+combine run on each rank's local tensors (``local_map``: DTensor's
+``cumsum`` over a dim that two mesh dims shard is wrong in this PyTorch),
+each rank's groups whole and its experts' (or d_model's) shard kept.
 """
 from __future__ import annotations
 
@@ -55,14 +56,18 @@ def init_moe_mlp(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 
 def _expert_ffn(p, xe, cfg: ArchConfig):
-    """xe (E, C, d) through stacked expert weights (E, d, f)/(E, f, d)."""
-    up = torch.bmm(xe, p["up"]["w"].to(xe.dtype))
+    """xe (E, C, d) through stacked expert weights (E, d, f)/(E, f, d).  On
+    DTensors the products contract whole dims, as GSPMD partitions them:
+    xe's d and the weights' FSDP shards of d are gathered, so the hidden
+    keeps f sharded where the weights shard it (TP inside the experts)."""
+    xe = sh.whole_dim(xe, -1)
+    up = torch.bmm(xe, sh.whole_dim(p["up"]["w"], 1).to(xe.dtype))
     if "gate" in p:
-        h = tf._act(cfg.act, torch.bmm(xe, p["gate"]["w"].to(xe.dtype))) * up
+        h = tf._act(cfg.act, torch.bmm(xe, sh.whole_dim(p["gate"]["w"], 1).to(xe.dtype))) * up
     else:
         h = tf._act(cfg.act, up)
     h = sh.constrain(h, "moe_hidden")
-    return torch.bmm(h, p["down"]["w"].to(xe.dtype))
+    return torch.bmm(h, sh.whole_dim(p["down"]["w"], 2).to(xe.dtype))
 
 
 def _top_k(gates: torch.Tensor, k: int):
@@ -72,8 +77,10 @@ def _top_k(gates: torch.Tensor, k: int):
     return v[..., :k], i[..., :k]
 
 
-def _dispatch_tensors(gates, k: int, cap: int):
-    """gates (..., G, E) -> (dispatch, combine) each (..., G, E, cap), float32.
+def _dispatch_tensors(gates, k: int, cap: int, experts: slice = slice(None)):
+    """gates (..., G, E) -> (dispatch, combine) each (..., G, E, cap), float32,
+    for the experts ``experts`` (all by default): every expert's seats are
+    its own (the top-k reads every gate; the seat counts run per expert).
 
     GShard position-in-expert via cumulative sums, priority by choice rank:
     every token's first choice is seated before any second choice."""
@@ -83,10 +90,11 @@ def _dispatch_tensors(gates, k: int, cap: int):
     for j in range(1, k):                       # the reference's sum, in order
         norm = norm + topv[..., j]
     topv = topv / torch.clamp_min(norm, 1e-9)[..., None]
-    masks = F.one_hot(topi, e).float()                               # (...,G,k,E)
+    masks = F.one_hot(topi, e).float()[..., experts]                 # (...,G,k,E)
+    e = masks.shape[-1]
     slots = torch.arange(cap, device=gates.device)
     expert_count = torch.zeros(gates.shape[:-2] + (e,), device=gates.device)
-    dispatch_t = torch.zeros(gates.shape + (cap,), device=gates.device)
+    dispatch_t = torch.zeros(masks.shape[:-2] + (e, cap), device=gates.device)
     combine = torch.zeros_like(dispatch_t)
     for j in range(k):
         m = masks[..., j, :]                                         # (...,G,E)
@@ -114,21 +122,125 @@ def moe_apply(p, x, cfg: ArchConfig):
         grp //= 2
     ng = t // grp
     cap = max(4, int(math.ceil(grp * k / e * moe.capacity_factor)))
-    xt = sh.constrain(x.reshape(ng, grp, d), "moe_tokens")
+    # the groups are cut from each rank's own rows, whole sequences, the
+    # rows sharded as the groups are (``moe_tokens``' first entry; all of
+    # them on every rank where there are fewer groups than its ranks):
+    # DTensor cannot fold a dim that two mesh dims shard into groups, nor
+    # unfold it back, and the folds' gradients come back on their own
+    # placements
+    whole = False
+    if sh.is_dtensor(x) and sh.rule_value("moe_tokens") is not None:
+        rows = sh.rule_value("moe_tokens")[0]
+        whole = ng % sh._axis_size(x.device_mesh, rows) != 0
+        x = sh.pin(x, sh.P(None if whole else rows, None, None))
+    xt = sh.constrain(sh.grad_on_placements(x.reshape(ng, grp, d)), "moe_tokens")
     gates = torch.softmax(cm.dense(p["router"], xt).float(), dim=-1)   # (ng,G,E)
-    disp, combine = sh.on_local("moe_dispatch", lambda g: _dispatch_tensors(g, k, cap),
-                                gates, keep=(0,), n_out=2)
-    xe = torch.einsum("ngec,ngd->necd", disp.to(x.dtype), xt)          # (ng,E,C,d)
-    xe = sh.constrain(xe, "moe_xe")
+    disp, combine = _routing(gates, k, cap)
+    xe = sh.constrain(_dispatch(disp.to(x.dtype), xt), "moe_xe")      # (ng,E,C,d)
     ye = _expert_ffn(p["experts"], xe.transpose(0, 1).reshape(e, ng * cap, d), cfg)
-    ye = sh.constrain(ye.reshape(e, ng, cap, d).transpose(0, 1), "moe_xe")
-    # each group combines its own tokens: on each rank's groups (DTensor in
-    # PyTorch 2.11 cannot fold the einsum's sharded group dim)
-    y = sh.on_local("moe_combine", lambda c, v: torch.einsum("ngec,necd->ngd", c, v),
-                    combine.to(x.dtype), ye, keep=(0,)).reshape(t, d)
+    if whole:                   # (the hidden's rule shards its seats on the rows' ranks)
+        ye = sh.whole_dim(ye, 1)
+    # (the unfold's gradient made contiguous: DTensor views a local shard
+    # for the fold back, which the transpose's gradient leaves strided)
+    ye = sh.constrain(sh.grad_on_placements(ye.reshape(e, ng, cap, d)).transpose(0, 1),
+                      "moe_xe")
+    y = _combine(combine.to(x.dtype), ye)
+    y = sh.grad_on_placements(y.reshape(b, s, d))
     if moe.n_shared:
-        y = y + tf.mlp_apply(p["shared"], x.reshape(t, d), cfg)
-    return y.reshape(b, s, d)
+        y = y + tf.mlp_apply(p["shared"], x, cfg)      # token-wise: on (B, S, D) as it is
+    return y
+
+
+def _routing(gates, k: int, cap: int):
+    """``_dispatch_tensors`` of ``gates`` (ng, G, E).  On DTensors, on each
+    rank's whole groups (DTensor's ``cumsum`` over a dim that two mesh dims
+    shard is wrong), and, where the ``moe_xe`` rule puts the experts on
+    mesh dims (EP), each rank's seats for its own experts only: the
+    (ng, G, E, C) tensors made sharded on E, never whole."""
+    if not sh.is_dtensor(gates):
+        return _dispatch_tensors(gates, k, cap)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = gates.device_mesh
+    ng, _, e = gates.shape
+    rule = sh.rule_value("moe_xe")
+    on = {}
+    if rule is not None:
+        to = sh.placements(sh.guarded(rule, (ng, e, cap, 1), mesh), mesh)
+        on = {i: p.dim for i, p in enumerate(to) if isinstance(p, Shard)}
+    rows = [i for i, t in on.items() if t == 0]
+    experts = [i for i, t in on.items() if t == 1]
+    g_to = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    out = [Shard(0) if i in rows else Shard(2) if i in experts else Replicate()
+           for i in range(mesh.ndim)]
+    g_grad = [Partial() if i in experts else p for i, p in enumerate(g_to)]
+    n = e // math.prod(mesh.size(i) for i in experts)
+    lo = sh._block_index(mesh, experts) * n
+    if tuple(gates.placements) != tuple(g_to):
+        sh._note("local:moe_dispatch")
+    gates = sh.redistribute(gates, tuple(g_to))
+    return local_map(sh._waited(lambda g: _dispatch_tensors(g, k, cap, slice(lo, lo + n))),
+                     out_placements=(out, out), in_placements=(g_to,),
+                     in_grad_placements=(g_grad,), device_mesh=mesh)(gates)
+
+
+def _dispatch(disp, xt):
+    """``einsum("ngec,ngd->necd", disp, xt)``: each group's tokens into its
+    experts' seats.  On DTensors under the ``moe_xe`` rule, on each rank's
+    local tensors, made on the rule's placements directly (the dispatch
+    weights cut to the rank's experts, or the tokens' d_model kept sharded)
+    rather than made whole and cut after."""
+    rule = sh.rule_value("moe_xe")
+    if not sh.is_dtensor(xt) or rule is None:
+        return torch.einsum("ngec,ngd->necd", disp, xt)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xt.device_mesh
+    ng, _, e, cap = disp.shape
+    to = sh.placements(sh.guarded(rule, (ng, e, cap, xt.shape[-1]), mesh), mesh)
+    on = {i: p.dim for i, p in enumerate(to) if isinstance(p, Shard)}
+    d_to = [Shard({0: 0, 1: 2}[on[i]]) if on.get(i) in (0, 1) else Replicate()
+            for i in range(mesh.ndim)]
+    x_to = [Shard({0: 0, 3: 2}[on[i]]) if on.get(i) in (0, 3) else Replicate()
+            for i in range(mesh.ndim)]
+    # a rank's share of the contraction-free einsum: its experts' seats use
+    # all its tokens (their gradient a partial sum), its d columns use all
+    # the dispatch weights (theirs too)
+    d_grad = [Partial() if on.get(i) == 3 else p for i, p in enumerate(d_to)]
+    x_grad = [Partial() if on.get(i) == 1 else p for i, p in enumerate(x_to)]
+    disp, xt = sh.redistribute(disp, tuple(d_to)), sh.redistribute(xt, tuple(x_to))
+    return local_map(sh._waited(lambda c, v: torch.einsum("ngec,ngd->necd", c, v)),
+                     out_placements=list(to), in_placements=(d_to, x_to),
+                     in_grad_placements=(d_grad, x_grad), device_mesh=mesh)(disp, xt)
+
+
+def _combine(c, ye):
+    """``einsum("ngec,necd->ngd", c, ye)``: each group combines its own
+    tokens.  On DTensors, on each rank's local tensors (DTensor in PyTorch
+    2.11 cannot fold the einsum's sharded group dim) as GSPMD partitions
+    it: the groups keep their rows' shards, and ``ye``'s experts (EP) or
+    d_model (TP inside the experts) stay sharded where they are, the
+    combine weights cut to the rank's experts and the sum over them a
+    partial sum, so no rank gathers every expert's output."""
+    if not sh.is_dtensor(ye):
+        return torch.einsum("ngec,necd->ngd", c, ye)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ye.device_mesh
+    dims = sh._dims_by_tensor_dim(ye)
+    rows = [i for i in dims.get(0, []) if ye.shape[0] % mesh.size(i) == 0]
+    experts, cols = dims.get(1, []), dims.get(3, [])
+    y_to = [Shard(0) if i in rows else Shard(1) if i in experts else Shard(3) if i in cols
+            else Replicate() for i in range(mesh.ndim)]
+    c_to = [Shard(0) if i in rows else Shard(2) if i in experts else Replicate()
+            for i in range(mesh.ndim)]
+    out = [Shard(0) if i in rows else Partial() if i in experts else Shard(2) if i in cols
+           else Replicate() for i in range(mesh.ndim)]
+    c_grad = [Partial() if i in cols else p for i, p in enumerate(c_to)]
+    c, ye = sh.redistribute(c, tuple(c_to)), sh.redistribute(ye, tuple(y_to))
+    return local_map(sh._waited(lambda c, v: torch.einsum("ngec,necd->ngd", c, v)),
+                     out_placements=out, in_placements=(c_to, y_to),
+                     in_grad_placements=(c_grad, y_to), device_mesh=mesh)(c, ye)
 
 
 def moe_block_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
@@ -172,9 +284,15 @@ def _mla_qkv_from_latent(p, latent, k_rope, cfg: ArchConfig):
     (B, Skv, dr) into per-head K (B, Skv, H, dn + dr) and V (B, Skv, H, dv)."""
     m, h = cfg.mla, cfg.n_heads
     b, skv, _ = latent.shape
+    # a decode ring's latent is sharded on r, the contraction: made whole on
+    # those mesh dims first, so that the column-parallel products keep
+    # their heads sharded (as GSPMD gathers a contraction dim's shard)
+    latent = sh.whole_dim(latent, -1)
     k_nope = cm.dense(p["k_up"], latent).reshape(b, skv, h, m.qk_nope_head_dim)
     v = cm.dense(p["v_up"], latent).reshape(b, skv, h, m.v_head_dim)
     k_rope_b = k_rope[:, :, None, :].expand(b, skv, h, m.qk_rope_head_dim)
+    if sh.is_dtensor(k_nope):          # cut to k_nope's heads: no collective
+        k_rope_b = sh.redistribute(k_rope_b, tuple(k_nope.placements))
     return torch.cat([k_nope, k_rope_b], dim=-1), v
 
 

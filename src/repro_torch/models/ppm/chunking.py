@@ -63,6 +63,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.schemes import QuantScheme
+from repro_torch.device import per_row
 from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
 from repro_torch.models.ppm import trunk as tk
@@ -217,12 +218,12 @@ def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
             xc = shard.gather(xc, 2)                        # a over every k
         if outgoing:
             # (B,th,C,k) @ (B,th,k,N): x of rows i, (B,th,C,N)
-            x = torch.matmul(xc.permute(0, 3, 1, 2), part.transpose(-1, -2))
+            x = per_row(torch.matmul, xc.permute(0, 3, 1, 2), part.transpose(-1, -2))
             x = x.permute(0, 2, 3, 1)
         else:
             # (B,th,N,k) @ (B,th,k,C): x of columns j, (B,th,N,C), laid out
             # as the slab's transposed rows (B,C,N,th)
-            x = torch.matmul(part.transpose(-1, -2), xc.permute(0, 3, 2, 1))
+            x = per_row(torch.matmul, part.transpose(-1, -2), xc.permute(0, 3, 2, 1))
             x = x.permute(0, 3, 2, 1)
         x = x.to(zc.dtype)
         x = scheme.act(x, f"{sc}.prod_pre_ln")              # Group A (large)
@@ -313,15 +314,16 @@ def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
                                    causal=False, q_chunk=512)
             o = o.reshape(b_, c, n, heads, dh).to(zc.dtype)
         else:
-            logits = torch.einsum("bijhd,bikhd->bhijk", q.float(),
-                                  k.float()) / torch.sqrt(torch.tensor(float(dh)))
+            logits = per_row(lambda q, k: torch.einsum("bijhd,bikhd->bhijk", q.float(),
+                                                       k.float()),
+                             q, k) / torch.sqrt(torch.tensor(float(dh)))
             logits = logits + bias_t[:, :, None].float()
             if mask is not None:
                 logits = logits + cm.key_padding_bias(mask)[:, None, None, None, :]
             probs = torch.softmax(logits, dim=-1).to(zc.dtype)
             probs = scheme.act(probs, f"{sc}.probs")        # Group C
-            o = torch.einsum("bhijk,bikhd->bijhd", probs.float(),
-                             v.float()).to(zc.dtype)
+            o = per_row(lambda p, v: torch.einsum("bhijk,bikhd->bijhd", p.float(), v.float()),
+                        probs, v).to(zc.dtype)
         o = scheme.act(o.reshape(b_, c, n, hz), f"{sc}.av")  # Group C
         g = torch.sigmoid(cm.dense(p["gate"], zl, scheme, f"{sc}.gate"))
         out = cm.dense(p["out"], g * o, scheme, f"{sc}.proj_in")

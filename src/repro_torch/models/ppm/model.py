@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.schemes import FP16Baseline, QuantScheme
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, rows_alone
 from repro_torch.models import common as cm
 from repro_torch.models.ppm import chunking as ck
 from repro_torch.models.ppm import structure as st
@@ -103,7 +103,9 @@ def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
     scheme = scheme or FP16Baseline()
     if mask is not None:
         mask = mask.to(torch.bool)
-    with sh.sharded(shard, aatype.shape[-1]):
+    # a float32 fold's products on the card a batch row at a time, so that
+    # its rows are bitwise the same proteins folded alone (``rows_alone``)
+    with sh.sharded(shard, aatype.shape[-1]), rows_alone(cfg.torch_dtype == torch.float32):
         return _forward(params, aatype, cfg, scheme, mask, chunk_size, shard,
                         distogram)
 

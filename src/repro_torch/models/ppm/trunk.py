@@ -41,6 +41,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.schemes import QuantScheme
+from repro_torch.device import per_row
 from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
 from repro_torch.parallel import sharding as sh
@@ -194,7 +195,7 @@ def tri_mul_apply(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
         if outgoing:
             b = shard.cols_to_rows(b)           # rows j0:j1, every k
     eq = "bikc,bjkc->bijc" if outgoing else "bkic,bkjc->bijc"
-    x = torch.einsum(eq, a.float(), b.float()).to(z.dtype)
+    x = per_row(lambda a, b: torch.einsum(eq, a.float(), b.float()), a, b).to(z.dtype)
     x = scheme.act(x, f"{sc}.prod_pre_ln")                  # Group A (large)
     xl = cm.layernorm(p["ln_out"], x)
     xl = scheme.act(xl, f"{sc}.post_ln")                    # Group B
@@ -248,15 +249,15 @@ def tri_attn_apply(p, z, scheme: QuantScheme, starting: bool, sc: str,
                                causal=False, q_chunk=512)
         o = o.reshape(b_, r, n, heads, dh).to(z.dtype)
     else:
-        logits = torch.einsum("bijhd,bikhd->bhijk", q.float(),
-                              k.float()) / torch.sqrt(torch.tensor(float(dh)))
+        logits = per_row(lambda q, k: torch.einsum("bijhd,bikhd->bhijk", q.float(), k.float()),
+                         q, k) / torch.sqrt(torch.tensor(float(dh)))
         logits = logits + bias.permute(0, 3, 1, 2)[:, :, None].float()
         if mask is not None:
             logits = logits + cm.key_padding_bias(mask)[:, None, None, None, :]
         probs = torch.softmax(logits, dim=-1).to(z.dtype)
         probs = scheme.act(probs, f"{sc}.probs")            # Group C
-        o = torch.einsum("bhijk,bikhd->bijhd", probs.float(),
-                         v.float()).to(z.dtype)
+        o = per_row(lambda p, v: torch.einsum("bhijk,bikhd->bijhd", p.float(), v.float()),
+                    probs, v).to(z.dtype)
     o = scheme.act(o.reshape(b_, r, n, hz), f"{sc}.av")     # Group C
     g = torch.sigmoid(cm.dense(p["gate"], zl, scheme, f"{sc}.gate"))
     out = cm.dense(p["out"], g * o, scheme, f"{sc}.proj_in")

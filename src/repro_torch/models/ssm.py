@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import DISABLED, AAQConfig
 from repro_torch.models import common as cm
+from repro_torch.parallel import sharding as sh
 
 Params = dict[str, Any]
 
@@ -129,6 +130,10 @@ def ssm_block_apply(p, x, cfg: ArchConfig, *, positions=None, cache=None,
     d_inner, n_heads, n, hd = _dims(cfg)
     b, sl, _ = x.shape
     h = cm.rmsnorm(p["norm"], aaq.act(x, "lm.pre_ln"))
+    if cache is None and sh.is_dtensor(h) and _heads_divide(p["in_proj"]["w"], n_heads):
+        y, z = _ssm_sharded(p, h, cfg, aaq)
+        y = cm.rmsnorm(p["out_norm"], y.reshape(b, sl, d_inner).to(x.dtype)) * F.silu(z)
+        return x + cm.dense(p["out_proj"], y)
     zxbcdt = cm.dense(p["in_proj"], h)
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * n]
@@ -157,6 +162,35 @@ def ssm_block_apply(p, x, cfg: ArchConfig, *, positions=None, cache=None,
     y = y.reshape(b, sl, d_inner).to(x.dtype)
     y = cm.rmsnorm(p["out_norm"], y) * F.silu(z)
     return x + cm.dense(p["out_proj"], y)
+
+
+def _heads_divide(w, n_heads: int) -> bool:
+    """Do the mesh dims that shard ``in_proj``'s columns divide the heads?"""
+    return n_heads % sh.columns_shards(w) == 0
+
+
+def _ssm_sharded(p, h, cfg: ArchConfig, aaq: AAQConfig):
+    """A sharded prefill or training step's block up to the gate (y (B, S,
+    H, P) and z), as GSPMD keeps it: ``in_proj`` (and the conv) cut into
+    their z / x / (B, C) / dt columns at use, z, x and dt sharded on their
+    own columns (the heads) and B, C made whole (every head reads them), so
+    no activation is gathered; the SSD on each rank's rows and heads."""
+    d_inner, n_heads, n, _ = _dims(cfg)
+    w, cw, cb = p["in_proj"]["w"], p["conv_w"], p["conv_b"]
+    cuts = ((0, d_inner, True), (d_inner, 2 * d_inner, True),
+            (2 * d_inner, 2 * d_inner + 2 * n, False), (2 * d_inner + 2 * n, None, True))
+    z, xr, bc, dtr = (cm.dense({"w": sh.columns(w, lo, hi, keep)}, h) for lo, hi, keep in cuts)
+    dt = F.softplus(dtr.float() + p["dt_bias"].float())
+    xs, _ = _causal_conv(xr, sh.columns(cw, 0, d_inner, True).to(h.dtype),
+                         sh.columns(cb, 0, d_inner, True).to(h.dtype))
+    bc, _ = _causal_conv(bc, sh.columns(cw, d_inner, None, False).to(h.dtype),
+                         sh.columns(cb, d_inner, None, False).to(h.dtype))
+    xs = xs.reshape(*xs.shape[:2], n_heads, -1)
+    A = -torch.exp(p["A_log"].float())
+    y = sh.heads_local(lambda x_, dt_, a_, b_, c_, d_: ssd_chunked(
+        x_, dt_, a_, b_, c_, d_, cfg.ssm.chunk, aaq)[0],
+        xs.float(), dt, A, bc[..., :n].float(), bc[..., n:].float(), p["D"].float())
+    return y, z
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=None):

@@ -282,17 +282,27 @@ def chunked_xent(params, x, labels, cfg: ArchConfig, chunk: int = 1024):
     without the full (B, S, V) logits: the unembedding and the float32
     log-softmax run per sequence chunk under a checkpoint, so at most
     (B, chunk, V) logits are live and the backward recomputes each chunk.
-    A sequence that ``chunk`` does not divide is one chunk."""
+    A sequence that ``chunk`` does not divide is one chunk.  Where a mesh
+    dim of more than one rank splits the vocabulary (``sharding.
+    vocab_split``: a sharded step), each chunk's loss is vocabulary-parallel
+    (``sharding.vocab_parallel_xent``): no rank makes the whole logits."""
     s = x.shape[1]
     if s % chunk:
         chunk = s
     x = sh.foldable(x)            # a sharded sequence gathered before it is sliced
+    w, vdim = ((params["embed"]["e"], 0) if cfg.tie_embeddings
+               else (params["lm_head"]["w"], 1))
 
-    def one(xx, ll):
-        logp = torch.log_softmax(_constrain(unembed(params, xx, cfg), "logits"), dim=-1)
-        mask = (ll >= 0).float()
-        nll = -torch.gather(logp, -1, ll.clamp_min(0).long()[..., None])[..., 0]
-        return torch.stack([torch.sum(nll * mask), torch.sum(mask)])
+    split = sh.vocab_split(w, vdim)
+    if split is not None:
+        def one(xx, ll):
+            return sh.vocab_parallel_xent(xx, w, ll, vdim, split)
+    else:
+        def one(xx, ll):
+            logp = torch.log_softmax(_constrain(unembed(params, xx, cfg), "logits"), dim=-1)
+            mask = (ll >= 0).float()
+            nll = -torch.gather(logp, -1, ll.clamp_min(0).long()[..., None])[..., 0]
+            return torch.stack([torch.sum(nll * mask), torch.sum(mask)])
 
     sums = [checkpoint(one, x[:, i:i + chunk], labels[:, i:i + chunk], use_reentrant=False)
             for i in range(0, s, chunk)]

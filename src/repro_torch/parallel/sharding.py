@@ -272,23 +272,33 @@ def cache_specs(cfg, shape, mesh, quantized_kv: bool = False):
 # activation rules (context-scoped; models stay mesh-agnostic)
 # --------------------------------------------------------------------------
 _ACT = threading.local()
+#: the rules of the scope entered last in any thread, for a thread that
+#: never entered one: autograd's device thread, which on the card runs a
+#: backward and its checkpointed blocks' recompute
+_LAST: dict = {"rules": None}
 
 
 @contextlib.contextmanager
 def act_rules(rules: dict[str, P] | None):
     """Scope a dict of named activation specs; models call
-    ``constrain(x, name)`` at layer boundaries."""
-    prev = getattr(_ACT, "rules", None)
-    _ACT.rules = rules
+    ``constrain(x, name)`` at layer boundaries.  A thread that never
+    entered a scope reads the one entered last (a backward's recompute
+    lays its blocks out as their forward did)."""
+    prev, prev_last = getattr(_ACT, "rules", None), _LAST["rules"]
+    _ACT.rules = _LAST["rules"] = rules
     try:
         yield
     finally:
-        _ACT.rules = prev
+        _ACT.rules, _LAST["rules"] = prev, prev_last
+
+
+def _rules():
+    return getattr(_ACT, "rules", _LAST["rules"])
 
 
 def rule_value(name: str, default=None):
     """Non-spec configuration riding the act-rules scope."""
-    rules = getattr(_ACT, "rules", None)
+    rules = _rules()
     if rules and name in rules:
         return rules[name]
     return default
@@ -309,17 +319,11 @@ def constrain(x, name: str):
     length: raises where it does not; ``x`` itself passes through (the
     port's tensors are the shards, nothing is moved) and its shape is
     kept in ``PINNED``.  Anything else passes through."""
-    rules = getattr(_ACT, "rules", None)
+    rules = _rules()
     if not rules or name not in rules:
         return x
     if is_dtensor(x):
-        mesh = x.device_mesh
-        # GSPMD pads a dim its axes do not divide; DTensor's uneven shards
-        # (and a sharded dim of size 1) break the reshapes after them, so
-        # such a dim is replicated (the same values, laid out otherwise)
-        spec = P(*(e if e is None or (x.shape[d] > 1 and x.shape[d] % _axis_size(mesh, e) == 0)
-                   else None for d, e in enumerate(rules[name])))
-        return redistribute(x, placements(spec, mesh))
+        return pin(x, rules[name])
     scope = getattr(_ACT, "shard", None)
     if scope is None:
         return x
@@ -331,6 +335,22 @@ def constrain(x, name: str):
                              f"the rank's shard is {n // shard.size} of {n}")
     PINNED[name] = tuple(x.shape)
     return x
+
+
+def guarded(spec: P, shape, mesh) -> P:
+    """``spec`` for a tensor of ``shape``: a dim its axes do not divide (or
+    of size 1) replicated.  GSPMD pads such a dim; DTensor's uneven shards
+    (and a sharded dim of size 1) break the reshapes after them."""
+    return P(*(e if e is None or (shape[d] > 1 and shape[d] % _axis_size(mesh, e) == 0)
+               else None for d, e in enumerate(spec)))
+
+
+def pin(x, spec: P):
+    """A DTensor redistributed to ``spec``'s placements on its own mesh, a
+    dim the spec cannot divide replicated (``guarded``: the same values,
+    laid out otherwise)."""
+    mesh = x.device_mesh
+    return redistribute(x, placements(guarded(spec, x.shape, mesh), mesh))
 
 
 def default_act_rules(mesh, step: str, cfg=None) -> dict[str, P]:
@@ -524,6 +544,71 @@ def _waited(fn):
     return run
 
 
+def whole_dim(x, dim: int):
+    """``x`` with no mesh dim sharding its dim ``dim`` (a DTensor's shard of
+    it gathered); anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.dim()
+    return redistribute(x, tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                                 for p in x.placements))
+
+
+def columns_shards(w) -> int:
+    """How many ranks shard ``w``'s last dim (1 for a plain tensor)."""
+    if not is_dtensor(w):
+        return 1
+    from torch.distributed.tensor import Shard
+    last = w.dim() - 1
+    return math.prod(w.device_mesh.size(i) for i, p in enumerate(w.placements)
+                     if isinstance(p, Shard) and p.dim == last)
+
+
+def columns(w, lo: int, hi: int | None, sharded: bool):
+    """``w[..., lo:hi]`` of a weight whose last dim (its columns) is
+    sharded: made whole on that dim and cut (a weight's gather, where
+    slicing the product's output would gather an activation), then
+    sharded again as ``w`` was where ``sharded`` and the mesh divides the
+    cut, else replicated on those mesh dims.  A plain tensor is sliced."""
+    part = whole_dim(w, -1)[..., lo:hi]
+    if not is_dtensor(w):
+        return part
+    from torch.distributed.tensor import Replicate, Shard
+    last = w.dim() - 1
+    n = columns_shards(w)
+    keep = sharded and part.shape[-1] % n == 0
+    return redistribute(part, tuple(p if not (isinstance(p, Shard) and p.dim == last) or keep
+                                    else Replicate() for p in w.placements))
+
+
+def heads_local(fn, x, dt, a, b, c, d):
+    """``fn(x, dt, a, b, c, d)`` (the SSD: x (B, S, H, P), dt (B, S, H), a
+    and d (H,), b and c (B, S, N)) on each rank's local rows and heads:
+    x's rows and heads keep their shards, dt, a and d follow the heads,
+    b and c are made whole on the heads' mesh dims (their gradient there a
+    partial sum, as a and d's over the rows'); the result (B, S, H, P) on
+    x's placements.  ``fn`` must treat each (row, head) alone."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    dims = _dims_by_tensor_dim(x)
+    rows = [i for i in dims.get(0, []) if x.shape[0] % mesh.size(i) == 0]
+    heads = dims.get(2, [])
+    h_to = [Shard(0) if i in rows else Shard(2) if i in heads else Replicate()
+            for i in range(mesh.ndim)]
+    v_to = [Shard(0) if i in heads else Replicate() for i in range(mesh.ndim)]
+    r_to = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    v_grad = [Partial() if i in rows else p for i, p in enumerate(v_to)]
+    r_grad = [Partial() if i in heads else p for i, p in enumerate(r_to)]
+    args = [redistribute(t, tuple(to)) for t, to in
+            ((x, h_to), (dt, h_to), (a, v_to), (b, r_to), (c, r_to), (d, v_to))]
+    return local_map(_waited(fn), out_placements=h_to,
+                     in_placements=(h_to, h_to, v_to, r_to, r_to, v_to),
+                     in_grad_placements=(h_to, h_to, v_grad, r_grad, r_grad, v_grad),
+                     device_mesh=mesh)(*args)
+
+
 def foldable(x):
     """``x`` with none of its middle dims (between the first and the last)
     sharded: ``torch.matmul`` folds (B, S, D) into (B·S, D) before its
@@ -567,12 +652,19 @@ def fold_matmul(x, w):
     (the backward folds it too, and a gradient can arrive sharded on a
     middle dim, e.g. from a sequence-parallel residual)."""
     y = torch.matmul(foldable(x), w)
-    return _GradOnPlacements.apply(y) if is_dtensor(y) and y.dim() >= 3 else y
+    return grad_on_placements(y) if y.dim() >= 3 else y
+
+
+def grad_on_placements(y):
+    """``y``, whose gradient comes back on ``y``'s own placements (a
+    partial sum's replicated) where ``y`` is a DTensor: the identity."""
+    return _GradOnPlacements.apply(y) if is_dtensor(y) else y
 
 
 class _GradOnPlacements(torch.autograd.Function):
     """The identity; its backward redistributes the gradient to the
-    forward tensor's placements (replicated where that was partial)."""
+    forward tensor's placements (replicated where that was partial), its
+    local shard contiguous (DTensor's reshape views a local shard)."""
 
     @staticmethod
     def forward(ctx, y):
@@ -585,7 +677,7 @@ class _GradOnPlacements(torch.autograd.Function):
     def backward(ctx, g):
         if is_dtensor(g) and tuple(g.placements) != ctx.placements:
             g = g.redistribute(g.device_mesh, ctx.placements)
-        return g
+        return g.contiguous()
 
 
 def embedding(ids, table):
@@ -619,31 +711,300 @@ def embedding(ids, table):
         return torch.nn.functional.embedding(j.clamp(0, n - 1), t).masked_fill(
             ~mine[..., None], 0)
 
+    # a rank looks up only its own batch rows: the table's gradient is a
+    # partial sum over the mesh dims that shard the ids
+    t_grad = [Partial() if isinstance(p, Shard) else t for p, t in zip(i_to, t_to)]
     table, ids = redistribute(table, tuple(t_to)), redistribute(ids, tuple(i_to))
     return local_map(_waited(lookup), out_placements=out, in_placements=(t_to, i_to),
-                     device_mesh=mesh)(table, ids)
+                     in_grad_placements=(t_grad, i_to), device_mesh=mesh)(table, ids)
+
+
+def vocab_split(w, vdim: int):
+    """The mesh dim (of more than one rank) over which a sharded step's
+    cross-entropy splits the vocabulary, dim ``vdim`` of the unembedding
+    weight ``w``: the one that shards it, or, where none does (a
+    vocabulary the mesh does not divide, so the table is replicated there),
+    the one the ``logits`` rule puts the vocabulary on (GSPMD pads the
+    uneven shards; a rank here takes a ceil(V / n) slice).  None where
+    nothing splits it: a plain tensor, a 1 x 1 mesh."""
+    if not is_dtensor(w):
+        return None
+    from torch.distributed.tensor import Shard
+    mesh = w.device_mesh
+    dims = [i for i, p in enumerate(w.placements)
+            if isinstance(p, Shard) and p.dim == vdim and mesh.size(i) > 1]
+    if len(dims) > 1:
+        raise ValueError(f"vocab_split: the vocabulary is sharded over {len(dims)} mesh dims")
+    if dims:
+        return dims[0]
+    rule = rule_value("logits")
+    names = tuple(mesh.mesh_dim_names or ())
+    if rule and rule[-1] in names and mesh.size(names.index(rule[-1])) > 1:
+        return names.index(rule[-1])
+    return None
+
+
+def vocab_parallel_xent(x, w, labels, vdim: int, v: int):
+    """``[sum of the masked next-token NLL, count of labels >= 0]`` of hidden
+    states ``x`` (B, S, D) against ``labels`` (B, S), the logits
+    ``x @ w`` (``w`` (D, V); ``vdim`` 0: ``w`` is the (V, D) table, used
+    transposed) never made whole: as GSPMD reduces over the vocabulary's
+    shards (the reference's ``chunked_xent`` pins its logits to
+    ``P(dp, None, model)``).  Mesh dim ``v`` splits the vocabulary
+    (``vocab_split``): ``w``'s shard there, or a slice of its whole
+    vocabulary.  ``w``'s other dim is gathered (an FSDP shard), ``x``
+    keeps only its batch rows sharded, and each rank works in float32 on
+    its local (B/|data|, S, V/|model|) logits: a max, a sum of
+    exponentials and the label's logit, each all-reduced over ``v``
+    (``_VocabXent``), whose backward is the rank's local
+    ``softmax - onehot``.  The two sums are all-reduced over the mesh dims
+    that shard the batch, so the result is the same on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = w.device_mesh
+    sliced = not isinstance(w.placements[v], Shard)
+    if not is_dtensor(x):
+        x = distribute(x, mesh, P())
+    if not is_dtensor(labels):
+        labels = distribute(labels, mesh, P())
+    rows = [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == 0
+            and i != v and mesh.size(i) > 1]
+    if rows and x.shape[0] % math.prod(mesh.size(i) for i in rows):
+        rows = []
+    x_to = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    w_to = [Shard(vdim) if i == v and not sliced else Replicate() for i in range(mesh.ndim)]
+    # gradients: x's is a partial sum over the vocabulary's shards, w's over
+    # the batch's (and over the slices, where it is sliced)
+    x_grad = [Partial() if i == v else p for i, p in enumerate(x_to)]
+    w_grad = [Partial() if i in rows or (i == v and sliced) else p for i, p in enumerate(w_to)]
+    groups = (mesh.get_group(v), [mesh.get_group(i) for i in rows])
+    r = mesh.get_local_rank(v)
+
+    def local(xl, wl, ll):
+        if sliced:
+            n = -(-wl.shape[vdim] // mesh.size(v))
+            lo = min(r * n, wl.shape[vdim])
+            wl = wl.narrow(vdim, lo, min(n, wl.shape[vdim] - lo))
+        else:
+            lo = r * wl.shape[vdim]
+        return _VocabXent.apply(xl, wl.t() if vdim == 0 else wl, ll, lo, groups)
+
+    x, w = redistribute(x, tuple(x_to)), redistribute(w, tuple(w_to))
+    labels = redistribute(labels, tuple(x_to))
+    return local_map(_waited(local), out_placements=[Replicate()] * mesh.ndim,
+                     in_placements=(x_to, w_to, x_to),
+                     in_grad_placements=(x_grad, w_grad, x_to), device_mesh=mesh)(x, w, labels)
+
+
+def _f32_product(x, w):
+    """``x @ w`` (plain tensors) accumulated in float32 with a float32
+    result: a bf16 product keeps its operands on the card (``out_dtype``);
+    elsewhere they are widened (counted apart, ``widening``)."""
+    if x.dtype == w.dtype and x.dtype != torch.float32 and x.device.type == "cuda":
+        return torch.mm(x, w, out_dtype=torch.float32)
+    with widening():
+        x, w = x.float(), w.float()
+    return x @ w
+
+
+class _VocabXent(torch.autograd.Function):
+    """On local tensors: x (b, s, D), w (D, V/M) (the rank's vocabulary
+    columns, starting at ``off``), labels (b, s); returns ``[NLL sum,
+    count]`` over every rank's rows.  The forward's collectives are
+    ``collectives``' (counted); the backward needs none."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, off, groups):
+        vgroup, bgroups = groups
+        x2 = x.reshape(-1, x.shape[-1])
+        logits = _f32_product(x2, w.to(x.dtype))                   # (T, V/M) f32
+        m = coll.all_reduce(logits.amax(dim=-1), "max", vgroup)
+        e = torch.exp(logits - m[:, None])
+        se = coll.all_reduce(e.sum(dim=-1), "sum", vgroup)
+        lab = labels.reshape(-1).long()
+        j = lab.clamp_min(0) - off
+        mine = (j >= 0) & (j < logits.shape[1])
+        j = j.clamp(0, logits.shape[1] - 1)
+        picked = torch.where(mine, torch.gather(logits, 1, j[:, None])[:, 0], 0.0)
+        picked = coll.all_reduce(picked, "sum", vgroup)
+        del logits
+        mask = (lab >= 0).float()
+        nll = torch.log(se) + m - picked
+        out = torch.stack([torch.sum(nll * mask), torch.sum(mask)])
+        for g in bgroups:
+            out = coll.all_reduce(out, "sum", g)
+        ctx.save_for_backward(x, w, e, se, j, mine, mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, w, e, se, j, mine, mask = ctx.saved_tensors
+        # d NLL / d logits = softmax - onehot (the label's column where it is
+        # this rank's), for each unmasked row
+        p = e.div_(se[:, None])
+        p.scatter_add_(1, j[:, None], -mine.to(p.dtype)[:, None])
+        p.mul_((mask * gout[0])[:, None])
+        x2 = x.reshape(-1, x.shape[-1])
+        gx = (p @ w.t().to(p.dtype)).to(x.dtype).reshape(x.shape)
+        gw = (x2.t().to(p.dtype) @ p).to(w.dtype)
+        return gx, gw, None, None, None
 
 
 def local_attention(attend, q, k, v, **kw):
     """``attend(q, k, v, **kw)`` (``dispatch.attention``, which takes local
-    tensors) on each rank's local batch rows and heads when q is a DTensor
-    (a sharded train step; ``on_local``): attention is independent per
-    (row, head), so a rank needs only whole sequences, and the plain
-    version's merges of batch and heads never meet DTensor's planner.  The
-    heads stay sharded where q's and k's head counts both divide the mesh
-    dims that shard them, and there is no bias; else only the rows do.  A
-    decode step's ``kv_valid_len`` (one entry a row) is split with the rows."""
-    if not is_dtensor(q):
+    tensors) on each rank's local tensors when q or k is a DTensor (a
+    sharded step; ``local_map``), as GSPMD partitions the reference's
+    attention: attention is independent per (row, head), so a rank needs
+    whole sequences of its own rows and heads only.
+
+    Prefill and training (no ``kv_valid_len``): where the mesh dims that
+    shard q's heads divide q's head count (and there is no bias), each
+    rank takes its contiguous block of q heads and the K/V heads those
+    read, replicated where several ranks share one (GQA: 2 K/V heads on 16
+    ranks); else only the rows stay sharded.
+
+    Decode (``kv_valid_len``, one entry a row): the ring's placements (k's)
+    decide, and q and ``kv_valid_len`` are brought to them; the ring is
+    not moved.  A ring sharded on rows and K/V heads: each rank attends its
+    own rows and heads (``_heads_attention``).  A ring sharded on the head
+    dim: the scores are partial sums over each rank's slice, all-reduced
+    (``_hd_attention``).  A ring sharded on its positions (no config's
+    ``cache_specs`` shards one so) is gathered to the rows."""
+    mesh = (q if is_dtensor(q) else k).device_mesh if is_dtensor(q) or is_dtensor(k) else None
+    if mesh is None:
         return attend(q, k, v, **kw)
+    q, k, v = (t if is_dtensor(t) else distribute(t, mesh, P()) for t in (q, k, v))
     kvlen = kw.pop("kv_valid_len", None)
     if kvlen is not None:
         if not is_dtensor(kvlen):
-            kvlen = distribute(kvlen, q.device_mesh, P(None))
+            kvlen = distribute(kvlen, mesh, P(None))
+        dims = _dims_by_tensor_dim(k)
+        if not dims.get(1) and not dims.get(3):
+            return _heads_attention(attend, q, k, v, kvlen, dims.get(0, []), dims.get(2, []),
+                                    **kw)
+        if dims.get(3) and not dims.get(1) and not dims.get(2):
+            return _hd_attention(q, k, v, kvlen, dims.get(0, []), dims[3], **kw)
         return on_local("attention", lambda q, k, v, n: attend(q, k, v, kv_valid_len=n, **kw),
                         q, k, v, kvlen, keep=(0,))
-    heads = kw.get("bias") is None and _heads_split(q, k)
-    return on_local("attention", lambda *a: attend(*a, **kw), q, k, v,
-                    keep=(0, 2) if heads else (0,))
+    dims = _dims_by_tensor_dim(q)
+    heads = dims.get(2, [])
+    if kw.get("bias") is None and heads and \
+            q.shape[2] % math.prod(mesh.size(i) for i in heads) == 0:
+        rows = [i for i in dims.get(0, []) if q.shape[0] % mesh.size(i) == 0]
+        return _heads_attention(attend, q, k, v, None, rows, heads, **kw)
+    return on_local("attention", lambda *a: attend(*a, **kw), q, k, v, keep=(0,))
+
+
+def _dims_by_tensor_dim(x) -> dict[int, list[int]]:
+    """tensor dim -> the mesh dims that shard it."""
+    from torch.distributed.tensor import Shard
+    out: dict[int, list[int]] = {}
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            out.setdefault(p.dim, []).append(i)
+    return out
+
+
+def _block_index(mesh, dims) -> int:
+    """This rank's block along a tensor dim that ``dims`` shard together
+    (outer mesh dim first, as DTensor lays such a dim out)."""
+    r = 0
+    for i in dims:
+        r = r * mesh.size(i) + mesh.get_local_rank(i)
+    return r
+
+
+def _heads_attention(attend, q, k, v, kvlen, rows, heads, **kw):
+    """Attention on each rank's rows (mesh dims ``rows`` shard the batch)
+    and block of q heads (``heads`` shard dim 2); K/V sharded on the same
+    dims where the heads divide (a decode ring's own layout), else made
+    whole on ``heads`` and cut to the heads the rank's q heads read (their
+    gradient then a partial sum over ``heads``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    n = math.prod(mesh.size(i) for i in heads)
+    hq, hkv = q.shape[2], k.shape[2]
+    q_to = [Shard(0) if i in rows else Shard(2) if i in heads else Replicate()
+            for i in range(mesh.ndim)]
+    split = hkv % n == 0
+    k_to = q_to if split else [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    k_grad = k_to if split else [Partial() if i in heads else p for i, p in enumerate(k_to)]
+    n_to = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    group = hq // hkv
+
+    def local(ql, kl, vl, nl=None):
+        if not split:
+            # the K/V heads this rank's q heads [q0, q0 + hq_l) read
+            hq_l = ql.shape[2]
+            q0 = _block_index(mesh, heads) * hq_l
+            idx = [(q0 + j) // group for j in range(hq_l)]
+            lo, hi = idx[0], idx[-1] + 1
+            if hq_l % (hi - lo) == 0 and idx == [lo + j // (hq_l // (hi - lo))
+                                                  for j in range(hq_l)]:
+                kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+            else:            # a block that straddles K/V heads unevenly: one a q head
+                sel = torch.tensor(idx, device=kl.device)
+                kl, vl = kl.index_select(2, sel), vl.index_select(2, sel)
+        if nl is not None:
+            return attend(ql, kl, vl, kv_valid_len=nl, **kw)
+        return attend(ql, kl, vl, **kw)
+
+    if not (split and all(tuple(t.placements) == tuple(q_to) for t in (q, k, v))):
+        _note("local:attention")
+    args = [redistribute(q, tuple(q_to)), redistribute(k, tuple(k_to)),
+            redistribute(v, tuple(k_to))]
+    ins, grads = [q_to, k_to, k_to], [q_to, k_grad, k_grad]
+    if kvlen is not None:
+        args.append(redistribute(kvlen, tuple(n_to)))
+        ins.append(n_to)
+        grads.append(n_to)
+    return local_map(_waited(local), out_placements=q_to, in_placements=tuple(ins),
+                     in_grad_placements=tuple(grads), device_mesh=mesh)(*args)
+
+
+def _hd_attention(q, k, v, kvlen, rows, hd, *, causal=False, window=None,
+                  softmax_scale=None, bias=None):
+    """Decode attention over a ring sharded on its head dim (mesh dims
+    ``hd``), as GSPMD contracts it: each rank's q·kᵀ over its slice of the
+    head dim, all-reduced over ``hd`` into the scores; the scale, the
+    ``kv_valid_len`` mask and the float32 softmax on every rank; PV on the
+    rank's slice of v, so the output stays sharded on the head dim.  The
+    plain version's arithmetic (``mha_ref``) with the contraction split;
+    no kernel takes a partial contraction.  Not differentiable."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if causal or window is not None or bias is not None:
+        raise ValueError("_hd_attention: a decode step's attention is over the ring alone")
+    mesh = k.device_mesh
+    to = [Shard(0) if i in rows else Shard(3) if i in hd else Replicate()
+          for i in range(mesh.ndim)]
+    n_to = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    groups = [mesh.get_group(i) for i in hd]
+
+    def local(ql, kl, vl, nl):
+        from repro_torch.kernels.flash_attention.ref import NEG
+        b, sq, hq, dl = ql.shape
+        hkv = kl.shape[2]
+        qg = ql.float().reshape(b, sq, hkv, hq // hkv, dl)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kl.float())
+        for g in groups:
+            s = coll.all_reduce(s, "sum", g)
+        s = s * scale
+        valid = torch.arange(kl.shape[1], device=kl.device)[None] < nl[:, None]   # (B, W)
+        s = torch.where(valid[:, None, None, None], s, torch.full((), NEG, device=s.device))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p, vl.float())
+        return o.reshape(b, sq, hq, vl.shape[-1]).to(ql.dtype)
+
+    if tuple(k.placements) != tuple(to) or tuple(v.placements) != tuple(to):
+        raise ValueError(f"_hd_attention: ring placements {k.placements} / {v.placements}")
+    if tuple(q.placements) != tuple(to):
+        _note("local:attention")
+    args = (redistribute(q, tuple(to)), k, v, redistribute(kvlen, tuple(n_to)))
+    return local_map(_waited(local), out_placements=to, in_placements=(to, to, to, n_to),
+                     device_mesh=mesh)(*args)
 
 
 def split_heads(x, heads: int):
@@ -667,11 +1028,26 @@ class _MergeHeads(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.heads = x.shape[-2]
-        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+        return _heads_not_hd(x).reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
 
     @staticmethod
     def backward(ctx, g):
         return split_heads(g, ctx.heads)
+
+
+def _heads_not_hd(x):
+    """A DTensor (..., heads, hd) whose head dim is sharded (attention over
+    a ring sharded on it) moved to shard the heads instead where they
+    divide (else made whole): a view cannot merge a sharded head dim into
+    the heads (PyTorch 2.11 refuses)."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.dim() - 1
+    split = [isinstance(p, Shard) and p.dim == last for p in x.placements]
+    if not any(split):
+        return x
+    n = math.prod(x.device_mesh.size(i) for i, s in enumerate(split) if s)
+    to = Shard(last - 1) if x.shape[-2] % n == 0 else Replicate()
+    return redistribute(x, tuple(to if s else p for p, s in zip(x.placements, split)))
 
 
 def merge_heads(x):
@@ -681,17 +1057,6 @@ def merge_heads(x):
     if not is_dtensor(x):
         return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
     return _MergeHeads.apply(x)
-
-
-def _heads_split(q, k) -> bool:
-    """Do q's head-dim placements split k's heads evenly too?"""
-    from torch.distributed.tensor import Shard
-    mesh = q.device_mesh
-    n = 1
-    for i, p in enumerate(q.placements):
-        if isinstance(p, Shard) and p.dim == 2:
-            n *= mesh.size(i)
-    return q.shape[2] % n == 0 and k.shape[2] % n == 0
 
 
 def on_rows(op: str, fn, x):

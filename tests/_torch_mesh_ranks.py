@@ -224,20 +224,46 @@ def step_collectives(rank, world, tree, batch):
     return {k: v["calls"] for k, v in coll.counts().items() if v["calls"]}
 
 
-def serve_steps(cfg, params, batch, cache, n_decode, quantized_kv, mesh=None):
+def _attention_shapes(dispatch, seen: list):
+    """A scope in which every ``dispatch.attention`` call appends its local
+    (q heads, K/V heads) to ``seen``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        orig = dispatch.attention
+
+        def counted(q, k, v, **kw):
+            seen.append((q.shape[2], k.shape[2]))
+            return orig(q, k, v, **kw)
+
+        dispatch.attention = counted
+        try:
+            yield
+        finally:
+            dispatch.attention = orig
+    return scope()
+
+
+def serve_steps(cfg, params, batch, cache, n_decode, quantized_kv, mesh=None, probe=None):
     """A prefill step of ``batch`` (numpy), then ``n_decode`` decode steps
     from ``cache`` (numpy leaves of ``lm.make_cache``), a column of
     ``batch['tokens']`` each: on one device, or laid out on ``mesh`` as the
     dry-run lays out a prefill and a decode cell.  -> (the prefill's
     logits, each decode step's logits, the cache's leaves after them), as
-    numpy."""
+    numpy.  ``probe`` (a dict) gets the local (q heads, K/V heads) of each
+    attention call of the prefill and of the decode steps, the explicit
+    all-reduces of the decode steps, and the ring's placements."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels import dispatch
     from repro_torch.launch.dryrun import _spec_leaves
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import lm
+    from repro_torch.parallel import collectives as coll
     from repro_torch.parallel import sharding as sh
     from repro_torch.tree import leaves, unflatten
+    probe = {} if probe is None else probe
+    probe.update(prefill=[], decode=[])
     b = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
     n, s = b["tokens"].shape
     c = unflatten(lm.make_cache(cfg, n, s, quantized=quantized_kv, device="cpu"),
@@ -258,16 +284,19 @@ def serve_steps(cfg, params, batch, cache, n_decode, quantized_kv, mesh=None):
             drules["kv_cache"] = sh.P(*cspec["k"][1:])
         tspec = dspecs["batch"]["tokens"]
     with torch.no_grad(), dispatch.use_backend("ref"), sh.mixed_ops(params):
-        with sh.act_rules(prules):
+        with sh.act_rules(prules), _attention_shapes(dispatch, probe["prefill"]):
             prefill = host(make_prefill_step(cfg)(params, b))
         logits = []
-        with sh.act_rules(drules):
+        coll.reset_counts()
+        with sh.act_rules(drules), _attention_shapes(dispatch, probe["decode"]):
             for i in range(n_decode):
                 tok = torch.from_numpy(np.ascontiguousarray(batch["tokens"][:, i:i + 1]))
                 if mesh is not None:
                     tok = sh.distribute(tok, mesh, tspec)
                 out, c = make_serve_step(cfg)(params, {"tokens": tok}, c)
                 logits.append(host(out))
+        probe["all_reduce"] = coll.counts()["all_reduce"]["calls"]
+    probe["ring"] = str(c["k"].placements) if sh.is_dtensor(c.get("k")) else None
     return prefill, logits, [host(t) for t in leaves(c)]
 
 
@@ -281,20 +310,56 @@ def sharded_serve_steps(rank, world, jobs):
     out = []
     for arch, tree, batch, cache, n_decode, qkv in jobs:
         cfg = _cfg(arch)
+        probe = {}
         res = serve_steps(cfg, lm_params_from_numpy(tree, cfg, device="cpu"), batch, cache,
-                          n_decode, qkv, mesh)
-        out.append(res if rank == 0 else None)
+                          n_decode, qkv, mesh, probe)
+        out.append((*res, probe) if rank == 0 else None)
     return out
 
 
-def steps_grads_and_elastic(rank, world, jobs, tree, batch, stacked, ckpt_dir, serve_jobs):
+def xent_grads(rank, world, jobs):
+    """Each job (arch, numpy params, numpy batch, mesh shape): the loss and
+    every parameter's gradient (``value_and_grad``, ``DISABLED``) laid out
+    on the mesh as a sharded train step lays them out; rank 0 returns them
+    gathered, with the mesh dim that splits the cross-entropy's vocabulary
+    (``sharding.vocab_split``; None where the loss is not vocabulary-
+    parallel)."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.tree import leaves
+    out = []
+    for arch, tree, batch, shape in jobs:
+        cfg = _cfg(arch)
+        mesh = make_mesh(shape, ("data", "model"))
+        params = sh.distribute_params(lm_params_from_numpy(tree, cfg, device="cpu"), mesh, cfg)
+        n, s = batch["tokens"].shape
+        bspec = sh.batch_specs(cfg, ShapeSpec("t", s, n, "train"), mesh)["batch"]
+        b = {k: sh.distribute(torch.from_numpy(np.ascontiguousarray(v)), mesh, bspec[k])
+             for k, v in batch.items()}
+        w, vdim = ((params["embed"]["e"], 0) if cfg.tie_embeddings
+                   else (params["lm_head"]["w"], 1))
+        with sh.act_rules(sh.default_act_rules(mesh, "train", cfg)):
+            split = sh.vocab_split(w, vdim)
+            loss, grads = value_and_grad(params, b, cfg)
+            got = {"loss": float(host(loss)), "grads": [host(g) for g in leaves(grads)],
+                   "split": split}
+        out.append(got if rank == 0 else None)
+    return out
+
+
+def steps_grads_and_elastic(rank, world, jobs, tree, batch, stacked, ckpt_dir, serve_jobs,
+                            xent_jobs):
     """``steps_and_grad_placements``, then ``elastic_stacked(stacked)``,
     then ``step_collectives(tree, batch)``, then
-    ``sharded_serve_steps(serve_jobs)``."""
+    ``sharded_serve_steps(serve_jobs)``, then ``xent_grads(xent_jobs)``."""
     return (*steps_and_grad_placements(rank, world, jobs, tree, batch),
             elastic_stacked(rank, world, stacked, ckpt_dir),
             step_collectives(rank, world, tree, batch),
-            sharded_serve_steps(rank, world, serve_jobs))
+            sharded_serve_steps(rank, world, serve_jobs),
+            xent_grads(rank, world, xent_jobs))
 
 
 def gpipe_rings_save(rank, world, tree, batch, xw, n_micro, save_tree, ckpt_dir):

@@ -22,6 +22,15 @@ Gates:
   * sharded: a device's counted FLOPs of that step on fake 1 x 2 and
     2 x 1 meshes within ``HLO_RTOL`` of the reference's ``analyze_hlo`` of
     the step compiled with its dry-run's shardings on 2 devices;
+  * sharded steps hold no whole tensor a device (``CostMode.largest``, the
+    largest storage an op made): a train step's largest is under the
+    global (B, chunk, V) float32 logits over |model| (the cross-entropy is
+    vocabulary-parallel), a decode step's under one layer's global ring
+    over its shards (attention where the ring lies, sharded on its K/V
+    heads or on its head dim); the MoE train and prefill steps trace at
+    the smallest fake meshes and reduced shapes where DTensor's folds of
+    a sharded batch into routing groups broke (a local shape half the one
+    expected);
   * the bottleneck selection of the reference's test, with the H100's
     constants;
   * the CLI writes the reference's record keys (``fits_hbm_80g``,
@@ -224,6 +233,54 @@ def test_sharded_flops_hold_to_the_reference_hlo(reference, mesh_shape):
     want = reference["hlo_flops_mesh"]["x".join(map(str, mesh_shape))]
     assert rec["chips"] == 2 and abs(got - want) <= HLO_RTOL * want, (got, want)
     assert got < reference["hlo_flops"]            # a device's share of the step
+
+
+@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "chatglm3-6b"])     # tied, untied
+def test_sharded_train_step_never_makes_the_whole_logits(name):
+    """Reduced float32 configs with a vocabulary of 32,768 (the logits then
+    dominate) on a fake 2 x 2 mesh, 8 x 64 tokens (one chunk)."""
+    cfg = reduce_config(get_config(name)).replace(dtype="float32", vocab=32768)
+    b, s = 8, 64
+    mode = ca.CostMode()
+    dryrun.lower_cell(name, ShapeSpec("t", s, b, "train"), cfg=cfg, mesh_shape=(2, 2),
+                      mode=mode)
+    whole = b * s * cfg.vocab * 4 // 2            # the f32 logits over |model|
+    assert mode.largest[0] < whole, mode.largest
+
+
+@pytest.mark.parametrize("name", ["phi-3-vision-4.2b", "chatglm3-6b"])  # heads, head dim
+def test_sharded_decode_step_attends_the_ring_where_it_lies(name):
+    """A decode step of reduced float32 configs (1 layer; phi-3's 4 K/V
+    heads, chatglm3's one, whose ring is sharded on the head dim) on a
+    fake 2 x 2 mesh, 8 rows against 4,096 ring positions."""
+    cfg = reduce_config(get_config(name)).replace(dtype="float32", layers=1)
+    b, w = 8, 4096
+    mode = ca.CostMode()
+    rec = dryrun.lower_cell(name, ShapeSpec("d", w, b, "decode"), cfg=cfg, mesh_shape=(2, 2),
+                            mode=mode)
+    ring = 2 * b * w * cfg.n_kv_heads * cfg.hd * 4 // 4   # one layer's K and V, 4 shards
+    assert mode.largest[0] < ring, mode.largest
+    assert rec["collectives"]["counts"].get("all-reduce", 0) > 0
+
+
+#: (arch, step, fake mesh, (batch, seq)): the smallest where DTensor's own
+#: folds of the MoE routing groups broke ("shape '[1, 32, 64]' is invalid
+#: for input of size 1024"; mixtral's: "... would remove or reshape
+#: sharded dimension 1", "Cannot unflatten unevenly sharded tensor")
+MOE_CELLS = [("deepseek-v2-lite-16b", "train", (2, 2), (8, 32)),
+             ("deepseek-v2-lite-16b", "prefill", (2, 2), (16, 64)),
+             ("mixtral-8x22b", "train", (2, 4), (16, 64)),
+             ("mixtral-8x22b", "prefill", (4, 2), (16, 64))]
+
+
+@pytest.mark.parametrize("name,step,mesh,bs", MOE_CELLS,
+                         ids=[f"{a}-{st}" for a, st, _, _ in MOE_CELLS])
+def test_moe_steps_trace_on_a_sharded_batch(name, step, mesh, bs):
+    cfg = reduce_config(get_config(name))
+    b, s = bs
+    rec = dryrun.lower_cell(name, ShapeSpec("x", s, b, step), cfg=cfg, mesh_shape=mesh)
+    assert rec["chips"] == mesh[0] * mesh[1]
+    assert rec["cost"]["flops_per_dev"] > 0 and rec["mem"]["peak_bytes_per_dev"] > 0
 
 
 def test_roofline_bottleneck_selection_with_the_cards_constants():

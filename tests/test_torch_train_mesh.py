@@ -29,8 +29,17 @@ Gates:
     ran on 2 gloo ranks (``counting_dtensor``);
   * a prefill step and two decode steps laid out on a 1 x 2 mesh as the
     dry-run lays out its cells (qwen with the INT8 KV cache, deepseek's
-    MLA cache, whisper's), from a random cache: the logits and the cache
-    after them allclose 1e-5 to the same steps on one device;
+    MLA cache, whisper's; qwen's ring sharded on its K/V heads without the
+    INT8 cache, chatglm3's one K/V head sharded on the head dim), from a
+    random cache: the logits and the cache after them allclose 1e-5 to
+    the same steps on one device; each rank attends its own heads (GQA:
+    chatglm3's prefill splits its 4 q heads and reads its one K/V head
+    whole), and a head-dim ring is attended where it lies (all-reduced
+    partial scores, no gather);
+  * the cross-entropy and every gradient of reduced qwen (tied) and
+    chatglm3 (untied) at 1 x 2, where it is vocabulary-parallel, and at
+    2 x 1, where the batch is split and the vocabulary is not: the loss
+    within 1e-4 relative of one device's, the gradients allclose 1e-5;
   * a kernel wrapper handed a DTensor raises, and ``dispatch.fake_quant``
     quantizes a DTensor's rows as the plain version does.
 """
@@ -66,8 +75,13 @@ RTOL = 1e-4
 AAQ_RTOL = 1e-4
 DENSE, MOE = "qwen1.5-0.5b", "deepseek-v2-lite-16b"
 JOBS4 = [(DENSE, (2, 2)), (MOE, (2, 2)), (DENSE, (1, 4))]
-#: (arch, INT8 KV cache) of the sharded prefill and decode steps
-SERVE = [(DENSE, True), (MOE, False), ("whisper-base", False)]
+#: (arch, INT8 KV cache, what the case holds) of the sharded prefill and
+#: decode steps; the id is the arch, or arch-what
+SERVE = [(DENSE, True, None), (MOE, False, None), ("whisper-base", False, None),
+         (DENSE, False, "heads"), ("chatglm3-6b", False, "hd")]
+SERVE_IDS = [a if what is None else f"{a}-{what}" for a, _, what in SERVE]
+#: (arch, mesh) of the vocabulary-parallel cross-entropy's gradients
+XENT = [(DENSE, (1, 2)), (DENSE, (2, 1)), ("chatglm3-6b", (1, 2)), ("chatglm3-6b", (2, 1))]
 OTHERS = [n for n in ARCH_NAMES if n not in (DENSE, MOE)]
 
 
@@ -148,19 +162,22 @@ def two_ranks(inputs, tmp_path_factory):
     qwen's gradient placements (``grad_placements``); then the reference's
     checkpoint of deepseek (layers stacked) resumed elastically at 1 x 2;
     then the collectives of qwen's step; then the prefill and decode steps
-    of ``SERVE`` at 1 x 2."""
+    of ``SERVE`` at 1 x 2; then the cross-entropy's gradients of
+    ``XENT``."""
     jobs = [(a, inputs[a][1], inputs[a][2], False, (1, 2)) for a in OTHERS]
     ckpt_dir = str(tmp_path_factory.mktemp("stacked_ckpt"))
     state = _reference_state(MOE)
     jckpt.save(ckpt_dir, 7, state)
-    serve_jobs = [_serve_job(inputs, a, qkv) for a, qkv in SERVE]
+    serve_jobs = [_serve_job(inputs, a, qkv) for a, qkv, _ in SERVE]
+    xent_jobs = [(a, inputs[a][1], inputs[a][2], shape) for a, shape in XENT]
     res = run_ranks(2, steps_grads_and_elastic, jobs, inputs[DENSE][1], inputs[DENSE][2],
-                    MOE, ckpt_dir, serve_jobs)
+                    MOE, ckpt_dir, serve_jobs, xent_jobs)
     out = {a: [r[0][i] for r in res] for i, a in enumerate(OTHERS)}
     out["grad_placements"] = [r[1] for r in res]
     out["elastic"] = ([r[2] for r in res], state)
     out["collectives"] = [r[3] for r in res]
-    out["serve"] = dict(zip((a for a, _ in SERVE), zip(res[0][4], serve_jobs)))
+    out["serve"] = dict(zip(SERVE_IDS, zip(res[0][4], serve_jobs)))
+    out["xent"] = res[0][5]
     return out
 
 
@@ -239,14 +256,26 @@ def test_dry_run_collectives_equal_a_real_1x2_step(two_ranks, inputs):
         assert {_KINDS[k]: v for k, v in got.items()} == want
 
 
-@pytest.mark.parametrize("name", [a for a, _ in SERVE])
+@pytest.mark.parametrize("name", SERVE_IDS)
 def test_sharded_prefill_and_decode_match_one_device(two_ranks, name):
     """The prefill step and two decode steps, sharded on 1 x 2 as the
     dry-run shards its cells (read on the CPU: logits within 3.1e-6, the
-    cache within 1.7e-6, of one device's), against one device."""
-    (prefill, logits, cache), (_, tree, batch, cache0, n_decode, qkv) = \
+    cache within 1.7e-6, of one device's), against one device; the two
+    ring cases attend where their rings lie."""
+    (prefill, logits, cache, probe), (arch, tree, batch, cache0, n_decode, qkv) = \
         two_ranks["serve"][name]
-    cfg = _cfg(name)
+    cfg = _cfg(arch)
+    if name == f"{DENSE}-heads":
+        # 4 K/V heads over 2 ranks: each rank attends its 2 (and 2 q heads)
+        assert probe["ring"] == "(Shard(dim=1), Shard(dim=3))"
+        assert set(probe["decode"]) == {(2, 2)}
+    if name == "chatglm3-6b-hd":
+        # GQA prefill: 4 q heads split over 2 ranks, the one K/V head whole
+        assert set(probe["prefill"]) == {(2, 1)}
+        # the ring's head dim over 2 ranks: no local attention call, the
+        # partial scores all-reduced once a layer and step
+        assert probe["ring"] == "(Shard(dim=1), Shard(dim=4))"
+        assert probe["decode"] == [] and probe["all_reduce"] == n_decode * cfg.layers
     want = serve_steps(cfg, lm_params_from_numpy(tree, cfg, device="cpu"), batch, cache0,
                        n_decode, qkv)
     np.testing.assert_allclose(prefill, want[0], rtol=1e-5, atol=1e-5)
@@ -256,6 +285,31 @@ def test_sharded_prefill_and_decode_match_one_device(two_ranks, name):
     assert len(cache) == len(want[2])
     for a, b in zip(cache, want[2]):
         assert a.dtype == b.dtype
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name,shape", XENT, ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else v)
+def test_vocab_parallel_loss_and_gradients_match_one_device(two_ranks, inputs, name, shape):
+    """``value_and_grad`` of the sharded step against one device's: at
+    1 x 2 the cross-entropy splits the vocabulary over ``model`` (each
+    rank's own logits, explicit all-reduces; the table's or the head's
+    gradient each rank's own columns), at 2 x 1 it does not, and each
+    rank looks up its own batch rows (the table's gradient a partial sum
+    over ``data``)."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.tree import leaves
+    got = two_ranks["xent"][XENT.index((name, shape))]
+    cfg = _cfg(name)
+    _, tree, batch = inputs[name]
+    loss, grads = value_and_grad(lm_params_from_numpy(tree, cfg, device="cpu"),
+                                 {k: torch.from_numpy(np.ascontiguousarray(v))
+                                  for k, v in batch.items()}, cfg)
+    assert got["split"] == (1 if shape == (1, 2) else None)
+    np.testing.assert_allclose(got["loss"], float(loss), rtol=RTOL)
+    want = [g.numpy() for g in leaves(grads)]
+    assert len(got["grads"]) == len(want)
+    for a, b in zip(got["grads"], want):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
 
 
