@@ -10,13 +10,26 @@ then the reduced config's fold of ``examples/fold_server``'s first protein
 (26 residues, bucket 32) alone against the same protein in act one's
 batch of 4, under AAQ and the unquantized scheme, on the kernel route
 (``auto``) and the plain route (``ref``): bitwise or not, the largest
-coordinate gap and the TM; and for each, every op of the batch-4 fold run
-again on the first quarter of its inputs' rows (dim 0, where an input's
-dim 0 is the output's): an op whose output's first quarter then differs
-follows the row count in itself, whatever its inputs.  Ops run through a
-kernel wrapper (ctypes) do not pass the dispatcher.  All of it twice:
-with the fold's float32 products a batch row at a time
-(``device.rows_alone``, as the fold runs) and without.
+coordinate gap and the TM; the protein folded alone twice (bitwise, or
+the fold is not deterministic) and in a batch of four copies of itself;
+under the unquantized scheme each trunk stage's first row (the
+embedding, every op of every block, the structure module) between the
+protein alone and the four copies, naming the stages that differ with
+equal inputs, and inside the first such trunk op every aten op's first
+row the same way (the rows of a ``per_row`` after its first left out, so
+the two runs align op for op); and for each, every op of the batch-4
+fold run again on the first quarter of its inputs' rows: dim 0 where an
+input's dim 0 is the output's, else, for products, ``torch.linalg`` and
+elementwise ops, the first dim d whose size the inputs of the output's
+rank share and four divides (a batch that a permute moved off dim 0): an
+op whose output's first quarter then differs follows the row count in
+itself, whatever its inputs.  Ops run through a kernel wrapper (ctypes)
+do not pass the dispatcher, so each wrapper's launches in the batch-4 fold
+are run again on their first batch quarter too (q, k, v, the key lengths
+and the bias's rows of the first protein: triangular attention's B x N
+rows as batch; the float32 matmul's first quarter of tokens) and compared
+on it.  All of it twice: with the fold's float32 products a batch row at a
+time (``device.rows_alone``, as the fold runs) and without.
 
 ``dryrun``: ``launch.dryrun.lower_cell`` of qwen1.5-0.5b x train_4k on the
 fake 16 x 16 mesh at 1 and 2 layers (vocabulary 4,096) and at 1 layer
@@ -94,38 +107,245 @@ def batch(torch) -> None:
                 mode if mode is not None else contextlib.nullcontext():
             return ppm_forward(params, aat, cfg, scheme, mask=mask, distogram=False)["coords"]
 
+    # ops whose batch may ride a dim other than 0 (after a permute)
+    elsewhere = ("mm", "bmm", "addmm", "baddbmm", "linalg", "add", "sub", "mul", "div",
+                 "where", "exp", "sigmoid", "relu", "rsqrt", "neg", "pow", "clamp",
+                 "maximum", "minimum", "_to_copy", "clone")
+
     class Intrinsic(TorchDispatchMode):
-        """Each op again on the first quarter of its rows (dim 0)."""
+        """Each op again on the first quarter of its rows: dim 0, or for
+        the ops of ``elsewhere`` the first dim the inputs share that four
+        divides."""
 
         def __init__(self):
             super().__init__()
-            self.ops, self.variant = 0, {}
+            self.ops, self.moved, self.variant = 0, 0, {}
+
+        def _dim(self, name, out, args):
+            """(the dim the batch rides, which args to cut there), or
+            (None, None).  Past dim 0 every input of the output's rank
+            must hold that dim whole or broadcast it."""
+            op = getattr(self._func, "_opname", name)
+            dims = out.dim() if out.shape[0] != 1 and any(e in op for e in elsewhere) else 1
+            for d in range(dims):
+                if out.shape[d] % 4:
+                    continue
+                if d == 0:
+                    rows = [isinstance(a, torch.Tensor) and a.dim() > 0
+                            and a.shape[0] == out.shape[0] for a in args]
+                else:
+                    same = [isinstance(a, torch.Tensor) and a.dim() == out.dim() for a in args]
+                    if any(s_ and a.shape[d] not in (1, out.shape[d])
+                           for a, s_ in zip(args, same)):
+                        continue
+                    rows = [s_ and a.shape[d] == out.shape[d] for a, s_ in zip(args, same)]
+                if any(rows):
+                    return d, rows
+            return None, None
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
             name = str(func)
             if (not isinstance(out, torch.Tensor) or not out.is_floating_point()
-                    or out.dim() == 0 or out.shape[0] % 4 or "empty" in name
+                    or out.dim() == 0 or "empty" in name
                     or func._schema.is_mutable or any(r.alias_info is not None
                                                       for r in func._schema.returns)):
                 return out
-            q = out.shape[0] // 4
-            rows = [isinstance(a, torch.Tensor) and a.dim() and a.shape[0] == out.shape[0]
-                    for a in args]
-            if not any(rows):
+            self._func = func
+            d, rows = self._dim(name, out, args)
+            if d is None:
                 return out
+            q = out.shape[d] // 4
             self.ops += 1
-            part = func(*(a[:q] if r else a for a, r in zip(args, rows)), **kwargs)
-            if not torch.equal(part, out[:q]):
-                key = (name, tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor)),
+            self.moved += d > 0
+            part = func(*(a.narrow(d, 0, q) if r else a for a, r in zip(args, rows)), **kwargs)
+            if not torch.equal(part, out.narrow(d, 0, q)):
+                key = (f"{name} (batch on dim {d})",
+                       tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor)),
                        str(out.dtype))
                 self.variant[key] = self.variant.get(key, 0) + 1
             return out
 
+    @contextlib.contextmanager
+    def wrappers_on_first_row(variant: dict, calls: list):
+        """Each kernel wrapper's launch again on its first batch quarter,
+        compared there."""
+        from repro_torch.kernels.aaq_matmul import ops as mm_ops
+        fl, mm = dispatch.flash_mha_kernel, mm_ops.aaq_matmul_kernel
+
+        def quarter(t):
+            return t if t is None or t.shape[0] % 4 else t[:t.shape[0] // 4]
+
+        def fl_checked(q, k, v, bias=None, kvl=None, **kw):
+            o = fl(q, k, v, bias, kvl, **kw)
+            calls[0] += 1
+            if q.shape[0] % 4 == 0:
+                part = fl(quarter(q), quarter(k), quarter(v),
+                          bias if bias is None or bias.shape[0] % 4 else quarter(bias),
+                          quarter(kvl), **kw)
+                if not torch.equal(part, o[:q.shape[0] // 4]):
+                    key = ("flash_mha_kernel", (tuple(q.shape), None if bias is None
+                                                else tuple(bias.shape)), str(q.dtype))
+                    variant[key] = variant.get(key, 0) + 1
+            return o
+
+        def mm_checked(q, s, ov, oi, w, **kw):
+            y = mm(q, s, ov, oi, w, **kw)
+            calls[1] += 1
+            if q.shape[0] % 4 == 0:
+                part = mm(quarter(q), quarter(s), quarter(ov), quarter(oi), w, **kw)
+                if not torch.equal(part, y[:q.shape[0] // 4]):
+                    key = ("aaq_matmul_kernel", (tuple(q.shape), tuple(w.shape)), str(y.dtype))
+                    variant[key] = variant.get(key, 0) + 1
+            return y
+
+        dispatch.flash_mha_kernel, mm_ops.aaq_matmul_kernel = fl_checked, mm_checked
+        try:
+            yield
+        finally:
+            dispatch.flash_mha_kernel, mm_ops.aaq_matmul_kernel = fl, mm
+
     from repro_torch import device as dev_mod
     from repro_torch.models.ppm import model as ppm_model
+    from repro_torch.models.ppm import trunk as ppm_trunk
     n0 = len(trace[0])
+
+    @contextlib.contextmanager
+    def stages(record: list):
+        """Each trunk op's, the embedding's and the structure module's
+        first batch row in and out, in call order."""
+        names = [(ppm_trunk, f) for f in ("seq_attn_apply", "seq_transition_apply", "opm_apply",
+                                          "tri_mul_apply", "tri_attn_apply",
+                                          "pair_transition_apply")]
+        names += [(ppm_model, "input_embedding"), (ppm_model.st, "structure_apply")]
+        saved = [(m, f, getattr(m, f)) for m, f in names]
+
+        def first(x):
+            if isinstance(x, torch.Tensor):
+                return x[:1].detach().float().cpu().clone()
+            if isinstance(x, tuple):
+                return tuple(first(t) for t in x)
+            return None
+
+        def wrap(f, fn):
+            def run(*args, **kw):
+                out = fn(*args, **kw)
+                record.append((f, [first(a) for a in args if isinstance(a, torch.Tensor)],
+                               first(out)))
+                return out
+            return run
+        for m, f, fn in saved:
+            setattr(m, f, wrap(f, fn))
+        try:
+            yield
+        finally:
+            for m, f, fn in saved:
+                setattr(m, f, fn)
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(same(x, y) for x, y in zip(a, b))
+        return a is None or torch.equal(a, b)
+
+    class Ops(TorchDispatchMode):
+        """Every op's output (its first row) in call order, views and
+        ``cat`` left out, outside the rows after the first of a
+        ``per_row`` (so a batch of 4 and a batch of 1 align op for op)."""
+
+        def __init__(self):
+            super().__init__()
+            self.rows, self.skip = [], False
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not self.skip and isinstance(out, torch.Tensor) and out.is_floating_point() \
+                    and out.dim() and "cat" not in str(func) and \
+                    not any(r.alias_info is not None for r in func._schema.returns):
+                ins = [a[:1].detach().float().cpu().clone() for a in args
+                       if isinstance(a, torch.Tensor) and a.dim() and a.is_floating_point()]
+                self.rows.append((str(func), tuple(out.shape),
+                                  out[:1].detach().float().cpu().clone(), ins))
+            return out
+
+    @contextlib.contextmanager
+    def ops_of(stage: str, call: int, mode: Ops):
+        """``mode`` on the ``call``-th call of the trunk op ``stage`` only;
+        each ``per_row`` records its first row alone."""
+        from repro_torch import device as dmod
+        from repro_torch.core import schemes as smod
+        from repro_torch.models import common as cmod
+        fn, pr, seen = getattr(ppm_trunk, stage), dmod.per_row, [0]
+        users = (ppm_trunk, smod, cmod)
+
+        def per_row(f, *xs):
+            if not (getattr(dmod._ROWS, "on", False) and xs[0].is_cuda and xs[0].dim() >= 3
+                    and xs[0].shape[0] > 1):
+                return f(*xs)
+            outs = []
+            for i in range(xs[0].shape[0]):
+                rows = [t[i:i + 1] for t in xs]
+                prev, mode.skip = mode.skip, mode.skip or i > 0
+                outs.append(f(*rows))
+                mode.skip = prev
+            return torch.cat(outs)
+
+        def run(*a, **kw):
+            seen[0] += 1
+            if seen[0] != call:
+                return fn(*a, **kw)
+            with mode:
+                return fn(*a, **kw)
+        setattr(ppm_trunk, stage, run)
+        for m in users:
+            m.per_row = per_row
+        try:
+            yield
+        finally:
+            setattr(ppm_trunk, stage, fn)
+            for m in users:
+                m.per_row = pr
+
+    def first_ops(route, scheme, stage, call):
+        """The ops inside the ``call``-th call of ``stage`` whose first row
+        differs between batch 1 and four copies while their inputs' do
+        not."""
+        one, four = Ops(), Ops()
+        with ops_of(stage, call, one):
+            fold([trace[0]], route, scheme)
+        with ops_of(stage, call, four):
+            fold([trace[0]] * 4, route, scheme)
+        found = []
+        for i, ((f, sh1, o1, i1), (_, sh4, o4, i4)) in enumerate(zip(one.rows, four.rows)):
+            if o1.shape == o4.shape and not torch.equal(o1, o4) and \
+                    all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(i1, i4)):
+                found.append(f"#{i} {f} out {sh1} / {sh4} inputs "
+                             f"{[tuple(a.shape) for a in i1]} max |d| "
+                             f"{float((o1 - o4).abs().max()):.3e}")
+        return len(one.rows), len(four.rows), found
+
+    def first_stages(route, scheme):
+        """The stages whose first row differs between batch 1 and batch 4,
+        those with equal inputs first (the op itself follows the batch)."""
+        one, four = [], []
+        with stages(one):
+            fold([trace[0]], route, scheme)
+        with stages(four):
+            fold([trace[0]] * 4, route, scheme)
+        own, carried = [], 0
+        for i, ((f, ins1, out1), (_, ins4, out4)) in enumerate(zip(one, four)):
+            if same(out1, out4):
+                continue
+            if all(same(a, b) for a, b in zip(ins1, ins4)):
+                gap = max(float((x - y).abs().max()) for x, y in
+                          zip(out1 if isinstance(out1, tuple) else (out1,),
+                              out4 if isinstance(out4, tuple) else (out4,)))
+                # (stage, which call of it, the line)
+                own.append((f, sum(1 for g, _, _ in one[:i + 1] if g == f),
+                            f"#{i} {f} (max |d| {gap:.3e})"))
+            else:
+                carried += 1
+        return len(one), own, carried
     for alone in (True, False):
         ppm_model.rows_alone = dev_mod.rows_alone if alone else contextlib.nullcontext
         _print(f"-- a float32 fold's products a batch row at a time (rows_alone): {alone}")
@@ -133,15 +353,36 @@ def batch(torch) -> None:
             for name, scheme in schemes.items():
                 c1 = fold([trace[0]], route, scheme)[0, :n0].float().cpu()
                 c4 = fold(batch4, route, scheme)[0, :n0].float().cpu()
+                c1b = fold([trace[0]], route, scheme)[0, :n0].float().cpu()
+                copies = fold([trace[0]] * 4, route, scheme)[:, :n0].float().cpu()
                 _print(f"fold {route} {name}: batch-1 coords bitwise batch-4's: "
                        f"{torch.equal(c1, c4)}, max |d| {(c1 - c4).abs().max().item():.3e}, "
-                       f"TM {float(tm_score(c1, c4)):.6f}")
+                       f"TM {float(tm_score(c1, c4)):.6f}; batch 1 twice bitwise: "
+                       f"{torch.equal(c1, c1b)}; four copies bitwise batch 1: "
+                       f"{[torch.equal(c1, c) for c in copies]}")
+                if name == "fp":
+                    n_st, own, carried = first_stages(route, scheme)
+                    _print(f"  {route} {name}, four copies against one: of {n_st} stages "
+                           f"{len(own)} differ with equal inputs {[o[2] for o in own[:6]]}, "
+                           f"{carried} more carry a difference in")
+                    if own and hasattr(ppm_trunk, own[0][0]):
+                        stage, nth, _ = own[0]
+                        n1, n4, found = first_ops(route, scheme, stage, nth)
+                        _print(f"    inside {stage} call {nth}: {n1} / {n4} ops recorded; "
+                               f"{len(found)} differ with equal inputs: {found[:8]}")
                 mode = Intrinsic()
-                fold(batch4, route, scheme, mode)
+                wrapped, calls = {}, [0, 0]
+                with wrappers_on_first_row(wrapped, calls):
+                    fold(batch4, route, scheme, mode)
                 _print(f"  {route} {name}, batch 4: {mode.ops} ops run again on their first "
-                       f"quarter; {len(mode.variant)} kinds of op differ in themselves"
+                       f"quarter ({mode.moved} with the batch off dim 0); "
+                       f"{len(mode.variant)} kinds of op differ in themselves"
                        + "".join(f"\n    {op} {dt} inputs {shapes}: {n} calls"
-                                 for (op, shapes, dt), n in sorted(mode.variant.items())))
+                                 for (op, shapes, dt), n in sorted(mode.variant.items()))
+                       + f"\n  wrappers: {calls[0]} flash and {calls[1]} aaq_matmul launches "
+                       f"run again on their first quarter; {len(wrapped)} kinds differ"
+                       + "".join(f"\n    {op} {dt} {shapes}: {n} calls"
+                                 for (op, shapes, dt), n in sorted(wrapped.items())))
     ppm_model.rows_alone = dev_mod.rows_alone
 
 

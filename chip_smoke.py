@@ -5,11 +5,11 @@
     python3 chip_smoke.py --mesh-only   # phases 1, 2, 11, 12, 13 and 16 alone
     python3 chip_smoke.py --mesh-only --phases 11,13
 
-``--mesh-only`` runs the build, the mesh tier, multi-device training and
-the fleet on a mesh alone: on a host of two cards or more that is the run
-of phases 11(c), 12(b) and 13 (two replicas on a 1x2 mesh) across them,
-without the phases that need one card.  ``--phases`` picks some of 11,
-12 and 13.
+``--mesh-only`` runs the build, the mesh tier, multi-device training,
+the fleet on a mesh and the grid fold alone: on a host of two cards or
+more that is the run of phases 11(c), 12(b) and 13 (two replicas on a 1x2
+mesh) across them, and on four 16(c), without the phases that need one
+card.  ``--phases`` picks some of 11, 12, 13 and 16.
 
 Phases, each fatal on failure:
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA
@@ -220,7 +220,19 @@ Phases, each fatal on failure:
      qwen step traced on one device and run for real under
      ``FlopCounterMode``: the FLOP counts equal, the trace's peak beside
      ``max_memory_allocated``;
- 16. summary: one JSON line of the kernels, the card, and the last line
+ 16. the fold on the reference's production layout (``sharding.PairGrid``:
+     pair rows over ``data``, columns over ``model``, every parameter the
+     rank's ``param_spec`` shard): esmfold_ppm at full width, 8 of its 48
+     blocks, a 250-residue protein in bucket 256, under lightnobel_aaq and
+     baseline_fp16, through ``make_fold_step``: (a) a 1x1 grid over NCCL
+     bitwise one card's fold, every main-path kernel launched; (b) a 2x2
+     grid of 4 processes on this card over the host-staged gloo route,
+     TM >= 0.9995 against one card, no plain version, each rank's peak
+     printed beside one card's; then the three kernels at a grid rank's
+     shapes against their plain versions, timed; with ``--mesh-only`` on
+     four cards (c) the 2x2 grid a card a rank over NCCL at all 48 blocks
+     and N = 1,024, TM >= 0.995;
+ 17. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -1599,7 +1611,7 @@ def _flash_engine_row(torch, rows, pending, c, lens, label, part, kind, shape):
     row.library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
     del mask
-    row.bound_ms, row.bound_by = bound_ms(nbytes(*args, o), 4 * bq * h * n * n * d)
+    row.bound_ms, row.bound_by = bound_ms(nbytes(*args, o), 4 * bq * h * n * c["k"].shape[1] * d)
     rows.setdefault("flash_mha", []).append(row)
     log(row.line())
 
@@ -3650,18 +3662,35 @@ def _mt_meshes(torch, tallies) -> dict:
 
 # the rank jobs of (b) and (c): rank 0 is this process, ranks 1.. processes
 # of this script (``--rank-job``) on the other cards
-def _rank_job_run(torch, job, world, arg) -> dict:
+def _join_group(rank: int, world: int, init: str, gloo: bool) -> None:
+    """A card a rank over NCCL, or (``gloo``) every rank on this card over
+    gloo, CUDA tensors staged through the host (phase 11(b)'s route)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lmesh
+    if not gloo:
+        lmesh.init_train_group(rank, world, init, "cuda")
+        return
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=lmesh.TIMEOUT_S))
+
+
+def _rank_job_run(torch, job, world, arg, gloo: bool = False) -> dict:
     import torch.distributed as dist
     from repro_torch.launch import mesh as lmesh
     d, init = lmesh.rendezvous()
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--rank-job", job,
                                "--rank", str(r), "--world", str(world), "--init", init,
-                               "--arg", arg, "--parent", str(os.getpid())],
+                               "--arg", arg, "--parent", str(os.getpid()),
+                               *(("--gloo",) if gloo else ())],
                               stdout=subprocess.DEVNULL) for r in range(1, world)]
     t0 = time.perf_counter()
     ok = False
     try:
-        lmesh.init_train_group(0, world, init, "cuda")
+        _join_group(0, world, init, gloo)
         res = _RANK_JOBS[job](torch, 0, world, arg)
         dist.barrier()
         ok = True
@@ -3885,7 +3914,7 @@ def rank_job(args) -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.launch import mesh as lmesh
     lmesh._watch_parent(args.parent)
-    lmesh.init_train_group(args.rank, args.world, args.init, "cuda")
+    _join_group(args.rank, args.world, args.init, args.gloo)
     _RANK_JOBS[args.rank_job](torch, args.rank, args.world, args.arg)
     dist.barrier()
     dist.destroy_process_group()
@@ -4146,13 +4175,13 @@ def run_examples(torch) -> None:
 #: CPU's 512 forced host devices): qwen1.5-0.5b x train_4k 4.08 GB,
 #: deepseek-v2-lite-16b x decode_32k 6.30, phi-3-vision-4.2b x decode_32k
 #: 23.06, chatglm3-6b x decode_32k 2.66, qwen2.5-3b x prefill_32k 1.23,
-#: deepseek-v2-lite-16b x train_4k 5.24.  None: reported, not gated (the
-#: INT8 ring is not a reference cell; the fold runs the serving tier's
-#: sharding, the parameters whole)
+#: deepseek-v2-lite-16b x train_4k 5.24, esmfold_ppm x ns256 0.14 (the fold
+#: on the production layout, ``PairGrid``).  None: reported, not gated (the
+#: INT8 ring is not a reference cell)
 DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False, 8.16),
                 ("qwen1.5-0.5b", "decode_32k", True, None),
                 ("deepseek-v2-lite-16b", "decode_32k", False, 12.60),
-                ("esmfold_ppm", "ns256", False, None),
+                ("esmfold_ppm", "ns256", False, 1.14),
                 ("phi-3-vision-4.2b", "decode_32k", False, 46.12),
                 ("chatglm3-6b", "decode_32k", False, 5.32),
                 ("qwen2.5-3b", "prefill_32k", False, 2.46),
@@ -4254,8 +4283,7 @@ def dry_run(torch) -> None:
             f"useful {rec['roofline']['useful_fraction']:.3f}, roofline fraction "
             f"{rec['roofline']['roofline_fraction']:.4f}, device {rec['device']}; peak "
             f"{peak:.3f} GB against the bound {bound} GB")
-        if rec["chips"] != 256 or rec["cost"]["flops_per_dev"] <= 0 or \
-                (arch != "esmfold_ppm" and not c["counts"]):
+        if rec["chips"] != 256 or rec["cost"]["flops_per_dev"] <= 0 or not c["counts"]:
             bad.append(f"{tag}: {rec['chips']} chips, {rec['cost']}, {c['counts']}")
         if bound is not None and peak > bound:
             bad.append(f"{tag}: peak {peak:.3f} GB a device above the bound {bound} GB")
@@ -4266,14 +4294,206 @@ def dry_run(torch) -> None:
     log(f"phase 15 wall {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the fold on the reference's production layout (a ``PairGrid``)
+# ---------------------------------------------------------------------------
+#: one card: esmfold_ppm at full width, GRID_BLOCKS of its 48 blocks (cut to
+#: keep the phase near a minute), a GRID_LEN-residue protein in bucket
+#: GRID_BUCKET
+GRID_BLOCKS = 8
+GRID_LEN = 250
+GRID_BUCKET = 256
+GRID_SCHEMES = ("lightnobel_aaq", "baseline_fp16")
+#: four cards (``--mesh-only``): all 48 blocks, N = GRID_LONG unpadded, a
+#: card a rank over NCCL, TM against one card's fold at the CPU tests' floor
+GRID_LONG = 1024
+GRID_TM_LONG = 0.995
+#: one card's folds of the 2x2 job's inputs, by scheme (rank 0 reads them)
+_GRID_ONE: dict = {}
+
+
+def _grid_inputs(torch, n: int, bucket: int):
+    """(aatype (1, bucket) on the card, its mask, or None where n fills
+    the bucket) of phase 16's protein."""
+    from repro_torch.data.pipeline import ProteinSampler
+    from repro_torch.serving.types import pad_to_bucket
+    aat, mask = pad_to_bucket([ProteinSampler(seed=16).sample(0, length=n)], bucket, 1)
+    return (torch.from_numpy(aat).cuda(),
+            None if n == bucket else torch.from_numpy(mask).cuda())
+
+
+def _grid_fold(torch, cfg, params, grid, scheme, aat, mask) -> tuple:
+    """``make_fold_step`` on ``grid`` (its parameters cut to the rank's
+    shards by ``grid_params``) or, ``grid`` None, on one device; -> (coords
+    as numpy, the peak allocated above what was held before the fold)."""
+    from repro_torch.core import make_scheme
+    from repro_torch.launch.steps import make_fold_step
+    from repro_torch.parallel import sharding as sh
+    local = params
+    if grid is not None:
+        local, grid = sh.grid_params(params, grid)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out = make_fold_step(cfg, make_scheme(scheme), shard=grid)(local, aat, mask=mask)
+    torch.cuda.synchronize()
+    return out["coords"].float().cpu().numpy(), torch.cuda.max_memory_allocated() - held
+
+
+def _grid_tm(torch, got, want) -> float:
+    from repro_torch.models.ppm import tm_score
+    if np_equal(got, want):
+        return 1.0
+    return float(tm_score(torch.from_numpy(got[0]), torch.from_numpy(want[0])))
+
+
+def _job_grid(torch, rank, world, arg) -> dict:
+    """A 2x2 ``PairGrid`` fold under each of ``GRID_SCHEMES``: ``arg`` is
+    "blocks,n,bucket".  Every rank folds its block; rank 0 holds the
+    coords against one card's (``_GRID_ONE``) and returns the TM, every
+    rank's peak, its own launches, plain calls and launch tally by shape,
+    and its collectives."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_ppm_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.ppm import init_ppm
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as sh
+    blocks, n, bucket = (int(x) for x in arg.split(","))
+    cfg = dataclasses.replace(get_ppm_config(), blocks=blocks)
+    params = init_ppm(cfg, seed=0, device="cuda")
+    aat, mask = _grid_inputs(torch, n, bucket)
+    grid = sh.pair_grid(make_mesh((2, 2), ("data", "model"), device_type="cuda"))
+    res = {}
+    for scheme in GRID_SCHEMES:
+        dispatch.reset_counters()
+        coll.reset_counts()
+        with launch_tally(full=True) as tally:
+            coords, peak = _grid_fold(torch, cfg, params, grid, scheme, aat, mask)
+        launches, plain, routed = _counts()
+        peaks = [None] * world
+        dist.all_gather_object(peaks, peak)
+        if rank == 0:
+            res[scheme] = dict(
+                tm=_grid_tm(torch, coords, _GRID_ONE[scheme]["coords"]),
+                finite=np_finite(coords), peaks_mib=[round(p / 2**20, 1) for p in peaks],
+                launches=launches, plain=plain,
+                ref_routes={k: v for k, v in routed.items() if k.endswith(".ref") and v},
+                collectives={k: v for k, v in coll.counts().items() if v["calls"]},
+                tally=list(tally.items()))
+    return res
+
+
+_RANK_JOBS["grid"] = _job_grid
+
+
+def _grid_rows(torch, rows, tally, label) -> list:
+    """The three kernels at a 2x2 grid rank's shapes (bucket 256: a
+    128 x 128 block of pair tokens, 64 fine rows a triangular attention,
+    128 query rows against 256 keys in the sequence attention), each
+    against its plain version and timed; launches from rank 0's tally."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    pending = []
+    n = GRID_BUCKET
+    _pair_kernels_at(torch, g, rows, pending, label, "grid", (GRID_LEN,), n // 4, n)
+    c = _seq_rows(torch, g, (GRID_LEN,), n, structure=False)
+    c = dict(c, q=c["q"][:, :n // 2], bias=c["bias"][:, :, :n // 2])
+    _flash_engine_row(torch, rows, pending, c, (GRID_LEN,), label, "grid", "seq",
+                      f"q ({1}, {n // 2}, 16, 64) bf16 (the rank's rows), k,v (1, {n}, 16, 64),"
+                      f" bias (1, 16, {n // 2}, {n}) f32, the key length folded into it")
+    out = []
+    for row, _, key in pending:
+        row.launches = tally.get(key, 0)
+        if row.launches == 0:
+            fail(f"phase 16: no launch a rank at {row.name} [{row.shape}]")
+        out.append(row)
+    return out
+
+
+def grid_fold(torch, rows: dict, card: str, *, across: bool = False) -> list:
+    """Phase 16 (see the module docstring).  One card: (a) a 1x1 grid
+    over NCCL bitwise one card's fold; (b) a 2x2 grid of 4 processes on
+    this card over the host-staged gloo route, TM >= MESH_TM_GATE; then
+    the kernels at a rank's shapes.  ``across`` (four cards): (c) the 2x2
+    grid a card a rank over NCCL at all 48 blocks and N = GRID_LONG, TM >=
+    GRID_TM_LONG, each rank's peak beside one card's.  Returns the kernel
+    rows."""
+    import gc
+    from repro_torch.configs import get_ppm_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.ppm import init_ppm
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as sh
+    t0 = time.perf_counter()
+    bad, out = [], {}
+    if across:
+        blocks, n, bucket, gate, what = 48, GRID_LONG, GRID_LONG, GRID_TM_LONG, "16(c)"
+    else:
+        blocks, n, bucket, gate, what = GRID_BLOCKS, GRID_LEN, GRID_BUCKET, MESH_TM_GATE, "16(b)"
+    cfg = dataclasses.replace(get_ppm_config(), blocks=blocks)
+    params = init_ppm(cfg, seed=0, device="cuda")
+    aat, mask = _grid_inputs(torch, n, bucket)
+    for scheme in GRID_SCHEMES:
+        coords, peak = _grid_fold(torch, cfg, params, None, scheme, aat, mask)
+        _GRID_ONE[scheme] = dict(coords=coords, peak_mib=round(peak / 2**20, 1))
+    if not across:
+        with _one_rank_nccl():
+            grid = sh.pair_grid(make_mesh((1, 1), ("data", "model")))
+            for scheme in GRID_SCHEMES:
+                dispatch.reset_counters()
+                coll.reset_counts()
+                coords, peak = _grid_fold(torch, cfg, params, grid, scheme, aat, mask)
+                launches, plain, routed = _counts()
+                if scheme == "lightnobel_aaq":
+                    _check_main_path("phase 16(a), a 1x1 grid over NCCL", launches, plain, routed)
+                same = np_equal(coords, _GRID_ONE[scheme]["coords"])
+                out[f"1x1 {scheme}"] = dict(bitwise=same, peak_mib=round(peak / 2**20, 1),
+                                           launches=launches)
+                if not same:
+                    bad.append(f"16(a) {scheme}: a 1x1 grid not bitwise one card's (TM "
+                               f"{_grid_tm(torch, coords, _GRID_ONE[scheme]['coords']):.6f})")
+        log(f"phase 16(a) done at {time.perf_counter() - t0:.1f}s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = _rank_job_run(torch, "grid", 4, f"{blocks},{n},{bucket}", gloo=not across)
+    for scheme in GRID_SCHEMES:
+        r = res[scheme]
+        r["one_card_peak_mib"] = _GRID_ONE[scheme]["peak_mib"]
+        out[f"2x2 {scheme}"] = {k: v for k, v in r.items() if k != "tally"}
+        if not r["finite"] or r["tm"] < gate:
+            bad.append(f"{what} {scheme}: TM {r['tm']:.6f} against one card (gate {gate})")
+        if any(r["plain"].values()) or r["ref_routes"]:
+            bad.append(f"{what} {scheme}: a plain version ran: {r['plain']} {r['ref_routes']}")
+        if scheme == "lightnobel_aaq" and any(r["launches"][k] == 0 for k in dispatch.MAIN_PATH):
+            bad.append(f"{what}: a main-path kernel was never launched: {r['launches']}")
+    _GRID_ONE.clear()
+    log(f"phase 16 readings on {card} (esmfold_ppm, {blocks} blocks, N = {n} in bucket "
+        f"{bucket}): {json.dumps(out)}")
+    if bad:
+        fail("phase 16: " + "; ".join(bad))
+    grid_rows = []
+    if not across:
+        tally = Counter(dict(res["lightnobel_aaq"]["tally"]))
+        grid_rows = _grid_rows(torch, rows, tally,
+                               f"grid 2x2, bucket {GRID_BUCKET}, a rank ({GRID_BLOCKS} blocks)")
+    torch.cuda.empty_cache()
+    log(f"phase 16 wall {time.perf_counter() - t0:.1f}s")
+    return grid_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke test of the port on the card")
     ap.add_argument("--mesh-only", action="store_true",
-                    help="build the kernels and run phases 11, 12 and 13 (the mesh tier, "
-                         "multi-device training, the fleet on a mesh) alone")
-    ap.add_argument("--phases", default="11,12,13",
-                    help="with --mesh-only: the phases of 11, 12 and 13 to run "
-                         "(default all three)")
+                    help="build the kernels and run phases 11, 12, 13 and 16 (the mesh "
+                         "tier, multi-device training, the fleet on a mesh, the grid "
+                         "fold) alone")
+    ap.add_argument("--phases", default="11,12,13,16",
+                    help="with --mesh-only: the phases of 11, 12, 13 and 16 to run "
+                         "(default all four)")
     # a started rank of a phase 12 job (``_rank_job_run``)
     ap.add_argument("--rank-job", choices=sorted(_RANK_JOBS), help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
@@ -4281,6 +4501,7 @@ def main(argv=None) -> int:
     ap.add_argument("--init", help=argparse.SUPPRESS)
     ap.add_argument("--arg", default="", help=argparse.SUPPRESS)
     ap.add_argument("--parent", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--gloo", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.rank_job:
         return rank_job(args)
@@ -4401,14 +4622,19 @@ def main(argv=None) -> int:
     dry_run(torch)
     log(f"phase 15 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 16. summary
+    # 16. the fold on the reference's production layout: a 1x1 grid over
+    # NCCL, a 2x2 grid on this card over the host-staged gloo route
+    grid_rows = grid_fold(torch, rows, smi)
+    log(f"phase 16 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 17. summary
     log(f"total {time.perf_counter() - t_start:.1f}s")
     # each variant at its first timed shape, then every kernel at the engine's
     # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs), the
     # LM decode shapes, the zoo's shapes, the quantize forms at the zoo's
     # residual widths (bf16, bits 8, k 4) and at the training shapes, the
-    # pair kernels at a mesh rank's shapes (1x2, 1x4), and the fake-quant at
-    # a training rank's shapes
+    # pair kernels at a mesh rank's shapes (1x2, 1x4), the fake-quant at
+    # a training rank's shapes, and the three kernels at a 2x2 grid rank's
     print(json.dumps({"kernels": [r[0].record() for r in rows.values()]
                       + [row.record() for row, _, _ in pending]
                       + [row.record() for row, _ in lm_pending]
@@ -4416,7 +4642,8 @@ def main(argv=None) -> int:
                       + [row.record() for row, _ in wide_pending]
                       + [row.record() for row, _ in train_pending]
                       + [row.record() for row in mesh_rows]
-                      + [row.record() for row in mt_rows]}))
+                      + [row.record() for row in mt_rows]
+                      + [row.record() for row in grid_rows]}))
     print(smi)
     print(ok_line(torch))
     return 0
@@ -4429,12 +4656,13 @@ def ok_line(torch) -> str:
 
 
 def mesh_only(torch, smi, t_start, phases) -> int:
-    """``--mesh-only``: ``phases`` of 11 and 12 after the build, and 13 on a
-    1x2 mesh where there are two cards, then the kernel rows of 11 and 12,
-    the card and the last line."""
-    if not phases or phases - {11, 12, 13}:
-        fail(f"--phases takes 11, 12 and 13, not {sorted(phases)}")
-    mesh_rows = mt_rows = []
+    """``--mesh-only``: ``phases`` of 11 and 12 after the build, 13 on a
+    1x2 mesh where there are two cards, and 16 (its 2x2 grid a card a rank
+    where there are four cards, else on this card), then the kernel rows
+    of 11, 12 and 16, the card and the last line."""
+    if not phases or phases - {11, 12, 13, 16}:
+        fail(f"--phases takes 11, 12, 13 and 16, not {sorted(phases)}")
+    mesh_rows = mt_rows = grid_rows = []
     if 11 in phases:
         mesh_rows, mesh_launches = serve_mesh(torch, {})
         log(f"mesh launches (rank 0's counted runs): {mesh_launches}")
@@ -4451,9 +4679,13 @@ def mesh_only(torch, smi, t_start, phases) -> int:
             log(f"phase 13 done at {time.perf_counter() - t_start:.1f}s")
         else:
             log("phase 13: one card visible; the fleet on a 1x2 mesh not run")
+    if 16 in phases:
+        grid_rows = grid_fold(torch, {}, smi, across=torch.cuda.device_count() >= 4)
+        log(f"phase 16 done at {time.perf_counter() - t_start:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [row.record() for row in mesh_rows]
-                      + [row.record() for row in mt_rows]}))
+                      + [row.record() for row in mt_rows]
+                      + [row.record() for row in grid_rows]}))
     print(smi)
     print(ok_line(torch))
     return 0

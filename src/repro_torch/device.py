@@ -57,8 +57,13 @@ def per_row(fn, *xs):
     row by row independent), one row at a time and concatenated where a
     ``rows_alone`` scope is on and ``xs[0]`` is a CUDA batch of more than
     one row (a float32 fold's products, and its fp16 ones under the
-    baseline scheme); else ``fn(*xs)``."""
+    baseline scheme); else ``fn(*xs)``.  In such a scope the result is
+    contiguous at every batch size, as the concatenation is: an einsum's
+    own result is a permuted view, and a reduction over it (the tri-mul's
+    LayerNorm) sums in another order than over the contiguous batch."""
     x = xs[0]
-    if not (getattr(_ROWS, "on", False) and x.is_cuda and x.dim() >= 3 and x.shape[0] > 1):
-        return fn(*xs)
+    on = getattr(_ROWS, "on", False) and x.is_cuda
+    if not (on and x.dim() >= 3 and x.shape[0] > 1):
+        out = fn(*xs)
+        return out.contiguous() if on else out
     return torch.cat([fn(*(t[i:i + 1] for t in xs)) for i in range(x.shape[0])])

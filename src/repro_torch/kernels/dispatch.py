@@ -195,7 +195,8 @@ def describe(backend: str | None = None, device: torch.device | str = "cuda") ->
 # routed ops
 # --------------------------------------------------------------------------
 def attention(q, k, v, *, bias=None, causal=False, window=None,
-              kv_valid_len=None, softmax_scale=None, q_chunk=512, backend=None):
+              kv_valid_len=None, softmax_scale=None, q_chunk=512, q_offset=0,
+              backend=None):
     """Token-wise MHA: q (B,Sq,Hq,D); k (B,Skv,Hkv,D); v (B,Skv,Hkv,Dv) with
     Dv <= D; bias (Bb,Hq,Sq,Skv) with block batch-broadcast (bias row t
     covers B//Bb consecutive q rows).  -> (B,Sq,Hq,Dv).
@@ -205,8 +206,14 @@ def attention(q, k, v, *, bias=None, causal=False, window=None,
     the output sliced back: exact, the padded columns are sums of zeros.
     Ref path: ``mha_chunked``, v as it is (and the path of operands that
     require grad in ``auto`` mode: the reference's training attention).
+    ``q_offset``: the keys' position of q's first row, for a block of the
+    query rows under a causal or window mask (a sharded step's; the plain
+    path takes it, the kernel raises).
     """
     if _route("attention", q.device, backend, (q, k, v, bias)):
+        if q_offset and (causal or window is not None):
+            raise ValueError("flash_mha_kernel: a causal or window mask at a query offset "
+                             "is not a kernel launch; take the plain route")
         dv = v.shape[-1]
         if dv < q.shape[-1]:
             v = F.pad(v, (0, q.shape[-1] - dv))
@@ -215,7 +222,7 @@ def attention(q, k, v, *, bias=None, causal=False, window=None,
         return o if o.shape[-1] == dv else o[..., :dv]
     return mha_chunked(q, k, v, bias=bias, causal=causal, window=window,
                        kv_valid_len=kv_valid_len, softmax_scale=softmax_scale,
-                       q_chunk=q_chunk)
+                       q_chunk=q_chunk, q_offset=q_offset)
 
 
 def quantized_linear(x, w, *, bits: int, k_outliers: int, bias=None,

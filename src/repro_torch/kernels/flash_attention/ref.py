@@ -53,17 +53,19 @@ def _expand_kv(k, v, group):
 
 
 def mha_ref(q, k, v, *, bias=None, causal=False, window=None,
-            kv_valid_len=None, softmax_scale=None):
+            kv_valid_len=None, softmax_scale=None, q_offset=0):
     """Masked multi-head attention, materializing the score tensor.
 
     q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D) with Hq % Hkv == 0 (GQA);
     bias (Bb,Hq,Sq,Skv) with B % Bb == 0 (block broadcast);
     kv_valid_len (B,) int32.  A fully masked row returns mean(v).
+    ``q_offset``: the position of q's first row among the keys' (the
+    causal and window masks of a block of query rows).
     """
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     kx, vx = _expand_kv(k, v, hq // hkv)
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     s = _scores(q, kx, bias, b, _scale(d, softmax_scale), qpos, kpos, causal,
                 window, kv_valid_len)
@@ -73,20 +75,21 @@ def mha_ref(q, k, v, *, bias=None, causal=False, window=None,
 
 
 def mha_chunked(q, k, v, *, bias=None, causal=False, window=None,
-                kv_valid_len=None, softmax_scale=None, q_chunk=512):
+                kv_valid_len=None, softmax_scale=None, q_chunk=512, q_offset=0):
     """Query-chunked attention: :func:`mha_ref`'s semantics with a score
     tensor of only (B, H, q_chunk, Skv) at a time."""
     b, sq, hq, d = q.shape
     if sq <= q_chunk or sq % q_chunk:
         return mha_ref(q, k, v, bias=bias, causal=causal, window=window,
-                       kv_valid_len=kv_valid_len, softmax_scale=softmax_scale)
+                       kv_valid_len=kv_valid_len, softmax_scale=softmax_scale,
+                       q_offset=q_offset)
     skv, hkv = k.shape[1], k.shape[2]
     kx, vx = _expand_kv(k, v, hq // hkv)
     kpos = torch.arange(skv, device=q.device)[None, :]
     outs = []
     for c0 in range(0, sq, q_chunk):
         bb = None if bias is None else bias[:, :, c0:c0 + q_chunk]
-        qpos = c0 + torch.arange(q_chunk, device=q.device)[:, None]
+        qpos = q_offset + c0 + torch.arange(q_chunk, device=q.device)[:, None]
         s = _scores(q[:, c0:c0 + q_chunk], kx, bb, b, _scale(d, softmax_scale),
                     qpos, kpos, causal, window, kv_valid_len)
         p = torch.softmax(s, dim=-1)

@@ -16,8 +16,13 @@ process group of 256 ranks (512 for ``--mesh multi``) under
 state, batch and cache laid out as DTensors of the reference's specs
 (``parallel/sharding.py``), and the step ``launch/steps.py`` makes run
 once while ``cost_analysis.CostMode`` counts rank 0's ops.  The fold cell
-runs the serving tier's sharding: the pair tensor split on j over
-``model`` (``PairShard``), the parameters whole on every rank.  Kernels
+runs the reference's production layout, as its dry-run lays the cell out
+(``param_shardings(params, mesh, None)`` under ``default_act_rules(mesh,
+"train")``): the pair tensor's rows over the data axes and its columns
+over ``model`` (``PairGrid``), the sequence track's rows over the data
+axes, every parameter the rank's shard by ``param_spec`` (one block's
+weights gathered at a time); its peak is held to the same bound as every
+LM cell's (``chip_smoke.py`` phase 15).  Kernels
 take their plain route (``dispatch.use_backend("ref")``): a kernel wrapper
 cannot launch on a fake tensor, and off the TPU the reference's dispatch
 picks its plain path too, so its dry-run lowers the same math.
@@ -234,22 +239,19 @@ def _lm_cell(rec, cfg, shape, mesh, aaq, quantized_kv, dev, mode):
 
 
 def _fold_cell(shape, mesh, aaq, dev, mode, cfg=None):
-    """Build and trace the fold cell: the pair tensor split on j over
-    ``model`` (the serving tier's ``PairShard``), the batch over ``data``
-    where it divides, the parameters whole."""
+    """Build and trace the fold cell on the production layout (the module
+    docstring): a ``PairGrid`` over the mesh, the parameters cut to rank
+    0's shards (``grid_params``; the whole ones dropped before the trace),
+    the batch whole (``ppm_input_shardings``)."""
     from repro_torch.core.schemes import AAQScheme, FP16Baseline
     from repro_torch.models.ppm import init_ppm
     cfg = cfg or get_ppm_config()
     params = init_ppm(cfg, seed=0, device=dev)
     n_params = count_params_from_sds(params)
-    shard, b = None, shape.global_batch
+    shard = None
     if mesh is not None:
-        axes = sh.mesh_axes(mesh)
-        shard = sh.PairShard(mesh.get_group("model"), axes["model"],
-                             mesh.get_local_rank("model"))
-        data = axes["data"]
-        b = b // data if b % data == 0 else b
-    aatype = torch.zeros((b, shape.seq_len), dtype=torch.int32, device=dev)
+        params, shard = sh.grid_params(params, sh.pair_grid(mesh))
+    aatype = torch.zeros((shape.global_batch, shape.seq_len), dtype=torch.int32, device=dev)
     step = make_fold_step(cfg, AAQScheme(cfg=aaq) if aaq.enabled else FP16Baseline(),
                           shard=shard)
     mode.track((params, aatype))

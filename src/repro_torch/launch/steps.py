@@ -3,7 +3,7 @@
     train_step(params, opt_state, batch)  -> (params', opt_state', metrics)
     prefill_step(params, batch)           -> logits
     serve_step(params, batch, cache)      -> (logits, cache')
-    fold_step(params, aatype)             -> coords/distogram   (PPM)
+    fold_step(params, aatype[, mask])     -> coords/distogram   (PPM)
 
 The reference jits these; the port runs them eagerly.  ``train_step``
 updates the parameter and optimizer tensors in place (``adamw.update``)
@@ -127,12 +127,16 @@ def make_serve_step(cfg: ArchConfig, aaq: AAQConfig = DISABLED):
 
 
 def make_fold_step(cfg, scheme: QuantScheme | None = None, shard=None):
-    """PPM inference step (the paper's workload); ``shard``
-    (``sharding.PairShard``) runs this rank's part of the j-sharded fold."""
+    """PPM inference step (the paper's workload); ``shard`` runs this
+    rank's part of a sharded fold: a ``sharding.PairShard`` (j over
+    ``model``) or a ``sharding.PairGrid`` (i over the data axes, j over
+    ``model``; the parameters the rank's shards where ``grid_params`` cut
+    them, the reference's production layout)."""
     from repro_torch.models.ppm import ppm_forward
 
-    def fold_step(params, aatype):
-        out = ppm_forward(params, aatype, cfg, scheme or FP16Baseline(), shard=shard)
+    def fold_step(params, aatype, mask=None):
+        out = ppm_forward(params, aatype, cfg, scheme or FP16Baseline(), mask=mask,
+                          shard=shard)
         return {"coords": out["coords"], "distogram": out["distogram"]}
 
     return fold_step

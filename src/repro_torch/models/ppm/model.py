@@ -48,7 +48,8 @@ def input_embedding(p, aatype: torch.Tensor, cfg: PPMConfig,
     With ``chunk_size`` the pair sum is formed by row slabs written into
     one output, so its two full-size addends never exist; each element is
     the same sum in the same order.  Without, one slab holds every row.
-    Under ``shard`` z0 is made on the rank's columns only, (B,N,N/W,Hz).
+    Under ``shard`` z0 is made on the rank's block only, (B,N/D,N/M,Hz),
+    and s0 on its rows (every row on one row strip).
     """
     s0 = cm.embed(p["aa_embed"], aatype)
     li = cm.dense(p["left"], s0)
@@ -58,7 +59,8 @@ def input_embedding(p, aatype: torch.Tensor, cfg: PPMConfig,
     half = cfg.relpos_bins // 2
     rel = torch.clamp(pos[:, None] - pos[None, :], -half, half) + half
     if shard is not None:
-        ri, rel = ri[:, shard.cols(n)], rel[:, shard.cols(n)]
+        rows, cols = shard.rows(n), shard.cols(n)
+        s0, li, ri, rel = s0[:, rows], li[:, rows], ri[:, cols], rel[rows, cols]
     z0 = ck.scan_row_slabs(
         lambda sl: (sl[0][:, :, None, :] + ri[:, None, :, :]
                     + cm.embed(p["relpos"], sl[1])).to(cfg.torch_dtype),
@@ -70,13 +72,14 @@ def distogram_head(p, z: torch.Tensor, chunk_size: int | None = None,
                    shard=None):
     """Distogram logits of the symmetrized pair tensor; with ``chunk_size``
     by row slabs (rows i of z with the matching columns for the transpose)
-    written into one output.  Under ``shard`` the transpose's columns j0:j1
-    are z's rows j0:j1 (an all-to-all), and the rank's columns of the
-    logits are gathered to the group's rank 0 (``None`` on the others)."""
-    zt = z.transpose(1, 2) if shard is None else shard.cols_to_rows(z).transpose(1, 2)
+    written into one output.  Under ``shard`` the transpose's block is
+    ``shard.swap(z)`` (on one row strip an all-to-all), and the rank's
+    block of the logits is gathered to the shard's first rank (``None`` on
+    the others)."""
+    zt = z.transpose(1, 2) if shard is None else shard.swap(z).transpose(1, 2)
     d = ck.scan_row_slabs(lambda sl: cm.dense(p, 0.5 * (sl[0] + sl[1])),
                           (z, zt), chunk_size)
-    return d if shard is None else shard.gather_to_root(d, 2)
+    return d if shard is None else shard.block_to_root(d)
 
 
 def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
@@ -94,11 +97,15 @@ def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
     embedding, the structure module's pair bias and the distogram head by
     row slabs of the same chunk; None/0 is unchunked.
 
-    ``shard`` (``repro_torch.parallel.sharding.PairShard``) runs this
-    rank's part of the mesh-sharded forward: the pair tensor split on j
-    over the model group (``trunk.py``), ``z`` in the result the rank's
-    columns, coords on every rank, the distogram on the group's rank 0
-    only.  ``distogram=False`` skips the head (``None`` in the result).
+    ``shard`` runs this rank's part of the mesh-sharded forward: a
+    ``repro_torch.parallel.sharding.PairShard`` splits the pair tensor on
+    j over the model group (the serving tier), a ``PairGrid`` on i over
+    the data axes and j over ``model`` (the reference's production layout;
+    unchunked only), its parameters the rank's shards where
+    ``sharding.grid_params`` cut them (each gathered at its use).  ``z`` in
+    the result is the rank's part, ``s`` and coords are whole on every
+    rank, the distogram on the shard's first rank only.
+    ``distogram=False`` skips the head (``None`` in the result).
     """
     scheme = scheme or FP16Baseline()
     if mask is not None:
@@ -110,12 +117,22 @@ def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
                         distogram)
 
 
+def _whole(params, shard, *keys):
+    """``params`` with ``keys`` gathered whole where a grid cut them."""
+    specs = None if shard is None else shard.specs
+    if specs is None:
+        return params
+    return {**params, **{k: shard.whole_params(params[k], specs[k]) for k in keys}}
+
+
 def _forward(params, aatype, cfg, scheme, mask, chunk_size, shard, distogram):
-    s0, z0 = input_embedding(params, aatype, cfg, chunk_size, shard)
+    s0, z0 = input_embedding(_whole(params, shard, "aa_embed", "left", "right", "relpos"),
+                             aatype, cfg, chunk_size, shard)
     s, z = s0, z0
     for r in range(cfg.recycles):
-        ds = cm.layernorm(params["recycle_s_ln"], s) if r else 0.0
-        dz = cm.layernorm(params["recycle_z_ln"], z) if r else 0.0
+        lns = _whole(params, shard, "recycle_s_ln", "recycle_z_ln")
+        ds = cm.layernorm(lns["recycle_s_ln"], s) if r else 0.0
+        dz = cm.layernorm(lns["recycle_z_ln"], z) if r else 0.0
         if r == cfg.recycles - 1:
             # the last use of s0/z0: add into them in place (the same
             # rounding as s0 + ds) and hand them over to the trunk
@@ -127,11 +144,13 @@ def _forward(params, aatype, cfg, scheme, mask, chunk_size, shard, distogram):
         s, z = tk.trunk_apply(params["trunk"], s_in, z_in, cfg, scheme, mask=mask,
                               chunk_size=chunk_size, shard=shard)
         s_in = z_in = None
-    coords, s_final = st.structure_apply(params["structure"], s, z,
+    if shard is not None:
+        s = shard.seq_whole(s)
+    coords, s_final = st.structure_apply(_whole(params, shard, "structure")["structure"], s, z,
                                          n_iter=cfg.ipa_iters, mask=mask,
                                          chunk_size=chunk_size, shard=shard)
-    disto = (distogram_head(params["distogram"], z, chunk_size, shard)
-             if distogram else None)
+    disto = (distogram_head(_whole(params, shard, "distogram")["distogram"], z, chunk_size,
+                            shard) if distogram else None)
     return {"coords": coords, "distogram": disto, "s": s_final, "z": z}
 
 

@@ -51,8 +51,8 @@ def structure_apply(p, s, z, n_iter: int = 4, mask=None,
     ``mask`` (B, N) bool marks real tokens; padded keys get the additive
     -1e9 key-padding bias and their values are zeroed.  ``chunk_size``
     builds the pair bias by row slabs (``pair_bias``).  Under ``shard``
-    (``z`` the rank's columns) the (B,N,N,H) bias is built on the shard
-    and gathered, never z; the rest is replicated.
+    (``z`` the rank's part, ``s`` whole) the (B,N,N,H) bias is built on the
+    rank's part and gathered, never z; the rest is replicated.
     """
     b, n, hm = s.shape
     heads = p["pair_bias"]["w"].shape[-1]
@@ -60,7 +60,7 @@ def structure_apply(p, s, z, n_iter: int = 4, mask=None,
     t = torch.zeros((b, n, 3), dtype=torch.float32, device=s.device)
     bias = pair_bias(p, z, chunk_size)                       # (B,N,N,H)
     if shard is not None:
-        bias = shard.gather(bias, 2)
+        bias = shard.whole(bias)
     bias = bias.permute(0, 3, 1, 2).float()
     key_bias = cm.key_padding_bias(mask) if mask is not None else None
     dist = torch.logaddexp(p["dist_w"].float(), torch.zeros((), device=s.device))  # softplus

@@ -15,24 +15,34 @@ a Python loop over per-block parameter dicts (the reference stacks them for
 ``scan``); ``trunk_apply(..., chunk_size=)`` runs the row-chunked pair
 stack (``chunking.py``).
 
-Every op takes ``shard`` (``repro_torch.parallel.sharding.PairShard``):
-the pair tensor then holds this rank's columns j0:j1 of z, (B, N, N/W,
-Hz), with ``s`` replicated, and each op fetches what its contraction
-needs from the model group (the reference's GSPMD partitioning of the
-same ops, made explicit):
+Every op takes ``shard``: a ``repro_torch.parallel.sharding.PairShard``
+(the serving tier: this rank's columns J of z, (B, N, N/W, Hz), ``s``
+replicated) or a ``PairGrid`` (the reference's production layout: the
+block z[:, I, J], (B, N/D, N/M, Hz), rows over the data axes and columns
+over ``model``, and the sequence track's rows I).  A ``PairShard`` is the
+grid of one row strip, and both speak the grid's vocabulary, so each op
+below is written once; each fetches what its contraction needs (the
+reference's GSPMD partitioning of the same ops, made explicit):
 
-  * pair transition, the OPM update and every AAQ site: nothing (AAQ is
-    token-wise, so each pair position is local; OPM's ``s`` is whole);
-  * tri-mul incoming (x_ij = sum_k a_ki b_kj): ``a`` gathered, ``b`` local;
-  * tri-mul outgoing (x_ij = sum_k a_ik b_jk): ``a`` gathered and ``b``'s
-    rows j0:j1 over every k (an all-to-all);
-  * tri-attention, ending node (attends over i at a fixed j): local, with
-    its (B, N, N, heads) bias gathered; starting node (attends over k along
-    row i): an all-to-all to a row shard and back, the bias gathered;
-  * sequence attention's pair bias: projected on the shard, then gathered.
+  * pair transition and every AAQ site: nothing (AAQ is token-wise, so
+    each pair position is local);
+  * the OPM update: ``s``'s rows I against its rows J (``seq_cols``);
+  * tri-mul outgoing (x_ij = sum_k a_ik b_jk): ``a``'s rows I over every k
+    (``row_strip``) and ``b``'s rows J over every k (``swap_rows``: the
+    transpose's block, then gathered; an all-to-all on one row strip);
+  * tri-mul incoming (x_ij = sum_k a_ki b_kj): ``a``'s columns I over
+    every k (``swap_cols``) and ``b``'s columns J (``col_strip``);
+  * tri-attention, starting node (attends over k along row i): an
+    all-to-all to the rank's N/(DM) fine rows with every column and back,
+    the (B, N, N, heads) bias gathered whole; ending node (attends over i
+    at a fixed j): the same on the transposed block's fine columns;
+  * sequence attention: queries on the rows I, keys and values gathered
+    (``seq_whole``), the pair bias projected on the block and gathered to
+    rows I over every j.
 
-A gather concatenates and changes no sum, so with ``shard`` of one rank
-the ops compute what the unsharded ops do.
+No rank holds an N x N operand of more than ``heads`` channels.  A gather
+or a transpose concatenates and changes no sum, so with ``shard`` of one
+rank the ops compute what the unsharded ops do.
 """
 from __future__ import annotations
 
@@ -165,9 +175,12 @@ def rows_valid_len(lens: torch.Tensor, rows: int) -> torch.Tensor:
 
 def _pair_mask(mask, shard=None):
     """(B, N) bool -> (B, N, N, 1) bool: True where both tokens are real
-    (columns j0:j1 only under ``shard``)."""
-    cols = mask if shard is None else mask[:, shard.cols(mask.shape[1])]
-    return (mask[:, :, None] & cols[:, None, :])[..., None]
+    (the rank's rows and columns only under ``shard``)."""
+    rows, cols = mask, mask
+    if shard is not None:
+        n = mask.shape[1]
+        rows, cols = mask[:, shard.rows(n)], mask[:, shard.cols(n)]
+    return (rows[:, :, None] & cols[:, None, :])[..., None]
 
 
 # --------------------------------------------------------------------------
@@ -190,10 +203,12 @@ def tri_mul_apply(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
         pm = _pair_mask(mask, shard).to(a.dtype)
         a = a * pm
         b = b * pm
-    if shard is not None:
-        a = shard.gather(a, 2)                  # every k (outgoing) / i (incoming)
-        if outgoing:
-            b = shard.cols_to_rows(b)           # rows j0:j1, every k
+    if shard is not None and outgoing:
+        a = shard.row_strip(a)                  # rows I, every k
+        b = shard.swap_rows(b)                  # rows J, every k
+    elif shard is not None:
+        a = shard.swap_cols(a)                  # every k, columns I
+        b = shard.col_strip(b)                  # every k, columns J
     eq = "bikc,bjkc->bijc" if outgoing else "bkic,bkjc->bijc"
     x = per_row(lambda a, b: torch.einsum(eq, a.float(), b.float()), a, b).to(z.dtype)
     x = scheme.act(x, f"{sc}.prod_pre_ln")                  # Group A (large)
@@ -208,29 +223,44 @@ def tri_attn_apply(p, z, scheme: QuantScheme, starting: bool, sc: str,
                    heads: int, mask=None, shard=None):
     """Triangular attention; ending-node = starting-node on transposed pair.
 
-    It runs on rows: (B, R, N, Hz) with R = N, or under ``shard`` R = N/W
-    (the ending node's transposed column shard, the starting node's row
-    shard fetched by an all-to-all)."""
+    It runs on rows: (B, R, N, Hz) with R = N, or under ``shard`` the
+    rank's fine rows (starting) or the transposed block's fine columns
+    (ending), R = N/(DM), fetched by an all-to-all (none for the ending
+    node on one row strip).  Where N/(DM) is not whole (a grid larger than
+    N/D, as the multi-pod mesh at N = 256), it runs on the block itself:
+    the block's positions are the queries, keys and values are gathered
+    over the block's rows (starting) or columns (ending), and the bias to
+    the queries' rows (``shard.swap_rows``/``swap_cols``)."""
+    blocks = shard is not None and (z.shape[1] * shard.d) % shard.size != 0
     if not starting:
         z = z.transpose(1, 2)
-    elif shard is not None:
-        z = shard.cols_to_rows(z)
+        if shard is not None and not blocks:
+            z = shard.to_fine_cols(z)
+    elif shard is not None and not blocks:
+        z = shard.to_fine_rows(z)
     z = scheme.act(z, f"{sc}.pre_ln")                       # Group A
     zl = cm.layernorm(p["ln"], z)
     zl = scheme.act(zl, f"{sc}.post_ln")                    # Group B
-    b_, r, n, hz = zl.shape
+    b_, r, nq, hz = zl.shape
     dh = hz // heads
     qkv = cm.dense(p["qkv"], zl, scheme, f"{sc}.qkv_in")
     q, k, v = torch.split(qkv, hz, dim=-1)
-    q = q.reshape(b_, r, n, heads, dh)
+    bias = cm.dense(p["bias"], zl, scheme, f"{sc}.post_ln")  # (B,R,Nq,H)
+    if blocks:
+        # every key of the block's rows; the bias rows of its queries
+        k, v = (shard.row_strip(t) if starting else shard.row_strip_t(t) for t in (k, v))
+        bias = (shard.swap_rows(bias) if starting
+                else shard.swap_cols(bias.transpose(1, 2)).transpose(1, 2))
+    elif shard is not None:
+        bias = (shard.fine_rows_whole(bias) if starting
+                else shard.fine_cols_whole(bias))            # (B,N,N,H)
+    n = k.shape[2]
+    q = q.reshape(b_, r, nq, heads, dh)
     k = k.reshape(b_, r, n, heads, dh)
     v = v.reshape(b_, r, n, heads, dh)
     if mask is not None:
         # padded keys: zero v so that 0 * garbage never becomes NaN
         v = v * mask[:, None, :, None, None].to(v.dtype)
-    bias = cm.dense(p["bias"], zl, scheme, f"{sc}.post_ln")  # (B,R,N,H)
-    if shard is not None:
-        bias = shard.gather(bias, 1)                         # (B,N,N,H)
     # starting node: logits[b,h,i,j,k] = q_ij . k_ik + bias_jk
     if n >= CHUNKED_ATTN_LEN or dispatch.attention_is_kernel(z.device):
         # token-wise MHA: rows are batch; the (B,H,N,N) bias is broadcast
@@ -241,13 +271,13 @@ def tri_attn_apply(p, z, scheme: QuantScheme, starting: bool, sc: str,
         if mask is not None:
             lens = mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)   # (B,)
             kv_valid = rows_valid_len(lens, r)                            # (B*r,)
-        o = dispatch.attention(q.reshape(b_ * r, n, heads, dh),
+        o = dispatch.attention(q.reshape(b_ * r, nq, heads, dh),
                                k.reshape(b_ * r, n, heads, dh),
                                v.reshape(b_ * r, n, heads, dh),
                                bias=bias.permute(0, 3, 1, 2),
                                kv_valid_len=kv_valid,
                                causal=False, q_chunk=512)
-        o = o.reshape(b_, r, n, heads, dh).to(z.dtype)
+        o = o.reshape(b_, r, nq, heads, dh).to(z.dtype)
     else:
         logits = per_row(lambda q, k: torch.einsum("bijhd,bikhd->bhijk", q.float(), k.float()),
                          q, k) / torch.sqrt(torch.tensor(float(dh)))
@@ -258,13 +288,15 @@ def tri_attn_apply(p, z, scheme: QuantScheme, starting: bool, sc: str,
         probs = scheme.act(probs, f"{sc}.probs")            # Group C
         o = per_row(lambda p, v: torch.einsum("bhijk,bikhd->bijhd", p.float(), v.float()),
                     probs, v).to(z.dtype)
-    o = scheme.act(o.reshape(b_, r, n, hz), f"{sc}.av")     # Group C
+    o = scheme.act(o.reshape(b_, r, nq, hz), f"{sc}.av")    # Group C
     g = torch.sigmoid(cm.dense(p["gate"], zl, scheme, f"{sc}.gate"))
     out = cm.dense(p["out"], g * o, scheme, f"{sc}.proj_in")
     if not starting:
+        if shard is not None and not blocks:
+            out = shard.from_fine_cols(out)
         out = out.transpose(1, 2)
-    elif shard is not None:
-        out = shard.rows_to_cols(out)
+    elif shard is not None and not blocks:
+        out = shard.from_fine_rows(out)
     return out
 
 
@@ -284,22 +316,27 @@ def seq_attn_apply(p, s, z, heads: int, mask=None, pair_bias=None,
                    shard=None):
     """``pair_bias`` lets the chunked path supply a pre-built (B,N,N,H)
     bias table (``chunking.seq_pair_bias_chunked``); without it the bias is
-    projected here, on ``shard``'s columns and then gathered."""
+    projected here, on ``shard``'s block and then gathered to the rank's
+    rows over every column.  Under ``shard`` ``s`` is the rank's rows
+    (every row on one row strip): they are the queries, and the keys and
+    values are gathered over the rows."""
     b_, n, hm = s.shape
     dh = hm // heads
     sl = cm.layernorm(p["ln"], s)
     qkv = cm.dense(p["qkv"], sl)
     q, k, v = torch.split(qkv, hm, dim=-1)
+    if shard is not None:
+        k, v = shard.seq_whole(k), shard.seq_whole(v)
     q = q.reshape(b_, n, heads, dh)
-    k = k.reshape(b_, n, heads, dh)
-    v = v.reshape(b_, n, heads, dh)
+    k = k.reshape(b_, -1, heads, dh)
+    v = v.reshape(b_, -1, heads, dh)
     if mask is not None:
         v = v * mask[:, :, None, None].to(v.dtype)
     bias = pair_bias
     if bias is None:
         bias = cm.dense(p["pair_bias"], cm.layernorm(p["pair_bias_ln"], z))
         if shard is not None:
-            bias = shard.gather(bias, 2)
+            bias = shard.row_strip(bias)
     bias = bias.permute(0, 3, 1, 2).to(torch.float32, copy=True)   # (B,H,N,N)
     if mask is not None:
         # additive key-padding fold: real keys get literal +0.0; in place,
@@ -319,7 +356,7 @@ def opm_apply(p, s, shard=None):
     sl = cm.layernorm(p["ln"], s)
     a, b = cm.dense(p["a"], sl), cm.dense(p["b"], sl)       # (B,N,32)
     if shard is not None:
-        b = b[:, shard.cols(b.shape[1])]                    # columns j0:j1
+        b = shard.seq_cols(b)                               # rows J of s
     outer = torch.einsum("bic,bjd->bijcd", a.float(), b.float()).to(s.dtype)
     return cm.dense(p["out"], outer.reshape(*outer.shape[:3], -1))
 
@@ -355,16 +392,26 @@ def trunk_apply(blocks: list[cm.Params], s, z, cfg: PPMConfig,
     slabs instead of O(N²), each op's slabs added into ``z`` in place, so
     the chunked path consumes ``z``: the caller hands over a tensor it owns
     (``ppm_forward`` does).  None/0 is the unchunked path, which never
-    writes ``z``.  ``shard``: ``z`` is this rank's column shard (module
-    docstring), pinned at every block boundary (``constrain``)."""
+    writes ``z``.  ``shard``: ``z`` is this rank's part (module docstring),
+    pinned at every block boundary (``constrain``), and so is ``s``.  A
+    grid whose parameters ``sharding.grid_params`` cut (``shard.specs``)
+    gathers one block's weights at its use and drops them after it."""
+    specs = None if shard is None else shard.specs
     if chunk_size:
+        if isinstance(shard, sh.PairGrid):
+            raise ValueError("the row-chunked pair stack takes a PairShard, not a PairGrid: "
+                             "fold on a grid unchunked")
         from repro_torch.models.ppm import chunking as ck   # imports this module
         for p in blocks:
             s, z = ck.block_apply_chunked(p, s, z, cfg, scheme, chunk_size,
                                           mask=mask, shard=shard)
             z = sh.constrain(z, "pair")
         return s, z
-    for p in blocks:
+    for i, p in enumerate(blocks):
+        if specs is not None:
+            p = shard.whole_params(p, specs["trunk"][i])
         s, z = block_apply(p, s, z, cfg, scheme, mask=mask, shard=shard)
+        p = None            # a gathered block's weights go before the next gather
+        s = sh.constrain(s, "seq_track")
         z = sh.constrain(z, "pair")
     return s, z

@@ -177,7 +177,9 @@ class LockstepRing:
         # dynamic_update_slice clamps the start so that the s rows fit
         start = torch.clamp(self.cache["pos"] % w, max=w - s)
         rows = start + torch.arange(s, device=x.device)
-        if sh.is_dtensor(ring) and sh.unsharded_dim(ring, 1):
+        if sh.is_dtensor(ring) and not sh.unsharded_dim(ring, 1):
+            return sh.write_positions(ring, rows, x)
+        if sh.is_dtensor(ring):
             # DTensor has no rule for index_copy_ in every PyTorch (2.11):
             # each rank writes its shard of the rows into its shard of the
             # ring, whose positions are all its own

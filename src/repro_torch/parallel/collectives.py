@@ -15,6 +15,8 @@ inserts these implicitly in the reference).
     nothing), through ``batch_isend_irecv``; autograd-aware: the gradient
     goes back along the inverse permutation (a ring's too: ``[(i, i+1 mod
     W)]``); ``RingShift`` is one step of a ring left in flight;
+  * ``exchange(sends, recvs, group)``: point-to-point sends and receives
+    between named ranks in one batch (a block transpose over a grid);
   * ``reduce_scatter(x, dim, group)``: the sum over the group, cut along
     ``dim`` in W pieces, piece r to rank r (``psum_scatter``, tiled);
     autograd-aware: the gradient is the all-gather of the pieces' ones;
@@ -78,8 +80,11 @@ def group_size(group) -> int:
 
 
 def host_staged(x: torch.Tensor, group) -> bool:
-    """True where ``x`` is a CUDA tensor and the group has no NCCL."""
-    return x.is_cuda and "nccl" not in str(dist.get_backend(group))
+    """True where ``x`` is a CUDA tensor and the group has no NCCL (nor is
+    the dry-run's ``fake`` group, which takes fake CUDA tensors as NCCL
+    would)."""
+    backend = str(dist.get_backend(group))
+    return x.is_cuda and "nccl" not in backend and "fake" not in backend
 
 
 def _on_host(x: torch.Tensor, group):
@@ -172,6 +177,28 @@ def _send_recv(x: torch.Tensor, perm: tuple, group) -> torch.Tensor:
     if srcs:
         out.copy_(_back(recv, dev))
     return out
+
+
+def exchange(sends, recvs, group=None) -> None:
+    """Point to point in one ``batch_isend_irecv``: each (peer, tensor) of
+    ``sends`` to global rank ``peer``, each (peer, buffer) of ``recvs``
+    filled from ``peer`` in place; at most one of each a peer.  Counted as
+    ``permute``, once for each tensor sent, with its bytes."""
+    ops, back = [], []
+    for peer, t in sends:
+        _note("permute", t)
+        src, _ = _on_host(t.contiguous(), group)
+        ops.append(dist.P2POp(dist.isend, src, peer, group))
+    for peer, buf in recvs:
+        tgt, dev = _on_host(buf, group)
+        ops.append(dist.P2POp(dist.irecv, tgt, peer, group))
+        back.append((buf, tgt, dev))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for buf, tgt, dev in back:
+        if dev is not None:
+            buf.copy_(tgt)
 
 
 class _Permute(torch.autograd.Function):

@@ -314,9 +314,10 @@ def constrain(x, name: str):
     A DTensor is redistributed to the rule's placements on its own mesh
     (``jax.lax.with_sharding_constraint``), a dim that its axes do not
     divide replicated.  Inside a ``sharded`` scope
-    (the serving tier's j-split pair tensor) every dim the spec puts on
-    ``model`` must hold the rank's share (n / size) of the scope's pair
-    length: raises where it does not; ``x`` itself passes through (the
+    (the serving tier's j-split pair tensor, or a ``PairGrid``) every dim
+    the spec puts on a mesh axis of the scope's shard must hold the rank's
+    share (n / the axis's size) of the scope's pair length: raises where
+    it does not; ``x`` itself passes through (the
     port's tensors are the shards, nothing is moved) and its shape is
     kept in ``PINNED``.  Anything else passes through."""
     rules = _rules()
@@ -329,10 +330,10 @@ def constrain(x, name: str):
         return x
     shard, n = scope
     for dim, entry in enumerate(rules[name]):
-        axes = entry if isinstance(entry, tuple) else (entry,)
-        if MODEL in axes and x.shape[dim] != n // shard.size:
+        k = shard.parts(entry)
+        if k and x.shape[dim] != n // k:
             raise ValueError(f"constrain({name!r}): dim {dim} holds {x.shape[dim]}, "
-                             f"the rank's shard is {n // shard.size} of {n}")
+                             f"the rank's shard is {n // k} of {n}")
     PINNED[name] = tuple(x.shape)
     return x
 
@@ -861,15 +862,19 @@ def local_attention(attend, q, k, v, **kw):
     shard q's heads divide q's head count (and there is no bias), each
     rank takes its contiguous block of q heads and the K/V heads those
     read, replicated where several ranks share one (GQA: 2 K/V heads on 16
-    ranks); else only the rows stay sharded.
+    ranks); where the mesh dims beside the rows divide neither (whisper's
+    8 heads on a 16-wide model axis), each rank takes a block of the heads
+    and a block of the query rows (``_split_attention``); else only the
+    rows stay sharded.
 
     Decode (``kv_valid_len``, one entry a row): the ring's placements (k's)
     decide, and q and ``kv_valid_len`` are brought to them; the ring is
     not moved.  A ring sharded on rows and K/V heads: each rank attends its
     own rows and heads (``_heads_attention``).  A ring sharded on the head
     dim: the scores are partial sums over each rank's slice, all-reduced
-    (``_hd_attention``).  A ring sharded on its positions (no config's
-    ``cache_specs`` shards one so) is gathered to the rows."""
+    (``_hd_attention``).  A ring sharded on its positions (``cache_specs``'
+    third branch): each rank attends its own positions and the partial
+    results merge by their maxima and sums (``_seq_attention``)."""
     mesh = (q if is_dtensor(q) else k).device_mesh if is_dtensor(q) or is_dtensor(k) else None
     if mesh is None:
         return attend(q, k, v, **kw)
@@ -884,6 +889,8 @@ def local_attention(attend, q, k, v, **kw):
                                     **kw)
         if dims.get(3) and not dims.get(1) and not dims.get(2):
             return _hd_attention(q, k, v, kvlen, dims.get(0, []), dims[3], **kw)
+        if dims.get(1) and not dims.get(2) and not dims.get(3):
+            return _seq_attention(q, k, v, kvlen, dims.get(0, []), dims[1], **kw)
         return on_local("attention", lambda q, k, v, n: attend(q, k, v, kv_valid_len=n, **kw),
                         q, k, v, kvlen, keep=(0,))
     dims = _dims_by_tensor_dim(q)
@@ -892,6 +899,13 @@ def local_attention(attend, q, k, v, **kw):
             q.shape[2] % math.prod(mesh.size(i) for i in heads) == 0:
         rows = [i for i in dims.get(0, []) if q.shape[0] % mesh.size(i) == 0]
         return _heads_attention(attend, q, k, v, None, rows, heads, **kw)
+    if kw.get("bias") is None and not heads:
+        rows = [i for i in dims.get(0, []) if q.shape[0] % mesh.size(i) == 0]
+        split = [i for i in range(mesh.ndim) if i not in rows and mesh.size(i) > 1]
+        n = math.prod(mesh.size(i) for i in split)
+        blocks = n // math.gcd(k.shape[2], n)
+        if n > 1 and q.shape[2] % n and q.shape[1] % blocks == 0:
+            return _split_attention(attend, q, k, v, rows, split, **kw)
     return on_local("attention", lambda *a: attend(*a, **kw), q, k, v, keep=(0,))
 
 
@@ -1005,6 +1019,113 @@ def _hd_attention(q, k, v, kvlen, rows, hd, *, causal=False, window=None,
     args = (redistribute(q, tuple(to)), k, v, redistribute(kvlen, tuple(n_to)))
     return local_map(_waited(local), out_placements=to, in_placements=(to, to, to, n_to),
                      device_mesh=mesh)(*args)
+
+
+def _split_attention(attend, q, k, v, rows, split, **kw):
+    """Attention where the mesh dims ``split`` (n ranks beside the rows)
+    divide neither q's heads nor so the K/V heads: each rank of ``split``
+    takes one of g = gcd(K/V heads, n) blocks of the K/V heads with the q
+    heads that read them, and one of n/g blocks of the query rows (under
+    a causal or window mask at its offset among the keys), as GSPMD cuts
+    the projections' columns n ways.  A rank's block is its output's only
+    nonzero part, so the output is a partial sum over ``split``, reduced
+    where it is used; the inputs' gradients are partial sums too."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    n = math.prod(mesh.size(i) for i in split)
+    hq, hkv, sq = q.shape[2], k.shape[2], q.shape[1]
+    g = math.gcd(hkv, n)
+    blocks = n // g
+    to = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    part = [Partial() if i in split else p for i, p in enumerate(to)]
+    offset = kw.get("causal") or kw.get("window") is not None
+
+    def local(ql, kl, vl):
+        h, b = divmod(_block_index(mesh, split), blocks)
+        gq, gk, rq = hq // g, hkv // g, sq // blocks
+        o = attend(ql[:, b * rq:(b + 1) * rq, h * gq:(h + 1) * gq],
+                   kl[:, :, h * gk:(h + 1) * gk], vl[:, :, h * gk:(h + 1) * gk],
+                   **kw, **({"q_offset": b * rq} if offset else {}))
+        # the block in place among zeros: (rows, heads) of the whole output
+        return torch.nn.functional.pad(o, (0, 0, h * gq, hq - (h + 1) * gq,
+                                           b * rq, sq - (b + 1) * rq))
+
+    _note("local:attention")
+    args = [redistribute(t, tuple(to)) for t in (q, k, v)]
+    return local_map(_waited(local), out_placements=part, in_placements=(to, to, to),
+                     in_grad_placements=(part, part, part), device_mesh=mesh)(*args)
+
+
+def _seq_attention(q, k, v, kvlen, rows, seq, *, causal=False, window=None,
+                   softmax_scale=None, bias=None):
+    """Decode attention over a ring sharded on its positions (mesh dims
+    ``seq``): each rank's scores over its own positions (the
+    ``kv_valid_len`` mask at its offset), their float32 maximum
+    all-reduced over ``seq``, then each rank's sums of the exponentials and
+    of the weighted values all-reduced (a log-sum-exp merge), so no rank
+    holds another's positions; a fully masked row
+    returns mean(v), as ``mha_ref`` does.  Plain PyTorch, not
+    differentiable."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if causal or window is not None or bias is not None:
+        raise ValueError("_seq_attention: a decode step's attention is over the ring alone")
+    mesh = k.device_mesh
+    to = [Shard(0) if i in rows else Shard(1) if i in seq else Replicate()
+          for i in range(mesh.ndim)]
+    q_to = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    groups = [mesh.get_group(i) for i in seq]
+
+    def local(ql, kl, vl, nl):
+        from repro_torch.kernels.flash_attention.ref import NEG
+        b, sq, hq, d = ql.shape
+        w, hkv = kl.shape[1], kl.shape[2]
+        p0 = _block_index(mesh, seq) * w
+        qg = ql.float().reshape(b, sq, hkv, hq // hkv, d)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kl.float()) * scale
+        valid = p0 + torch.arange(w, device=kl.device)[None] < nl[:, None]      # (B, W/n)
+        s = torch.where(valid[:, None, None, None], s, torch.full((), NEG, device=s.device))
+        mx = s.amax(dim=-1, keepdim=True)
+        for gr in groups:
+            coll.all_reduce(mx, "max", gr)
+        e = torch.exp(s - mx)
+        den = e.sum(dim=-1, keepdim=True)
+        num = torch.einsum("bgrqk,bkgd->bgrqd", e, vl.float())
+        for gr in groups:
+            coll.all_reduce(den, "sum", gr)
+            coll.all_reduce(num, "sum", gr)
+        o = (num / den).permute(0, 3, 1, 2, 4)
+        return o.reshape(b, sq, hq, vl.shape[-1]).to(ql.dtype)
+
+    if tuple(k.placements) != tuple(to) or tuple(v.placements) != tuple(to):
+        raise ValueError(f"_seq_attention: ring placements {k.placements} / {v.placements}")
+    if tuple(q.placements) != tuple(q_to):
+        _note("local:attention")
+    args = (redistribute(q, tuple(q_to)), k, v, redistribute(kvlen, tuple(q_to)))
+    return local_map(_waited(local), out_placements=q_to, in_placements=(q_to, to, to, q_to),
+                     device_mesh=mesh)(*args)
+
+
+def write_positions(ring, rows, x):
+    """``ring.index_copy_(1, rows, x)`` for a ring sharded on its positions
+    (dim 1; ``rows`` consecutive, as a decode step's are): each rank
+    rewrites its own positions, taking the rows of ``x`` that land there
+    and keeping the others (no size read back from the device).  Returns
+    the ring."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = ring.device_mesh
+    dims = _dims_by_tensor_dim(ring)[1]
+    to = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in ring.placements)
+    xl = redistribute(x.to(ring.dtype), to).to_local()
+    rl = ring.to_local()
+    w, s = rl.shape[1], xl.shape[1]
+    t = _block_index(mesh, dims) * w + torch.arange(w, device=rl.device) - to_local(rows)[:1]
+    ok = ((t >= 0) & (t < s)).view(1, w, *([1] * (rl.dim() - 2)))
+    rl.copy_(torch.where(ok, xl.index_select(1, t.clamp(0, s - 1)), rl))
+    return ring
 
 
 def split_heads(x, heads: int):
@@ -1136,12 +1257,319 @@ class PairShard:
     def gather_to_root(self, x, dim: int):
         return coll.gather(x, dim, self.group)
 
+    # the grid's vocabulary (``PairGrid``), on a grid of one row strip: rows
+    # are whole, a column strip is the rank's own block
+    specs = None
+    d = 1
+
+    def parts(self, entry) -> int:
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        return self.size if MODEL in axes else 0
+
+    def rules(self) -> dict[str, P]:
+        return ppm_serving_rules(None)
+
+    def rows(self, n: int) -> slice:
+        return slice(0, n)
+
+    def row_strip(self, x):
+        return self.gather(x, 2)
+
+    def col_strip(self, x):
+        return x
+
+    def seq_whole(self, x):
+        return x
+
+    def seq_cols(self, x):
+        return x[:, self.cols(x.shape[1])]
+
+    def swap(self, x):
+        return self.cols_to_rows(x)
+
+    swap_rows = swap
+    swap_cols = row_strip
+    whole = row_strip
+    to_fine_rows = swap
+    from_fine_rows = rows_to_cols
+
+    def fine_rows_whole(self, x):
+        return self.gather(x, 1)
+
+    to_fine_cols = from_fine_cols = col_strip
+    fine_cols_whole = fine_rows_whole
+
+    def block_to_root(self, x):
+        return self.gather_to_root(x, 2)
+
+
+# --------------------------------------------------------------------------
+# the pair tensor on a two-dimensional grid: rows on the data axes, columns
+# on model (the reference's production layout)
+# --------------------------------------------------------------------------
+def _cut(lo: int, n: int, lo2: int, n2: int) -> tuple[int, int] | None:
+    """[lo, lo + n) and [lo2, lo2 + n2) intersected; None where empty."""
+    a, b = max(lo, lo2), min(lo + n, lo2 + n2)
+    return (a, b) if a < b else None
+
+
+def _map2(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map2(fn, v, sp) for v, sp in zip(tree, specs)]
+    return fn(tree, specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class PairGrid:
+    """This rank's cell (r, c) of a D x M grid over the pair tensor, the
+    reference's production rules (``default_act_rules``: "pair" ``P(None,
+    dp, MODEL, None)``, "seq_track" ``P(None, dp, None)``) made explicit:
+    rank (r, c) holds the block z[:, I_r, J_c] (I_r = ``rows(n)``, rows
+    split D ways over the data axes ``dp``; J_c = ``cols(n)``, columns
+    split M ways over ``model``) and the sequence track's rows I_r.
+    ``model_group`` is the M ranks of row strip r (index c), ``data_group``
+    the D ranks of column strip c (index r), ``ranks[r][c]`` the global
+    rank of cell (r, c).
+
+    The data movement the ops need, x a (B, N/D, N/M, H) block unless
+    said otherwise; a group of one rank is skipped, so a 1 x 1 grid moves
+    nothing:
+
+      * ``row_strip(x)``: x[I_r, :] (an all-gather over ``model``);
+        ``col_strip(x)``: x[:, J_c] (over the data axes); ``whole(x)``;
+      * ``swap(x)``: x[J_c, I_r] as (B, N/M, N/D, H), the block the
+        transpose puts here (point to point between the cells that hold
+        its pieces: (r, c) <-> (c, r) where D = M; an all-to-all where D
+        or M is 1); ``swap_rows(x)``: x[J_c, :] and ``swap_cols(x)``:
+        x[:, I_r], a swap gathered over one axis;
+      * ``to_fine_rows(x)``: the rank's N/(DM) rows of I_r with every
+        column (an all-to-all over ``model``), ``from_fine_rows`` back,
+        ``fine_rows_whole`` every rank's fine rows gathered; the same on a
+        transposed block for columns (``to_fine_cols``, an all-to-all over
+        the data axes);
+      * ``seq_whole(s)``: the sequence track's rows gathered;
+        ``seq_cols(s)``: its rows J_c;
+      * ``amax(t)``: the maximum over the grid; ``block_to_root(x)``: the
+        blocks concatenated on cell (0, 0), ``None`` elsewhere;
+      * ``cut``/``uncut``: a parameter's shard by its ``param_spec`` on
+        the grid's mesh (``axes``), and the whole gathered back.
+
+    ``axes`` names the mesh's axes with their sizes where the rows ride
+    more than ``data`` (``pod`` and ``data``); ``specs`` is the spec tree
+    of the parameters ``grid_params`` cut.
+    """
+    model_group: Any
+    data_group: Any
+    d: int
+    m: int
+    r: int
+    c: int
+    ranks: tuple
+    axes: tuple | None = None
+    specs: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    @property
+    def size(self) -> int:
+        return self.d * self.m
+
+    @property
+    def mesh(self) -> AbstractMesh:
+        """The mesh's axes (name, size), outer first: ``axes``, or ``data``
+        and ``model`` of the grid's sizes."""
+        axes = self.axes or ((DATA, self.d), (MODEL, self.m))
+        return AbstractMesh(tuple(s for _, s in axes), tuple(a for a, _ in axes))
+
+    def parts(self, entry) -> int:
+        if entry is None:
+            return 0
+        return self.m if entry == MODEL else self.d
+
+    def rules(self) -> dict[str, P]:
+        dp = data_axes(self.mesh)
+        return {"pair": P(None, dp, MODEL, None), "seq_track": P(None, dp, None)}
+
+    def rows(self, n: int) -> slice:
+        w = n // self.d
+        return slice(self.r * w, (self.r + 1) * w)
+
+    def cols(self, n: int) -> slice:
+        w = n // self.m
+        return slice(self.c * w, (self.c + 1) * w)
+
+    # -- gathers --------------------------------------------------------
+    def _over_model(self, x, dim: int):
+        return x if self.m == 1 else coll.all_gather(x, dim, self.model_group)
+
+    def _over_data(self, x, dim: int):
+        return x if self.d == 1 else coll.all_gather(x, dim, self.data_group)
+
+    def row_strip(self, x):
+        return self._over_model(x, 2)
+
+    def col_strip(self, x):
+        return self._over_data(x, 1)
+
+    def row_strip_t(self, x):
+        """A transposed block (B, N/M, N/D, H) with every row of it."""
+        return self._over_data(x, 2)
+
+    def whole(self, x):
+        return self.col_strip(self.row_strip(x))
+
+    def seq_whole(self, x):
+        return self._over_data(x, 1)
+
+    def seq_cols(self, x):
+        return self.seq_whole(x)[:, self.cols(x.shape[1] * self.d)]
+
+    # -- the transpose's blocks -------------------------------------------
+    def swap(self, x):
+        if self.d == 1:
+            return x if self.m == 1 else coll.all_to_all(x, 1, 2, self.model_group)
+        if self.m == 1:
+            return coll.all_to_all(x, 2, 1, self.data_group)
+        rd, cw = x.shape[1], x.shape[2]
+        r0, c0 = self.r * rd, self.c * cw
+        out = x.new_empty((x.shape[0], cw, rd, *x.shape[3:]))
+        sends, recvs, pieces = [], [], []
+        for r2 in range(self.d):
+            for c2 in range(self.m):
+                # to (r2, c2), whose swap is rows J_c2 x columns I_r2
+                rs, cs = _cut(r0, rd, c2 * cw, cw), _cut(c0, cw, r2 * rd, rd)
+                mine = None if rs is None or cs is None else \
+                    x[:, rs[0] - r0:rs[1] - r0, cs[0] - c0:cs[1] - c0]
+                if (r2, c2) == (self.r, self.c):
+                    if mine is not None:
+                        out[:, rs[0] - c0:rs[1] - c0, cs[0] - r0:cs[1] - r0] = mine
+                    continue
+                if mine is not None:
+                    sends.append((self.ranks[r2][c2], mine))
+                # from (r2, c2): its rows in J_c, its columns in I_r
+                ri, ci = _cut(r2 * rd, rd, c0, cw), _cut(c2 * cw, cw, r0, rd)
+                if ri is not None and ci is not None:
+                    buf = x.new_empty((x.shape[0], ri[1] - ri[0], ci[1] - ci[0], *x.shape[3:]))
+                    recvs.append((self.ranks[r2][c2], buf))
+                    pieces.append((ri, ci, buf))
+        coll.exchange(sends, recvs)
+        for ri, ci, buf in pieces:
+            out[:, ri[0] - c0:ri[1] - c0, ci[0] - r0:ci[1] - r0] = buf
+        return out
+
+    def swap_rows(self, x):
+        return self._over_data(self.swap(x), 2)
+
+    def swap_cols(self, x):
+        return self.row_strip(x) if self.d == 1 else self._over_model(self.swap(x), 1)
+
+    def to_fine_rows(self, x):
+        return x if self.m == 1 else coll.all_to_all(x, 1, 2, self.model_group)
+
+    def from_fine_rows(self, x):
+        return x if self.m == 1 else coll.all_to_all(x, 2, 1, self.model_group)
+
+    def fine_rows_whole(self, x):
+        return self._over_data(self._over_model(x, 1), 1)
+
+    def to_fine_cols(self, x):
+        return x if self.d == 1 else coll.all_to_all(x, 1, 2, self.data_group)
+
+    def from_fine_cols(self, x):
+        return x if self.d == 1 else coll.all_to_all(x, 2, 1, self.data_group)
+
+    def fine_cols_whole(self, x):
+        return self._over_model(self._over_data(x, 1), 1)
+
+    # -- reductions -------------------------------------------------------
+    def amax(self, t):
+        t = t.clone()
+        if self.m > 1:
+            coll.all_reduce(t, "max", self.model_group)
+        if self.d > 1:
+            coll.all_reduce(t, "max", self.data_group)
+        return t
+
+    def block_to_root(self, x):
+        if self.m > 1:
+            x = coll.gather(x, 2, self.model_group)
+            if x is None:
+                return None
+        return x if self.d == 1 else coll.gather(x, 1, self.data_group)
+
+    # -- parameters -------------------------------------------------------
+    def _part(self, entry) -> tuple[int, int]:
+        """(parts, this rank's index) along a dim a spec entry names."""
+        if entry is None:
+            return 1, 0
+        return (self.m, self.c) if entry == MODEL else (self.d, self.r)
+
+    def cut(self, t, spec: P):
+        """This rank's shard of ``t`` (its own storage)."""
+        for dim, entry in enumerate(spec):
+            k, i = self._part(entry)
+            if k > 1:
+                t = t.narrow(dim, i * (t.shape[dim] // k), t.shape[dim] // k)
+        return t.clone()
+
+    def uncut(self, t, spec: P):
+        """``t`` (a shard ``cut`` made) gathered whole."""
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                t = self._over_model(t, dim) if entry == MODEL else self._over_data(t, dim)
+        return t
+
+    def whole_params(self, tree, specs):
+        return _map2(self.uncut, tree, specs)
+
+
+def pair_grid(mesh) -> PairGrid:
+    """This rank's ``PairGrid`` on a ``DeviceMesh`` with a ``model`` dim and
+    the data dims (``data``, or ``pod`` and ``data``, flattened pod-major
+    into one group of the grid's rows, as JAX orders a dim that names
+    both)."""
+    import torch.distributed as dist
+    from torch.utils._python_dispatch import _disable_current_modes
+    names = tuple(mesh.mesh_dim_names)
+    dp = data_axes(mesh)
+    axes = mesh_axes(mesh)
+    d, m = math.prod(axes[a] for a in dp), axes[MODEL]
+    with _disable_current_modes():
+        table = mesh.mesh.permute(*[names.index(a) for a in (*dp, MODEL)]).reshape(d, m).tolist()
+    if len(dp) == 1:
+        data_group = mesh.get_group(dp[0])
+    else:
+        data_group, _ = dist.new_subgroups_by_enumeration(
+            [[table[r][c] for r in range(d)] for c in range(m)])
+    me = dist.get_rank()
+    r, c = next((r, c) for r in range(d) for c in range(m) if table[r][c] == me)
+    if mesh.size() == dist.get_world_size():
+        # one collective over the whole grid first: a transpose's point-to-
+        # point exchanges leave the diagonal cells out, and NCCL starts a
+        # group's communicator only where every rank takes part
+        dist.all_reduce(torch.zeros(1, device=mesh.device_type))
+    return PairGrid(mesh.get_group(MODEL), data_group, d, m, r, c,
+                    tuple(tuple(row) for row in table),
+                    tuple((a, axes[a]) for a in (*dp, MODEL)))
+
+
+def grid_params(params, grid: PairGrid):
+    """(``params`` cut to this rank's shards by the reference's
+    ``param_spec`` on the grid's mesh, the grid with their spec tree): what
+    ``param_shardings(params, mesh, None)`` puts on a device, each leaf a
+    tensor of its own (the whole ones may then be dropped)."""
+    specs = param_specs(params, grid.mesh)
+    return _map2(grid.cut, params, specs), dataclasses.replace(grid, specs=specs)
+
 
 @contextlib.contextmanager
-def sharded(shard: PairShard | None, n: int):
-    """Run a forward of pair length ``n`` as ``shard``'s part: the serving
-    rules are active (``constrain``) and the schemes' tensor- and
-    channel-wide statistics are maxima over the group (``global_amax``).
+def sharded(shard: PairShard | PairGrid | None, n: int):
+    """Run a forward of pair length ``n`` as ``shard``'s part: its rules
+    are active (``constrain``; the serving rule for a ``PairShard``, the
+    production rules for a ``PairGrid``) and the schemes' tensor- and
+    channel-wide statistics are maxima over the shard's ranks
+    (``global_amax``).
     ``shard`` None is the single-device forward: nothing is scoped."""
     if shard is None:
         yield
@@ -1149,13 +1577,13 @@ def sharded(shard: PairShard | None, n: int):
     prev = getattr(_ACT, "shard", None)
     _ACT.shard = (shard, n)
     try:
-        with act_rules(ppm_serving_rules(None)):
+        with act_rules(shard.rules()):
             yield
     finally:
         _ACT.shard = prev
 
 
-def current_shard() -> PairShard | None:
+def current_shard() -> PairShard | PairGrid | None:
     scope = getattr(_ACT, "shard", None)
     return None if scope is None else scope[0]
 

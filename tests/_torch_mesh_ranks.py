@@ -245,6 +245,41 @@ def _attention_shapes(dispatch, seen: list):
     return scope()
 
 
+def _gathered_shapes(coll, seen: list):
+    """A scope in which every all-gather, the explicit ones and DTensor's,
+    appends the local shape it was handed to ``seen``."""
+    import contextlib
+
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Gathers(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if DTensor in types:
+                return NotImplemented
+            if getattr(func, "namespace", "") == "_c10d_functional" and \
+                    func._opname.startswith("all_gather_into_tensor"):
+                first = args[0]
+                seen.extend(tuple(t.shape) for t in
+                            (first if isinstance(first, (list, tuple)) else [first]))
+            return func(*args, **(kwargs or {}))
+
+    @contextlib.contextmanager
+    def scope():
+        orig = coll.all_gather
+
+        def gather(x, dim, group):
+            seen.append(tuple(x.shape))
+            return orig(x, dim, group)
+        coll.all_gather = gather
+        try:
+            with _Gathers():
+                yield
+        finally:
+            coll.all_gather = orig
+    return scope()
+
+
 def serve_steps(cfg, params, batch, cache, n_decode, quantized_kv, mesh=None, probe=None):
     """A prefill step of ``batch`` (numpy), then ``n_decode`` decode steps
     from ``cache`` (numpy leaves of ``lm.make_cache``), a column of
@@ -253,7 +288,8 @@ def serve_steps(cfg, params, batch, cache, n_decode, quantized_kv, mesh=None, pr
     logits, each decode step's logits, the cache's leaves after them), as
     numpy.  ``probe`` (a dict) gets the local (q heads, K/V heads) of each
     attention call of the prefill and of the decode steps, the explicit
-    all-reduces of the decode steps, and the ring's placements."""
+    all-reduces of the decode steps, the local shape each all-gather of
+    the decode steps was handed, and the ring's placements."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels import dispatch
     from repro_torch.launch.dryrun import _spec_leaves
@@ -288,7 +324,8 @@ def serve_steps(cfg, params, batch, cache, n_decode, quantized_kv, mesh=None, pr
             prefill = host(make_prefill_step(cfg)(params, b))
         logits = []
         coll.reset_counts()
-        with sh.act_rules(drules), _attention_shapes(dispatch, probe["decode"]):
+        with sh.act_rules(drules), _attention_shapes(dispatch, probe["decode"]), \
+                _gathered_shapes(coll, probe.setdefault("gathered", [])):
             for i in range(n_decode):
                 tok = torch.from_numpy(np.ascontiguousarray(batch["tokens"][:, i:i + 1]))
                 if mesh is not None:
@@ -309,7 +346,8 @@ def sharded_serve_steps(rank, world, jobs):
     mesh = make_mesh((1, world), ("data", "model"))
     out = []
     for arch, tree, batch, cache, n_decode, qkv in jobs:
-        cfg = _cfg(arch)
+        # an arch, or (arch, fields of its reduced config replaced)
+        cfg = _cfg(arch) if isinstance(arch, str) else _cfg(arch[0]).replace(**arch[1])
         probe = {}
         res = serve_steps(cfg, lm_params_from_numpy(tree, cfg, device="cpu"), batch, cache,
                           n_decode, qkv, mesh, probe)
@@ -446,3 +484,98 @@ def elastic_resume(rank, world, tree, ckpt_dir):
     return {"step": step, "scale": plan.microbatch_scale, "mesh": tuple(mesh.shape),
             "leaves": [host(x) for x in leaves(restored)],
             "placements": [str(x.placements) for x in leaves(restored)]}
+
+
+def split_attention(rank, world, jobs):
+    """Each job (numpy q, k, v (B, S, H, D), numpy weights w of the
+    output, causal): ``sharding.local_attention`` on a (1, world) mesh of
+    q, k, v replicated on ``model`` (as ``split_heads`` leaves heads the
+    axis does not divide), and the gradients of sum(out * w) in q, k, v;
+    rank 0 returns (out, dq, dk, dv, the local (rows, q heads, K/V heads)
+    of each attention call) a job."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as sh
+    mesh = make_mesh((1, world), ("data", "model"))
+    out = []
+    for q, k, v, w, causal in jobs:
+        seen = []
+
+        def attend(ql, kl, vl, **kw):
+            seen.append((ql.shape[1], ql.shape[2], kl.shape[2]))
+            return dispatch.attention(ql, kl, vl, **kw)
+
+        ts = [sh.distribute(torch.from_numpy(a), mesh, sh.P()).requires_grad_(True)
+              for a in (q, k, v)]
+        with dispatch.use_backend("ref"):
+            o = sh.local_attention(attend, *ts, causal=causal)
+            loss = (o * sh.distribute(torch.from_numpy(w), mesh, sh.P())).sum()
+            grads = torch.autograd.grad(loss, ts)
+        res = [host(o.detach())] + [host(g) for g in grads]
+        out.append((*res, seen) if rank == 0 else None)
+    return out
+
+
+def grid_folds(rank, world, tree, aatype, schemes):
+    """The reduced PPM (the reference's numpy ``tree``) folded by
+    ``make_fold_step`` on a 2 x 2 ``PairGrid``, each parameter the rank's
+    shard (``grid_params``), under each of ``schemes``; then on a 1 x 1
+    grid (a group of this rank alone) and on a 1 x 4 grid under each; then
+    the 2 x 2 grid at N - 2 under the first (triangular attention on the
+    blocks, the fine rows not dividing N), and the first on a 1 x 4
+    ``PairShard`` (the serving tier's j split).  Rank 0 returns
+    {(grid, scheme): (coords, distogram)}, every rank its parameter
+    bytes on the 2 x 2 grid and the collectives of its first fold there."""
+    import torch.distributed as dist
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs import reduce_ppm_config
+    from repro_torch.core import make_scheme
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_fold_step
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.tree import leaves
+    cfg = reduce_ppm_config()
+    params = params_from_numpy(tree, cfg, device="cpu")
+    a = torch.from_numpy(aatype)
+    one, _ = dist.new_subgroups(group_size=1)
+    grids = {"2x2": sh.pair_grid(make_mesh((2, 2), ("data", "model"))),
+             "1x1": sh.PairGrid(one, one, 1, 1, 0, 0, ((rank,),)),
+             "1x4": sh.pair_grid(make_mesh((1, 4), ("data", "model")))}
+    out, nbytes, counts = {}, None, None
+    for name, grid in grids.items():
+        local, grid = sh.grid_params(params, grid)
+        if name == "2x2":
+            nbytes = sum(t.numel() * t.element_size() for t in leaves(local))
+        for scheme in schemes:
+            coll.reset_counts()
+            with torch.no_grad():
+                o = make_fold_step(cfg, make_scheme(scheme), shard=grid)(local, a)
+            if counts is None:
+                counts = coll.counts()
+            if rank == 0:
+                out[(name, scheme)] = (o["coords"].numpy(), o["distogram"].numpy())
+        if name == "1x4":
+            # the same fold on the serving tier's j split (the parameters whole)
+            mesh = make_mesh((1, 4), ("data", "model"))
+            shard = sh.PairShard(mesh.get_group("model"), 4, mesh.get_local_rank("model"))
+            with torch.no_grad():
+                o = make_fold_step(cfg, make_scheme(schemes[0]), shard=shard)(params, a)
+            if rank == 0:
+                out[("pair shard", schemes[0])] = (o["coords"].numpy(), o["distogram"].numpy())
+        if name == "2x2":
+            # N - 2 = 62: the grid's 4 fine rows do not divide it, so the
+            # triangular attention runs on the blocks themselves
+            with torch.no_grad():
+                o = make_fold_step(cfg, make_scheme(schemes[0]), shard=grid)(local, a[:, :-2])
+            if rank == 0:
+                out[("2x2 blocks", schemes[0])] = (o["coords"].numpy(), o["distogram"].numpy())
+    return out if rank == 0 else None, nbytes, counts
+
+
+def four_rank_jobs(rank, world, jobs, serve_jobs, attn_jobs, grid_args):
+    """``sharded_steps(jobs)``, ``sharded_serve_steps(serve_jobs)``,
+    ``split_attention(attn_jobs)`` and ``grid_folds(*grid_args)``, in one
+    spawn."""
+    return (sharded_steps(rank, world, jobs), sharded_serve_steps(rank, world, serve_jobs),
+            split_attention(rank, world, attn_jobs), grid_folds(rank, world, *grid_args))

@@ -314,3 +314,19 @@ def test_in_place_block_matches_out_of_place_residual_adds_bitwise():
         z2 = z2 + ck.pair_transition_chunked(p["pair_trans"], z2, scheme, 16)
     assert torch.equal(s1, s2)
     assert torch.equal(z1.view(torch.int32), z2.view(torch.int32))
+
+
+def test_chunked_stack_refuses_a_grid():
+    """The row-chunked stack takes the serving tier's j split only: a
+    ``PairGrid`` (rows on the data axes) is refused with the reason."""
+    from repro_torch.configs import reduce_ppm_config
+    from repro_torch.models.ppm import init_ppm
+    from repro_torch.models.ppm import trunk as tk
+    from repro_torch.parallel import sharding as sh
+    cfg = reduce_ppm_config()
+    params = init_ppm(cfg, seed=0, device="cpu")
+    grid = sh.PairGrid(None, None, 1, 1, 0, 0, ((0,),))
+    s, z = torch.zeros(1, 16, cfg.hm), torch.zeros(1, 16, 16, cfg.hz)
+    with pytest.raises(ValueError, match="takes a PairShard, not a PairGrid"):
+        tk.trunk_apply(params["trunk"], s, z, cfg, make_scheme("baseline_fp16"),
+                       chunk_size=8, shard=grid)

@@ -31,6 +31,11 @@ Gates:
     the smallest fake meshes and reduced shapes where DTensor's folds of
     a sharded batch into routing groups broke (a local shape half the one
     expected);
+  * the fold cell on a fake 2 x 2 mesh (the production layout: rows over
+    ``data``, columns over ``model``, the parameters cut by
+    ``param_spec``) reads a lower peak, and makes a smaller largest
+    storage, than the same fold traced on the serving tier's layout (j
+    over ``model``, the parameters whole);
   * the bottleneck selection of the reference's test, with the H100's
     constants;
   * the CLI writes the reference's record keys (``fits_hbm_80g``,
@@ -341,3 +346,44 @@ def test_cli_writes_the_reference_record(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(dryrun, "lower_cell", broken)
     assert dryrun.main([*argv, "--shape", "train_4k"]) == 1
     assert json.loads(out.read_text().splitlines()[-1])["error"] == "broken cell"
+
+
+def _fold_on_pair_shard(cfg, shape, mesh_shape) -> ca.CostMode:
+    """The fold cell traced as the dry-run traced it before the grid: the
+    pair tensor split on j over ``model`` (``PairShard``), the parameters
+    whole on every rank."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core.schemes import FP16Baseline
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import make_fold_step
+    from repro_torch.models.ppm import init_ppm
+    from repro_torch.parallel import sharding as sh
+    dev = dryrun.default_device()
+    mode = ca.CostMode()
+    with dryrun.fake_mesh(mesh_shape, dev) as mesh, dryrun._index_math_on_host(), \
+            FakeTensorMode(), dispatch.use_backend("ref"):
+        params = init_ppm(cfg, seed=0, device=dev)
+        shard = sh.PairShard(mesh.get_group("model"), mesh_shape[1],
+                             mesh.get_local_rank("model"))
+        aatype = torch.zeros((shape.global_batch, shape.seq_len), dtype=torch.int32,
+                             device=dev)
+        mode.track((params, aatype))
+        with mode, torch.inference_mode():
+            out = make_fold_step(cfg, FP16Baseline(), shard=shard)(params, aatype)
+        mode.outputs(out)
+    return mode
+
+
+def test_fold_cell_on_the_grid_holds_less_than_the_j_split():
+    cfg = reduce_ppm_config()
+    shape = ShapeSpec("ns64", 64, 1, "fold")
+    mode = ca.CostMode()
+    rec = dryrun.lower_cell("esmfold_ppm", shape, cfg=cfg, mesh_shape=(2, 2), mode=mode)
+    j = _fold_on_pair_shard(cfg, shape, (2, 2))
+    assert rec["chips"] == 4 and rec["cost"]["flops_per_dev"] > 0
+    assert rec["mem"]["peak_bytes_per_dev"] < j.mem["peak_bytes_per_dev"], \
+        (rec["mem"], j.mem)
+    assert mode.largest[0] < j.largest[0], (mode.largest, j.largest)
+    counts = rec["collectives"]["counts"]
+    assert counts.get("all-gather", 0) > 0 and counts.get("all-to-all", 0) > 0

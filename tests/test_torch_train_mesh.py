@@ -41,10 +41,31 @@ Gates:
     2 x 1, where the batch is split and the vocabulary is not: the loss
     within 1e-4 relative of one device's, the gradients allclose 1e-5;
   * a kernel wrapper handed a DTensor raises, and ``dispatch.fake_quant``
-    quantizes a DTensor's rows as the plain version does.
+    quantizes a DTensor's rows as the plain version does;
+  * in the 4-rank spawn, a decode ring sharded on its positions (a
+    reduced dense config whose 2 K/V heads and head dim 6 a 4-wide model
+    axis divides neither, a ring of 32 on 1 x 4): the logits and the cache
+    allclose 1e-5 to one device's, each rank attending its own positions
+    (no all-gather of the ring);
+  * attention whose heads a 4-wide model axis does not divide (whisper's
+    case at 16), split over heads and query rows: the output and the
+    gradients allclose 1e-5 to one device's, causal too;
+  * the fold on a 2 x 2 ``PairGrid`` (the reference's production layout:
+    rows over ``data``, columns over ``model``, each parameter the rank's
+    ``param_spec`` shard) of the reduced PPM at N = 64, bridged from the
+    reference's parameters: ``baseline_fp16`` and ``tender`` allclose 1e-4
+    to one device, ``lightnobel_aaq`` TM >= 0.995; a 1 x 1 grid bitwise
+    one device; a 1 x 4 grid bitwise the serving tier's 1 x 4 j split; every rank's parameter bytes those of the reference's
+    ``param_shardings(params, mesh, None)`` on a 2 x 2 mesh; and the
+    reference's own 2-D fold (``jax.jit(make_fold_step)`` under
+    ``default_act_rules(mesh, "train")``, 4 forced host devices, in a
+    subprocess): FP allclose 1e-4, AAQ TM >= 0.995; at N = 62, which the
+    grid's fine rows do not divide, FP allclose 1e-4 to one device.
 """
 import os
+import subprocess
 import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -56,17 +77,21 @@ import jax.numpy as jnp  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(__file__))
 
-from _torch_mesh_ranks import (_cfg, one_step, run_ranks, serve_steps,  # noqa: E402
-                               sharded_steps, steps_grads_and_elastic)
+from _torch_mesh_ranks import (_cfg, four_rank_jobs, one_step, run_ranks,  # noqa: E402
+                               serve_steps, steps_grads_and_elastic)
 from _torch_train_parity import batch_for  # noqa: E402
 from repro.checkpoint import checkpointing as jckpt  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduce_ppm_config as jax_reduce_ppm_config  # noqa: E402
 from repro.configs import reduce_config as jax_reduce_config  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
+from repro.models.ppm import init_ppm as jax_init_ppm  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
-from repro_torch.bridge import lm_params_from_numpy  # noqa: E402
-from repro_torch.configs import ARCH_NAMES  # noqa: E402
+from repro_torch.bridge import lm_params_from_numpy, params_from_numpy  # noqa: E402
+from repro_torch.configs import ARCH_NAMES, reduce_ppm_config  # noqa: E402
+from repro_torch.core import make_scheme  # noqa: E402
 from repro_torch.core.policy import DISABLED, AAQConfig  # noqa: E402
+from repro_torch.models.ppm import tm_score  # noqa: E402
 
 RTOL = 1e-4
 #: sharded vs single-device loss under AAQ's straight-through fake-quant:
@@ -83,6 +108,18 @@ SERVE_IDS = [a if what is None else f"{a}-{what}" for a, _, what in SERVE]
 #: (arch, mesh) of the vocabulary-parallel cross-entropy's gradients
 XENT = [(DENSE, (1, 2)), (DENSE, (2, 1)), ("chatglm3-6b", (1, 2)), ("chatglm3-6b", (2, 1))]
 OTHERS = [n for n in ARCH_NAMES if n not in (DENSE, MOE)]
+#: a reduced dense config whose K/V heads and head dim a 4-wide model axis
+#: divides neither (``cache_specs``' third branch: the ring on its
+#: positions), its ring 32 rows
+RING = (DENSE, dict(n_heads=4, n_kv_heads=2, head_dim=6))
+RING_ROWS = 32
+#: (q heads, K/V heads, causal) of attention on a 1 x 4 mesh whose model
+#: axis divides neither head count
+SPLIT_ATTN = [(2, 2, True), (2, 2, False), (6, 2, True)]
+#: the grid fold's sequence length and schemes
+GRID_N = 64
+GRID_SCHEMES = ("baseline_fp16", "lightnobel_aaq", "tender")
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -107,14 +144,94 @@ def inputs():
     return out
 
 
+_REF_GRID = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import numpy as np, jax
+from jax.sharding import Mesh, NamedSharding, PartitionSpec
+from repro.configs import reduce_ppm_config
+from repro.core import make_scheme
+from repro.launch.steps import make_fold_step
+from repro.models.ppm import init_ppm
+from repro.parallel import sharding as sh
+cfg = reduce_ppm_config()
+params = init_ppm(jax.random.PRNGKey(0), cfg)
+aatype = np.load(sys.argv[1])
+mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
+psh = sh.param_shardings(params, mesh, None)
+out = {{"param_bytes": sum(int(np.prod(s.shard_shape(p.shape))) * p.dtype.itemsize
+                          for p, s in zip(jax.tree.leaves(params), jax.tree.leaves(psh)))}}
+for scheme in {schemes}:
+    with mesh, sh.act_rules(sh.default_act_rules(mesh, "train")):
+        fn = jax.jit(make_fold_step(cfg, make_scheme(scheme)),
+                     in_shardings=(psh, NamedSharding(mesh, PartitionSpec(None, "data"))))
+        out[scheme] = np.asarray(fn(params, aatype)["coords"])
+np.savez(sys.argv[2], **out)
+"""
+
+
 @pytest.fixture(scope="module")
-def four_ranks(inputs):
-    """One spawn of 4 ranks: each (arch, mesh) under DISABLED and AAQ."""
+def grid_inputs():
+    """(the reference's reduced PPM parameters as numpy, an aatype (1, 64))."""
+    tree = jax.tree.map(np.asarray, jax_init_ppm(jax.random.PRNGKey(0),
+                                                 jax_reduce_ppm_config()))
+    aatype = np.random.default_rng(5).integers(0, 20, (1, GRID_N)).astype(np.int32)
+    return tree, aatype
+
+
+@pytest.fixture(scope="module")
+def reference_grid(grid_inputs, tmp_path_factory):
+    """The reference's 2-D fold (FP and AAQ) and its parameter bytes a
+    device, in a subprocess started before the 4-rank spawn, beside it."""
+    d = tmp_path_factory.mktemp("ref_grid")
+    np.save(d / "aatype.npy", grid_inputs[1])
+    code = textwrap.dedent(_REF_GRID.format(schemes=GRID_SCHEMES[:2]))
+    proc = subprocess.Popen([sys.executable, "-c", code, str(d / "aatype.npy"),
+                             str(d / "out.npz")], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu"})
+    yield proc, d / "out.npz"
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
+def _ring_job():
+    """The prefill and two decode steps of ``RING`` (4 rows, a ring of
+    ``RING_ROWS`` from a random cache)."""
+    name, over = RING
+    jcfg = jax_reduce_config(jax_get_config(name)).replace(dtype="float32", **over)
+    tree = jax.tree.map(np.asarray, jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    cfg = _cfg(name).replace(**over)
+    batch = batch_for(cfg, b=4, s=RING_ROWS)
+    del batch["labels"]
+    return (RING, tree, batch, _cache(cfg, False, 4, RING_ROWS), 2, False)
+
+
+def _attn_jobs():
+    rng = np.random.default_rng(4)
+    jobs = []
+    for hq, hkv, causal in SPLIT_ATTN:
+        def f(*shape):
+            return rng.standard_normal(shape).astype(np.float32)
+        jobs.append((f(2, 8, hq, 8), f(2, 8, hkv, 8), f(2, 8, hkv, 8), f(2, 8, hq, 8), causal))
+    return jobs
+
+
+@pytest.fixture(scope="module")
+def four_ranks(inputs, grid_inputs, reference_grid):
+    """One spawn of 4 ranks: each (arch, mesh) under DISABLED and AAQ; then
+    ``RING``'s steps on 1 x 4; then ``SPLIT_ATTN``; then the grid folds."""
     jobs = [(a, inputs[a][1], inputs[a][2], ste, shape)
             for a, shape in JOBS4 for ste in (False, True)]
-    res = run_ranks(4, sharded_steps, jobs)
-    return {(a, shape, ste): [r[i] for r in res]
-            for i, (a, _, _, ste, shape) in enumerate(jobs)}
+    ring, attn = _ring_job(), _attn_jobs()
+    res = run_ranks(4, four_rank_jobs, jobs, [ring], attn, (*grid_inputs, GRID_SCHEMES))
+    out = {(a, shape, ste): [r[0][i] for r in res]
+           for i, (a, _, _, ste, shape) in enumerate(jobs)}
+    out["ring"] = (res[0][1][0], ring)
+    out["attn"] = list(zip(res[0][2], attn))
+    out["grid"] = [r[3] for r in res]
+    return out
 
 
 def _reference_state(name):
@@ -128,8 +245,9 @@ def _reference_state(name):
 
 
 def _cache(name, qkv, b, s, seed=3):
-    """The leaves of ``lm.make_cache`` for ``name``, random (float and int8
-    leaves), every ``pos`` at 5: a decode step reads five written rows."""
+    """The leaves of ``lm.make_cache`` for ``name`` (or a config), random
+    (float and int8 leaves), every ``pos`` at 5: a decode step reads five
+    written rows."""
     from repro_torch.models import lm
     from repro_torch.tree import leaves
     rng = np.random.default_rng(seed)
@@ -145,7 +263,8 @@ def _cache(name, qkv, b, s, seed=3):
             return torch.from_numpy(rng.integers(-127, 128, tuple(t.shape)).astype(np.int8))
         return t
 
-    return [t.numpy() for t in leaves(fill(lm.make_cache(_cfg(name), b, s, quantized=qkv,
+    cfg = _cfg(name) if isinstance(name, str) else name
+    return [t.numpy() for t in leaves(fill(lm.make_cache(cfg, b, s, quantized=qkv,
                                                           device="cpu")))]
 
 
@@ -417,3 +536,145 @@ def test_kernel_wrappers_refuse_dtensors(tmp_path):
         assert dispatch.counters["fakequant.ref"] == 1
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# the 4-rank spawn's other jobs: a ring on its positions, attention split
+# over heads and rows, the fold on a 2 x 2 grid
+# --------------------------------------------------------------------------
+def test_position_sharded_ring_decode_matches_one_device(four_ranks):
+    """``RING`` on 1 x 4: the ring sharded on its 32 positions (8 a rank);
+    each rank attends its own (no local attention call, three all-reduces
+    a layer and step, no all-gather of a ring shard), the logits and the
+    cache after two decode steps within 1e-5 of one device's."""
+    (prefill, logits, cache, probe), (arch, tree, batch, cache0, n_decode, qkv) = \
+        four_ranks["ring"]
+    cfg = _cfg(arch[0]).replace(**arch[1])
+    assert probe["ring"] == "(Shard(dim=1), Shard(dim=2))"
+    assert probe["decode"] == [] and probe["all_reduce"] == 3 * n_decode * cfg.layers
+    shard = (4, RING_ROWS // 4, cfg.n_kv_heads, cfg.hd)
+    assert not [g for g in probe["gathered"] if len(g) == 4 and g[1] == shard[1]], \
+        probe["gathered"]
+    want = serve_steps(cfg, lm_params_from_numpy(tree, cfg, device="cpu"), batch, cache0,
+                       n_decode, qkv)
+    np.testing.assert_allclose(prefill, want[0], rtol=1e-5, atol=1e-5)
+    assert len(logits) == n_decode
+    for a, b in zip(logits, want[1]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    for a, b in zip(cache, want[2]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", range(len(SPLIT_ATTN)),
+                         ids=["q{}-kv{}-{}".format(h, k, "causal" if c else "full")
+                              for h, k, c in SPLIT_ATTN])
+def test_attention_heads_the_model_axis_does_not_divide(four_ranks, case):
+    """A rank takes a block of heads and a block of query rows (causal at
+    its offset): the output and the gradients of q, k and v within 1e-5 of
+    one device's; no rank attends every head of every row."""
+    from repro_torch.kernels import dispatch
+    (out, dq, dk, dv, seen), (q, k, v, w, causal) = four_ranks["attn"][case]
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    with dispatch.use_backend("ref"):
+        o = dispatch.attention(*ts, causal=causal)
+        grads = torch.autograd.grad((o * torch.from_numpy(w)).sum(), ts)
+    for got, want in zip((out, dq, dk, dv), (o.detach(), *grads)):
+        np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5)
+    assert seen and all(rows * heads < q.shape[1] * q.shape[2] for rows, heads, _ in seen), seen
+
+
+@pytest.fixture(scope="module")
+def grid_single(grid_inputs):
+    """One device's fold of the grid inputs under each scheme."""
+    from repro_torch.launch.steps import make_fold_step
+    cfg = reduce_ppm_config()
+    params = params_from_numpy(grid_inputs[0], cfg, device="cpu")
+    a = torch.from_numpy(grid_inputs[1])
+    out = {}
+    for scheme in GRID_SCHEMES:
+        with torch.no_grad():
+            o = make_fold_step(cfg, make_scheme(scheme))(params, a)
+        out[scheme] = (o["coords"].numpy(), o["distogram"].numpy())
+    return out
+
+
+@pytest.mark.parametrize("scheme", GRID_SCHEMES)
+def test_one_row_strip_grid_folds_as_the_pair_shard(four_ranks, grid_single, scheme):
+    """A 1 x 4 grid (the rows whole, the parameters cut by ``param_spec``)
+    folds what the serving tier's 1 x 4 ``PairShard`` folds, bitwise, and
+    within 1e-4 of one device."""
+    folds = four_ranks["grid"][0][0]
+    coords, disto = folds[("1x4", scheme)]
+    if scheme == GRID_SCHEMES[0]:
+        want = folds[("pair shard", scheme)]
+        np.testing.assert_array_equal(coords, want[0])
+        np.testing.assert_array_equal(disto, want[1])
+    if scheme == "lightnobel_aaq":
+        assert _tm(coords, grid_single[scheme][0]) >= 0.995
+    else:
+        np.testing.assert_allclose(coords, grid_single[scheme][0], rtol=1e-4, atol=1e-4)
+
+
+def test_grid_fold_where_the_fine_rows_do_not_divide(four_ranks, grid_inputs):
+    """N = 62 on the 2 x 2 grid: 62 rows do not split into 4 fine rows, so
+    triangular attention runs on each block with its keys gathered;
+    ``baseline_fp16`` allclose 1e-4 to one device."""
+    from repro_torch.launch.steps import make_fold_step
+    cfg = reduce_ppm_config()
+    params = params_from_numpy(grid_inputs[0], cfg, device="cpu")
+    with torch.no_grad():
+        o = make_fold_step(cfg, make_scheme(GRID_SCHEMES[0]))(
+            params, torch.from_numpy(grid_inputs[1][:, :-2]))
+    coords, disto = four_ranks["grid"][0][0][("2x2 blocks", GRID_SCHEMES[0])]
+    np.testing.assert_allclose(coords, o["coords"].numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(disto, o["distogram"].numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _tm(a, b) -> float:
+    """TM-score of coords (1, N, 3) against (1, N, 3)."""
+    return float(tm_score(torch.from_numpy(a[0]), torch.from_numpy(b[0])))
+
+
+@pytest.mark.parametrize("scheme", GRID_SCHEMES)
+def test_grid_fold_matches_one_device(four_ranks, grid_single, scheme):
+    folds = four_ranks["grid"][0][0]
+    (coords, disto), (wc, wd) = folds[("2x2", scheme)], grid_single[scheme]
+    assert coords.shape == wc.shape and disto.shape == wd.shape
+    if scheme == "lightnobel_aaq":
+        assert _tm(coords, wc) >= 0.995
+    else:
+        np.testing.assert_allclose(coords, wc, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(disto, wd, rtol=1e-4, atol=1e-4)
+    # a 1 x 1 grid moves nothing and folds what one device folds
+    one = folds[("1x1", scheme)]
+    np.testing.assert_array_equal(one[0], wc)
+    np.testing.assert_array_equal(one[1], wd)
+
+
+def test_grid_ranks_hold_the_reference_param_spec_shards(four_ranks, reference_grid):
+    """Each rank holds the bytes the reference's ``param_shardings(params,
+    mesh, None)`` puts on a device of the 2 x 2 mesh, and its fold gathers
+    the parameters, the strips and the swapped blocks as collectives."""
+    proc, path = reference_grid
+    out, _ = proc.communicate(timeout=600)
+    assert proc.returncode == 0, out
+    want = int(np.load(path)["param_bytes"])
+    ranks = four_ranks["grid"]
+    assert [r[1] for r in ranks] == [want] * 4
+    calls = {k: v["calls"] for k, v in ranks[0][2].items()}
+    assert calls["all_gather"] > 0 and calls["all_to_all"] > 0 and calls["gather"] == 2
+    # cell (0, 1) swaps its off-diagonal blocks with (1, 0) point to point
+    assert ranks[1][2]["permute"]["calls"] > 0
+
+
+@pytest.mark.parametrize("scheme", GRID_SCHEMES[:2])
+def test_grid_fold_matches_reference_2d_fold(four_ranks, reference_grid, scheme):
+    proc, path = reference_grid
+    out, _ = proc.communicate(timeout=600)
+    assert proc.returncode == 0, out
+    want = np.load(path)[scheme]
+    got = four_ranks["grid"][0][0][("2x2", scheme)][0]
+    if scheme == "baseline_fp16":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert _tm(got, want) >= 0.995
