@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Two diagnostics of the port, on the card (or, smaller, on the CPU).
+"""Three diagnostics of the port, on the card (or, smaller, on the CPU).
 
     python3 chip_diag.py batch     # where a fold stops being batch-invariant
     python3 chip_diag.py dryrun    # a dry-run cell's FLOPs by aten op
+    python3 chip_diag.py profile   # where the 2,000-residue fold's replay goes
 
 ``batch``: the two float32 kernel variants alone (``aaq_matmul_f32`` on
 batch 1's rows against batch 4's, ``flash_mha_simt`` on batch row 0),
@@ -37,6 +38,19 @@ fake 16 x 16 mesh at 1 and 2 layers (vocabulary 4,096) and at 1 layer
 linear in both, which gives the whole cell's; with a card, the whole cell
 (24 layers, 151,936) traced as well.  The fake tensors sit on the card
 where there is one, so it compares the card's PyTorch with the CPU's.
+
+``profile``: ``launch.serve``'s engine path with ``--profile`` (the
+CLI's ``serve_ppm_engine``, handed the full esmfold_ppm config on the card)
+on one 2,000-residue request in bucket 2,048 at ``--chunk-size 64`` under
+the 4,096 MB budget (phase 6 of ``chip_smoke.py``'s long fold) with
+``--warmup``, so that the profiled window holds the graph's replay and not
+its capture; then the trace read back: the window, the device's busy time
+and the idle gaps (in the window and between the first and the last device
+event), and the device time by family (flash by head dim: D = 32 is the
+triangular attention's (64, 2048, 4, 32) slab; the quantize forms;
+``aaq_matmul``; cuBLAS's products; PyTorch's elementwise and reduction
+kernels; copies) and by kernel.  On the CPU: the reduced config, 60
+residues in bucket 64 at chunk 16, no device time.
 
 Imports neither JAX nor the JAX package.
 """
@@ -416,9 +430,66 @@ def dryrun_flops(torch) -> None:
                f"{rec['mem']['peak_bytes_per_dev']} B; {time.perf_counter() - t0:.1f} s")
 
 
+def profile_fold(torch) -> None:
+    import contextlib
+    import io
+    import shutil
+    import chip_smoke as cs                     # the trace reader, phase 17's
+    from repro_torch.configs import get_ppm_config, reduce_ppm_config
+    from repro_torch.data.pipeline import ProteinSampler
+    from repro_torch.launch import serve
+    from repro_torch.models.ppm import init_ppm
+    card = torch.cuda.is_available()
+    dev = torch.device("cuda" if card else "cpu")
+    cfg = get_ppm_config() if card else reduce_ppm_config()
+    residues, bucket, chunk = (2000, 2048, 64) if card else (60, 64, 16)
+    params = init_ppm(cfg, seed=0, device=dev)
+    seq = ProteinSampler(seed=11).sample(300, length=residues)   # phase 6's long request
+    log_dir = ROOT / "build" / "profile_long"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    args = serve.parser().parse_args(
+        ["--mode", "ppm", "--device", dev.type, "--buckets", str(bucket), "--max-batch", "1",
+         "--chunk-size", str(chunk), "--mem-budget-mb", "4096", "--no-fidelity", "--warmup",
+         "--profile", str(log_dir)])
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve.serve_ppm_engine(args, cfg, params, [seq], (bucket,), dev)
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    _print("\n".join(ln for ln in lines if not ln.startswith("# bucket=")))
+    if rc != 0:
+        raise SystemExit(f"serve_ppm_engine returned {rc}")
+    (path,) = sorted(log_dir.glob("*.pt.trace.json"))
+    t1 = time.perf_counter()
+    tr = cs.trace_summary(path)
+    _print(f"profile: {residues} residues in bucket {bucket}, chunk {chunk}, {cfg.blocks} blocks "
+           f"hz {cfg.hz} on {dev}: serve_ppm_engine {wall:.1f} s with warm-up; trace "
+           f"{path.stat().st_size / 2**20:.1f} MiB read in {time.perf_counter() - t1:.1f} s; "
+           f"ranges {dict(tr['ranges'])}")
+    window, busy, span = tr["window_us"], tr["busy_us"], tr["device_span_us"]
+    _print(f"profile: window {window / 1e3:.1f} ms; host time inside the engine's ranges "
+           + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in sorted(tr["range_us"].items())))
+    if not tr["kernels"]:
+        _print("profile: the profiler recorded no device time (device busy: not measured)")
+        return
+    _print(f"profile: {tr['kernels']} kernels; device busy {busy / 1e3:.1f} ms "
+           f"({100 * busy / window:.1f}% of the window); first to last device event "
+           f"{span / 1e3:.1f} ms, idle gaps inside it {(span - busy) / 1e3:.1f} ms "
+           f"({100 * (span - busy) / span:.1f}%); idle in the window "
+           f"{(window - busy) / 1e3:.1f} ms")
+    for fam, us in tr["by_family"].most_common():
+        _print(f"  {us / 1e3:10.1f} ms  {100 * us / span:5.1f}% of the device span  "
+               f"{tr['family_calls'][fam]:7d}x  {fam}")
+    _print(f"  {(span - busy) / 1e3:10.1f} ms  {100 * (span - busy) / span:5.1f}% of the "
+           f"device span           idle gaps")
+    for name, us in tr["by_name"].most_common(15):
+        _print(f"  {us / 1e3:10.1f} ms  {tr['calls'][name]:7d}x  {name[:120]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="diagnostics of the port")
-    ap.add_argument("what", choices=("batch", "dryrun"))
+    ap.add_argument("what", choices=("batch", "dryrun", "profile"))
     args = ap.parse_args(argv)
     import torch
     if torch.cuda.is_available():
@@ -427,7 +498,7 @@ def main(argv=None) -> int:
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip().splitlines()[0]
         _print(f"card: {smi}; torch {torch.__version__}")
-    (batch if args.what == "batch" else dryrun_flops)(torch)
+    {"batch": batch, "dryrun": dryrun_flops, "profile": profile_fold}[args.what](torch)
     return 0
 
 

@@ -205,9 +205,11 @@ Phases, each fatal on failure:
      the live engines, captures equal to keys and none in the second
      pass, every main-path kernel launched, the rank processes gone once
      the mesh closes;
- 14. the examples (``python -m repro_torch.examples.quickstart`` and
-     ``fold_server``) as processes on the card, both at once: each exits 0
-     after its own assertions with every main-path kernel launched;
+ 14. the four examples (``python -m repro_torch.examples.quickstart``,
+     ``fold_server``, ``train_lm`` and ``lm_serve_quantized_kv``, each at
+     its reduced config) as processes on the card, all at once: each exits
+     0 after its own assertions with every kernel its path runs launched
+     and no plain version;
  15. the dry-run: ``python -m repro_torch.launch.dryrun`` on the fake
      16 x 16 production mesh, a process a cell, all at once, for
      qwen1.5-0.5b x train_4k, qwen1.5-0.5b x decode_32k with the INT8 KV
@@ -232,7 +234,19 @@ Phases, each fatal on failure:
      shapes against their plain versions, timed; with ``--mesh-only`` on
      four cards (c) the 2x2 grid a card a rank over NCCL at all 48 blocks
      and N = 1,024, TM >= 0.995;
- 17. summary: one JSON line of the kernels, the card, and the last line
+ 17. a profiled serve: ``launch.serve``'s engine path with ``--profile
+     DIR`` at full esmfold_ppm width, 8 requests of 200-256 residues under
+     lightnobel_aaq (batches of 4 in bucket 256), (a) with ``--warmup`` (only
+     replays in the profiled window), (b) without (the captures in it) and
+     (c) as (a) under ``--driver thread`` (the ranges on the client's thread):
+     all served, every main-path kernel launched, one trace file holding
+     the engine's ``serve.dispatch/<bucket>`` and ``serve.retire/<bucket>``
+     ranges for every bucket served and, where the profiler recorded device
+     time, device events of all three hand-written kernels by their symbols;
+     the ten device operations with the most time, the device-busy share
+     of the window, the kernel count and the host time inside the engine's
+     ranges printed;
+ 18. summary: one JSON line of the kernels, the card, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -254,10 +268,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-# phase 10 runs under torch.use_deterministic_algorithms, whose cuBLAS
-# products need this workspace setting before CUDA initialises (32 MiB, the
-# size PyTorch takes on Hopper without it)
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # published peaks of one H100 SXM (dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -780,19 +790,31 @@ def check_flash(torch, rows: dict) -> None:
     timed(by_name["structure N=256"], "flash_mha", "structure: q,k,v (1, 256, 16, 64) bf16, "
           "bias (1, 16, 256, 256) f32")
     timed(tri, "flash_mha", "tri: q,k,v (1024, 1024, 4, 32) bf16 views, "
-          "bias (1, 4, 1024, 1024) bf16 transposed; error on 8 rows", plain=False,
+          "bias (1, 4, 1024, 1024) bf16 transposed; error on 8 rows, plain and library "
+          "over the 1,024 rows a quarter at a time", plain=False,
           library=False, err=tri_err)
-    # its library yardstick on a quarter of the rows, scaled by 4: the bias
-    # expanded over all 1,024 rows would take 8.6 GB in bf16
-    sub = slice(0, 256)
+    # its plain version and library yardstick over all 1,024 rows, one call
+    # a quarter of them, each timed run doing all four: at once the plain
+    # version's (N, 4, N, N) f32 logits would take 17 GB and SDPA's bias
+    # expanded over the rows 8.6 GB in bf16.  One quarter's expanded mask
+    # serves every quarter (the bias is the same for every row)
+    quarters = [slice(i, i + 256) for i in range(0, 1024, 256)]
     mask = tri["bias"].expand(256, 4, 1024, 1024).clone()
     mask[..., 1024 - 24:] = -1e30
-    qt, kt, vt = (a[sub].transpose(1, 2) for a in (tri["q"], tri["k"], tri["v"]))
-    rows["flash_mha"][-1].library_ms = 4 * time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask), iters=5)
-    log(f"flash_mha tri N=1024: library_ms {rows['flash_mha'][-1].library_ms:.4f} (SDPA on "
-        f"256 of the 1,024 rows, the bias expanded over them, times 4)")
-    del mask, qt, kt, vt
+    qkv_t = [tuple(a[sub].transpose(1, 2) for a in (tri["q"], tri["k"], tri["v"]))
+             for sub in quarters]
+    rows["flash_mha"][-1].library_ms = time_ms(torch, lambda: [
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask) for qt, kt, vt in qkv_t],
+        iters=5)
+    del mask, qkv_t
+    qkvl = [tuple(a[sub] for a in (tri["q"], tri["k"], tri["v"], tri["kvlen"]))
+            for sub in quarters]
+    rows["flash_mha"][-1].plain_ms = time_ms(torch, lambda: [
+        flash_mha_plain(qs, ks, vs, tri["bias"], ls) for qs, ks, vs, ls in qkvl], iters=3)
+    del qkvl
+    log(f"flash_mha tri N=1024: library_ms {rows['flash_mha'][-1].library_ms:.4f} (SDPA, "
+        f"the bias expanded over 256 rows, four calls), plain_ms "
+        f"{rows['flash_mha'][-1].plain_ms:.4f} (the plain version, four calls of 256 rows)")
     timed(by_name["seq N=2048"], "flash_mha", "seq: q,k,v (1, 2048, 16, 64) bf16, "
           "bias (1, 16, 2048, 2048) f32 permuted")
     c = by_name["tri N=256"]
@@ -4125,14 +4147,23 @@ def serve_fleet_mesh(torch, width: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase 14: the examples
 # ---------------------------------------------------------------------------
-EXAMPLES = ("quickstart", "fold_server")
-#: each kernel an example's fold runs, as the variants that may serve it
-EXAMPLE_KERNELS = (("aaq_quantize",), ("aaq_fake_quant",), ("aaq_matmul", "aaq_matmul_f32"),
-                   ("flash_mha", "flash_mha_simt"))
+#: each example -> each kernel its path runs, as the variants that may
+#: serve it.  The reduced configs are float32: the products and flash take
+#: their f32 variants.  Training runs only the fake-quant (its attention
+#: has no kernel backward); the LM decode tenant quantizes its KV rows and
+#: attends by flash
+_FOLD_KERNELS = (("aaq_quantize",), ("aaq_fake_quant",), ("aaq_matmul", "aaq_matmul_f32"),
+                 ("flash_mha", "flash_mha_simt"))
+EXAMPLES = {"quickstart": _FOLD_KERNELS, "fold_server": _FOLD_KERNELS,
+            "train_lm": (("aaq_fake_quant",),),
+            "lm_serve_quantized_kv": (("aaq_quantize",), ("flash_mha", "flash_mha_simt"))}
+#: the lines of each example's output that phase 14 prints
+EXAMPLE_LINES = ("TM-score", "pair-activation", "# tails", "# http", "# steady", "done:",
+                 "training example", "kv_bytes_per_request", "max |logits_first")
 
 
 def run_examples(torch) -> None:
-    """``python -m repro_torch.examples.<name>`` for each example, both at
+    """``python -m repro_torch.examples.<name>`` for each example, all at
     once, on the card: each must exit 0 after its own assertions, with
     every kernel its path runs launched and no plain version."""
     t0 = time.perf_counter()
@@ -4153,14 +4184,11 @@ def run_examples(torch) -> None:
             fail(f"phase 14: {name} exited {proc.returncode}:\n{out[-3000:]}")
         launched, plain = (json.loads(p) for p in
                            lines[-1].removeprefix("# launches ").split(" plain "))
-        # the reduced config is float32: the products and flash take their
-        # f32 variants
-        if any(not any(launched[v] for v in family) for family in EXAMPLE_KERNELS) \
+        if any(not any(launched[v] for v in family) for family in EXAMPLES[name]) \
                 or any(plain.values()):
             fail(f"phase 14: {name}: launches {launched}, plain {plain}")
         log(f"phase 14: {name} exited 0 at {time.perf_counter() - t0:.1f}s; "
-            + " | ".join(ln for ln in lines if ln.startswith(("TM-score", "pair-activation",
-                                                              "# tails", "# http", "# steady"))))
+            + " | ".join(ln for ln in lines if ln.startswith(EXAMPLE_LINES)))
         log(f"phase 14: {name} launches {launched}")
     log(f"phase 14 wall {time.perf_counter() - t0:.1f}s")
 
@@ -4485,7 +4513,186 @@ def grid_fold(torch, rows: dict, card: str, *, across: bool = False) -> list:
     return grid_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 17: a profiled serve (``launch.serve --profile``)
+# ---------------------------------------------------------------------------
+#: ``launch.serve``'s flags for phase 17: 8 requests of 200-256 residues
+#: (bucket 256, batches of 4) under AAQ, without the fidelity pass
+PROFILE_ARGS = ("--mode", "ppm", "--n", "8", "--min-len", "200", "--max-len", "256",
+                "--scheme", "lightnobel_aaq", "--no-fidelity")
+#: each hand-written kernel's source -> its kernels' symbols there
+KERNEL_SYMBOLS = {
+    "aaq_quant.cu": ("aaq_quantize_lanes", "aaq_quantize_rows", "aaq_fake_quant_lanes",
+                     "aaq_fake_quant_rows"),
+    "aaq_matmul.cu": ("aaq_matmul_tc_kernel", "aaq_matmul_simt_kernel"),
+    "flash_attention.cu": ("flash_tc_kernel", "flash_simt_kernel"),
+}
+#: trace categories of the work the card does
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def kernel_family(name: str) -> str:
+    """A device event's family: a hand-written kernel (flash by its head
+    dim), cuBLAS's products, PyTorch's own kernels, or other."""
+    import re
+    m = re.search(r"flash_tc_kernel<(\d+)|flash_simt_kernel<[^,>]*,\s*(\d+)", name)
+    if m:
+        return f"flash_mha D={m.group(1) or m.group(2)}"
+    for fam in ("aaq_fake_quant", "aaq_quantize", "aaq_matmul"):
+        if fam in name:
+            return fam
+    if re.search(r"gemm|gemv|nvjet|cutlass|xmma|cublas|splitk", name, re.I):
+        return "cuBLAS products"
+    if "at::" in name:
+        return "PyTorch elementwise/reduction"
+    return "other kernels"
+
+
+def _covered_us(spans) -> float:
+    """The length of the union of ``(start, end)`` spans."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def trace_summary(path) -> dict:
+    """Read a ``torch.profiler`` Chrome trace: the window (every complete
+    event's extent), the device work in it (kernels, copies, sets; their
+    union is the busy time), device time by name and by family, and the
+    host time inside the engine's ``serve.*`` ranges, by range."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS]
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev]
+    by_name, by_family = Counter(), Counter()
+    calls, fam_calls = Counter(), Counter()
+    for e in dev:
+        name = e["name"] if e["cat"] == "kernel" else e["cat"]
+        fam = kernel_family(name) if e["cat"] == "kernel" else "copies and sets"
+        by_name[name] += float(e["dur"])
+        calls[name] += 1
+        by_family[fam] += float(e["dur"])
+        fam_calls[fam] += 1
+    ranges, range_us = Counter(), Counter()
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("serve."):
+            ranges[e["name"]] += 1
+            range_us[e["name"].split("/")[0]] += float(e["dur"])
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy = _covered_us(spans)
+    d0, d1 = (min(a for a, _ in spans), max(b for _, b in spans)) if spans else (0.0, 0.0)
+    return dict(window_us=t1 - t0, busy_us=busy, device_span_us=d1 - d0,
+                kernels=sum(1 for e in dev if e["cat"] == "kernel"), by_name=by_name,
+                calls=calls, by_family=by_family, family_calls=fam_calls, ranges=ranges,
+                range_us=range_us)
+
+
+def profile_serve(torch) -> None:
+    """``launch.serve --profile DIR`` at full esmfold_ppm width through
+    ``serve_ppm_engine`` (the CLI's own function, handed the full config):
+    (a) with ``--warmup`` (only replays in the window), (b) without (the
+    captures in the window), (c) as (a) under ``--driver thread`` (dispatch
+    and retire on the client's own thread; where this torch cannot record
+    another thread's ranges, the profiler's line saying so stands in for
+    them).  Each: counts zeroed before and read after,
+    every main-path kernel launched and no plain version, all 8 served and
+    a batch of more than one; one trace file, holding a dispatch and a
+    retire range for every bucket served, and where the profiler recorded
+    device time a kernel of each hand-written source by its symbol.
+    Printed: the ten device operations with the most time, the device-busy
+    share of the window, the kernel count and the host time inside the
+    engine's ranges."""
+    import gc
+    import io
+    from repro_torch.configs import get_ppm_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.models.ppm import init_ppm
+    from repro_torch.serving import parse_buckets
+    t0 = time.perf_counter()
+    cfg = get_ppm_config()
+    params = init_ppm(cfg, seed=0, device="cuda")
+    dev = torch.device("cuda")
+    for part, warm, driver in (("a", True, "inline"), ("b", False, "inline"),
+                               ("c", True, "thread")):
+        what = (f"phase 17({part}), --profile {'--warmup' if warm else 'cold'} "
+                f"--driver {driver}")
+        log_dir = ROOT / "build" / f"profile_serve_{part}"
+        shutil.rmtree(log_dir, ignore_errors=True)
+        args = serve.parser().parse_args([*PROFILE_ARGS, "--profile", str(log_dir),
+                                          "--driver", driver,
+                                          *(["--warmup"] if warm else [])])
+        buckets = parse_buckets(args.buckets, args.min_len, args.max_len)
+        seqs = serve._sample_trace(args.n, args.min_len, args.max_len)
+        dispatch.reset_counters()
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = serve.serve_ppm_engine(args, cfg, params, seqs, buckets, dev)
+        wall = time.perf_counter() - t1
+        launches, plain, routed = _counts()
+        lines = out.getvalue().splitlines()
+        if rc != 0:
+            fail(f"{what}: serve_ppm_engine returned {rc}:\n" + "\n".join(lines[-20:]))
+        _check_main_path(what, launches, plain, routed)
+        header = lines.index(next(ln for ln in lines if ln.startswith("request,")))
+        rows = [ln.split(",") for ln in lines[header + 1:] if not ln.startswith("#")]
+        served = sorted({int(r[2]) for r in rows if r[4] == "ok"})
+        if len(rows) != args.n or any(r[4] != "ok" for r in rows) \
+                or max(int(r[3]) for r in rows) < 2:
+            fail(f"{what}: not all served, or no batch of more than one: {rows}")
+        traces = sorted(log_dir.glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            fail(f"{what}: expected one trace in {log_dir}, found {[t.name for t in traces]}")
+        path = traces[0]
+        tr = trace_summary(path)
+        missing = [f"serve.{phase}/{b}" for b in served for phase in ("dispatch", "retire")
+                   if not tr["ranges"][f"serve.{phase}/{b}"]]
+        one_thread = [ln for ln in lines if ln.startswith("# profile: torch")]
+        if missing and driver == "thread" and one_thread:
+            # this torch cannot record the driver thread's ranges, and says so
+            log(f"{what}: {one_thread[0]}; the ranges {missing} not recorded")
+        elif missing:
+            fail(f"{what}: the trace lacks the engine's ranges {missing}: {dict(tr['ranges'])}")
+        summary = [ln for ln in lines if ln.startswith(("# served", "# engine", "# pipeline"))]
+        log(f"{what}: served {len(rows)} in buckets {served}, batches "
+            f"{sorted(Counter(int(r[3]) for r in rows).items())}, serve_ppm_engine "
+            f"{wall:.1f}s; trace {path.name} {path.stat().st_size / 2**20:.1f} MiB; ranges "
+            f"{dict(tr['ranges'])}; launches {launches}; " + " | ".join(summary))
+        log(f"{what}: host time inside the engine's ranges: "
+            + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in sorted(tr["range_us"].items()))
+            + f" of a {tr['window_us'] / 1e3:.1f} ms window")
+        if not tr["kernels"]:
+            log(f"{what}: the profiler recorded no device time (device busy: not measured)")
+            continue
+        absent = [src for src, syms in KERNEL_SYMBOLS.items()
+                  if not any(sym in name for name in tr["calls"] for sym in syms)]
+        if absent:
+            fail(f"{what}: no device event of {absent} in the trace")
+        log(f"{what}: device busy {tr['busy_us'] / 1e3:.1f} ms of the {tr['window_us'] / 1e3:.1f} "
+            f"ms window ({100 * tr['busy_us'] / tr['window_us']:.1f}%), {tr['kernels']} kernels; "
+            f"by family: " + "; ".join(
+                f"{fam} {us / 1e3:.1f} ms ({tr['family_calls'][fam]})"
+                for fam, us in tr["by_family"].most_common()))
+        for name, us in tr["by_name"].most_common(10):
+            log(f"  {us / 1e3:9.2f} ms  {tr['calls'][name]:6d}x  {name[:110]}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 17 wall {time.perf_counter() - t0:.1f}s")
+
+
 def main(argv=None) -> int:
+    # phase 10 runs under torch.use_deterministic_algorithms, whose cuBLAS
+    # products need this workspace setting before CUDA initialises (32 MiB,
+    # the size PyTorch takes on Hopper without it); the rank processes
+    # inherit it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     ap = argparse.ArgumentParser(description="smoke test of the port on the card")
     ap.add_argument("--mesh-only", action="store_true",
                     help="build the kernels and run phases 11, 12, 13 and 16 (the mesh "
@@ -4627,7 +4834,12 @@ def main(argv=None) -> int:
     grid_rows = grid_fold(torch, rows, smi)
     log(f"phase 16 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 17. summary
+    # 17. a profiled serve: launch.serve --profile at full width, with and
+    # without --warmup, and under --driver thread
+    profile_serve(torch)
+    log(f"phase 17 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 18. summary
     log(f"total {time.perf_counter() - t_start:.1f}s")
     # each variant at its first timed shape, then every kernel at the engine's
     # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs), the

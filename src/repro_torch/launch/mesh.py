@@ -40,6 +40,8 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from repro_torch.device import resolve_device
+
 #: the directory that holds the ``repro_torch`` package (a started rank's
 #: PYTHONPATH)
 SRC = Path(__file__).resolve().parents[2]
@@ -188,17 +190,23 @@ def start_train_ranks(world: int, argv: list[str], init_method: str) -> list:
     return [subprocess.Popen([*base, "--rank", str(r)], env=env) for r in range(1, world)]
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    """The rank worker's flags (``main``); ``--device`` defaults to the
+    card, as every entry point of the port does."""
     ap = argparse.ArgumentParser(description="one rank of a serving mesh")
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--data", type=int, required=True)
     ap.add_argument("--model", type=int, required=True)
     ap.add_argument("--init", required=True)
     ap.add_argument("--route", required=True)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--threads", type=int, default=0)
     ap.add_argument("--parent", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
     if args.parent:
         _watch_parent(args.parent)
     if args.threads:
@@ -207,7 +215,7 @@ def main(argv=None) -> int:
     from repro_torch.serving.placement import ServingMesh
     mesh = ServingMesh(args.data, args.model)
     mesh.route = args.route
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     init_group(mesh, args.rank, args.init, device)
     mesh._setup(device)
     serve_worker(mesh)

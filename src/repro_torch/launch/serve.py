@@ -44,6 +44,15 @@ on the CPU.  With ``--listen`` the fleet answers ``POST /v1/generate``:
 ``--metrics-port`` serves the engine's Prometheus ``/metrics`` (and
 ``/metrics.json``, ``/healthz``) while a trace is served.
 
+``--profile DIR`` (the counterpart of the reference's ``--jax-profile``)
+writes a ``torch.profiler`` Chrome trace of the engine's serving window
+into DIR: the engine's ``serve.dispatch/<bucket>`` and
+``serve.retire/<bucket>`` ranges beside the kernels they launched (open it
+at ui.perfetto.dev, or point TensorBoard's profiler plugin at DIR):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode ppm --device cpu \
+        --n 3 --profile build/profile
+
 ``--mesh DxM --shard-threshold T`` serves buckets of T and above on a
 (data, model) mesh with the pair tensor split on j over the M model ranks
 (``serving.placement``), and the rest on rank 0 alone; the two flags go
@@ -78,7 +87,7 @@ from repro_torch.serving import (CSV_HEADER as ENGINE_CSV_HEADER, LM_CSV_HEADER,
                                  MetricsServer, lm_csv_row,
                                  bucket_for, calibrate, csv_row, load_cost_table,
                                  pad_to_bucket, parse_buckets, parse_chunk_spec,
-                                 pipeline_overlaps)
+                                 pipeline_overlaps, profile)
 from repro_torch.serving.engine import serve_worker
 from repro_torch.serving.observability import parse_hostport
 from repro_torch.serving.placement import make_serving_mesh
@@ -310,17 +319,18 @@ def serve_ppm_engine(args, cfg, params, seqs, buckets, dev, mesh=None) -> int:
     warm_compiles = client.core.compile_count
     tiers = priority_tiers(len(seqs), args.priority_split)
     t0 = time.perf_counter()
-    if args.driver == "thread":
-        client.start()
-    handles = [client.submit(s, priority=p, deadline_s=args.deadline_s)
-               for s, p in zip(seqs, tiers)]
-    if args.driver == "thread":
-        for h in handles:
-            if not h.done:
-                h.result(timeout=600.0)
-        client.stop()
-    else:
-        client.drive()
+    with profile(args.profile):
+        if args.driver == "thread":
+            client.start()
+        handles = [client.submit(s, priority=p, deadline_s=args.deadline_s)
+                   for s, p in zip(seqs, tiers)]
+        if args.driver == "thread":
+            for h in handles:
+                if not h.done:
+                    h.result(timeout=600.0)
+            client.stop()
+        else:
+            client.drive()
     client.metrics.wall_s = time.perf_counter() - t0
     results = sorted(client.metrics.results, key=lambda r: r.request_id)
     print(ENGINE_CSV_HEADER)
@@ -615,6 +625,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-hold-s", type=float, default=0.0,
                     help="keep the --metrics-port endpoint up this long "
                          "after serving finishes")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="ppm engine: write a torch.profiler trace of the "
+                         "serving window (submit to drain) into DIR, the "
+                         "engine's serve.dispatch/serve.retire ranges beside "
+                         "the card's kernels (the counterpart of the "
+                         "reference's --jax-profile; no effect with --mode "
+                         "lm, --listen or --no-engine)")
     # -- lm mode (decode through the substrate) --
     ap.add_argument("--arch", default="qwen1.5-0.5b",
                     help="lm: a dense architecture (full width on the card, "

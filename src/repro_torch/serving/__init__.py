@@ -34,7 +34,8 @@ from repro_torch.serving.metrics import (CSV_HEADER, CompileWatcher, EngineMetri
 from repro_torch.serving.observability import (PROMETHEUS_CONTENT_TYPE,
                                                MetricsRegistry, MetricsServer,
                                                Span, Tracer, pipeline_overlaps,
-                                               span_tree, validate_chrome_trace)
+                                               profile, span_tree, step_annotation,
+                                               validate_chrome_trace)
 from repro_torch.serving.placement import (SHARDED, SINGLE, SINGLE_PLACEMENT, Placement,
                                            PlacementPolicy, ServingMesh,
                                            make_serving_mesh, parse_mesh_spec)
@@ -77,7 +78,7 @@ __all__ = [
     # observability (tracing + metrics registry + scrape endpoint)
     "Span", "Tracer", "span_tree", "pipeline_overlaps",
     "validate_chrome_trace", "MetricsRegistry", "MetricsServer",
-    "PROMETHEUS_CONTENT_TYPE",
+    "PROMETHEUS_CONTENT_TYPE", "profile", "step_annotation",
     # workload substrate
     "Workload", "FoldWorkload",
     # LM decode tenant

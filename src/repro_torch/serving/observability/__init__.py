@@ -9,13 +9,16 @@ stack (port of ``repro/serving/observability``).
     Prometheus text and JSON exposition (``FoldClient.metrics_text()`` /
     ``metrics_json()``);
   * ``profiler`` + ``httpd``: ``torch.profiler``/NVTX ranges around the
-    engine's batch phases (``annotate``) and the optional stdlib scrape
-    endpoint (``--metrics-port``).
+    engine's batch phases (``annotate``, ``step_annotation``), the
+    run-level capture ``profile`` (``--profile``, the counterpart of the
+    reference's ``jax_profile``) and the optional stdlib scrape endpoint
+    (``--metrics-port``).
 """
 from repro_torch.serving.observability.httpd import (BackgroundHTTPServer,
                                                      MetricsServer, QuietHandler,
                                                      parse_hostport)
-from repro_torch.serving.observability.profiler import annotate
+from repro_torch.serving.observability.profiler import (annotate, profile,
+                                                       step_annotation)
 from repro_torch.serving.observability.registry import (FRACTION_BUCKETS,
                                                         LATENCY_BUCKETS,
                                                         PROMETHEUS_CONTENT_TYPE,
@@ -33,5 +36,5 @@ __all__ = [
     "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "LATENCY_BUCKETS", "FRACTION_BUCKETS", "PROMETHEUS_CONTENT_TYPE",
     "MetricsServer", "BackgroundHTTPServer", "QuietHandler",
-    "parse_hostport", "annotate",
+    "parse_hostport", "annotate", "step_annotation", "profile",
 ]

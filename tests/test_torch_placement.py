@@ -91,6 +91,16 @@ def test_make_serving_mesh_none_and_too_big():
     assert mesh.shape == {"data": 1, "model": 2} and mesh.label == "mesh:1x2"
 
 
+def test_rank_worker_defaults_to_the_card():
+    """The rank worker's ``--device`` defaults to the card, as every entry
+    point of the port does; its parent passes the mesh's device."""
+    from repro_torch.launch import mesh as lmesh
+    need = ["--rank", "1", "--data", "1", "--model", "2", "--init", "file:///x",
+            "--route", "gloo"]
+    assert lmesh.parser().parse_args(need).device == "cuda"
+    assert lmesh.parser().parse_args([*need, "--device", "cpu"]).device == "cpu"
+
+
 @pytest.fixture
 def one_card(monkeypatch):
     """A host that shows one card (this module starts no rank and touches

@@ -140,6 +140,9 @@ _ISOLATION = r"""
 import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+missing = {"repro_torch.serving.observability.profiler", "repro_torch.examples.train_lm",
+           "repro_torch.examples.lm_serve_quantized_kv"} - set(names)
+assert not missing, missing
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -172,8 +175,9 @@ def _imported_roots(path):
 
 def test_chip_smoke_and_port_sources_import_no_jax():
     banned = {"jax", "jaxlib", "repro", "benchmarks"}
-    roots = _imported_roots(ROOT / "chip_smoke.py")
-    assert "repro_torch" in roots and not roots & banned
+    for script in ("chip_smoke.py", "chip_diag.py"):
+        roots = _imported_roots(ROOT / script)
+        assert "repro_torch" in roots and not roots & banned, script
     for py in (SRC / "repro_torch").rglob("*.py"):
         assert not _imported_roots(py) & banned, py
 
