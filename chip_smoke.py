@@ -15,13 +15,22 @@ Phases, each fatal on failure:
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA
      and nvcc versions; no CUDA device -> exit 1;
   2. build: the CUDA kernels from ``src/repro_torch/csrc``; ptxas's
-     registers and spills of every tensor-core flash instantiation
-     printed, and a spill fails;
+     registers and spills of every flash instantiation, the tensor-core
+     kernel's and the Hopper kernel's (``flash_wg_kernel``), printed, and
+     a spill fails;
   3. each kernel variant against its plain PyTorch version on the card at
      the main path's shapes and at long N (seq attention at N = 1024 and
      2048, triangular attention at N = 1024), with its time at every
      main-path shape, the plain version's, the least time the card could
-     take (``bound_ms``) and one PyTorch library call's; both forms of the
+     take (``bound_ms``) and one PyTorch library call's; the fold's
+     attention on the Hopper kernel (``flash_mha_wg``: tri at N = 200 and
+     256 with padding, seq, structure, N = 1024 on 8 rows, seq N = 2048,
+     the engine's batch-4 and slab shapes, a mesh rank's rows, also with a
+     bias gathered keys outermost, and a grid rank's block; the last ones
+     timed in phases 6, 11 and 16), each also bitwise between two launches
+     and, row by row, against the row launched alone, with the tensor-core
+     kernel's time at the same shape through its C entry point
+     (``tc_ms``); both forms of the
      AAQ quantize kernel (``aaq_quantize`` for the linears, the fake-quant
      ``aaq_fake_quant`` for the ``act`` sites) bitwise; and the LM decode
      tenant's shapes: both quantize forms at the LM zoo's residual widths
@@ -310,7 +319,8 @@ VARIANTS = {
     "flash_mha": ("flash_attention.cu", "src/repro/kernels/flash_attention/flash_attention.py:93"),
 }
 VARIANTS.update(aaq_fake_quant=VARIANTS["aaq_quantize"],
-                aaq_matmul_f32=VARIANTS["aaq_matmul"], flash_mha_simt=VARIANTS["flash_mha"])
+                aaq_matmul_f32=VARIANTS["aaq_matmul"], flash_mha_simt=VARIANTS["flash_mha"],
+                flash_mha_wg=VARIANTS["flash_mha"])
 # (H, D) of every aaq_matmul call of a fold: the tri-attention bias, the
 # pair projections, tri-attention's qkv, tri-mul's packed projection,
 # the pair transition's down projection
@@ -411,23 +421,26 @@ class KernelRow:
     library_ms: float | None = None
     launches: int = 0
     call_ms: float = 0.0        # CUDA-event time of back-to-back calls (log only)
+    tc_ms: float | None = None  # flash_mha_wg rows: the tc kernel at the same shape
 
     def record(self) -> dict:
-        return {"name": self.name, "route": "cuda", "source": self.source,
-                "replaces": self.replaces, "shape": self.shape,
-                "launches": self.launches, "max_abs_err": self.max_abs_err,
-                "ms": self.ms, "plain_ms": self.plain_ms,
-                "bound_ms": self.bound_ms, "bound_by": self.bound_by,
-                "library_ms": self.library_ms}
+        rec = {"name": self.name, "route": "cuda", "source": self.source,
+               "replaces": self.replaces, "shape": self.shape,
+               "launches": self.launches, "max_abs_err": self.max_abs_err,
+               "ms": self.ms, "plain_ms": self.plain_ms,
+               "bound_ms": self.bound_ms, "bound_by": self.bound_by,
+               "library_ms": self.library_ms}
+        return rec if self.tc_ms is None else dict(rec, tc_ms=self.tc_ms)
 
     def line(self) -> str:
         lib = "none" if self.library_ms is None else f"{self.library_ms:.4f}"
         plain = "not timed" if self.plain_ms is None else f"{self.plain_ms:.4f}"
+        tc = "" if self.tc_ms is None else f" tc_ms={self.tc_ms:.4f}"
         return (f"{self.name} [{self.shape}]: kernel_ms={self.ms:.4f} "
                 f"call_ms={self.call_ms:.4f} "
                 f"bound_ms={self.bound_ms:.4f} ({self.bound_by}, "
                 f"{100 * self.bound_ms / self.ms:.1f}% of bound) plain_ms={plain} "
-                f"library_ms={lib} max_abs_err={self.max_abs_err:.3e}")
+                f"library_ms={lib} max_abs_err={self.max_abs_err:.3e}{tc}")
 
 
 def _row(name: str, shape: str) -> KernelRow:
@@ -709,6 +722,51 @@ def _flash_close(torch, got, want, v, name):
     return float(err.max())
 
 
+def _flash_name(q, k, bias, **kw) -> str:
+    """The launch-count name of the flash variant a call takes (the wrapper's
+    fixed rule)."""
+    from repro_torch.kernels.flash_attention.flash_attention import VARIANT_NAMES, variant_for
+    return VARIANT_NAMES[variant_for(q.dtype, q.shape[-1], sq=q.shape[1], hq=q.shape[2],
+                                     hkv=k.shape[2], has_bias=bias is not None,
+                                     causal=bool(kw.get("causal")), window=kw.get("window"))]
+
+
+def _wg_bitwise(torch, args, got, name) -> None:
+    """The Hopper kernel's determinism gates: a second launch bitwise the
+    first, and the first, a middle and the last batch row each launched
+    alone bitwise its row of the full launch (a row's output does not depend
+    on which rows share its block)."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_mha_kernel
+    q, k, v, bias, kvl = args
+    if not _bitwise(torch, flash_mha_kernel(*args), got):
+        fail(f"flash_mha_wg {name}: two launches differ")
+    b, per = q.shape[0], q.shape[0] // bias.shape[0]
+    for r in sorted({0, b // 2 + 1 if b > 1 else 0, b - 1}):
+        one = flash_mha_kernel(q[r:r + 1], k[r:r + 1], v[r:r + 1], bias[r // per:r // per + 1],
+                               None if kvl is None else kvl[r:r + 1])
+        if not _bitwise(torch, one, got[r:r + 1]):
+            fail(f"flash_mha_wg {name}: row {r} launched alone differs from its row of the "
+                 "full launch")
+
+
+def _tc_ms(torch, args) -> float:
+    """Time of the tensor-core (mma.sync) kernel on a launch the rule sends
+    to the Hopper kernel, through its C entry point."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.flash_attention import _flash_launch_args
+    q, k, v, bias, kvl = args
+    la = _flash_launch_args(*args)
+    b, sq, _, hq, _, d, _ = la.sizes
+    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    lib, stream = build.library(), torch.cuda.current_stream().cuda_stream
+
+    def tc():
+        build.check(lib.flash_mha_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         bias.data_ptr(), None if kvl is None else kvl.data_ptr(),
+                                         o.data_ptr(), *la.c_args(), stream), "flash_mha")
+    return time_ms(torch, tc)
+
+
 def check_flash(torch, rows: dict) -> None:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (flash_mha_kernel,
@@ -735,13 +793,16 @@ def check_flash(torch, rows: dict) -> None:
                    window=70),
         _attn_case(torch, g, "bf16 d16", 3, 90, 4, 4, 16, bf, bias="f32", pad=9),
     ]
-    worst = 0.0
+    worst, on_wg = 0.0, []
     for c in cases:
         args = (c["q"], c["k"], c["v"], c["bias"], c["kvlen"])
         kw = dict(causal=c["causal"], window=c["window"])
         got = flash_mha_kernel(*args, **kw)
         worst = max(worst, _flash_close(torch, got, flash_mha_plain(*args, **kw), c["v"],
                                         c["name"]))
+        if _flash_name(c["q"], c["k"], c["bias"], **kw) == "flash_mha_wg":
+            _wg_bitwise(torch, args, got, c["name"])
+            on_wg.append(c["name"])
     # triangular attention at N = 1024: the kernel over all rows, the plain
     # version on 8 of them with the same shared bias (over all rows it would
     # materialize (N, 4, N, N) f32 logits, 17 GB)
@@ -751,18 +812,59 @@ def check_flash(torch, rows: dict) -> None:
     want = flash_mha_plain(tri["q"][sub], tri["k"][sub], tri["v"][sub], tri["bias"],
                            tri["kvlen"][sub])
     tri_err = _flash_close(torch, got[sub], want, tri["v"], "tri N=1024 (8 rows)")
+    _wg_bitwise(torch, (tri["q"], tri["k"], tri["v"], tri["bias"], tri["kvlen"]), got,
+                "tri N=1024")
     worst = max(worst, tri_err)
-    log(f"flash_mha: allclose on {len(cases) + 1} cases (seq/tri/structure at N=200,256, "
-        f"seq at N=1024 and 2048, tri at N=1024 on 8 rows; causal, window, GQA, D=8/16/128; "
-        f"bf16 on the tensor cores, f32 and D=8 on the SIMT kernel), worst max|err| {worst:.3e}")
+    # the fold's other shapes on the Hopper kernel (timed in the phases that
+    # run them: 6, 11, 16): batch 4 in bucket 256, the chunk-64 slab, a mesh
+    # rank's N/W rows and a 2x2 grid rank's 64 rows and 128 query rows
+    lens4 = ENGINE_LENGTHS[:ENGINE_MAX_BATCH]
+    fold = [("tri, batch 4, bucket 256", _tri_rows(torch, g, lens4, 256, 256)),
+            ("seq, batch 4, bucket 256", _seq_rows(torch, g, lens4, 256, structure=False)),
+            ("structure, batch 4, bucket 256", _seq_rows(torch, g, lens4, 256, structure=True)),
+            ("tri, bucket 2048, chunk 64", _tri_rows(torch, g, (ENGINE_LONG_LEN,), 64,
+                                                     ENGINE_LONG_BUCKET))]
+    fold += [(f"tri, mesh 1x{w} rank", _tri_rows(torch, g, (MESH_LENGTHS[0],), 256 // w, 256))
+             for w in MESH_WIDTHS]
+    # a chunked slab on a mesh rank: the bias gathered on its keys, laid out
+    # (1, keys, queries, 4)
+    outer = torch.randn((1, 256, 256, 4), generator=g, device="cuda").to(bf).permute(0, 3, 2, 1)
+    fold.append(("tri, mesh rank chunk 64, bias keys outermost",
+                 dict(_tri_rows(torch, g, (MESH_LENGTHS[0],), 64, 256), bias=outer)))
+    grid = _seq_rows(torch, g, (GRID_LEN,), GRID_BUCKET, structure=False)
+    fold.append(("seq, grid 2x2 rank", dict(grid, q=grid["q"][:, :GRID_BUCKET // 2],
+                                             bias=grid["bias"][:, :, :GRID_BUCKET // 2])))
+    for name, c in fold:
+        args = (c["q"], c["k"], c["v"], c["bias"], c["kvlen"])
+        got = flash_mha_kernel(*args)
+        b = c["q"].shape[0]
+        # rows of one shared bias: a few of them; a bias a block: every row
+        sub = sorted({i for i in (0, 1, b // 3, b // 2 + 1, b - 1) if i < b}) \
+            if c["bias"].shape[0] == 1 else range(b)
+        sub = torch.tensor(list(sub), device="cuda")
+        want = flash_mha_plain(c["q"][sub], c["k"][sub], c["v"][sub], c["bias"],
+                               None if c["kvlen"] is None else c["kvlen"][sub])
+        worst = max(worst, _flash_close(torch, got[sub], want, c["v"], name))
+        _wg_bitwise(torch, args, got, name)
+        on_wg.append(name)
+        del got, want
+    log(f"flash_mha: allclose on {len(cases) + 1 + len(fold)} cases (seq/tri/structure at "
+        f"N=200,256, seq at N=1024 and 2048, tri at N=1024 on 8 rows, the batch-4, slab, mesh "
+        f"and grid rank shapes; causal, window, GQA, D=8/16/128; "
+        f"the fold's shapes on the Hopper kernel, other bf16 on the tensor cores, f32 and D=8 "
+        f"on the SIMT kernel), worst max|err| {worst:.3e}; on flash_mha_wg, two launches and "
+        f"each row alone bitwise: {on_wg + ['tri N=1024']}")
 
     def timed(c, name, shape, *, plain=True, library=True, err=0.0):
         args = (c["q"], c["k"], c["v"], c["bias"], c["kvlen"])
         o = flash_mha_kernel(*args)
         b, n, h, d = c["q"].shape
+        name = _flash_name(c["q"], c["k"], c["bias"]) if name == "flash_mha" else name
         row = _row(name, shape)
         row.max_abs_err = err
         row.ms = time_ms(torch, lambda: flash_mha_kernel(*args))
+        if name == "flash_mha_wg":
+            row.tc_ms = _tc_ms(torch, args)
         row.call_ms = call_ms(torch, lambda: flash_mha_kernel(*args))
         row.plain_ms = time_ms(torch, lambda: flash_mha_plain(*args), iters=3) if plain else None
         if plain:
@@ -803,18 +905,18 @@ def check_flash(torch, rows: dict) -> None:
     mask[..., 1024 - 24:] = -1e30
     qkv_t = [tuple(a[sub].transpose(1, 2) for a in (tri["q"], tri["k"], tri["v"]))
              for sub in quarters]
-    rows["flash_mha"][-1].library_ms = time_ms(torch, lambda: [
+    rows["flash_mha_wg"][-1].library_ms = time_ms(torch, lambda: [
         F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask) for qt, kt, vt in qkv_t],
         iters=5)
     del mask, qkv_t
     qkvl = [tuple(a[sub] for a in (tri["q"], tri["k"], tri["v"], tri["kvlen"]))
             for sub in quarters]
-    rows["flash_mha"][-1].plain_ms = time_ms(torch, lambda: [
+    rows["flash_mha_wg"][-1].plain_ms = time_ms(torch, lambda: [
         flash_mha_plain(qs, ks, vs, tri["bias"], ls) for qs, ks, vs, ls in qkvl], iters=3)
     del qkvl
-    log(f"flash_mha tri N=1024: library_ms {rows['flash_mha'][-1].library_ms:.4f} (SDPA, "
+    log(f"flash_mha_wg tri N=1024: library_ms {rows['flash_mha_wg'][-1].library_ms:.4f} (SDPA, "
         f"the bias expanded over 256 rows, four calls), plain_ms "
-        f"{rows['flash_mha'][-1].plain_ms:.4f} (the plain version, four calls of 256 rows)")
+        f"{rows['flash_mha_wg'][-1].plain_ms:.4f} (the plain version, four calls of 256 rows)")
     timed(by_name["seq N=2048"], "flash_mha", "seq: q,k,v (1, 2048, 16, 64) bf16, "
           "bias (1, 16, 2048, 2048) f32 permuted")
     c = by_name["tri N=256"]
@@ -1008,11 +1110,7 @@ def _serve_run(torch, cfg, params, seqs, what):
     for r in results:
         if r.bucket is None or r.coords is None or not bool(torch.isfinite(r.coords).all()):
             fail(f"{what} request {r.request}: no finite coords")
-    if any(launches[name] == 0 for name in dispatch.MAIN_PATH):
-        fail(f"{what}: a main-path kernel was never launched: {launches}")
-    if any(plain.values()) or any(routed[f"{op}.ref"] for op in ("attention", "qmatmul",
-                                                                    "fakequant")):
-        fail(f"{what}: a plain version ran on the main path: {plain} {routed}")
+    _check_main_path(what, launches, plain, routed)
     if launches["aaq_fake_quant"] != routed["fakequant.kernel"]:
         fail(f"{what}: {routed['fakequant.kernel']} fake-quant calls routed to the kernel "
              f"but {launches['aaq_fake_quant']} launches")
@@ -1038,7 +1136,7 @@ def serve_full_width(torch):
     log(f"launches per fold: aaq_quantize {launches['aaq_quantize'] / folds:.0f}, "
         f"aaq_fake_quant {launches['aaq_fake_quant'] / folds:.0f}, "
         f"aaq_matmul {launches['aaq_matmul'] / folds:.0f} (lightnobel_aaq folds), "
-        f"flash_mha {launches['flash_mha'] / (2 * folds):.0f} (every fold)")
+        f"flash_mha_wg {launches['flash_mha_wg'] / (2 * folds):.0f} (every fold)")
     long_seq = ProteinSampler(seed=11).sample(SERVE_N, length=LONG_LEN)
     (res,), long_launches = _serve_run(torch, cfg, params, [long_seq], "long request")
     if res.bucket != 1024:
@@ -1096,7 +1194,7 @@ def launch_tally(full: bool = False):
         # frame 1 is dispatch.attention, frame 2 the model code that called it
         kind = _ATTN_CALLERS.get(sys._getframe(2).f_code.co_name, "tri")
         rows = None if bias is None else bias.shape[0]
-        tally[("flash_mha", (kind, *q.shape, rows) if full else kind)] += 1
+        tally[(_flash_name(q, k, bias, **kw), (kind, *q.shape, rows) if full else kind)] += 1
         return fl(q, k, v, bias, kvl, **kw)
 
     with swapped(ops, "aaq_matmul_kernel", mm_counted), \
@@ -1157,7 +1255,8 @@ def profile_folds(torch, cfg, params) -> None:
         log(f"profile {scheme} N=250 in bucket 256: wall {plain_wall:.1f} ms unprofiled, "
             f"{wall:.1f} ms profiled; device busy {busy:.1f} ms "
             f"({100 * busy / wall:.1f}% of the profiled wall); {n_launch} device kernels")
-        for tag in ("aaq_quantize_lanes", "aaq_fake_quant_lanes", "aaq_matmul_tc", "flash_tc"):
+        for tag in ("aaq_quantize_lanes", "aaq_fake_quant_lanes", "aaq_matmul_tc", "flash_wg",
+                    "flash_tc"):
             hits = [(us, n) for name, us, n in kernels if tag in name]
             log(f"  {tag}: {sum(us for us, _ in hits) / 1e3:.2f} ms device time per fold "
                 f"over {sum(n for _, n in hits)} launches")
@@ -1168,10 +1267,17 @@ def profile_folds(torch, cfg, params) -> None:
 # ---------------------------------------------------------------------------
 # phase 6: the batching engine, one CUDA graph per executable key
 # ---------------------------------------------------------------------------
+#: flash variants a bf16 fold never launches: its attention is the Hopper kernel's
+OFF_FOLD_FLASH = ("flash_mha", "flash_mha_simt")
+
+
 def _check_main_path(what, launches, plain, routed) -> None:
     from repro_torch.kernels import dispatch
     if any(launches[name] == 0 for name in dispatch.MAIN_PATH):
         fail(f"{what}: a main-path kernel was never launched: {launches}")
+    if any(launches[name] for name in OFF_FOLD_FLASH):
+        fail(f"{what}: the fold's attention launched another flash variant than "
+             f"flash_mha_wg: {launches}")
     if any(plain.values()) or any(routed[f"{op}.ref"] for op in ("attention", "qmatmul",
                                                                     "fakequant")):
         fail(f"{what}: a plain version ran on the main path: {plain} {routed}")
@@ -1616,10 +1722,14 @@ def _flash_engine_row(torch, rows, pending, c, lens, label, part, kind, shape):
     from repro_torch.kernels.flash_attention.flash_attention import flash_mha_kernel, flash_mha_plain
     args = (c["q"], c["k"], c["v"], c["bias"], c["kvlen"])
     o = flash_mha_kernel(*args)
-    row = _row("flash_mha", f"{label}: {kind} {shape}")
+    name = _flash_name(c["q"], c["k"], c["bias"])
+    row = _row(name, f"{label}: {kind} {shape}")
     row.max_abs_err = _flash_close(torch, o, flash_mha_plain(*args), c["v"], f"{kind} at {label}")
+    if name == "flash_mha_wg":
+        _wg_bitwise(torch, args, o, f"{kind} at {label}")
+        row.tc_ms = _tc_ms(torch, args)
     bq, n, h, d = c["q"].shape
-    pending.append((row, part, ("flash_mha", (kind, bq, n, h, d, len(lens)))))
+    pending.append((row, part, (name, (kind, bq, n, h, d, len(lens)))))
     row.ms = time_ms(torch, lambda: flash_mha_kernel(*args))
     row.call_ms = call_ms(torch, lambda: flash_mha_kernel(*args))
     row.plain_ms = time_ms(torch, lambda: flash_mha_plain(*args), iters=3)
@@ -1634,7 +1744,7 @@ def _flash_engine_row(torch, rows, pending, c, lens, label, part, kind, shape):
         qt, kt, vt, attn_mask=mask))
     del mask
     row.bound_ms, row.bound_by = bound_ms(nbytes(*args, o), 4 * bq * h * n * c["k"].shape[1] * d)
-    rows.setdefault("flash_mha", []).append(row)
+    rows.setdefault(name, []).append(row)
     log(row.line())
 
 
@@ -3090,7 +3200,8 @@ def _train_zoo_model(torch, arch, layers) -> dict:
           and launches["aaq_fake_quant"] == acts and not any(plain.values())
           and routed["fakequant.ref"] == 0 and routed["fakequant.ref_grad"] == 0
           and routed["attention.ref_grad"] == attn and routed["attention.kernel"] == 0
-          and launches["flash_mha"] == 0 and launches["flash_mha_simt"] == 0)
+          and launches["flash_mha"] == 0 and launches["flash_mha_simt"] == 0
+          and launches["flash_mha_wg"] == 0)
     if not ok:
         fail(f"train {arch}: {out} plain {plain} routed {routed}")
     del params, opt, batch, m
@@ -3122,22 +3233,28 @@ def train_phase(torch, train_pending, card: str) -> dict:
 
 def flash_resources(build) -> None:
     """Phase 2's ptxas readout: registers a thread and spilled bytes of each
-    tensor-core flash instantiation ``flash_tc_kernel<D, bias kind>`` (bias
-    kind 0 none, 1 f32, 2 bf16); a spill fails."""
+    flash instantiation, the tensor-core kernel's ``flash_tc_kernel<D, bias
+    kind>`` (bias kind 0 none, 1 f32, 2 bf16) and the Hopper kernel's
+    ``flash_wg_kernel<D, bias kind>`` (its consumer warpgroups raise their
+    own count to ``CONSUMER_REGS`` with setmaxnreg; ptxas reports the
+    launch count and any spill past it); a spill fails."""
     import re
     res = {}
     for name, (regs, spill) in build.ptxas_resources().items():
-        if m := re.search(r"flash_tc_kernelILi(\d+)ELi(\d)E", name):
-            res[(int(m[1]), int(m[2]))] = (regs, spill)
-    if not res:
-        fail("build: ptxas reported no flash_tc_kernel instantiation")
-    by_d = {d: " / ".join(f"{res[d, b][0]}" for b in range(3) if (d, b) in res)
-            for d in sorted({d for d, _ in res})}
-    log("build: flash_tc_kernel registers a thread (ptxas, sm_90a; no bias / f32 / bf16 bias): "
-        + ", ".join(f"D={d} {r}" for d, r in by_d.items())
-        + f"; spilled bytes {sorted({s for _, s in res.values()})}")
+        if m := re.search(r"flash_(tc|wg)_kernelILi(\d+)ELi(\d)E", name):
+            res[(m[1], int(m[2]), int(m[3]))] = (regs, spill)
+    for kind in ("tc", "wg"):
+        got = {k[1:]: v for k, v in res.items() if k[0] == kind}
+        if not got:
+            fail(f"build: ptxas reported no flash_{kind}_kernel instantiation")
+        by_d = {d: " / ".join(f"{got[d, b][0]}" for b in range(3) if (d, b) in got)
+                for d in sorted({d for d, _ in got})}
+        log(f"build: flash_{kind}_kernel registers a thread (ptxas, sm_90a; "
+            f"{'no bias / f32 / bf16 bias' if kind == 'tc' else 'f32 / bf16 bias'}): "
+            + ", ".join(f"D={d} {r}" for d, r in by_d.items())
+            + f"; spilled bytes {sorted({s for _, s in got.values()})}")
     if spilled := {k: v for k, v in res.items() if v[1]}:
-        fail(f"build: flash_tc_kernel spills registers at (D, bias kind) {spilled}")
+        fail(f"build: flash kernels spill registers at (kernel, D, bias kind) {spilled}")
 
 
 # ---------------------------------------------------------------------------
@@ -4153,7 +4270,7 @@ def serve_fleet_mesh(torch, width: int) -> dict:
 #: has no kernel backward); the LM decode tenant quantizes its KV rows and
 #: attends by flash
 _FOLD_KERNELS = (("aaq_quantize",), ("aaq_fake_quant",), ("aaq_matmul", "aaq_matmul_f32"),
-                 ("flash_mha", "flash_mha_simt"))
+                 ("flash_mha_wg", "flash_mha_simt"))
 EXAMPLES = {"quickstart": _FOLD_KERNELS, "fold_server": _FOLD_KERNELS,
             "train_lm": (("aaq_fake_quant",),),
             "lm_serve_quantized_kv": (("aaq_quantize",), ("flash_mha", "flash_mha_simt"))}
@@ -4498,6 +4615,8 @@ def grid_fold(torch, rows: dict, card: str, *, across: bool = False) -> list:
             bad.append(f"{what} {scheme}: a plain version ran: {r['plain']} {r['ref_routes']}")
         if scheme == "lightnobel_aaq" and any(r["launches"][k] == 0 for k in dispatch.MAIN_PATH):
             bad.append(f"{what}: a main-path kernel was never launched: {r['launches']}")
+        if any(r["launches"][k] for k in OFF_FOLD_FLASH):
+            bad.append(f"{what}: another flash variant than flash_mha_wg: {r['launches']}")
     _GRID_ONE.clear()
     log(f"phase 16 readings on {card} (esmfold_ppm, {blocks} blocks, N = {n} in bucket "
         f"{bucket}): {json.dumps(out)}")
@@ -4525,7 +4644,7 @@ KERNEL_SYMBOLS = {
     "aaq_quant.cu": ("aaq_quantize_lanes", "aaq_quantize_rows", "aaq_fake_quant_lanes",
                      "aaq_fake_quant_rows"),
     "aaq_matmul.cu": ("aaq_matmul_tc_kernel", "aaq_matmul_simt_kernel"),
-    "flash_attention.cu": ("flash_tc_kernel", "flash_simt_kernel"),
+    "flash_attention.cu": ("flash_wg_kernel", "flash_tc_kernel", "flash_simt_kernel"),
 }
 #: trace categories of the work the card does
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -4538,6 +4657,8 @@ def kernel_family(name: str) -> str:
     m = re.search(r"flash_tc_kernel<(\d+)|flash_simt_kernel<[^,>]*,\s*(\d+)", name)
     if m:
         return f"flash_mha D={m.group(1) or m.group(2)}"
+    if m := re.search(r"flash_wg_kernel<(\d+)", name):
+        return f"flash_mha_wg D={m.group(1)}"
     for fam in ("aaq_fake_quant", "aaq_quantize", "aaq_matmul"):
         if fam in name:
             return fam
@@ -4765,7 +4886,8 @@ def main(argv=None) -> int:
     # 5. the main path: sequential serving at full width, short and long
     launches, cfg, params = serve_full_width(torch)
     for name, n in launches.items():
-        rows[name][0].launches = n
+        if name in rows:                  # the tc flash rows are phase 8's and 9's
+            rows[name][0].launches = n
     profile_folds(torch, cfg, params)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
 

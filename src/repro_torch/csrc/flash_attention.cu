@@ -14,12 +14,61 @@
 //
 // The TPU kernel walks the KV blocks as a sequential grid axis and carries
 // (m, l, o) in revisited output blocks.  CUDA blocks run in no order, so a
-// block owns its query rows and loops over the 64-key tiles itself, with
-// the state in registers.  Two variants, chosen by a fixed rule on the
-// type and head dim:
+// block owns its query rows and loops over the key tiles itself, with the
+// state in registers.  Three variants, chosen by a fixed rule on the
+// operands (the wrapper's variant_for):
 //
-// bf16 q/k/v, D in {16, 32, 64, 96, 128, 192, 256} (the main path): flash_tc_kernel,
-//   FlashAttention-2 on the tensor cores.  Bound on the H100: bytes.  At
+// The fold's attention (bf16 q/k/v, D in {32, 64}, Hq == Hkv a multiple of
+//   4, a bias, Sq > 1, no causal or window mask): flash_wg_kernel, designed
+//   for Hopper.  Its shapes: triangular attention's rows as batch (D = 32,
+//   4 heads, one (B, 4, N, N) bias shared by each protein's N rows, or by
+//   the 64 rows of the chunked slab), the sequence attention and the
+//   structure module (D = 64, 16 heads, an f32 bias a protein).  Bounds on
+//   the H100 at 700 W: at D = 32 the slab (64, 2048, 4, 32) is 0.14 ms of
+//   tensor work (bf16) and 0.05 ms of bytes, but its 1.07e9 logits take
+//   0.29 ms of the SMs' ex2 units (16 a clock) and ~0.3 ms of issue at
+//   ~9 instructions a logit: the softmax, not the tensor cores, bounds it.
+//   At D = 64 the f32 bias is most of the bytes (268 MB at N = 2,048,
+//   0.08 ms), far above the tensor work.  The design:
+//   - A block is 4 consumer warpgroups, one head each (heads 4g..4g+3),
+//     and a producer warpgroup; it owns one 64-query tile and, at D = 32,
+//     two batch rows of one bias block (units: a query tile of one row and
+//     head), so one bias tile serves both rows and all 4 heads.
+//   - TMA with mbarriers: the producer's one thread loads Q once and, for
+//     each 32-key stage, K and V boxes per (row, head), 64- or 128-byte
+//     swizzled as the wgmma descriptors read them, into a K/V ring of 3
+//     stages (2 with an f32 bias), and the raw bias box into a ring of 2.
+//     The tensor maps are kernel parameters (__grid_constant__), so a CUDA
+//     graph keeps them; the host encodes them through the driver entry
+//     point that cudaGetDriverEntryPoint returns, without -lcuda.  A bias
+//     with its 4 heads dense inside each key (triangular attention's
+//     permuted (B, N, N, 4)) is one box of (keys x heads, queries), one
+//     with them dense inside each query (the same gathered on a mesh rank
+//     with the keys outermost) one of (queries x heads, keys); an f32 one
+//     with heads innermost, or any with keys innermost, a 4-d box.
+//   - The producer's other three warps convert each raw bias box once into
+//     4 per-head float32 tiles, divided by the softmax scale and swizzled
+//     so the accumulator fragment reads them without bank conflicts; two
+//     sets, so a stage's conversion overlaps the previous stage's math.
+//   - S = bias / scale + Q K^T: the consumers load the bias tile into the
+//     accumulator and wgmma (m64n32k16, Q and K from shared memory)
+//     accumulates onto it, so a logit costs no add or unpack; the softmax
+//     is one FFMA and one ex2 a logit, in the log2 domain, with float32
+//     state.  Masks run only on a stage that crosses a key end; a masked
+//     S is NEG and its probability underflows to exactly 0 (the scale is
+//     positive).  O is rescaled only when a row's max moved (a warp vote).
+//   - P V with P from registers (wgmma m64nDk16, V N-major from shared
+//     memory): P is split into hi and lo, both bf16, as the tensor-core
+//     kernel splits it, two wgmmas into one float32 accumulator, so P keeps
+//     ~16 bits.
+//   - setmaxnreg: the producer warpgroup drops to 56 registers, the
+//     consumers rise to 104.  No atomics, and every unit's arithmetic is
+//     the same whichever rows share its block: a row launched alone is
+//     bitwise its row of a batch.
+//
+// Any other bf16 call, D in {16, 32, 64, 96, 128, 192, 256} (the LM decode,
+//   the zoo, causal, window, GQA): flash_tc_kernel, FlashAttention-2 with
+//   Ampere's mma.sync and cp.async.  Bound on the H100: bytes.  At
 //   the triangular-attention shape (B*N = 256 rows, N = 256, 4 heads,
 //   D = 32) a call is 4*B*N*H*N*N*D = 8.6 GFLOP against ~67 MB of q, k, v, o
 //   and bias, about 128 operations a byte, below the card's bf16 balance
@@ -63,6 +112,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "hopper.cuh"
 
@@ -292,12 +343,6 @@ template <int D, int BK> size_t smem_bytes(int hb, int packed) {
          2 * (2 * tile + bias_tile_bytes<BK, BKV>(hb, packed));
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // bf16 pair of (x0, x1) and the bf16 pair of what that rounding left out
 __device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
   hi = hopper::pack_bf16(x0, x1);
@@ -508,14 +553,14 @@ flash_tc_kernel(const Params p) {
       mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
       mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
       const float m_new = fmaxf(m[i], mt[i]);
-      alpha[i] = ex2(m[i] - m_new);
+      alpha[i] = hopper::ex2(m[i] - m_new);
       m[i] = m_new;
     }
 #pragma unroll
     for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float pv = (good >> (ni * 4 + e)) & 1u ? ex2(s[ni][e] - m[e >> 1]) : 0.f;
+        const float pv = (good >> (ni * 4 + e)) & 1u ? hopper::ex2(s[ni][e] - m[e >> 1]) : 0.f;
         s[ni][e] = pv;
         rs[e >> 1] += pv;
       }
@@ -628,6 +673,506 @@ int launch_bias(const Params& p, cudaStream_t s) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// Hopper variant of the fold's attention: wgmma, TMA, mbarriers
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int NWG = 4;                      // consumer warpgroups: one head each
+constexpr int NCONS = NWG * 128;            // consumer threads
+constexpr int NTHREADS = NCONS + 128;       // + the producer warpgroup
+constexpr int NCVT = 96;                    // the producer warpgroup's converter threads
+// registers a thread after setmaxnreg: the producer warpgroup gives up what
+// the consumers take (launched at 96 a thread: 640 x 96 of the SM's 65,536)
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 104;
+constexpr int BQ = 64, BKV = 32;            // query rows of a unit, keys of a stage
+constexpr int SMEM_LIMIT = 232448;          // opt-in shared memory of one H100 block
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Units (query tiles of one row and head) a warpgroup carries through the key
+// loop at once: at D = 32 the block's rows sharing one bias tile.
+template <int D> __host__ __device__ constexpr int units() { return D == 32 ? 2 : 1; }
+template <int BK> __host__ __device__ constexpr int esize() { return BK == 1 ? 4 : 2; }
+template <int D> __host__ __device__ constexpr int q_bytes() { return BQ * D * 2; }
+template <int D> __host__ __device__ constexpr int kv_bytes() { return BKV * D * 2; }
+// one stage's raw bias box: 64 queries x 32 keys x the block's 4 heads
+template <int BK> __host__ __device__ constexpr int raw_bytes() { return BQ * BKV * NWG * esize<BK>(); }
+// the four per-head float32 bias tiles of one stage
+constexpr int PLANE = BQ * BKV * 4, CANON = NWG * PLANE;
+// one stage of the K/V ring: K and V tiles of every unit
+template <int D> __host__ __device__ constexpr int kv_stage() { return 2 * units<D>() * NWG * kv_bytes<D>(); }
+constexpr int NRAW = 2;                     // stages of the raw bias ring
+// Q tiles, two sets of per-head bias tiles, the K/V ring, the raw bias
+// ring, the barriers
+template <int D, int BK> __host__ __device__ constexpr int smem_bytes(int nkv) {
+  return 1024 + units<D>() * NWG * q_bytes<D>() + 2 * CANON + nkv * kv_stage<D>() +
+         NRAW * raw_bytes<BK>() + 256;
+}
+// the deepest K/V ring that fits (3 at D = 32 with a bf16 bias, else 2)
+template <int D, int BK> __host__ __device__ constexpr int stages() {
+  return smem_bytes<D, BK>(3) <= SMEM_LIMIT ? 3 : 2;
+}
+
+struct Params {
+  void* o;
+  const int32_t* kvlen;
+  int B, Sq, Skv, Hq, rows_per_bias;        // rows_per_bias = B / Bb
+  int rr;                                   // batch rows a block (<= units<D>())
+  int bmap;                                 // bias box: 0 heads x keys fused, 1 heads
+                                            // innermost, 2 keys innermost, 3 heads x
+                                            // queries fused
+  int nqt, nhg;                             // query tiles, head groups of 4
+  float scale, inv_scale;
+};
+
+
+// A per-head bias tile, [64 queries][32 keys] float32: rows of 128 bytes
+// whose key-pair granules (8 bytes) are XOR-swizzled by bits 0-1 of the
+// query, so that the accumulator fragment's reads (rows g and g + 8 of a
+// warp, pairs 4i + c, 8 bytes a thread) hit 32 distinct banks in each half
+// warp.
+__device__ __forceinline__ int canon_off(int q, int pr) {
+  return q * 128 + ((pr ^ ((q & 3) << 2)) << 3);
+}
+
+// The converter threads (ct of NCVT) rewrite a stage's raw bias box (TMA's
+// layout: [q][k][4 heads] for maps 0 and 1, [4 heads][q][k] for map 2,
+// [k][q][4 heads] for map 3) into
+// the four per-head tiles, in float32 and divided by the softmax scale: the
+// QK^T product then accumulates onto it, so that S * scale = QK^T * scale +
+// bias.  Once a stage for all the block's rows.
+template <int BK>
+__device__ __forceinline__ void convert_bias(const unsigned char* raw, unsigned char* canon, int ct,
+                                             int bmap, float inv) {
+  constexpr int HE = NWG * esize<BK>();                  // bytes of 4 heads' values
+  if (bmap != 2) {
+    // item (q, pr): keys 2pr, 2pr + 1 of all 4 heads; consecutive items
+    // read consecutive raw bytes (q fastest for map 3)
+    for (int it = ct; it < BQ * (BKV / 2); it += NCVT) {
+      const int q = bmap == 3 ? it % BQ : it >> 4, pr = bmap == 3 ? it / BQ : it & 15;
+      const int off = canon_off(q, pr);
+      const int r0 = bmap == 3 ? (2 * pr * BQ + q) * HE : it * 2 * HE;
+      const int r1 = bmap == 3 ? r0 + BQ * HE : r0 + HE;
+      float4 k0, k1;                                     // heads 0..3 of the two keys
+      if constexpr (BK == 2) {
+        const uint2 v0 = *reinterpret_cast<const uint2*>(raw + r0);
+        const uint2 v1 = *reinterpret_cast<const uint2*>(raw + r1);
+        k0 = make_float4(__uint_as_float(v0.x << 16), __uint_as_float(v0.x & 0xffff0000u),
+                         __uint_as_float(v0.y << 16), __uint_as_float(v0.y & 0xffff0000u));
+        k1 = make_float4(__uint_as_float(v1.x << 16), __uint_as_float(v1.x & 0xffff0000u),
+                         __uint_as_float(v1.y << 16), __uint_as_float(v1.y & 0xffff0000u));
+      } else {
+        k0 = *reinterpret_cast<const float4*>(raw + r0);
+        k1 = *reinterpret_cast<const float4*>(raw + r1);
+      }
+      *reinterpret_cast<float2*>(canon + off) = make_float2(k0.x * inv, k1.x * inv);
+      *reinterpret_cast<float2*>(canon + PLANE + off) = make_float2(k0.y * inv, k1.y * inv);
+      *reinterpret_cast<float2*>(canon + 2 * PLANE + off) = make_float2(k0.z * inv, k1.z * inv);
+      *reinterpret_cast<float2*>(canon + 3 * PLANE + off) = make_float2(k0.w * inv, k1.w * inv);
+    }
+  } else {
+    // each head's plane is already [q][k]: item (h, q, pr)
+    for (int it = ct; it < NWG * BQ * (BKV / 2); it += NCVT) {
+      const int h = it / (BQ * BKV / 2), q = (it >> 4) % BQ, pr = it & 15;
+      float2 v;
+      if constexpr (BK == 2) {
+        const unsigned x = *reinterpret_cast<const unsigned*>(raw + it * 4);
+        v = make_float2(__uint_as_float(x << 16), __uint_as_float(x & 0xffff0000u));
+      } else {
+        v = *reinterpret_cast<const float2*>(raw + it * 8);
+      }
+      *reinterpret_cast<float2*>(canon + h * PLANE + canon_off(q, pr)) =
+          make_float2(v.x * inv, v.y * inv);
+    }
+  }
+}
+
+// P (one k16 step: accumulator chunks 2j, 2j + 1) as bf16 A fragments,
+// split as the tensor-core kernel splits it (P = hi + lo within 2^-17).
+__device__ __forceinline__ void split_p(const float (&p)[16], int j, unsigned (&hi)[4],
+                                        unsigned (&lo)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int e = 8 * j + 4 * (r >> 1) + 2 * (r & 1);   // (chunk 2j + r/2, row half r%2)
+    tc::split_bf16(p[e], p[e + 1], hi[r], lo[r]);
+  }
+}
+
+template <int D, int BK>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_wg_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tb,
+                const Params p) {
+  constexpr int U = units<D>(), NST = stages<D, BK>();
+  constexpr int QB = q_bytes<D>(), KB = kv_bytes<D>(), RB = raw_bytes<BK>();
+  constexpr int STAGE = kv_stage<D>();
+  constexpr int SW = D == 32 ? hopper::SWIZZLE_64B : hopper::SWIZZLE_128B;
+  constexpr unsigned GROUP8 = 8 * D * 2;               // bytes of 8 rows of a Q/K/V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* qs = smem;                            // [NWG][U] Q tiles
+  unsigned char* canon = qs + U * NWG * QB;            // [2][NWG] per-head bias tiles
+  unsigned char* stg = canon + 2 * CANON;              // [NST] {K [U][NWG], V [U][NWG]}
+  unsigned char* raws = stg + NST * STAGE;             // [NRAW] raw bias boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(raws + NRAW * RB);
+  uint64_t* empty = full + NST;                        // the consumers are done with a stage
+  uint64_t* bfull = empty + NST;                       // [NRAW] a raw bias box has landed
+  uint64_t* bempty = bfull + NRAW;                     // [NRAW] the converters are done with it
+  uint64_t* cfull = bempty + NRAW;                     // [2] a set of bias tiles is ready
+  uint64_t* qbar = cfull + 2;
+
+  int bx = blockIdx.x;
+  const int qt = bx % p.nqt;
+  bx /= p.nqt;
+  const int h0 = (bx % p.nhg) * NWG, r0 = (bx / p.nhg) * p.rr;
+  const int q0 = qt * BQ, bb = r0 / p.rows_per_bias;
+
+  // each unit's key end, and the block's: every thread reads the same
+  int kv_end[U], kv_max = 0;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    kv_end[u] = 0;
+    if (u < p.rr) kv_end[u] = p.kvlen ? min(p.Skv, max(p.kvlen[r0 + u], 0)) : p.Skv;
+    kv_max = max(kv_max, kv_end[u]);
+  }
+  const int ntiles = (kv_max + BKV - 1) / BKV;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < NST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], NCONS / 32);
+    }
+#pragma unroll
+    for (int s = 0; s < NRAW; ++s) {
+      hopper::mbar_init(&bfull[s], 1);
+      hopper::mbar_init(&bempty[s], NCVT / 32);
+    }
+    hopper::mbar_init(&cfull[0], NCVT / 32);
+    hopper::mbar_init(&cfull[1], NCVT / 32);
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NCONS) {
+    // producer warpgroup: one thread keeps the stages' TMA loads in flight,
+    // three warps turn each stage's bias box into the per-head tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == NCONS) {
+      hopper::mbar_expect_tx(qbar, p.rr * NWG * QB);
+      for (int u = 0; u < p.rr; ++u)
+        for (int w = 0; w < NWG; ++w)
+          hopper::tma_load_4d(qs + (w * U + u) * QB, &tq, qbar, 0, h0 + w, q0, r0 + u);
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % NST, sb = t % NRAW, k0 = t * BKV;
+        unsigned char* raw = raws + sb * RB;
+        hopper::mbar_wait(&bempty[sb], ((t / NRAW) & 1) ^ 1);
+        hopper::mbar_expect_tx(&bfull[sb], RB);
+        if (p.bmap == 0) hopper::tma_load_3d(raw, &tb, &bfull[sb], k0 * NWG, q0, bb);
+        else if (p.bmap == 1) hopper::tma_load_4d(raw, &tb, &bfull[sb], h0, k0, q0, bb);
+        else if (p.bmap == 2) hopper::tma_load_4d(raw, &tb, &bfull[sb], k0, q0, h0, bb);
+        else hopper::tma_load_3d(raw, &tb, &bfull[sb], q0 * NWG, k0, bb);
+        hopper::mbar_wait(&empty[st], ((t / NST) & 1) ^ 1);
+        unsigned char* ks = stg + st * STAGE;
+        unsigned char* vs = ks + U * NWG * KB;
+        int active = 0;
+#pragma unroll
+        for (int u = 0; u < U; ++u) active += k0 < kv_end[u];
+        hopper::mbar_expect_tx(&full[st], active * 2 * NWG * KB);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (k0 >= kv_end[u]) continue;
+          for (int w = 0; w < NWG; ++w) {
+            hopper::tma_load_4d(ks + (u * NWG + w) * KB, &tk, &full[st], 0, h0 + w, k0, r0 + u);
+            hopper::tma_load_4d(vs + (u * NWG + w) * KB, &tv, &full[st], 0, h0 + w, k0, r0 + u);
+          }
+        }
+      }
+    } else if (threadIdx.x >= NCONS + 32) {
+      const int ct = threadIdx.x - (NCONS + 32);
+      for (int t = 0; t < ntiles; ++t) {
+        const int sb = t % NRAW;
+        hopper::mbar_wait(&bfull[sb], (t / NRAW) & 1);
+        // tile t - 2's consumers are done with this set of bias tiles
+        if (t >= 2) hopper::mbar_wait(&empty[(t - 2) % NST], ((t - 2) / NST) & 1);
+        convert_bias<BK>(raws + sb * RB, canon + (t & 1) * CANON, ct, p.bmap, p.inv_scale);
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) {
+          hopper::mbar_arrive(&bempty[sb]);
+          hopper::mbar_arrive(&cfull[t & 1]);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w computes head h0 + w of the block's rows
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int w = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  const int wi = tw >> 5, lane = tw & 31, g = lane >> 2, c = lane & 3;
+  // the softmax in the log2 domain of S = QK^T + bias / scale: p = 2^(S cs - m cs)
+  const float cs = p.scale * LOG2E;
+  float o[U][D / 2], m[U][2], l[U][2];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[u][j] = 0.f;
+    m[u][0] = m[u][1] = NEG;
+    l[u][0] = l[u][1] = 0.f;
+  }
+  uint64_t dq[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) dq[u] = hopper::wgmma_desc(qs + (w * U + u) * QB, SW, GROUP8);
+  // this thread's bias granules in its head's tile: rows g and g + 8 of its
+  // warp, pairs 4i + c (canon_off with the row's swizzle taken out)
+  const int row0 = 16 * wi + g, cofs = w * PLANE + row0 * 128 + (c << 3);
+  const int sw0 = (row0 & 3) << 5, sw1 = ((row0 + 8) & 3) << 5;
+  hopper::mbar_wait(qbar, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % NST, k0 = t * BKV;
+    hopper::mbar_wait(&full[st], (t / NST) & 1);
+    hopper::mbar_wait(&cfull[t & 1], (t >> 1) & 1);
+    const unsigned char* ks = stg + st * STAGE;
+    const unsigned char* vs = ks + U * NWG * KB;
+    const unsigned char* cv = canon + (t & 1) * CANON + cofs;
+
+    unsigned hi[U][BKV / 16][4], lo[U][BKV / 16][4];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 >= kv_end[u]) continue;                   // warpgroup-uniform
+      // S = bias / scale + Q K^T; the wait also retires the previous unit's
+      // P V, whose A registers this unit's may take
+      float s[16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 b0 = *reinterpret_cast<const float2*>(cv + ((i << 5) ^ sw0));
+        const float2 b1 = *reinterpret_cast<const float2*>(cv + 8 * 128 + ((i << 5) ^ sw1));
+        s[4 * i] = b0.x;
+        s[4 * i + 1] = b0.y;
+        s[4 * i + 2] = b1.x;
+        s[4 * i + 3] = b1.y;
+      }
+      const uint64_t dk = hopper::wgmma_desc(ks + (u * NWG + w) * KB, SW, GROUP8);
+      hopper::reg_fence(s);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n32k16_ss(s, dq[u] + 2 * kk, dk + 2 * kk, 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(s);
+      if (u > 0) {
+#pragma unroll
+        for (int j = 0; j < BKV / 16; ++j) {
+          hopper::reg_fence(hi[u - 1][j]);
+          hopper::reg_fence(lo[u - 1][j]);
+        }
+      }
+      if (k0 + BKV > kv_end[u]) {                      // keys past the end: NEG
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          if (k0 + 8 * (e >> 2) + 2 * c + (e & 1) >= kv_end[u]) s[e] = NEG;
+      }
+      float mt[2] = {NEG, NEG};
+#pragma unroll
+      for (int e = 0; e < 16; ++e) mt[(e >> 1) & 1] = fmaxf(mt[(e >> 1) & 1], s[e]);
+      float alpha[2], mc[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        mt[hf] = fmaxf(mt[hf], __shfl_xor_sync(0xffffffffu, mt[hf], 1));
+        mt[hf] = fmaxf(mt[hf], __shfl_xor_sync(0xffffffffu, mt[hf], 2));
+        const float m_new = fmaxf(m[u][hf], mt[hf]);
+        alpha[hf] = hopper::ex2((m[u][hf] - m_new) * cs);
+        mc[hf] = m_new * cs;
+        m[u][hf] = m_new;
+      }
+      // a masked key's S is NEG and the row's max is finite (key k0 is
+      // valid), so 2^(NEG cs - m cs) is exactly 0 (cs > 0)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int hf = (e >> 1) & 1;
+        s[e] = hopper::ex2(fmaf(s[e], cs, -mc[hf]));
+        rs[hf] += s[e];
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) l[u][hf] = alpha[hf] * l[u][hf] + rs[hf];
+      // a row whose max did not move keeps its O as it is (alpha == 1)
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) o[u][j] *= alpha[(j >> 1) & 1];
+      }
+#pragma unroll
+      for (int j = 0; j < BKV / 16; ++j) split_p(s, j, hi[u][j], lo[u][j]);
+      hopper::reg_fence(o[u]);
+      hopper::wgmma_fence();
+      const uint64_t dv = hopper::wgmma_desc(vs + (u * NWG + w) * KB, SW, GROUP8);
+#pragma unroll
+      for (int j = 0; j < BKV / 16; ++j) {
+        const uint64_t dvj = dv + ((16 * D * 2 * j) >> 4);   // keys 16j..16j + 15
+        if constexpr (D == 32) {
+          hopper::wgmma_m64n32k16_rs(o[u], hi[u][j], dvj);
+          hopper::wgmma_m64n32k16_rs(o[u], lo[u][j], dvj);
+        } else {
+          hopper::wgmma_m64n64k16_rs(o[u], hi[u][j], dvj);
+          hopper::wgmma_m64n64k16_rs(o[u], lo[u][j], dvj);
+        }
+      }
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int u = 0; u < U; ++u) hopper::reg_fence(o[u]);
+#pragma unroll
+    for (int j = 0; j < BKV / 16; ++j) {
+      hopper::reg_fence(hi[U - 1][j]);
+      hopper::reg_fence(lo[U - 1][j]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+  // o / max(l, 1e-30), 4 bytes a store (two columns of one row)
+  bf16* og = static_cast<bf16*>(p.o);
+  const int h = h0 + w;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (u >= p.rr) continue;
+    float d[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float lsum = l[u][hf];
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      d[hf] = fmaxf(lsum, 1e-30f);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int q = q0 + 16 * wi + g + 8 * hf;
+      if (q >= p.Sq) continue;
+      bf16* orow = og + ((static_cast<int64_t>(r0 + u) * p.Sq + q) * p.Hq + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<unsigned*>(orow + 8 * j + 2 * c) =
+            hopper::pack_bf16(o[u][4 * j + 2 * hf] / d[hf], o[u][4 * j + 2 * hf + 1] / d[hf]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver at run time (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A tensor map of `rank` dims (innermost first), strides in bytes of dims 1..
+// (a dim of size 1 takes any valid stride), a box, no interleave.
+bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+            const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+            CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  cuuint64_t gd[5], gs[4];
+  cuuint32_t bd[5], es[5];
+  uint64_t last = 16;
+  for (int i = 0; i < rank; ++i) {
+    gd[i] = dims[i];
+    bd[i] = box[i];
+    es[i] = 1;
+    if (i > 0) {
+      // a dim of size 1 is never stepped: give it a stride past the others
+      gs[i - 1] = dims[i] == 1 ? (last + 15) / 16 * 16 : strides[i - 1];
+      last = std::max(last, gs[i - 1] * dims[i]);
+    }
+  }
+  return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), gd, gs, bd, es,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int BK>
+int launch(const void* q, const void* k, const void* v, const void* bias, const int32_t* kvlen,
+           void* o, int B, int Sq, int Skv, int Hq, int Bb, const int64_t* qst,
+           const int64_t* kst, const int64_t* vst, const int64_t* bst, float scale, int rr,
+           int bmap, cudaStream_t stream) {
+  constexpr int NST = stages<D, BK>();
+  constexpr int SMEM = smem_bytes<D, BK>(NST);
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_wg_kernel<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return hopper::status(err, 2);
+    attr = true;
+  }
+  constexpr CUtensorMapSwizzle SWZ = D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const auto BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tq, tk, tv, tb;
+  // q, k, v: (D, H, S, B) boxes of (D, 1, rows, 1)
+  const uint64_t qd[4] = {D, (uint64_t)Hq, (uint64_t)Sq, (uint64_t)B};
+  const uint64_t kd[4] = {D, (uint64_t)Hq, (uint64_t)Skv, (uint64_t)B};
+  const uint64_t qs[3] = {(uint64_t)qst[2] * 2, (uint64_t)qst[1] * 2, (uint64_t)qst[0] * 2};
+  const uint64_t ks[3] = {(uint64_t)kst[2] * 2, (uint64_t)kst[1] * 2, (uint64_t)kst[0] * 2};
+  const uint64_t vs[3] = {(uint64_t)vst[2] * 2, (uint64_t)vst[1] * 2, (uint64_t)vst[0] * 2};
+  const uint32_t qbox[4] = {D, 1, BQ, 1}, kbox[4] = {D, 1, BKV, 1};
+  bool ok = encode(&tq, BF, 4, q, qd, qs, qbox, SWZ) && encode(&tk, BF, 4, k, kd, ks, kbox, SWZ) &&
+            encode(&tv, BF, 4, v, kd, vs, kbox, SWZ);
+  // bias strides (b, h, q, k) in elements
+  const uint64_t es = esize<BK>();
+  const auto BT = BK == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : BF;
+  const uint64_t sb = bst[0] * es, sh = bst[1] * es, sq = bst[2] * es;
+  if (bmap == 0) {            // (heads x keys, q, b): heads dense inside each key
+    const uint64_t d3[3] = {(uint64_t)NWG * Skv, (uint64_t)Sq, (uint64_t)Bb}, s3[2] = {sq, sb};
+    const uint32_t b3[3] = {NWG * BKV, BQ, 1};
+    ok = ok && encode(&tb, BT, 3, bias, d3, s3, b3, CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else if (bmap == 1) {     // (h, k, q, b)
+    const uint64_t d4[4] = {(uint64_t)Hq, (uint64_t)Skv, (uint64_t)Sq, (uint64_t)Bb};
+    const uint64_t s4[3] = {(uint64_t)bst[3] * es, sq, sb};
+    const uint32_t b4[4] = {NWG, BKV, BQ, 1};
+    ok = ok && encode(&tb, BT, 4, bias, d4, s4, b4, CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else if (bmap == 2) {     // (k, q, h, b)
+    const uint64_t d4[4] = {(uint64_t)Skv, (uint64_t)Sq, (uint64_t)Hq, (uint64_t)Bb};
+    const uint64_t s4[3] = {sq, sh, sb};
+    const uint32_t b4[4] = {BKV, BQ, NWG, 1};
+    ok = ok && encode(&tb, BT, 4, bias, d4, s4, b4, CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {                    // (heads x queries, k, b): heads dense inside each query
+    const uint64_t d3[3] = {(uint64_t)NWG * Sq, (uint64_t)Skv, (uint64_t)Bb};
+    const uint64_t s3[2] = {(uint64_t)bst[3] * es, sb};
+    const uint32_t b3[3] = {NWG * BQ, BKV, 1};
+    ok = ok && encode(&tb, BT, 3, bias, d3, s3, b3, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (!ok) return hopper::status(cudaErrorInvalidValue, 5);
+  Params p{o, kvlen, B, Sq, Skv, Hq, B / Bb, rr, bmap, (Sq + BQ - 1) / BQ, Hq / NWG, scale,
+           1.f / scale};
+  const long long blocks = static_cast<long long>(p.nqt) * p.nhg * (B / rr);
+  if (blocks >= (1ll << 31)) return hopper::status(cudaErrorInvalidValue, 3);
+  flash_wg_kernel<D, BK><<<dim3(static_cast<unsigned>(blocks)), dim3(NTHREADS), SMEM, stream>>>(
+      tq, tk, tv, tb, p);
+  return hopper::status(cudaGetLastError(), 4);
+}
+
+}  // namespace wg
+
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
                    const void* kvlen, void* o, int bias_kind, int B, int Sq, int Skv, int Hq,
                    int Hkv, int Bb, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
@@ -690,4 +1235,39 @@ extern "C" int flash_mha_simt_launch(const void* q, const void* k, const void* v
                                bsk, causal, window, scale);
   auto s = static_cast<cudaStream_t>(stream);
   return qkv_is_bf16 ? simt::launch_typed<bf16>(p, D, s) : simt::launch_typed<float>(p, D, s);
+}
+
+// flash_mha_wg_launch: the Hopper variant.  bf16 q, k, v at D in {32, 64},
+// Hq == Hkv, a multiple of 4; an f32 (bias_kind 1) or bf16 (2) bias read by
+// TMA in box `bmap` (0: heads dense inside each key, Hq == 4; 1: heads
+// innermost, f32; 2: keys innermost; 3: heads dense inside each query,
+// Hq == 4); no causal or window mask.  `rr` batch
+// rows a block, dividing B / Bb.  Every base pointer and stride the maps
+// use is a multiple of 16 bytes.
+extern "C" int flash_mha_wg_launch(const void* q, const void* k, const void* v, const void* bias,
+                                   const void* kvlen, void* o, int qkv_is_bf16, int bias_kind,
+                                   int B, int Sq, int Skv, int Hq, int Hkv, int D, int Bb,
+                                   int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
+                                   int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
+                                   int64_t vsh, int64_t bsb, int64_t bsh, int64_t bsq,
+                                   int64_t bsk, int causal, int window, float scale, int rr,
+                                   int bmap, void* stream) {
+  if (B == 0 || Sq == 0) return 0;
+  HOPPER_RETURN_IF_PENDING();
+  if (!qkv_is_bf16 || !bias || Hq != Hkv || Hq % wg::NWG || causal || window >= 0 ||
+      !(scale > 0.f) || rr < 1 ||
+      rr > (D == 32 ? wg::units<32>() : wg::units<64>()) || (B / Bb) % rr || bmap < 0 || bmap > 3)
+    return hopper::status(cudaErrorInvalidValue, 1);
+  const int64_t qst[3] = {qsb, qss, qsh}, kst[3] = {ksb, kss, ksh}, vst[3] = {vsb, vss, vsh};
+  const int64_t bst[4] = {bsb, bsh, bsq, bsk};
+  const auto kv = static_cast<const int32_t*>(kvlen);
+  auto s = static_cast<cudaStream_t>(stream);
+#define WG_LAUNCH(D_, BK_) \
+  wg::launch<D_, BK_>(q, k, v, bias, kv, o, B, Sq, Skv, Hq, Bb, qst, kst, vst, bst, scale, rr, bmap, s)
+  if (D == 32 && bias_kind == 1) return WG_LAUNCH(32, 1);
+  if (D == 32 && bias_kind == 2) return WG_LAUNCH(32, 2);
+  if (D == 64 && bias_kind == 1) return WG_LAUNCH(64, 1);
+  if (D == 64 && bias_kind == 2) return WG_LAUNCH(64, 2);
+#undef WG_LAUNCH
+  return hopper::status(cudaErrorInvalidValue, 1);
 }

@@ -39,6 +39,7 @@ _F = ctypes.c_float
 _MATMUL = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _FLASH = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
           _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _P]
+_FLASH_WG = _FLASH[:-1] + [_I, _I, _P]       # ..., rows a block, bias box, stream
 # C entry point -> argument types (pointers and the stream are void*;
 # strides are int64_t)
 SIGNATURES: dict[str, list] = {
@@ -54,6 +55,7 @@ SIGNATURES: dict[str, list] = {
     # causal, window, scale, stream
     "flash_mha_launch": _FLASH,            # bf16, D in 16..256, tensor cores
     "flash_mha_simt_launch": _FLASH,       # f32 or D = 8, CUDA cores
+    "flash_mha_wg_launch": _FLASH_WG,      # the fold's: bf16, D 32/64, wgmma + TMA
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -166,7 +168,7 @@ def library() -> ctypes.CDLL:
 
 # steps of a launch named in its status (csrc/hopper.cuh: hopper::status)
 LAUNCH_STEPS = {1: "argument or device query", 2: "shared-memory attribute",
-                3: "grid or occupancy", 4: "kernel launch",
+                3: "grid or occupancy", 4: "kernel launch", 5: "TMA tensor map",
                 9: "an error pending before the launch"}
 
 

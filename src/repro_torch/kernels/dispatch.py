@@ -87,11 +87,12 @@ KERNEL_VARIANTS = {
     "aaq_fake_quant": (_aaq_quant_mod, "fake_launches"),    # x_hat only
     "aaq_matmul": (_aaq_matmul_mod, "launches"),            # bf16 W, tensor cores
     "aaq_matmul_f32": (_aaq_matmul_mod, "f32_launches"),    # f32 W, CUDA cores
-    "flash_mha": (_flash_mod, "launches"),                  # bf16, tensor cores
+    "flash_mha": (_flash_mod, "launches"),                  # bf16, tensor cores (mma.sync)
     "flash_mha_simt": (_flash_mod, "simt_launches"),        # f32 or D = 8, CUDA cores
+    "flash_mha_wg": (_flash_mod, "wg_launches"),            # the fold's: wgmma + TMA
 }
 # the variants every fold on the card launches (bf16 weights and activations)
-MAIN_PATH = ("aaq_quantize", "aaq_fake_quant", "aaq_matmul", "flash_mha")
+MAIN_PATH = ("aaq_quantize", "aaq_fake_quant", "aaq_matmul", "flash_mha_wg")
 
 _MODE = AUTO
 _SCOPED = threading.local()          # .mode: the thread's use_backend mode

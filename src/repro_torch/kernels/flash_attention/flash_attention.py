@@ -1,14 +1,22 @@
 """CUDA kernel wrapper: token-wise MHA with online softmax.
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py:flash_mha_pallas``.
-A block of the kernel (``csrc/flash_attention.cu``) owns a (batch row,
-64-query tile) and loops over 64-key tiles inside the block, keeping the
-float32 (m, l, o) state in registers; the TPU kernel's sequential KV grid
-axis has no CUDA counterpart.  Two variants, chosen by a fixed rule on the
-type and head dim (:func:`variant_for`) and counted apart:
+A block of the kernel (``csrc/flash_attention.cu``) owns its query rows and
+loops over key tiles inside the block, keeping the float32 (m, l, o) state
+in registers; the TPU kernel's sequential KV grid axis has no CUDA
+counterpart.  Three variants, chosen by a fixed rule on the operands
+(:func:`variant_for`) and counted apart:
 
-* bf16 q/k/v with D in {16, 32, 64, 96, 128, 192, 256} (every main-path
-  call; 96 to 256 are the LM zoo's head dims): the tensor-core kernel,
+* the fold's attention (bf16 q/k/v with D in {32, 64}, Hq == Hkv a multiple
+  of 4, an additive bias, more than one query row, no causal or window
+  mask): the Hopper kernel, ``wgmma`` for QK^T and PV, TMA with
+  ``mbarrier``s and a producer warpgroup for the Q, K, V and bias tiles,
+  one bias tile for every row of a bias block that a block owns
+  (:func:`wg_plan`).  TMA reads whole tiles, so the tensors' base pointers
+  and the strides its maps use must be multiples of 16 bytes and the bias
+  must keep its heads or its keys innermost; anything else raises.
+* every other bf16 call with D in {16, 32, 64, 96, 128, 192, 256} (the LM
+  decode, the zoo, causal, window, GQA): the tensor-core kernel,
   FlashAttention-2 with ``mma.sync`` (QK^T and a PV product split into
   P_hi + P_lo, so P is not rounded to bf16), K/V/bias tiles through a
   two-stage ``cp.async`` ring.  It reads q, k and v 16 bytes at a time, so
@@ -16,12 +24,12 @@ type and head dim (:func:`variant_for`) and counted apart:
 * f32 q/k/v with D in {8, 16, 32, 64, 128}, or bf16 at D = 8: the SIMT
   kernel, float32 on the CUDA cores.
 
-A head dim neither variant takes raises.
+A head dim no variant takes raises.
 
-Additive bias (f32 or bf16, any strides) is broadcast by block, GQA, causal,
-sliding window and ``kv_valid_len`` are one predicate each.  Strides are
-passed as 64-bit integers and every offset in the kernels is 64-bit, so the
-trunk's operands at any length it folds are taken as they are.
+Additive bias (f32 or bf16) is broadcast by block, GQA, causal, sliding
+window and ``kv_valid_len`` are one predicate each.  Strides are passed as
+64-bit integers and every offset in the kernels is 64-bit, so the trunk's
+operands at any length it folds are taken as they are.
 
 On a CUDA tensor the wrapper launches the kernel or raises.  On a CPU
 tensor it computes :func:`flash_mha_plain`, the kernel's plain version.
@@ -41,10 +49,19 @@ NEG = -1e30
 TC_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
 SIMT_HEAD_DIMS = (8, 16, 32, 64, 128)
 HEAD_DIMS = tuple(sorted(set(TC_HEAD_DIMS) | set(SIMT_HEAD_DIMS)))
-TC, SIMT = "tc", "simt"
+WG_HEAD_DIMS = (32, 64)
+TC, SIMT, WG = "tc", "simt", "wg"
 INT32_MAX = 2 ** 31 - 1
+# the Hopper variant (csrc: namespace wg): heads a block (one a consumer
+# warpgroup), query rows a tile, batch rows a block at D = 32 (all sharing
+# one bias tile), and the bias's TMA boxes
+WG_HEADS, WG_BQ, WG_ROWS = 4, 64, 2
+WG_FUSED, WG_HEADS_INNER, WG_KEYS_INNER, WG_FUSED_Q = 0, 1, 2, 3
+# variant -> its name in ``dispatch.launch_counts`` and its C entry point's stem
+VARIANT_NAMES = {TC: "flash_mha", SIMT: "flash_mha_simt", WG: "flash_mha_wg"}
 launches = 0        # tensor-core kernel launches (bf16, D in TC_HEAD_DIMS)
 simt_launches = 0   # SIMT kernel launches (f32, or bf16 at D = 8)
+wg_launches = 0     # Hopper kernel launches (the fold's attention)
 plain_calls = 0     # calls that computed the plain version (CPU tensors)
 
 
@@ -84,9 +101,69 @@ def flash_mha_plain(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     return o.to(q.dtype)
 
 
-def variant_for(dtype: torch.dtype, d: int) -> str:
-    """The kernel a launch takes: a fixed rule on the inputs' type and head dim."""
-    return TC if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else SIMT
+def variant_for(dtype: torch.dtype, d: int, *, sq: int = 1, hq: int = 1, hkv: int = 1,
+                has_bias: bool = False, causal: bool = False, window=None) -> str:
+    """The kernel a launch takes: a fixed rule on the inputs' type, head dim,
+    query rows, heads, bias and masks.  The fold's attention (bf16, D 32 or
+    64, Hq == Hkv a multiple of 4, a bias, more than one query row, no
+    causal or window mask) takes the Hopper kernel; any other bf16 call the
+    tensor-core kernel; f32 and D = 8 the SIMT kernel."""
+    if dtype != torch.bfloat16:
+        return SIMT
+    if (d in WG_HEAD_DIMS and sq > 1 and hq == hkv and hq % WG_HEADS == 0 and has_bias
+            and not causal and window is None):
+        return WG
+    return TC if d in TC_HEAD_DIMS else SIMT
+
+
+@dataclasses.dataclass(frozen=True)
+class WgPlan:
+    """How the Hopper kernel cuts a launch into blocks."""
+    rows: int        # batch rows a block: divides each bias block's B // Bb rows
+    bias_map: int    # the bias's TMA box: WG_FUSED, WG_HEADS_INNER, WG_KEYS_INNER, WG_FUSED_Q
+    blocks: int      # query tiles x head groups x row groups
+
+
+def _aligned(*byte_values) -> bool:
+    return all(x % 16 == 0 for x in byte_values)
+
+
+def wg_plan(b: int, sq: int, hq: int, d: int, bias: torch.Tensor) -> WgPlan:
+    """The Hopper kernel's blocks for q (b, sq, hq, d) and ``bias`` (Bb, hq,
+    sq, skv), block-broadcast over b.  A block takes 4 heads of one 64-row
+    query tile and, at D = 32, two batch rows of one bias block (else one),
+    so the rows it shares a bias tile with never cross a bias block.  The
+    bias's TMA box: heads and keys fused into one dense dimension (heads
+    innermost, 4 a key: triangular attention's permuted projection),
+    heads and queries fused (4 heads a query: the same bias gathered on a
+    mesh rank, keys outermost), heads innermost (f32: 4 heads make the 16
+    bytes a box row needs), or keys innermost.  Raises on a bias no box
+    takes: a layout with neither heads nor keys innermost, a bf16 one with
+    heads innermost and neither keys nor queries next to 4 dense heads, or
+    a base pointer or a stride that the box steps not a multiple of 16
+    bytes.  Runs on ``meta`` tensors."""
+    bb = bias.shape[0]
+    esize = bias.element_size()
+    sb, sh, sqs, sk = bias.stride()
+    if sh == 1 and sk == hq == WG_HEADS:
+        bias_map, stepped = WG_FUSED, ((sqs, sq), (sb, bb))
+    elif sh == 1 and sqs == hq == WG_HEADS:
+        bias_map, stepped = WG_FUSED_Q, ((sk, bias.shape[3]), (sb, bb))
+    elif sh == 1 and bias.dtype == torch.float32:
+        bias_map, stepped = WG_HEADS_INNER, ((sk, bias.shape[3]), (sqs, sq), (sb, bb))
+    elif sk == 1:
+        bias_map, stepped = WG_KEYS_INNER, ((sqs, sq), (sh, hq), (sb, bb))
+    else:
+        raise ValueError(f"flash_mha_kernel: the Hopper kernel reads the bias by TMA, and a "
+                         f"{bias.dtype} bias with strides {bias.stride()} suits no TMA box "
+                         "(keys innermost, heads innermost in f32, or 4 dense heads a key "
+                         "or a query)")
+    if not _aligned(bias.data_ptr(), *(st * esize for st, n in stepped if n > 1)):
+        raise ValueError(f"flash_mha_kernel: the bias is read by TMA; its base pointer or "
+                         f"strides {bias.stride()} are not 16-byte aligned")
+    rows = WG_ROWS if d == 32 and (b // bb) % WG_ROWS == 0 else 1
+    return WgPlan(rows=rows, bias_map=bias_map,
+                  blocks=-(-sq // WG_BQ) * (hq // WG_HEADS) * (b // rows))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +180,7 @@ class FlashLaunchArgs:
     causal: int
     window: int                    # -1: no sliding window
     scale: float
+    plan: WgPlan | None = None     # the Hopper variant's blocks
 
     def c_args(self) -> tuple:
         return (self.qkv_is_bf16, self.bias_kind, *self.sizes, *self.q_strides,
@@ -118,8 +196,10 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     on what the kernels do not take: a head dim without unit stride, shapes
     that do not match, a bias that does not broadcast, a size beyond 32 bits,
     and, for the tensor-core variant, a q/k/v base pointer or (b, s, h)
-    stride that is not a multiple of 16 bytes.  Strides are the tensors' own:
-    the kernels index in 64 bits, so no stride or offset bound remains."""
+    stride that is not a multiple of 16 bytes; for the Hopper variant also a
+    bias that no TMA box takes (:func:`wg_plan`).  Strides are the tensors'
+    own: the kernels index in 64 bits, so no stride or offset bound
+    remains."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_mha_kernel: q, k, v must be (B, S, H, D)")
     b, sq, hq, d = q.shape
@@ -134,16 +214,18 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
                              f"not match q {tuple(q.shape)} {q.dtype}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"flash_mha_kernel: Hq={hq} not a multiple of Hkv={hkv}")
-    variant = variant_for(q.dtype, d)
+    variant = variant_for(q.dtype, d, sq=sq, hq=hq, hkv=hkv, has_bias=bias is not None,
+                          causal=causal, window=window)
     if variant == SIMT and d not in SIMT_HEAD_DIMS:
         raise ValueError(f"flash_mha_kernel: {q.dtype} at head dim {d}: the SIMT kernel "
                          f"takes {SIMT_HEAD_DIMS}, the tensor-core kernel bf16 at {TC_HEAD_DIMS}")
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.stride(-1) != 1:
             raise ValueError(f"flash_mha_kernel: {name} head dim must have unit stride")
-        if variant == TC and (a.data_ptr() % 16 or any(
-                st * a.element_size() % 16 for st in a.stride()[:3])):
-            raise ValueError(f"flash_mha_kernel: {name} is read 16 bytes at a time; its "
+        if variant in (TC, WG) and not _aligned(
+                a.data_ptr(), *(st * a.element_size() for st in a.stride()[:3])):
+            how = "by the Hopper kernel's TMA" if variant == WG else "16 bytes at a time"
+            raise ValueError(f"flash_mha_kernel: {name} is read {how}; its "
                              f"base pointer or strides {a.stride()} are not 16-byte aligned")
     bias_kind, bb, bstr = 0, 1, (0, 0, 0, 0)
     if bias is not None:
@@ -162,18 +244,22 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     if max(b, sq, skv, hq) > INT32_MAX or -(-sq // 64) * hq * b > INT32_MAX:
         raise ValueError(f"flash_mha_kernel: B={b}, Sq={sq}, Skv={skv}, Hq={hq} exceed the "
                          "kernel's 32-bit sizes or grid")
+    plan = wg_plan(b, sq, hq, d, bias) if variant == WG else None
+    if variant == WG and not _scale(d, softmax_scale) > 0:
+        raise ValueError(f"flash_mha_kernel: the Hopper kernel takes a positive softmax "
+                         f"scale, not {softmax_scale}")
     return FlashLaunchArgs(
         variant=variant, qkv_is_bf16=int(q.dtype == torch.bfloat16), bias_kind=bias_kind,
         sizes=(b, sq, skv, hq, hkv, d, bb), q_strides=tuple(q.stride()[:3]),
         k_strides=tuple(k.stride()[:3]), v_strides=tuple(v.stride()[:3]),
         bias_strides=bstr, causal=int(causal), window=-1 if window is None else int(window),
-        scale=_scale(d, softmax_scale))
+        scale=_scale(d, softmax_scale), plan=plan)
 
 
 def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
                      window=None, softmax_scale=None):
     """q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D); bias (Bb,Hq,Sq,Skv); -> (B,Sq,Hq,D)."""
-    global launches, simt_launches, plain_calls
+    global launches, simt_launches, wg_launches, plain_calls
     build.refuse_dtensor("flash_mha_kernel", q, k, v, bias, kv_valid_len)
     if q.device.type == "cpu":
         plain_calls += 1
@@ -189,16 +275,20 @@ def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     b, sq, _, hq, _, d, _ = args.sizes
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lib = build.library()
+    name = VARIANT_NAMES[args.variant]
+    extra = (args.plan.rows, args.plan.bias_map) if args.variant == WG else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        launch = lib.flash_mha_launch if args.variant == TC else lib.flash_mha_simt_launch
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     bias.data_ptr() if bias is not None else None,
-                     kv_valid_len.data_ptr() if kv_valid_len is not None else None,
-                     o.data_ptr(), *args.c_args(), stream)
-    build.check(err, "flash_mha" if args.variant == TC else "flash_mha_simt")
+        err = getattr(lib, f"{name}_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            kv_valid_len.data_ptr() if kv_valid_len is not None else None,
+            o.data_ptr(), *args.c_args(), *extra, stream)
+    build.check(err, name)
     if args.variant == TC:
         launches += 1
+    elif args.variant == WG:
+        wg_launches += 1
     else:
         simt_launches += 1
     return o

@@ -40,7 +40,8 @@ from repro_torch.kernels.aaq_quant.aaq_quant import (  # noqa: E402
     _launch_shape, aaq_fake_quant_kernel, aaq_quantize_kernel)
 from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    _flash_launch_args, flash_mha_kernel, flash_mha_plain, variant_for)
+    WG_FUSED, WG_FUSED_Q, WG_HEADS_INNER, WG_KEYS_INNER, _flash_launch_args, flash_mha_kernel,
+    flash_mha_plain, variant_for, wg_plan)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -510,7 +511,7 @@ def test_dispatch_routes_by_mode_and_device():
                                        "flash_mha": 1}
     assert dispatch.launch_counts() == {"aaq_quantize": 0, "aaq_fake_quant": 0, "aaq_matmul": 0,
                                         "aaq_matmul_f32": 0, "flash_mha": 0,
-                                        "flash_mha_simt": 0}
+                                        "flash_mha_simt": 0, "flash_mha_wg": 0}
     assert set(dispatch.MAIN_PATH) <= set(dispatch.launch_counts())
     _close(ker_o.numpy(), ref_o.numpy())
     assert ker_fq.shape == x.shape and torch.equal(ker_fq, ref_fq)
@@ -644,7 +645,7 @@ def test_flash_launch_args_take_the_trunks_operands_at_full_length(kind, n):
     q, k, v, bias = (_seq_operands if kind == "seq" else _tri_operands)(n)
     kvl = torch.empty((q.shape[0],), dtype=torch.int32, device="meta")
     args = _flash_launch_args(q, k, v, bias, kvl)
-    assert args.variant == "tc"
+    assert args.variant == "wg"          # the fold's attention takes the Hopper kernel
     assert args.q_strides == q.stride()[:3] and args.k_strides == k.stride()[:3]
     assert args.v_strides == v.stride()[:3] and args.bias_strides == bias.stride()
     assert args.sizes == (q.shape[0], n, n, q.shape[2], k.shape[2], q.shape[3], 1)
@@ -674,3 +675,129 @@ def test_flash_launch_args_refuse_what_the_kernels_do_not_take():
     f = torch.empty((64, 64, 4, 40), device="meta")[..., 1:33]
     assert _flash_launch_args(f, f, f).variant == "simt"
     assert variant_for(torch.bfloat16, 8) == "simt" and variant_for(torch.bfloat16, 64) == "tc"
+
+
+# --------------------------------------------------------------------------
+# the Hopper variant: the rule that picks it, its row-grouping plan, and
+# what its TMA maps refuse (meta tensors: nothing is launched)
+# --------------------------------------------------------------------------
+def _tri_rows_operands(rows, n, bb=1, keys_outer=False):
+    """Triangular attention's operands for ``rows`` rows of each of ``bb``
+    proteins (the chunked slab: rows < n): (bb*rows, n, 4, 32) views of a
+    split (bb, rows, n, 384) projection and a permuted (bb, n, n, 4) bias,
+    or (``keys_outer``) the bias a mesh rank gathers on its keys, laid out
+    (bb, keys, queries, 4)."""
+    qkv = torch.empty((bb, rows, n, 384), dtype=torch.bfloat16, device="meta")
+    q, k, v = (a.reshape(bb * rows, n, 4, 32) for a in torch.split(qkv, 128, dim=-1))
+    bias = torch.empty((bb, n, n, 4), dtype=torch.bfloat16, device="meta")
+    return q, k, v, bias.permute(0, 3, 2, 1) if keys_outer else bias.permute(0, 3, 1, 2)
+
+
+def _seq_block_operands(b, nq, n, structure=False):
+    """Sequence attention's (structure=False) or the structure module's
+    operands at batch ``b``: ``nq`` query rows (a grid rank's block) against
+    ``n`` keys, the f32 bias permuted from (b, nq, n, 16) or contiguous."""
+    qkv = torch.empty((b, n, 3 * 1024), dtype=torch.bfloat16, device="meta")
+    q, k, v = (a.reshape(b, n, 16, 64) for a in torch.split(qkv, 1024, dim=-1))
+    if structure:
+        bias = torch.empty((b, 16, nq, n), device="meta")
+    else:
+        bias = torch.empty((b, nq, n, 16), device="meta").permute(0, 3, 1, 2)
+    return q[:, :nq], k, v, bias
+
+
+FOLD_OPERANDS = {
+    **{f"tri N={n}": (lambda n=n: _tri_rows_operands(n, n)) for n in (64, 256, 1024, 2400)},
+    "chunked slab (64, 2048)": lambda: _tri_rows_operands(64, 2048),
+    "batch 4 tri, Bb=4": lambda: _tri_rows_operands(256, 256, bb=4),
+    "grid rank tri (64, 256)": lambda: _tri_rows_operands(64, 256),
+    "mesh rank chunked slab, keys outermost": lambda: _tri_rows_operands(64, 256,
+                                                                         keys_outer=True),
+    **{f"seq N={n}": (lambda n=n: _seq_block_operands(1, n, n)) for n in (256, 1024, 2048)},
+    **{f"structure N={n}": (lambda n=n: _seq_block_operands(1, n, n, True))
+       for n in (256, 2048)},
+    "batch 4 seq, Bb=4": lambda: _seq_block_operands(4, 256, 256),
+    "batch 4 structure, Bb=4": lambda: _seq_block_operands(4, 256, 256, True),
+    "grid rank seq (128 x 256)": lambda: _seq_block_operands(1, 128, 256),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FOLD_OPERANDS))
+def test_flash_rule_takes_the_hopper_kernel_for_every_fold_operand(name):
+    q, k, v, bias = FOLD_OPERANDS[name]()
+    kvl = torch.empty((q.shape[0],), dtype=torch.int32, device="meta")
+    args = _flash_launch_args(q, k, v, bias, kvl)
+    assert args.variant == "wg"
+    b, sq, skv, hq, hkv, d, bb = args.sizes
+    plan = args.plan
+    # the rows a block shares one bias tile with lie in one bias block
+    assert (b // bb) % plan.rows == 0 and b % plan.rows == 0
+    assert plan.rows == (2 if d == 32 and (b // bb) % 2 == 0 else 1)
+    assert plan.blocks == -(-sq // 64) * (hq // 4) * (b // plan.rows)
+    assert plan.bias_map == (WG_FUSED_Q if "keys outermost" in name else WG_FUSED if d == 32
+                             else WG_KEYS_INNER if "structure" in name else WG_HEADS_INNER)
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "gqa", "d16", "d96", "d128", "d256",
+                                  "decode", "no bias"])
+def test_flash_rule_keeps_the_tc_kernel_off_the_fold(case):
+    d = {"d16": 16, "d96": 96, "d128": 128, "d256": 256}.get(case, 64)
+    sq = 1 if case == "decode" else 100
+    hkv = 2 if case == "gqa" else 4
+    q = torch.empty((2, sq, 4, d), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((2, 100, hkv, d), dtype=torch.bfloat16, device="meta")
+    bias = None if case == "no bias" else torch.empty((2, 4, sq, 100), device="meta")
+    args = _flash_launch_args(q, k, k, bias, causal=case == "causal",
+                              window=16 if case == "window" else None)
+    assert args.variant == "tc" and args.plan is None
+    assert variant_for(torch.bfloat16, d, sq=sq, hq=4, hkv=hkv, has_bias=bias is not None,
+                       causal=case == "causal", window=16 if case == "window" else None) == "tc"
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_rule_keeps_the_simt_kernel_for_f32(d):
+    q = torch.empty((2, 100, 4, d), device="meta")
+    assert _flash_launch_args(q, q, q, torch.empty((2, 4, 100, 100), device="meta")).variant \
+        == "simt"
+    assert variant_for(torch.float32, d, sq=100, hq=4, hkv=4, has_bias=True) == "simt"
+
+
+def test_flash_hopper_kernel_refuses_what_tma_cannot_take():
+    q, k, v, bias = _tri_rows_operands(64, 64)
+    assert _flash_launch_args(q, k, v, bias).variant == "wg"
+    base = torch.empty((64, 64, 4, 40), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="Hopper kernel.*16-byte aligned"):
+        _flash_launch_args(base[..., 1:33], k, v, bias)               # base off 16 bytes
+    padded = torch.empty((64, 64, 4, 36), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="Hopper kernel.*16-byte aligned"):
+        _flash_launch_args(q, padded[..., :32], v, bias)              # 72-byte head stride
+    qt = torch.empty((64, 64, 32, 4), dtype=torch.bfloat16, device="meta").transpose(2, 3)
+    with pytest.raises(ValueError, match="unit stride"):
+        _flash_launch_args(qt, k, v, bias)
+    # a bias whose rows' stride is 66 keys x 4 heads x 2 bytes (not 16-aligned)
+    wide = torch.empty((1, 64, 66, 4), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="bias is read by TMA.*16-byte"):
+        _flash_launch_args(q, k, v, wide[:, :, 1:65].permute(0, 3, 1, 2))
+    # neither heads nor keys innermost: no TMA box
+    odd = torch.empty((1, 64, 4, 64), dtype=torch.bfloat16, device="meta").permute(0, 2, 1, 3)
+    odd = odd.transpose(2, 3)
+    with pytest.raises(ValueError, match="suits no TMA box"):
+        _flash_launch_args(q, k, v, odd)
+    # bf16 with heads innermost but 8 heads a key: no 16-byte box of 4 heads
+    q8 = torch.empty((64, 64, 8, 32), dtype=torch.bfloat16, device="meta")
+    b8 = torch.empty((1, 64, 64, 8), dtype=torch.bfloat16, device="meta").permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="suits no TMA box"):
+        _flash_launch_args(q8, q8, q8, b8)
+    assert wg_plan(8, 64, 8, 32, b8.contiguous()).bias_map == WG_KEYS_INNER
+    # the probability of a masked key is exactly 0 only for a positive scale
+    with pytest.raises(ValueError, match="positive softmax scale"):
+        _flash_launch_args(q, k, v, bias, softmax_scale=0.0)
+
+
+@pytest.mark.parametrize("rows_per_block,d,want", [(64, 32, 2), (63, 32, 1), (1, 32, 1),
+                                                   (256, 64, 1)])
+def test_wg_plan_groups_rows_inside_each_bias_block(rows_per_block, d, want):
+    bias = torch.empty((3, 4, 64, 64), dtype=torch.bfloat16, device="meta")
+    plan = wg_plan(3 * rows_per_block, 64, 4, d, bias)
+    assert plan.rows == want and rows_per_block % plan.rows == 0
+    assert plan.blocks == 1 * 1 * (3 * rows_per_block // want)
