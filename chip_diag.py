@@ -48,7 +48,7 @@ its capture; then the trace read back: the window, the device's busy time
 and the idle gaps (in the window and between the first and the last device
 event), and the device time by family (flash by head dim: D = 32 is the
 triangular attention's (64, 2048, 4, 32) slab; the quantize forms;
-``aaq_matmul``; cuBLAS's products; PyTorch's elementwise and reduction
+``aaq_matmul_wg`` and ``aaq_matmul``; cuBLAS's products; PyTorch's elementwise and reduction
 kernels; copies) and by kernel.  On the CPU: the reduced config, 60
 residues in bucket 64 at chunk 16, no device time.
 

@@ -319,8 +319,8 @@ VARIANTS = {
     "flash_mha": ("flash_attention.cu", "src/repro/kernels/flash_attention/flash_attention.py:93"),
 }
 VARIANTS.update(aaq_fake_quant=VARIANTS["aaq_quantize"],
-                aaq_matmul_f32=VARIANTS["aaq_matmul"], flash_mha_simt=VARIANTS["flash_mha"],
-                flash_mha_wg=VARIANTS["flash_mha"])
+                aaq_matmul_f32=VARIANTS["aaq_matmul"], aaq_matmul_wg=VARIANTS["aaq_matmul"],
+                flash_mha_simt=VARIANTS["flash_mha"], flash_mha_wg=VARIANTS["flash_mha"])
 # (H, D) of every aaq_matmul call of a fold: the tri-attention bias, the
 # pair projections, tri-attention's qkv, tri-mul's packed projection,
 # the pair transition's down projection
@@ -421,7 +421,7 @@ class KernelRow:
     library_ms: float | None = None
     launches: int = 0
     call_ms: float = 0.0        # CUDA-event time of back-to-back calls (log only)
-    tc_ms: float | None = None  # flash_mha_wg rows: the tc kernel at the same shape
+    tc_ms: float | None = None  # the Hopper variants' rows: the tc kernel at the same shape
 
     def record(self) -> dict:
         rec = {"name": self.name, "route": "cuda", "source": self.source,
@@ -622,52 +622,118 @@ def check_quantize_wide(torch) -> list:
     return pending, train_pending
 
 
+def _mm_name(w, bits: int) -> str:
+    """The launch-count name of the matmul variant a call takes (the
+    wrapper's fixed rule on W's type, H, D and the bits)."""
+    from repro_torch.kernels.aaq_matmul.aaq_matmul import VARIANT_NAMES, variant_for
+    return VARIANT_NAMES[variant_for(w.dtype, *w.shape, bits)]
+
+
+def _mm_close(torch, got, want, what) -> float:
+    """Both sides sum the same exact float32 products in different orders
+    and round once to the output type: one ulp of it (2^-7 bf16, 1e-5 f32)
+    relative, plus float32 reassociation of H terms (1e-4 of max|y|)."""
+    rtol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 1e-5
+    got, want = got.float(), want.float()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not bool((err <= rtol * want.abs() + 1e-4 * want.abs().max()).all()) \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"{what}: max err {float(err.max()):.3e} over tolerance")
+    return float(err.max())
+
+
+def _mm_bitwise(torch, q, s, ov, oi, w, got, what) -> None:
+    """The Hopper matmul's determinism gates: a second launch bitwise the
+    first, and the first, a middle and the last 64-token tile each launched
+    alone bitwise its rows of the full launch (a token's sum does not depend
+    on the tile or launch it falls in)."""
+    from repro_torch.kernels.aaq_matmul.aaq_matmul import WG_BT, aaq_matmul_kernel
+    t = q.shape[0]
+    if not _bitwise(torch, aaq_matmul_kernel(q, s, ov, oi, w, bits=4, out_dtype=w.dtype), got):
+        fail(f"aaq_matmul_wg {what}: two launches differ")
+    for r0 in sorted({0, WG_BT * ((t // WG_BT) // 2), WG_BT * ((t - 1) // WG_BT)}):
+        r1 = min(r0 + WG_BT, t)
+        one = aaq_matmul_kernel(q[r0:r1], s[r0:r1], ov[r0:r1], oi[r0:r1], w, bits=4,
+                                out_dtype=w.dtype)
+        if not _bitwise(torch, one, got[r0:r1]):
+            fail(f"aaq_matmul_wg {what}: tokens {r0}..{r1 - 1} launched alone differ from "
+                 "their rows of the full launch")
+
+
+def _mm_tc_ms(torch, q, s, ov, oi, w) -> float:
+    """Time of the tensor-core (mma.sync) kernel on a launch the rule sends
+    to the Hopper kernel, through its C entry point."""
+    from repro_torch.kernels import build
+    t, (h, d), k = q.shape[0], w.shape, ov.shape[-1]
+    y = torch.empty((t, d), dtype=w.dtype, device=w.device)
+    lib, stream = build.library(), torch.cuda.current_stream().cuda_stream
+    ptrs = (q.data_ptr(), s.data_ptr(), ov.data_ptr(), oi.data_ptr(), w.data_ptr(), y.data_ptr())
+
+    def tc():
+        build.check(lib.aaq_matmul_launch(*ptrs, t, h, d, 4, k, max(k, 1), stream), "aaq_matmul")
+    return time_ms(torch, tc)
+
+
 def check_matmul(torch, rows: dict) -> None:
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.aaq_matmul.aaq_matmul import aaq_matmul_kernel
     from repro_torch.kernels.aaq_matmul.ref import aaq_matmul_ref
     from repro_torch.kernels.aaq_quant.ref import aaq_quantize_ref
     g = torch.Generator(device="cuda").manual_seed(2)
     t = 256 * 256
-    # Both sides sum the same exact float32 products in different orders and
-    # round once to the output type: allow one bf16 ulp (2^-7 relative) plus
-    # float32 reassociation of H terms (1e-4 of the largest output).
     cases = [(128, 4, 4), (128, 128, 4), (128, 384, 4), (128, 512, 4), (512, 128, 4),
              (128, 128, 8), (512, 128, 8)]                     # (H, D, bits)
-    worst, n_cases = 0.0, 0
+    worst, n_cases, on_wg = 0.0, 0, []
     for h, d, bits in cases:
         for k in (0, 4):
             for dt in (torch.bfloat16, torch.float32) if (h, d) == (128, 128) else (torch.bfloat16,):
-                x = torch.randn((t - 3, h), generator=g, device="cuda").to(dt)
-                x[:64] = 0
                 w = (torch.randn((h, d), generator=g, device="cuda") / math.sqrt(h)).to(dt)
-                q, s, ov, oi = aaq_quantize_ref(x, bits, k)
-                got = aaq_matmul_kernel(q, s, ov, oi, w, bits=bits, out_dtype=dt).float()
-                want = aaq_matmul_ref(q, s, ov, oi, w, bits=bits, out_dtype=dt).float()
-                torch.cuda.synchronize()
-                rtol = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
-                err = (got - want).abs()
-                tol = rtol * want.abs() + 1e-4 * want.abs().max()
-                if not bool((err <= tol).all()) or not bool(torch.isfinite(got).all()):
-                    fail(f"aaq_matmul H={h} D={d} bits={bits} k={k} {dt}: max err "
-                         f"{float(err.max()):.3e} over tolerance")
-                worst = max(worst, float(err.max()))
-                n_cases += 1
+                name = _mm_name(w, bits)
+                # the Hopper kernel also at a token alone and ragged last
+                # tiles just under and over two 64-token tiles
+                for n in (t - 3, 1, 127, 129) if name == "aaq_matmul_wg" else (t - 3,):
+                    x = torch.randn((n, h), generator=g, device="cuda").to(dt)
+                    x[:min(64, n // 4)] = 0
+                    q, s, ov, oi = aaq_quantize_ref(x, bits, k)
+                    before = dispatch.launch_counts()
+                    got = aaq_matmul_kernel(q, s, ov, oi, w, bits=bits, out_dtype=dt)
+                    after = dispatch.launch_counts()
+                    if {v: after[v] - before[v] for v in after if after[v] != before[v]} \
+                            != {name: 1}:
+                        fail(f"aaq_matmul H={h} D={d} bits={bits} k={k} {dt}: launched "
+                             f"{ {v: after[v] - before[v] for v in after} }, not {name}")
+                    want = aaq_matmul_ref(q, s, ov, oi, w, bits=bits, out_dtype=dt)
+                    what = f"H={h} D={d} bits={bits} k={k} T={n} {dt}"
+                    worst = max(worst, _mm_close(torch, got, want, f"{name} {what}"))
+                    if name == "aaq_matmul_wg" and n == t - 3:
+                        _mm_bitwise(torch, q, s, ov, oi, w, got, what)
+                        on_wg.append(what)
+                    n_cases += 1
     log(f"aaq_matmul: allclose (rtol one bf16 ulp 2^-7 / 1e-5 for f32, atol 1e-4*max|y|) "
-        f"on {n_cases} cases (T = 65533; bf16 W on the tensor cores, f32 W on the SIMT "
-        f"kernel), worst max|err| {worst:.3e}")
-    # timing at every main-path shape (bf16, bits 4, k 4), then the f32 variant
-    timed = [("aaq_matmul", torch.bfloat16, hd) for hd in MATMUL_SHAPES]
-    for name, dt, (h, d) in timed + [("aaq_matmul_f32", torch.float32, (128, 128))]:
+        f"on {n_cases} cases (T = 65533, and 1, 127, 129 on the Hopper kernel; bf16 W at "
+        f"bits 4 and H, D multiples of 128 on aaq_matmul_wg, D = 4 and bits 8 on the "
+        f"tensor-core kernel, f32 W on the SIMT kernel), worst max|err| {worst:.3e}; on "
+        f"aaq_matmul_wg two launches and the first, a middle and the last tile alone "
+        f"bitwise: {on_wg}")
+    # timing at every main-path shape (bf16, bits 4, k 4; k 0 at the two
+    # shapes whose fold calls take no outliers), then the f32 variant
+    timed = [(torch.bfloat16, hd, 4) for hd in MATMUL_SHAPES]
+    timed += [(torch.bfloat16, hd, 0) for hd in ((128, 128), (512, 128))]
+    for dt, (h, d), k in timed + [(torch.float32, (128, 128), 4)]:
         x = torch.randn((t, h), generator=g, device="cuda").to(dt)
         w = (torch.randn((h, d), generator=g, device="cuda") / math.sqrt(h)).to(dt)
-        q, s, ov, oi = aaq_quantize_ref(x, 4, 4)
+        q, s, ov, oi = aaq_quantize_ref(x, 4, k)
+        name = _mm_name(w, 4)
         y = aaq_matmul_kernel(q, s, ov, oi, w, bits=4, out_dtype=dt)
         want = aaq_matmul_ref(q, s, ov, oi, w, bits=4, out_dtype=dt)
         row = _row(name, f"q ({t}, {h // 2}) int4 packed, W ({h}, {d}) "
-                         f"{'bf16' if dt == torch.bfloat16 else 'f32'}, bits 4, k 4")
+                         f"{'bf16' if dt == torch.bfloat16 else 'f32'}, bits 4, k {k}")
         row.max_abs_err = float((y.float() - want.float()).abs().max())
         row.ms = time_ms(torch, lambda: aaq_matmul_kernel(q, s, ov, oi, w, bits=4,
                                                           out_dtype=dt))
+        if name == "aaq_matmul_wg":
+            row.tc_ms = _mm_tc_ms(torch, q, s, ov, oi, w)
         row.call_ms = call_ms(torch, lambda: aaq_matmul_kernel(q, s, ov, oi, w, bits=4,
                                                                out_dtype=dt))
         row.plain_ms = time_ms(torch, lambda: aaq_matmul_ref(q, s, ov, oi, w, bits=4,
@@ -722,13 +788,13 @@ def _flash_close(torch, got, want, v, name):
     return float(err.max())
 
 
-def _flash_name(q, k, bias, **kw) -> str:
+def _flash_name(q, k, bias, v=None, **kw) -> str:
     """The launch-count name of the flash variant a call takes (the wrapper's
-    fixed rule)."""
-    from repro_torch.kernels.flash_attention.flash_attention import VARIANT_NAMES, variant_for
-    return VARIANT_NAMES[variant_for(q.dtype, q.shape[-1], sq=q.shape[1], hq=q.shape[2],
-                                     hkv=k.shape[2], has_bias=bias is not None,
-                                     causal=bool(kw.get("causal")), window=kw.get("window"))]
+    fixed rule, with a bias no TMA box takes or a scale <= 0 off the Hopper
+    kernel)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (VARIANT_NAMES,
+                                                                     _flash_launch_args)
+    return VARIANT_NAMES[_flash_launch_args(q, k, k if v is None else v, bias, **kw).variant]
 
 
 def _wg_bitwise(torch, args, got, name) -> None:
@@ -769,6 +835,7 @@ def _tc_ms(torch, args) -> float:
 
 def check_flash(torch, rows: dict) -> None:
     import torch.nn.functional as F
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention.flash_attention import (flash_mha_kernel,
                                                                      flash_mha_plain,
                                                                      variant_for)
@@ -848,6 +915,33 @@ def check_flash(torch, rows: dict) -> None:
         _wg_bitwise(torch, args, got, name)
         on_wg.append(name)
         del got, want
+    # calls the Hopper rule would take but no TMA box does (or a scale of 0):
+    # the tensor-core kernel, held to the plain version
+    rerouted = []
+    q8 = torch.randn((64, 64, 8, 32), generator=g, device="cuda").to(bf)
+    b8 = torch.randn((1, 64, 64, 8), generator=g, device="cuda").to(bf).permute(0, 3, 1, 2)
+    rerouted.append(("8 heads a key, bf16 bias heads innermost", (q8, q8, q8, b8), {}))
+    q4 = torch.randn((64, 64, 4, 32), generator=g, device="cuda").to(bf)
+    odd = torch.randn((1, 64, 4, 64), generator=g, device="cuda").to(bf).permute(0, 2, 1, 3)
+    rerouted.append(("bias with neither heads nor keys innermost", (q4, q4, q4,
+                                                                    odd.transpose(2, 3)), {}))
+    wide = torch.randn((1, 64, 66, 4), generator=g, device="cuda").to(bf)
+    rerouted.append(("bias rows 66 keys apart (not 16-byte aligned)",
+                     (q4, q4, q4, wide[:, :, 1:65].permute(0, 3, 1, 2)), {}))
+    tri64 = _attn_case(torch, g, "tri N=64", 1, 64, 4, 4, 32, bf, rows_as_batch=True, pad=6)
+    rerouted.append(("softmax scale 0", (tri64["q"], tri64["k"], tri64["v"], tri64["bias"],
+                                         tri64["kvlen"]), {"softmax_scale": 0.0}))
+    for name, args, kw in rerouted:
+        if _flash_name(args[0], args[1], args[3], args[2], **kw) != "flash_mha":
+            fail(f"flash_mha {name}: the rule does not send it to the tensor-core kernel")
+        before = dispatch.launch_counts()
+        got = flash_mha_kernel(*args, **kw)
+        after = dispatch.launch_counts()
+        if {v: after[v] - before[v] for v in after if after[v] != before[v]} != {"flash_mha": 1}:
+            fail(f"flash_mha {name}: launched {after} from {before}, not flash_mha once")
+        worst = max(worst, _flash_close(torch, got, flash_mha_plain(*args, **kw), args[2], name))
+    log(f"flash_mha: the calls no TMA box takes ({[n for n, _, _ in rerouted]}) launched "
+        f"flash_mha (the tensor-core kernel), allclose to flash_mha_plain")
     log(f"flash_mha: allclose on {len(cases) + 1 + len(fold)} cases (seq/tri/structure at "
         f"N=200,256, seq at N=1024 and 2048, tri at N=1024 on 8 rows, the batch-4, slab, mesh "
         f"and grid rank shapes; causal, window, GQA, D=8/16/128; "
@@ -1060,7 +1154,10 @@ def check_forward(torch) -> None:
     with swapped(dispatch, "flash_mha_kernel", _flash_bias_dropped):
         bias_dropped = fold(fp, "kernel")
     with swapped(dispatch, "aaq_linear", _linear_outliers_dropped):
+        before = dispatch.launch_counts()["aaq_matmul_wg"]
         outliers_dropped = fold(aaq, "kernel")
+        if dispatch.launch_counts()["aaq_matmul_wg"] == before:
+            fail("forward control aaq_matmul outlier term dropped: no aaq_matmul_wg launch")
 
     def tm_vs(c, scheme):
         ref = coords[scheme, "ref"]
@@ -1135,7 +1232,8 @@ def serve_full_width(torch):
     folds = len(results)
     log(f"launches per fold: aaq_quantize {launches['aaq_quantize'] / folds:.0f}, "
         f"aaq_fake_quant {launches['aaq_fake_quant'] / folds:.0f}, "
-        f"aaq_matmul {launches['aaq_matmul'] / folds:.0f} (lightnobel_aaq folds), "
+        f"aaq_matmul_wg {launches['aaq_matmul_wg'] / folds:.0f} and aaq_matmul "
+        f"{launches['aaq_matmul'] / folds:.0f} (D = 4) (lightnobel_aaq folds), "
         f"flash_mha_wg {launches['flash_mha_wg'] / (2 * folds):.0f} (every fold)")
     long_seq = ProteinSampler(seed=11).sample(SERVE_N, length=LONG_LEN)
     (res,), long_launches = _serve_run(torch, cfg, params, [long_seq], "long request")
@@ -1194,7 +1292,7 @@ def launch_tally(full: bool = False):
         # frame 1 is dispatch.attention, frame 2 the model code that called it
         kind = _ATTN_CALLERS.get(sys._getframe(2).f_code.co_name, "tri")
         rows = None if bias is None else bias.shape[0]
-        tally[(_flash_name(q, k, bias, **kw), (kind, *q.shape, rows) if full else kind)] += 1
+        tally[(_flash_name(q, k, bias, v, **kw), (kind, *q.shape, rows) if full else kind)] += 1
         return fl(q, k, v, bias, kvl, **kw)
 
     with swapped(ops, "aaq_matmul_kernel", mm_counted), \
@@ -1255,7 +1353,8 @@ def profile_folds(torch, cfg, params) -> None:
         log(f"profile {scheme} N=250 in bucket 256: wall {plain_wall:.1f} ms unprofiled, "
             f"{wall:.1f} ms profiled; device busy {busy:.1f} ms "
             f"({100 * busy / wall:.1f}% of the profiled wall); {n_launch} device kernels")
-        for tag in ("aaq_quantize_lanes", "aaq_fake_quant_lanes", "aaq_matmul_tc", "flash_wg",
+        for tag in ("aaq_quantize_lanes", "aaq_fake_quant_lanes", "aaq_matmul_tc",
+                    "aaq_matmul_wg", "flash_wg",
                     "flash_tc"):
             hits = [(us, n) for name, us, n in kernels if tag in name]
             log(f"  {tag}: {sum(us for us, _ in hits) / 1e3:.2f} ms device time per fold "
@@ -1269,12 +1368,46 @@ def profile_folds(torch, cfg, params) -> None:
 # ---------------------------------------------------------------------------
 #: flash variants a bf16 fold never launches: its attention is the Hopper kernel's
 OFF_FOLD_FLASH = ("flash_mha", "flash_mha_simt")
+#: bf16 AAQ-linear matmuls on the card by the variant they launched, and the
+#: calls whose launch broke the rule (D >= 8: aaq_matmul_wg, D < 8: the
+#: tensor-core kernel) as (W's shape, launches of aaq_matmul and
+#: aaq_matmul_wg)
+MM_ROUTES: Counter = Counter()
+MM_ROUTE_FAULTS: list = []
+
+
+def _watch_matmul_routes() -> None:
+    """Wrap the AAQ linear's matmul (``ops.aaq_matmul_kernel``, which every
+    fold's ``dispatch.quantized_linear`` reaches) for the rest of the
+    process: each bf16 call on the card records the variant its launch
+    took.  ``_check_main_path`` fails a fold phase on any call that broke
+    the rule."""
+    import torch
+    from repro_torch.kernels.aaq_matmul import aaq_matmul as mod
+    from repro_torch.kernels.aaq_matmul import ops
+    real = ops.aaq_matmul_kernel
+
+    def watched(q, s, ov, oi, w, **kw):
+        before = (mod.launches, mod.wg_launches)
+        y = real(q, s, ov, oi, w, **kw)
+        if w.is_cuda and w.dtype == torch.bfloat16:
+            got = (mod.launches - before[0], mod.wg_launches - before[1])
+            MM_ROUTES["aaq_matmul_wg" if got == (0, 1) else
+                      "aaq_matmul" if got == (1, 0) else "other"] += 1
+            if got != ((0, 1) if w.shape[1] >= 8 else (1, 0)):
+                MM_ROUTE_FAULTS.append((tuple(w.shape), got))
+        return y
+    ops.aaq_matmul_kernel = watched
 
 
 def _check_main_path(what, launches, plain, routed) -> None:
     from repro_torch.kernels import dispatch
     if any(launches[name] == 0 for name in dispatch.MAIN_PATH):
         fail(f"{what}: a main-path kernel was never launched: {launches}")
+    if MM_ROUTE_FAULTS:
+        fail(f"{what}: AAQ-linear calls whose launch broke the matmul rule (D >= 8 on "
+             f"aaq_matmul_wg, D < 8 on aaq_matmul), as (W, launches of aaq_matmul and "
+             f"aaq_matmul_wg): {MM_ROUTE_FAULTS[:8]}")
     if any(launches[name] for name in OFF_FOLD_FLASH):
         fail(f"{what}: the fold's attention launched another flash variant than "
              f"flash_mha_wg: {launches}")
@@ -1809,21 +1942,24 @@ def _pair_kernels_at(torch, g, rows, pending, label, part, lens, nrows, n) -> No
     q, sc, ov, oi = aaq_quantize_ref(x, 4, 4)
     y = aaq_matmul_kernel(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)
     want = aaq_matmul_ref(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)
-    err = (y.float() - want.float()).abs()
-    if not bool((err <= 2.0 ** -7 * want.float().abs() + 1e-4 * want.float().abs().max()).all()):
-        fail(f"aaq_matmul at {label}: max err {float(err.max()):.3e} over tolerance")
-    row = _row("aaq_matmul", f"{label}: q ({t}, 64) int4 packed, W (128, 128) bf16, bits 4, k 4")
+    name = _mm_name(w, 4)
+    err = _mm_close(torch, y, want, f"{name} at {label}")
+    if name == "aaq_matmul_wg":
+        _mm_bitwise(torch, q, sc, ov, oi, w, y, label)
+    row = _row(name, f"{label}: q ({t}, 64) int4 packed, W (128, 128) bf16, bits 4, k 4")
     pending.append((row, part, ("aaq_matmul", (t, 128, 128))))
-    row.max_abs_err = float(err.max())
+    row.max_abs_err = err
     fn = lambda: aaq_matmul_kernel(q, sc, ov, oi, w, bits=4, out_dtype=torch.bfloat16)  # noqa: E731
     row.ms, row.call_ms = time_ms(torch, fn), call_ms(torch, fn)
+    if name == "aaq_matmul_wg":
+        row.tc_ms = _mm_tc_ms(torch, q, sc, ov, oi, w)
     row.plain_ms = time_ms(torch, lambda: aaq_matmul_ref(q, sc, ov, oi, w, bits=4,
                                                          out_dtype=torch.bfloat16), iters=3)
     row.library_ms = time_ms(torch, lambda: x @ w)
     row.bound_ms, row.bound_by = bound_ms(nbytes(q, sc, ov, oi, w, y), 2 * t * 128 * 128)
-    rows.setdefault("aaq_matmul", []).append(row)
+    rows.setdefault(name, []).append(row)
     log(row.line())
-    del x, q, sc, ov, oi, y, want, err
+    del x, q, sc, ov, oi, y, want
     _flash_engine_row(torch, rows, pending, _tri_rows(torch, g, lens, nrows, n), lens,
                       label, part, "tri",
                       f"q,k,v ({b * nrows}, {n}, 4, 32) bf16 views, bias ({b}, 4, {n}, {n}) "
@@ -3257,6 +3393,25 @@ def flash_resources(build) -> None:
         fail(f"build: flash kernels spill registers at (kernel, D, bias kind) {spilled}")
 
 
+def matmul_resources(build) -> None:
+    """Phase 2's ptxas readout of the Hopper matmul: registers a thread and
+    spilled bytes of each ``aaq_matmul_wg_kernel<outliers, segments>``
+    instantiation (up to four warpgroups of 128 threads: at most 128
+    registers a thread); a spill fails."""
+    import re
+    res = {}
+    for name, (regs, spill) in build.ptxas_resources().items():
+        if m := re.search(r"aaq_matmul_wg_kernelILb([01])ELi(\d+)E", name):
+            res[(int(m[1]), int(m[2]))] = (regs, spill)
+    if not res:
+        fail("build: ptxas reported no aaq_matmul_wg_kernel instantiation")
+    log("build: aaq_matmul_wg_kernel registers a thread, spilled bytes (ptxas, sm_90a; "
+        "<outliers, one H segment>): "
+        + ", ".join(f"<{o}, {g}> {r}, {sp}" for (o, g), (r, sp) in sorted(res.items())))
+    if spilled := {k: v for k, v in res.items() if v[1]}:
+        fail(f"build: aaq_matmul_wg_kernel spills registers at <outliers, segment> {spilled}")
+
+
 # ---------------------------------------------------------------------------
 # phase 11: the mesh-sharded fold tier
 # ---------------------------------------------------------------------------
@@ -4053,6 +4208,7 @@ def rank_job(args) -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.launch import mesh as lmesh
     lmesh._watch_parent(args.parent)
+    _watch_matmul_routes()
     _join_group(args.rank, args.world, args.init, args.gloo)
     _RANK_JOBS[args.rank_job](torch, args.rank, args.world, args.arg)
     dist.barrier()
@@ -4269,7 +4425,8 @@ def serve_fleet_mesh(torch, width: int) -> dict:
 #: their f32 variants.  Training runs only the fake-quant (its attention
 #: has no kernel backward); the LM decode tenant quantizes its KV rows and
 #: attends by flash
-_FOLD_KERNELS = (("aaq_quantize",), ("aaq_fake_quant",), ("aaq_matmul", "aaq_matmul_f32"),
+_FOLD_KERNELS = (("aaq_quantize",), ("aaq_fake_quant",),
+                 ("aaq_matmul", "aaq_matmul_wg", "aaq_matmul_f32"),
                  ("flash_mha_wg", "flash_mha_simt"))
 EXAMPLES = {"quickstart": _FOLD_KERNELS, "fold_server": _FOLD_KERNELS,
             "train_lm": (("aaq_fake_quant",),),
@@ -4527,7 +4684,7 @@ def _job_grid(torch, rank, world, arg) -> dict:
                 launches=launches, plain=plain,
                 ref_routes={k: v for k, v in routed.items() if k.endswith(".ref") and v},
                 collectives={k: v for k, v in coll.counts().items() if v["calls"]},
-                tally=list(tally.items()))
+                mm_route_faults=list(MM_ROUTE_FAULTS), tally=list(tally.items()))
     return res
 
 
@@ -4617,6 +4774,9 @@ def grid_fold(torch, rows: dict, card: str, *, across: bool = False) -> list:
             bad.append(f"{what}: a main-path kernel was never launched: {r['launches']}")
         if any(r["launches"][k] for k in OFF_FOLD_FLASH):
             bad.append(f"{what}: another flash variant than flash_mha_wg: {r['launches']}")
+        if r["mm_route_faults"]:
+            bad.append(f"{what}: matmul calls off the rule (D >= 8 on aaq_matmul_wg): "
+                       f"{r['mm_route_faults'][:8]}")
     _GRID_ONE.clear()
     log(f"phase 16 readings on {card} (esmfold_ppm, {blocks} blocks, N = {n} in bucket "
         f"{bucket}): {json.dumps(out)}")
@@ -4643,7 +4803,7 @@ PROFILE_ARGS = ("--mode", "ppm", "--n", "8", "--min-len", "200", "--max-len", "2
 KERNEL_SYMBOLS = {
     "aaq_quant.cu": ("aaq_quantize_lanes", "aaq_quantize_rows", "aaq_fake_quant_lanes",
                      "aaq_fake_quant_rows"),
-    "aaq_matmul.cu": ("aaq_matmul_tc_kernel", "aaq_matmul_simt_kernel"),
+    "aaq_matmul.cu": ("aaq_matmul_wg_kernel", "aaq_matmul_tc_kernel", "aaq_matmul_simt_kernel"),
     "flash_attention.cu": ("flash_wg_kernel", "flash_tc_kernel", "flash_simt_kernel"),
 }
 #: trace categories of the work the card does
@@ -4659,7 +4819,7 @@ def kernel_family(name: str) -> str:
         return f"flash_mha D={m.group(1) or m.group(2)}"
     if m := re.search(r"flash_wg_kernel<(\d+)", name):
         return f"flash_mha_wg D={m.group(1)}"
-    for fam in ("aaq_fake_quant", "aaq_quantize", "aaq_matmul"):
+    for fam in ("aaq_fake_quant", "aaq_quantize", "aaq_matmul_wg", "aaq_matmul"):
         if fam in name:
             return fam
     if re.search(r"gemm|gemv|nvjet|cutlass|xmma|cublas|splitk", name, re.I):
@@ -4866,6 +5026,8 @@ def main(argv=None) -> int:
         f"({'built' if build.build_seconds is not None else 'cached'}) from "
         f"{[str(s.relative_to(ROOT)) for s in build.sources()]}")
     flash_resources(build)
+    matmul_resources(build)
+    _watch_matmul_routes()
     if args.mesh_only:
         return mesh_only(torch, smi, t_start, {int(x) for x in args.phases.split(",")})
 
@@ -4962,6 +5124,8 @@ def main(argv=None) -> int:
     log(f"phase 17 done at {time.perf_counter() - t_start:.1f}s")
 
     # 18. summary
+    log(f"AAQ-linear matmuls on the card by variant over the run: {dict(MM_ROUTES)}; off "
+        f"the rule (D >= 8 on aaq_matmul_wg, D < 8 on aaq_matmul): {len(MM_ROUTE_FAULTS)}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     # each variant at its first timed shape, then every kernel at the engine's
     # new shapes (batch 4 in bucket 256, the chunked bucket-2,048 slabs), the

@@ -2,15 +2,46 @@
 //   y[t, :] = sigma[t] * (q[t, :] @ W) + sum_j ovals[t, j] * W[oidx[t, j], :]
 //
 // Replaces the Pallas TPU kernel repro/kernels/aaq_matmul/aaq_matmul.py:
-// aaq_matmul_pallas (body _qmm_kernel).  Two variants, chosen by W's type:
+// aaq_matmul_pallas (body _qmm_kernel).  Bound on the H100: bytes.  At the
+// main-path shapes (T = N^2 tokens, (H, D) in {(128,4), (128,128),
+// (128,384), (128,512), (512,128)}) a call is 2*T*H*D operations against
+// T*(H/2 + 2*D) bytes, 90 to 240 operations a byte, below the card's bf16
+// balance point (~295): the packed q read and the (T, D) bf16 write set the
+// time.  So each design moves each of those bytes once while the products
+// ride on the tensor cores.  Three variants, chosen by the wrapper's fixed
+// rule on W's type and the shape (kernels/aaq_matmul/aaq_matmul.py):
 //
-// bf16 W (the main path): aaq_matmul_tc_kernel, on the tensor cores.
-//   Bound on the H100: bytes.  At the main-path shapes (T = N^2 tokens,
-//   (H, D) in {(128,4), (128,128), (128,384), (128,512), (512,128)}) a call
-//   is 2*T*H*D operations against T*(H/2 + 2*D) bytes, 90 to 240 operations
-//   a byte, below the card's bf16 balance point (~295): the packed q read
-//   and the (T, D) bf16 write set the time.  So the design moves each of
-//   those bytes once while the products ride on the tensor cores:
+// bf16 W, int4 q, H and D multiples of 128 (every main-path call but
+// D = 4): aaq_matmul_wg_kernel (namespace mmwg), Hopper's wgmma and TMA.
+//   - Persistent: one block an SM, up to four warpgroups, each walking its
+//     own 64-token tiles; W (all of it, H x D) is copied into shared memory
+//     once a block, in wgmma's 128-byte-swizzled N-major layout, rows in
+//     the fragments' k order (mmwg::phys_row); a tile loops over D in
+//     64-column chunks, so q is read once.
+//   - A ring of up to 8 stages, each serving one warpgroup: its thread 0
+//     loads the q tile (64 x H/2 bytes) by TMA and sigma, ovals and oidx by
+//     bulk copies, on the stage's mbarrier, and loads the warpgroup's next
+//     tile there as soon as it is done with the stage.  The last, ragged
+//     tile comes by TMA boxes zero-filled past the last token, so sigma = 0
+//     there and nothing is masked.  No producer warp: with four warpgroups
+//     of 128 threads a thread keeps 128 registers, and spills none.
+//   - A thread reads 16 bytes of q a row and 128 columns and widens each
+//     pair of nibbles to a bf16 pair with bit operations (the nibbles XOR 8
+//     ORed into 128.0 = 0x4300, then 136 subtracted: exact), straight into
+//     wgmma's register A fragment; wgmma.m64n64k16 with B (W) from shared
+//     memory accumulates in float32, then times sigma.
+//   - The rank-k outlier term on the tensor cores too: each warpgroup keeps
+//     a bf16 tile (64 tokens x 128 k, zero but for each token's outliers at
+//     their k); a second wgmma of that tile by W adds exact products, summed
+//     in float32.  (Gathering the W rows from shared memory instead read
+//     about as slowly as the tensor-core kernel's epilogue: PERF.md.)
+//   - Epilogue: rounded once to bf16, written by stmatrix into a swizzled
+//     shared tile (double-buffered where it fits) and stored by TMA,
+//     asynchronously: the store overlaps the next chunk's or tile's work.
+//     No atomics, no split-K: a token's sum runs in the same order wherever
+//     it falls, so a row launched alone is bitwise its row of a batch.
+//
+// other bf16 W (D = 4, int8 q): aaq_matmul_tc_kernel, Ampere's mma.sync.
 //   - W (H x BD) is loaded once per block into shared memory and stays
 //     there; a persistent grid of ~occupancy x SM blocks per D tile walks
 //     the 128-token tiles, so W is read once per block, not per tile.
@@ -326,6 +357,368 @@ int launch_tc(const int8_t* q, const float* scale, const bf16* ovals, const int3
 }
 
 // ---------------------------------------------------------------------------
+// Hopper variant: wgmma on int4 widened in registers, a TMA ring, TMA stores
+// ---------------------------------------------------------------------------
+namespace mmwg {
+
+constexpr int MAX_WG = 4;                   // warpgroups, at most
+constexpr int MAX_THREADS = MAX_WG * 128;   // 512 threads: 128 registers each
+constexpr int BT = 64;                      // tokens of a tile: one warpgroup's
+constexpr int BN = 64;                      // output columns of one product and store
+constexpr int KMAX = 4;                     // outliers a token, at most
+constexpr int OUT_BYTES = BT * BN * 2;      // one staged output chunk
+constexpr int OL_BYTES = BT * 128 * 2;      // an outlier tile: 64 tokens x 128 k, bf16
+constexpr int SMEM_LIMIT = 232448;          // opt-in shared memory of one H100 block
+// a ring stage after its q tile: sigma [BT] f32, ovals [BT][k] bf16, oidx [BT][k] int32
+constexpr int SIG_OFF = 0, OV_OFF = BT * 4, OI_OFF = OV_OFF + BT * KMAX * 2;
+constexpr int META_BYTES = OI_OFF + BT * KMAX * 4;
+
+__host__ __device__ constexpr int stage_bytes(int h) { return BT * h / 2 + META_BYTES; }
+// W, each warpgroup's staged output chunks and (with outliers)
+// outlier tile, the ring, its barriers
+__host__ __device__ constexpr int smem_bytes(int h, int d, int warpgroups, int stages,
+                                             int out_buffers, bool outliers) {
+  return 1024 + h * d * 2 + warpgroups * (out_buffers * OUT_BYTES + (outliers ? OL_BYTES : 0)) +
+         stages * stage_bytes(h) + 8 * stages;
+}
+
+// Row of W at the fragments' logical k = L (wgmma's A fragment of k step t
+// of a 128-column segment m holds k = 128 m + 16 t + 8 h + 2 c + e, for
+// lane % 4 = c, register half e and register pair h).  A thread reads the
+// 16 bytes 64 m + 16 c .. + 15 of its token's packed row (physical columns
+// 128 m + 32 c .. + 31) as four words; word t / 2 gives k steps t with
+// nibble 4 e + 2 (t % 2) + h, so a register's two nibbles lie 16 bits apart.
+__host__ __device__ constexpr int phys_row(int L) {
+  return (L & ~127) + 32 * ((L >> 1) & 3) + 8 * ((L >> 5) & 3) + 4 * (L & 1) +
+         2 * ((L >> 4) & 1) + ((L >> 3) & 1);
+}
+__host__ __device__ constexpr int logical_row(int p) {
+  return (p & ~127) + 16 * (2 * ((p >> 3) & 3) + ((p >> 1) & 1)) + 8 * (p & 1) +
+         2 * ((p >> 5) & 3) + ((p >> 2) & 1);
+}
+
+// Two int4 inliers of `word` (nibbles n and n + 4) as a bf16 pair, exactly:
+// 0x4300 | (v ^ 8) is 128 + (v ^ 8) = 136 + q, minus 136.
+__device__ __forceinline__ unsigned widen4(unsigned word, int n) {
+  const unsigned x = ((word >> (4 * n)) & 0x000F000Fu) ^ 0x43084308u;
+  unsigned y;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(y) : "r"(x), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return y;
+}
+
+// A fragments of one 128-column segment m for rows r and r + 8 (k steps 0..7).
+__device__ __forceinline__ void build_a(unsigned (&a)[8][4], const unsigned char* qs, int rowb,
+                                        int r, int m, int c) {
+  const uint4 u0 = *reinterpret_cast<const uint4*>(qs + r * rowb + 64 * m + 16 * c);
+  const uint4 u1 = *reinterpret_cast<const uint4*>(qs + (r + 8) * rowb + 64 * m + 16 * c);
+  const unsigned w0[4] = {u0.x, u0.y, u0.z, u0.w}, w1[4] = {u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int n = 2 * (t & 1);
+    a[t][0] = widen4(w0[t >> 1], n);
+    a[t][1] = widen4(w1[t >> 1], n);
+    a[t][2] = widen4(w0[t >> 1], n + 1);
+    a[t][3] = widen4(w1[t >> 1], n + 1);
+  }
+}
+
+// Byte of (row, k) in a K-major, 128-byte-swizzled bf16 tile of BT rows and
+// 128 k: [k / 64][row][128 B], 16-byte chunk (k % 64) / 8 XOR row % 8.
+__device__ __forceinline__ int kmajor_off(int row, int k) {
+  return (k >> 6) * (BT * 128) + row * 128 + ((((k >> 3) & 7) ^ (row & 7)) << 4) + (k & 7) * 2;
+}
+
+// wgmma's descriptor of a 128-byte-swizzled tile `off` bytes past `base`,
+// built where it is used: the base address passes through an empty asm, so
+// the compiler cannot hoist the descriptors out of the loops and keep them
+// all in registers, which the four warpgroups do not have.
+__device__ __forceinline__ uint64_t desc_here(const void* base, int off) {
+  unsigned a = hopper::smem_addr(base);
+  asm volatile("" : "+r"(a));
+  a += off;
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (static_cast<uint64_t>(hopper::SWIZZLE_128B) << 62);
+}
+
+struct Params {
+  const float* scale;
+  const bf16* ovals;
+  const int32_t* oidx;
+  int n_tokens, h, d, k, warpgroups, stages, out_buffers, ntiles;
+};
+
+// OUTLIERS: the rank-k term is added (k > 0); without it the kernel keeps
+// no outlier code at all.  SEGS: H / 128 where that is 1 (the fold's H but
+// one: A and the outliers once a tile), else 0 (any H, from p.h).
+template <bool OUTLIERS, int SEGS>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+aaq_matmul_wg_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap ts,
+                     const __grid_constant__ CUtensorMap tov,
+                     const __grid_constant__ CUtensorMap toi,
+                     const __grid_constant__ CUtensorMap ty, const bf16* __restrict__ w,
+                     const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int h = p.h, d = p.d, k = OUTLIERS ? p.k : 0, rowb = h / 2, qbytes = BT * rowb;
+  const int stb = stage_bytes(h), nthreads = 128 * p.warpgroups;
+  const int per_wg = p.out_buffers * OUT_BYTES + (OUTLIERS ? OL_BYTES : 0);
+  unsigned char* ws = smem;                                   // W [D/64][H/8][8][128 B]
+  unsigned char* wgs = ws + h * d * 2;                        // [warpgroups] {outputs, outliers}
+  unsigned char* ring = wgs + p.warpgroups * per_wg;           // [stages] {q, meta}
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * stb);
+  const int tid = threadIdx.x;
+  const int my_tiles = (p.ntiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int wgi = tid >> 7, tw = tid & 127, wi = tw >> 5, lane = tw & 31;
+  const int g = lane >> 2, c = lane & 3, r0 = 16 * wi + g;
+
+  // The block's tile i goes to warpgroup i % warpgroups and stage
+  // i % stages; stages is a multiple of warpgroups, so each stage serves one
+  // warpgroup, whose thread 0 loads it: the first tiles now, each next one
+  // once the warpgroup is done with the stage.
+  auto load = [&](int i) {
+    const int s = i % p.stages, t0 = (blockIdx.x + i * gridDim.x) * BT;
+    unsigned char* st = ring + s * stb;
+    hopper::mbar_expect_tx(&full[s], qbytes + BT * 4 + BT * k * 6);
+    hopper::tma_load_2d(st, &tq, &full[s], 0, t0);
+    if (t0 + BT <= p.n_tokens) {
+      // a whole tile: sigma and the outliers are contiguous runs, one bulk
+      // copy each
+      hopper::bulk_load(st + qbytes + SIG_OFF, p.scale + t0, BT * 4, &full[s]);
+      if (OUTLIERS) {
+        hopper::bulk_load(st + qbytes + OV_OFF, p.ovals + static_cast<int64_t>(t0) * k,
+                          BT * k * 2, &full[s]);
+        hopper::bulk_load(st + qbytes + OI_OFF, p.oidx + static_cast<int64_t>(t0) * k,
+                          BT * k * 4, &full[s]);
+      }
+    } else {
+      // the last, ragged tile: boxes zero-filled past the last token
+      hopper::tma_load_1d(st + qbytes + SIG_OFF, &ts, &full[s], t0);
+      if (OUTLIERS) {
+        hopper::tma_load_1d(st + qbytes + OV_OFF, &tov, &full[s], t0 * k);
+        hopper::tma_load_1d(st + qbytes + OI_OFF, &toi, &full[s], t0 * k);
+      }
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tw == 0)
+    for (int i = wgi; i < my_tiles && i < p.stages; i += p.warpgroups) load(i);
+
+  unsigned char* my_out = wgs + wgi * per_wg;                 // [out_buffers] chunks
+  unsigned char* my_ol = my_out + p.out_buffers * OUT_BYTES;  // the outlier tile
+  // W, once a block: logical row L holds W[phys_row(L)], 16 bytes a copy,
+  // at chunk (column / 8) % 8 XOR L % 8 of its 128-byte row (128-byte
+  // swizzle); the outlier tiles start at zero
+  for (int e = tid; e < h * (d / 8); e += nthreads) {
+    const int L = e / (d / 8), c8 = e % (d / 8), r = L & 7;
+    hopper::cp_async16(ws + (c8 >> 3) * (h * 128) + (L >> 3) * 1024 + r * 128 +
+                           (((c8 & 7) ^ r) << 4),
+                       w + static_cast<int64_t>(phys_row(L)) * d + 8 * c8, 16);
+  }
+  hopper::cp_async_commit();
+  if (OUTLIERS)
+    for (int e = tw; e < OL_BYTES / 16; e += 128)
+      *reinterpret_cast<uint4*>(my_ol + 16 * e) = make_uint4(0, 0, 0, 0);
+  hopper::cp_async_wait<0>();
+  hopper::fence_proxy_async();
+  hopper::named_sync(1 + MAX_WG, nthreads);
+
+  const int segs = SEGS ? SEGS : h / 128, chunks = d / BN;
+  const int atom = h * 128;                                   // bytes of one 64-column atom of W
+  const int bar = 1 + wgi;                                    // this warpgroup's barrier
+  int nout = 0;                                               // chunks this warpgroup stored
+  unsigned a[8][4];
+  float acc[32];
+
+  for (int i = wgi; i < my_tiles; i += p.warpgroups) {
+    const int s = i % p.stages, t0 = (blockIdx.x + i * gridDim.x) * BT;
+    hopper::mbar_wait(&full[s], (i / p.stages) & 1);
+    const unsigned char* qs = ring + s * stb;
+    const unsigned char* meta = qs + qbytes;
+    float sig[2];
+    int ol_k[2] = {-1, -1};                                   // this thread's outliers' k
+    bf16 ol_v[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r0 + 8 * hf;
+      sig[hf] = reinterpret_cast<const float*>(meta + SIG_OFF)[r];   // 0 past the last token
+      // outlier c of the row, placed at its logical k in the outlier tile
+      // (at once where H is one segment: the placement overlaps the
+      // products; the epilogue's barriers order it after the last tile's
+      // zeros)
+      if (OUTLIERS && c < k) {
+        ol_k[hf] = logical_row(reinterpret_cast<const int32_t*>(meta + OI_OFF)[r * k + c]);
+        ol_v[hf] = reinterpret_cast<const bf16*>(meta + OV_OFF)[r * k + c];
+        if (segs == 1)
+          *reinterpret_cast<bf16*>(my_ol + kmajor_off(r, ol_k[hf])) = ol_v[hf];
+      }
+    }
+    if (OUTLIERS && segs == 1) hopper::fence_proxy_async();
+    for (int nc = 0; nc < chunks; ++nc) {
+      const unsigned char* wn = ws + nc * atom;               // W's 64 columns of this chunk
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+      for (int m = 0; m < segs; ++m) {
+        // A once a tile where H is one segment (held through the chunks),
+        // else once a segment
+        if (segs > 1 || nc == 0) build_a(a, qs, rowb, r0, m, c);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) hopper::reg_fence(a[t]);
+        hopper::reg_fence(acc);
+        hopper::wgmma_fence();
+        const unsigned char* wb = wn + 16 * m * 1024;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          hopper::wgmma_m64n64k16_rs(acc, a[t], desc_here(wb, t * 2048));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::reg_fence(acc);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) hopper::reg_fence(a[t]);
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[j] *= sig[(j >> 1) & 1];
+      if (OUTLIERS) {
+        // + the outlier tile (each token's bf16 outliers at their k, zero
+        // elsewhere) x W, 128 k at a time: exact products summed in float32
+        for (int m = 0; m < segs; ++m) {
+          if (segs > 1) {
+            hopper::named_sync(bar, 128);                     // the last segment's zeros written
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              if ((ol_k[hf] >> 7) == m)
+                *reinterpret_cast<bf16*>(my_ol + kmajor_off(r0 + 8 * hf, ol_k[hf] & 127)) =
+                    ol_v[hf];
+            hopper::fence_proxy_async();
+          }
+          if (segs > 1 || nc == 0) hopper::named_sync(bar, 128);   // every thread's outliers placed
+          hopper::reg_fence(acc);
+          hopper::wgmma_fence();
+          const unsigned char* wb = wn + 16 * m * 1024;
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+            hopper::wgmma_m64n64k16_ss_nt(acc,
+                                          desc_here(my_ol, (t >> 2) * (BT * 128) + (t & 3) * 32),
+                                          desc_here(wb, t * 2048));
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::reg_fence(acc);
+          if (segs > 1 || nc == chunks - 1) {
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              if ((ol_k[hf] >> 7) == m)
+                *reinterpret_cast<unsigned short*>(
+                    my_ol + kmajor_off(r0 + 8 * hf, ol_k[hf] & 127)) = 0;
+          }
+        }
+      }
+
+      // epilogue: the staged chunk's buffer is free once the store that
+      // last read it has read it; bf16 pairs by stmatrix, stored by TMA
+      unsigned char* ob = my_out + (nout % p.out_buffers) * OUT_BYTES;
+      if (tw == 0) {
+        if (p.out_buffers == 2) hopper::bulk_wait_read<1>();
+        else hopper::bulk_wait_read<0>();
+      }
+      hopper::named_sync(bar, 128);
+      // the warpgroup is done with the stage: its next tile there
+      if (tw == 0 && nc == chunks - 1 && i + p.stages < my_tiles) load(i + p.stages);
+#pragma unroll
+      for (int q2 = 0; q2 < BN / 16; ++q2) {
+        unsigned pk[4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int j8 = 2 * q2 + jj;
+            pk[2 * jj + hf] = hopper::pack_bf16(acc[4 * j8 + 2 * hf], acc[4 * j8 + 2 * hf + 1]);
+          }
+        // lane l: row l % 8 of matrix l / 8 (rows + 8 for odd matrices,
+        // the next 8 columns for matrices 2 and 3)
+        const int mi = lane >> 3, row = 16 * wi + (lane & 7) + 8 * (mi & 1);
+        const int c8 = 2 * q2 + (mi >> 1);
+        hopper::stsm_x4(ob + row * 128 + ((c8 ^ (row & 7)) << 4), pk);
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(bar, 128);
+      if (tw == 0) {
+        hopper::tma_store_2d(&ty, ob, nc * BN, t0);
+        hopper::bulk_commit();
+      }
+      ++nout;
+    }
+  }
+  if (tw == 0) hopper::bulk_wait_all();
+}
+
+int launch(const void* q, const void* scale, const void* ovals, const void* oidx, const bf16* w,
+           void* y, int n_tokens, int h, int d, int k, int warpgroups, int stages, int out_buffers,
+           cudaStream_t stream) {
+  const int bytes = smem_bytes(h, d, warpgroups, stages, out_buffers, k > 0);
+  // each stage serves one warpgroup: stages is a multiple of warpgroups
+  if (h % 128 || h > 512 || d % BN || k < 0 || k > KMAX || warpgroups < 1 || warpgroups > MAX_WG ||
+      stages < warpgroups || stages % warpgroups || out_buffers < 1 || out_buffers > 2 ||
+      bytes > SMEM_LIMIT)
+    return hopper::status(cudaErrorInvalidValue, 1);
+  static bool attr = false;
+  static int sms = 0;
+  if (!attr) {
+    cudaError_t err = cudaSuccess;
+    for (auto kern : {aaq_matmul_wg_kernel<true, 1>, aaq_matmul_wg_kernel<false, 1>,
+                      aaq_matmul_wg_kernel<true, 0>, aaq_matmul_wg_kernel<false, 0>})
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return hopper::status(err, 2);
+    attr = true;
+  }
+  if (!sms) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return hopper::status(err, 1);
+  }
+  const uint64_t T = static_cast<uint64_t>(n_tokens);
+  CUtensorMap tq, ts, tov, toi, ty;
+  const uint64_t qd[2] = {static_cast<uint64_t>(h / 2), T}, qs[1] = {static_cast<uint64_t>(h / 2)};
+  const uint32_t qbox[2] = {static_cast<uint32_t>(h / 2), BT};
+  const uint64_t sd[1] = {T}, od[1] = {T * static_cast<uint64_t>(k)};
+  const uint32_t sbox[1] = {BT}, obox[1] = {static_cast<uint32_t>(BT * k)};
+  const uint64_t yd[2] = {static_cast<uint64_t>(d), T}, ys[1] = {static_cast<uint64_t>(d) * 2};
+  const uint32_t ybox[2] = {BN, BT};
+  bool ok = hopper::encode(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, qd, qs, qbox,
+                           CU_TENSOR_MAP_SWIZZLE_NONE) &&
+            hopper::encode(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, scale, sd, nullptr, sbox,
+                           CU_TENSOR_MAP_SWIZZLE_NONE) &&
+            hopper::encode(&ty, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, y, yd, ys, ybox,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (k) {
+    ok = ok && hopper::encode(&tov, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 1, ovals, od, nullptr, obox,
+                              CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         hopper::encode(&toi, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, oidx, od, nullptr, obox,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    tov = ts;                                   // not read without outliers
+    toi = ts;
+  }
+  if (!ok) return hopper::status(cudaErrorInvalidValue, 5);
+  const int ntiles = (n_tokens + BT - 1) / BT;
+  const Params prm{static_cast<const float*>(scale), static_cast<const bf16*>(ovals),
+                   static_cast<const int32_t*>(oidx), n_tokens, h, d, k, warpgroups, stages,
+                   out_buffers, ntiles};
+  const dim3 grid(ntiles < sms ? ntiles : sms), block(128 * warpgroups);
+  auto kern = h == 128 ? (k ? aaq_matmul_wg_kernel<true, 1> : aaq_matmul_wg_kernel<false, 1>)
+                       : (k ? aaq_matmul_wg_kernel<true, 0> : aaq_matmul_wg_kernel<false, 0>);
+  kern<<<grid, block, bytes, stream>>>(tq, ts, tov, toi, ty, w, prm);
+  return hopper::status(cudaGetLastError(), 4);
+}
+
+}  // namespace mmwg
+
+// ---------------------------------------------------------------------------
 // float32 SIMT variant
 // ---------------------------------------------------------------------------
 constexpr int BT = 64, BD = 64, BH = 32, NTHREADS = 256;
@@ -427,6 +820,21 @@ extern "C" int aaq_matmul_launch(const void* q, const void* scale, const void* o
   else        // int8 q tiles are twice as wide: a narrower W tile keeps the ring in 227 KB
     err = launch_tc<8, 32>(qp, sp, op, ip, wp, yp, n_tokens, h, d, k, kk, s);
   return err;
+}
+
+// As aaq_matmul_launch at bits 4, on the Hopper kernel: H a multiple of 128
+// up to 512, D a multiple of 64, k <= 4, and the block's warpgroups (1-4),
+// ring stages (a multiple of the warpgroups) and staged output chunks a warpgroup
+// (`out_buffers`, 1 or 2) that the wrapper's plan fits into the block's
+// shared memory.
+extern "C" int aaq_matmul_wg_launch(const void* q, const void* scale, const void* ovals,
+                                    const void* oidx, const void* w, void* y, int n_tokens,
+                                    int h, int d, int k, int warpgroups, int stages,
+                                    int out_buffers, void* stream) {
+  if (n_tokens == 0 || d == 0) return 0;
+  HOPPER_RETURN_IF_PENDING();
+  return mmwg::launch(q, scale, ovals, oidx, static_cast<const bf16*>(w), y, n_tokens, h, d, k,
+                      warpgroups, stages, out_buffers, static_cast<cudaStream_t>(stream));
 }
 
 // As aaq_matmul_launch with w (H, D) and y (T, D) float32, any H.

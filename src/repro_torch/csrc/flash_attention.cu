@@ -113,8 +113,6 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "hopper.cuh"
 
 namespace {
@@ -1061,55 +1059,7 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver at run time (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A tensor map of `rank` dims (innermost first), strides in bytes of dims 1..
-// (a dim of size 1 takes any valid stride), a box, no interleave.
-bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-            const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
-            CUtensorMapSwizzle swizzle) {
-  EncodeTiled fn = encoder();
-  if (!fn) return false;
-  cuuint64_t gd[5], gs[4];
-  cuuint32_t bd[5], es[5];
-  uint64_t last = 16;
-  for (int i = 0; i < rank; ++i) {
-    gd[i] = dims[i];
-    bd[i] = box[i];
-    es[i] = 1;
-    if (i > 0) {
-      // a dim of size 1 is never stepped: give it a stride past the others
-      gs[i - 1] = dims[i] == 1 ? (last + 15) / 16 * 16 : strides[i - 1];
-      last = std::max(last, gs[i - 1] * dims[i]);
-    }
-  }
-  return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), gd, gs, bd, es,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using hopper::encode;
 
 template <int D, int BK>
 int launch(const void* q, const void* k, const void* v, const void* bias, const int32_t* kvlen,

@@ -2,12 +2,15 @@
 // ldmatrix (plain and transposed), the bf16 m16n8k16 mma.sync with a
 // float32 accumulator, the launch status the wrappers decode; and Hopper's
 // own: mbarriers, TMA tile loads (cp.async.bulk.tensor), and warpgroup
-// matrix multiplies (wgmma) with their shared-memory descriptors.
+// matrix multiplies (wgmma) with their shared-memory descriptors, TMA
+// stores, stmatrix, named barriers, and the host's tensor-map encoder.
 #pragma once
 #include <cuda.h>           // CUtensorMap (types only: nothing links the driver)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace hopper {
 
@@ -113,6 +116,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 
 // TMA: copy one box of a tensor map into shared memory; the bytes complete
 // the barrier's transaction count.  Out-of-range elements are zero-filled.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0) : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1) : "memory");
+}
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -128,6 +147,52 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// Bulk copy of `bytes` contiguous bytes (a multiple of 16, both addresses
+// 16-byte aligned) into shared memory; they complete the barrier's
+// transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// TMA: write one box of shared memory to a tensor map's tensor (elements
+// past its edges are not written), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// Wait until this thread's bulk groups are complete (their writes done).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Make this thread's ordinary shared-memory writes visible to the async
+// proxy (TMA stores, wgmma operand reads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Barrier `id` (1..15) among `count` threads (whole warps).
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+// Four 8x8 b16 matrices to shared memory, the mirror of ldsm_x4: register i
+// holds matrix i in mma's fragment layout (lane l: row l / 4, columns
+// 2 (l % 4) and + 1); lane l gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void stsm_x4(void* p, const unsigned (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(smem_addr(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading byte offset
@@ -206,6 +271,78 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const unsigne
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, float32) += a (64 x 16 bf16, K-major in shared memory) * b
+// (16 x 64 bf16, N-major in shared memory).
+__device__ __forceinline__ void wgmma_m64n64k16_ss_nt(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, 1, 1, 1, 0, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db));
+}
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, fetched from the driver at run time (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A tensor map of `rank` dims (innermost first), strides in bytes of dims 1..
+// (a dim of size 1 takes any valid stride), a box, no interleave; elements
+// past the edges read as zero.
+inline bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                   const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                   CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  cuuint64_t gd[5], gs[4];
+  cuuint32_t bd[5], es[5];
+  uint64_t last = 16;
+  for (int i = 0; i < rank; ++i) {
+    gd[i] = dims[i];
+    bd[i] = box[i];
+    es[i] = 1;
+    if (i > 0) {
+      // a dim of size 1 is never stepped: give it a stride past the others
+      gs[i - 1] = dims[i] == 1 ? (last + 15) / 16 * 16 : strides[i - 1];
+      last = std::max(last, gs[i - 1] * dims[i]);
+    }
+  }
+  return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), gd, gs, bd, es,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -37,6 +37,7 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _MATMUL = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_MATMUL_WG = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _FLASH = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
           _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _P]
 _FLASH_WG = _FLASH[:-1] + [_I, _I, _P]       # ..., rows a block, bias box, stream
@@ -50,6 +51,9 @@ SIGNATURES: dict[str, list] = {
     # q, scale, ovals, oidx, w, y, T, H, D, bits, k, kk, stream
     "aaq_matmul_launch": _MATMUL,          # bf16 W, tensor cores
     "aaq_matmul_f32_launch": _MATMUL,      # f32 W, CUDA cores
+    # q, scale, ovals, oidx, w, y, T, H, D, k, warpgroups, ring stages,
+    # output buffers, stream
+    "aaq_matmul_wg_launch": _MATMUL_WG,    # bf16 W, int4, H and D % 128: wgmma + TMA
     # q, k, v, bias, kvlen, o, qkv_is_bf16, bias_kind, B, Sq, Skv, Hq, Hkv, D,
     # Bb, q strides (b,s,h), k strides, v strides, bias strides (b,h,q,k),
     # causal, window, scale, stream

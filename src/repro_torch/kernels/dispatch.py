@@ -85,14 +85,16 @@ KERNEL_PLAIN = {
 KERNEL_VARIANTS = {
     "aaq_quantize": (_aaq_quant_mod, "launches"),           # q, scales, outliers
     "aaq_fake_quant": (_aaq_quant_mod, "fake_launches"),    # x_hat only
-    "aaq_matmul": (_aaq_matmul_mod, "launches"),            # bf16 W, tensor cores
+    "aaq_matmul": (_aaq_matmul_mod, "launches"),            # bf16 W, mma.sync (D = 4)
+    "aaq_matmul_wg": (_aaq_matmul_mod, "wg_launches"),      # bf16 W, int4: wgmma + TMA
     "aaq_matmul_f32": (_aaq_matmul_mod, "f32_launches"),    # f32 W, CUDA cores
     "flash_mha": (_flash_mod, "launches"),                  # bf16, tensor cores (mma.sync)
     "flash_mha_simt": (_flash_mod, "simt_launches"),        # f32 or D = 8, CUDA cores
     "flash_mha_wg": (_flash_mod, "wg_launches"),            # the fold's: wgmma + TMA
 }
-# the variants every fold on the card launches (bf16 weights and activations)
-MAIN_PATH = ("aaq_quantize", "aaq_fake_quant", "aaq_matmul", "flash_mha_wg")
+# the variants every fold on the card launches (bf16 weights and activations;
+# ``aaq_matmul`` is the triangular bias's D = 4 linear)
+MAIN_PATH = ("aaq_quantize", "aaq_fake_quant", "aaq_matmul", "aaq_matmul_wg", "flash_mha_wg")
 
 _MODE = AUTO
 _SCOPED = threading.local()          # .mode: the thread's use_backend mode

@@ -13,8 +13,11 @@ counterpart.  Three variants, chosen by a fixed rule on the operands
   ``mbarrier``s and a producer warpgroup for the Q, K, V and bias tiles,
   one bias tile for every row of a bias block that a block owns
   (:func:`wg_plan`).  TMA reads whole tiles, so the tensors' base pointers
-  and the strides its maps use must be multiples of 16 bytes and the bias
-  must keep its heads or its keys innermost; anything else raises.
+  and the strides its maps use must be multiples of 16 bytes; q, k or v
+  off that raises.  A bias that no TMA box takes (neither its heads nor
+  its keys innermost, or rows off 16 bytes), or a softmax scale that is
+  not positive, sends the call to the tensor-core kernel instead, counted
+  as ``flash_mha``.
 * every other bf16 call with D in {16, 32, 64, 96, 128, 192, 256} (the LM
   decode, the zoo, causal, window, GQA): the tensor-core kernel,
   FlashAttention-2 with ``mma.sync`` (QK^T and a PV product split into
@@ -106,8 +109,10 @@ def variant_for(dtype: torch.dtype, d: int, *, sq: int = 1, hq: int = 1, hkv: in
     """The kernel a launch takes: a fixed rule on the inputs' type, head dim,
     query rows, heads, bias and masks.  The fold's attention (bf16, D 32 or
     64, Hq == Hkv a multiple of 4, a bias, more than one query row, no
-    causal or window mask) takes the Hopper kernel; any other bf16 call the
-    tensor-core kernel; f32 and D = 8 the SIMT kernel."""
+    causal or window mask) takes the Hopper kernel, unless its bias suits no
+    TMA box or its scale is not positive (:func:`_flash_launch_args` then
+    gives it the tensor-core kernel); any other bf16 call the tensor-core
+    kernel; f32 and D = 8 the SIMT kernel."""
     if dtype != torch.bfloat16:
         return SIMT
     if (d in WG_HEAD_DIMS and sq > 1 and hq == hkv and hq % WG_HEADS == 0 and has_bias
@@ -128,20 +133,13 @@ def _aligned(*byte_values) -> bool:
     return all(x % 16 == 0 for x in byte_values)
 
 
-def wg_plan(b: int, sq: int, hq: int, d: int, bias: torch.Tensor) -> WgPlan:
-    """The Hopper kernel's blocks for q (b, sq, hq, d) and ``bias`` (Bb, hq,
-    sq, skv), block-broadcast over b.  A block takes 4 heads of one 64-row
-    query tile and, at D = 32, two batch rows of one bias block (else one),
-    so the rows it shares a bias tile with never cross a bias block.  The
-    bias's TMA box: heads and keys fused into one dense dimension (heads
-    innermost, 4 a key: triangular attention's permuted projection),
-    heads and queries fused (4 heads a query: the same bias gathered on a
-    mesh rank, keys outermost), heads innermost (f32: 4 heads make the 16
-    bytes a box row needs), or keys innermost.  Raises on a bias no box
-    takes: a layout with neither heads nor keys innermost, a bf16 one with
-    heads innermost and neither keys nor queries next to 4 dense heads, or
-    a base pointer or a stride that the box steps not a multiple of 16
-    bytes.  Runs on ``meta`` tensors."""
+def _wg_plan(b: int, sq: int, hq: int, d: int, bias: torch.Tensor,
+             scale: float) -> WgPlan | str:
+    """:func:`wg_plan`'s plan, or the reason the Hopper kernel refuses the
+    call."""
+    if not scale > 0:
+        return (f"flash_mha_kernel: the Hopper kernel takes a positive softmax scale, "
+                f"not {scale}")
     bb = bias.shape[0]
     esize = bias.element_size()
     sb, sh, sqs, sk = bias.stride()
@@ -154,16 +152,45 @@ def wg_plan(b: int, sq: int, hq: int, d: int, bias: torch.Tensor) -> WgPlan:
     elif sk == 1:
         bias_map, stepped = WG_KEYS_INNER, ((sqs, sq), (sh, hq), (sb, bb))
     else:
-        raise ValueError(f"flash_mha_kernel: the Hopper kernel reads the bias by TMA, and a "
-                         f"{bias.dtype} bias with strides {bias.stride()} suits no TMA box "
-                         "(keys innermost, heads innermost in f32, or 4 dense heads a key "
-                         "or a query)")
+        return (f"flash_mha_kernel: the Hopper kernel reads the bias by TMA, and a "
+                f"{bias.dtype} bias with strides {bias.stride()} suits no TMA box "
+                "(keys innermost, heads innermost in f32, or 4 dense heads a key or a query)")
     if not _aligned(bias.data_ptr(), *(st * esize for st, n in stepped if n > 1)):
-        raise ValueError(f"flash_mha_kernel: the bias is read by TMA; its base pointer or "
-                         f"strides {bias.stride()} are not 16-byte aligned")
+        return (f"flash_mha_kernel: the bias is read by TMA; its base pointer or strides "
+                f"{bias.stride()} are not 16-byte aligned")
     rows = WG_ROWS if d == 32 and (b // bb) % WG_ROWS == 0 else 1
     return WgPlan(rows=rows, bias_map=bias_map,
                   blocks=-(-sq // WG_BQ) * (hq // WG_HEADS) * (b // rows))
+
+
+def wg_plan(b: int, sq: int, hq: int, d: int, bias: torch.Tensor, *,
+            scale: float = 1.0) -> WgPlan:
+    """The Hopper kernel's blocks for q (b, sq, hq, d) and ``bias`` (Bb, hq,
+    sq, skv), block-broadcast over b.  A block takes 4 heads of one 64-row
+    query tile and, at D = 32, two batch rows of one bias block (else one),
+    so the rows it shares a bias tile with never cross a bias block.  The
+    bias's TMA box: heads and keys fused into one dense dimension (heads
+    innermost, 4 a key: triangular attention's permuted projection),
+    heads and queries fused (4 heads a query: the same bias gathered on a
+    mesh rank, keys outermost), heads innermost (f32: 4 heads make the 16
+    bytes a box row needs), or keys innermost.  Raises on what the kernel
+    does not take: a bias layout with neither heads nor keys innermost, a
+    bf16 one with heads innermost and neither keys nor queries next to 4
+    dense heads, a base pointer or a stride that the box steps not a
+    multiple of 16 bytes, or a softmax ``scale`` that is not positive.
+    Runs on ``meta`` tensors."""
+    plan = _wg_plan(b, sq, hq, d, bias, scale)
+    if isinstance(plan, str):
+        raise ValueError(plan)
+    return plan
+
+
+def wg_plan_or_none(b: int, sq: int, hq: int, d: int, bias: torch.Tensor, *,
+                    scale: float = 1.0) -> WgPlan | None:
+    """:func:`wg_plan`, or None where it would raise: the launch then takes
+    the tensor-core kernel."""
+    plan = _wg_plan(b, sq, hq, d, bias, scale)
+    return None if isinstance(plan, str) else plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,8 +223,10 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     on what the kernels do not take: a head dim without unit stride, shapes
     that do not match, a bias that does not broadcast, a size beyond 32 bits,
     and, for the tensor-core variant, a q/k/v base pointer or (b, s, h)
-    stride that is not a multiple of 16 bytes; for the Hopper variant also a
-    bias that no TMA box takes (:func:`wg_plan`).  Strides are the tensors'
+    stride that is not a multiple of 16 bytes (also for the Hopper variant).
+    A call :func:`variant_for` gives the Hopper kernel whose bias no TMA box
+    takes, or whose softmax scale is not positive (:func:`wg_plan_or_none`),
+    takes the tensor-core variant.  Strides are the tensors'
     own: the kernels index in 64 bits, so no stride or offset bound
     remains."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -244,10 +273,10 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     if max(b, sq, skv, hq) > INT32_MAX or -(-sq // 64) * hq * b > INT32_MAX:
         raise ValueError(f"flash_mha_kernel: B={b}, Sq={sq}, Skv={skv}, Hq={hq} exceed the "
                          "kernel's 32-bit sizes or grid")
-    plan = wg_plan(b, sq, hq, d, bias) if variant == WG else None
-    if variant == WG and not _scale(d, softmax_scale) > 0:
-        raise ValueError(f"flash_mha_kernel: the Hopper kernel takes a positive softmax "
-                         f"scale, not {softmax_scale}")
+    plan = None
+    if variant == WG:
+        plan = wg_plan_or_none(b, sq, hq, d, bias, scale=_scale(d, softmax_scale))
+        variant = WG if plan is not None else TC
     return FlashLaunchArgs(
         variant=variant, qkv_is_bf16=int(q.dtype == torch.bfloat16), bias_kind=bias_kind,
         sizes=(b, sq, skv, hq, hkv, d, bb), q_strides=tuple(q.stride()[:3]),

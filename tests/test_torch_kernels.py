@@ -34,6 +34,7 @@ from repro.kernels.aaq_quant.ref import aaq_quantize_ref as jax_quant_ref  # noq
 from repro.kernels.flash_attention import ref as jref  # noqa: E402
 from repro.kernels.flash_attention.flash_attention import flash_mha_pallas  # noqa: E402
 from repro_torch.kernels import build, dispatch  # noqa: E402
+from repro_torch.kernels.aaq_matmul import aaq_matmul as tmm  # noqa: E402
 from repro_torch.kernels.aaq_matmul.aaq_matmul import aaq_matmul_kernel  # noqa: E402
 from repro_torch.kernels.aaq_matmul.ops import aaq_linear  # noqa: E402
 from repro_torch.kernels.aaq_quant.aaq_quant import (  # noqa: E402
@@ -41,7 +42,7 @@ from repro_torch.kernels.aaq_quant.aaq_quant import (  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     WG_FUSED, WG_FUSED_Q, WG_HEADS_INNER, WG_KEYS_INNER, _flash_launch_args, flash_mha_kernel,
-    flash_mha_plain, variant_for, wg_plan)
+    flash_mha_plain, variant_for, wg_plan, wg_plan_or_none)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -388,6 +389,132 @@ def test_aaq_linear_matches_reference():
 
 
 # --------------------------------------------------------------------------
+# aaq_matmul's routing rule and the Hopper kernel's plan (meta tensors)
+# --------------------------------------------------------------------------
+#: (H, D, bits) of every quantized linear a full-width esmfold_ppm block
+#: launches under lightnobel_aaq: the triangular bias, the pair projections,
+#: triangular attention's qkv, tri-mul's packed projection, the transition's
+#: down projection
+FOLD_MATMULS = ((128, 4, 4), (128, 128, 4), (128, 384, 4), (128, 512, 4), (512, 128, 4))
+
+
+@pytest.fixture(scope="module")
+def fold_matmul_shapes():
+    """(H, D, bits) of the W operands ``aaq_matmul_kernel`` receives during a
+    one-block fold at esmfold_ppm's full width on the CPU (kernel mode: the
+    kernel wrappers' plain versions)."""
+    import dataclasses
+
+    from repro_torch.configs import get_ppm_config
+    from repro_torch.core import make_scheme
+    from repro_torch.kernels.aaq_matmul import ops
+    from repro_torch.models.ppm import init_ppm, ppm_forward
+    cfg = dataclasses.replace(get_ppm_config(), blocks=1)
+    params = init_ppm(cfg, seed=0, device="cpu")
+    seen, real = set(), ops.aaq_matmul_kernel
+
+    def hooked(q, s, ov, oi, w, *, bits, out_dtype):
+        seen.add((*w.shape, bits))
+        return real(q, s, ov, oi, w, bits=bits, out_dtype=out_dtype)
+
+    aat = torch.from_numpy(np.random.default_rng(0).integers(0, 20, (1, 12)))
+    ops.aaq_matmul_kernel = hooked
+    try:
+        with torch.inference_mode(), dispatch.use_backend("kernel"):
+            ppm_forward(params, aat, cfg, make_scheme("lightnobel_aaq"))
+    finally:
+        ops.aaq_matmul_kernel = real
+    return seen
+
+
+def test_fold_matmul_shapes_are_the_recorded_ones(fold_matmul_shapes):
+    assert fold_matmul_shapes == set(FOLD_MATMULS)
+
+
+def _meta_matmul(t, h, d, bits, k, dtype=torch.bfloat16):
+    meta = dict(device="meta")
+    return (torch.empty((t, h // 2 if bits == 4 else h), dtype=torch.int8, **meta),
+            torch.empty((t, 1), **meta), torch.empty((t, k), dtype=torch.bfloat16, **meta),
+            torch.empty((t, k), dtype=torch.int32, **meta),
+            torch.empty((h, d), dtype=dtype, **meta))
+
+
+@pytest.mark.parametrize("h,d,bits", FOLD_MATMULS)
+@pytest.mark.parametrize("t", [1, 129, 65536, 262144])
+def test_matmul_rule_takes_the_hopper_kernel_at_every_fold_shape_but_d4(h, d, bits, t):
+    want = "tc" if d == 4 else "wg"
+    assert tmm.variant_for(torch.bfloat16, h, d, bits) == want
+    for k in (0, 4):
+        args = tmm._matmul_launch_args(*_meta_matmul(t, h, d, bits, k), bits=bits,
+                                       out_dtype=torch.bfloat16)
+        assert (args.variant, args.t, args.h, args.d, args.k) == (want, t, h, d, k)
+        assert (args.plan is None) == (want == "tc")
+    if want == "wg":
+        for k in (0, 4):
+            plan = tmm.wg_plan(h, d, bits, k)
+            # W resident, a ring of 2-8 stages and each warpgroup's
+            # staged output (and, with outliers, its outlier tile), all inside
+            # one block's shared memory
+            parts = (plan.warpgroups, plan.stages, plan.out_buffers, k > 0)
+            assert plan.smem_bytes == tmm.wg_smem_bytes(h, d, *parts) <= 232448
+            assert 2 <= plan.warpgroups <= plan.stages <= 8 and plan.stages % plan.warpgroups == 0
+            more = (plan.warpgroups, plan.stages + plan.warpgroups, plan.out_buffers, k > 0)
+            assert plan.stages == 8 or tmm.wg_smem_bytes(h, d, *more) > 232448
+        assert tmm.wg_plan(h, d, bits, 0).warpgroups == (3 if (h, d) == (512, 128) else 4)
+    else:
+        assert tmm.wg_plan(h, d, bits) is None
+
+
+@pytest.mark.parametrize("h,d,bits,dtype,want", [
+    (128, 4, 8, torch.bfloat16, "tc"),       # int8 inliers
+    (128, 128, 8, torch.bfloat16, "tc"),
+    (32, 96, 4, torch.bfloat16, "tc"),       # H and D off 128
+    (256, 130, 4, torch.bfloat16, "tc"),
+    (128, 8, 4, torch.bfloat16, "tc"),
+    (512, 512, 4, torch.bfloat16, "tc"),     # W (512 KB) cannot stay resident
+    (256, 256, 4, torch.bfloat16, "wg"),
+    (128, 1024, 4, torch.bfloat16, "tc"),
+    (128, 128, 4, torch.float32, "f32"),
+    (64, 130, 8, torch.float32, "f32"),
+])
+def test_matmul_rule_keeps_what_the_hopper_kernel_does_not_take(h, d, bits, dtype, want):
+    assert tmm.variant_for(dtype, h, d, bits) == want
+    args = tmm._matmul_launch_args(*_meta_matmul(1000, h, d, bits, 4, dtype), bits=bits,
+                                   out_dtype=dtype)
+    assert args.variant == want and (args.plan is not None) == (want == "wg")
+
+
+def test_matmul_launch_args_refuse_what_no_variant_takes():
+    ok = _meta_matmul(64, 128, 128, 4, 4)
+    with pytest.raises(ValueError, match="do not match"):
+        tmm._matmul_launch_args(ok[0][:, :32], *ok[1:], bits=4, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="same type"):
+        tmm._matmul_launch_args(*ok, bits=4, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="k=5"):
+        tmm._matmul_launch_args(*_meta_matmul(64, 128, 128, 4, 5), bits=4,
+                                out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="H <= 512"):
+        tmm._matmul_launch_args(*_meta_matmul(64, 1024, 4, 4, 4), bits=4,
+                                out_dtype=torch.bfloat16)
+
+
+def test_matmul_hopper_k_order_is_a_permutation_of_each_128_columns():
+    """The Hopper kernel's W rows (csrc ``mmwg::phys_row``) in numpy: a
+    thread's 16 bytes of q (columns 128 m + 32 c .. + 31, lane % 4 = c) hold
+    its fragments' k values, two nibbles 16 bits apart a register."""
+    L = np.arange(512)
+    m, t, h, c, e = L >> 7, (L >> 4) & 7, (L >> 3) & 1, (L >> 1) & 3, L & 1
+    phys = 128 * m + 32 * c + 8 * (t >> 1) + 4 * e + 2 * (t & 1) + h
+    src = (tmm.__file__.rsplit("/kernels/", 1)[0] + "/csrc/aaq_matmul.cu")
+    text = open(src).read()
+    assert "(L & ~127) + 32 * ((L >> 1) & 3) + 8 * ((L >> 5) & 3) + 4 * (L & 1)" in text
+    assert sorted(phys) == list(range(512)) and (phys // 128 == m).all()
+    nibble = (phys % 32) % 8                           # within the thread's word
+    assert ((phys % 128) // 32 == c).all() and ((phys % 32) // 8 == t >> 1).all()
+    assert (nibble[e == 1] == nibble[e == 0] + 4).all()   # pairs 16 bits apart
+
+
+# --------------------------------------------------------------------------
 # flash attention: plain version vs the Pallas kernel (interpret)
 # --------------------------------------------------------------------------
 def _attn_inputs(b, sq, skv, hq, hkv, d, *, bias_b=None, bias_bf16=False, seed=0):
@@ -510,7 +637,7 @@ def test_dispatch_routes_by_mode_and_device():
     assert dispatch.plain_counts() == {"aaq_quantize": 1, "aaq_fake_quant": 2, "aaq_matmul": 1,
                                        "flash_mha": 1}
     assert dispatch.launch_counts() == {"aaq_quantize": 0, "aaq_fake_quant": 0, "aaq_matmul": 0,
-                                        "aaq_matmul_f32": 0, "flash_mha": 0,
+                                        "aaq_matmul_wg": 0, "aaq_matmul_f32": 0, "flash_mha": 0,
                                         "flash_mha_simt": 0, "flash_mha_wg": 0}
     assert set(dispatch.MAIN_PATH) <= set(dispatch.launch_counts())
     _close(ker_o.numpy(), ref_o.numpy())
@@ -774,24 +901,32 @@ def test_flash_hopper_kernel_refuses_what_tma_cannot_take():
     qt = torch.empty((64, 64, 32, 4), dtype=torch.bfloat16, device="meta").transpose(2, 3)
     with pytest.raises(ValueError, match="unit stride"):
         _flash_launch_args(qt, k, v, bias)
+    # A bias or a scale the Hopper kernel refuses (wg_plan raises) sends the
+    # call to the tensor-core kernel, which took each of them before the
+    # Hopper kernel existed.
     # a bias whose rows' stride is 66 keys x 4 heads x 2 bytes (not 16-aligned)
     wide = torch.empty((1, 64, 66, 4), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="bias is read by TMA.*16-byte"):
-        _flash_launch_args(q, k, v, wide[:, :, 1:65].permute(0, 3, 1, 2))
+    wide = wide[:, :, 1:65].permute(0, 3, 1, 2)
     # neither heads nor keys innermost: no TMA box
     odd = torch.empty((1, 64, 4, 64), dtype=torch.bfloat16, device="meta").permute(0, 2, 1, 3)
     odd = odd.transpose(2, 3)
-    with pytest.raises(ValueError, match="suits no TMA box"):
-        _flash_launch_args(q, k, v, odd)
     # bf16 with heads innermost but 8 heads a key: no 16-byte box of 4 heads
     q8 = torch.empty((64, 64, 8, 32), dtype=torch.bfloat16, device="meta")
     b8 = torch.empty((1, 64, 64, 8), dtype=torch.bfloat16, device="meta").permute(0, 3, 1, 2)
-    with pytest.raises(ValueError, match="suits no TMA box"):
-        _flash_launch_args(q8, q8, q8, b8)
+    refused = [((q, k, v, wide), {}, "bias is read by TMA.*16-byte"),
+               ((q, k, v, odd), {}, "suits no TMA box"),
+               ((q8, q8, q8, b8), {}, "suits no TMA box"),
+               ((q, k, v, bias), {"softmax_scale": 0.0}, "positive softmax scale")]
+    for (qq, kk, vv, bb), kw, why in refused:
+        b, sq, hq, d = qq.shape
+        scale = kw.get("softmax_scale", 1.0)
+        with pytest.raises(ValueError, match=why):
+            wg_plan(b, sq, hq, d, bb, scale=scale)
+        assert wg_plan_or_none(b, sq, hq, d, bb, scale=scale) is None
+        assert variant_for(qq.dtype, d, sq=sq, hq=hq, hkv=kk.shape[2], has_bias=True) == "wg"
+        args = _flash_launch_args(qq, kk, vv, bb, **kw)
+        assert args.variant == "tc" and args.plan is None
     assert wg_plan(8, 64, 8, 32, b8.contiguous()).bias_map == WG_KEYS_INNER
-    # the probability of a masked key is exactly 0 only for a positive scale
-    with pytest.raises(ValueError, match="positive softmax scale"):
-        _flash_launch_args(q, k, v, bias, softmax_scale=0.0)
 
 
 @pytest.mark.parametrize("rows_per_block,d,want", [(64, 32, 2), (63, 32, 1), (1, 32, 1),
