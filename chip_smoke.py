@@ -16,8 +16,9 @@ Phases, each fatal on failure:
      and nvcc versions; no CUDA device -> exit 1;
   2. build: the CUDA kernels from ``src/repro_torch/csrc``; ptxas's
      registers and spills of every flash instantiation, the tensor-core
-     kernel's and the Hopper kernel's (``flash_wg_kernel``), printed, and
-     a spill fails;
+     kernel's, the fold's Hopper kernel's (``flash_wg_kernel``), the decode
+     kernel's (``flash_dec_kernel``) and the prefill kernel's
+     (``flash_pf_kernel``), printed, and a spill fails;
   3. each kernel variant against its plain PyTorch version on the card at
      the main path's shapes and at long N (seq attention at N = 1024 and
      2048, triangular attention at N = 1024), with its time at every
@@ -37,13 +38,19 @@ Phases, each fatal on failure:
      (1,024 to 6,144, bf16 and f32, bits 4 and 8, k 0 and 4) bitwise and
      timed, and at the training run's (phase 10) shapes; flash with one
      query row a slot against a 256-row
-     KV ring (``kv_valid_len`` 1, 17, 255, 256; GQA 16/2 at head dim 128),
-     a causal prefill, ``aaq_quantize`` on KV rows bitwise; and flash at the
-     model zoo's shapes (phase 9's): phi-3's head dim 96, DeepSeek's MLA at
-     192 with v at 128 padded, RecurrentGemma's 256 with MQA and a 2,048
-     window and its decode row against a 2,048-row ring, whisper's 1,500
-     encoder frames and the cross attention onto them, mixtral's GQA 48/8
-     with a 4,096 window, each timed against SDPA;
+     KV ring (``kv_valid_len`` 1, 17, 255, 256; GQA 16/2 at head dim 128)
+     on the decode kernel (``flash_mha_dec``), a causal prefill on the
+     prefill kernel (``flash_mha_pf``), ``aaq_quantize`` on KV rows
+     bitwise; and flash at the model zoo's shapes (phase 9's): phi-3's head
+     dim 96, DeepSeek's MLA at 192 with v at 128 padded, RecurrentGemma's
+     256 with MQA and a 2,048 window and its decode row against a
+     2,048-row ring, whisper's 1,500 encoder frames, the cross attention
+     onto them and its decoder's causal prefill, mixtral's GQA 48/8 with a
+     4,096 window, and every other decode step of phase 9 (MLA, phi-3,
+     whisper's self and cross, mixtral), each timed against SDPA; every
+     shape on the decode or prefill kernel also bitwise between two
+     launches and, row by row, against the row launched alone, with the
+     tensor-core kernel's time at the same shape (``tc_ms``);
   4. whole forward, kernels vs the plain references, 2 blocks at full
      esmfold_ppm width, one padded request, with two controls that the
      lightnobel_aaq gate must reject;
@@ -98,7 +105,8 @@ Phases, each fatal on failure:
      ``LMClient(window=256, max_slots=4)`` over 6 prompts of 4-16 tokens,
      16 new tokens each, under ``baseline_fp16`` and then
      ``lightnobel_aaq``: all served, one CUDA graph captured at warm-up
-     and none after, 24 flash launches a captured step and under AAQ 48
+     and none after, 24 decode-kernel launches (``flash_mha_dec``) a
+     captured step and no other flash variant, and under AAQ 48
      ``aaq_quantize``, no plain version, KV bytes a request exactly the
      reference's formula, layer 0's ring rows against the rows they came
      from (raw: bitwise; AAQ: within half a quantization step), a graph
@@ -130,7 +138,9 @@ Phases, each fatal on failure:
      decoded from an empty ``make_cache`` against ``prefill_fn`` on the same
      16 tokens within a limit set from readings; flash launches a prefill
      and a decode step equal to the attention calls the config implies (0
-     for mamba2), no plain attention on the kernel route; ``AAQConfig()``
+     for mamba2), each on the variant the rule gives its operands (the
+     prefill kernel for a prefill, the decode kernel for a step), no plain
+     attention on the kernel route; ``AAQConfig()``
      against ``DISABLED`` finite, its drift printed; prefill ms, decode-step
      ms and peak memory printed; the ``AAQConfig()`` prefill launches
      ``aaq_fake_quant`` once for each act call the config implies (residual
@@ -320,7 +330,11 @@ VARIANTS = {
 }
 VARIANTS.update(aaq_fake_quant=VARIANTS["aaq_quantize"],
                 aaq_matmul_f32=VARIANTS["aaq_matmul"], aaq_matmul_wg=VARIANTS["aaq_matmul"],
-                flash_mha_simt=VARIANTS["flash_mha"], flash_mha_wg=VARIANTS["flash_mha"])
+                flash_mha_simt=VARIANTS["flash_mha"], flash_mha_wg=VARIANTS["flash_mha"],
+                flash_mha_dec=("flash_decode.cu", VARIANTS["flash_mha"][1]),
+                flash_mha_pf=("flash_prefill.cu", VARIANTS["flash_mha"][1]))
+#: the flash variants, each counted apart
+FLASH_VARIANTS = ("flash_mha", "flash_mha_simt", "flash_mha_wg", "flash_mha_dec", "flash_mha_pf")
 # (H, D) of every aaq_matmul call of a fold: the tri-attention bias, the
 # pair projections, tri-attention's qkv, tri-mul's packed projection,
 # the pair transition's down projection
@@ -797,38 +811,43 @@ def _flash_name(q, k, bias, v=None, **kw) -> str:
     return VARIANT_NAMES[_flash_launch_args(q, k, k if v is None else v, bias, **kw).variant]
 
 
-def _wg_bitwise(torch, args, got, name) -> None:
-    """The Hopper kernel's determinism gates: a second launch bitwise the
-    first, and the first, a middle and the last batch row each launched
-    alone bitwise its row of the full launch (a row's output does not depend
-    on which rows share its block)."""
+def _flash_bitwise(torch, args, got, name, **kw) -> None:
+    """A Hopper or decode kernel's determinism gates: a second launch
+    bitwise the first, and the first, a middle and the last batch row each
+    launched alone bitwise its row of the full launch (a row's output does
+    not depend on which rows share its block, or, at decode, on the other
+    slots' key lengths)."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_mha_kernel
     q, k, v, bias, kvl = args
-    if not _bitwise(torch, flash_mha_kernel(*args), got):
-        fail(f"flash_mha_wg {name}: two launches differ")
-    b, per = q.shape[0], q.shape[0] // bias.shape[0]
+    what = _flash_name(q, k, bias, v, **kw)
+    if not _bitwise(torch, flash_mha_kernel(*args, **kw), got):
+        fail(f"{what} {name}: two launches differ")
+    b = q.shape[0]
+    per = b if bias is None else b // bias.shape[0]
     for r in sorted({0, b // 2 + 1 if b > 1 else 0, b - 1}):
-        one = flash_mha_kernel(q[r:r + 1], k[r:r + 1], v[r:r + 1], bias[r // per:r // per + 1],
-                               None if kvl is None else kvl[r:r + 1])
+        one = flash_mha_kernel(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                               None if bias is None else bias[r // per:r // per + 1],
+                               None if kvl is None else kvl[r:r + 1], **kw)
         if not _bitwise(torch, one, got[r:r + 1]):
-            fail(f"flash_mha_wg {name}: row {r} launched alone differs from its row of the "
+            fail(f"{what} {name}: row {r} launched alone differs from its row of the "
                  "full launch")
 
 
-def _tc_ms(torch, args) -> float:
+def _tc_ms(torch, args, **kw) -> float:
     """Time of the tensor-core (mma.sync) kernel on a launch the rule sends
-    to the Hopper kernel, through its C entry point."""
+    to another variant, through its C entry point."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.flash_attention import _flash_launch_args
     q, k, v, bias, kvl = args
-    la = _flash_launch_args(*args)
+    la = _flash_launch_args(*args, **kw)
     b, sq, _, hq, _, d, _ = la.sizes
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lib, stream = build.library(), torch.cuda.current_stream().cuda_stream
 
     def tc():
         build.check(lib.flash_mha_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                         bias.data_ptr(), None if kvl is None else kvl.data_ptr(),
+                                         None if bias is None else bias.data_ptr(),
+                                         None if kvl is None else kvl.data_ptr(),
                                          o.data_ptr(), *la.c_args(), stream), "flash_mha")
     return time_ms(torch, tc)
 
@@ -868,7 +887,7 @@ def check_flash(torch, rows: dict) -> None:
         worst = max(worst, _flash_close(torch, got, flash_mha_plain(*args, **kw), c["v"],
                                         c["name"]))
         if _flash_name(c["q"], c["k"], c["bias"], **kw) == "flash_mha_wg":
-            _wg_bitwise(torch, args, got, c["name"])
+            _flash_bitwise(torch, args, got, c["name"])
             on_wg.append(c["name"])
     # triangular attention at N = 1024: the kernel over all rows, the plain
     # version on 8 of them with the same shared bias (over all rows it would
@@ -879,7 +898,7 @@ def check_flash(torch, rows: dict) -> None:
     want = flash_mha_plain(tri["q"][sub], tri["k"][sub], tri["v"][sub], tri["bias"],
                            tri["kvlen"][sub])
     tri_err = _flash_close(torch, got[sub], want, tri["v"], "tri N=1024 (8 rows)")
-    _wg_bitwise(torch, (tri["q"], tri["k"], tri["v"], tri["bias"], tri["kvlen"]), got,
+    _flash_bitwise(torch, (tri["q"], tri["k"], tri["v"], tri["bias"], tri["kvlen"]), got,
                 "tri N=1024")
     worst = max(worst, tri_err)
     # the fold's other shapes on the Hopper kernel (timed in the phases that
@@ -912,7 +931,7 @@ def check_flash(torch, rows: dict) -> None:
         want = flash_mha_plain(c["q"][sub], c["k"][sub], c["v"][sub], c["bias"],
                                None if c["kvlen"] is None else c["kvlen"][sub])
         worst = max(worst, _flash_close(torch, got[sub], want, c["v"], name))
-        _wg_bitwise(torch, args, got, name)
+        _flash_bitwise(torch, args, got, name)
         on_wg.append(name)
         del got, want
     # calls the Hopper rule would take but no TMA box does (or a scale of 0):
@@ -1023,8 +1042,11 @@ def check_lm_kernels(torch, rows: dict) -> list:
     """The flash and quantize kernels at the LM decode tenant's shapes
     (phase 8's): decode attention, one query row against a 256-row KV ring
     with a key length per slot (the first step's 1, a full ring), also with
-    GQA at head dim 128; a causal prefill; the KV-row quantize, bitwise.
-    Returns (row, launch tally key) for the rows phase 8's run counts."""
+    GQA at head dim 128, on the decode kernel: held to its plain version,
+    two launches and a slot launched alone bitwise, timed beside the
+    tensor-core kernel (``tc_ms``) and SDPA; a causal prefill; the KV-row
+    quantize, bitwise.  Returns (row, launch tally key) for the rows phase
+    8's run counts."""
     import torch.nn.functional as F
     from repro_torch.kernels.aaq_quant.aaq_quant import aaq_quantize_kernel
     from repro_torch.kernels.aaq_quant.ref import aaq_quantize_ref
@@ -1046,11 +1068,16 @@ def check_lm_kernels(torch, rows: dict) -> list:
         q, k, v, kvl = kv_case(hq, hkv, d, kvlen)
         o = flash_mha_kernel(q, k, v, None, kvl)
         err = _flash_close(torch, o, flash_mha_plain(q, k, v, None, kvl), v, label)
-        row = _row("flash_mha", f"{label} ({arch}): q (4, 1, {hq}, {d}), k,v ring "
-                                f"(4, 256, {hkv}, {d}) bf16, kv_valid_len {kvlen}")
+        name = _flash_name(q, k, None)
+        if name != "flash_mha":
+            _flash_bitwise(torch, (q, k, v, None, kvl), o, label)
+        row = _row(name, f"{label} ({arch}): q (4, 1, {hq}, {d}), k,v ring "
+                         f"(4, 256, {hkv}, {d}) bf16, kv_valid_len {kvlen}")
         row.max_abs_err = err
         fn = lambda: flash_mha_kernel(q, k, v, None, kvl)  # noqa: E731
         row.ms, row.call_ms = time_ms(torch, fn), call_ms(torch, fn)
+        if name != "flash_mha":
+            row.tc_ms = _tc_ms(torch, (q, k, v, None, kvl))
         row.plain_ms = time_ms(torch, lambda: flash_mha_plain(q, k, v, None, kvl), iters=5)
         # SDPA with the key lengths as a boolean mask and the KV heads repeated
         keep = (torch.arange(256, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
@@ -1062,16 +1089,18 @@ def check_lm_kernels(torch, rows: dict) -> list:
         valid = int(kvl.sum())
         row.bound_ms, row.bound_by = bound_ms(
             nbytes(q, o, kvl) + 2 * valid * hkv * d * 2, 4 * valid * hq * d)
-        pending.append((row, ("flash_mha", ("lm", 4, 1, hq, d, None))))
+        pending.append((row, (name, ("lm", 4, 1, hq, d, None))))
         log(row.line())
     # a causal prefill (not on the served path: the tenant teacher-forces
     # prompts through decode steps), held to its plain version only
     q = torch.randn((2, 100, 16, 64), generator=g, device="cuda").to(bf)
     k = torch.randn((2, 100, 16, 64), generator=g, device="cuda").to(bf)
     v = torch.randn((2, 100, 16, 64), generator=g, device="cuda").to(bf)
-    err = _flash_close(torch, flash_mha_kernel(q, k, v, causal=True),
-                       flash_mha_plain(q, k, v, causal=True), v, "lm causal prefill")
-    log(f"flash_mha lm causal prefill q,k,v (2, 100, 16, 64) bf16: max|err| {err:.3e}")
+    o = flash_mha_kernel(q, k, v, causal=True)
+    err = _flash_close(torch, o, flash_mha_plain(q, k, v, causal=True), v, "lm causal prefill")
+    _flash_bitwise(torch, (q, k, v, None, None), o, "lm causal prefill", causal=True)
+    log(f"{_flash_name(q, k, None, causal=True)} lm causal prefill q,k,v (2, 100, 16, 64) bf16: "
+        f"max|err| {err:.3e}, two launches and a row alone bitwise")
     # the KV rows: (slots x KV heads, head dim), group C (4 bits, no outliers)
     for t, h, arch in ((64, 64, "qwen1.5-0.5b"), (8, 128, "qwen2.5-3b")):
         x = torch.randn((t, h), generator=g, device="cuda").to(bf)
@@ -1090,8 +1119,8 @@ def check_lm_kernels(torch, rows: dict) -> list:
         pending.append((row, ("aaq_quantize", (t, h, 4, 0))))
         log(row.line())
     log("lm kernels: flash decode (Sq = 1 against a 256-row ring, kv_valid_len 1..256, "
-        "GQA 16/2 at D = 128) and a causal prefill held to flash_mha_plain; KV-row "
-        "aaq_quantize bitwise at (64, 64) and (8, 128)")
+        "GQA 16/2 at D = 128) and a causal prefill held to flash_mha_plain, two launches and "
+        "a slot alone bitwise; KV-row aaq_quantize bitwise at (64, 64) and (8, 128)")
     return pending
 
 
@@ -1252,6 +1281,9 @@ def _device_us(evt) -> float:
 
 # the function that hands dispatch.attention its operands -> the attention it is
 _ATTN_CALLERS = {"seq_attn_apply": "seq", "structure_apply": "structure", "attn_apply": "lm"}
+# what may stand between that function and dispatch.attention: the LM's
+# attention reaches it through the sharding layer's local_attention
+_ATTN_RELAYS = ("local_attention",)
 
 
 @contextlib.contextmanager
@@ -1289,8 +1321,11 @@ def launch_tally(full: bool = False):
         return act(self, x, site)
 
     def fl_counted(q, k, v, bias=None, kvl=None, **kw):
-        # frame 1 is dispatch.attention, frame 2 the model code that called it
-        kind = _ATTN_CALLERS.get(sys._getframe(2).f_code.co_name, "tri")
+        # frame 1 is dispatch.attention, then the model code that called it
+        frame = sys._getframe(2)
+        while frame.f_code.co_name in _ATTN_RELAYS:
+            frame = frame.f_back
+        kind = _ATTN_CALLERS.get(frame.f_code.co_name, "tri")
         rows = None if bias is None else bias.shape[0]
         tally[(_flash_name(q, k, bias, v, **kw), (kind, *q.shape, rows) if full else kind)] += 1
         return fl(q, k, v, bias, kvl, **kw)
@@ -1367,7 +1402,7 @@ def profile_folds(torch, cfg, params) -> None:
 # phase 6: the batching engine, one CUDA graph per executable key
 # ---------------------------------------------------------------------------
 #: flash variants a bf16 fold never launches: its attention is the Hopper kernel's
-OFF_FOLD_FLASH = ("flash_mha", "flash_mha_simt")
+OFF_FOLD_FLASH = ("flash_mha", "flash_mha_simt", "flash_mha_dec", "flash_mha_pf")
 #: bf16 AAQ-linear matmuls on the card by the variant they launched, and the
 #: calls whose launch broke the rule (D >= 8: aaq_matmul_wg, D < 8: the
 #: tensor-core kernel) as (W's shape, launches of aaq_matmul and
@@ -1859,7 +1894,7 @@ def _flash_engine_row(torch, rows, pending, c, lens, label, part, kind, shape):
     row = _row(name, f"{label}: {kind} {shape}")
     row.max_abs_err = _flash_close(torch, o, flash_mha_plain(*args), c["v"], f"{kind} at {label}")
     if name == "flash_mha_wg":
-        _wg_bitwise(torch, args, o, f"{kind} at {label}")
+        _flash_bitwise(torch, args, o, f"{kind} at {label}")
         row.tc_ms = _tc_ms(torch, args)
     bq, n, h, d = c["q"].shape
     pending.append((row, part, (name, (kind, bq, n, h, d, len(lens)))))
@@ -2248,6 +2283,7 @@ def _lm_serve(torch, cfg, params, scheme, prompts, max_new, tally_into=None):
     aaq_quantize launches a layer, no plain version, no launch outside
     the graph while serving."""
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention.flash_attention import VARIANT_NAMES, variant_for
     from repro_torch.serving import CompileWatcher, LMClient
     client = LMClient(params, cfg, scheme, window=256, max_slots=4,
                       default_max_new_tokens=max_new, device="cuda")
@@ -2270,7 +2306,12 @@ def _lm_serve(torch, cfg, params, scheme, prompts, max_new, tally_into=None):
     (exe,) = core._executables.values()
     per_step = exe.kernel_launches
     quant = scheme != "baseline_fp16"
-    flash = "flash_mha" if cfg.hd in (16, 32, 64, 128) else "flash_mha_simt"
+    # the rule's flash variant for one query row a slot: the decode kernel
+    flash = VARIANT_NAMES[variant_for(cfg.torch_dtype, cfg.hd, sq=1, hq=cfg.n_heads,
+                                      hkv=cfg.n_kv_heads)]
+    if flash != "flash_mha_dec":
+        fail(f"lm {cfg.name}: the served step's attention would launch {flash}, not the "
+             "decode kernel")
     want = {k: 0 for k in per_step}
     want[flash] = cfg.layers
     if quant:
@@ -2647,6 +2688,14 @@ ZOO_FLASH = (
     ("whisper encoder self", "whisper-base", 2, 1500, 1500, 8, 8, 64, 64, False, None, None),
     ("whisper cross", "whisper-base", 2, 64, 1500, 8, 8, 64, 64, False, None, None),
     ("mixtral prefill", "mixtral-8x22b", 1, 4608, 4608, 48, 8, 128, 128, True, 4096, None),
+    ("whisper decoder self prefill", "whisper-base", 2, 64, 64, 8, 8, 64, 64, True, None, None),
+    # the other decode steps phase 9 runs, against its 16-row rings and the
+    # 1,500 encoder frames
+    ("MLA decode", "deepseek-v2-lite-16b", 2, 1, 16, 16, 16, 192, 128, False, None, [16, 9]),
+    ("phi-3 decode", "phi-3-vision-4.2b", 2, 1, 16, 32, 32, 96, 96, False, None, [16, 7]),
+    ("whisper self decode", "whisper-base", 2, 1, 16, 8, 8, 64, 64, False, None, [16, 3]),
+    ("whisper cross decode", "whisper-base", 2, 1, 1500, 8, 8, 64, 64, False, None, None),
+    ("mixtral decode", "mixtral-8x22b", 2, 1, 16, 48, 8, 128, 128, False, None, [16, 5]),
 )
 
 
@@ -2655,11 +2704,15 @@ def check_zoo_flash(torch, rows: dict) -> list:
     v at 128, padded with zeros to 192 as ``dispatch.attention`` does, the
     output sliced back) and 256 (MQA, window 2,048, and its decode against a
     2,048-row ring), the whisper encoder's 1,500 frames and the cross
-    attention onto them, mixtral's GQA 48/8 with a 4,096 window.  Each held
-    to ``flash_mha_plain`` (on the unpadded v) and timed: ``bound_ms``
-    counts the pairs the masks leave and v and o at their own head dim;
-    ``library_ms`` is SDPA (KV heads repeated, the window or key lengths as
-    a boolean mask).  Returns (row, phase-9 tally key) pairs."""
+    attention onto them, mixtral's GQA 48/8 with a 4,096 window, and every
+    other decode step phase 9 runs.  Each held to ``flash_mha_plain`` (on
+    the unpadded v) and timed: ``bound_ms`` counts the pairs the masks leave
+    and v and o at their own head dim; ``library_ms`` is SDPA (KV heads
+    repeated, the window or key lengths as a boolean mask).  A shape the
+    rule sends to the decode or prefill kernel also gets two launches and a
+    batch row launched alone bitwise, and the tensor-core kernel's time on
+    the same operands (``tc_ms``).  Returns (row, phase-9 tally key)
+    pairs."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (flash_mha_kernel,
                                                                      flash_mha_plain)
@@ -2681,15 +2734,22 @@ def check_zoo_flash(torch, rows: dict) -> list:
         def plain(q=q, k=k, v=v, kvl=kvl, kw=kw):
             return flash_mha_plain(q, k, v, None, kvl, **kw)
 
-        o = kern()[..., :dv]
+        full = kern()
+        o = full[..., :dv]
         err = _flash_close(torch, o, plain(), v, f"{label} ({arch})")
+        name = _flash_name(q, k, None, vp, **kw)
+        if name != "flash_mha":
+            _flash_bitwise(torch, (q, k, vp, None, kvl), full, label, **kw)
+        del full
         shape = (f"{label} ({arch}): q ({b}, {sq}, {hq}, {d}), k ({b}, {skv}, {hkv}, {d}), "
                  f"v ({b}, {skv}, {hkv}, {dv}{', padded to ' + str(d) if dv < d else ''}) bf16"
                  f"{', causal' if causal else ''}{f', window {window}' if window else ''}"
                  f"{f', kv_valid_len {kvlen}' if kvlen else ''}")
-        row = _row("flash_mha", shape)
+        row = _row(name, shape)
         row.max_abs_err = err
         row.ms, row.call_ms = time_ms(torch, kern), call_ms(torch, kern)
+        if name != "flash_mha":
+            row.tc_ms = _tc_ms(torch, (q, k, vp, None, kvl), **kw)
         row.plain_ms = time_ms(torch, plain, iters=3)
         qt = q.transpose(1, 2)
         kt, vt = (a.repeat_interleave(hq // hkv, dim=2).transpose(1, 2) for a in (k, v))
@@ -2711,9 +2771,11 @@ def check_zoo_flash(torch, rows: dict) -> list:
                                               2 * pairs * hq * (d + dv))
         pending.append((row, _zoo_key(q, k)))
         log(row.line())
-    log(f"flash_mha zoo shapes: allclose on {len(ZOO_FLASH)} cases (D = 64/96/128/192/256, "
-        f"MLA v padded 128 -> 192, MQA 16/1 and GQA 48/8, windows 2,048 and 4,096, a decode "
-        f"row against a 2,048-row ring, cross attention onto 1,500 frames)")
+    log(f"flash zoo shapes: allclose on {len(ZOO_FLASH)} cases (D = 64/96/128/192/256, "
+        f"MLA v padded 128 -> 192, MQA 16/1 and GQA 48/8, windows 2,048 and 4,096, decode "
+        f"rows against a 2,048-row ring, 16-row rings and 1,500 frames, cross attention onto "
+        f"1,500 frames); on the decode and prefill kernels two launches and a row alone "
+        f"bitwise: {[r.shape.split(' (')[0] for r, _ in pending if r.tc_ms is not None]}")
     return pending
 
 
@@ -2924,19 +2986,31 @@ def _zoo_batch(torch, cfg, b, s, seed=0):
 
 def _zoo_counted(torch, fn, tally):
     """Run ``fn`` with every counter zeroed just before and read just after;
-    flash launches also tallied by (Sq, Hq, D, Skv, Hkv)."""
+    flash launches also tallied by (Sq, Hq, D, Skv, Hkv).  Returns the
+    output, the counters and the flash launches the rule expects, by
+    variant."""
     from repro_torch.kernels import dispatch
     fl = dispatch.flash_mha_kernel
+    expected = Counter()
 
     def fl_counted(q, k, v, bias=None, kvl=None, **kw):
         tally[_zoo_key(q, k)] += 1
+        expected[_flash_name(q, k, bias, v, **kw)] += 1
         return fl(q, k, v, bias, kvl, **kw)
 
     dispatch.reset_counters()
     with swapped(dispatch, "flash_mha_kernel", fl_counted):
         out = fn()
         torch.cuda.synchronize()
-    return out, _counts()
+    return out, _counts(), expected
+
+
+def _zoo_flash_ok(launches, expected, want) -> bool:
+    """A zoo run's flash launches: ``want`` in all, each on the variant the
+    rule gives its operands, none on the SIMT or the fold's kernel."""
+    got = {v: launches[v] for v in FLASH_VARIANTS if launches[v]}
+    return (sum(got.values()) == want and got == dict(expected)
+            and not launches["flash_mha_simt"] and not launches["flash_mha_wg"])
 
 
 def _zoo_model(torch, arch, layers, b, s, tally, fq_tally) -> dict:
@@ -2963,7 +3037,7 @@ def _zoo_model(torch, arch, layers, b, s, tally, fq_tally) -> dict:
     want = _zoo_attn_calls(cfg, "prefill")
     torch.cuda.reset_peak_memory_stats()
     with dispatch.use_backend("kernel"):
-        logits, (launches, plain, routed) = _zoo_counted(
+        logits, (launches, plain, routed), expected = _zoo_counted(
             torch, lambda: lm.prefill_fn(params, batch, cfg), tally)
         t0 = time.perf_counter()
         lm.prefill_fn(params, batch, cfg)
@@ -2971,10 +3045,11 @@ def _zoo_model(torch, arch, layers, b, s, tally, fq_tally) -> dict:
         prefill_ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated()
     aaq = _zoo_aaq_prefill(torch, arch, params, batch, cfg, fq_tally)
-    if (launches["flash_mha"] != want or launches["flash_mha_simt"] or any(plain.values())
+    if (not _zoo_flash_ok(launches, expected, want) or any(plain.values())
             or routed["attention.ref"]):
-        fail(f"zoo {arch}: prefill launched flash {launches['flash_mha']} times (want {want}), "
-             f"simt {launches['flash_mha_simt']}, plain {plain}, routed {routed}")
+        fail(f"zoo {arch}: prefill launched flash { {v: launches[v] for v in FLASH_VARIANTS} } "
+             f"(want {want}, by the rule {dict(expected)}), plain {plain}, routed {routed}")
+    prefill_flash = dict(expected)
     with dispatch.use_backend("ref"), _routing(torch) as ref_route:
         ref = lm.prefill_fn(params, batch, cfg)
     d_ref = float((logits - ref).abs().max())
@@ -3002,17 +3077,20 @@ def _zoo_model(torch, arch, layers, b, s, tally, fq_tally) -> dict:
         cache["enc_out"].copy_(ed.encode(params, batch["audio_frames"], cfg))
     step_want = _zoo_attn_calls(cfg, "decode")
     step_ms = []
+    flash_variants = Counter(prefill_flash)
     with dispatch.use_backend("kernel"):
         for t in range(ZOO_DECODE_TOKENS):
             t0 = time.perf_counter()
-            (dl, cache), (launches, plain, routed) = _zoo_counted(
+            (dl, cache), (launches, plain, routed), expected = _zoo_counted(
                 torch, lambda t=t: lm.decode_fn(params, {"tokens": toks[:, t:t + 1]}, cache,
                                                 cfg), tally)
             step_ms.append((time.perf_counter() - t0) * 1e3)
-            if (launches["flash_mha"] != step_want or any(plain.values())
+            if (not _zoo_flash_ok(launches, expected, step_want) or any(plain.values())
                     or routed["attention.ref"]):
-                fail(f"zoo {arch}: decode step {t} launched flash {launches['flash_mha']} "
-                     f"times (want {step_want}), plain {plain}, routed {routed}")
+                fail(f"zoo {arch}: decode step {t} launched flash "
+                     f"{ {v: launches[v] for v in FLASH_VARIANTS} } (want {step_want}, by the "
+                     f"rule {dict(expected)}), plain {plain}, routed {routed}")
+            flash_variants.update(expected)
         full = lm.prefill_fn(params, dbatch, cfg)
         c_dec = None
         if step_want or cfg.kind == "ssm":
@@ -3027,12 +3105,14 @@ def _zoo_model(torch, arch, layers, b, s, tally, fq_tally) -> dict:
     finite = finite and bool(torch.isfinite(dl).all())
     out = dict(arch=arch, kind=cfg.kind, layers=cfg.layers, params_b=n_params / 1e9,
                flash_prefill=want, flash_step=step_want, prefill_ms=prefill_ms,
+               flash_variants=dict(flash_variants),
                step_ms=sorted(step_ms)[len(step_ms) // 2], peak_gib=peak / 2**30,
                peak_above_params_gib=(peak - held) / 2**30, kernel_vs_plain=d_ref,
                control_prefill=c_ref, decode_vs_prefill=d_dec, control_decode=c_dec,
                aaq_drift=drift, logits_absmax=float(ref.abs().max()), routes=routes)
     log(f"zoo {arch}: prefill {b}x{s} {prefill_ms:.1f} ms, flash {want} a prefill"
-        f"{' (attention-free: no flash call)' if not want else ''}, {step_want} a decode step; "
+        f"{' (attention-free: no flash call)' if not want else ''}, {step_want} a decode step "
+        f"(by variant over the prefill and {ZOO_DECODE_TOKENS} steps {dict(flash_variants)}); "
         f"decode step {out['step_ms']:.2f} ms (median of {ZOO_DECODE_TOKENS}, host clock, "
         f"eager); peak {out['peak_gib']:.2f} GiB ({out['peak_above_params_gib']:.2f} above "
         f"the params); max|logits kernel - plain route| {d_ref:.4e} (limit "
@@ -3074,9 +3154,8 @@ def serve_zoo(torch, zoo_pending, wide_pending, card: str) -> dict:
     t0 = time.perf_counter()
     readings = []
     for arch, layers, b, s in ZOO_MODELS:
-        before = Counter(tally)
         readings.append(_zoo_model(torch, arch, layers, b, s, tally, fq_tally))
-        total["flash_mha"] += sum((tally - before).values())
+        total.update(readings[-1]["flash_variants"])
     total["aaq_fake_quant"] = sum(fq_tally.values())
     for row, key in zoo_pending:
         row.launches = tally.get(key, 0)
@@ -3084,7 +3163,7 @@ def serve_zoo(torch, zoo_pending, wide_pending, card: str) -> dict:
         row.launches = sum(n for (_, *fq_key), n in fq_tally.items()
                            if fq_key == key) if name == "aaq_fake_quant" else 0
     log(f"zoo fake-quant launches by (T, H, dtype, bits, k): {dict(fq_tally)}")
-    if total["flash_mha"] == 0 or total["aaq_fake_quant"] == 0:
+    if not any(total[v] for v in FLASH_VARIANTS) or total["aaq_fake_quant"] == 0:
         fail(f"zoo: a kernel was never launched: {dict(total)}")
     log(f"zoo readings on {card}: {json.dumps(readings)}")
     log(f"phase 9 wall {time.perf_counter() - t0:.1f}s")
@@ -3197,7 +3276,7 @@ def _train_qwen(torch, fq_tally) -> tuple[dict, object]:
                starts=failed.driver.starts,
                resumed_equal=same, fake_quant_launches=launches["aaq_fake_quant"],
                want_fake_quant=steps * acts, attention_ref_grad=routed["attention.ref_grad"],
-               want_attention=steps * attn, flash=launches["flash_mha"] + launches["flash_mha_simt"],
+               want_attention=steps * attn, flash=sum(launches[v] for v in FLASH_VARIANTS),
                plain=plain, step_ms_median=step_ms[len(step_ms) // 2],
                first_step_ms=clean.driver.history[0]["step_ms"], peak_gib=peak / 2**30,
                saves=saves, replayed_losses_equal=failed.losses[6:] == losses[4:])
@@ -3336,8 +3415,7 @@ def _train_zoo_model(torch, arch, layers) -> dict:
           and launches["aaq_fake_quant"] == acts and not any(plain.values())
           and routed["fakequant.ref"] == 0 and routed["fakequant.ref_grad"] == 0
           and routed["attention.ref_grad"] == attn and routed["attention.kernel"] == 0
-          and launches["flash_mha"] == 0 and launches["flash_mha_simt"] == 0
-          and launches["flash_mha_wg"] == 0)
+          and not any(launches[v] for v in FLASH_VARIANTS))
     if not ok:
         fail(f"train {arch}: {out} plain {plain} routed {routed}")
     del params, opt, batch, m
@@ -3370,23 +3448,27 @@ def train_phase(torch, train_pending, card: str) -> dict:
 def flash_resources(build) -> None:
     """Phase 2's ptxas readout: registers a thread and spilled bytes of each
     flash instantiation, the tensor-core kernel's ``flash_tc_kernel<D, bias
-    kind>`` (bias kind 0 none, 1 f32, 2 bf16) and the Hopper kernel's
-    ``flash_wg_kernel<D, bias kind>`` (its consumer warpgroups raise their
-    own count to ``CONSUMER_REGS`` with setmaxnreg; ptxas reports the
-    launch count and any spill past it); a spill fails."""
+    kind>`` (bias kind 0 none, 1 f32, 2 bf16), the Hopper kernel's
+    ``flash_wg_kernel<D, bias kind>``, the decode kernel's
+    ``flash_dec_kernel<D>`` and the prefill kernel's ``flash_pf_kernel<D>``
+    (the Hopper kernels' consumer warpgroups raise their own count with
+    setmaxnreg; ptxas reports the launch count and any spill past it); a
+    spill fails."""
     import re
     res = {}
     for name, (regs, spill) in build.ptxas_resources().items():
         if m := re.search(r"flash_(tc|wg)_kernelILi(\d+)ELi(\d)E", name):
             res[(m[1], int(m[2]), int(m[3]))] = (regs, spill)
-    for kind in ("tc", "wg"):
+        elif m := re.search(r"flash_(dec|pf)_kernelILi(\d+)EE", name):
+            res[(m[1], int(m[2]), 0)] = (regs, spill)
+    for kind in ("tc", "wg", "dec", "pf"):
         got = {k[1:]: v for k, v in res.items() if k[0] == kind}
         if not got:
             fail(f"build: ptxas reported no flash_{kind}_kernel instantiation")
         by_d = {d: " / ".join(f"{got[d, b][0]}" for b in range(3) if (d, b) in got)
                 for d in sorted({d for d, _ in got})}
-        log(f"build: flash_{kind}_kernel registers a thread (ptxas, sm_90a; "
-            f"{'no bias / f32 / bf16 bias' if kind == 'tc' else 'f32 / bf16 bias'}): "
+        how = {"tc": "no bias / f32 / bf16 bias", "wg": "f32 / bf16 bias"}.get(kind, "no bias")
+        log(f"build: flash_{kind}_kernel registers a thread (ptxas, sm_90a; {how}): "
             + ", ".join(f"D={d} {r}" for d, r in by_d.items())
             + f"; spilled bytes {sorted({s for _, s in got.values()})}")
     if spilled := {k: v for k, v in res.items() if v[1]}:
@@ -4430,7 +4512,8 @@ _FOLD_KERNELS = (("aaq_quantize",), ("aaq_fake_quant",),
                  ("flash_mha_wg", "flash_mha_simt"))
 EXAMPLES = {"quickstart": _FOLD_KERNELS, "fold_server": _FOLD_KERNELS,
             "train_lm": (("aaq_fake_quant",),),
-            "lm_serve_quantized_kv": (("aaq_quantize",), ("flash_mha", "flash_mha_simt"))}
+            "lm_serve_quantized_kv": (("aaq_quantize",), ("flash_mha", "flash_mha_simt",
+                                                          "flash_mha_dec", "flash_mha_pf"))}
 #: the lines of each example's output that phase 14 prints
 EXAMPLE_LINES = ("TM-score", "pair-activation", "# tails", "# http", "# steady", "done:",
                  "training example", "kv_bytes_per_request", "max |logits_first")
@@ -4817,8 +4900,8 @@ def kernel_family(name: str) -> str:
     m = re.search(r"flash_tc_kernel<(\d+)|flash_simt_kernel<[^,>]*,\s*(\d+)", name)
     if m:
         return f"flash_mha D={m.group(1) or m.group(2)}"
-    if m := re.search(r"flash_wg_kernel<(\d+)", name):
-        return f"flash_mha_wg D={m.group(1)}"
+    if m := re.search(r"flash_(wg|dec|pf)_kernel<(\d+)", name):
+        return f"flash_mha_{m.group(1)} D={m.group(2)}"
     for fam in ("aaq_fake_quant", "aaq_quantize", "aaq_matmul_wg", "aaq_matmul"):
         if fam in name:
             return fam

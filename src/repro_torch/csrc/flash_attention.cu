@@ -341,11 +341,7 @@ template <int D, int BK> size_t smem_bytes(int hb, int packed) {
          2 * (2 * tile + bias_tile_bytes<BK, BKV>(hb, packed));
 }
 
-// bf16 pair of (x0, x1) and the bf16 pair of what that rounding left out
-__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
-  hi = hopper::pack_bf16(x0, x1);
-  lo = hopper::pack_bf16(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xffff0000u));
-}
+using hopper::split_bf16;
 
 // 16-byte chunk `ch` of packed bias row `r`, swizzled so that the 8 lanes of
 // a quarter warp reading one chunk each hit 8 different bank groups.

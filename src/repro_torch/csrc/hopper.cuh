@@ -1,6 +1,7 @@
 // Helpers shared by the sm_90a kernels: 16-byte cp.async with zero fill,
 // ldmatrix (plain and transposed), the bf16 m16n8k16 mma.sync with a
-// float32 accumulator, the launch status the wrappers decode; and Hopper's
+// float32 accumulator, P's split into bf16 hi + lo, the launch status the
+// wrappers decode; and Hopper's
 // own: mbarriers, TMA tile loads (cp.async.bulk.tensor), and warpgroup
 // matrix multiplies (wgmma) with their shared-memory descriptors, TMA
 // stores, stmatrix, named barriers, and the host's tensor-map encoder.
@@ -80,6 +81,14 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
+}
+
+// bf16 pair of (x0, x1) and the bf16 pair of what that rounding left out:
+// x = hi + lo within 2^-17 relative, so a product of P and bf16 V keeps P's
+// ~16 bits where rounding P once to bf16 would put up to 2^-9 on it.
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
 // ---------------------------------------------------------------------------
@@ -238,6 +247,24 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da, 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 64, float32) = or += a (64 x 16 bf16, K-major in shared memory)
+// * b (16 x 64 bf16, K-major in shared memory).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 // d (64 x 32) += a (64 x 16 bf16 in registers, mma.sync's A fragment) * b

@@ -40,7 +40,9 @@ _MATMUL = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _MATMUL_WG = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _FLASH = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
           _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _P]
-_FLASH_WG = _FLASH[:-1] + [_I, _I, _P]       # ..., rows a block, bias box, stream
+# ..., the plan's two ints (Hopper: rows a block, bias box; decode: keys a
+# split, splits a slot), stream
+_FLASH_PLAN = _FLASH[:-1] + [_I, _I, _P]
 # C entry point -> argument types (pointers and the stream are void*;
 # strides are int64_t)
 SIGNATURES: dict[str, list] = {
@@ -59,7 +61,9 @@ SIGNATURES: dict[str, list] = {
     # causal, window, scale, stream
     "flash_mha_launch": _FLASH,            # bf16, D in 16..256, tensor cores
     "flash_mha_simt_launch": _FLASH,       # f32 or D = 8, CUDA cores
-    "flash_mha_wg_launch": _FLASH_WG,      # the fold's: bf16, D 32/64, wgmma + TMA
+    "flash_mha_wg_launch": _FLASH_PLAN,    # the fold's: bf16, D 32/64, wgmma + TMA
+    "flash_mha_dec_launch": _FLASH_PLAN,   # one query row, no bias: split keys, a cluster
+    "flash_mha_pf_launch": _FLASH,         # prefill, no bias: wgmma + TMA
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -91,6 +91,8 @@ KERNEL_VARIANTS = {
     "flash_mha": (_flash_mod, "launches"),                  # bf16, tensor cores (mma.sync)
     "flash_mha_simt": (_flash_mod, "simt_launches"),        # f32 or D = 8, CUDA cores
     "flash_mha_wg": (_flash_mod, "wg_launches"),            # the fold's: wgmma + TMA
+    "flash_mha_dec": (_flash_mod, "dec_launches"),          # one query row: split keys, a cluster
+    "flash_mha_pf": (_flash_mod, "pf_launches"),            # prefill, no bias: wgmma + TMA
 }
 # the variants every fold on the card launches (bf16 weights and activations;
 # ``aaq_matmul`` is the triangular bias's D = 4 linear)

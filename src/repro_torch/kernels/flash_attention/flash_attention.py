@@ -1,11 +1,12 @@
 """CUDA kernel wrapper: token-wise MHA with online softmax.
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py:flash_mha_pallas``.
-A block of the kernel (``csrc/flash_attention.cu``) owns its query rows and
-loops over key tiles inside the block, keeping the float32 (m, l, o) state
-in registers; the TPU kernel's sequential KV grid axis has no CUDA
-counterpart.  Three variants, chosen by a fixed rule on the operands
-(:func:`variant_for`) and counted apart:
+A block of a kernel (``csrc/flash_attention.cu``, ``csrc/flash_decode.cu``,
+``csrc/flash_prefill.cu``) owns its query rows and loops over key tiles
+inside the block, keeping the float32 (m, l, o) state in registers; the TPU
+kernel's sequential KV grid axis has no CUDA counterpart.  Five variants,
+chosen by a fixed rule on the operands (:func:`variant_for`) and counted
+apart:
 
 * the fold's attention (bf16 q/k/v with D in {32, 64}, Hq == Hkv a multiple
   of 4, an additive bias, more than one query row, no causal or window
@@ -18,8 +19,24 @@ counterpart.  Three variants, chosen by a fixed rule on the operands
   its keys innermost, or rows off 16 bytes), or a softmax scale that is
   not positive, sends the call to the tensor-core kernel instead, counted
   as ``flash_mha``.
-* every other bf16 call with D in {16, 32, 64, 96, 128, 192, 256} (the LM
-  decode, the zoo, causal, window, GQA): the tensor-core kernel,
+* one query row a slot, no bias, causal or window mask, D in {64, 96, 128,
+  192, 256} (the LM tenant's served step, every zoo decode step): the
+  decode kernel, counted as ``flash_mha_dec``.  A block holds the query
+  heads of one KV head (GQA read once) and one split of a fixed number of
+  keys (:func:`dec_plan`: from the ring length and head counts alone,
+  never from the batch or the other slots' lengths); a slot's splits are
+  one thread-block cluster and merge their (m, l, o) in a fixed order
+  through each other's shared memory.  16-byte ``cp.async`` loads, as the
+  tensor-core kernel.
+* more than one query row, no bias, D in {64, 96, 128, 192, 256}, a
+  positive softmax scale (the zoo's prefills, causal, window, GQA/MQA): the
+  Hopper prefill kernel, counted as ``flash_mha_pf``: ``wgmma``, TMA with
+  an ``mbarrier`` ring and a producer warpgroup, two consumer warpgroups
+  of 64 query rows (three at D = 64) sharing each K/V tile
+  (:func:`pf_plan`), key tiles a mask hides skipped.  TMA reads whole tiles: q, k, v off 16 bytes raise.
+* every other bf16 call with D in {16, 32, 64, 96, 128, 192, 256} (a bias
+  off the fold, D = 16 or 32 without one, a causal or window mask at one
+  query row, a prefill scale <= 0): the tensor-core kernel,
   FlashAttention-2 with ``mma.sync`` (QK^T and a PV product split into
   P_hi + P_lo, so P is not rounded to bf16), K/V/bias tiles through a
   two-stage ``cp.async`` ring.  It reads q, k and v 16 bytes at a time, so
@@ -53,19 +70,33 @@ TC_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
 SIMT_HEAD_DIMS = (8, 16, 32, 64, 128)
 HEAD_DIMS = tuple(sorted(set(TC_HEAD_DIMS) | set(SIMT_HEAD_DIMS)))
 WG_HEAD_DIMS = (32, 64)
-TC, SIMT, WG = "tc", "simt", "wg"
+DEC_HEAD_DIMS = PF_HEAD_DIMS = (64, 96, 128, 192, 256)
+TC, SIMT, WG, DEC, PF = "tc", "simt", "wg", "dec", "pf"
 INT32_MAX = 2 ** 31 - 1
 # the Hopper variant (csrc: namespace wg): heads a block (one a consumer
 # warpgroup), query rows a tile, batch rows a block at D = 32 (all sharing
 # one bias tile), and the bias's TMA boxes
 WG_HEADS, WG_BQ, WG_ROWS = 4, 64, 2
 WG_FUSED, WG_HEADS_INNER, WG_KEYS_INNER, WG_FUSED_Q = 0, 1, 2, 3
+# the decode variant (csrc/flash_decode.cu): query heads a block, keys a
+# tile, and the most splits (blocks of one cluster) a slot takes
+DEC_ROWS, DEC_TILE, DEC_MAX_SPLITS = 16, 64, 8
+# the prefill variant (csrc/flash_prefill.cu: consumers<D>()): consumer
+# warpgroups of 64 query rows a block, by head dim
+PF_CONSUMERS = {64: 3, 96: 2, 128: 2, 192: 2, 256: 2}
 # variant -> its name in ``dispatch.launch_counts`` and its C entry point's stem
-VARIANT_NAMES = {TC: "flash_mha", SIMT: "flash_mha_simt", WG: "flash_mha_wg"}
+VARIANT_NAMES = {TC: "flash_mha", SIMT: "flash_mha_simt", WG: "flash_mha_wg",
+                 DEC: "flash_mha_dec", PF: "flash_mha_pf"}
 launches = 0        # tensor-core kernel launches (bf16, D in TC_HEAD_DIMS)
 simt_launches = 0   # SIMT kernel launches (f32, or bf16 at D = 8)
 wg_launches = 0     # Hopper kernel launches (the fold's attention)
+dec_launches = 0    # decode kernel launches (one query row, no bias or mask)
+pf_launches = 0     # Hopper prefill kernel launches (no bias)
 plain_calls = 0     # calls that computed the plain version (CPU tensors)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _scale(d: int, softmax_scale) -> float:
@@ -111,14 +142,63 @@ def variant_for(dtype: torch.dtype, d: int, *, sq: int = 1, hq: int = 1, hkv: in
     64, Hq == Hkv a multiple of 4, a bias, more than one query row, no
     causal or window mask) takes the Hopper kernel, unless its bias suits no
     TMA box or its scale is not positive (:func:`_flash_launch_args` then
-    gives it the tensor-core kernel); any other bf16 call the tensor-core
-    kernel; f32 and D = 8 the SIMT kernel."""
+    gives it the tensor-core kernel); a bf16 call without a bias at D in
+    {64, 96, 128, 192, 256} the decode kernel at one query row without a
+    causal or window mask, the prefill kernel at more rows (a scale that is
+    not positive: the tensor-core kernel); any other bf16 call the
+    tensor-core kernel; f32 and D = 8 the SIMT kernel."""
     if dtype != torch.bfloat16:
         return SIMT
     if (d in WG_HEAD_DIMS and sq > 1 and hq == hkv and hq % WG_HEADS == 0 and has_bias
             and not causal and window is None):
         return WG
+    if not has_bias and sq == 1 and not causal and window is None and d in DEC_HEAD_DIMS:
+        return DEC
+    if not has_bias and sq > 1 and d in PF_HEAD_DIMS:
+        return PF
     return TC if d in TC_HEAD_DIMS else SIMT
+
+
+@dataclasses.dataclass(frozen=True)
+class DecPlan:
+    """How the decode kernel cuts a launch: each slot's keys into ``splits``
+    blocks of ``split`` keys (one thread-block cluster), its query heads
+    into groups of 16 a KV head."""
+    split: int       # keys a block: a multiple of DEC_TILE
+    splits: int      # blocks (cluster size) a slot and head group: 1..DEC_MAX_SPLITS
+    blocks: int      # splits x KV heads x head groups x B
+
+
+def dec_plan(b: int, skv: int, hq: int, hkv: int) -> DecPlan:
+    """The decode kernel's blocks for q (b, 1, hq, D) against a ring (b,
+    skv, hkv, D): the split is the smallest multiple of 64 keys that cuts
+    the ring into at most 8 splits, and at least 128 keys where a slot has 8
+    or more blocks of heads (KV heads x groups of 16 query heads) to spread
+    over the card already: a cluster's blocks cost time even where the
+    slot's keys leave them nothing to do.  Chosen from the ring length and
+    the head counts alone, so a slot's splits, their order and its output
+    do not depend on ``b`` or on the other slots' key lengths.  Runs without
+    tensors."""
+    groups = _cdiv(hq // hkv, DEC_ROWS)
+    least = 2 * DEC_TILE if hkv * groups >= 8 else DEC_TILE
+    split = max(least, _cdiv(_cdiv(skv, DEC_MAX_SPLITS), DEC_TILE) * DEC_TILE)
+    splits = max(1, _cdiv(skv, split))
+    return DecPlan(split=split, splits=splits, blocks=splits * hkv * groups * b)
+
+
+@dataclasses.dataclass(frozen=True)
+class PfPlan:
+    """How the prefill kernel cuts a launch into blocks."""
+    rows: int        # query rows a block: 64 a consumer warpgroup
+    blocks: int      # query tiles x Hq x B, the last tile's first
+
+
+def pf_plan(b: int, sq: int, hq: int, d: int) -> PfPlan:
+    """The prefill kernel's blocks for q (b, sq, hq, d): one block a query
+    tile and head, the tile 64 rows a consumer warpgroup (two, three at
+    D = 64).  Runs without tensors."""
+    rows = 64 * PF_CONSUMERS[d]
+    return PfPlan(rows=rows, blocks=_cdiv(sq, rows) * hq * b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,7 +287,7 @@ class FlashLaunchArgs:
     causal: int
     window: int                    # -1: no sliding window
     scale: float
-    plan: WgPlan | None = None     # the Hopper variant's blocks
+    plan: WgPlan | DecPlan | PfPlan | None = None   # the Hopper and decode variants' blocks
 
     def c_args(self) -> tuple:
         return (self.qkv_is_bf16, self.bias_kind, *self.sizes, *self.q_strides,
@@ -223,10 +303,11 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     on what the kernels do not take: a head dim without unit stride, shapes
     that do not match, a bias that does not broadcast, a size beyond 32 bits,
     and, for the tensor-core variant, a q/k/v base pointer or (b, s, h)
-    stride that is not a multiple of 16 bytes (also for the Hopper variant).
-    A call :func:`variant_for` gives the Hopper kernel whose bias no TMA box
-    takes, or whose softmax scale is not positive (:func:`wg_plan_or_none`),
-    takes the tensor-core variant.  Strides are the tensors'
+    stride that is not a multiple of 16 bytes (also for the Hopper, decode
+    and prefill variants).  A call :func:`variant_for` gives the Hopper
+    kernel whose bias no TMA box takes, or whose softmax scale is not
+    positive (:func:`wg_plan_or_none`), takes the tensor-core variant, and
+    so does a prefill call whose scale is not positive.  Strides are the tensors'
     own: the kernels index in 64 bits, so no stride or offset bound
     remains."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -251,9 +332,10 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.stride(-1) != 1:
             raise ValueError(f"flash_mha_kernel: {name} head dim must have unit stride")
-        if variant in (TC, WG) and not _aligned(
+        if variant in (TC, WG, DEC, PF) and not _aligned(
                 a.data_ptr(), *(st * a.element_size() for st in a.stride()[:3])):
-            how = "by the Hopper kernel's TMA" if variant == WG else "16 bytes at a time"
+            how = ("by the Hopper kernel's TMA" if variant in (WG, PF)
+                   else "16 bytes at a time")
             raise ValueError(f"flash_mha_kernel: {name} is read {how}; its "
                              f"base pointer or strides {a.stride()} are not 16-byte aligned")
     bias_kind, bb, bstr = 0, 1, (0, 0, 0, 0)
@@ -277,6 +359,13 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     if variant == WG:
         plan = wg_plan_or_none(b, sq, hq, d, bias, scale=_scale(d, softmax_scale))
         variant = WG if plan is not None else TC
+    elif variant == PF:
+        if _scale(d, softmax_scale) > 0:
+            plan = pf_plan(b, sq, hq, d)
+        else:
+            variant = TC
+    elif variant == DEC:
+        plan = dec_plan(b, skv, hq, hkv)
     return FlashLaunchArgs(
         variant=variant, qkv_is_bf16=int(q.dtype == torch.bfloat16), bias_kind=bias_kind,
         sizes=(b, sq, skv, hq, hkv, d, bb), q_strides=tuple(q.stride()[:3]),
@@ -288,7 +377,7 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
 def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
                      window=None, softmax_scale=None):
     """q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D); bias (Bb,Hq,Sq,Skv); -> (B,Sq,Hq,D)."""
-    global launches, simt_launches, wg_launches, plain_calls
+    global launches, simt_launches, wg_launches, dec_launches, pf_launches, plain_calls
     build.refuse_dtensor("flash_mha_kernel", q, k, v, bias, kv_valid_len)
     if q.device.type == "cpu":
         plain_calls += 1
@@ -305,7 +394,8 @@ def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lib = build.library()
     name = VARIANT_NAMES[args.variant]
-    extra = (args.plan.rows, args.plan.bias_map) if args.variant == WG else ()
+    extra = ((args.plan.rows, args.plan.bias_map) if args.variant == WG else
+             (args.plan.split, args.plan.splits) if args.variant == DEC else ())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, f"{name}_launch")(
@@ -318,6 +408,10 @@ def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
         launches += 1
     elif args.variant == WG:
         wg_launches += 1
+    elif args.variant == DEC:
+        dec_launches += 1
+    elif args.variant == PF:
+        pf_launches += 1
     else:
         simt_launches += 1
     return o

@@ -41,8 +41,9 @@ from repro_torch.kernels.aaq_quant.aaq_quant import (  # noqa: E402
     _launch_shape, aaq_fake_quant_kernel, aaq_quantize_kernel)
 from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    WG_FUSED, WG_FUSED_Q, WG_HEADS_INNER, WG_KEYS_INNER, _flash_launch_args, flash_mha_kernel,
-    flash_mha_plain, variant_for, wg_plan, wg_plan_or_none)
+    DEC_MAX_SPLITS, WG_FUSED, WG_FUSED_Q, WG_HEADS_INNER, WG_KEYS_INNER, DecPlan,
+    PfPlan, _flash_launch_args, dec_plan, flash_mha_kernel, flash_mha_plain, pf_plan,
+    variant_for, wg_plan, wg_plan_or_none)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -540,6 +541,11 @@ FLASH_CASES = {
     "causal": (2, 40, 40, 2, 2, 64, None, False, None, True, None),
     "window": (2, 40, 40, 2, 2, 32, None, False, None, True, 7),
     "gqa": (2, 33, 45, 8, 2, 16, 1, False, [45, 20], False, None),
+    # one query row a slot against an MQA ring (the decode kernel's call),
+    # key lengths 0, 1, the full ring and between
+    "decode-mqa": (5, 1, 48, 8, 1, 64, None, False, [0, 1, 48, 20, 33], False, None),
+    # the prefill kernel's: causal GQA in a window at head dim 128
+    "causal-gqa-window": (2, 40, 40, 8, 2, 128, None, False, None, True, 9),
 }
 
 
@@ -561,6 +567,8 @@ def test_flash_plain_matches_pallas(case):
                            None if kvl is None else _t(kvl), causal=causal, window=window)
     _close(got.numpy(), want)
     if case == "fully-masked-row":          # the kernel returns 0 there, mha_ref mean(v)
+        assert np.all(got.numpy()[0] == 0.0)
+    if case == "decode-mqa":                 # a slot with no valid key returns 0
         assert np.all(got.numpy()[0] == 0.0)
 
 
@@ -638,7 +646,8 @@ def test_dispatch_routes_by_mode_and_device():
                                        "flash_mha": 1}
     assert dispatch.launch_counts() == {"aaq_quantize": 0, "aaq_fake_quant": 0, "aaq_matmul": 0,
                                         "aaq_matmul_wg": 0, "aaq_matmul_f32": 0, "flash_mha": 0,
-                                        "flash_mha_simt": 0, "flash_mha_wg": 0}
+                                        "flash_mha_simt": 0, "flash_mha_wg": 0,
+                                        "flash_mha_dec": 0, "flash_mha_pf": 0}
     assert set(dispatch.MAIN_PATH) <= set(dispatch.launch_counts())
     _close(ker_o.numpy(), ref_o.numpy())
     assert ker_fq.shape == x.shape and torch.equal(ker_fq, ref_fq)
@@ -662,7 +671,8 @@ def test_dispatch_routes_by_mode_and_device():
 # --------------------------------------------------------------------------
 def test_build_commands_target_hopper_without_fast_math(tmp_path):
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["aaq_matmul.cu", "aaq_quant.cu", "flash_attention.cu"]
+    assert [s.name for s in srcs] == ["aaq_matmul.cu", "aaq_quant.cu", "flash_attention.cu",
+                                      "flash_decode.cu", "flash_prefill.cu"]
     cmds = build.compile_commands("nvcc", srcs, tmp_path)
     assert len(cmds) == len(srcs)                 # one nvcc per source, run together
     for cmd in cmds:
@@ -801,7 +811,8 @@ def test_flash_launch_args_refuse_what_the_kernels_do_not_take():
     # the float32 variant reads element by element: no alignment rule
     f = torch.empty((64, 64, 4, 40), device="meta")[..., 1:33]
     assert _flash_launch_args(f, f, f).variant == "simt"
-    assert variant_for(torch.bfloat16, 8) == "simt" and variant_for(torch.bfloat16, 64) == "tc"
+    assert variant_for(torch.bfloat16, 8) == "simt" and variant_for(torch.bfloat16, 16) == "tc"
+    assert variant_for(torch.bfloat16, 64) == "dec"
 
 
 # --------------------------------------------------------------------------
@@ -876,9 +887,11 @@ def test_flash_rule_keeps_the_tc_kernel_off_the_fold(case):
     bias = None if case == "no bias" else torch.empty((2, 4, sq, 100), device="meta")
     args = _flash_launch_args(q, k, k, bias, causal=case == "causal",
                               window=16 if case == "window" else None)
-    assert args.variant == "tc" and args.plan is None
+    # without a bias a prefill is the Hopper prefill kernel's (off the fold too)
+    want = "pf" if case == "no bias" else "tc"
+    assert args.variant == want and (args.plan is None) == (want == "tc")
     assert variant_for(torch.bfloat16, d, sq=sq, hq=4, hkv=hkv, has_bias=bias is not None,
-                       causal=case == "causal", window=16 if case == "window" else None) == "tc"
+                       causal=case == "causal", window=16 if case == "window" else None) == want
 
 
 @pytest.mark.parametrize("d", [32, 64])
@@ -936,3 +949,166 @@ def test_wg_plan_groups_rows_inside_each_bias_block(rows_per_block, d, want):
     plan = wg_plan(3 * rows_per_block, 64, 4, d, bias)
     assert plan.rows == want and rows_per_block % plan.rows == 0
     assert plan.blocks == 1 * 1 * (3 * rows_per_block // want)
+
+
+# --------------------------------------------------------------------------
+# the decode and prefill variants: the rule at the LM tenant's and the zoo's
+# shapes, their plans, what their launch arguments refuse (meta tensors)
+# --------------------------------------------------------------------------
+# name: (B, Sq, Skv, Hq, Hkv, D, causal, window, kv_valid_len): phase 8's
+# served steps, and phase 9's prefills and decode steps (16-row rings; the
+# recurrentgemma ring is its 2,048 window)
+LM_ZOO_FLASH = {
+    "qwen1.5-0.5b decode": (4, 1, 256, 16, 16, 64, False, None, True),
+    "qwen2.5-3b decode": (4, 1, 256, 16, 2, 128, False, None, True),
+    "qwen1.5-0.5b prefill": (1, 13, 13, 16, 16, 64, True, None, False),
+    "deepseek MLA prefill": (2, 512, 512, 16, 16, 192, True, None, False),
+    "deepseek MLA decode": (2, 1, 16, 16, 16, 192, False, None, True),
+    "recurrentgemma prefill": (2, 2560, 2560, 16, 1, 256, True, 2048, False),
+    "recurrentgemma decode": (2, 1, 2048, 16, 1, 256, False, None, True),
+    "whisper encoder self": (2, 1500, 1500, 8, 8, 64, False, None, False),
+    "whisper decoder self prefill": (2, 64, 64, 8, 8, 64, True, None, False),
+    "whisper cross prefill": (2, 64, 1500, 8, 8, 64, False, None, False),
+    "whisper self decode": (2, 1, 16, 8, 8, 64, False, None, True),
+    "whisper cross decode": (2, 1, 1500, 8, 8, 64, False, None, False),
+    "phi-3 prefill": (2, 512, 512, 32, 32, 96, True, None, False),
+    "phi-3 decode": (2, 1, 16, 32, 32, 96, False, None, True),
+    "mixtral prefill": (1, 4608, 4608, 48, 8, 128, True, 4096, False),
+    "mixtral decode": (1, 1, 16, 48, 8, 128, False, None, True),
+}
+
+
+def _ring(layers, b, w, hkv, d):
+    """One layer's (b, w, hkv, d) view of a stacked decode ring, as the
+    LM's ``LockstepRing`` hands it to attention."""
+    return torch.empty((layers, b, w, hkv, d), dtype=torch.bfloat16, device="meta")[1]
+
+
+@pytest.mark.parametrize("name", sorted(LM_ZOO_FLASH))
+def test_flash_rule_takes_the_decode_and_prefill_kernels_at_lm_and_zoo_shapes(name):
+    b, sq, skv, hq, hkv, d, causal, window, lens = LM_ZOO_FLASH[name]
+    q = torch.empty((b, sq, hq * d), dtype=torch.bfloat16, device="meta").view(b, sq, hq, d)
+    k, v = (_ring(3, b, skv, hkv, d) for _ in range(2))
+    kvl = torch.empty((b,), dtype=torch.int32, device="meta") if lens else None
+    scale = 1.0 / 192 ** 0.5 if "MLA" in name else None
+    args = _flash_launch_args(q, k, v, None, kvl, causal=causal, window=window,
+                              softmax_scale=scale)
+    assert args.k_strides == k.stride()[:3]
+    if sq == 1:
+        assert args.variant == "dec" and args.plan == dec_plan(b, skv, hq, hkv)
+        assert isinstance(args.plan, DecPlan) and 1 <= args.plan.splits <= DEC_MAX_SPLITS
+    else:
+        assert args.variant == "pf" and args.plan == pf_plan(b, sq, hq, d)
+        assert isinstance(args.plan, PfPlan)
+        rows = 192 if d == 64 else 128          # three consumer warpgroups at D = 64
+        assert args.plan.rows == rows and args.plan.blocks == -(-sq // rows) * hq * b
+    assert variant_for(torch.bfloat16, d, sq=sq, hq=hq, hkv=hkv, causal=causal,
+                       window=window) == args.variant
+    # the same operands in float32 stay on the SIMT kernel where it takes D
+    if d in (64, 128):
+        assert variant_for(torch.float32, d, sq=sq, hq=hq, hkv=hkv, causal=causal,
+                           window=window) == "simt"
+
+
+@pytest.mark.parametrize("skv", [0, 1, 16, 64, 65, 256, 1500, 2048, 4097])
+def test_dec_plan_splits_a_slot_by_its_ring_alone(skv):
+    """A slot's splits depend on the ring length only: the same at every
+    batch size and whatever the other slots' key lengths are, so a slot
+    launched alone runs the same splits, in the same order, as in a batch."""
+    plans = [dec_plan(b, skv, 16, 2) for b in (1, 3, 4, 64)]
+    assert len({(p.split, p.splits) for p in plans}) == 1
+    p = plans[0]
+    assert p.split % 64 == 0 and 1 <= p.splits <= DEC_MAX_SPLITS
+    assert p.split * p.splits >= skv and (p.splits - 1) * p.split < max(skv, 1)
+    assert [pl.blocks for pl in plans] == [p.splits * 2 * b for b in (1, 3, 4, 64)]
+    assert dec_plan(1, skv, 32, 1).blocks == 2 * p.splits        # 32 heads: two groups of 16
+    # 8 or more head blocks a slot: splits of at least 128 keys
+    many = dec_plan(1, skv, 16, 16)
+    assert many.split == max(128, p.split) and many.split % 64 == 0
+    for b in (1, 5):
+        q = torch.empty((b, 1, 16, 128), dtype=torch.bfloat16, device="meta")
+        k = _ring(2, b, skv, 2, 128)
+        args = _flash_launch_args(q, k, k, None, torch.empty((b,), dtype=torch.int32,
+                                                               device="meta"))
+        assert (args.plan.split, args.plan.splits) == (p.split, p.splits)
+
+
+def _dec_split_model(q, k, v, kvl, scale, split):
+    """The decode kernel's arithmetic in float32: each split of ``split``
+    keys keeps its own (m, l, o) in the log2 domain, and the splits merge in
+    order: o = sum_j 2^(m_j - M) o_j / max(sum_j 2^(m_j - M) l_j, 1e-30)."""
+    b, _, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    kx = k.float().repeat_interleave(hq // hkv, dim=2)
+    vx = v.float().repeat_interleave(hq // hkv, dim=2)
+    x = torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), kx) * (scale * 1.4426950408889634)
+    valid = torch.arange(skv)[None, :] < kvl[:, None]
+    x = torch.where(valid[:, None], x, torch.full((), -1e30))
+    out = torch.zeros((b, hq, d))
+    for r in range(b):
+        ms, ls, os_ = [], [], []
+        for j0 in range(0, max(skv, 1), split):
+            xs, ok = x[r, :, j0:j0 + split], valid[r, j0:j0 + split]
+            m = xs.amax(dim=-1)
+            p = torch.where(ok[None], torch.exp2(xs - m[:, None]), torch.zeros(()))
+            ms.append(m)
+            ls.append(p.sum(-1))
+            os_.append(torch.einsum("hk,khd->hd", p, vx[r, j0:j0 + split]))
+        mx = torch.stack(ms).amax(0)
+        w = [torch.exp2(m - mx) for m in ms]
+        den = torch.clamp_min(sum(wj * lj for wj, lj in zip(w, ls)), 1e-30)
+        out[r] = sum(wj[:, None] * oj for wj, oj in zip(w, os_)) / den[:, None]
+    return out[:, None]
+
+
+@pytest.mark.parametrize("skv,lens", [(256, [1, 17, 255, 256]), (1500, [0, 1500, 700]),
+                                      (300, [0, 1, 300, 150])])
+def test_decode_split_merge_matches_the_plain_version(skv, lens):
+    rng = np.random.default_rng(skv)
+    b, hq, hkv, d = len(lens), 8, 2, 32
+    q = _t(rng.standard_normal((b, 1, hq, d)).astype(np.float32))
+    k = _t(rng.standard_normal((b, skv, hkv, d)).astype(np.float32))
+    v = _t(rng.standard_normal((b, skv, hkv, d)).astype(np.float32))
+    kvl = _t(np.asarray(lens, np.int32))
+    split = dec_plan(b, skv, hq, hkv).split
+    got = _dec_split_model(q, k, v, kvl, d ** -0.5, split)
+    want = flash_mha_plain(q, k, v, None, kvl)
+    _close(got.numpy(), want.numpy())
+    for r, n in enumerate(lens):
+        if n == 0:                                    # a slot with no key: 0
+            assert torch.all(got[r] == 0)
+
+
+def test_flash_launch_args_refuse_what_the_decode_and_prefill_kernels_do_not_take():
+    q1 = torch.empty((4, 1, 16, 64), dtype=torch.bfloat16, device="meta")
+    ring = _ring(2, 4, 256, 16, 64)
+    assert _flash_launch_args(q1, ring, ring).variant == "dec"
+    wide = torch.empty((4, 256, 16, 72), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="16 bytes at a time"):      # base off 16 bytes
+        _flash_launch_args(q1, wide[..., 1:65], ring)
+    with pytest.raises(ValueError, match="unit stride"):
+        _flash_launch_args(q1, torch.empty((4, 256, 64, 16), dtype=torch.bfloat16,
+                                           device="meta").transpose(2, 3), ring)
+    qp = torch.empty((2, 100, 16, 64), dtype=torch.bfloat16, device="meta")
+    kp = torch.empty((2, 100, 16, 64), dtype=torch.bfloat16, device="meta")
+    assert _flash_launch_args(qp, kp, kp, causal=True).variant == "pf"
+    padded = torch.empty((2, 100, 16, 68), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="Hopper kernel's TMA"):     # 136-byte head stride
+        _flash_launch_args(qp, padded[..., :64], kp)
+    with pytest.raises(ValueError, match="Hopper kernel's TMA"):     # base off 16 bytes
+        _flash_launch_args(qp, wide[:2, :100, :, 1:65], kp)
+    # what neither kernel takes stays on the tensor-core kernel
+    bias1 = torch.empty((4, 16, 1, 256), device="meta")
+    assert _flash_launch_args(q1, ring, ring, bias1).variant == "tc"            # a bias
+    assert _flash_launch_args(q1, ring, ring, causal=True).variant == "tc"      # a mask at Sq = 1
+    assert _flash_launch_args(q1, ring, ring, window=8).variant == "tc"
+    q32 = torch.empty((4, 1, 16, 32), dtype=torch.bfloat16, device="meta")
+    assert _flash_launch_args(q32, q32, q32).variant == "tc"                   # D = 32
+    assert _flash_launch_args(qp, kp, kp, softmax_scale=0.0).variant == "tc"   # scale <= 0
+    assert _flash_launch_args(qp, kp, kp, softmax_scale=-0.1).plan is None
+    assert _flash_launch_args(q1, ring, ring, softmax_scale=-0.1).variant == "dec"
+    q16 = torch.empty((2, 100, 4, 16), dtype=torch.bfloat16, device="meta")
+    assert _flash_launch_args(q16, q16, q16, causal=True).variant == "tc"
+    f = torch.empty((2, 100, 4, 64), device="meta")
+    assert _flash_launch_args(f, f, f, causal=True).variant == "simt"
+    assert _flash_launch_args(f[:, :1], f, f).variant == "simt"
