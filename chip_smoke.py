@@ -50,7 +50,11 @@ Phases, each fatal on failure:
      whisper's self and cross, mixtral), each timed against SDPA; every
      shape on the decode or prefill kernel also bitwise between two
      launches and, row by row, against the row launched alone, with the
-     tensor-core kernel's time at the same shape (``tc_ms``);
+     tensor-core kernel's time at the same shape (``tc_ms``); and flash in
+     float32 on the SIMT kernel at head dims 96, 192 and 256 (phi-3's
+     prefill and decode at phase 12(c)'s shapes, MLA's and RecurrentGemma's
+     at phase 9's) and at head dim 48 (padded to 64 by the wrapper), the
+     same checks, its bound at the CUDA cores' float32 rate;
   4. whole forward, kernels vs the plain references, 2 blocks at full
      esmfold_ppm width, one padded request, with two controls that the
      lightnobel_aaq gate must reject;
@@ -209,9 +213,11 @@ Phases, each fatal on failure:
      gate of (b) read, then the phase fails if any failed); (c) a sharded
      prefill and 4 decode steps (phi-3-vision-4.2b, its ring sharded on
      its K/V heads; chatglm3-6b, on the head dim; full width at 2 layers,
-     float32, 4 rows, a 256-row ring) on a 1x1 mesh over NCCL bitwise the
-     same steps on one card, and with two cards or more on a 1xW mesh (W
-     up to 4) across them within 1e-4 relative on the logits; then
+     float32, 4 rows, a 256-row ring; both on the kernels, the float32
+     flash on the SIMT kernel, which each one-card run must launch) on a
+     1x1 mesh over NCCL bitwise the same steps on one card, and with two
+     cards or more on a 1xW mesh (W up to 4) across them within 1e-4
+     relative on the logits; then
      ``aaq_fake_quant`` at a rank's training shapes, bitwise and timed;
  13. the fleet on one shared mesh (``--listen`` with ``--mesh``): two
      replicas of ``launch.serve``'s own factory, warmed, at full
@@ -245,14 +251,18 @@ Phases, each fatal on failure:
      pair rows over ``data``, columns over ``model``, every parameter the
      rank's ``param_spec`` shard): esmfold_ppm at full width, 8 of its 48
      blocks, a 250-residue protein in bucket 256, under lightnobel_aaq and
-     baseline_fp16, through ``make_fold_step``: (a) a 1x1 grid over NCCL
-     bitwise one card's fold, every main-path kernel launched; (b) a 2x2
-     grid of 4 processes on this card over the host-staged gloo route,
-     TM >= 0.9995 against one card, no plain version, each rank's peak
-     printed beside one card's; then the three kernels at a grid rank's
-     shapes against their plain versions, timed; with ``--mesh-only`` on
-     four cards (c) the 2x2 grid a card a rank over NCCL at all 48 blocks
-     and N = 1,024, TM >= 0.995;
+     baseline_fp16, through ``make_fold_step``, unchunked and row-chunked
+     at chunk 64: (a) a 1x1 grid over NCCL bitwise one card's fold (the
+     chunked one one card's chunked fold), every main-path kernel
+     launched; (b) a 2x2 grid of 4 processes on this card over the
+     host-staged gloo route, TM >= 0.9995 against one card's fold of the
+     same kind, no plain version, each rank's peak printed beside one
+     card's; then the three kernels at a grid rank's shapes against their
+     plain versions, timed; with ``--mesh-only`` on four cards (c) the 2x2
+     grid a card a rank over NCCL at all 48 blocks, unchunked at N = 1,024
+     and chunked at 2,000 residues in bucket 2,048, TM >= 0.995 against
+     one card's fold of the same kind, each rank's peak printed beside one
+     card's and a quarter of it (printed, not gated);
  17. a profiled serve: ``launch.serve``'s engine path with ``--profile
      DIR`` at full esmfold_ppm width, 8 requests of 200-256 residues under
      lightnobel_aaq (batches of 4 in bucket 256), (a) with ``--warmup`` (only
@@ -288,8 +298,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# published peaks of one H100 SXM (dense): bf16 tensor cores, HBM3
+# published peaks of one H100 SXM (dense): bf16 tensor cores, float32 on the
+# CUDA cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 SERVE_BUCKETS = (96, 192, 256, 1024)
@@ -409,9 +421,11 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
          f"{SPIN_CYCLES[-1]} cycles")
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float, f32: bool = False) -> tuple[float, str]:
+    """The least time for ``n_bytes`` moved and ``n_ops`` done: bf16 on the
+    tensor cores, or ``f32`` on the CUDA cores."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_ops / PEAK_BF16_FLOPS * 1e3
+    t_ops = n_ops / (PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -993,7 +1007,8 @@ def check_flash(torch, rows: dict) -> None:
             row.library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask))
             del mask
-        row.bound_ms, row.bound_by = bound_ms(nbytes(*args, o), 4 * b * h * n * n * d)
+        row.bound_ms, row.bound_by = bound_ms(nbytes(*args, o), 4 * b * h * n * n * d,
+                                              f32=c["q"].dtype == torch.float32)
         rows.setdefault(name, []).append(row)
         log(row.line())
 
@@ -2697,6 +2712,32 @@ ZOO_FLASH = (
     ("whisper cross decode", "whisper-base", 2, 1, 1500, 8, 8, 64, 64, False, None, None),
     ("mixtral decode", "mixtral-8x22b", 2, 1, 16, 48, 8, 128, 128, False, None, [16, 5]),
 )
+#: float32 on the SIMT kernel at the zoo's head dims 96, 192 and 256: phi-3
+#: at phase 12(c)'s shapes (its float32 prefill of 32 tokens and a decode
+#: step against its 256-row ring at position 100, 4 rows), MLA and
+#: recurrentgemma at phase 9's; then a head dim no variant takes (48, which
+#: the wrapper pads to 64)
+ZOO_FLASH_F32 = (
+    ("phi-3 prefill f32", "phi-3-vision-4.2b", 4, 32, 32, 32, 32, 96, 96, True, None, None),
+    ("phi-3 decode f32", "phi-3-vision-4.2b", 4, 1, 256, 32, 32, 96, 96, False, None,
+     [101, 101, 101, 101]),
+    ("MLA prefill f32", "deepseek-v2-lite-16b", 2, 512, 512, 16, 16, 192, 128, True, None,
+     None),
+    ("MLA decode f32", "deepseek-v2-lite-16b", 2, 1, 16, 16, 16, 192, 128, False, None, [16, 9]),
+    ("recurrentgemma prefill f32", "recurrentgemma-9b", 2, 2560, 2560, 16, 1, 256, 256, True,
+     2048, None),
+    ("recurrentgemma decode f32", "recurrentgemma-9b", 4, 1, 2048, 16, 1, 256, 256, False,
+     None, [1, 700, 1401, 2048]),
+    ("padded D 48 f32", "a head dim no variant takes", 2, 64, 64, 8, 8, 48, 48, True, None,
+     None),
+)
+
+
+def _f32_key(q, k) -> tuple:
+    """A float32 flash launch's tally key in phase 12(c): (prefill or
+    decode, Hq, D, Hkv), at any length."""
+    return ("f32", "decode" if q.shape[1] == 1 else "prefill", q.shape[2], q.shape[3],
+            k.shape[2])
 
 
 def check_zoo_flash(torch, rows: dict) -> list:
@@ -2711,18 +2752,23 @@ def check_zoo_flash(torch, rows: dict) -> list:
     repeated, the window or key lengths as a boolean mask).  A shape the
     rule sends to the decode or prefill kernel also gets two launches and a
     batch row launched alone bitwise, and the tensor-core kernel's time on
-    the same operands (``tc_ms``).  Returns (row, phase-9 tally key)
-    pairs."""
+    the same operands (``tc_ms``).  Then ``ZOO_FLASH_F32``: the same
+    checks in float32 on the SIMT kernel (its bound at the CUDA cores'
+    float32 rate), a padded head dim among them.  Returns (row, tally key)
+    pairs: phase 9's keys for the bf16 rows, phase 12(c)'s (``_f32_key``)
+    for the float32 ones."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.flash_attention import (flash_mha_kernel,
+    from repro_torch.kernels.flash_attention.flash_attention import (_flash_launch_args,
+                                                                     flash_mha_kernel,
                                                                      flash_mha_plain)
     g = torch.Generator(device="cuda").manual_seed(17)
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     pending = []
-    for (label, arch, b, sq, skv, hq, hkv, d, dv, causal, window, kvlen) in ZOO_FLASH:
-        q = torch.randn((b, sq, hq, d), generator=g, device="cuda").to(bf)
-        k = torch.randn((b, skv, hkv, d), generator=g, device="cuda").to(bf)
-        v = torch.randn((b, skv, hkv, dv), generator=g, device="cuda").to(bf)
+    for (label, arch, b, sq, skv, hq, hkv, d, dv, causal, window, kvlen), dt in (
+            [(c, bf) for c in ZOO_FLASH] + [(c, f32) for c in ZOO_FLASH_F32]):
+        q = torch.randn((b, sq, hq, d), generator=g, device="cuda").to(dt)
+        k = torch.randn((b, skv, hkv, d), generator=g, device="cuda").to(dt)
+        v = torch.randn((b, skv, hkv, dv), generator=g, device="cuda").to(dt)
         kvl = None if kvlen is None else torch.tensor(kvlen, dtype=torch.int32, device="cuda")
         vp = F.pad(v, (0, d - dv)) if dv < d else v
         scale = 1.0 / math.sqrt(d)
@@ -2741,14 +2787,17 @@ def check_zoo_flash(torch, rows: dict) -> list:
         if name != "flash_mha":
             _flash_bitwise(torch, (q, k, vp, None, kvl), full, label, **kw)
         del full
+        launched = _flash_launch_args(q, k, vp, None, kvl, **kw).sizes[5]
+        pad = f", the head dim padded to {launched}" if launched != d else ""
         shape = (f"{label} ({arch}): q ({b}, {sq}, {hq}, {d}), k ({b}, {skv}, {hkv}, {d}), "
-                 f"v ({b}, {skv}, {hkv}, {dv}{', padded to ' + str(d) if dv < d else ''}) bf16"
+                 f"v ({b}, {skv}, {hkv}, {dv}{', padded to ' + str(d) if dv < d else ''})"
+                 f" {'bf16' if dt == bf else 'f32'}{pad}"
                  f"{', causal' if causal else ''}{f', window {window}' if window else ''}"
                  f"{f', kv_valid_len {kvlen}' if kvlen else ''}")
         row = _row(name, shape)
         row.max_abs_err = err
         row.ms, row.call_ms = time_ms(torch, kern), call_ms(torch, kern)
-        if name != "flash_mha":
+        if name not in ("flash_mha", "flash_mha_simt"):
             row.tc_ms = _tc_ms(torch, (q, k, vp, None, kvl), **kw)
         row.plain_ms = time_ms(torch, plain, iters=3)
         qt = q.transpose(1, 2)
@@ -2765,17 +2814,20 @@ def check_zoo_flash(torch, rows: dict) -> list:
         del kt, vt, mask
         # each input read once (at a decode row, only the K/V rows the key
         # lengths keep), the output written once, v and o at their own width
-        kv_bytes = (2 * hkv * (d + dv) * sum(kvlen) if kvlen else nbytes(k, v))
+        kv_bytes = (k.element_size() * hkv * (d + dv) * sum(kvlen) if kvlen
+                    else nbytes(k, v))
         pairs = _valid_pairs(b, sq, skv, causal, window, kvl)
         row.bound_ms, row.bound_by = bound_ms(nbytes(q, o, kvl) + kv_bytes,
-                                              2 * pairs * hq * (d + dv))
-        pending.append((row, _zoo_key(q, k)))
+                                              2 * pairs * hq * (d + dv), f32=dt == f32)
+        pending.append((row, _zoo_key(q, k) if dt == bf else _f32_key(q, k)))
         log(row.line())
     log(f"flash zoo shapes: allclose on {len(ZOO_FLASH)} cases (D = 64/96/128/192/256, "
         f"MLA v padded 128 -> 192, MQA 16/1 and GQA 48/8, windows 2,048 and 4,096, decode "
         f"rows against a 2,048-row ring, 16-row rings and 1,500 frames, cross attention onto "
         f"1,500 frames); on the decode and prefill kernels two launches and a row alone "
-        f"bitwise: {[r.shape.split(' (')[0] for r, _ in pending if r.tc_ms is not None]}")
+        f"bitwise: {[r.shape.split(' (')[0] for r, _ in pending if r.tc_ms is not None]}; "
+        f"float32 on the SIMT kernel at D = 96/192/256 and D = 48 padded to 64 "
+        f"({len(ZOO_FLASH_F32)} cases, the same checks)")
     return pending
 
 
@@ -3473,6 +3525,11 @@ def flash_resources(build) -> None:
             + f"; spilled bytes {sorted({s for _, s in got.values()})}")
     if spilled := {k: v for k, v in res.items() if v[1]}:
         fail(f"build: flash kernels spill registers at (kernel, D, bias kind) {spilled}")
+    simt = {f"{'f32' if m[1] == 'f' else 'bf16'} D={m[2]}": v
+            for name, v in build.ptxas_resources().items()
+            if (m := re.search(r"flash_simt_kernelI(f|\w*bfloat16)Li(\d+)E", name))}
+    log(f"build: flash_simt_kernel (registers a thread, spilled bytes) by type and head dim "
+        f"(ptxas, sm_90a): {simt}")
 
 
 def matmul_resources(build) -> None:
@@ -4158,17 +4215,34 @@ def _job_ring(torch, rank, world, _arg) -> dict:
 
 # (c): a sharded prefill and decode on cards, full width at 2 layers in
 # float32: phi-3's ring sharded on its 32 K/V heads, chatglm3's 2 K/V heads
-# on the head dim (128).  The route of each: phi-3's head dim 96 has no
-# float32 flash variant (the SIMT kernel takes 8-64 and 128), so phi-3 runs
-# the plain attention; chatglm3 the kernels (its decode's head-dim scores
-# are plain PyTorch on either route)
-MD_ARCHS = (("phi-3-vision-4.2b", "ref"), ("chatglm3-6b", "auto"))
+# on the head dim (128).  The route of each: the kernels (float32 flash on
+# the SIMT kernel, phi-3 at head dim 96; chatglm3's decode's head-dim
+# scores are plain PyTorch on either route)
+MD_ARCHS = (("phi-3-vision-4.2b", "auto"), ("chatglm3-6b", "auto"))
 MD_BATCH, MD_PROMPT, MD_RING, MD_POS, MD_STEPS = 4, 32, 256, 100, 4
 #: the sharded steps' logits against one card's, relative to the largest:
 #: the reference's gate for its sharded steps (``MT_FP_TOL``)
 MD_TOL = 1e-4
 #: the one card's logits of (c), by arch: rank 0 holds them for the job
 _MD_ONE: dict = {}
+#: float32 flash launches of (c)'s one-card runs, by ``_f32_key``
+_MD_TALLY: Counter = Counter()
+
+
+def _md_one_card(torch, arch) -> dict:
+    """``_md_steps`` of ``arch`` on one card into ``_MD_ONE``, its flash
+    launches tallied into ``_MD_TALLY``; -> the launches by variant."""
+    from repro_torch.kernels import dispatch
+    fl = dispatch.flash_mha_kernel
+
+    def fl_counted(q, k, v, bias=None, kvl=None, **kw):
+        _MD_TALLY[_f32_key(q, k)] += 1
+        return fl(q, k, v, bias, kvl, **kw)
+
+    dispatch.reset_counters()
+    with swapped(dispatch, "flash_mha_kernel", fl_counted):
+        _MD_ONE[arch], _ = _md_steps(torch, arch)
+    return _counts()[0]
 
 
 def _md_steps(torch, arch, mesh=None) -> list:
@@ -4251,11 +4325,13 @@ def _md_decode(torch) -> tuple:
     out = {}
     bad = []
     for arch, _ in MD_ARCHS:
-        _MD_ONE[arch], _ = _md_steps(torch, arch)
+        simt = _md_one_card(torch, arch)["flash_mha_simt"]
+        if not simt:
+            bad.append(f"{arch}: float32 attention on the kernels launched no flash_mha_simt")
         with _one_rank_nccl():
             got, ring = _md_steps(torch, arch, make_mesh((1, 1), ("data", "model")))
         same = all(_bitwise(torch, a, b) for a, b in zip(got, _MD_ONE[arch]))
-        out[arch] = dict(one_by_one_bitwise=same, ring_1x1=ring)
+        out[arch] = dict(one_by_one_bitwise=same, ring_1x1=ring, flash_mha_simt=simt)
         if not same:
             bad.append(f"{arch} on a 1x1 mesh: not bitwise one card's (max relative gap "
                        f"{_md_gap(torch, got, _MD_ONE[arch]):.3e})")
@@ -4684,17 +4760,31 @@ def dry_run(torch) -> None:
 # ---------------------------------------------------------------------------
 #: one card: esmfold_ppm at full width, GRID_BLOCKS of its 48 blocks (cut to
 #: keep the phase near a minute), a GRID_LEN-residue protein in bucket
-#: GRID_BUCKET
+#: GRID_BUCKET, unchunked and row-chunked at GRID_CHUNK
 GRID_BLOCKS = 8
 GRID_LEN = 250
 GRID_BUCKET = 256
+GRID_CHUNK = 64
 GRID_SCHEMES = ("lightnobel_aaq", "baseline_fp16")
-#: four cards (``--mesh-only``): all 48 blocks, N = GRID_LONG unpadded, a
-#: card a rank over NCCL, TM against one card's fold at the CPU tests' floor
+#: four cards (``--mesh-only``): all 48 blocks, a card a rank over NCCL,
+#: unchunked at N = GRID_LONG unpadded and chunked at GRID_CHUNK for a
+#: GRID_LONG_CHUNKED-residue protein in bucket GRID_LONG_BUCKET (the
+#: engine's long fold), TM against one card's fold of the same kind at the
+#: CPU tests' floor
 GRID_LONG = 1024
+GRID_LONG_CHUNKED = ENGINE_LONG_LEN
+GRID_LONG_BUCKET = ENGINE_LONG_BUCKET
 GRID_TM_LONG = 0.995
-#: one card's folds of the 2x2 job's inputs, by scheme (rank 0 reads them)
+#: one card's folds of the 2x2 job's inputs, by (run, scheme) (rank 0 reads them)
 _GRID_ONE: dict = {}
+
+
+def _grid_runs(across: bool) -> list:
+    """Phase 16's runs, "blocks,n,bucket,chunk" each (chunk 0: unchunked)."""
+    if across:
+        return [f"48,{GRID_LONG},{GRID_LONG},0",
+                f"48,{GRID_LONG_CHUNKED},{GRID_LONG_BUCKET},{GRID_CHUNK}"]
+    return [f"{GRID_BLOCKS},{GRID_LEN},{GRID_BUCKET},{c}" for c in (0, GRID_CHUNK)]
 
 
 def _grid_inputs(torch, n: int, bucket: int):
@@ -4707,10 +4797,11 @@ def _grid_inputs(torch, n: int, bucket: int):
             None if n == bucket else torch.from_numpy(mask).cuda())
 
 
-def _grid_fold(torch, cfg, params, grid, scheme, aat, mask) -> tuple:
+def _grid_fold(torch, cfg, params, grid, scheme, aat, mask, chunk=0) -> tuple:
     """``make_fold_step`` on ``grid`` (its parameters cut to the rank's
-    shards by ``grid_params``) or, ``grid`` None, on one device; -> (coords
-    as numpy, the peak allocated above what was held before the fold)."""
+    shards by ``grid_params``) or, ``grid`` None, on one device, row-chunked
+    at ``chunk`` (0: unchunked); -> (coords as numpy, the peak allocated
+    above what was held before the fold)."""
     from repro_torch.core import make_scheme
     from repro_torch.launch.steps import make_fold_step
     from repro_torch.parallel import sharding as sh
@@ -4721,7 +4812,8 @@ def _grid_fold(torch, cfg, params, grid, scheme, aat, mask) -> tuple:
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        out = make_fold_step(cfg, make_scheme(scheme), shard=grid)(local, aat, mask=mask)
+        out = make_fold_step(cfg, make_scheme(scheme), shard=grid,
+                             chunk_size=chunk or None)(local, aat, mask=mask)
     torch.cuda.synchronize()
     return out["coords"].float().cpu().numpy(), torch.cuda.max_memory_allocated() - held
 
@@ -4734,11 +4826,12 @@ def _grid_tm(torch, got, want) -> float:
 
 
 def _job_grid(torch, rank, world, arg) -> dict:
-    """A 2x2 ``PairGrid`` fold under each of ``GRID_SCHEMES``: ``arg`` is
-    "blocks,n,bucket".  Every rank folds its block; rank 0 holds the
-    coords against one card's (``_GRID_ONE``) and returns the TM, every
-    rank's peak, its own launches, plain calls and launch tally by shape,
-    and its collectives."""
+    """2x2 ``PairGrid`` folds under each of ``GRID_SCHEMES``: ``arg`` is
+    runs of "blocks,n,bucket,chunk" joined by ";".  Every rank folds its
+    block; rank 0 holds the coords against one card's (``_GRID_ONE``) and
+    returns, by run and scheme, the TM, every rank's peak, its own
+    launches, plain calls and launch tally by shape, and its
+    collectives."""
     import torch.distributed as dist
     from repro_torch.configs import get_ppm_config
     from repro_torch.kernels import dispatch
@@ -4746,28 +4839,34 @@ def _job_grid(torch, rank, world, arg) -> dict:
     from repro_torch.models.ppm import init_ppm
     from repro_torch.parallel import collectives as coll
     from repro_torch.parallel import sharding as sh
-    blocks, n, bucket = (int(x) for x in arg.split(","))
-    cfg = dataclasses.replace(get_ppm_config(), blocks=blocks)
-    params = init_ppm(cfg, seed=0, device="cuda")
-    aat, mask = _grid_inputs(torch, n, bucket)
     grid = sh.pair_grid(make_mesh((2, 2), ("data", "model"), device_type="cuda"))
-    res = {}
-    for scheme in GRID_SCHEMES:
-        dispatch.reset_counters()
-        coll.reset_counts()
-        with launch_tally(full=True) as tally:
-            coords, peak = _grid_fold(torch, cfg, params, grid, scheme, aat, mask)
-        launches, plain, routed = _counts()
-        peaks = [None] * world
-        dist.all_gather_object(peaks, peak)
-        if rank == 0:
-            res[scheme] = dict(
-                tm=_grid_tm(torch, coords, _GRID_ONE[scheme]["coords"]),
-                finite=np_finite(coords), peaks_mib=[round(p / 2**20, 1) for p in peaks],
-                launches=launches, plain=plain,
-                ref_routes={k: v for k, v in routed.items() if k.endswith(".ref") and v},
-                collectives={k: v for k, v in coll.counts().items() if v["calls"]},
-                mm_route_faults=list(MM_ROUTE_FAULTS), tally=list(tally.items()))
+    res, cfg, params = {}, None, None
+    for run in arg.split(";"):
+        blocks, n, bucket, chunk = (int(x) for x in run.split(","))
+        if cfg is None or cfg.blocks != blocks:
+            cfg = params = None
+            cfg = dataclasses.replace(get_ppm_config(), blocks=blocks)
+            params = init_ppm(cfg, seed=0, device="cuda")
+        aat, mask = _grid_inputs(torch, n, bucket)
+        res[run] = {}
+        for scheme in GRID_SCHEMES:
+            dispatch.reset_counters()
+            coll.reset_counts()
+            t0 = time.perf_counter()
+            with launch_tally(full=True) as tally:
+                coords, peak = _grid_fold(torch, cfg, params, grid, scheme, aat, mask, chunk)
+            wall = time.perf_counter() - t0
+            launches, plain, routed = _counts()
+            peaks = [None] * world
+            dist.all_gather_object(peaks, peak)
+            if rank == 0:
+                res[run][scheme] = dict(
+                    tm=_grid_tm(torch, coords, _GRID_ONE[(run, scheme)]["coords"]),
+                    finite=np_finite(coords), peaks_mib=[round(p / 2**20, 1) for p in peaks],
+                    fold_s=round(wall, 2), launches=launches, plain=plain,
+                    ref_routes={k: v for k, v in routed.items() if k.endswith(".ref") and v},
+                    collectives={k: v for k, v in coll.counts().items() if v["calls"]},
+                    mm_route_faults=list(MM_ROUTE_FAULTS), tally=list(tally.items()))
     return res
 
 
@@ -4799,12 +4898,13 @@ def _grid_rows(torch, rows, tally, label) -> list:
 
 def grid_fold(torch, rows: dict, card: str, *, across: bool = False) -> list:
     """Phase 16 (see the module docstring).  One card: (a) a 1x1 grid
-    over NCCL bitwise one card's fold; (b) a 2x2 grid of 4 processes on
-    this card over the host-staged gloo route, TM >= MESH_TM_GATE; then
-    the kernels at a rank's shapes.  ``across`` (four cards): (c) the 2x2
-    grid a card a rank over NCCL at all 48 blocks and N = GRID_LONG, TM >=
-    GRID_TM_LONG, each rank's peak beside one card's.  Returns the kernel
-    rows."""
+    over NCCL bitwise one card's fold, unchunked and chunked; (b) a 2x2
+    grid of 4 processes on this card over the host-staged gloo route,
+    unchunked and chunked, TM >= MESH_TM_GATE; then the kernels at a rank's
+    shapes.  ``across`` (four cards): (c) the 2x2 grid a card a rank over
+    NCCL at all 48 blocks, unchunked at N = GRID_LONG and chunked at
+    GRID_LONG_CHUNKED residues, TM >= GRID_TM_LONG, each rank's peak beside
+    one card's and a quarter of it.  Returns the kernel rows."""
     import gc
     from repro_torch.configs import get_ppm_config
     from repro_torch.kernels import dispatch
@@ -4814,60 +4914,81 @@ def grid_fold(torch, rows: dict, card: str, *, across: bool = False) -> list:
     from repro_torch.parallel import sharding as sh
     t0 = time.perf_counter()
     bad, out = [], {}
-    if across:
-        blocks, n, bucket, gate, what = 48, GRID_LONG, GRID_LONG, GRID_TM_LONG, "16(c)"
-    else:
-        blocks, n, bucket, gate, what = GRID_BLOCKS, GRID_LEN, GRID_BUCKET, MESH_TM_GATE, "16(b)"
-    cfg = dataclasses.replace(get_ppm_config(), blocks=blocks)
-    params = init_ppm(cfg, seed=0, device="cuda")
-    aat, mask = _grid_inputs(torch, n, bucket)
-    for scheme in GRID_SCHEMES:
-        coords, peak = _grid_fold(torch, cfg, params, None, scheme, aat, mask)
-        _GRID_ONE[scheme] = dict(coords=coords, peak_mib=round(peak / 2**20, 1))
-    if not across:
+    gate, what = (GRID_TM_LONG, "16(c)") if across else (MESH_TM_GATE, "16(b)")
+    runs = _grid_runs(across)
+    cfg = params = None
+    for run in runs:
+        blocks, n, bucket, chunk = (int(x) for x in run.split(","))
+        if cfg is None or cfg.blocks != blocks:
+            cfg = params = None
+            cfg = dataclasses.replace(get_ppm_config(), blocks=blocks)
+            params = init_ppm(cfg, seed=0, device="cuda")
+        aat, mask = _grid_inputs(torch, n, bucket)
+        for scheme in GRID_SCHEMES:
+            t1 = time.perf_counter()
+            coords, peak = _grid_fold(torch, cfg, params, None, scheme, aat, mask, chunk)
+            _GRID_ONE[(run, scheme)] = dict(coords=coords, peak_mib=round(peak / 2**20, 1),
+                                            fold_s=round(time.perf_counter() - t1, 2))
+        if across:
+            continue
         with _one_rank_nccl():
             grid = sh.pair_grid(make_mesh((1, 1), ("data", "model")))
             for scheme in GRID_SCHEMES:
                 dispatch.reset_counters()
                 coll.reset_counts()
-                coords, peak = _grid_fold(torch, cfg, params, grid, scheme, aat, mask)
+                coords, peak = _grid_fold(torch, cfg, params, grid, scheme, aat, mask, chunk)
                 launches, plain, routed = _counts()
                 if scheme == "lightnobel_aaq":
-                    _check_main_path("phase 16(a), a 1x1 grid over NCCL", launches, plain, routed)
-                same = np_equal(coords, _GRID_ONE[scheme]["coords"])
-                out[f"1x1 {scheme}"] = dict(bitwise=same, peak_mib=round(peak / 2**20, 1),
-                                           launches=launches)
+                    _check_main_path(f"phase 16(a), a 1x1 grid over NCCL, chunk {chunk}",
+                                     launches, plain, routed)
+                one = _GRID_ONE[(run, scheme)]["coords"]
+                same = np_equal(coords, one)
+                out[f"1x1 chunk {chunk} {scheme}"] = dict(
+                    bitwise=same, peak_mib=round(peak / 2**20, 1), launches=launches)
                 if not same:
-                    bad.append(f"16(a) {scheme}: a 1x1 grid not bitwise one card's (TM "
-                               f"{_grid_tm(torch, coords, _GRID_ONE[scheme]['coords']):.6f})")
+                    bad.append(f"16(a) chunk {chunk} {scheme}: a 1x1 grid not bitwise one "
+                               f"card's (TM {_grid_tm(torch, coords, one):.6f})")
+    if not across:
         log(f"phase 16(a) done at {time.perf_counter() - t0:.1f}s")
-    del params
+    cfg = params = None
     gc.collect()
     torch.cuda.empty_cache()
-    res = _rank_job_run(torch, "grid", 4, f"{blocks},{n},{bucket}", gloo=not across)
-    for scheme in GRID_SCHEMES:
-        r = res[scheme]
-        r["one_card_peak_mib"] = _GRID_ONE[scheme]["peak_mib"]
-        out[f"2x2 {scheme}"] = {k: v for k, v in r.items() if k != "tally"}
-        if not r["finite"] or r["tm"] < gate:
-            bad.append(f"{what} {scheme}: TM {r['tm']:.6f} against one card (gate {gate})")
-        if any(r["plain"].values()) or r["ref_routes"]:
-            bad.append(f"{what} {scheme}: a plain version ran: {r['plain']} {r['ref_routes']}")
-        if scheme == "lightnobel_aaq" and any(r["launches"][k] == 0 for k in dispatch.MAIN_PATH):
-            bad.append(f"{what}: a main-path kernel was never launched: {r['launches']}")
-        if any(r["launches"][k] for k in OFF_FOLD_FLASH):
-            bad.append(f"{what}: another flash variant than flash_mha_wg: {r['launches']}")
-        if r["mm_route_faults"]:
-            bad.append(f"{what}: matmul calls off the rule (D >= 8 on aaq_matmul_wg): "
-                       f"{r['mm_route_faults'][:8]}")
+    res = _rank_job_run(torch, "grid", 4, ";".join(runs), gloo=not across)
+    for run in runs:
+        chunk = int(run.split(",")[-1])
+        for scheme in GRID_SCHEMES:
+            r = res[run][scheme]
+            one = _GRID_ONE[(run, scheme)]
+            r["one_card_peak_mib"] = one["peak_mib"]
+            r["one_card_quarter_mib"] = round(one["peak_mib"] / 4, 1)
+            r["one_card_fold_s"] = one["fold_s"]
+            out[f"2x2 {run} {scheme}"] = {k: v for k, v in r.items() if k != "tally"}
+            label = f"{what} [{run}] {scheme}"
+            if not r["finite"] or r["tm"] < gate:
+                bad.append(f"{label}: TM {r['tm']:.6f} against one card (gate {gate})")
+            if any(r["plain"].values()) or r["ref_routes"]:
+                bad.append(f"{label}: a plain version ran: {r['plain']} {r['ref_routes']}")
+            if scheme == "lightnobel_aaq" and any(r["launches"][k] == 0
+                                                  for k in dispatch.MAIN_PATH):
+                bad.append(f"{label}: a main-path kernel was never launched: {r['launches']}")
+            if any(r["launches"][k] for k in OFF_FOLD_FLASH):
+                bad.append(f"{label}: another flash variant than flash_mha_wg: "
+                           f"{r['launches']}")
+            if r["mm_route_faults"]:
+                bad.append(f"{label}: matmul calls off the rule (D >= 8 on aaq_matmul_wg): "
+                           f"{r['mm_route_faults'][:8]}")
+            if chunk:
+                log(f"phase {what} [{run}] {scheme}: each rank's peak {r['peaks_mib']} MiB "
+                    f"beside one card's chunked fold {one['peak_mib']} MiB and a quarter "
+                    f"of it {r['one_card_quarter_mib']} MiB (printed, not gated)")
     _GRID_ONE.clear()
-    log(f"phase 16 readings on {card} (esmfold_ppm, {blocks} blocks, N = {n} in bucket "
-        f"{bucket}): {json.dumps(out)}")
+    log(f"phase 16 readings on {card} (esmfold_ppm, runs blocks,n,bucket,chunk {runs}): "
+        f"{json.dumps(out)}")
     if bad:
         fail("phase 16: " + "; ".join(bad))
     grid_rows = []
     if not across:
-        tally = Counter(dict(res["lightnobel_aaq"]["tally"]))
+        tally = Counter(dict(res[runs[0]]["lightnobel_aaq"]["tally"]))
         grid_rows = _grid_rows(torch, rows, tally,
                                f"grid 2x2, bucket {GRID_BUCKET}, a rank ({GRID_BLOCKS} blocks)")
     torch.cuda.empty_cache()
@@ -5184,6 +5305,9 @@ def main(argv=None) -> int:
     # where there are two or more
     mt_rows, mt_launches = train_mesh(torch, smi)
     log(f"multi-device training launches (rank 0's counted runs): {mt_launches}")
+    for row, key in zoo_pending:          # the float32 rows: 12(c)'s one-card runs
+        if key[0] == "f32":
+            row.launches = _MD_TALLY.get(key, 0)
     log(f"phase 12 done at {time.perf_counter() - t_start:.1f}s")
 
     # 13. the fleet on one shared mesh; 14. the examples; 15. the dry-run

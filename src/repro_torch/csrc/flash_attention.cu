@@ -107,8 +107,11 @@
 //
 // float32 q/k/v or D = 8: flash_simt_kernel, both products on the CUDA
 //   cores in float32 out of shared memory (one block per (row, head,
-//   64-query tile), 8 warps of 8 query rows).  Not on the main path; it
-//   keeps float32 inputs in float32.
+//   64-query tile), 8 warps of 8 query rows).  Not on the fold's path; it
+//   keeps float32 inputs in float32 (the zoo's float32 decode: phi-3 at
+//   D = 96, MLA at 192, RecurrentGemma at 256).  Its shared memory is
+//   smem_floats<D>() floats: 88 KB at D = 96, 160 KB at 192, 208 KB at 256,
+//   all under the 227 KB a block may opt into.  Float32 only above 128.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -300,8 +303,17 @@ int launch_typed(const Params& p, int d, cudaStream_t s) {
     case 32: return launch_d<T, 32>(p, s);
     case 64: return launch_d<T, 64>(p, s);
     case 128: return launch_d<T, 128>(p, s);
-    default: return hopper::status(cudaErrorInvalidValue, 1);
+    default: break;
   }
+  if constexpr (sizeof(T) == sizeof(float)) {   // bf16 takes these on the tensor cores
+    switch (d) {
+      case 96: return launch_d<T, 96>(p, s);
+      case 192: return launch_d<T, 192>(p, s);
+      case 256: return launch_d<T, 256>(p, s);
+      default: break;
+    }
+  }
+  return hopper::status(cudaErrorInvalidValue, 1);
 }
 
 }  // namespace simt
@@ -1165,7 +1177,8 @@ extern "C" int flash_mha_launch(const void* q, const void* k, const void* v, con
   }
 }
 
-// flash_mha_simt_launch: f32 or bf16 q, k, v, D in {8, 16, 32, 64, 128}.
+// flash_mha_simt_launch: f32 or bf16 q, k, v, D in {8, 16, 32, 64, 128}, and f32
+// also at D in {96, 192, 256}.
 extern "C" int flash_mha_simt_launch(const void* q, const void* k, const void* v,
                                      const void* bias, const void* kvlen, void* o,
                                      int qkv_is_bf16, int bias_kind, int B, int Sq, int Skv,

@@ -41,10 +41,14 @@ apart:
   P_hi + P_lo, so P is not rounded to bf16), K/V/bias tiles through a
   two-stage ``cp.async`` ring.  It reads q, k and v 16 bytes at a time, so
   it needs 16-byte aligned base pointers and strides.
-* f32 q/k/v with D in {8, 16, 32, 64, 128}, or bf16 at D = 8: the SIMT
-  kernel, float32 on the CUDA cores.
+* f32 q/k/v with D in {8, 16, 32, 64, 96, 128, 192, 256}, or bf16 at
+  D = 8: the SIMT kernel, float32 on the CUDA cores.
 
-A head dim no variant takes raises.
+Any other head dim up to 256 (the reduced MLA's 24, say) is padded: q, k
+and v gain zero columns up to the smallest head dim whose variant takes the
+call (:func:`launch_head_dim`), the softmax scale stays the true head
+dim's, and the output is sliced back.  The padded columns add exact zeros
+to every logit and are zero in the output.  A head dim above 256 raises.
 
 Additive bias (f32 or bf16) is broadcast by block, GQA, causal, sliding
 window and ``kv_valid_len`` are one predicate each.  Strides are passed as
@@ -61,13 +65,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import _block_broadcast_bias
 
 NEG = -1e30
 TC_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
-SIMT_HEAD_DIMS = (8, 16, 32, 64, 128)
+SIMT_HEAD_DIMS = (8, 16, 32, 64, 96, 128, 192, 256)
 HEAD_DIMS = tuple(sorted(set(TC_HEAD_DIMS) | set(SIMT_HEAD_DIMS)))
 WG_HEAD_DIMS = (32, 64)
 DEC_HEAD_DIMS = PF_HEAD_DIMS = (64, 96, 128, 192, 256)
@@ -146,7 +151,10 @@ def variant_for(dtype: torch.dtype, d: int, *, sq: int = 1, hq: int = 1, hkv: in
     {64, 96, 128, 192, 256} the decode kernel at one query row without a
     causal or window mask, the prefill kernel at more rows (a scale that is
     not positive: the tensor-core kernel); any other bf16 call the
-    tensor-core kernel; f32 and D = 8 the SIMT kernel."""
+    tensor-core kernel; f32 and D = 8 the SIMT kernel (float32 at D in
+    ``SIMT_HEAD_DIMS``: 8 to 256, the zoo's 96, 192 and 256 among them).
+    A head dim the chosen kernel does not take is padded
+    (:func:`launch_head_dim`)."""
     if dtype != torch.bfloat16:
         return SIMT
     if (d in WG_HEAD_DIMS and sq > 1 and hq == hkv and hq % WG_HEADS == 0 and has_bias
@@ -157,6 +165,23 @@ def variant_for(dtype: torch.dtype, d: int, *, sq: int = 1, hq: int = 1, hkv: in
     if not has_bias and sq > 1 and d in PF_HEAD_DIMS:
         return PF
     return TC if d in TC_HEAD_DIMS else SIMT
+
+
+#: variant -> the head dims its kernel takes
+VARIANT_HEAD_DIMS = {TC: TC_HEAD_DIMS, SIMT: SIMT_HEAD_DIMS, WG: WG_HEAD_DIMS,
+                     DEC: DEC_HEAD_DIMS, PF: PF_HEAD_DIMS}
+
+
+def launch_head_dim(dtype: torch.dtype, d: int, **kw) -> int:
+    """The head dim a launch of head dim ``d`` runs at: ``d`` where
+    :func:`variant_for` (with ``kw``) gives the call a kernel that takes
+    it, else the smallest head dim above ``d`` for which it does (q, k and v
+    are then padded with zero columns).  Raises above 256."""
+    for dp in (d, *(x for x in HEAD_DIMS if x > d)):
+        if dp in VARIANT_HEAD_DIMS[variant_for(dtype, dp, **kw)]:
+            return dp
+    raise ValueError(f"flash_mha_kernel: head dim {d}: no variant takes a head dim above "
+                     f"{HEAD_DIMS[-1]}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,6 +313,7 @@ class FlashLaunchArgs:
     window: int                    # -1: no sliding window
     scale: float
     plan: WgPlan | DecPlan | PfPlan | None = None   # the Hopper and decode variants' blocks
+    head_dim: int = 0              # the operands' own D (sizes hold the padded one)
 
     def c_args(self) -> tuple:
         return (self.qkv_is_bf16, self.bias_kind, *self.sizes, *self.q_strides,
@@ -297,9 +323,19 @@ class FlashLaunchArgs:
 
 def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
                        window=None, softmax_scale=None) -> FlashLaunchArgs:
-    """Validate the operands of a launch and pack its scalar arguments.
+    """Validate the operands of a launch and pack its scalar arguments
+    (:func:`_flash_launch`'s arguments alone)."""
+    return _flash_launch(q, k, v, bias, kv_valid_len, causal=causal, window=window,
+                         softmax_scale=softmax_scale)[0]
 
-    Allocates and launches nothing, so it runs on ``meta`` tensors.  Raises
+
+def _flash_launch(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
+                  window=None, softmax_scale=None):
+    """Validate the operands of a launch and pack its scalar arguments;
+    -> (arguments, q, k, v as launched: zero-padded to
+    :func:`launch_head_dim` where the head dim needs it).
+
+    Launches nothing, so it runs on ``meta`` tensors.  Raises
     on what the kernels do not take: a head dim without unit stride, shapes
     that do not match, a bias that does not broadcast, a size beyond 32 bits,
     and, for the tensor-core variant, a q/k/v base pointer or (b, s, h)
@@ -312,23 +348,23 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     remains."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_mha_kernel: q, k, v must be (B, S, H, D)")
-    b, sq, hq, d = q.shape
+    b, sq, hq, d0 = q.shape
     _, skv, hkv, _ = k.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_mha_kernel: head dim {d} not in {HEAD_DIMS}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"flash_mha_kernel: dtype {q.dtype} not bf16/f32")
     for name, a in (("k", k), ("v", v)):
-        if a.shape != (b, skv, hkv, d) or a.dtype != q.dtype or a.device != q.device:
+        if a.shape != (b, skv, hkv, d0) or a.dtype != q.dtype or a.device != q.device:
             raise ValueError(f"flash_mha_kernel: {name} {tuple(a.shape)} {a.dtype} does "
                              f"not match q {tuple(q.shape)} {q.dtype}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"flash_mha_kernel: Hq={hq} not a multiple of Hkv={hkv}")
-    variant = variant_for(q.dtype, d, sq=sq, hq=hq, hkv=hkv, has_bias=bias is not None,
-                          causal=causal, window=window)
-    if variant == SIMT and d not in SIMT_HEAD_DIMS:
-        raise ValueError(f"flash_mha_kernel: {q.dtype} at head dim {d}: the SIMT kernel "
-                         f"takes {SIMT_HEAD_DIMS}, the tensor-core kernel bf16 at {TC_HEAD_DIMS}")
+    kw = dict(sq=sq, hq=hq, hkv=hkv, has_bias=bias is not None, causal=causal, window=window)
+    d = launch_head_dim(q.dtype, d0, **kw)
+    if d != d0:
+        # zero columns: every logit and output column as at d0 (the scale d0's)
+        softmax_scale = _scale(d0, softmax_scale)
+        q, k, v = (F.pad(t, (0, d - d0)) for t in (q, k, v))
+    variant = variant_for(q.dtype, d, **kw)
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.stride(-1) != 1:
             raise ValueError(f"flash_mha_kernel: {name} head dim must have unit stride")
@@ -371,7 +407,7 @@ def _flash_launch_args(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
         sizes=(b, sq, skv, hq, hkv, d, bb), q_strides=tuple(q.stride()[:3]),
         k_strides=tuple(k.stride()[:3]), v_strides=tuple(v.stride()[:3]),
         bias_strides=bstr, causal=int(causal), window=-1 if window is None else int(window),
-        scale=_scale(d, softmax_scale), plan=plan)
+        scale=_scale(d, softmax_scale), plan=plan, head_dim=d0), q, k, v
 
 
 def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
@@ -386,8 +422,8 @@ def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     build.refuse_grad("flash_mha_kernel", q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_kernel: unsupported device {q.device}")
-    args = _flash_launch_args(q, k, v, bias, kv_valid_len, causal=causal, window=window,
-                              softmax_scale=softmax_scale)
+    args, q, k, v = _flash_launch(q, k, v, bias, kv_valid_len, causal=causal, window=window,
+                                  softmax_scale=softmax_scale)
     if kv_valid_len is not None:
         kv_valid_len = kv_valid_len.to(device=q.device, dtype=torch.int32).contiguous()
     b, sq, _, hq, _, d, _ = args.sizes
@@ -414,4 +450,4 @@ def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
         pf_launches += 1
     else:
         simt_launches += 1
-    return o
+    return o if d == args.head_dim else o[..., :args.head_dim]

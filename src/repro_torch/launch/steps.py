@@ -126,17 +126,19 @@ def make_serve_step(cfg: ArchConfig, aaq: AAQConfig = DISABLED):
     return serve_step
 
 
-def make_fold_step(cfg, scheme: QuantScheme | None = None, shard=None):
+def make_fold_step(cfg, scheme: QuantScheme | None = None, shard=None,
+                   chunk_size: int | None = None):
     """PPM inference step (the paper's workload); ``shard`` runs this
     rank's part of a sharded fold: a ``sharding.PairShard`` (j over
     ``model``) or a ``sharding.PairGrid`` (i over the data axes, j over
     ``model``; the parameters the rank's shards where ``grid_params`` cut
-    them, the reference's production layout)."""
+    them, the reference's production layout).  ``chunk_size`` runs the
+    row-chunked pair stack (``ppm_forward``'s)."""
     from repro_torch.models.ppm import ppm_forward
 
     def fold_step(params, aatype, mask=None):
         out = ppm_forward(params, aatype, cfg, scheme or FP16Baseline(), mask=mask,
-                          shard=shard)
+                          chunk_size=chunk_size, shard=shard)
         return {"coords": out["coords"], "distogram": out["distogram"]}
 
     return fold_step

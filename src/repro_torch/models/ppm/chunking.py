@@ -47,18 +47,26 @@ strides are the full tensor's); the quantize ops copy a non-contiguous slab
 to a contiguous (T, H) matrix themselves (``aaq_quant/ops.py``).
 
 Chunked and sharded together (``shard``, ``trunk.py``'s docstring): z is
-the rank's columns j0:j1 and the slabs split i inside that shard, as the
-reference's module docstring has it, so a chunked bucket keeps its chunk
-and gains the shard.  What the single path streams slab by slab is
-fetched slab by slab: outgoing tri-mul's ``a`` is gathered a slab at a
-time, its resident ``b`` (only rows j0:j1 now: 1/W of the single path's)
-arrives by an all-to-all a slab at a time, incoming tri-mul's resident
-``a`` is gathered a slab at a time into the one buffer, and the starting
-node's rows travel to the rank that attends over them and back a slab at
-a time.  Above its own shard a rank then holds what the chunked single
-path holds: one resident tri-mul operand, the bias tables, one slab.
+the rank's block z[:, I, J] (a ``PairGrid``: rows I over the data axes,
+columns J over ``model``; a ``PairShard`` is the grid of one row strip,
+I every row) and the slabs cut that block, as the reference's module
+docstring has it, so a chunked bucket keeps its chunk and gains the
+shard.  What the single path streams slab by slab is fetched slab by
+slab: outgoing tri-mul gathers each slab's ``a`` over k and keeps
+``b[J, :]`` resident, incoming gathers each column slab's ``b`` over k and
+keeps ``a[:, I]`` resident, each resident built slab by slab from the
+ranks that hold it (``swap_rows_slab``/``swap_cols_slab``); triangular
+attention's slabs of the rank's fine rows travel to it and back by the
+all-to-all, a slab at a time.  Above its own block a rank then holds
+what the chunked single path holds, cut: one resident tri-mul operand
+(1/M or 1/D of the single path's), the bias tables, one slab.  Every slab
+count follows from N, the grid and the chunk alone, so every rank issues
+the same collectives in the same order; a 1 x 1 grid slabs as one device
+does and moves nothing, so its fold is the single chunked fold, bitwise.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -142,13 +150,29 @@ def _tri_mul_ab(p, z_rows, scheme: QuantScheme, sc: str, proj: str, gate: str,
     return ab, zl
 
 
-def _rank_rows(x, shard, s: int, c: int):
-    """Rows s*c:(s+1)*c of every rank's row shard of ``x`` (rows on axis
-    1, N of them): (B, W*c, ...), rank 0's rows first.  The slab ``s`` of
-    the rows each rank owns under a row shard, in all-to-all order."""
-    w = 1 if shard is None else shard.size
-    v = x.unflatten(1, (w, x.shape[1] // w))[:, :, s * c:(s + 1) * c]
-    return v.flatten(1, 2)
+def _seg_view(x, segs: int, s: int, c: int, dim: int = 1):
+    """Rows s*c:(s+1)*c of each of ``segs`` equal segments of ``x``'s axis
+    ``dim``: a view, that axis as (segs, c)."""
+    return x.unflatten(dim, (segs, x.shape[dim] // segs)).narrow(dim + 1, s * c, c)
+
+
+def _rank_rows(x, segs: int, s: int, c: int, dim: int = 1):
+    """``_seg_view`` with its two axes as one, (segs * c) rows in order
+    (segment 0's first): slab ``s`` of the rows each rank of a row shard
+    owns, in all-to-all order."""
+    return _seg_view(x, segs, s, c, dim).flatten(dim, dim + 1)
+
+
+def _pair_n(z, shard) -> int:
+    """The pair length of ``z``, the rank's block under ``shard``."""
+    return z.shape[1] * (1 if shard is None else shard.d)
+
+
+def _masks(mask, shard, n: int):
+    """(the block's row mask, its column mask) of the (B, N) token mask."""
+    if mask is None or shard is None:
+        return mask, mask
+    return mask[:, shard.rows(n)], mask[:, shard.cols(n)]
 
 
 def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
@@ -171,41 +195,54 @@ def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
     operand value is computed per pair position, so both give the
     reference's values; only the summation order of the products can move.
 
-    Under ``shard`` (z the rank's columns j0:j1): outgoing keeps only the
-    rows j0:j1 of ``b`` resident, (B, th, N/W, N), each slab of them sent
-    by the all-to-all from the ranks that hold its k, and gathers each
-    slab's ``a`` over k; incoming gathers the resident ``a`` slab by slab
-    into the one (B, th, N, N) buffer and takes its column slabs locally.
+    Under ``shard`` (z the rank's block z[I, J], (B, N/D, N/M, H); one row
+    strip for a ``PairShard``): outgoing keeps ``b[J, :]`` resident, (B,
+    th, N/M, N), built in steps in which each rank computes the same slab of
+    every segment of its rows (``swap_rows_slab``: the segments cut at
+    every strip's bounds, so every rank computes and receives at every
+    step), and gathers each slab's ``a`` over k (``row_strip``); incoming
+    keeps ``a[:, I]`` resident, (B, th, N, N/D), each rank computing a slab
+    of its rows at a step (``swap_cols_slab``), and gathers each column
+    slab's ``b`` over k (``row_strip_t``).
     """
-    n = z.shape[1]
-    col_mask = mask if mask is None or shard is None else mask[:, shard.cols(n)]
-    res_proj, res_gate = ("b_proj", "b_gate") if outgoing else ("a_proj", "a_gate")
+    n = _pair_n(z, shard)
+    row_mask, col_mask = _masks(mask, shard, n)
+    d, m = (1, 1) if shard is None else (shard.d, shard.m)
     slab_proj, slab_gate = ("a_proj", "a_gate") if outgoing else ("b_proj", "b_gate")
-
-    # the resident operand in the products' layout: part[b, c, r, m] =
-    # op[b, r, m, c], written slab by slab.  Incoming: r = the slab rows
-    # of z (every rank's slab gathered over m).  Outgoing: r = rows j0:j1;
-    # a slab computes those rows of every rank's row shard on the local
-    # columns, and the all-to-all hands each rank its own rows over every m.
-    w = 1 if shard is None else shard.size
-    nr = n // w if outgoing else n            # the resident operand's rows
-    c = effective_chunk_size(nr, chunk)
     part = None
-    for i in range(nr // c):
-        rows_i = slice(i * c, (i + 1) * c)
-        if outgoing:
-            zr = _rank_rows(z, shard, i, c)
-            rm = None if mask is None else _rank_rows(mask, shard, i, c)
-        else:
-            zr, rm = z[:, rows_i], None if mask is None else mask[:, rows_i]
-        rr, _ = _tri_mul_ab(p, zr, scheme, sc, res_proj, res_gate,
-                            row_mask=rm, col_mask=col_mask)
-        if shard is not None:
-            rr = shard.cols_to_rows(rr) if outgoing else shard.gather(rr, 2)
-        if part is None:
-            part = torch.empty((rr.shape[0], rr.shape[-1], nr, n),
-                               dtype=rr.dtype, device=rr.device)
-        part[:, :, rows_i] = rr.permute(0, 3, 1, 2)
+    if outgoing:
+        # part[b, c, j, k] = b[b, j, k, c] for the rank's rows j of J, in
+        # steps t of slab t of each segment (the rows cut at every strip's
+        # bounds): ``have`` segments of the rank's rows, ``want`` of J's
+        k = math.lcm(d, m)
+        seg = n // k
+        c = effective_chunk_size(seg, chunk)
+        have, want = k // d, k // m
+        for t in range(seg // c):
+            rm = None if mask is None else _rank_rows(row_mask, have, t, c)
+            rr, _ = _tri_mul_ab(p, _rank_rows(z, have, t, c), scheme, sc, "b_proj", "b_gate",
+                                row_mask=rm, col_mask=col_mask)
+            if shard is not None:
+                rr = shard.swap_rows_slab(rr, n, t, c)
+            if part is None:
+                part = torch.empty((rr.shape[0], rr.shape[-1], z.shape[2], n),
+                                   dtype=rr.dtype, device=rr.device)
+            _seg_view(part, want, t, c, dim=2).copy_(
+                rr.permute(0, 3, 1, 2).unflatten(2, (want, c)))
+    else:
+        # part[b, c, k, i] = a[b, k, i, c] for the rank's columns i of I
+        c = effective_chunk_size(z.shape[1], chunk)
+        for s in range(z.shape[1] // c):
+            rows_s = slice(s * c, (s + 1) * c)
+            rr, _ = _tri_mul_ab(p, z[:, rows_s], scheme, sc, "a_proj", "a_gate",
+                                row_mask=None if mask is None else row_mask[:, rows_s],
+                                col_mask=col_mask)
+            if shard is not None:
+                rr = shard.swap_cols_slab(rr, n, s, c)
+            if part is None:
+                part = torch.empty((rr.shape[0], rr.shape[-1], n, rr.shape[2]),
+                                   dtype=rr.dtype, device=rr.device)
+            _seg_view(part, d, s, c, dim=2).copy_(rr.permute(0, 3, 1, 2).unflatten(2, (d, c)))
 
     def rows(slab):
         zc = slab[0]
@@ -213,16 +250,16 @@ def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
         # outgoing: a of rows i; incoming: b of columns j, in the transposed
         # (j, k) layout, and the output gate's zl of the same positions
         xc, zl = _tri_mul_ab(p, zc, scheme, sc, slab_proj, slab_gate,
-                             row_mask=mc, col_mask=col_mask if outgoing else mask)
-        if outgoing and shard is not None:
-            xc = shard.gather(xc, 2)                        # a over every k
+                             row_mask=mc, col_mask=col_mask if outgoing else row_mask)
+        if shard is not None:                               # over every k
+            xc = shard.row_strip(xc) if outgoing else shard.row_strip_t(xc)
         if outgoing:
-            # (B,th,C,k) @ (B,th,k,N): x of rows i, (B,th,C,N)
+            # (B,th,C,k) @ (B,th,k,J): x of rows i, (B,th,C,J)
             x = per_row(torch.matmul, xc.permute(0, 3, 1, 2), part.transpose(-1, -2))
             x = x.permute(0, 2, 3, 1)
         else:
-            # (B,th,N,k) @ (B,th,k,C): x of columns j, (B,th,N,C), laid out
-            # as the slab's transposed rows (B,C,N,th)
+            # (B,th,I,k) @ (B,th,k,C): x of columns j, (B,th,I,C), laid out
+            # as the slab's transposed rows (B,C,I,th)
             x = per_row(torch.matmul, part.transpose(-1, -2), xc.permute(0, 3, 2, 1))
             x = x.permute(0, 3, 2, 1)
         x = x.to(zc.dtype)
@@ -236,7 +273,7 @@ def tri_mul_chunked(p, z, scheme: QuantScheme, outgoing: bool, sc: str,
     zs = z if outgoing else z.transpose(1, 2)
     if into is not None and not outgoing:
         into = into.transpose(1, 2)
-    ms = col_mask if not outgoing else mask
+    ms = row_mask if outgoing else col_mask
     rows_n = zs.shape[1]
     out = _scan_rows(rows, (zs,) if mask is None else (zs, ms), rows_n,
                      effective_chunk_size(rows_n, chunk), into=into)
@@ -260,20 +297,24 @@ def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
     With ``into`` the slabs go into it in place once the bias table is
     built (a row of attention reads only its own row of z).
 
-    Under ``shard`` (z the rank's columns j0:j1) the bias table is built on
-    the shard and gathered.  The ending node's rows are the shard's own
-    columns; the starting node's rows i are split over the ranks, and each
-    slab of a rank's rows arrives by an all-to-all (its row over every
-    column) and its output goes back the same way into ``z``'s columns.
+    Under ``shard`` (z the rank's block; one row strip for a ``PairShard``)
+    the bias table is built on the block and gathered whole.  The
+    attention runs on the rank's fine rows, as the unsharded op does: the
+    starting node's N/(DM) rows of I with every column, the ending node's
+    N/(DM) columns of J with every row.  A slab is the same rows of every
+    fine-row shard of the strip, fetched by the all-to-all
+    (``to_fine_rows``/``to_fine_cols``) and sent back by its inverse into
+    ``z``.  Where N/(DM) is not whole, the block's own positions are the
+    queries, slab by slab of its rows (columns for the ending node), the
+    keys gathered over the strip and the bias to the queries' rows
+    (``swap_rows``/``swap_cols``), as ``trunk.tri_attn_apply`` does.
     """
+    n = _pair_n(z, shard)
+    blocks = shard is not None and n % shard.size != 0
     if not starting:
         z = z.transpose(1, 2)
         into = None if into is None else into.transpose(1, 2)
-    b_, r, n, hz = z.shape                     # r rows of n positions
-    exchange = starting and shard is not None
-    if exchange:                                # z holds every row i, the
-        r, n = r // shard.size, r               # rank attends over N/W
-    c = effective_chunk_size(r, chunk)
+    b_, hz = z.shape[0], z.shape[-1]
     dh = hz // heads
 
     def bias_rows(slab):
@@ -282,9 +323,19 @@ def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
 
     bias = _scan_rows(bias_rows, (z,), z.shape[1],
                       effective_chunk_size(z.shape[1], chunk))
-    if shard is not None:                       # (B,N,N,H) on every rank
-        bias = shard.gather(bias, 2 if starting else 1)
-    bias_t = bias.permute(0, 3, 1, 2)                       # (B,H,N,N)
+    segs, there, back, keys = 1, None, None, None
+    if blocks:                                  # the queries' rows, every key
+        bias = (shard.swap_rows(bias) if starting
+                else shard.swap_cols(bias.transpose(1, 2)).transpose(1, 2))
+        keys = shard.row_strip if starting else shard.row_strip_t
+    elif shard is not None:                     # (B,N,N,H) on every rank
+        bias = shard.whole(bias) if starting else shard.whole_t(bias)
+        segs = shard.m if starting else shard.d
+        there = shard.to_fine_rows if starting else shard.to_fine_cols
+        back = shard.from_fine_rows if starting else shard.from_fine_cols
+    bias_t = bias.permute(0, 3, 1, 2)                       # (B,H,Nq,N)
+    r = z.shape[1] // segs                      # the rows a rank attends over
+    c = effective_chunk_size(r, chunk)
 
     tokenwise = n >= tk.CHUNKED_ATTN_LEN or dispatch.attention_is_kernel(z.device)
     kv_valid = None
@@ -292,27 +343,27 @@ def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
         lens = mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)   # (B,)
         kv_valid = tk.rows_valid_len(lens, c)                            # (B*c,)
 
-    def rows(slab):
-        zc = slab[0]                                        # (B,C,N,hz)
-        if exchange:
-            # every rank's slab s of its rows, over this rank's columns ->
-            # this rank's slab over every column
-            zc = shard.cols_to_rows(zc)
+    def rows(zc):                                           # (B,C,Nq,hz)
+        if there is not None:
+            zc = there(zc)                      # this rank's slab over every column
         zl = _pair_ln(p, zc, scheme, sc, "ln")
         qkv = cm.dense(p["qkv"], zl, scheme, f"{sc}.qkv_in")
         q, k, v = torch.split(qkv, hz, dim=-1)
-        q = q.reshape(b_, c, n, heads, dh)
-        k = k.reshape(b_, c, n, heads, dh)
-        v = v.reshape(b_, c, n, heads, dh)
+        if keys is not None:
+            k, v = keys(k), keys(v)
+        nq, nk = q.shape[2], k.shape[2]
+        q = q.reshape(b_, c, nq, heads, dh)
+        k = k.reshape(b_, c, nk, heads, dh)
+        v = v.reshape(b_, c, nk, heads, dh)
         if mask is not None:
             v = v * mask[:, None, :, None, None].to(v.dtype)
         if tokenwise:
-            o = dispatch.attention(q.reshape(b_ * c, n, heads, dh),
-                                   k.reshape(b_ * c, n, heads, dh),
-                                   v.reshape(b_ * c, n, heads, dh),
+            o = dispatch.attention(q.reshape(b_ * c, nq, heads, dh),
+                                   k.reshape(b_ * c, nk, heads, dh),
+                                   v.reshape(b_ * c, nk, heads, dh),
                                    bias=bias_t, kv_valid_len=kv_valid,
                                    causal=False, q_chunk=512)
-            o = o.reshape(b_, c, n, heads, dh).to(zc.dtype)
+            o = o.reshape(b_, c, nq, heads, dh).to(zc.dtype)
         else:
             logits = per_row(lambda q, k: torch.einsum("bijhd,bikhd->bhijk", q.float(),
                                                        k.float()),
@@ -324,25 +375,24 @@ def tri_attn_chunked(p, z, scheme: QuantScheme, starting: bool, sc: str,
             probs = scheme.act(probs, f"{sc}.probs")        # Group C
             o = per_row(lambda p, v: torch.einsum("bhijk,bikhd->bijhd", p.float(), v.float()),
                         probs, v).to(zc.dtype)
-        o = scheme.act(o.reshape(b_, c, n, hz), f"{sc}.av")  # Group C
+        o = scheme.act(o.reshape(b_, c, nq, hz), f"{sc}.av")  # Group C
         g = torch.sigmoid(cm.dense(p["gate"], zl, scheme, f"{sc}.gate"))
         out = cm.dense(p["out"], g * o, scheme, f"{sc}.proj_in")
-        return shard.rows_to_cols(out) if exchange else out
+        return out if back is None else back(out)
 
-    if exchange:
-        # slab s: rows s*c:(s+1)*c of every rank's row shard, in
-        # all-to-all order; its output goes back to the same rows of z
-        w = shard.size
+    if segs == 1:
+        out = _scan_rows(lambda slab: rows(slab[0]), (z,), r, c, into=into)
+    else:
+        # slab s: rows s*c:(s+1)*c of every fine-row shard, in all-to-all
+        # order; its output goes back to the same rows of z
         out = into if into is not None else torch.empty_like(z)
         for s in range(r // c):
-            y = rows((_rank_rows(z, shard, s, c),)).unflatten(1, (w, c))
-            dst = out.unflatten(1, (w, r))[:, :, s * c:(s + 1) * c]
+            y = rows(_rank_rows(z, segs, s, c)).unflatten(1, (segs, c))
+            dst = _seg_view(out, segs, s, c)
             if into is not None:
                 dst.add_(y)
             else:
                 dst.copy_(y)
-        return out
-    out = _scan_rows(rows, (z,), r, c, into=into)
     if not starting:
         out = out.transpose(1, 2)
     return out
@@ -375,7 +425,7 @@ def opm_chunked(p, s, chunk: int, into=None, shard=None):
     sl = cm.layernorm(p["ln"], s)
     a, b = cm.dense(p["a"], sl), cm.dense(p["b"], sl)       # (B,N,32)
     if shard is not None:
-        b = b[:, shard.cols(n)]                             # columns j0:j1
+        b = shard.seq_cols(b)                               # s's rows J
 
     def rows(slab):
         outer = slab[0][:, :, None, :, None] * b[:, None, :, None, :]
@@ -387,14 +437,14 @@ def opm_chunked(p, s, chunk: int, into=None, shard=None):
 def seq_pair_bias_chunked(p, z, chunk: int, shard=None):
     """Sequence attention's (B,N,N,seq_heads) pair bias, built slab by slab
     so the full hz-wide ln(z) intermediate never materializes (on
-    ``shard``'s columns, then gathered)."""
+    ``shard``'s block, then gathered to its rows over every column)."""
     n = z.shape[1]
     c = effective_chunk_size(n, chunk)
     bias = _scan_rows(
         lambda slab: cm.dense(p["pair_bias"],
                               cm.layernorm(p["pair_bias_ln"], slab[0])),
         (z,), n, c)
-    return bias if shard is None else shard.gather(bias, 2)
+    return bias if shard is None else shard.row_strip(bias)
 
 
 # --------------------------------------------------------------------------
@@ -411,7 +461,7 @@ def block_apply_chunked(p, s, z, cfg, scheme: QuantScheme, chunk: int,
     """
     pb = seq_pair_bias_chunked(p["seq_attn"], z, chunk, shard=shard)
     s = s + tk.seq_attn_apply(p["seq_attn"], s, z, cfg.seq_heads, mask=mask,
-                              pair_bias=pb)
+                              pair_bias=pb, shard=shard)
     del pb
     s = s + tk.seq_transition_apply(p["seq_trans"], s)
     opm_chunked(p["opm"], s, chunk, into=z, shard=shard)

@@ -100,9 +100,10 @@ def ppm_forward(params, aatype: torch.Tensor, cfg: PPMConfig,
     ``shard`` runs this rank's part of the mesh-sharded forward: a
     ``repro_torch.parallel.sharding.PairShard`` splits the pair tensor on
     j over the model group (the serving tier), a ``PairGrid`` on i over
-    the data axes and j over ``model`` (the reference's production layout;
-    unchunked only), its parameters the rank's shards where
-    ``sharding.grid_params`` cut them (each gathered at its use).  ``z`` in
+    the data axes and j over ``model`` (the reference's production layout),
+    its parameters the rank's shards where ``sharding.grid_params`` cut
+    them (each gathered at its use); either takes ``chunk_size`` too, the
+    slabs then cutting the rank's block (``chunking.py``).  ``z`` in
     the result is the rank's part, ``s`` and coords are whole on every
     rank, the distogram on the shard's first rank only.
     ``distogram=False`` skips the head (``None`` in the result).

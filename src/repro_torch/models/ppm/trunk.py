@@ -392,25 +392,22 @@ def trunk_apply(blocks: list[cm.Params], s, z, cfg: PPMConfig,
     slabs instead of O(N²), each op's slabs added into ``z`` in place, so
     the chunked path consumes ``z``: the caller hands over a tensor it owns
     (``ppm_forward`` does).  None/0 is the unchunked path, which never
-    writes ``z``.  ``shard``: ``z`` is this rank's part (module docstring),
-    pinned at every block boundary (``constrain``), and so is ``s``.  A
-    grid whose parameters ``sharding.grid_params`` cut (``shard.specs``)
-    gathers one block's weights at its use and drops them after it."""
+    writes ``z``.  ``shard`` (a ``PairShard`` or a ``PairGrid``, chunked or
+    not): ``z`` is this rank's part (module docstring), pinned at every
+    block boundary (``constrain``), and so is ``s``.  A grid whose
+    parameters ``sharding.grid_params`` cut (``shard.specs``) gathers one
+    block's weights at its use and drops them after it."""
     specs = None if shard is None else shard.specs
     if chunk_size:
-        if isinstance(shard, sh.PairGrid):
-            raise ValueError("the row-chunked pair stack takes a PairShard, not a PairGrid: "
-                             "fold on a grid unchunked")
         from repro_torch.models.ppm import chunking as ck   # imports this module
-        for p in blocks:
-            s, z = ck.block_apply_chunked(p, s, z, cfg, scheme, chunk_size,
-                                          mask=mask, shard=shard)
-            z = sh.constrain(z, "pair")
-        return s, z
     for i, p in enumerate(blocks):
         if specs is not None:
             p = shard.whole_params(p, specs["trunk"][i])
-        s, z = block_apply(p, s, z, cfg, scheme, mask=mask, shard=shard)
+        if chunk_size:
+            s, z = ck.block_apply_chunked(p, s, z, cfg, scheme, chunk_size,
+                                          mask=mask, shard=shard)
+        else:
+            s, z = block_apply(p, s, z, cfg, scheme, mask=mask, shard=shard)
         p = None            # a gathered block's weights go before the next gather
         s = sh.constrain(s, "seq_track")
         z = sh.constrain(z, "pair")

@@ -1233,6 +1233,10 @@ class PairShard:
         channel-wide statistic);
       * ``gather_to_root(x, dim)``: the concatenation on the group's rank 0
         only, ``None`` elsewhere.
+
+    It also speaks the ``PairGrid``'s vocabulary as the grid of one row
+    strip (``d`` 1, ``m`` its size), slab methods included, so the trunk
+    ops and the chunked stack are written once.
     """
     group: Any
     size: int
@@ -1296,8 +1300,18 @@ class PairShard:
     def fine_rows_whole(self, x):
         return self.gather(x, 1)
 
-    to_fine_cols = from_fine_cols = col_strip
-    fine_cols_whole = fine_rows_whole
+    to_fine_cols = from_fine_cols = row_strip_t = col_strip
+    fine_cols_whole = whole_t = fine_rows_whole
+
+    @property
+    def m(self) -> int:
+        return self.size
+
+    def swap_rows_slab(self, x, n: int, t: int, c: int):
+        return self.cols_to_rows(x)
+
+    def swap_cols_slab(self, x, n: int, s: int, c: int):
+        return self.gather(x, 2)
 
     def block_to_root(self, x):
         return self.gather_to_root(x, 2)
@@ -1311,6 +1325,50 @@ def _cut(lo: int, n: int, lo2: int, n2: int) -> tuple[int, int] | None:
     """[lo, lo + n) and [lo2, lo2 + n2) intersected; None where empty."""
     a, b = max(lo, lo2), min(lo + n, lo2 + n2)
     return (a, b) if a < b else None
+
+
+def _meet(a, b) -> list:
+    """Two lists of global index ranges [lo, hi) intersected, in order."""
+    return sorted(x for x in (_cut(lo, hi - lo, lo2, hi2 - lo2) for lo, hi in a for lo2, hi2 in b)
+                  if x is not None)
+
+
+def _at(layout, g: int) -> int:
+    """The local index of global index ``g`` in a tensor axis that holds
+    the ranges of ``layout`` one after the other."""
+    off = 0
+    for lo, hi in layout:
+        if lo <= g < hi:
+            return off + g - lo
+        off += hi - lo
+    raise IndexError(g)
+
+
+def _span(layout) -> int:
+    return sum(hi - lo for lo, hi in layout)
+
+
+def _pieces(x, layouts, pieces):
+    """The ``pieces`` (per axis 1 and 2: global ranges inside that axis's
+    ``layouts``) of ``x``, concatenated axis by axis."""
+    for dim, (layout, want) in enumerate(zip(layouts, pieces), 1):
+        parts = [x.narrow(dim, _at(layout, lo), hi - lo) for lo, hi in want]
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+    return x
+
+
+def _place(out, layouts, pieces, x) -> None:
+    """Write ``x`` (the ``pieces`` concatenated, as ``_pieces`` cuts them)
+    into ``out``, whose axes 1 and 2 hold ``layouts``."""
+    i = 0
+    for lo, hi in pieces[0]:
+        j = 0
+        for lo2, hi2 in pieces[1]:
+            out.narrow(1, _at(layouts[0], lo), hi - lo).narrow(
+                2, _at(layouts[1], lo2), hi2 - lo2).copy_(
+                x.narrow(1, i, hi - lo).narrow(2, j, hi2 - lo2))
+            j += hi2 - lo2
+        i += hi - lo
 
 
 def _map2(fn, tree, specs):
@@ -1355,7 +1413,12 @@ class PairGrid:
       * ``amax(t)``: the maximum over the grid; ``block_to_root(x)``: the
         blocks concatenated on cell (0, 0), ``None`` elsewhere;
       * ``cut``/``uncut``: a parameter's shard by its ``param_spec`` on
-        the grid's mesh (``axes``), and the whole gathered back.
+        the grid's mesh (``axes``), and the whole gathered back;
+      * a slab at a time (the row-chunked pair stack): ``row_strip`` and
+        ``row_strip_t`` of a slab as of a block; ``swap_rows_slab`` and
+        ``swap_cols_slab``, one slab of ``swap_rows`` and ``swap_cols``
+        (point to point, every rank sending and receiving at every slab);
+        ``whole_t``, a transposed block gathered whole.
 
     ``axes`` names the mesh's axes with their sizes where the rows ride
     more than ``data`` (``pod`` and ``data``); ``specs`` is the spec tree
@@ -1461,6 +1524,72 @@ class PairGrid:
     def swap_rows(self, x):
         return self._over_data(self.swap(x), 2)
 
+    # -- one slab at a time (the row-chunked pair stack) ---------------------
+    def _redistribute(self, x, have, want):
+        """Every rank's ``have`` of a pair-shaped tensor handed to the ranks
+        that ``want`` it: ``have(r, c)`` and ``want(r, c)`` give cell (r,
+        c)'s (row ranges, column ranges), global, which its axes 1 and 2
+        hold one range after the other; ``x`` is this rank's ``have``, the
+        result its ``want``.  One point-to-point exchange (``swap``'s), each
+        peer's pieces in one message; every rank computes every cell's
+        ranges, so the sends and receives pair up."""
+        me = (self.r, self.c)
+        hv, wt = have(*me), want(*me)
+        out = x.new_empty((x.shape[0], _span(wt[0]), _span(wt[1]), *x.shape[3:]))
+        sends, recvs, landed = [], [], []
+        for r2 in range(self.d):
+            for c2 in range(self.m):
+                theirs = want(r2, c2)
+                mine = [_meet(hv[0], theirs[0]), _meet(hv[1], theirs[1])]
+                if (r2, c2) == me:
+                    if all(mine):
+                        _place(out, wt, mine, _pieces(x, hv, mine))
+                    continue
+                if all(mine):
+                    sends.append((self.ranks[r2][c2], _pieces(x, hv, mine)))
+                got = have(r2, c2)
+                got = [_meet(got[0], wt[0]), _meet(got[1], wt[1])]
+                if all(got):
+                    buf = x.new_empty((x.shape[0], _span(got[0]), _span(got[1]), *x.shape[3:]))
+                    recvs.append((self.ranks[r2][c2], buf))
+                    landed.append((got, buf))
+        coll.exchange(sends, recvs)
+        for got, buf in landed:
+            _place(out, wt, got, buf)
+        return out
+
+    def _segments(self, n: int) -> tuple[int, int]:
+        """(segment length, count): the rows cut at every row strip's and
+        every column strip's bounds, into lcm(D, M) equal segments."""
+        k = math.lcm(self.d, self.m)
+        return n // k, k
+
+    def swap_rows_slab(self, x, n: int, t: int, c: int):
+        """Slab ``t`` of ``swap_rows``: ``x`` holds rows t*c:(t+1)*c of
+        each segment (``_segments``) of the rank's rows I_r on its columns
+        J_c; the result, the same rows of each segment of J_c over every
+        column (B, c * segments in J_c, N, H), in order.  Every rank sends
+        and receives at each ``t``."""
+        seg, k = self._segments(n)
+
+        def slabs(first, count):
+            return [(e * seg + t * c, e * seg + (t + 1) * c) for e in range(first, first + count)]
+
+        rd, cm = k // self.d, k // self.m
+        return self._redistribute(
+            x, lambda r, c2: (slabs(r * rd, rd), [(c2 * (n // self.m), (c2 + 1) * (n // self.m))]),
+            lambda r, c2: (slabs(c2 * cm, cm), [(0, n)]))
+
+    def swap_cols_slab(self, x, n: int, s: int, c: int):
+        """Slab ``s`` of ``swap_cols``: ``x`` holds rows s*c:(s+1)*c of the
+        rank's rows I_r on its columns J_c; the result, the same rows of
+        every row strip on the columns I_r (B, D * c, N/D, H), in order."""
+        rw, cw = n // self.d, n // self.m
+        return self._redistribute(
+            x, lambda r, c2: ([(r * rw + s * c, r * rw + (s + 1) * c)], [(c2 * cw, (c2 + 1) * cw)]),
+            lambda r, c2: ([(r2 * rw + s * c, r2 * rw + (s + 1) * c) for r2 in range(self.d)],
+                           [(r * rw, (r + 1) * rw)]))
+
     def swap_cols(self, x):
         return self.row_strip(x) if self.d == 1 else self._over_model(self.swap(x), 1)
 
@@ -1481,6 +1610,10 @@ class PairGrid:
 
     def fine_cols_whole(self, x):
         return self._over_model(self._over_data(x, 1), 1)
+
+    def whole_t(self, x):
+        """A transposed block (B, N/M, N/D, H) gathered whole."""
+        return self._over_model(self.row_strip_t(x), 1)
 
     # -- reductions -------------------------------------------------------
     def amax(self, t):

@@ -516,14 +516,17 @@ def split_attention(rank, world, jobs):
     return out
 
 
-def grid_folds(rank, world, tree, aatype, schemes):
+def grid_folds(rank, world, tree, aatype, schemes, chunk):
     """The reduced PPM (the reference's numpy ``tree``) folded by
     ``make_fold_step`` on a 2 x 2 ``PairGrid``, each parameter the rank's
     shard (``grid_params``), under each of ``schemes``; then on a 1 x 1
     grid (a group of this rank alone) and on a 1 x 4 grid under each; then
     the 2 x 2 grid at N - 2 under the first (triangular attention on the
     blocks, the fine rows not dividing N), and the first on a 1 x 4
-    ``PairShard`` (the serving tier's j split).  Rank 0 returns
+    ``PairShard`` (the serving tier's j split).  Each grid and the
+    ``PairShard`` also fold row-chunked at ``chunk`` under the first two
+    schemes ("<grid> chunked"), and the 2 x 2 grid at N - 2 under the
+    first (neither the slabs nor the fine rows dividing).  Rank 0 returns
     {(grid, scheme): (coords, distogram)}, every rank its parameter
     bytes on the 2 x 2 grid and the collectives of its first fold there."""
     import torch.distributed as dist
@@ -555,21 +558,32 @@ def grid_folds(rank, world, tree, aatype, schemes):
                 counts = coll.counts()
             if rank == 0:
                 out[(name, scheme)] = (o["coords"].numpy(), o["distogram"].numpy())
+        for scheme in schemes[:2]:
+            with torch.no_grad():
+                o = make_fold_step(cfg, make_scheme(scheme), shard=grid, chunk_size=chunk)(local, a)
+            if rank == 0:
+                out[(f"{name} chunked", scheme)] = (o["coords"].numpy(), o["distogram"].numpy())
         if name == "1x4":
             # the same fold on the serving tier's j split (the parameters whole)
             mesh = make_mesh((1, 4), ("data", "model"))
             shard = sh.PairShard(mesh.get_group("model"), 4, mesh.get_local_rank("model"))
-            with torch.no_grad():
-                o = make_fold_step(cfg, make_scheme(schemes[0]), shard=shard)(params, a)
-            if rank == 0:
-                out[("pair shard", schemes[0])] = (o["coords"].numpy(), o["distogram"].numpy())
+            for scheme, c in ((schemes[0], None), *((s, chunk) for s in schemes[:2])):
+                with torch.no_grad():
+                    o = make_fold_step(cfg, make_scheme(scheme), shard=shard,
+                                       chunk_size=c)(params, a)
+                if rank == 0:
+                    out[("pair shard" if c is None else "pair shard chunked", scheme)] = (
+                        o["coords"].numpy(), o["distogram"].numpy())
         if name == "2x2":
             # N - 2 = 62: the grid's 4 fine rows do not divide it, so the
-            # triangular attention runs on the blocks themselves
-            with torch.no_grad():
-                o = make_fold_step(cfg, make_scheme(schemes[0]), shard=grid)(local, a[:, :-2])
-            if rank == 0:
-                out[("2x2 blocks", schemes[0])] = (o["coords"].numpy(), o["distogram"].numpy())
+            # triangular attention runs on the blocks themselves; chunked,
+            # a rank's 31 rows do not divide into slabs of ``chunk`` either
+            for what, c in (("2x2 blocks", None), ("2x2 blocks chunked", chunk)):
+                with torch.no_grad():
+                    o = make_fold_step(cfg, make_scheme(schemes[0]), shard=grid,
+                                       chunk_size=c)(local, a[:, :-2])
+                if rank == 0:
+                    out[(what, schemes[0])] = (o["coords"].numpy(), o["distogram"].numpy())
     return out if rank == 0 else None, nbytes, counts
 
 

@@ -317,16 +317,24 @@ def test_in_place_block_matches_out_of_place_residual_adds_bitwise():
 
 
 def test_chunked_stack_refuses_a_grid():
-    """The row-chunked stack takes the serving tier's j split only: a
-    ``PairGrid`` (rows on the data axes) is refused with the reason."""
+    """A ``PairGrid`` is not refused any more: the row-chunked stack takes
+    the production layout as it takes the serving tier's j split.  On a
+    1 x 1 grid, its parameters cut by ``grid_params`` (whole at one rank),
+    the chunked trunk is bitwise the single chunked trunk (the multi-rank
+    grids: ``test_torch_train_mesh.py``)."""
     from repro_torch.configs import reduce_ppm_config
     from repro_torch.models.ppm import init_ppm
     from repro_torch.models.ppm import trunk as tk
     from repro_torch.parallel import sharding as sh
     cfg = reduce_ppm_config()
     params = init_ppm(cfg, seed=0, device="cpu")
-    grid = sh.PairGrid(None, None, 1, 1, 0, 0, ((0,),))
-    s, z = torch.zeros(1, 16, cfg.hm), torch.zeros(1, 16, 16, cfg.hz)
-    with pytest.raises(ValueError, match="takes a PairShard, not a PairGrid"):
-        tk.trunk_apply(params["trunk"], s, z, cfg, make_scheme("baseline_fp16"),
-                       chunk_size=8, shard=grid)
+    local, grid = sh.grid_params(params, sh.PairGrid(None, None, 1, 1, 0, 0, ((0,),)))
+    g = torch.Generator().manual_seed(3)
+    s, z = torch.randn(1, 16, cfg.hm, generator=g), torch.randn(1, 16, 16, cfg.hz, generator=g)
+    scheme = make_scheme("baseline_fp16")
+    with torch.no_grad(), sh.sharded(grid, 16):
+        got = tk.trunk_apply(local["trunk"], s.clone(), z.clone(), cfg, scheme,
+                             chunk_size=8, shard=grid)
+    with torch.no_grad():
+        want = tk.trunk_apply(params["trunk"], s.clone(), z.clone(), cfg, scheme, chunk_size=8)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

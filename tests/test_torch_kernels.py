@@ -42,8 +42,8 @@ from repro_torch.kernels.aaq_quant.aaq_quant import (  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     DEC_MAX_SPLITS, WG_FUSED, WG_FUSED_Q, WG_HEADS_INNER, WG_KEYS_INNER, DecPlan,
-    PfPlan, _flash_launch_args, dec_plan, flash_mha_kernel, flash_mha_plain, pf_plan,
-    variant_for, wg_plan, wg_plan_or_none)
+    PfPlan, _flash_launch, _flash_launch_args, dec_plan, flash_mha_kernel, flash_mha_plain,
+    pf_plan, variant_for, wg_plan, wg_plan_or_none)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -546,6 +546,10 @@ FLASH_CASES = {
     "decode-mqa": (5, 1, 48, 8, 1, 64, None, False, [0, 1, 48, 20, 33], False, None),
     # the prefill kernel's: causal GQA in a window at head dim 128
     "causal-gqa-window": (2, 40, 40, 8, 2, 128, None, False, None, True, 9),
+    # float32 at phi-3's head dim 96 (the SIMT kernel): a decode step against
+    # a ring, and a causal prefill
+    "f32-d96-decode": (3, 1, 40, 8, 8, 96, None, False, [40, 17, 1], False, None),
+    "f32-d96-causal": (1, 33, 33, 4, 4, 96, None, False, None, True, None),
 }
 
 
@@ -1112,3 +1116,67 @@ def test_flash_launch_args_refuse_what_the_decode_and_prefill_kernels_do_not_tak
     f = torch.empty((2, 100, 4, 64), device="meta")
     assert _flash_launch_args(f, f, f, causal=True).variant == "simt"
     assert _flash_launch_args(f[:, :1], f, f).variant == "simt"
+
+
+# --------------------------------------------------------------------------
+# head dims: float32 at the zoo's 96, 192 and 256 on the SIMT kernel, any
+# other head dim up to 256 padded with zero columns
+# --------------------------------------------------------------------------
+#: (name, b, sq, skv, hq, hkv): the zoo's float32 decode and prefill calls
+#: at a small length (phi-3: MHA 32 heads; MLA: 16; recurrentgemma: MQA)
+ZOO_F32 = [("decode", 4, 1, 64, 32, 32), ("prefill", 2, 64, 64, 16, 16),
+           ("mqa-decode", 2, 1, 64, 16, 1)]
+
+
+@pytest.mark.parametrize("d", (96, 192, 256))
+@pytest.mark.parametrize("case", ZOO_F32, ids=lambda c: c[0])
+def test_flash_launch_args_take_float32_at_the_zoos_head_dims(case, d):
+    _, b, sq, skv, hq, hkv = case
+    q = torch.empty((b, sq, hq, d), device="meta")
+    kv = torch.empty((b, skv, hkv, d), device="meta")
+    args = _flash_launch_args(q, kv, kv, causal=sq > 1)
+    assert args.variant == "simt" and args.sizes[5] == d == args.head_dim
+    assert args.scale == pytest.approx(1.0 / d ** 0.5)
+
+
+#: (dtype, true head dim, sq, the head dim it launches at)
+PADDED = [(torch.float32, 24, 64, 32), (torch.float32, 48, 64, 64), (torch.float32, 80, 1, 96),
+          (torch.bfloat16, 24, 64, 32), (torch.bfloat16, 48, 64, 64),
+          (torch.bfloat16, 80, 64, 96), (torch.bfloat16, 48, 1, 64)]
+
+
+@pytest.mark.parametrize("dt,d,sq,dp", PADDED,
+                         ids=lambda v: str(v).replace("torch.", "") if not isinstance(v, int)
+                         else str(v))
+def test_flash_launch_args_pad_other_head_dims(dt, d, sq, dp):
+    """A head dim no variant takes launches at the next one that does, the
+    operands zero-padded, the softmax scale the true head dim's."""
+    q = torch.empty((2, sq, 4, d), dtype=dt, device="meta")
+    kv = torch.empty((2, 64, 4, d), dtype=dt, device="meta")
+    args, qp, kp, vp = _flash_launch(q, kv, kv)
+    assert args.sizes[5] == dp and args.head_dim == d
+    assert args.variant == variant_for(dt, dp, sq=sq, hq=4, hkv=4)
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == dp
+    assert args.scale == pytest.approx(1.0 / d ** 0.5)
+    with pytest.raises(ValueError, match="above 256"):
+        big = torch.empty((2, sq, 4, 320), dtype=dt, device="meta")
+        _flash_launch_args(big, big, big)
+
+
+@pytest.mark.parametrize("dt", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+@pytest.mark.parametrize("d", (24, 48, 80))
+def test_flash_padded_plain_equals_the_plain_version_at_the_true_head_dim(d, dt):
+    """What the kernel computes on the padded operands, sliced back, is the
+    plain version at the true head dim within 1e-6 (bias, GQA, a key
+    length, a causal mask)."""
+    q, k, v, bias = _attn_inputs(2, 24, 24, 4, 2, d, bias_b=1)
+    q, k, v = (_t(a).to(dt) for a in (q, k, v))
+    kvl = torch.tensor([24, 9], dtype=torch.int32)
+    args, qp, kp, vp = _flash_launch(q, k, v, _t(bias), kvl, causal=True)
+    assert qp.shape[-1] > d
+    got = flash_mha_plain(qp, kp, vp, _t(bias), kvl, causal=True,
+                          softmax_scale=args.scale)[..., :d]
+    want = flash_mha_plain(q, k, v, _t(bias), kvl, causal=True)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=0, atol=1e-6)
+    assert torch.all(flash_mha_plain(qp, kp, vp, _t(bias), kvl, causal=True,
+                                     softmax_scale=args.scale)[..., d:] == 0)

@@ -60,7 +60,15 @@ Gates:
     reference's own 2-D fold (``jax.jit(make_fold_step)`` under
     ``default_act_rules(mesh, "train")``, 4 forced host devices, in a
     subprocess): FP allclose 1e-4, AAQ TM >= 0.995; at N = 62, which the
-    grid's fine rows do not divide, FP allclose 1e-4 to one device.
+    grid's fine rows do not divide, FP allclose 1e-4 to one device;
+  * the same folds row-chunked at ``GRID_CHUNK`` on the grid: 2 x 2
+    against the reference's chunked 2-D fold (``ppm_forward(...,
+    chunk_size=16)`` under the same rules) and against the port's
+    unchunked 2 x 2 fold, FP allclose 1e-4, AAQ TM >= 0.995; a 1 x 1 grid
+    bitwise one device's chunked fold; a 1 x 4 grid bitwise the chunked
+    1 x 4 ``PairShard`` fold; at N = 62 (a rank's 31 rows divide neither
+    into slabs of 16 nor into 4 fine rows) FP allclose 1e-4 to one
+    device's chunked fold.
 """
 import os
 import subprocess
@@ -119,6 +127,7 @@ SPLIT_ATTN = [(2, 2, True), (2, 2, False), (6, 2, True)]
 #: the grid fold's sequence length and schemes
 GRID_N = 64
 GRID_SCHEMES = ("baseline_fp16", "lightnobel_aaq", "tender")
+GRID_CHUNK = 16
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
@@ -152,7 +161,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec
 from repro.configs import reduce_ppm_config
 from repro.core import make_scheme
 from repro.launch.steps import make_fold_step
-from repro.models.ppm import init_ppm
+from repro.models.ppm import init_ppm, ppm_forward
 from repro.parallel import sharding as sh
 cfg = reduce_ppm_config()
 params = init_ppm(jax.random.PRNGKey(0), cfg)
@@ -166,6 +175,10 @@ for scheme in {schemes}:
         fn = jax.jit(make_fold_step(cfg, make_scheme(scheme)),
                      in_shardings=(psh, NamedSharding(mesh, PartitionSpec(None, "data"))))
         out[scheme] = np.asarray(fn(params, aatype)["coords"])
+        chunked = jax.jit(lambda p, a, s=make_scheme(scheme): ppm_forward(
+            p, a, cfg, s, chunk_size={chunk})["coords"],
+            in_shardings=(psh, NamedSharding(mesh, PartitionSpec(None, "data"))))
+        out["chunked_" + scheme] = np.asarray(chunked(params, aatype))
 np.savez(sys.argv[2], **out)
 """
 
@@ -185,7 +198,7 @@ def reference_grid(grid_inputs, tmp_path_factory):
     device, in a subprocess started before the 4-rank spawn, beside it."""
     d = tmp_path_factory.mktemp("ref_grid")
     np.save(d / "aatype.npy", grid_inputs[1])
-    code = textwrap.dedent(_REF_GRID.format(schemes=GRID_SCHEMES[:2]))
+    code = textwrap.dedent(_REF_GRID.format(schemes=GRID_SCHEMES[:2], chunk=GRID_CHUNK))
     proc = subprocess.Popen([sys.executable, "-c", code, str(d / "aatype.npy"),
                              str(d / "out.npz")], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
@@ -225,7 +238,8 @@ def four_ranks(inputs, grid_inputs, reference_grid):
     jobs = [(a, inputs[a][1], inputs[a][2], ste, shape)
             for a, shape in JOBS4 for ste in (False, True)]
     ring, attn = _ring_job(), _attn_jobs()
-    res = run_ranks(4, four_rank_jobs, jobs, [ring], attn, (*grid_inputs, GRID_SCHEMES))
+    res = run_ranks(4, four_rank_jobs, jobs, [ring], attn,
+                    (*grid_inputs, GRID_SCHEMES, GRID_CHUNK))
     out = {(a, shape, ste): [r[0][i] for r in res]
            for i, (a, _, _, ste, shape) in enumerate(jobs)}
     out["ring"] = (res[0][1][0], ring)
@@ -585,16 +599,22 @@ def test_attention_heads_the_model_axis_does_not_divide(four_ranks, case):
 
 @pytest.fixture(scope="module")
 def grid_single(grid_inputs):
-    """One device's fold of the grid inputs under each scheme."""
+    """One device's fold of the grid inputs under each scheme; chunked at
+    ``GRID_CHUNK`` under the first two ("chunked <scheme>"), and at N - 2
+    under the first ("chunked blocks")."""
     from repro_torch.launch.steps import make_fold_step
     cfg = reduce_ppm_config()
     params = params_from_numpy(grid_inputs[0], cfg, device="cpu")
     a = torch.from_numpy(grid_inputs[1])
     out = {}
-    for scheme in GRID_SCHEMES:
+    for scheme, chunk, aa in ([(s, None, a) for s in GRID_SCHEMES]
+                              + [(s, GRID_CHUNK, a) for s in GRID_SCHEMES[:2]]
+                              + [(GRID_SCHEMES[0], GRID_CHUNK, a[:, :-2])]):
         with torch.no_grad():
-            o = make_fold_step(cfg, make_scheme(scheme))(params, a)
-        out[scheme] = (o["coords"].numpy(), o["distogram"].numpy())
+            o = make_fold_step(cfg, make_scheme(scheme), chunk_size=chunk)(params, aa)
+        key = (scheme if chunk is None else f"chunked {scheme}" if aa is a
+               else "chunked blocks")
+        out[key] = (o["coords"].numpy(), o["distogram"].numpy())
     return out
 
 
@@ -678,3 +698,66 @@ def test_grid_fold_matches_reference_2d_fold(four_ranks, reference_grid, scheme)
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     else:
         assert _tm(got, want) >= 0.995
+
+
+# --------------------------------------------------------------------------
+# the row-chunked fold on the grid (the long-fold path in the production
+# layout)
+# --------------------------------------------------------------------------
+def _fold_close(scheme, got, want) -> None:
+    """FP: coords and distogram allclose 1e-4; AAQ: coords TM >= 0.995."""
+    if scheme == "lightnobel_aaq":
+        assert _tm(got[0], want[0]) >= 0.995
+    else:
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+        if want[1] is not None:
+            np.testing.assert_allclose(got[1], want[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("scheme", GRID_SCHEMES[:2])
+def test_chunked_grid_fold_matches_the_reference_chunked_2d_fold(four_ranks, reference_grid,
+                                                                 scheme):
+    proc, path = reference_grid
+    out, _ = proc.communicate(timeout=600)
+    assert proc.returncode == 0, out
+    want = np.load(path)["chunked_" + scheme]
+    got = four_ranks["grid"][0][0][("2x2 chunked", scheme)][0]
+    _fold_close(scheme, (got, None), (want, None))
+
+
+@pytest.mark.parametrize("scheme", GRID_SCHEMES[:2])
+def test_chunked_grid_fold_matches_the_unchunked_grid_fold(four_ranks, scheme):
+    folds = four_ranks["grid"][0][0]
+    got, want = folds[("2x2 chunked", scheme)], folds[("2x2", scheme)]
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    _fold_close(scheme, got, want)
+
+
+@pytest.mark.parametrize("scheme", GRID_SCHEMES[:2])
+def test_chunked_one_by_one_grid_is_bitwise_one_device_chunked(four_ranks, grid_single, scheme):
+    """A 1 x 1 grid moves nothing and slabs as one device does: its chunked
+    fold is one device's chunked fold, bitwise."""
+    got = four_ranks["grid"][0][0][("1x1 chunked", scheme)]
+    want = grid_single[f"chunked {scheme}"]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("scheme", GRID_SCHEMES[:2])
+def test_chunked_one_row_strip_grid_is_bitwise_the_pair_shard(four_ranks, grid_single, scheme):
+    """A chunked 1 x 4 grid folds what the serving tier's chunked 1 x 4
+    ``PairShard`` folds, bitwise, and within the chunked gates of one
+    device's chunked fold."""
+    folds = four_ranks["grid"][0][0]
+    got, want = folds[("1x4 chunked", scheme)], folds[("pair shard chunked", scheme)]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    _fold_close(scheme, got, grid_single[f"chunked {scheme}"])
+
+
+def test_chunked_grid_fold_where_neither_slabs_nor_fine_rows_divide(four_ranks, grid_single):
+    """N = 62 on the 2 x 2 grid, chunked at 16: a rank's 31 rows take
+    slabs of one row, and the triangular attention runs on the blocks;
+    ``baseline_fp16`` allclose 1e-4 to one device's chunked fold."""
+    got = four_ranks["grid"][0][0][("2x2 blocks chunked", GRID_SCHEMES[0])]
+    _fold_close(GRID_SCHEMES[0], got, grid_single["chunked blocks"])
