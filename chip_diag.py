@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Three diagnostics of the port, on the card (or, smaller, on the CPU).
+"""Four diagnostics of the port, on the card (or, smaller, on the CPU).
 
     python3 chip_diag.py batch     # where a fold stops being batch-invariant
     python3 chip_diag.py dryrun    # a dry-run cell's FLOPs by aten op
     python3 chip_diag.py profile   # where the 2,000-residue fold's replay goes
+    python3 chip_diag.py f32plans  # float32 flash above head dim 256: two plans
 
 ``batch``: the two float32 kernel variants alone (``aaq_matmul_f32`` on
-batch 1's rows against batch 4's, ``flash_mha_simt`` on batch row 0),
+batch 1's rows against batch 4's, ``flash_mha_f32`` on batch row 0),
 then the reduced config's fold of ``examples/fold_server``'s first protein
 (26 residues, bucket 32) alone against the same protein in act one's
 batch of 4, under AAQ and the unquantized scheme, on the kernel route
@@ -51,6 +52,14 @@ triangular attention's (64, 2048, 4, 32) slab; the quantize forms;
 ``aaq_matmul_wg`` and ``aaq_matmul``; cuBLAS's products; PyTorch's elementwise and reduction
 kernels; copies) and by kernel.  On the CPU: the reduced config, 60
 residues in bucket 64 at chunk 16, no device time.
+
+``f32plans`` (the card only): a causal (2, 512, 8, 320) prefill in f32
+and in bf16 (widened as the wrapper widens it) through
+``flash_mha_f32_launch`` under the plan ``f32_plan`` gives (one panel of
+320 columns, the block's warps in pairs) and under two panels of 160
+columns (each recomputing the logits), each held to ``flash_mha_plain``
+by ``chip_smoke._flash_close`` and timed with ``chip_smoke.time_ms``,
+with the plain version's time.
 
 Imports neither JAX nor the JAX package.
 """
@@ -104,7 +113,7 @@ def batch(torch) -> None:
         kvl = torch.tensor([26, 24, 26, 32], dtype=torch.int32).to(dev)
         o4 = flash_mha_kernel(qq, kk, vv, bias, kvl)
         o1 = flash_mha_kernel(qq[:1], kk[:1], vv[:1], bias[:1], kvl[:1])
-        _print(f"flash_mha_simt D={hd}: batch 1 bitwise batch 4's row: "
+        _print(f"flash_mha_f32 D={hd}: batch 1 bitwise batch 4's row: "
                f"{torch.equal(o1, o4[:1])}")
 
     cfg = reduce_ppm_config()
@@ -487,9 +496,44 @@ def profile_fold(torch) -> None:
         _print(f"  {us / 1e3:10.1f} ms  {tr['calls'][name]:7d}x  {name[:120]}")
 
 
+def f32_plans(torch) -> None:
+    if not torch.cuda.is_available():
+        _print("f32plans: needs the card")
+        return
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    lib = build.library()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((2, 512, 8, 320), generator=g, device="cuda").to(dt)
+                   for _ in range(3))
+        args, qw, kw, vw = fa._flash_launch(q, k, v, causal=True)
+        want = fa.flash_mha_plain(q, k, v, causal=True)
+        one = args.plan
+        bk, q_smem, smem = fa._f32_layout(320, 192, fa.F32_ROWS)
+        two = fa.F32Plan(dv=160, cols=192, rows=fa.F32_ROWS, bk=bk, q_smem=q_smem, smem=smem,
+                         panels=2, blocks=2 * one.blocks)
+        for label, plan in (("f32_plan's", one), ("two panels of 160", two)):
+            o = torch.empty(q.shape, device="cuda")
+
+            def run(plan=plan, o=o):
+                build.check(lib.flash_mha_f32_launch(
+                    qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), None, None, o.data_ptr(),
+                    *args.c_args(), *plan.c_args(), torch.cuda.current_stream().cuda_stream),
+                    "flash_mha_f32")
+            run()
+            err = cs._flash_close(torch, o.to(dt), want, v, f"D 320 {dt} {label}")
+            _print(f"D 320 {dt} causal (2, 512, 8, 320), {label} plan {plan}: kernel_ms "
+                   f"{cs.time_ms(torch, run):.4f}, max |err| {err:.3e}")
+        plain = cs.time_ms(torch, lambda: fa.flash_mha_plain(q, k, v, causal=True), iters=3)
+        _print(f"D 320 {dt}: plain_ms {plain:.4f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="diagnostics of the port")
-    ap.add_argument("what", choices=("batch", "dryrun", "profile"))
+    ap.add_argument("what", choices=("batch", "dryrun", "profile", "f32plans"))
     args = ap.parse_args(argv)
     import torch
     if torch.cuda.is_available():
@@ -498,7 +542,8 @@ def main(argv=None) -> int:
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip().splitlines()[0]
         _print(f"card: {smi}; torch {torch.__version__}")
-    {"batch": batch, "dryrun": dryrun_flops, "profile": profile_fold}[args.what](torch)
+    {"batch": batch, "dryrun": dryrun_flops, "profile": profile_fold,
+     "f32plans": f32_plans}[args.what](torch)
     return 0
 
 

@@ -51,10 +51,12 @@ Phases, each fatal on failure:
      shape on the decode or prefill kernel also bitwise between two
      launches and, row by row, against the row launched alone, with the
      tensor-core kernel's time at the same shape (``tc_ms``); and flash in
-     float32 on the SIMT kernel at head dims 96, 192 and 256 (phi-3's
-     prefill and decode at phase 12(c)'s shapes, MLA's and RecurrentGemma's
-     at phase 9's) and at head dim 48 (padded to 64 by the wrapper), the
-     same checks, its bound at the CUDA cores' float32 rate;
+     float32 on the float32 kernels (``flash_mha_f32``, decode steps on
+     ``flash_mha_f32_dec``: 3xTF32 on the tensor cores) at head dims 96, 192
+     and 256 (phi-3's prefill and decode at phase 12(c)'s shapes, MLA's and
+     RecurrentGemma's at phase 9's), at head dim 48 and at 320 (above 256:
+     the float32 kernel in either type), the same checks, the float32 rows'
+     bound at the CUDA cores' float32 rate;
   4. whole forward, kernels vs the plain references, 2 blocks at full
      esmfold_ppm width, one padded request, with two controls that the
      lightnobel_aaq gate must reject;
@@ -214,7 +216,8 @@ Phases, each fatal on failure:
      prefill and 4 decode steps (phi-3-vision-4.2b, its ring sharded on
      its K/V heads; chatglm3-6b, on the head dim; full width at 2 layers,
      float32, 4 rows, a 256-row ring; both on the kernels, the float32
-     flash on the SIMT kernel, which each one-card run must launch) on a
+     flash on the float32 kernels, ``flash_mha_f32`` launched by each
+     one-card run and no other flash variant) on a
      1x1 mesh over NCCL bitwise the same steps on one card, and with two
      cards or more on a 1xW mesh (W up to 4) across them within 1e-4
      relative on the logits; then
@@ -342,11 +345,26 @@ VARIANTS = {
 }
 VARIANTS.update(aaq_fake_quant=VARIANTS["aaq_quantize"],
                 aaq_matmul_f32=VARIANTS["aaq_matmul"], aaq_matmul_wg=VARIANTS["aaq_matmul"],
-                flash_mha_simt=VARIANTS["flash_mha"], flash_mha_wg=VARIANTS["flash_mha"],
+                aaq_matmul_wide=VARIANTS["aaq_matmul"], flash_mha_wg=VARIANTS["flash_mha"],
                 flash_mha_dec=("flash_decode.cu", VARIANTS["flash_mha"][1]),
-                flash_mha_pf=("flash_prefill.cu", VARIANTS["flash_mha"][1]))
+                flash_mha_pf=("flash_prefill.cu", VARIANTS["flash_mha"][1]),
+                flash_mha_f32=("flash_f32.cu", VARIANTS["flash_mha"][1]),
+                flash_mha_f32_dec=("flash_f32.cu", VARIANTS["flash_mha"][1]))
 #: the flash variants, each counted apart
-FLASH_VARIANTS = ("flash_mha", "flash_mha_simt", "flash_mha_wg", "flash_mha_dec", "flash_mha_pf")
+FLASH_VARIANTS = ("flash_mha", "flash_mha_wg", "flash_mha_dec", "flash_mha_pf", "flash_mha_f32",
+                  "flash_mha_f32_dec")
+#: the float32 flash variants (and every head dim above 256)
+F32_FLASH = ("flash_mha_f32", "flash_mha_f32_dec")
+#: the reduced float32 fold of phase 14's quickstart and fold_server (40
+#: residues, ``reduce_ppm_config``): its tokens a pair product, and its
+#: AAQ-linear products as (H, D, k): the tri-attention bias (D = 4), the pair
+#: projections, tri-attention's qkv, tri-mul's packed projection and the pair
+#: transition's down projection
+FOLD_LEN = 40
+FOLD_TOKENS = FOLD_LEN * FOLD_LEN
+FOLD_MATMULS = ((32, 4, 4), (32, 32, 0), (32, 32, 4), (32, 96, 4), (32, 128, 4), (128, 32, 0))
+#: (row, tally key) of the kernel rows at the reduced float32 fold's shapes
+FOLD_F32_ROWS: list = []
 # (H, D) of every aaq_matmul call of a fold: the tri-attention bias, the
 # pair projections, tri-attention's qkv, tri-mul's packed projection,
 # the pair transition's down projection
@@ -671,21 +689,24 @@ def _mm_close(torch, got, want, what) -> float:
     return float(err.max())
 
 
-def _mm_bitwise(torch, q, s, ov, oi, w, got, what) -> None:
-    """The Hopper matmul's determinism gates: a second launch bitwise the
-    first, and the first, a middle and the last 64-token tile each launched
-    alone bitwise its rows of the full launch (a token's sum does not depend
-    on the tile or launch it falls in)."""
+def _mm_bitwise(torch, q, s, ov, oi, w, got, what, bits=4) -> None:
+    """The Hopper and split-W matmuls' determinism gates: a second launch
+    bitwise the first, and the first, a middle and the last tile (64 tokens
+    on the Hopper kernel, 128 on the split-W one) each launched alone
+    bitwise its rows of the full launch (a token's sum does not depend on
+    the tile or launch it falls in)."""
     from repro_torch.kernels.aaq_matmul.aaq_matmul import WG_BT, aaq_matmul_kernel
+    name = _mm_name(w, bits)
+    bt = WG_BT if name == "aaq_matmul_wg" else 128
     t = q.shape[0]
-    if not _bitwise(torch, aaq_matmul_kernel(q, s, ov, oi, w, bits=4, out_dtype=w.dtype), got):
-        fail(f"aaq_matmul_wg {what}: two launches differ")
-    for r0 in sorted({0, WG_BT * ((t // WG_BT) // 2), WG_BT * ((t - 1) // WG_BT)}):
-        r1 = min(r0 + WG_BT, t)
-        one = aaq_matmul_kernel(q[r0:r1], s[r0:r1], ov[r0:r1], oi[r0:r1], w, bits=4,
+    if not _bitwise(torch, aaq_matmul_kernel(q, s, ov, oi, w, bits=bits, out_dtype=w.dtype), got):
+        fail(f"{name} {what}: two launches differ")
+    for r0 in sorted({0, bt * ((t // bt) // 2), bt * ((t - 1) // bt)}):
+        r1 = min(r0 + bt, t)
+        one = aaq_matmul_kernel(q[r0:r1], s[r0:r1], ov[r0:r1], oi[r0:r1], w, bits=bits,
                                 out_dtype=w.dtype)
         if not _bitwise(torch, one, got[r0:r1]):
-            fail(f"aaq_matmul_wg {what}: tokens {r0}..{r1 - 1} launched alone differ from "
+            fail(f"{name} {what}: tokens {r0}..{r1 - 1} launched alone differ from "
                  "their rows of the full launch")
 
 
@@ -710,8 +731,10 @@ def check_matmul(torch, rows: dict) -> None:
     from repro_torch.kernels.aaq_quant.ref import aaq_quantize_ref
     g = torch.Generator(device="cuda").manual_seed(2)
     t = 256 * 256
+    # (H, D, bits); H = 640 and 48 are bf16 calls neither bf16 kernel takes
+    # (the split-W kernel, one part)
     cases = [(128, 4, 4), (128, 128, 4), (128, 384, 4), (128, 512, 4), (512, 128, 4),
-             (128, 128, 8), (512, 128, 8)]                     # (H, D, bits)
+             (128, 128, 8), (512, 128, 8), (640, 128, 4), (48, 128, 4)]
     worst, n_cases, on_wg = 0.0, 0, []
     for h, d, bits in cases:
         for k in (0, 4):
@@ -734,21 +757,55 @@ def check_matmul(torch, rows: dict) -> None:
                     want = aaq_matmul_ref(q, s, ov, oi, w, bits=bits, out_dtype=dt)
                     what = f"H={h} D={d} bits={bits} k={k} T={n} {dt}"
                     worst = max(worst, _mm_close(torch, got, want, f"{name} {what}"))
-                    if name == "aaq_matmul_wg" and n == t - 3:
-                        _mm_bitwise(torch, q, s, ov, oi, w, got, what)
+                    if name != "aaq_matmul" and n == t - 3:
+                        _mm_bitwise(torch, q, s, ov, oi, w, got, what, bits)
                         on_wg.append(what)
                     n_cases += 1
+    # the split-W kernel's other paths: the reduced float32 fold's products
+    # (phase 14's: T = 1,600, its (H, D) and k, D down to 4), W streamed in
+    # 128-column panels (float32 above H = 384, bf16 above 1,408) and an odd
+    # D (its scalar stores), each with the same gates
+    f32, bf = torch.float32, torch.bfloat16
+    split_cases = [(h, d, k, f32, FOLD_TOKENS) for h, d, k in FOLD_MATMULS]
+    split_cases += [(640, 128, 4, f32, t - 3), (2048, 128, 4, bf, t - 3),
+                    (32, 33, 4, f32, FOLD_TOKENS), (48, 33, 4, bf, FOLD_TOKENS)]
+    for h, d, k, dt, n in split_cases:
+        w = (torch.randn((h, d), generator=g, device="cuda") / math.sqrt(h)).to(dt)
+        name = _mm_name(w, 4)
+        x = torch.randn((n, h), generator=g, device="cuda").to(dt)
+        x[:min(64, n // 4)] = 0
+        q, s, ov, oi = aaq_quantize_ref(x, 4, k)
+        before = dispatch.launch_counts()
+        got = aaq_matmul_kernel(q, s, ov, oi, w, bits=4, out_dtype=dt)
+        after = dispatch.launch_counts()
+        if {v: after[v] - before[v] for v in after if after[v] != before[v]} != {name: 1} \
+                or name not in ("aaq_matmul_f32", "aaq_matmul_wide"):
+            fail(f"aaq_matmul H={h} D={d} k={k} {dt}: launched "
+                 f"{ {v: after[v] - before[v] for v in after} }, not {name} (split-W)")
+        what = f"H={h} D={d} bits=4 k={k} T={n} {dt}"
+        worst = max(worst, _mm_close(torch, got, aaq_matmul_ref(q, s, ov, oi, w, bits=4,
+                                                                 out_dtype=dt), f"{name} {what}"))
+        _mm_bitwise(torch, q, s, ov, oi, w, got, what)
+        on_wg.append(what)
+        n_cases += 1
     log(f"aaq_matmul: allclose (rtol one bf16 ulp 2^-7 / 1e-5 for f32, atol 1e-4*max|y|) "
         f"on {n_cases} cases (T = 65533, and 1, 127, 129 on the Hopper kernel; bf16 W at "
         f"bits 4 and H, D multiples of 128 on aaq_matmul_wg, D = 4 and bits 8 on the "
-        f"tensor-core kernel, f32 W on the SIMT kernel), worst max|err| {worst:.3e}; on "
-        f"aaq_matmul_wg two launches and the first, a middle and the last tile alone "
-        f"bitwise: {on_wg}")
+        f"tensor-core kernel, f32 W on aaq_matmul_f32 and bf16 at H = 640 and 48 on "
+        f"aaq_matmul_wide, the split-W kernel, also at the reduced f32 fold's shapes (T = "
+        f"{FOLD_TOKENS}, (H, D, k) {FOLD_MATMULS}), W streamed (f32 H = 640, bf16 H = 2048) "
+        f"and D = 33), worst max|err| {worst:.3e}; on "
+        f"aaq_matmul_wg, aaq_matmul_f32 and aaq_matmul_wide two launches and the first, a "
+        f"middle and the last tile alone bitwise: {on_wg}")
     # timing at every main-path shape (bf16, bits 4, k 4; k 0 at the two
-    # shapes whose fold calls take no outliers), then the f32 variant
+    # shapes whose fold calls take no outliers), then the f32 variant (k 4
+    # and 0: library_ms is cuBLAS's float32 x @ W), then bf16 at H = 640
+    # and 48 (the split-W kernel, one part)
     timed = [(torch.bfloat16, hd, 4) for hd in MATMUL_SHAPES]
     timed += [(torch.bfloat16, hd, 0) for hd in ((128, 128), (512, 128))]
-    for dt, (h, d), k in timed + [(torch.float32, (128, 128), 4)]:
+    timed += [(torch.float32, (128, 128), 4), (torch.float32, (128, 128), 0),
+              (torch.bfloat16, (640, 128), 4), (torch.bfloat16, (48, 128), 4)]
+    for dt, (h, d), k in timed:
         x = torch.randn((t, h), generator=g, device="cuda").to(dt)
         w = (torch.randn((h, d), generator=g, device="cuda") / math.sqrt(h)).to(dt)
         q, s, ov, oi = aaq_quantize_ref(x, 4, k)
@@ -770,23 +827,42 @@ def check_matmul(torch, rows: dict) -> None:
         row.bound_ms, row.bound_by = bound_ms(nbytes(q, s, ov, oi, w, y), 2 * t * h * d)
         rows.setdefault(name, []).append(row)
         log(row.line())
+    # the reduced float32 fold's products, each timed at its own shape; their
+    # launches are phase 14's (fold_f32_launches)
+    for h, d, k in FOLD_MATMULS:
+        x = torch.randn((FOLD_TOKENS, h), generator=g, device="cuda")
+        w = torch.randn((h, d), generator=g, device="cuda") / math.sqrt(h)
+        q, s, ov, oi = aaq_quantize_ref(x, 4, k)
+        y = aaq_matmul_kernel(q, s, ov, oi, w, bits=4, out_dtype=torch.float32)
+        want = aaq_matmul_ref(q, s, ov, oi, w, bits=4, out_dtype=torch.float32)
+        row = _row(_mm_name(w, 4), f"reduced f32 fold: q ({FOLD_TOKENS}, {h // 2}) int4 packed, "
+                                   f"W ({h}, {d}) f32, bits 4, k {k}")
+        row.max_abs_err = float((y - want).abs().max())
+        row.ms = time_ms(torch, lambda: aaq_matmul_kernel(q, s, ov, oi, w, bits=4))
+        row.call_ms = call_ms(torch, lambda: aaq_matmul_kernel(q, s, ov, oi, w, bits=4))
+        row.plain_ms = time_ms(torch, lambda: aaq_matmul_ref(q, s, ov, oi, w, bits=4), iters=5)
+        row.library_ms = time_ms(torch, lambda: x @ w)
+        row.bound_ms, row.bound_by = bound_ms(nbytes(q, s, ov, oi, w, y),
+                                              2 * FOLD_TOKENS * h * d, f32=True)
+        FOLD_F32_ROWS.append((row, ("mm", h, d, k)))
+        log(row.line())
 
 
 def _attn_case(torch, g, name, b, n, hq, hkv, d, dt, *, bias=None, causal=False,
-               window=None, rows_as_batch=False, pad=0):
+               window=None, rows_as_batch=False, pad=0, tri_bias=None):
     """Inputs of one attention case.  ``bias="f32"``: a contiguous
     (B, H, N, N) f32 bias (the structure module's); ``bias="seq"``: seq
     attention's, an f32 bias permuted from (B, N, N, H).  ``rows_as_batch``:
     triangular attention's (B*N, N, H, D) views of a (B, N, N, 3*H*D)
-    projection and a transposed bf16 (B, H, N, N) bias; ``pad`` trailing
-    keys are padding."""
+    projection and a transposed (B, H, N, N) bias, bf16 unless ``tri_bias``
+    names its type; ``pad`` trailing keys are padding."""
     kvlen = None
     if rows_as_batch:
         qkv = torch.randn((1, n, n, 3 * hq * d), generator=g, device="cuda").to(dt)
         q, k, v = (a.reshape(n, n, hq, d) for a in torch.split(qkv, hq * d, dim=-1))
         v = v * (torch.arange(n, device="cuda") < n - pad)[None, :, None, None].to(dt)
-        bias = torch.randn((1, n, n, hq), generator=g, device="cuda").to(torch.bfloat16)
-        bias = bias.permute(0, 3, 1, 2)
+        bias = torch.randn((1, n, n, hq), generator=g, device="cuda")
+        bias = bias.to(tri_bias or torch.bfloat16).permute(0, 3, 1, 2)
         kvlen = torch.full((n,), n - pad, dtype=torch.int32, device="cuda")
     else:
         q = torch.randn((b, n, hq, d), generator=g, device="cuda").to(dt)
@@ -838,7 +914,7 @@ def _flash_bitwise(torch, args, got, name, **kw) -> None:
         fail(f"{what} {name}: two launches differ")
     b = q.shape[0]
     per = b if bias is None else b // bias.shape[0]
-    for r in sorted({0, b // 2 + 1 if b > 1 else 0, b - 1}):
+    for r in sorted({0, min(b // 2 + 1, b - 1), b - 1}):
         one = flash_mha_kernel(q[r:r + 1], k[r:r + 1], v[r:r + 1],
                                None if bias is None else bias[r // per:r // per + 1],
                                None if kvl is None else kvl[r:r + 1], **kw)
@@ -893,16 +969,40 @@ def check_flash(torch, rows: dict) -> None:
                    window=70),
         _attn_case(torch, g, "bf16 d16", 3, 90, 4, 4, 16, bf, bias="f32", pad=9),
     ]
-    worst, on_wg = 0.0, []
+    # the reduced float32 fold's attention (phase 14's): triangular at D = 8,
+    # rows as batch, its bias heads innermost (f32 as the fold makes it, and
+    # bf16), and sequence attention at D = 16 with its permuted f32 bias, at
+    # the examples' 40 residues and at 200 with padded keys
+    f32 = torch.float32
+    cases += [
+        _attn_case(torch, g, f"tri fold f32 N={FOLD_LEN}", 1, FOLD_LEN, 4, 4, 8, f32,
+                   rows_as_batch=True, tri_bias=f32),
+        _attn_case(torch, g, "tri fold f32 N=200", 1, 200, 4, 4, 8, f32, rows_as_batch=True,
+                   tri_bias=f32, pad=20),
+        _attn_case(torch, g, "tri fold f32 N=200, bf16 bias", 1, 200, 4, 4, 8, f32,
+                   rows_as_batch=True, pad=20),
+        _attn_case(torch, g, f"seq fold f32 N={FOLD_LEN}", 1, FOLD_LEN, 4, 4, 16, f32,
+                   bias="seq"),
+        _attn_case(torch, g, "seq fold f32 N=200", 1, 200, 4, 4, 16, f32, bias="seq", pad=20),
+        # above head dim 256 with every mask: D = 304 on the one-panel
+        # 320-column instance (its warps in pairs, the second pair's columns
+        # cut short), D = 328 on two panels
+        _attn_case(torch, g, "f32 d304 bias causal window gqa", 2, 150, 4, 2, 304, f32,
+                   bias="f32", causal=True, window=60, pad=15),
+        _attn_case(torch, g, "f32 d328 bias causal", 2, 90, 4, 4, 328, f32, bias="f32",
+                   causal=True, pad=9),
+    ]
+    worst, on_wg, on_f32 = 0.0, [], []
     for c in cases:
         args = (c["q"], c["k"], c["v"], c["bias"], c["kvlen"])
         kw = dict(causal=c["causal"], window=c["window"])
         got = flash_mha_kernel(*args, **kw)
         worst = max(worst, _flash_close(torch, got, flash_mha_plain(*args, **kw), c["v"],
                                         c["name"]))
-        if _flash_name(c["q"], c["k"], c["bias"], **kw) == "flash_mha_wg":
-            _flash_bitwise(torch, args, got, c["name"])
-            on_wg.append(c["name"])
+        name = _flash_name(c["q"], c["k"], c["bias"], **kw)
+        if name == "flash_mha_wg" or name in F32_FLASH:
+            _flash_bitwise(torch, args, got, c["name"], **kw)
+            (on_wg if name == "flash_mha_wg" else on_f32).append(c["name"])
     # triangular attention at N = 1024: the kernel over all rows, the plain
     # version on 8 of them with the same shared bias (over all rows it would
     # materialize (N, 4, N, N) f32 logits, 17 GB)
@@ -978,11 +1078,13 @@ def check_flash(torch, rows: dict) -> None:
     log(f"flash_mha: allclose on {len(cases) + 1 + len(fold)} cases (seq/tri/structure at "
         f"N=200,256, seq at N=1024 and 2048, tri at N=1024 on 8 rows, the batch-4, slab, mesh "
         f"and grid rank shapes; causal, window, GQA, D=8/16/128; "
-        f"the fold's shapes on the Hopper kernel, other bf16 on the tensor cores, f32 and D=8 "
-        f"on the SIMT kernel), worst max|err| {worst:.3e}; on flash_mha_wg, two launches and "
-        f"each row alone bitwise: {on_wg + ['tri N=1024']}")
+        f"the fold's shapes on the Hopper kernel, other bf16 on the tensor cores (D=8 padded "
+        f"to 16), f32 "
+        f"on the float32 kernel, the reduced f32 fold's tri D=8 and seq D=16 among them), worst max|err| {worst:.3e}; on flash_mha_wg, two launches and "
+        f"each row alone bitwise: {on_wg + ['tri N=1024']}; on flash_mha_f32 the same: "
+        f"{on_f32}")
 
-    def timed(c, name, shape, *, plain=True, library=True, err=0.0):
+    def timed(c, name, shape, *, plain=True, library=True, err=0.0, keep=True):
         args = (c["q"], c["k"], c["v"], c["bias"], c["kvlen"])
         o = flash_mha_kernel(*args)
         b, n, h, d = c["q"].shape
@@ -1009,8 +1111,10 @@ def check_flash(torch, rows: dict) -> None:
             del mask
         row.bound_ms, row.bound_by = bound_ms(nbytes(*args, o), 4 * b * h * n * n * d,
                                               f32=c["q"].dtype == torch.float32)
-        rows.setdefault(name, []).append(row)
+        if keep:
+            rows.setdefault(name, []).append(row)
         log(row.line())
+        return row
 
     by_name = {c["name"]: c for c in cases}
     timed(by_name["tri N=256"], "flash_mha", "tri: q,k,v (256, 256, 4, 32) bf16 views, "
@@ -1049,8 +1153,24 @@ def check_flash(torch, rows: dict) -> None:
           "bias (1, 16, 2048, 2048) f32 permuted")
     c = by_name["tri N=256"]
     f32 = dict(c, q=c["q"].float(), k=c["k"].float(), v=c["v"].float())
-    assert variant_for(f32["q"].dtype, 32) == "simt"
-    timed(f32, "flash_mha_simt", "tri: q,k,v (256, 256, 4, 32) f32, bias (1, 4, 256, 256) bf16")
+    assert variant_for(f32["q"].dtype, 32, sq=256, hq=4, hkv=4, has_bias=True) == "f32"
+    f32_args = (f32["q"], f32["k"], f32["v"], f32["bias"], f32["kvlen"])
+    got = flash_mha_kernel(*f32_args)
+    _flash_close(torch, got, flash_mha_plain(*f32_args), f32["v"], "tri N=256 f32")
+    _flash_bitwise(torch, f32_args, got, "tri N=256 f32")
+    del got
+    timed(f32, "flash_mha_f32", "tri: q,k,v (256, 256, 4, 32) f32, bias (1, 4, 256, 256) bf16")
+    # the reduced float32 fold's two attention shapes, their launches phase
+    # 14's (fold_f32_launches)
+    n = FOLD_LEN
+    for c, shape in ((by_name[f"tri fold f32 N={n}"],
+                      f"reduced f32 fold, tri: q,k,v ({n}, {n}, 4, 8) f32 views, bias (1, 4, "
+                      f"{n}, {n}) f32 heads innermost"),
+                     (by_name[f"seq fold f32 N={n}"],
+                      f"reduced f32 fold, seq: q,k,v (1, {n}, 4, 16) f32, bias (1, 4, {n}, {n}) "
+                      f"f32 permuted")):
+        FOLD_F32_ROWS.append((timed(c, "flash_mha_f32", shape, keep=False),
+                              ("flash", tuple(c["q"].shape))))
 
 
 def check_lm_kernels(torch, rows: dict) -> list:
@@ -1417,7 +1537,8 @@ def profile_folds(torch, cfg, params) -> None:
 # phase 6: the batching engine, one CUDA graph per executable key
 # ---------------------------------------------------------------------------
 #: flash variants a bf16 fold never launches: its attention is the Hopper kernel's
-OFF_FOLD_FLASH = ("flash_mha", "flash_mha_simt", "flash_mha_dec", "flash_mha_pf")
+OFF_FOLD_FLASH = ("flash_mha", "flash_mha_dec", "flash_mha_pf", "flash_mha_f32",
+                  "flash_mha_f32_dec")
 #: bf16 AAQ-linear matmuls on the card by the variant they launched, and the
 #: calls whose launch broke the rule (D >= 8: aaq_matmul_wg, D < 8: the
 #: tensor-core kernel) as (W's shape, launches of aaq_matmul and
@@ -2712,11 +2833,12 @@ ZOO_FLASH = (
     ("whisper cross decode", "whisper-base", 2, 1, 1500, 8, 8, 64, 64, False, None, None),
     ("mixtral decode", "mixtral-8x22b", 2, 1, 16, 48, 8, 128, 128, False, None, [16, 5]),
 )
-#: float32 on the SIMT kernel at the zoo's head dims 96, 192 and 256: phi-3
-#: at phase 12(c)'s shapes (its float32 prefill of 32 tokens and a decode
-#: step against its 256-row ring at position 100, 4 rows), MLA and
-#: recurrentgemma at phase 9's; then a head dim no variant takes (48, which
-#: the wrapper pads to 64)
+#: float32 on the float32 kernels at the zoo's head dims 96, 192 and 256:
+#: phi-3 at phase 12(c)'s shapes (its float32 prefill of 32 tokens and a
+#: decode step against its 256-row ring at position 100, 4 rows), MLA and
+#: recurrentgemma at phase 9's; then head dim 48 (which the bf16 kernels
+#: would pad to 64) and 320 (above 256: QK^T over all of it, the output in
+#: two panels of 160)
 ZOO_FLASH_F32 = (
     ("phi-3 prefill f32", "phi-3-vision-4.2b", 4, 32, 32, 32, 32, 96, 96, True, None, None),
     ("phi-3 decode f32", "phi-3-vision-4.2b", 4, 1, 256, 32, 32, 96, 96, False, None,
@@ -2728,8 +2850,16 @@ ZOO_FLASH_F32 = (
      2048, None),
     ("recurrentgemma decode f32", "recurrentgemma-9b", 4, 1, 2048, 16, 1, 256, 256, False,
      None, [1, 700, 1401, 2048]),
-    ("padded D 48 f32", "a head dim no variant takes", 2, 64, 64, 8, 8, 48, 48, True, None,
+    ("D 48 f32", "a head dim the bf16 kernels pad", 2, 64, 64, 8, 8, 48, 48, True, None,
      None),
+    ("D 320 f32", "a head dim above 256", 2, 512, 512, 8, 8, 320, 320, True, None, None),
+    ("D 320 f32 decode", "a head dim above 256", 4, 1, 512, 8, 2, 320, 320, False, None,
+     [512, 300, 77, 1]),
+)
+#: bf16 above head dim 256: widened to float32 on the float32 kernel, the
+#: output rounded once to bf16
+ZOO_FLASH_WIDE = (
+    ("D 320 bf16", "a head dim above 256", 2, 512, 512, 8, 8, 320, 320, True, None, None),
 )
 
 
@@ -2753,8 +2883,9 @@ def check_zoo_flash(torch, rows: dict) -> list:
     rule sends to the decode or prefill kernel also gets two launches and a
     batch row launched alone bitwise, and the tensor-core kernel's time on
     the same operands (``tc_ms``).  Then ``ZOO_FLASH_F32``: the same
-    checks in float32 on the SIMT kernel (its bound at the CUDA cores'
-    float32 rate), a padded head dim among them.  Returns (row, tally key)
+    checks in float32 on the float32 kernels (their bound at the CUDA
+    cores' float32 rate), head dims 48 and 320 among them, and
+    ``ZOO_FLASH_WIDE``, bf16 above 256.  Returns (row, tally key)
     pairs: phase 9's keys for the bf16 rows, phase 12(c)'s (``_f32_key``)
     for the float32 ones."""
     import torch.nn.functional as F
@@ -2765,7 +2896,8 @@ def check_zoo_flash(torch, rows: dict) -> list:
     bf, f32 = torch.bfloat16, torch.float32
     pending = []
     for (label, arch, b, sq, skv, hq, hkv, d, dv, causal, window, kvlen), dt in (
-            [(c, bf) for c in ZOO_FLASH] + [(c, f32) for c in ZOO_FLASH_F32]):
+            [(c, bf) for c in ZOO_FLASH] + [(c, f32) for c in ZOO_FLASH_F32]
+            + [(c, bf) for c in ZOO_FLASH_WIDE]):
         q = torch.randn((b, sq, hq, d), generator=g, device="cuda").to(dt)
         k = torch.randn((b, skv, hkv, d), generator=g, device="cuda").to(dt)
         v = torch.randn((b, skv, hkv, dv), generator=g, device="cuda").to(dt)
@@ -2797,7 +2929,7 @@ def check_zoo_flash(torch, rows: dict) -> list:
         row = _row(name, shape)
         row.max_abs_err = err
         row.ms, row.call_ms = time_ms(torch, kern), call_ms(torch, kern)
-        if name not in ("flash_mha", "flash_mha_simt"):
+        if name not in ("flash_mha", *F32_FLASH):
             row.tc_ms = _tc_ms(torch, (q, k, vp, None, kvl), **kw)
         row.plain_ms = time_ms(torch, plain, iters=3)
         qt = q.transpose(1, 2)
@@ -2826,8 +2958,9 @@ def check_zoo_flash(torch, rows: dict) -> list:
         f"rows against a 2,048-row ring, 16-row rings and 1,500 frames, cross attention onto "
         f"1,500 frames); on the decode and prefill kernels two launches and a row alone "
         f"bitwise: {[r.shape.split(' (')[0] for r, _ in pending if r.tc_ms is not None]}; "
-        f"float32 on the SIMT kernel at D = 96/192/256 and D = 48 padded to 64 "
-        f"({len(ZOO_FLASH_F32)} cases, the same checks)")
+        f"float32 on flash_mha_f32 and flash_mha_f32_dec at D = 48/96/192/256/320 and bf16 "
+        f"at D = 320 widened ({len(ZOO_FLASH_F32) + len(ZOO_FLASH_WIDE)} cases, the same "
+        f"checks)")
     return pending
 
 
@@ -3059,10 +3192,10 @@ def _zoo_counted(torch, fn, tally):
 
 def _zoo_flash_ok(launches, expected, want) -> bool:
     """A zoo run's flash launches: ``want`` in all, each on the variant the
-    rule gives its operands, none on the SIMT or the fold's kernel."""
+    rule gives its operands, none on a float32 or the fold's kernel."""
     got = {v: launches[v] for v in FLASH_VARIANTS if launches[v]}
     return (sum(got.values()) == want and got == dict(expected)
-            and not launches["flash_mha_simt"] and not launches["flash_mha_wg"])
+            and not any(launches[v] for v in (*F32_FLASH, "flash_mha_wg")))
 
 
 def _zoo_model(torch, arch, layers, b, s, tally, fq_tally) -> dict:
@@ -3525,11 +3658,19 @@ def flash_resources(build) -> None:
             + f"; spilled bytes {sorted({s for _, s in got.values()})}")
     if spilled := {k: v for k, v in res.items() if v[1]}:
         fail(f"build: flash kernels spill registers at (kernel, D, bias kind) {spilled}")
-    simt = {f"{'f32' if m[1] == 'f' else 'bf16'} D={m[2]}": v
-            for name, v in build.ptxas_resources().items()
-            if (m := re.search(r"flash_simt_kernelI(f|\w*bfloat16)Li(\d+)E", name))}
-    log(f"build: flash_simt_kernel (registers a thread, spilled bytes) by type and head dim "
-        f"(ptxas, sm_90a): {simt}")
+    f32 = {}
+    for name, v in build.ptxas_resources().items():
+        if m := re.search(r"flash_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name):
+            f32[f"flash_f32_kernel<{m[1]}, {m[2]}, {m[3]}>"] = v
+        elif m := re.search(r"flash_f32_dec_kernelILi(\d+)ELi(\d+)E", name):
+            f32[f"flash_f32_dec_kernel<{m[1]}, {m[2]}>"] = v
+    if not any(k.startswith("flash_f32_kernel") for k in f32) or \
+            not any(k.startswith("flash_f32_dec_kernel") for k in f32):
+        fail(f"build: ptxas reported no flash_f32_kernel or flash_f32_dec_kernel: {f32}")
+    log(f"build: the float32 flash kernels (registers a thread, spilled bytes; <output columns, "
+        f"keys a tile, query rows> and <head dim, keys a tile>; ptxas, sm_90a): {f32}")
+    if spilled := {k: v for k, v in f32.items() if v[1]}:
+        fail(f"build: float32 flash kernels spill registers: {spilled}")
 
 
 def matmul_resources(build) -> None:
@@ -3549,6 +3690,16 @@ def matmul_resources(build) -> None:
         + ", ".join(f"<{o}, {g}> {r}, {sp}" for (o, g), (r, sp) in sorted(res.items())))
     if spilled := {k: v for k, v in res.items() if v[1]}:
         fail(f"build: aaq_matmul_wg_kernel spills registers at <outliers, segment> {spilled}")
+    split = {}
+    for name, v in build.ptxas_resources().items():
+        if m := re.search(r"aaq_matmul_split_kernelILi(\d)ELi(\d)E(f|13__nv_bfloat16)", name):
+            split[f"<bits {m[1]}, {m[2]} part{'s' if m[2] != '1' else ''}>"] = v
+    if len(split) != 4:
+        fail(f"build: ptxas reported {len(split)} aaq_matmul_split_kernel instantiations, not 4")
+    log(f"build: aaq_matmul_split_kernel registers a thread, spilled bytes (ptxas, sm_90a; "
+        f"f32 W in 3 parts, bf16 W in 1): {split}")
+    if spilled := {k: v for k, v in split.items() if v[1]}:
+        fail(f"build: aaq_matmul_split_kernel spills registers: {spilled}")
 
 
 # ---------------------------------------------------------------------------
@@ -4216,10 +4367,10 @@ def _job_ring(torch, rank, world, _arg) -> dict:
 # (c): a sharded prefill and decode on cards, full width at 2 layers in
 # float32: phi-3's ring sharded on its 32 K/V heads, chatglm3's 2 K/V heads
 # on the head dim (128).  The route of each: the kernels (float32 flash on
-# the SIMT kernel, phi-3 at head dim 96; chatglm3's decode's head-dim
+# the float32 kernels, phi-3 at head dim 96; chatglm3's decode's head-dim
 # scores are plain PyTorch on either route)
 MD_ARCHS = (("phi-3-vision-4.2b", "auto"), ("chatglm3-6b", "auto"))
-MD_BATCH, MD_PROMPT, MD_RING, MD_POS, MD_STEPS = 4, 32, 256, 100, 4
+MD_BATCH, MD_PROMPT, MD_RING, MD_POS, MD_STEPS, MD_LAYERS = 4, 32, 256, 100, 4, 2
 #: the sharded steps' logits against one card's, relative to the largest:
 #: the reference's gate for its sharded steps (``MT_FP_TOL``)
 MD_TOL = 1e-4
@@ -4258,7 +4409,7 @@ def _md_steps(torch, arch, mesh=None) -> list:
     from repro_torch.models import lm
     from repro_torch.parallel import sharding as sh
     from repro_torch.tree import leaves, unflatten
-    cfg = get_config(arch).replace(layers=2, dtype="float32")
+    cfg = get_config(arch).replace(layers=MD_LAYERS, dtype="float32")
     place = ((lambda path, part: sh.distribute_params(part, mesh, cfg, path))
              if mesh is not None else cm.as_made)
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, place=place)
@@ -4325,13 +4476,18 @@ def _md_decode(torch) -> tuple:
     out = {}
     bad = []
     for arch, _ in MD_ARCHS:
-        simt = _md_one_card(torch, arch)["flash_mha_simt"]
-        if not simt:
-            bad.append(f"{arch}: float32 attention on the kernels launched no flash_mha_simt")
+        counts = _md_one_card(torch, arch)
+        f32 = {v: counts[v] for v in F32_FLASH}
+        other = {v: counts[v] for v in FLASH_VARIANTS if v not in F32_FLASH and counts[v]}
+        # a prefill launch a layer, and a decode launch a layer and step
+        want = {"flash_mha_f32": MD_LAYERS, "flash_mha_f32_dec": MD_STEPS * MD_LAYERS}
+        if f32 != want or other:
+            bad.append(f"{arch}: float32 attention on the kernels launched {f32} {other}, "
+                       f"not {want} and no bf16 flash variant")
         with _one_rank_nccl():
             got, ring = _md_steps(torch, arch, make_mesh((1, 1), ("data", "model")))
         same = all(_bitwise(torch, a, b) for a, b in zip(got, _MD_ONE[arch]))
-        out[arch] = dict(one_by_one_bitwise=same, ring_1x1=ring, flash_mha_simt=simt)
+        out[arch] = dict(one_by_one_bitwise=same, ring_1x1=ring, **f32)
         if not same:
             bad.append(f"{arch} on a 1x1 mesh: not bitwise one card's (max relative gap "
                        f"{_md_gap(torch, got, _MD_ONE[arch]):.3e})")
@@ -4585,10 +4741,10 @@ def serve_fleet_mesh(torch, width: int) -> dict:
 #: attends by flash
 _FOLD_KERNELS = (("aaq_quantize",), ("aaq_fake_quant",),
                  ("aaq_matmul", "aaq_matmul_wg", "aaq_matmul_f32"),
-                 ("flash_mha_wg", "flash_mha_simt"))
+                 ("flash_mha_wg", "flash_mha_f32"))
 EXAMPLES = {"quickstart": _FOLD_KERNELS, "fold_server": _FOLD_KERNELS,
             "train_lm": (("aaq_fake_quant",),),
-            "lm_serve_quantized_kv": (("aaq_quantize",), ("flash_mha", "flash_mha_simt",
+            "lm_serve_quantized_kv": (("aaq_quantize",), ("flash_mha", *F32_FLASH,
                                                           "flash_mha_dec", "flash_mha_pf"))}
 #: the lines of each example's output that phase 14 prints
 EXAMPLE_LINES = ("TM-score", "pair-activation", "# tails", "# http", "# steady", "done:",
@@ -4624,6 +4780,42 @@ def run_examples(torch) -> None:
             + " | ".join(ln for ln in lines if ln.startswith(EXAMPLE_LINES)))
         log(f"phase 14: {name} launches {launched}")
     log(f"phase 14 wall {time.perf_counter() - t0:.1f}s")
+
+
+def fold_f32_launches(torch) -> None:
+    """The launches at each ``FOLD_F32_ROWS`` shape in quickstart's two folds
+    (the reduced float32 config at ``FOLD_LEN`` residues, unquantized and
+    AAQ), rerun in this process with the flash and AAQ-linear wrappers
+    tallied by shape; a row whose shape the folds never launch fails."""
+    from repro_torch.configs import reduce_ppm_config
+    from repro_torch.core import make_scheme
+    from repro_torch.data.pipeline import ProteinSampler
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.ppm import init_ppm, ppm_forward
+    tally: Counter = Counter()
+    fl, lin = dispatch.flash_mha_kernel, dispatch.aaq_linear
+
+    def fl_counted(q, k, v, bias=None, kvl=None, **kw):
+        tally["flash", tuple(q.shape)] += 1
+        return fl(q, k, v, bias, kvl, **kw)
+
+    def lin_counted(x, w, *, bits, k_outliers):
+        tally["mm", *w.shape, k_outliers] += 1
+        return lin(x, w, bits=bits, k_outliers=k_outliers)
+    cfg = reduce_ppm_config()
+    params = init_ppm(cfg, seed=0, device="cuda")
+    seq = ProteinSampler(seed=3).sample(0, length=FOLD_LEN)
+    aatype = torch.from_numpy(seq)[None].to("cuda")
+    with swapped(dispatch, "flash_mha_kernel", fl_counted), \
+            swapped(dispatch, "aaq_linear", lin_counted), torch.inference_mode():
+        for scheme in (None, make_scheme("lightnobel_aaq")):
+            ppm_forward(params, aatype, cfg, scheme)
+    for row, key in FOLD_F32_ROWS:
+        row.launches = tally.get(key, 0)
+    log(f"phase 14: the reduced f32 fold's launches by shape (quickstart's two folds): "
+        f"{dict(tally)}")
+    if missing := [key for row, key in FOLD_F32_ROWS if not row.launches]:
+        fail(f"phase 14: the reduced f32 fold never launched the timed shapes {missing}")
 
 
 # ---------------------------------------------------------------------------
@@ -5007,8 +5199,8 @@ PROFILE_ARGS = ("--mode", "ppm", "--n", "8", "--min-len", "200", "--max-len", "2
 KERNEL_SYMBOLS = {
     "aaq_quant.cu": ("aaq_quantize_lanes", "aaq_quantize_rows", "aaq_fake_quant_lanes",
                      "aaq_fake_quant_rows"),
-    "aaq_matmul.cu": ("aaq_matmul_wg_kernel", "aaq_matmul_tc_kernel", "aaq_matmul_simt_kernel"),
-    "flash_attention.cu": ("flash_wg_kernel", "flash_tc_kernel", "flash_simt_kernel"),
+    "aaq_matmul.cu": ("aaq_matmul_wg_kernel", "aaq_matmul_tc_kernel", "aaq_matmul_split_kernel"),
+    "flash_attention.cu": ("flash_wg_kernel", "flash_tc_kernel"),
 }
 #: trace categories of the work the card does
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -5018,9 +5210,10 @@ def kernel_family(name: str) -> str:
     """A device event's family: a hand-written kernel (flash by its head
     dim), cuBLAS's products, PyTorch's own kernels, or other."""
     import re
-    m = re.search(r"flash_tc_kernel<(\d+)|flash_simt_kernel<[^,>]*,\s*(\d+)", name)
-    if m:
-        return f"flash_mha D={m.group(1) or m.group(2)}"
+    if m := re.search(r"flash_tc_kernel<(\d+)", name):
+        return f"flash_mha D={m.group(1)}"
+    if m := re.search(r"flash_f32_(dec_)?kernel<(\d+)", name):
+        return f"flash_mha_f32{'_dec' if m.group(1) else ''} D<={m.group(2)}"
     if m := re.search(r"flash_(wg|dec|pf)_kernel<(\d+)", name):
         return f"flash_mha_{m.group(1)} D={m.group(2)}"
     for fam in ("aaq_fake_quant", "aaq_quantize", "aaq_matmul_wg", "aaq_matmul"):
@@ -5316,6 +5509,7 @@ def main(argv=None) -> int:
         f"{fm_launches}")
     log(f"phase 13 done at {time.perf_counter() - t_start:.1f}s")
     run_examples(torch)
+    fold_f32_launches(torch)
     log(f"phase 14 done at {time.perf_counter() - t_start:.1f}s")
     dry_run(torch)
     log(f"phase 15 done at {time.perf_counter() - t_start:.1f}s")
@@ -5348,7 +5542,8 @@ def main(argv=None) -> int:
                       + [row.record() for row, _ in train_pending]
                       + [row.record() for row in mesh_rows]
                       + [row.record() for row in mt_rows]
-                      + [row.record() for row in grid_rows]}))
+                      + [row.record() for row in grid_rows]
+                      + [row.record() for row, _ in FOLD_F32_ROWS]}))
     print(smi)
     print(ok_line(torch))
     return 0

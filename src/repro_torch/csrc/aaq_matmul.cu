@@ -8,7 +8,7 @@
 // T*(H/2 + 2*D) bytes, 90 to 240 operations a byte, below the card's bf16
 // balance point (~295): the packed q read and the (T, D) bf16 write set the
 // time.  So each design moves each of those bytes once while the products
-// ride on the tensor cores.  Three variants, chosen by the wrapper's fixed
+// ride on the tensor cores.  Four variants, chosen by the wrapper's fixed
 // rule on W's type and the shape (kernels/aaq_matmul/aaq_matmul.py):
 //
 // bf16 W, int4 q, H and D multiples of 128 (every main-path call but
@@ -41,7 +41,8 @@
 //     No atomics, no split-K: a token's sum runs in the same order wherever
 //     it falls, so a row launched alone is bitwise its row of a batch.
 //
-// other bf16 W (D = 4, int8 q): aaq_matmul_tc_kernel, Ampere's mma.sync.
+// other bf16 W (D = 4, int8 q) with H up to 512, a multiple of 32 at 4 bits
+// or 16 at 8: aaq_matmul_tc_kernel, Ampere's mma.sync.
 //   - W (H x BD) is loaded once per block into shared memory and stays
 //     there; a persistent grid of ~occupancy x SM blocks per D tile walks
 //     the 128-token tiles, so W is read once per block, not per tile.
@@ -63,9 +64,29 @@
 //     16-byte coalesced stores.  The ragged T edge and D not a multiple of
 //     the tile (D = 4: one masked n8 tile) are masked.
 //
-// f32 W: aaq_matmul_simt_kernel, IEEE float32 on the CUDA cores (64x64
-//   output tiles, H staged through shared memory 32 at a time).  No main
-//   path call uses it; it keeps the reference's f32 precision.
+// f32 W, and bf16 W that neither kernel above takes (H above 512, or an H
+//   off their multiples): aaq_matmul_split_kernel (namespace mmsp).  Bound
+//   on the H100: bytes (128 -> 128 at 65,536 tokens: the float32 y is 32 MiB
+//   of 36, 0.011 ms).  The float32 rule: a float32 W stays float32, so it is
+//   split as it is staged into shared memory into three bf16 parts that sum
+//   to it exactly (W1 = bf16(W), W2 = bf16(W - W1), W3 = W - W1 - W2); an
+//   inlier is exact in bf16, so each of the three bf16 products is exact
+//   and their float32 sum keeps float32's precision (three times the
+//   tensor work, ~6.4 GFLOP at that shape, about the bytes' time).  A bf16
+//   W is its own one part.
+//   - A persistent grid walks 128-token tiles of one 64-column tile of y;
+//     H in 128-column panels, each a step of a two-stage ring: q's panel by
+//     cp.async (16 bytes where rows are 16-byte aligned, 4, else bytes), and
+//     W's panel where W does not fit the block whole (H above 384 in
+//     float32, above 1,408 in bf16); where it fits, W's parts stay resident.
+//   - The tensor-core kernel's fragments: q words widened to bf16 in
+//     registers (phys_row's k order), ldmatrix.trans of each part, mma.sync
+//     m16n8k16 into one float32 accumulator, panels, k steps and parts in a
+//     fixed order.  No atomics, no split-K: a row alone is bitwise its row
+//     of a batch.
+//   - Epilogue: times sigma, plus the outlier term ovals * W[oidx] in
+//     float32 from W itself in device memory (float32 W is exact there),
+//     written from registers (8-byte stores in float32).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -719,76 +740,377 @@ int launch(const void* q, const void* scale, const void* ovals, const void* oidx
 }  // namespace mmwg
 
 // ---------------------------------------------------------------------------
-// float32 SIMT variant
+// Split-W variant: float32 W on the bf16 tensor cores (three exact parts),
+// and every bf16 call the other two variants do not take (any H)
 // ---------------------------------------------------------------------------
-constexpr int BT = 64, BD = 64, BH = 32, NTHREADS = 256;
+namespace mmsp {
 
-// Signed value of column h of token row `row` (packed nibbles when bits == 4).
-__device__ __forceinline__ int inlier(const int8_t* row, int h, int bits) {
-  if (bits == 8) return row[h];
-  const int8_t b = row[h >> 1];
-  return (h & 1) ? (b >> 4) : ((int8_t)(b << 4) >> 4);
+constexpr int BT = 128, BD = 64, THREADS = 256;
+constexpr int KP = 128;                     // H columns a panel
+constexpr int WS = BD + 8;                  // W panel row stride (bf16): ldmatrix rows on
+                                            // distinct banks
+constexpr int WT = 4, WD = 2;               // warps along tokens, along columns
+constexpr int MT = BT / WT / 16;            // m16 tiles a warp
+constexpr int NT = BD / WD / 8;             // n8 tiles a warp
+constexpr int SMEM_LIMIT = 232448;
+
+// One panel's q bytes a token, padded by 16 (the A words of rows g and
+// words c on distinct banks); one q stage with the epilogue's per-token
+// operands after it (sigma [BT] f32, oidx [BT][kk] int32, ovals [BT][kk]
+// bf16, kk <= 4); one W panel of NP parts.
+constexpr int META = BT * 4 + BT * 4 * 4 + BT * 4 * 2;
+__host__ __device__ constexpr int q_stride(int bits) { return KP * bits / 8 + 16; }
+__host__ __device__ constexpr int q_stage(int bits) { return BT * q_stride(bits) + META; }
+__host__ __device__ constexpr int w_panel(int np) { return np * KP * WS * 2; }
+// Resident: every W panel once, then two q stages.  Streaming: two stages
+// of a q panel and its W panel.
+__host__ __device__ inline int smem_bytes(int bits, int np, int panels, bool resident) {
+  return resident ? panels * w_panel(np) + 2 * q_stage(bits)
+                  : 2 * (q_stage(bits) + w_panel(np));
 }
 
-__global__ void aaq_matmul_simt_kernel(const int8_t* __restrict__ q,
-                                       const float* __restrict__ scale,
-                                       const bf16* __restrict__ ovals,
-                                       const int32_t* __restrict__ oidx,
-                                       const float* __restrict__ w, float* __restrict__ y,
-                                       int n_tokens, int h, int d, int bits, int k, int kk) {
-  __shared__ float qs[BT][BH + 1];
-  __shared__ float ws[BH][BD];
-  const int t0 = blockIdx.x * BT, d0 = blockIdx.y * BD;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int hp = bits == 4 ? (h + 1) / 2 : h;       // bytes per token row
-
-  float acc[4][4] = {};
-  for (int h0 = 0; h0 < h; h0 += BH) {
-    for (int e = threadIdx.x; e < BT * BH; e += NTHREADS) {
-      const int t = e / BH, hh = e % BH;
-      const int tg = t0 + t, hg = h0 + hh;
-      qs[t][hh] = (tg < n_tokens && hg < h)
-                      ? (float)inlier(q + (int64_t)tg * hp, hg, bits) : 0.f;
-    }
-    for (int e = threadIdx.x; e < BH * BD; e += NTHREADS) {
-      const int hh = e / BD, dd = e % BD;
-      const int hg = h0 + hh, dg = d0 + dd;
-      ws[hh][dd] = (hg < h && dg < d) ? w[(int64_t)hg * d + dg] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int hh = 0; hh < BH; ++hh) {
-      float wv[4], qv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = ws[hh][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[ty + 16 * i][hh];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qv[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+// W's values at p and, where `two`, p + 1: one 8-byte (float) or 4-byte
+// (bf16) load where `pair` says such loads are aligned.
+__device__ __forceinline__ void load_pair(const float* p, bool two, int pair, float (&v)[2]) {
+  if (two && pair) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    v[0] = p[0];
+    v[1] = two ? p[1] : 0.f;
   }
+}
+__device__ __forceinline__ void load_pair(const bf16* p, bool two, int pair, float (&v)[2]) {
+  if (two && pair) {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    v[0] = __bfloat162float(p[0]);
+    v[1] = two ? __bfloat162float(p[1]) : 0.f;
+  }
+}
+__device__ __forceinline__ void put(float* y, float v) { *y = v; }
+__device__ __forceinline__ void put(bf16* y, float v) { *y = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void put2(float* y, float a, float b) {
+  *reinterpret_cast<float2*>(y) = make_float2(a, b);
+}
+__device__ __forceinline__ void put2(bf16* y, float a, float b) {
+  *reinterpret_cast<unsigned*>(y) = hopper::pack_bf16(a, b);
+}
 
+// W's value x as NP bf16 parts that sum to it exactly: NP = 1 a bf16 W
+// value itself; NP = 3 a float32 one, x1 = bf16(x), x2 = bf16(x - x1),
+// x3 = x - x1 - x2 (each difference exact in float32; x3 keeps the last 8
+// of x's 24 significant bits, so it is exact in bf16 too).  Every product
+// of an inlier (exact in bf16) by a part is exact in the float32 sum.
+template <int NP> __device__ __forceinline__ void w_parts(float x, bf16 (&p)[NP]) {
+  p[0] = __float2bfloat16_rn(x);
+  if constexpr (NP == 3) {
+    const float r1 = x - __bfloat162float(p[0]);
+    p[1] = __float2bfloat16_rn(r1);
+    p[2] = __float2bfloat16_rn(r1 - __bfloat162float(p[1]));
+  }
+}
+
+// The W panel of H columns [p0, p0 + KP) and output columns [d0, d0 + BD):
+// row L holds W row phys_row(p0 + L) (the A words' k order), NP parts
+// [NP][KP][WS], zero past H or D; staged through registers.
+template <int BITS, int NP, typename TW>
+__device__ __forceinline__ void stage_w(bf16* dst, const TW* __restrict__ w, int h, int d,
+                                        int p0, int d0, int tid) {
+  for (int e = tid; e < KP * BD; e += THREADS) {
+    const int L = e / BD, col = e % BD;
+    const int row = phys_row<BITS>(p0 + L), dg = d0 + col;
+    bf16 parts[NP];
+    w_parts<NP>(row < h && dg < d ? to_f(w[static_cast<int64_t>(row) * d + dg]) : 0.f, parts);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
-    if (t >= n_tokens) continue;
-    const float s = scale[t];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int dg = d0 + tx + 16 * j;
-      if (dg >= d) continue;
-      float o = 0.f;                         // rank-k outlier term
-      for (int r = 0; r < k; ++r) {
-        const int row = oidx[(int64_t)t * kk + r];
-        o = fmaf(__bfloat162float(ovals[(int64_t)t * kk + r]), w[(int64_t)row * d + dg], o);
+    for (int i = 0; i < NP; ++i) dst[(i * KP + L) * WS + col] = parts[i];
+  }
+}
+
+// Panel p of the q rows of tokens [t0, t0 + BT) into [BT][q_stride] bytes,
+// zero past the row or the last token: cp.async of 16 bytes where every
+// row starts 16-byte aligned (qvec 16), of 4 where every row starts 4-byte
+// aligned (qvec 4), else byte by byte (visible after the block's next
+// barrier either way).
+template <int BITS>
+__device__ __forceinline__ void stage_q(unsigned char* dst, const int8_t* __restrict__ q,
+                                        int rowb, int64_t t0, int n_tokens, int p, int qvec,
+                                        int tid) {
+  constexpr int PB = KP * BITS / 8, QS = q_stride(BITS);
+  const int b0 = p * PB, nb = min(PB, rowb - b0);
+  if (qvec == 16) {
+    for (int e = tid; e < BT * (PB / 16); e += THREADS) {
+      const int r = e / (PB / 16), ch = 16 * (e % (PB / 16));
+      const bool in = t0 + r < n_tokens && ch < nb;
+      hopper::cp_async16(dst + r * QS + ch, in ? q + (t0 + r) * rowb + b0 + ch : q, in ? 16 : 0);
+    }
+  } else if (qvec == 4) {
+    for (int e = tid; e < BT * (PB / 4); e += THREADS) {
+      const int r = e / (PB / 4), ch = 4 * (e % (PB / 4));
+      const bool in = t0 + r < n_tokens && ch < nb;
+      hopper::cp_async4(dst + r * QS + ch, in ? q + (t0 + r) * rowb + b0 + ch : q, in ? 4 : 0);
+    }
+  } else {
+    for (int e = tid; e < BT * PB; e += THREADS) {
+      const int r = e / PB, ch = e % PB;
+      dst[r * QS + ch] = t0 + r < n_tokens && ch < nb ? q[(t0 + r) * rowb + b0 + ch] : 0;
+    }
+  }
+}
+
+// Bytes [off, off + n) of a `total`-byte array into dst, cp.async 4 bytes
+// at a time, zero past its end (src and off 4-byte aligned, n a multiple of
+// 4).
+__device__ __forceinline__ void stage_words(unsigned char* dst, const void* src, int64_t off,
+                                            int64_t total, int n, int tid) {
+  for (int i = tid * 4; i < n; i += THREADS * 4) {
+    const int64_t left = total - (off + i);
+    const int valid = left <= 0 ? 0 : (left >= 4 ? 4 : static_cast<int>(left));
+    hopper::cp_async4(dst + i, valid ? static_cast<const unsigned char*>(src) + off + i : src,
+                      valid);
+  }
+}
+
+// A persistent block walks 128-token tiles of one 64-column tile of y; a
+// tile's H in 128-column panels, each a ring step (q's panel, and W's where
+// W does not stay resident).  The products: mma.sync m16n8k16, the A
+// fragments widened from q's words in registers (the tensor-core kernel's
+// layout), B by ldmatrix.trans from each W part, all into one float32
+// accumulator, parts in order.  Epilogue: times sigma, plus the outlier
+// term ovals * W[oidx] in float32 from W itself, written from registers.
+template <int BITS, int NP, typename TW>
+__global__ void __launch_bounds__(THREADS)
+aaq_matmul_split_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
+                        const bf16* __restrict__ ovals, const int32_t* __restrict__ oidx,
+                        const TW* __restrict__ w, TW* __restrict__ y, int n_tokens, int h,
+                        int d, int k, int kk, int resident, int qvec, int ovec, int wpair) {
+  constexpr int KB = BITS == 4 ? 32 : 16;           // k columns a q word
+  constexpr int STEPS = KB / 16;                    // k steps a q word
+  constexpr int QS = q_stride(BITS), QSTAGE = q_stage(BITS), WP = w_panel(NP);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rowb = BITS == 4 ? (h + 1) / 2 : h;
+  const int panels = (h + KP - 1) / KP;
+  bf16* wres = reinterpret_cast<bf16*>(smem);                    // resident W panels
+  unsigned char* ring = resident ? smem + panels * WP : smem;
+  const int stage_bytes = resident ? QSTAGE : QSTAGE + WP;
+  constexpr int QBYTES = BT * QS;                   // a stage's q panel; its META follows
+
+  const int d0 = blockIdx.y * BD;
+  const int ntiles = (n_tokens + BT - 1) / BT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3, mat = lane >> 3, r8 = lane & 7;
+  const int wm0 = (warp / WD) * (BT / WT), wn0 = (warp % WD) * (BD / WD);
+
+  if (resident)
+    for (int p = 0; p < panels; ++p)
+      stage_w<BITS, NP>(wres + p * (WP / 2), w, h, d, p * KP, d0, tid);
+  // ring step s: tile blockIdx.x + (s / panels) gridDim.x, panel s % panels
+  auto issue = [&](int s, int st) {
+    const int tile = blockIdx.x + (s / panels) * static_cast<int>(gridDim.x), p = s % panels;
+    unsigned char* dst = ring + st * stage_bytes;
+    const int64_t t0 = static_cast<int64_t>(tile) * BT;
+    stage_q<BITS>(dst, q, rowb, t0, n_tokens, p, qvec, tid);
+    if (p == panels - 1) {                  // the tile's sigma and outliers ride with its last
+      unsigned char* meta = dst + QBYTES;   // panel, into the epilogue of that step
+      stage_words(meta, scale, t0 * 4, static_cast<int64_t>(n_tokens) * 4, BT * 4, tid);
+      if (k > 0) {
+        stage_words(meta + BT * 4, oidx, t0 * kk * 4, static_cast<int64_t>(n_tokens) * kk * 4,
+                    BT * kk * 4, tid);
+        unsigned char* ov = meta + BT * 4 + BT * 4 * 4;
+        if (ovec) {
+          stage_words(ov, ovals, t0 * kk * 2, static_cast<int64_t>(n_tokens) * kk * 2,
+                      BT * kk * 2, tid);
+        } else {
+          for (int i = tid; i < BT * kk; i += THREADS)
+            reinterpret_cast<bf16*>(ov)[i] = t0 * kk + i < static_cast<int64_t>(n_tokens) * kk
+                                                 ? ovals[t0 * kk + i] : __float2bfloat16(0.f);
+        }
       }
-      y[(int64_t)t * d + dg] = acc[i][j] * s + o;
+    }
+    if (!resident)
+      stage_w<BITS, NP>(reinterpret_cast<bf16*>(dst + QSTAGE), w, h, d, p * KP, d0, tid);
+  };
+  const int tiles = static_cast<int>(blockIdx.x) < ntiles
+                        ? (ntiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1 : 0;
+  const int nsteps = tiles * panels;
+  if (nsteps > 0) issue(0, 0);
+  hopper::cp_async_commit();
+
+  float acc[MT][NT][4];
+  for (int s = 0; s < nsteps; ++s) {
+    const int st = s & 1, p = s % panels;
+    hopper::cp_async_wait<0>();
+    __syncthreads();                        // this step's q (and W) visible; the other
+                                            // stage no longer read
+    if (s + 1 < nsteps) issue(s + 1, st ^ 1);
+    hopper::cp_async_commit();
+    if (p == 0) {
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+    }
+    const unsigned char* qt = ring + st * stage_bytes;
+    const bf16* ws = resident ? wres + p * (WP / 2) : reinterpret_cast<const bf16*>(qt + QSTAGE);
+#pragma unroll
+    for (int kb = 0; kb < KP; kb += KB) {
+      unsigned word[MT][2];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          word[mi][hr] = *reinterpret_cast<const unsigned*>(
+              qt + (wm0 + 16 * mi + g + 8 * hr) * QS + kb * BITS / 8 + 4 * c);
+#pragma unroll
+      for (int s2 = 0; s2 < STEPS; ++s2) {
+        unsigned a[MT][4];
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          a[mi][0] = widen<BITS>(word[mi][0], s2, 0);
+          a[mi][1] = widen<BITS>(word[mi][1], s2, 0);
+          a[mi][2] = widen<BITS>(word[mi][0], s2, 1);
+          a[mi][3] = widen<BITS>(word[mi][1], s2, 1);
+        }
+        const int k0 = kb + 16 * s2;
+#pragma unroll
+        for (int i = 0; i < NP; ++i)
+#pragma unroll
+          for (int nj = 0; nj < NT; nj += 2) {
+            unsigned b[4];
+            hopper::ldsm_x4_trans(b, ws + (i * KP + k0 + r8 + 8 * (mat & 1)) * WS + wn0 +
+                                         8 * (nj + (mat >> 1)));
+#pragma unroll
+            for (int mi = 0; mi < MT; ++mi) {
+              hopper::mma_bf16(acc[mi][nj], a[mi], b[0], b[1]);
+              hopper::mma_bf16(acc[mi][nj + 1], a[mi], b[2], b[3]);
+            }
+          }
+      }
+    }
+    if (p != panels - 1) continue;
+
+    // epilogue: sigma, the outlier term in float32 (W's rows gathered from
+    // device memory, where W is exact), y from registers
+    const int64_t t0 =
+        static_cast<int64_t>(blockIdx.x + (s / panels) * static_cast<int>(gridDim.x)) * BT;
+    const float* st_scale = reinterpret_cast<const float*>(qt + QBYTES);
+    const int32_t* st_oidx = reinterpret_cast<const int32_t*>(st_scale + BT);
+    const bf16* st_ovals = reinterpret_cast<const bf16*>(st_oidx + BT * 4);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = wm0 + 16 * mi + g + 8 * hr;
+        const int64_t t = t0 + r;
+        if (t >= n_tokens) continue;
+        const float sig = st_scale[r];
+        float ov[4] = {0.f, 0.f, 0.f, 0.f};
+        const TW* orow[4] = {w, w, w, w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < k) {
+            ov[j] = __bfloat162float(st_ovals[r * kk + j]);
+            orow[j] = w + static_cast<int64_t>(st_oidx[r * kk + j]) * d;
+          }
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          const int col = d0 + wn0 + 8 * ni + 2 * c;
+          if (col >= d) continue;
+          const bool two = col + 1 < d;
+          float v0 = acc[mi][ni][2 * hr] * sig, v1 = acc[mi][ni][2 * hr + 1] * sig;
+          float wv[4][2];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < k) load_pair(orow[j] + col, two, wpair, wv[j]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < k) {
+              v0 = fmaf(ov[j], wv[j][0], v0);
+              v1 = fmaf(ov[j], wv[j][1], v1);
+            }
+          TW* dst = y + t * d + col;
+          if (two && d % 2 == 0) {
+            put2(dst, v0, v1);
+          } else {
+            put(dst, v0);
+            if (two) put(dst + 1, v1);
+          }
+        }
+      }
     }
   }
+  hopper::cp_async_wait<0>();
 }
+
+template <int BITS, int NP, typename TW>
+int launch(const int8_t* q, const float* scale, const bf16* ovals, const int32_t* oidx,
+           const TW* w, TW* y, int n_tokens, int h, int d, int k, int kk, cudaStream_t stream) {
+  const int panels = (h + KP - 1) / KP;
+  const int resident = smem_bytes(BITS, NP, panels, true) <= SMEM_LIMIT;
+  const int bytes = smem_bytes(BITS, NP, panels, resident);
+  auto kern = aaq_matmul_split_kernel<BITS, NP, TW>;
+  // per instantiation: the shared-memory size last sized and its occupancy
+  static int set_bytes = -1, per_sm = 0, sms = 0;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return hopper::status(err, 2);
+    attr = true;
+  }
+  if (bytes != set_bytes) {
+    int dev = 0;
+    cudaError_t err;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return hopper::status(err, 1);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, bytes);
+    if (err != cudaSuccess || per_sm < 1)
+      return hopper::status(err != cudaSuccess ? err : cudaErrorInvalidConfiguration, 3);
+    set_bytes = bytes;
+  }
+  const int dtiles = (d + BD - 1) / BD;
+  const int ntiles = (n_tokens + BT - 1) / BT;
+  const int walkers = (per_sm * sms + dtiles - 1) / dtiles;
+  if (dtiles > 65535) return hopper::status(cudaErrorInvalidValue, 3);
+  const dim3 grid(ntiles < walkers ? ntiles : walkers, dtiles);
+  const int rowb = BITS == 4 ? (h + 1) / 2 : h;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(q) | static_cast<uintptr_t>(rowb);
+  const int qvec = at % 16 == 0 ? 16 : at % 4 == 0 ? 4 : 1;
+  const int ovec = reinterpret_cast<uintptr_t>(ovals) % 4 == 0;
+  const int wpair = d % 2 == 0 && reinterpret_cast<uintptr_t>(w) % (2 * sizeof(TW)) == 0;
+  kern<<<grid, THREADS, bytes, stream>>>(q, scale, ovals, oidx, w, y, n_tokens, h, d, k, kk,
+                                         resident, qvec, ovec, wpair);
+  return hopper::status(cudaGetLastError(), 4);
+}
+
+template <int NP, typename TW>
+int launch_bits(const void* q, const void* scale, const void* ovals, const void* oidx,
+                const void* w, void* y, int n_tokens, int h, int d, int bits, int k, int kk,
+                void* stream) {
+  if (n_tokens == 0 || d == 0) return 0;
+  HOPPER_RETURN_IF_PENDING();
+  if (h <= 0 || d < 0 || k < 0 || k > 4 || kk < (k > 0 ? k : 1) || (bits != 4 && bits != 8))
+    return hopper::status(cudaErrorInvalidValue, 1);
+  auto* qp = static_cast<const int8_t*>(q);
+  auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<const bf16*>(ovals);
+  auto* ip = static_cast<const int32_t*>(oidx);
+  auto* wp = static_cast<const TW*>(w);
+  auto* yp = static_cast<TW*>(y);
+  auto s = static_cast<cudaStream_t>(stream);
+  return bits == 4 ? launch<4, NP, TW>(qp, sp, op, ip, wp, yp, n_tokens, h, d, k, kk, s)
+                   : launch<8, NP, TW>(qp, sp, op, ip, wp, yp, n_tokens, h, d, k, kk, s);
+}
+
+}  // namespace mmsp
 
 }  // namespace
 
@@ -837,16 +1159,22 @@ extern "C" int aaq_matmul_wg_launch(const void* q, const void* scale, const void
                       warpgroups, stages, out_buffers, static_cast<cudaStream_t>(stream));
 }
 
-// As aaq_matmul_launch with w (H, D) and y (T, D) float32, any H.
+// As aaq_matmul_launch with w (H, D) and y (T, D) float32, any H and D,
+// rows of q at any byte alignment: the split-W kernel, three bf16 parts.
 extern "C" int aaq_matmul_f32_launch(const void* q, const void* scale, const void* ovals,
                                      const void* oidx, const void* w, void* y, int n_tokens,
                                      int h, int d, int bits, int k, int kk, void* stream) {
-  if (n_tokens == 0 || d == 0) return 0;
-  HOPPER_RETURN_IF_PENDING();
-  const dim3 grid((n_tokens + BT - 1) / BT, (d + BD - 1) / BD), block(NTHREADS);
-  aaq_matmul_simt_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scale),
-      static_cast<const bf16*>(ovals), static_cast<const int32_t*>(oidx),
-      static_cast<const float*>(w), static_cast<float*>(y), n_tokens, h, d, bits, k, kk);
-  return hopper::status(cudaGetLastError(), 4);
+  return mmsp::launch_bits<3, float>(q, scale, ovals, oidx, w, y, n_tokens, h, d, bits, k, kk,
+                                     stream);
+}
+
+// As aaq_matmul_launch (bf16 w and y) at any H and D, rows of q at any byte
+// alignment: the split-W kernel with W as its one part (the calls neither
+// other bf16 variant takes: H above 512, or not a multiple of 32 at bits 4
+// or of 16 at bits 8).
+extern "C" int aaq_matmul_wide_launch(const void* q, const void* scale, const void* ovals,
+                                      const void* oidx, const void* w, void* y, int n_tokens,
+                                      int h, int d, int bits, int k, int kk, void* stream) {
+  return mmsp::launch_bits<1, bf16>(q, scale, ovals, oidx, w, y, n_tokens, h, d, bits, k, kk,
+                                    stream);
 }

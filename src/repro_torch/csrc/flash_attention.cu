@@ -15,8 +15,8 @@
 // The TPU kernel walks the KV blocks as a sequential grid axis and carries
 // (m, l, o) in revisited output blocks.  CUDA blocks run in no order, so a
 // block owns its query rows and loops over the key tiles itself, with the
-// state in registers.  Three variants, chosen by a fixed rule on the
-// operands (the wrapper's variant_for):
+// state in registers.  Two bf16 variants here, chosen by a fixed rule on
+// the operands (the wrapper's variant_for):
 //
 // The fold's attention (bf16 q/k/v, D in {32, 64}, Hq == Hkv a multiple of
 //   4, a bias, Sq > 1, no causal or window mask): flash_wg_kernel, designed
@@ -105,13 +105,9 @@
 //     shared memory at D = 256 (119 KB with an f32 bias), which the launch
 //     opts into past the default 48 KB.
 //
-// float32 q/k/v or D = 8: flash_simt_kernel, both products on the CUDA
-//   cores in float32 out of shared memory (one block per (row, head,
-//   64-query tile), 8 warps of 8 query rows).  Not on the fold's path; it
-//   keeps float32 inputs in float32 (the zoo's float32 decode: phi-3 at
-//   D = 96, MLA at 192, RecurrentGemma at 256).  Its shared memory is
-//   smem_floats<D>() floats: 88 KB at D = 96, 160 KB at 192, 208 KB at 256,
-//   all under the 227 KB a block may opt into.  Float32 only above 128.
+// float32 q/k/v, and head dims above 256, take flash_f32.cu's kernels; a
+//   bf16 head dim no variant here takes (8, 24, ...) is padded by the
+//   wrapper to the next one that does.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -134,189 +130,6 @@ struct Params {
   float scale;
   int hb, packed_bias;             // tensor-core variant: heads a block, bias loader
 };
-
-// ---------------------------------------------------------------------------
-// float32 SIMT variant
-// ---------------------------------------------------------------------------
-namespace simt {
-
-constexpr int BQ = 64, BK = 64, NWARPS = 8, ROWS = BQ / NWARPS;
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <int D> constexpr int smem_floats() { return BQ * D + BK * (D + 1) + BK * D + BQ * BK; }
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NWARPS * 32)
-flash_simt_kernel(const Params p) {
-  constexpr int DPL = (D + 31) / 32;           // output columns per lane
-  extern __shared__ float smem[];
-  float* qs = smem;                            // [BQ][D]
-  float* ks = qs + BQ * D;                     // [BK][D+1]
-  float* vs = ks + BK * (D + 1);               // [BK][D]
-  float* ps = vs + BK * D;                     // [BQ][BK]
-
-  const int nqt = (p.Sq + BQ - 1) / BQ;
-  const int qt = blockIdx.x % nqt;
-  const int bh = blockIdx.x / nqt;
-  const int h = bh % p.Hq, b = bh / p.Hq;
-  const int hk = h / (p.Hq / p.Hkv);
-  const int bb = b / (p.B / p.Bb);
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* qg = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.ksb + hk * p.ksh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.vsb + hk * p.vsh;
-  const int kvl = p.kvlen ? p.kvlen[b] : p.Skv;
-
-  for (int e = threadIdx.x; e < BQ * D; e += NWARPS * 32) {
-    const int r = e / D, dd = e % D, qpos = q0 + r;
-    qs[e] = qpos < p.Sq ? to_f32(qg[qpos * p.qss + dd]) : 0.f;
-  }
-
-  float m[ROWS], l[ROWS], o[ROWS][DPL];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m[i] = NEG; l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) o[i][j] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < p.Skv; kv0 += BK) {
-    __syncthreads();                           // previous tile fully consumed
-    for (int e = threadIdx.x; e < BK * D; e += NWARPS * 32) {
-      const int j = e / D, dd = e % D, kpos = kv0 + j;
-      const bool in = kpos < p.Skv;
-      ks[j * (D + 1) + dd] = in ? to_f32(kg[kpos * p.kss + dd]) : 0.f;
-      vs[e] = in ? to_f32(vg[kpos * p.vss + dd]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[ROWS][2];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) s[i][0] = s[i][1] = 0.f;
-    for (int dd = 0; dd < D; ++dd) {
-      const float k0 = ks[lane * (D + 1) + dd], k1 = ks[(lane + 32) * (D + 1) + dd];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float qv = qs[(warp * ROWS + i) * D + dd];
-        s[i][0] = fmaf(qv, k0, s[i][0]);
-        s[i][1] = fmaf(qv, k1, s[i][1]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int r = warp * ROWS + i, qpos = q0 + r;
-      float val[2];
-      bool ok[2];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int kpos = kv0 + lane + 32 * c;
-        bool good = kpos < p.Skv && qpos < p.Sq && kpos < kvl;
-        if (p.causal) good = good && kpos <= qpos;
-        if (p.window >= 0) good = good && kpos > qpos - p.window;
-        float x = s[i][c] * p.scale;
-        if (p.bias_kind && kpos < p.Skv && qpos < p.Sq) {
-          const int64_t off = bb * p.bsb + h * p.bsh + qpos * p.bsq + kpos * p.bsk;
-          x += p.bias_kind == 1 ? static_cast<const float*>(p.bias)[off]
-                                : __bfloat162float(static_cast<const __nv_bfloat16*>(p.bias)[off]);
-        }
-        ok[c] = good;
-        val[c] = good ? x : NEG;
-      }
-      float mt = fmaxf(val[0], val[1]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float p0 = ok[0] ? expf(val[0] - m_new) : 0.f;
-      const float p1 = ok[1] ? expf(val[1] - m_new) : 0.f;
-      float rs = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) o[i][j] *= alpha;
-      ps[r * BK + lane] = p0;
-      ps[r * BK + lane + 32] = p1;
-    }
-    __syncwarp();
-
-    for (int j = 0; j < BK; ++j) {
-#pragma unroll
-      for (int jj = 0; jj < DPL; ++jj) {
-        const int dd = lane + 32 * jj;
-        if (dd < D) {
-          const float vv = vs[j * D + dd];
-#pragma unroll
-          for (int i = 0; i < ROWS; ++i)
-            o[i][jj] = fmaf(ps[(warp * ROWS + i) * BK + j], vv, o[i][jj]);
-        }
-      }
-    }
-    __syncwarp();
-  }
-
-  T* og = static_cast<T*>(p.o);
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int qpos = q0 + warp * ROWS + i;
-    if (qpos >= p.Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int jj = 0; jj < DPL; ++jj) {
-      const int dd = lane + 32 * jj;
-      if (dd < D)
-        og[(((int64_t)b * p.Sq + qpos) * p.Hq + h) * D + dd] = from_f32<T>(o[i][jj] / denom);
-    }
-  }
-}
-
-template <typename T, int D>
-int launch_d(const Params& p, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_simt_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return hopper::status(err, 2);
-  const long long blocks = (long long)((p.Sq + BQ - 1) / BQ) * p.Hq * p.B;
-  if (blocks >= (1ll << 31)) return hopper::status(cudaErrorInvalidValue, 3);
-  flash_simt_kernel<T, D><<<dim3((unsigned)blocks), dim3(NWARPS * 32), bytes, stream>>>(p);
-  return hopper::status(cudaGetLastError(), 4);
-}
-
-template <typename T>
-int launch_typed(const Params& p, int d, cudaStream_t s) {
-  switch (d) {
-    case 8: return launch_d<T, 8>(p, s);
-    case 16: return launch_d<T, 16>(p, s);
-    case 32: return launch_d<T, 32>(p, s);
-    case 64: return launch_d<T, 64>(p, s);
-    case 128: return launch_d<T, 128>(p, s);
-    default: break;
-  }
-  if constexpr (sizeof(T) == sizeof(float)) {   // bf16 takes these on the tensor cores
-    switch (d) {
-      case 96: return launch_d<T, 96>(p, s);
-      case 192: return launch_d<T, 192>(p, s);
-      case 256: return launch_d<T, 256>(p, s);
-      default: break;
-    }
-  }
-  return hopper::status(cudaErrorInvalidValue, 1);
-}
-
-}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // bf16 tensor-core variant
@@ -1175,25 +988,6 @@ extern "C" int flash_mha_launch(const void* q, const void* k, const void* v, con
     case 256: return tc::launch_bias<256>(p, s);
     default: return hopper::status(cudaErrorInvalidValue, 1);
   }
-}
-
-// flash_mha_simt_launch: f32 or bf16 q, k, v, D in {8, 16, 32, 64, 128}, and f32
-// also at D in {96, 192, 256}.
-extern "C" int flash_mha_simt_launch(const void* q, const void* k, const void* v,
-                                     const void* bias, const void* kvlen, void* o,
-                                     int qkv_is_bf16, int bias_kind, int B, int Sq, int Skv,
-                                     int Hq, int Hkv, int D, int Bb, int64_t qsb, int64_t qss,
-                                     int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
-                                     int64_t vsb, int64_t vss, int64_t vsh, int64_t bsb,
-                                     int64_t bsh, int64_t bsq, int64_t bsk, int causal,
-                                     int window, float scale, void* stream) {
-  if (B == 0 || Sq == 0) return 0;
-  HOPPER_RETURN_IF_PENDING();
-  const Params p = make_params(q, k, v, bias, kvlen, o, bias_kind, B, Sq, Skv, Hq, Hkv, Bb,
-                               qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, bsb, bsh, bsq,
-                               bsk, causal, window, scale);
-  auto s = static_cast<cudaStream_t>(stream);
-  return qkv_is_bf16 ? simt::launch_typed<bf16>(p, D, s) : simt::launch_typed<float>(p, D, s);
 }
 
 // flash_mha_wg_launch: the Hopper variant.  bf16 q, k, v at D in {32, 64},

@@ -1,7 +1,8 @@
-// Helpers shared by the sm_90a kernels: 16-byte cp.async with zero fill,
-// ldmatrix (plain and transposed), the bf16 m16n8k16 mma.sync with a
-// float32 accumulator, P's split into bf16 hi + lo, the launch status the
-// wrappers decode; and Hopper's
+// Helpers shared by the sm_90a kernels: 16- and 4-byte cp.async with zero
+// fill, ldmatrix (plain and transposed), the bf16 m16n8k16 and tf32
+// m16n8k8 mma.sync with a float32 accumulator, P's split into bf16 hi + lo
+// and a float32's split into tf32 hi + lo, the launch status the wrappers
+// decode; and Hopper's
 // own: mbarriers, TMA tile loads (cp.async.bulk.tensor), and warpgroup
 // matrix multiplies (wgmma) with their shared-memory descriptors, TMA
 // stores, stmatrix, named barriers, and the host's tensor-map encoder.
@@ -74,6 +75,37 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Copy 4 bytes global -> shared (zero when src_bytes = 0): rows whose
+// base or stride is off 16 bytes.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(smem)), "l"(gmem), "r"(src_bytes));
+}
+
+// float32 x split for the TF32 tensor cores: hi = x rounded to TF32's 10
+// mantissa bits (to nearest, ties away), lo = x - hi, exact.  The tensor
+// core reads lo's top 10 mantissa bits too, so hi + lo keeps ~21 bits of x
+// and the three products hi*hi + hi*lo + lo*hi of two split operands keep
+// float32's precision within ~2^-21 relative (lo*lo, ~2^-22, is dropped).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a (16x8 tf32, row) * b (8x8 tf32, col), float32 accumulate.  A
+// fragment: a0 (row g, k c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8, c + 4);
+// B: b0 (k c, column g), b1 (c + 4, g); C: mma_bf16's (g = lane / 4,
+// c = lane % 4).  Not volatile: the compiler may interleave independent
+// accumulators' products (a split product is three dependent ones).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two floats rounded to bf16 (nearest even) in one register, `lo` in the

@@ -2,7 +2,7 @@
 
 y[t, :] = sigma[t] * (q[t, :] @ W)  +  sum_j ovals[t, j] * W[oidx[t, j], :]
 
-Replaces ``repro/kernels/aaq_matmul/aaq_matmul.py:aaq_matmul_pallas``.  Three
+Replaces ``repro/kernels/aaq_matmul/aaq_matmul.py:aaq_matmul_pallas``.  Four
 variants of the kernel (``csrc/aaq_matmul.cu``), chosen by a fixed rule on
 W's type, H, D and the bits (:func:`variant_for`) and counted apart:
 
@@ -16,11 +16,18 @@ W's type, H, D and the bits (:func:`variant_for`) and counted apart:
   fragments, scale by sigma, add the rank-k outlier term (a second
   ``wgmma`` on a bf16 tile holding each token's outliers at their k) and
   store y by TMA, asynchronously.
-* every other bf16 W (D = 4, int8 inliers, a shape the plan cannot take):
-  the tensor-core kernel with Ampere's ``mma.sync``: W resident, a
-  persistent grid streaming 128-token q tiles through a two-stage
-  ``cp.async`` ring.
-* f32 W: the SIMT kernel, IEEE float32 on the CUDA cores.
+* every other bf16 W with H up to 512, a multiple of 32 at 4 bits or of 16
+  at 8 (D = 4, int8 inliers, a shape the plan cannot take): the
+  tensor-core kernel with Ampere's ``mma.sync``: W resident, a persistent
+  grid streaming 128-token q tiles through a two-stage ``cp.async`` ring.
+* f32 W (counted as ``aaq_matmul_f32``), and every bf16 W neither kernel
+  above takes (H above 512 or off their multiples, counted as
+  ``aaq_matmul_wide``): the split-W kernel, any H and D.  A float32 W is
+  split as it is staged into three bf16 parts that sum to it exactly
+  (:func:`split_w`), so the three bf16 products by an inlier (exact in bf16)
+  are exact and their float32 sum keeps float32's precision; a bf16 W is
+  its own one part.  H streams in 128-column panels (W resident where it
+  fits a block), and the outlier term is added in float32 from W itself.
 
 All are bound by bytes on the H100 (the packed q read and the (T, D) write).
 A token's sum runs in the same order whatever tile or launch it falls in (no
@@ -40,10 +47,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.aaq_matmul.ref import aaq_matmul_ref
 
-MAX_TC_H = 512
-TC, WG, F32 = "tc", "wg", "f32"
+MAX_TC_H = 512      # the tensor-core kernel's widest H (W resident in one block)
+TC, WG, F32, WIDE = "tc", "wg", "f32", "wide"
 # variant -> its name in ``dispatch.launch_counts``
-VARIANT_NAMES = {TC: "aaq_matmul", WG: "aaq_matmul_wg", F32: "aaq_matmul_f32"}
+VARIANT_NAMES = {TC: "aaq_matmul", WG: "aaq_matmul_wg", F32: "aaq_matmul_f32",
+                 WIDE: "aaq_matmul_wide"}
 # the Hopper kernel (csrc: namespace mmwg): tokens a tile, output columns a
 # product and a store, outliers a token at most, warpgroups a block at most,
 # shared memory of a block, the deepest ring taken
@@ -52,7 +60,8 @@ WG_SMEM_LIMIT = 232448
 WG_MAX_STAGES = 8
 launches = 0        # tensor-core kernel launches (bf16 W)
 wg_launches = 0     # Hopper kernel launches (bf16 W, int4, H and D multiples of 128)
-f32_launches = 0    # SIMT kernel launches (f32 W)
+f32_launches = 0    # split-W kernel launches, f32 W (three bf16 parts)
+wide_launches = 0   # split-W kernel launches, bf16 W (one part)
 plain_calls = 0     # calls that computed the plain version (CPU tensors)
 
 
@@ -111,12 +120,27 @@ def variant_for(w_dtype: torch.dtype, h: int, d: int, bits: int) -> str:
     """The kernel a launch takes: a fixed rule on W's type, H, D and the
     bits.  bf16 W goes to the Hopper kernel wherever its plan takes the
     shape at 4 outliers a token (D >= 128 at the fold's shapes), else to the
-    tensor-core kernel (the triangular bias's D = 4, where the tensor-core
-    kernel already beats cuBLAS, and int8 inliers); f32 W to the SIMT
-    kernel."""
+    tensor-core kernel where its H fits (up to 512, a multiple of 32 at 4
+    bits or of 16 at 8: the triangular bias's D = 4, where the tensor-core
+    kernel already beats cuBLAS, and int8 inliers), else to the split-W
+    kernel with W as its one part; f32 W to the split-W kernel with three."""
     if w_dtype != torch.bfloat16:
         return F32
-    return WG if wg_plan(h, d, bits) is not None else TC
+    if wg_plan(h, d, bits) is not None:
+        return WG
+    return TC if h <= MAX_TC_H and h % (32 if bits == 4 else 16) == 0 else WIDE
+
+
+def split_w(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The split-W kernel's three bf16 parts of a float32 W (csrc:
+    ``mmsp::w_parts``, as W is staged): w1 = bf16(w), w2 = bf16(w - w1),
+    w3 = bf16(w - w1 - w2), each difference exact in float32, and w3 exact
+    in bf16 (the last 8 of w's 24 significant bits), so w1 + w2 + w3 == w.
+    The kernel splits W itself; this is its plain version."""
+    w1 = w.to(torch.bfloat16)
+    r1 = w - w1.float()
+    w2 = r1.to(torch.bfloat16)
+    return w1, w2, (r1 - w2.float()).to(torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,10 +179,7 @@ def _matmul_launch_args(inliers, scales, ovals, oidx, w, *, bits: int,
     if k > 4:
         raise ValueError(f"aaq_matmul_kernel: k={k} > 4")
     variant = variant_for(w.dtype, h, d, bits)
-    if variant == TC and (h > MAX_TC_H or h % (32 if bits == 4 else 16)):
-        raise ValueError(f"aaq_matmul_kernel: the bf16 kernel takes H <= {MAX_TC_H}, a "
-                         f"multiple of {32 if bits == 4 else 16} at {bits} bits; got H={h}")
-    if variant != F32 and any(a.data_ptr() % 16 for a in (inliers, scales, ovals, oidx, w)):
+    if variant in (TC, WG) and any(a.data_ptr() % 16 for a in (inliers, scales, ovals, oidx, w)):
         how = "by TMA" if variant == WG else "16 bytes at a time"
         raise ValueError(f"aaq_matmul_kernel: the bf16 kernels read their operands {how}; "
                          "a base pointer is not 16-byte aligned")
@@ -172,7 +193,7 @@ def aaq_matmul_kernel(inliers, scales, ovals, oidx, w, *, bits: int,
                       out_dtype=torch.float32):
     """inliers (T, H/2 or H) int8, scales (T,1) f32, ovals (T,k) bf16,
     oidx (T,k) int32, w (H, D) -> y (T, D) in ``out_dtype``."""
-    global launches, wg_launches, f32_launches, plain_calls
+    global launches, wg_launches, f32_launches, wide_launches, plain_calls
     build.refuse_dtensor("aaq_matmul_kernel", inliers, scales, ovals, oidx, w)
     if inliers.device.type == "cpu":
         plain_calls += 1
@@ -194,13 +215,16 @@ def aaq_matmul_kernel(inliers, scales, ovals, oidx, w, *, bits: int,
                                            args.plan.warpgroups, args.plan.stages,
                                            args.plan.out_buffers, stream)
         else:
-            launch = lib.aaq_matmul_launch if args.variant == TC else lib.aaq_matmul_f32_launch
+            launch = {TC: lib.aaq_matmul_launch, F32: lib.aaq_matmul_f32_launch,
+                      WIDE: lib.aaq_matmul_wide_launch}[args.variant]
             err = launch(*ptrs, args.t, args.h, args.d, bits, args.k, max(args.k, 1), stream)
     build.check(err, VARIANT_NAMES[args.variant])
     if args.variant == WG:
         wg_launches += 1
     elif args.variant == TC:
         launches += 1
-    else:
+    elif args.variant == F32:
         f32_launches += 1
+    else:
+        wide_launches += 1
     return y

@@ -43,6 +43,9 @@ _FLASH = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
 # ..., the plan's two ints (Hopper: rows a block, bias box; decode: keys a
 # split, splits a slot), stream
 _FLASH_PLAN = _FLASH[:-1] + [_I, _I, _P]
+# ..., the float32 plan (panel columns, instance columns, rows a block, keys
+# a tile, Q in shared memory), stream
+_FLASH_F32 = _FLASH[:-1] + [_I, _I, _I, _I, _I, _P]
 # C entry point -> argument types (pointers and the stream are void*;
 # strides are int64_t)
 SIGNATURES: dict[str, list] = {
@@ -52,7 +55,8 @@ SIGNATURES: dict[str, list] = {
     "aaq_fake_quant_launch": [_P, _I, _P, _I, _I, _I, _I, _P],
     # q, scale, ovals, oidx, w, y, T, H, D, bits, k, kk, stream
     "aaq_matmul_launch": _MATMUL,          # bf16 W, tensor cores
-    "aaq_matmul_f32_launch": _MATMUL,      # f32 W, CUDA cores
+    "aaq_matmul_f32_launch": _MATMUL,      # f32 W: split-W, three bf16 parts
+    "aaq_matmul_wide_launch": _MATMUL,     # bf16 W at any H: split-W, one part
     # q, scale, ovals, oidx, w, y, T, H, D, k, warpgroups, ring stages,
     # output buffers, stream
     "aaq_matmul_wg_launch": _MATMUL_WG,    # bf16 W, int4, H and D % 128: wgmma + TMA
@@ -60,10 +64,13 @@ SIGNATURES: dict[str, list] = {
     # Bb, q strides (b,s,h), k strides, v strides, bias strides (b,h,q,k),
     # causal, window, scale, stream
     "flash_mha_launch": _FLASH,            # bf16, D in 16..256, tensor cores
-    "flash_mha_simt_launch": _FLASH,       # f32 or D = 8, CUDA cores
     "flash_mha_wg_launch": _FLASH_PLAN,    # the fold's: bf16, D 32/64, wgmma + TMA
     "flash_mha_dec_launch": _FLASH_PLAN,   # one query row, no bias: split keys, a cluster
     "flash_mha_pf_launch": _FLASH,         # prefill, no bias: wgmma + TMA
+    # float32 (and D > 256), 3xTF32 mma.sync: the whole F32Plan, and the
+    # decode kernel's (keys a split, splits a slot)
+    "flash_mha_f32_launch": _FLASH_F32,
+    "flash_mha_f32_dec_launch": _FLASH_PLAN,
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -87,12 +87,14 @@ KERNEL_VARIANTS = {
     "aaq_fake_quant": (_aaq_quant_mod, "fake_launches"),    # x_hat only
     "aaq_matmul": (_aaq_matmul_mod, "launches"),            # bf16 W, mma.sync (D = 4)
     "aaq_matmul_wg": (_aaq_matmul_mod, "wg_launches"),      # bf16 W, int4: wgmma + TMA
-    "aaq_matmul_f32": (_aaq_matmul_mod, "f32_launches"),    # f32 W, CUDA cores
+    "aaq_matmul_f32": (_aaq_matmul_mod, "f32_launches"),    # f32 W: three exact bf16 parts
+    "aaq_matmul_wide": (_aaq_matmul_mod, "wide_launches"),  # bf16 W at any H: one part
     "flash_mha": (_flash_mod, "launches"),                  # bf16, tensor cores (mma.sync)
-    "flash_mha_simt": (_flash_mod, "simt_launches"),        # f32 or D = 8, CUDA cores
     "flash_mha_wg": (_flash_mod, "wg_launches"),            # the fold's: wgmma + TMA
     "flash_mha_dec": (_flash_mod, "dec_launches"),          # one query row: split keys, a cluster
     "flash_mha_pf": (_flash_mod, "pf_launches"),            # prefill, no bias: wgmma + TMA
+    "flash_mha_f32": (_flash_mod, "f32_launches"),          # f32 (and D > 256): 3xTF32 mma.sync
+    "flash_mha_f32_dec": (_flash_mod, "f32_dec_launches"),  # f32 decode: split keys, a cluster
 }
 # the variants every fold on the card launches (bf16 weights and activations;
 # ``aaq_matmul`` is the triangular bias's D = 4 linear)

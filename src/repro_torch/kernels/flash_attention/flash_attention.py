@@ -2,11 +2,11 @@
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py:flash_mha_pallas``.
 A block of a kernel (``csrc/flash_attention.cu``, ``csrc/flash_decode.cu``,
-``csrc/flash_prefill.cu``) owns its query rows and loops over key tiles
-inside the block, keeping the float32 (m, l, o) state in registers; the TPU
-kernel's sequential KV grid axis has no CUDA counterpart.  Five variants,
-chosen by a fixed rule on the operands (:func:`variant_for`) and counted
-apart:
+``csrc/flash_prefill.cu``, ``csrc/flash_f32.cu``) owns its query rows and
+loops over key tiles inside the block, keeping the float32 (m, l, o) state
+in registers; the TPU kernel's sequential KV grid axis has no CUDA
+counterpart.  Six variants, chosen by a fixed rule on the operands
+(:func:`variant_for`) and counted apart:
 
 * the fold's attention (bf16 q/k/v with D in {32, 64}, Hq == Hkv a multiple
   of 4, an additive bias, more than one query row, no causal or window
@@ -41,14 +41,30 @@ apart:
   P_hi + P_lo, so P is not rounded to bf16), K/V/bias tiles through a
   two-stage ``cp.async`` ring.  It reads q, k and v 16 bytes at a time, so
   it needs 16-byte aligned base pointers and strides.
-* f32 q/k/v with D in {8, 16, 32, 64, 96, 128, 192, 256}, or bf16 at
-  D = 8: the SIMT kernel, float32 on the CUDA cores.
+* f32 q/k/v at one query row, no bias, causal or window mask, D <= 320
+  (every float32 decode step): the float32 decode kernel, counted as
+  ``flash_mha_f32_dec``: the decode kernel's blocks, splits and cluster
+  merge (:func:`dec_plan`), both products on the TF32 tensor cores with
+  each operand split into hi + lo (three products: float32's precision).
+* every other f32 call (a bias, a mask, more query rows) and every head
+  dim above 256: the float32 kernel, counted as ``flash_mha_f32``: 64 or
+  128 query rows a block, the same split products, key tiles a mask hides
+  skipped; one panel of output columns up to head dim 320 (at 320 columns
+  the block's warps work in pairs, each half of a key tile's logits and
+  half of the columns), above it QK^T over the whole head dim and the
+  output columns in panels of at most 256 (:func:`f32_plan`, which names
+  the kernel's instance and layout; the C entry point launches it).  A
+  bf16 call above 256 is widened exactly to float32 and its output rounded
+  once to bf16.
+  Neither float32 kernel has an alignment rule: q, k and v are read 16
+  bytes at a time where they are 16-byte aligned, else 4.
 
-Any other head dim up to 256 (the reduced MLA's 24, say) is padded: q, k
-and v gain zero columns up to the smallest head dim whose variant takes the
-call (:func:`launch_head_dim`), the softmax scale stays the true head
-dim's, and the output is sliced back.  The padded columns add exact zeros
-to every logit and are zero in the output.  A head dim above 256 raises.
+The float32 kernels take any head dim that is a multiple of 8; the bf16
+ones theirs.  Any other head dim (the reduced MLA's 24 in bf16, say, or 20
+in f32) is padded: q, k and v gain zero columns up to the smallest head dim
+whose variant takes the call (:func:`launch_head_dim`), the softmax scale
+stays the true head dim's, and the output is sliced back.  The padded
+columns add exact zeros to every logit and are zero in the output.
 
 Additive bias (f32 or bf16) is broadcast by block, GQA, causal, sliding
 window and ``kv_valid_len`` are one predicate each.  Strides are passed as
@@ -71,12 +87,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import _block_broadcast_bias
 
 NEG = -1e30
-TC_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
-SIMT_HEAD_DIMS = (8, 16, 32, 64, 96, 128, 192, 256)
-HEAD_DIMS = tuple(sorted(set(TC_HEAD_DIMS) | set(SIMT_HEAD_DIMS)))
+TC_HEAD_DIMS = HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)   # the bf16 kernels'
 WG_HEAD_DIMS = (32, 64)
 DEC_HEAD_DIMS = PF_HEAD_DIMS = (64, 96, 128, 192, 256)
-TC, SIMT, WG, DEC, PF = "tc", "simt", "wg", "dec", "pf"
+MAX_BF16_D = 256     # above it a bf16 call is widened to float32
+TC, WG, DEC, PF, F32, F32_DEC = "tc", "wg", "dec", "pf", "f32", "f32_dec"
 INT32_MAX = 2 ** 31 - 1
 # the Hopper variant (csrc: namespace wg): heads a block (one a consumer
 # warpgroup), query rows a tile, batch rows a block at D = 32 (all sharing
@@ -89,15 +104,21 @@ DEC_ROWS, DEC_TILE, DEC_MAX_SPLITS = 16, 64, 8
 # the prefill variant (csrc/flash_prefill.cu: consumers<D>()): consumer
 # warpgroups of 64 query rows a block, by head dim
 PF_CONSUMERS = {64: 3, 96: 2, 128: 2, 192: 2, 256: 2}
+# the float32 kernels (csrc/flash_f32.cu): query rows a block, the widest
+# output panel above the widest head dim taken in one panel, the shared
+# memory a block may take
+F32_ROWS, F32_PANEL, F32_ONE_PANEL, F32_SMEM_LIMIT = 64, 256, 320, 232448
+F32_DEC_MAX_D = 320  # the float32 decode kernel's widest head dim (one 320-column instance)
 # variant -> its name in ``dispatch.launch_counts`` and its C entry point's stem
-VARIANT_NAMES = {TC: "flash_mha", SIMT: "flash_mha_simt", WG: "flash_mha_wg",
-                 DEC: "flash_mha_dec", PF: "flash_mha_pf"}
-launches = 0        # tensor-core kernel launches (bf16, D in TC_HEAD_DIMS)
-simt_launches = 0   # SIMT kernel launches (f32, or bf16 at D = 8)
-wg_launches = 0     # Hopper kernel launches (the fold's attention)
-dec_launches = 0    # decode kernel launches (one query row, no bias or mask)
-pf_launches = 0     # Hopper prefill kernel launches (no bias)
-plain_calls = 0     # calls that computed the plain version (CPU tensors)
+VARIANT_NAMES = {TC: "flash_mha", WG: "flash_mha_wg", DEC: "flash_mha_dec",
+                 PF: "flash_mha_pf", F32: "flash_mha_f32", F32_DEC: "flash_mha_f32_dec"}
+launches = 0          # tensor-core kernel launches (bf16, D in TC_HEAD_DIMS)
+wg_launches = 0       # Hopper kernel launches (the fold's attention)
+dec_launches = 0      # decode kernel launches (one query row, no bias or mask)
+pf_launches = 0       # Hopper prefill kernel launches (no bias)
+f32_launches = 0      # float32 kernel launches (and bf16 above head dim 256)
+f32_dec_launches = 0  # float32 decode kernel launches (one query row, no bias or mask)
+plain_calls = 0       # calls that computed the plain version (CPU tensors)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -151,12 +172,16 @@ def variant_for(dtype: torch.dtype, d: int, *, sq: int = 1, hq: int = 1, hkv: in
     {64, 96, 128, 192, 256} the decode kernel at one query row without a
     causal or window mask, the prefill kernel at more rows (a scale that is
     not positive: the tensor-core kernel); any other bf16 call the
-    tensor-core kernel; f32 and D = 8 the SIMT kernel (float32 at D in
-    ``SIMT_HEAD_DIMS``: 8 to 256, the zoo's 96, 192 and 256 among them).
-    A head dim the chosen kernel does not take is padded
+    tensor-core kernel.  A float32 call at one query row without a bias,
+    a causal or window mask and at D <= 320 takes the float32 decode
+    kernel, every other float32 call the float32 kernel; a bf16 call above
+    D = 256 the same as in float32 (widened).  A head dim the chosen kernel does not take is padded
     (:func:`launch_head_dim`)."""
-    if dtype != torch.bfloat16:
-        return SIMT
+    if dtype != torch.bfloat16 or d > MAX_BF16_D:
+        if (not has_bias and sq == 1 and not causal and window is None
+                and d <= F32_DEC_MAX_D):
+            return F32_DEC
+        return F32
     if (d in WG_HEAD_DIMS and sq > 1 and hq == hkv and hq % WG_HEADS == 0 and has_bias
             and not causal and window is None):
         return WG
@@ -164,24 +189,28 @@ def variant_for(dtype: torch.dtype, d: int, *, sq: int = 1, hq: int = 1, hkv: in
         return DEC
     if not has_bias and sq > 1 and d in PF_HEAD_DIMS:
         return PF
-    return TC if d in TC_HEAD_DIMS else SIMT
+    return TC
 
 
-#: variant -> the head dims its kernel takes
-VARIANT_HEAD_DIMS = {TC: TC_HEAD_DIMS, SIMT: SIMT_HEAD_DIMS, WG: WG_HEAD_DIMS,
-                     DEC: DEC_HEAD_DIMS, PF: PF_HEAD_DIMS}
+#: variant -> the head dims its kernel takes (the float32 kernels: every
+#: multiple of 8)
+VARIANT_HEAD_DIMS = {TC: TC_HEAD_DIMS, WG: WG_HEAD_DIMS, DEC: DEC_HEAD_DIMS,
+                     PF: PF_HEAD_DIMS}
 
 
 def launch_head_dim(dtype: torch.dtype, d: int, **kw) -> int:
     """The head dim a launch of head dim ``d`` runs at: ``d`` where
     :func:`variant_for` (with ``kw``) gives the call a kernel that takes
     it, else the smallest head dim above ``d`` for which it does (q, k and v
-    are then padded with zero columns).  Raises above 256."""
+    are then padded with zero columns): the next multiple of 8 on the
+    float32 kernels (every f32 call, and bf16 above 256), the next head dim
+    in ``TC_HEAD_DIMS`` that the chosen bf16 kernel takes otherwise."""
+    if dtype != torch.bfloat16 or d > MAX_BF16_D:
+        return _cdiv(d, 8) * 8
     for dp in (d, *(x for x in HEAD_DIMS if x > d)):
         if dp in VARIANT_HEAD_DIMS[variant_for(dtype, dp, **kw)]:
             return dp
-    raise ValueError(f"flash_mha_kernel: head dim {d}: no variant takes a head dim above "
-                     f"{HEAD_DIMS[-1]}")
+    raise AssertionError("unreachable: the tensor-core kernel takes D = 256")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +238,98 @@ def dec_plan(b: int, skv: int, hq: int, hkv: int) -> DecPlan:
     split = max(least, _cdiv(_cdiv(skv, DEC_MAX_SPLITS), DEC_TILE) * DEC_TILE)
     splits = max(1, _cdiv(skv, split))
     return DecPlan(split=split, splits=splits, blocks=splits * hkv * groups * b)
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """How the float32 kernel cuts a launch: ``rows`` query rows of one head
+    a block, the output columns in ``panels`` panels of ``dv``, on the
+    instance of ``cols`` columns and ``bk`` keys a tile, Q staged in shared
+    memory where ``q_smem``.  The C entry point takes it as it is."""
+    dv: int          # output columns a panel: D itself in one panel
+    cols: int        # the instance's columns (at least dv)
+    rows: int        # query rows a block: 16 a warp, 4 or 8 warps
+    bk: int          # keys a tile
+    q_smem: bool     # Q in shared memory (else read from device memory)
+    smem: int        # the block's shared memory, bytes
+    panels: int      # blocks along the columns, each recomputing the logits
+    blocks: int      # query tiles x Hq x B x panels
+
+    def c_args(self) -> tuple:
+        return self.dv, self.cols, self.rows, self.bk, int(self.q_smem)
+
+
+#: the float32 kernel's instances (csrc/flash_f32.cu: flash_mha_f32_launch)
+#: as (output columns, keys a tile, query rows a block), the most keys first;
+#: above 256 columns a block's warps work in pairs (twice the warps a row)
+F32_INSTANCES = ((16, 64, 64), (32, 64, 64), (64, 64, 64), (96, 32, 128), (128, 32, 128),
+                 (192, 32, 128), (192, 32, 64), (192, 16, 64), (256, 16, 128), (256, 32, 64),
+                 (256, 16, 64), (320, 16, 64))
+F32_COLS = tuple(sorted({c for c, _, _ in F32_INSTANCES}))
+
+
+def _f32_smem(d: int, cols: int, bk: int, rows: int, q_smem: bool) -> int:
+    """A block's shared memory (csrc: smem_bytes): Q's rows where staged,
+    then two stages of a K and a V tile, rows padded to 8 (Q, K) or 4 (V)
+    mod 16 floats, V's as wide as the instance, then above 256 columns the
+    logits a pair of warps swaps (a key tile's for each row)."""
+    qk = d if d % 16 else d + 8
+    return ((rows * qk if q_smem else 0) + 2 * bk * (qk + cols + 4)
+            + (rows * bk if cols > F32_PANEL else 0)) * 4
+
+
+def _f32_layout(d: int, cols: int, rows: int) -> tuple[int, bool, int] | None:
+    """(keys a tile, Q staged, bytes) of the instances of ``cols`` columns
+    and ``rows`` rows: the most keys whose tiles fit beside Q in shared
+    memory, else the most keys with Q read from device memory; None where
+    nothing fits."""
+    for q_smem in (True, False):
+        for c, bk, r in F32_INSTANCES:
+            if (c, r) == (cols, rows):
+                smem = _f32_smem(d, cols, bk, rows, q_smem)
+                if smem <= F32_SMEM_LIMIT:
+                    return bk, q_smem, smem
+    return None
+
+
+def f32_plan(b: int, sq: int, hq: int, d: int) -> F32Plan:
+    """The float32 kernel's blocks for q (b, sq, hq, d), d a multiple of 8:
+    one panel of d columns up to ``F32_ONE_PANEL``, else the fewest panels
+    of at most 256 columns (a multiple of 8 each, the last one narrower
+    where they do not divide d) whose K and V tiles fit a block, each above
+    128 columns.  The instance: the fewest columns that hold a panel; 128
+    query rows a block (8 warps) at 65 to 128 columns (its only instances
+    there), and at 129 to 256 columns in one panel where there are more
+    than 64 query rows and they fit; else 64 (4 warps, or at 320 columns 8
+    in pairs).  Raises where a K
+    and a V tile of 16 keys outgrow a block's shared memory (d above about
+    1,600).  Runs without tensors."""
+    def cols_of(dv):
+        return next(c for c in F32_COLS if c >= dv)
+    panels, dv = 1, d
+    if d > F32_ONE_PANEL:
+        panels = _cdiv(d, F32_PANEL)
+        dv = _cdiv(_cdiv(d, panels), 8) * 8
+        # narrower panels (but above 128 columns) where a K and a V tile do
+        # not fit
+        while not _f32_layout(d, cols_of(dv), F32_ROWS):
+            dv_next = _cdiv(_cdiv(d, panels + 1), 8) * 8
+            if dv_next <= 128:
+                break
+            panels, dv = panels + 1, dv_next
+    cols, rows = cols_of(dv), F32_ROWS
+    if 64 < cols <= 128:
+        rows = 2 * F32_ROWS
+    elif 128 < cols <= 256 and panels == 1 and sq > F32_ROWS and \
+            _f32_layout(d, cols, 2 * F32_ROWS):
+        rows = 2 * F32_ROWS
+    layout = _f32_layout(d, cols, rows)
+    if layout is None:
+        raise ValueError(f"flash_mha_kernel: head dim {d}: the float32 kernel's K and V "
+                         f"tiles do not fit a block's {F32_SMEM_LIMIT} bytes")
+    bk, q_smem, smem = layout
+    return F32Plan(dv=dv, cols=cols, rows=rows, bk=bk, q_smem=q_smem, smem=smem,
+                   panels=panels, blocks=_cdiv(sq, rows) * hq * b * panels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,8 +433,9 @@ class FlashLaunchArgs:
     causal: int
     window: int                    # -1: no sliding window
     scale: float
-    plan: WgPlan | DecPlan | PfPlan | None = None   # the Hopper and decode variants' blocks
+    plan: WgPlan | DecPlan | PfPlan | F32Plan | None = None   # the variant's blocks
     head_dim: int = 0              # the operands' own D (sizes hold the padded one)
+    widened: bool = False          # bf16 operands widened to f32 (D above 256)
 
     def c_args(self) -> tuple:
         return (self.qkv_is_bf16, self.bias_kind, *self.sizes, *self.q_strides,
@@ -340,7 +462,9 @@ def _flash_launch(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     that do not match, a bias that does not broadcast, a size beyond 32 bits,
     and, for the tensor-core variant, a q/k/v base pointer or (b, s, h)
     stride that is not a multiple of 16 bytes (also for the Hopper, decode
-    and prefill variants).  A call :func:`variant_for` gives the Hopper
+    and prefill variants; the float32 ones have no alignment rule).  A bf16
+    call above D = 256 is widened to float32 (``widened``).  A call
+    :func:`variant_for` gives the Hopper
     kernel whose bias no TMA box takes, or whose softmax scale is not
     positive (:func:`wg_plan_or_none`), takes the tensor-core variant, and
     so does a prefill call whose scale is not positive.  Strides are the tensors'
@@ -360,11 +484,14 @@ def _flash_launch(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
         raise ValueError(f"flash_mha_kernel: Hq={hq} not a multiple of Hkv={hkv}")
     kw = dict(sq=sq, hq=hq, hkv=hkv, has_bias=bias is not None, causal=causal, window=window)
     d = launch_head_dim(q.dtype, d0, **kw)
+    variant = variant_for(q.dtype, d, **kw)
+    widened = q.dtype == torch.bfloat16 and variant in (F32, F32_DEC)
+    if widened:
+        q, k, v = (t.float() for t in (q, k, v))      # exact
     if d != d0:
         # zero columns: every logit and output column as at d0 (the scale d0's)
         softmax_scale = _scale(d0, softmax_scale)
         q, k, v = (F.pad(t, (0, d - d0)) for t in (q, k, v))
-    variant = variant_for(q.dtype, d, **kw)
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.stride(-1) != 1:
             raise ValueError(f"flash_mha_kernel: {name} head dim must have unit stride")
@@ -400,20 +527,26 @@ def _flash_launch(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
             plan = pf_plan(b, sq, hq, d)
         else:
             variant = TC
-    elif variant == DEC:
+    elif variant in (DEC, F32_DEC):
         plan = dec_plan(b, skv, hq, hkv)
+    elif variant == F32:
+        plan = f32_plan(b, sq, hq, d)
+        if plan.blocks // plan.panels > INT32_MAX or plan.panels > 65535:
+            raise ValueError(f"flash_mha_kernel: B={b}, Sq={sq}, Hq={hq}, D={d} exceed the "
+                             "float32 kernel's grid")
     return FlashLaunchArgs(
         variant=variant, qkv_is_bf16=int(q.dtype == torch.bfloat16), bias_kind=bias_kind,
         sizes=(b, sq, skv, hq, hkv, d, bb), q_strides=tuple(q.stride()[:3]),
         k_strides=tuple(k.stride()[:3]), v_strides=tuple(v.stride()[:3]),
         bias_strides=bstr, causal=int(causal), window=-1 if window is None else int(window),
-        scale=_scale(d, softmax_scale), plan=plan, head_dim=d0), q, k, v
+        scale=_scale(d, softmax_scale), plan=plan, head_dim=d0, widened=widened), q, k, v
 
 
 def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
                      window=None, softmax_scale=None):
     """q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D); bias (Bb,Hq,Sq,Skv); -> (B,Sq,Hq,D)."""
-    global launches, simt_launches, wg_launches, dec_launches, pf_launches, plain_calls
+    global launches, wg_launches, dec_launches, pf_launches, f32_launches, f32_dec_launches
+    global plain_calls
     build.refuse_dtensor("flash_mha_kernel", q, k, v, bias, kv_valid_len)
     if q.device.type == "cpu":
         plain_calls += 1
@@ -431,7 +564,8 @@ def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
     lib = build.library()
     name = VARIANT_NAMES[args.variant]
     extra = ((args.plan.rows, args.plan.bias_map) if args.variant == WG else
-             (args.plan.split, args.plan.splits) if args.variant == DEC else ())
+             (args.plan.split, args.plan.splits) if args.variant in (DEC, F32_DEC) else
+             args.plan.c_args() if args.variant == F32 else ())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, f"{name}_launch")(
@@ -448,6 +582,9 @@ def flash_mha_kernel(q, k, v, bias=None, kv_valid_len=None, *, causal=False,
         dec_launches += 1
     elif args.variant == PF:
         pf_launches += 1
+    elif args.variant == F32:
+        f32_launches += 1
     else:
-        simt_launches += 1
-    return o if d == args.head_dim else o[..., :args.head_dim]
+        f32_dec_launches += 1
+    o = o if d == args.head_dim else o[..., :args.head_dim]
+    return o.to(torch.bfloat16) if args.widened else o

@@ -39,11 +39,12 @@ from repro_torch.kernels.aaq_matmul.aaq_matmul import aaq_matmul_kernel  # noqa:
 from repro_torch.kernels.aaq_matmul.ops import aaq_linear  # noqa: E402
 from repro_torch.kernels.aaq_quant.aaq_quant import (  # noqa: E402
     _launch_shape, aaq_fake_quant_kernel, aaq_quantize_kernel)
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     DEC_MAX_SPLITS, WG_FUSED, WG_FUSED_Q, WG_HEADS_INNER, WG_KEYS_INNER, DecPlan,
-    PfPlan, _flash_launch, _flash_launch_args, dec_plan, flash_mha_kernel, flash_mha_plain,
-    pf_plan, variant_for, wg_plan, wg_plan_or_none)
+    F32Plan, PfPlan, _flash_launch, _flash_launch_args, dec_plan, f32_plan, flash_mha_kernel,
+    flash_mha_plain, launch_head_dim, pf_plan, variant_for, wg_plan, wg_plan_or_none)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -494,9 +495,9 @@ def test_matmul_launch_args_refuse_what_no_variant_takes():
     with pytest.raises(ValueError, match="k=5"):
         tmm._matmul_launch_args(*_meta_matmul(64, 128, 128, 4, 5), bits=4,
                                 out_dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="H <= 512"):
-        tmm._matmul_launch_args(*_meta_matmul(64, 1024, 4, 4, 4), bits=4,
-                                out_dtype=torch.bfloat16)
+    # H above 512 was refused before the split-W kernel took it (one part)
+    assert tmm._matmul_launch_args(*_meta_matmul(64, 1024, 4, 4, 4), bits=4,
+                                   out_dtype=torch.bfloat16).variant == "wide"
 
 
 def test_matmul_hopper_k_order_is_a_permutation_of_each_128_columns():
@@ -546,8 +547,8 @@ FLASH_CASES = {
     "decode-mqa": (5, 1, 48, 8, 1, 64, None, False, [0, 1, 48, 20, 33], False, None),
     # the prefill kernel's: causal GQA in a window at head dim 128
     "causal-gqa-window": (2, 40, 40, 8, 2, 128, None, False, None, True, 9),
-    # float32 at phi-3's head dim 96 (the SIMT kernel): a decode step against
-    # a ring, and a causal prefill
+    # float32 at phi-3's head dim 96 (the float32 decode and float32
+    # kernels): a decode step against a ring, and a causal prefill
     "f32-d96-decode": (3, 1, 40, 8, 8, 96, None, False, [40, 17, 1], False, None),
     "f32-d96-causal": (1, 33, 33, 4, 4, 96, None, False, None, True, None),
 }
@@ -649,9 +650,11 @@ def test_dispatch_routes_by_mode_and_device():
     assert dispatch.plain_counts() == {"aaq_quantize": 1, "aaq_fake_quant": 2, "aaq_matmul": 1,
                                        "flash_mha": 1}
     assert dispatch.launch_counts() == {"aaq_quantize": 0, "aaq_fake_quant": 0, "aaq_matmul": 0,
-                                        "aaq_matmul_wg": 0, "aaq_matmul_f32": 0, "flash_mha": 0,
-                                        "flash_mha_simt": 0, "flash_mha_wg": 0,
-                                        "flash_mha_dec": 0, "flash_mha_pf": 0}
+                                        "aaq_matmul_wg": 0, "aaq_matmul_f32": 0,
+                                        "aaq_matmul_wide": 0, "flash_mha": 0,
+                                        "flash_mha_wg": 0, "flash_mha_dec": 0,
+                                        "flash_mha_pf": 0, "flash_mha_f32": 0,
+                                        "flash_mha_f32_dec": 0}
     assert set(dispatch.MAIN_PATH) <= set(dispatch.launch_counts())
     _close(ker_o.numpy(), ref_o.numpy())
     assert ker_fq.shape == x.shape and torch.equal(ker_fq, ref_fq)
@@ -676,7 +679,7 @@ def test_dispatch_routes_by_mode_and_device():
 def test_build_commands_target_hopper_without_fast_math(tmp_path):
     srcs = build.sources()
     assert [s.name for s in srcs] == ["aaq_matmul.cu", "aaq_quant.cu", "flash_attention.cu",
-                                      "flash_decode.cu", "flash_prefill.cu"]
+                                      "flash_decode.cu", "flash_f32.cu", "flash_prefill.cu"]
     cmds = build.compile_commands("nvcc", srcs, tmp_path)
     assert len(cmds) == len(srcs)                 # one nvcc per source, run together
     for cmd in cmds:
@@ -812,10 +815,13 @@ def test_flash_launch_args_refuse_what_the_kernels_do_not_take():
         _flash_launch_args(q, k, v, torch.empty((3, 4, 64, 64), device="meta"))
     with pytest.raises(ValueError, match="broadcast"):
         _flash_launch_args(q, k, v, bias[..., :63])
-    # the float32 variant reads element by element: no alignment rule
+    # the float32 variants read 4 bytes at a time where 16 are off: no
+    # alignment rule; bf16 at D = 8 pads to 16 on the tensor-core kernel
     f = torch.empty((64, 64, 4, 40), device="meta")[..., 1:33]
-    assert _flash_launch_args(f, f, f).variant == "simt"
-    assert variant_for(torch.bfloat16, 8) == "simt" and variant_for(torch.bfloat16, 16) == "tc"
+    assert _flash_launch_args(f, f, f).variant == "f32"
+    assert _flash_launch_args(f[:, :1], f, f).variant == "f32_dec"
+    assert variant_for(torch.bfloat16, 8) == "tc" and variant_for(torch.bfloat16, 16) == "tc"
+    assert launch_head_dim(torch.bfloat16, 8) == 16 and launch_head_dim(torch.float32, 8) == 8
     assert variant_for(torch.bfloat16, 64) == "dec"
 
 
@@ -900,10 +906,15 @@ def test_flash_rule_keeps_the_tc_kernel_off_the_fold(case):
 
 @pytest.mark.parametrize("d", [32, 64])
 def test_flash_rule_keeps_the_simt_kernel_for_f32(d):
+    """Every float32 call takes a float32 kernel (the SIMT kernel's
+    successors): a bias or more query rows the float32 kernel, one row
+    without a bias or mask the float32 decode kernel."""
     q = torch.empty((2, 100, 4, d), device="meta")
-    assert _flash_launch_args(q, q, q, torch.empty((2, 4, 100, 100), device="meta")).variant \
-        == "simt"
-    assert variant_for(torch.float32, d, sq=100, hq=4, hkv=4, has_bias=True) == "simt"
+    args = _flash_launch_args(q, q, q, torch.empty((2, 4, 100, 100), device="meta"))
+    assert args.variant == "f32" and args.plan == f32_plan(2, 100, 4, d)
+    assert variant_for(torch.float32, d, sq=100, hq=4, hkv=4, has_bias=True) == "f32"
+    assert variant_for(torch.float32, d, sq=1, hq=4, hkv=4, has_bias=True) == "f32"
+    assert variant_for(torch.float32, d, sq=1, hq=4, hkv=4) == "f32_dec"
 
 
 def test_flash_hopper_kernel_refuses_what_tma_cannot_take():
@@ -1008,10 +1019,11 @@ def test_flash_rule_takes_the_decode_and_prefill_kernels_at_lm_and_zoo_shapes(na
         assert args.plan.rows == rows and args.plan.blocks == -(-sq // rows) * hq * b
     assert variant_for(torch.bfloat16, d, sq=sq, hq=hq, hkv=hkv, causal=causal,
                        window=window) == args.variant
-    # the same operands in float32 stay on the SIMT kernel where it takes D
-    if d in (64, 128):
-        assert variant_for(torch.float32, d, sq=sq, hq=hq, hkv=hkv, causal=causal,
-                           window=window) == "simt"
+    # the same operands in float32 take the float32 kernels: one row without
+    # a mask the decode one
+    want32 = "f32_dec" if sq == 1 and not causal and window is None else "f32"
+    assert variant_for(torch.float32, d, sq=sq, hq=hq, hkv=hkv, causal=causal,
+                       window=window) == want32
 
 
 @pytest.mark.parametrize("skv", [0, 1, 16, 64, 65, 256, 1500, 2048, 4097])
@@ -1114,13 +1126,14 @@ def test_flash_launch_args_refuse_what_the_decode_and_prefill_kernels_do_not_tak
     q16 = torch.empty((2, 100, 4, 16), dtype=torch.bfloat16, device="meta")
     assert _flash_launch_args(q16, q16, q16, causal=True).variant == "tc"
     f = torch.empty((2, 100, 4, 64), device="meta")
-    assert _flash_launch_args(f, f, f, causal=True).variant == "simt"
-    assert _flash_launch_args(f[:, :1], f, f).variant == "simt"
+    assert _flash_launch_args(f, f, f, causal=True).variant == "f32"
+    assert _flash_launch_args(f[:, :1], f, f).variant == "f32_dec"
 
 
 # --------------------------------------------------------------------------
-# head dims: float32 at the zoo's 96, 192 and 256 on the SIMT kernel, any
-# other head dim up to 256 padded with zero columns
+# head dims: float32 at every multiple of 8 on the float32 kernels (the
+# zoo's 96, 192 and 256 among them), above 256 in either type too; any
+# other head dim padded with zero columns
 # --------------------------------------------------------------------------
 #: (name, b, sq, skv, hq, hkv): the zoo's float32 decode and prefill calls
 #: at a small length (phi-3: MHA 32 heads; MLA: 16; recurrentgemma: MQA)
@@ -1135,12 +1148,14 @@ def test_flash_launch_args_take_float32_at_the_zoos_head_dims(case, d):
     q = torch.empty((b, sq, hq, d), device="meta")
     kv = torch.empty((b, skv, hkv, d), device="meta")
     args = _flash_launch_args(q, kv, kv, causal=sq > 1)
-    assert args.variant == "simt" and args.sizes[5] == d == args.head_dim
+    assert args.variant == ("f32" if sq > 1 else "f32_dec")
+    assert args.sizes[5] == d == args.head_dim
     assert args.scale == pytest.approx(1.0 / d ** 0.5)
 
 
-#: (dtype, true head dim, sq, the head dim it launches at)
-PADDED = [(torch.float32, 24, 64, 32), (torch.float32, 48, 64, 64), (torch.float32, 80, 1, 96),
+#: (dtype, true head dim, sq, the head dim it launches at): float32 at the
+#: next multiple of 8, bf16 at the next head dim its kernel takes
+PADDED = [(torch.float32, 20, 64, 24), (torch.float32, 44, 64, 48), (torch.float32, 76, 1, 80),
           (torch.bfloat16, 24, 64, 32), (torch.bfloat16, 48, 64, 64),
           (torch.bfloat16, 80, 64, 96), (torch.bfloat16, 48, 1, 64)]
 
@@ -1158,9 +1173,12 @@ def test_flash_launch_args_pad_other_head_dims(dt, d, sq, dp):
     assert args.variant == variant_for(dt, dp, sq=sq, hq=4, hkv=4)
     assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == dp
     assert args.scale == pytest.approx(1.0 / d ** 0.5)
-    with pytest.raises(ValueError, match="above 256"):
-        big = torch.empty((2, sq, 4, 320), dtype=dt, device="meta")
-        _flash_launch_args(big, big, big)
+    # above 256 the float32 kernel takes the call in either type (bf16
+    # widened), at the next multiple of 8
+    big = torch.empty((2, sq, 4, 321), dtype=dt, device="meta")
+    args = _flash_launch_args(big, big, big)
+    assert args.variant == "f32" and args.sizes[5] == 328 and args.head_dim == 321
+    assert args.widened == (dt == torch.bfloat16) and args.qkv_is_bf16 == 0
 
 
 @pytest.mark.parametrize("dt", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
@@ -1168,7 +1186,9 @@ def test_flash_launch_args_pad_other_head_dims(dt, d, sq, dp):
 def test_flash_padded_plain_equals_the_plain_version_at_the_true_head_dim(d, dt):
     """What the kernel computes on the padded operands, sliced back, is the
     plain version at the true head dim within 1e-6 (bias, GQA, a key
-    length, a causal mask)."""
+    length, a causal mask).  Float32 takes every multiple of 8, so there
+    the head dim is 4 below ``d``."""
+    d = d if dt == torch.bfloat16 else d - 4
     q, k, v, bias = _attn_inputs(2, 24, 24, 4, 2, d, bias_b=1)
     q, k, v = (_t(a).to(dt) for a in (q, k, v))
     kvl = torch.tensor([24, 9], dtype=torch.int32)
@@ -1180,3 +1200,169 @@ def test_flash_padded_plain_equals_the_plain_version_at_the_true_head_dim(d, dt)
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=0, atol=1e-6)
     assert torch.all(flash_mha_plain(qp, kp, vp, _t(bias), kvl, causal=True,
                                      softmax_scale=args.scale)[..., d:] == 0)
+
+
+# --------------------------------------------------------------------------
+# the float32 kernels: the decode plan, head dims above 256 (either type),
+# and the split-W matmul at any H (meta tensors, and the plain versions
+# against the interpreted Pallas kernels)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("skv", [16, 256, 2048])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 1, 256), (32, 32, 96), (16, 16, 192)],
+                         ids=("mqa-256", "mha-96", "mha-192"))
+def test_f32_dec_plan_does_not_change_with_b(skv, hq, hkv, d):
+    """The float32 decode kernel takes the decode kernel's plan: a slot's
+    splits from the ring length and the head counts alone, the same at
+    every batch size (a slot alone computes what it computes in a batch)."""
+    plans = set()
+    for b in (1, 2, 4, 7):
+        q = torch.empty((b, 1, hq, d), device="meta")
+        kv = torch.empty((b, skv, hkv, d), device="meta")
+        kvl = torch.empty((b,), dtype=torch.int32, device="meta")
+        args = _flash_launch_args(q, kv, kv, None, kvl)
+        assert args.variant == "f32_dec" and args.plan == dec_plan(b, skv, hq, hkv)
+        assert args.plan.blocks == args.plan.splits * hkv * -(-(hq // hkv) // 16) * b
+        plans.add((args.plan.split, args.plan.splits))
+    assert len(plans) == 1
+
+
+@pytest.mark.parametrize("dt", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+@pytest.mark.parametrize("sq", (1, 64))
+def test_flash_launch_args_take_head_dim_320(dt, sq):
+    """Above 256 (Queue 3 item 9): the float32 kernels in either type (bf16
+    widened); a causal prefill on the float32 kernel in one panel of all 320
+    columns (the paired-warp instance: the logits computed once); a decode
+    row on the float32 decode one (a 320-column instance).  At 648 three
+    panels of 216 columns (at most 256, each above 128)."""
+    q = torch.empty((2, sq, 8, 320), dtype=dt, device="meta")
+    kv = torch.empty((2, 100, 2, 320), dtype=dt, device="meta")
+    args, qp, kp, vp = _flash_launch(q, kv, kv, causal=sq > 1)
+    assert args.sizes[5] == args.head_dim == 320
+    if sq > 1:
+        assert args.variant == "f32" and args.plan == f32_plan(2, sq, 8, 320)
+        assert (args.plan.dv, args.plan.cols, args.plan.panels, args.plan.rows) == \
+            (320, 320, 1, 64)
+        assert args.plan.blocks == -(-sq // 64) * 8 * 2
+    else:
+        assert args.variant == "f32_dec" and args.plan == dec_plan(2, 100, 8, 2)
+    assert qp.dtype == kp.dtype == vp.dtype == torch.float32
+    assert args.widened == (dt == torch.bfloat16) and args.qkv_is_bf16 == 0
+    big = torch.empty((2, sq, 8, 648), dtype=dt, device="meta")
+    plan = _flash_launch_args(big, big, big, causal=True).plan
+    assert plan.panels == 3 and plan.dv == 216 and plan.rows == 64
+
+
+def test_f32_instances_are_the_c_entry_points():
+    """The wrapper owns the float32 kernel's plan; the C entry point only
+    launches the instance the plan names.  Its instances (columns, keys a
+    tile, query rows a block) are exactly ``F32_INSTANCES``."""
+    src = (build.CSRC / "flash_f32.cu").read_text()
+    c = [tuple(int(x) for x in m)
+         for m in re.findall(r"^\s*F32_INSTANCE\((\d+), (\d+), (\d+)\)\s*$", src, re.M)]
+    assert sorted(c) == sorted(fa.F32_INSTANCES)
+
+
+@pytest.mark.parametrize("sq", (1, 64, 300))
+def test_f32_plan_names_an_instance_that_fits(sq):
+    """Every head dim the float32 kernel takes (multiples of 8 up to 1,600):
+    the plan's instance exists, holds its panel, fits a block's shared
+    memory, and its panels cover the head dim (one panel: the head dim
+    itself)."""
+    for d in range(8, 1601, 8):
+        plan = f32_plan(2, sq, 4, d)
+        assert (plan.cols, plan.bk, plan.rows) in fa.F32_INSTANCES
+        assert plan.dv <= plan.cols and plan.dv % 8 == 0
+        assert plan.smem == fa._f32_smem(d, plan.cols, plan.bk, plan.rows, plan.q_smem)
+        assert plan.smem <= fa.F32_SMEM_LIMIT
+        assert (plan.panels - 1) * plan.dv < d <= plan.panels * plan.dv
+        assert (plan.panels == 1) == (plan.dv == d)
+        assert plan.blocks == -(-sq // plan.rows) * 4 * 2 * plan.panels
+
+
+#: (H, bits, W type, D, the variant): bf16 at H = 640 and H = 48 (bits 4),
+#: which the bf16 kernels do not take, on the split-W kernel (one part)
+MATMUL_ANY_H = [(640, 4, torch.bfloat16, 128, "wide"), (48, 4, torch.bfloat16, 128, "wide"),
+                (640, 8, torch.bfloat16, 96, "wide"), (50, 4, torch.bfloat16, 64, "wide"),
+                (640, 4, torch.float32, 128, "f32"), (48, 4, torch.float32, 4, "f32"),
+                (512, 4, torch.bfloat16, 4, "tc"), (512, 4, torch.bfloat16, 128, "wg")]
+
+
+@pytest.mark.parametrize("h,bits,dt,d,variant", MATMUL_ANY_H,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_matmul_launch_args_take_any_h(h, bits, dt, d, variant):
+    t = 300
+    hp = (h + 1) // 2 if bits == 4 else h
+    meta = dict(device="meta")
+    args = tmm._matmul_launch_args(
+        torch.empty((t, hp), dtype=torch.int8, **meta), torch.empty((t, 1), **meta),
+        torch.empty((t, 4), dtype=torch.bfloat16, **meta),
+        torch.empty((t, 4), dtype=torch.int32, **meta), torch.empty((h, d), dtype=dt, **meta),
+        bits=bits, out_dtype=dt)
+    assert args.variant == variant == tmm.variant_for(dt, h, d, bits)
+    assert (args.t, args.h, args.d, args.k) == (t, h, d, 4)
+
+
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_flash_plain_matches_pallas_at_head_dim_320(dt):
+    """D = 320 against the interpreted Pallas kernel: the wrapper's CPU
+    result, and the plain version on the operands the launch takes (bf16
+    widened to float32, the output rounded once)."""
+    q, k, v, bias = _attn_inputs(2, 20, 24, 4, 2, 320, bias_b=1, seed=9)
+    kvl = np.asarray([24, 11], np.int32)
+    jdt = jnp.float32 if dt == "f32" else jnp.bfloat16
+    tdt = torch.float32 if dt == "f32" else torch.bfloat16
+    want = flash_mha_pallas(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)), jnp.asarray(bias),
+                            jnp.asarray(kvl), causal=True, block_q=16, block_k=16,
+                            interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    tq, tk, tv = (_t(a).to(tdt) for a in (q, k, v))
+    got = flash_mha_kernel(tq, tk, tv, _t(bias), _t(kvl), causal=True)
+    rtol = 1e-5 if dt == "f32" else 2.0 ** -7
+    _close(got.float().numpy(), want, rtol=rtol)
+    args, qp, kp, vp = _flash_launch(tq, tk, tv, _t(bias), _t(kvl), causal=True)
+    assert args.variant == "f32" and qp.dtype == torch.float32
+    launched = flash_mha_plain(qp, kp, vp, _t(bias), _t(kvl), causal=True,
+                               softmax_scale=args.scale).to(tdt)
+    _close(launched.float().numpy(), want, rtol=rtol)
+
+
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_aaq_matmul_plain_matches_pallas_at_h_640(dt):
+    """H = 640 (above the bf16 kernels' 512) against the interpreted Pallas
+    kernel, bits 4 with 4 outliers, W and y in either type."""
+    t, h, d = 40, 640, 96
+    x = _activations(t, h, seed=640)
+    w = (np.random.default_rng(7).standard_normal((h, d)) / np.sqrt(h)).astype(np.float32)
+    jdt = jnp.float32 if dt == "f32" else jnp.bfloat16
+    tdt = torch.float32 if dt == "f32" else torch.bfloat16
+    q, s, ov, oi = (np.asarray(a) for a in jax_quant_ref(jnp.asarray(x), 4, 4))
+    want = aaq_matmul_pallas(jnp.asarray(q), jnp.asarray(s), jnp.asarray(ov), jnp.asarray(oi),
+                             jnp.asarray(w).astype(jdt), bits=4, block_t=32, block_d=64,
+                             out_dtype=jdt, interpret=True)
+    got = aaq_matmul_kernel(_t(q), _t(s), _t(ov.astype(np.float32)).to(torch.bfloat16),
+                            _t(oi), _t(w).to(tdt), bits=4, out_dtype=tdt)
+    assert got.dtype == tdt and tmm.variant_for(tdt, h, d, 4) == ("f32" if dt == "f32" else "wide")
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+           rtol=1e-5 if dt == "f32" else 2.0 ** -7)
+
+
+def test_split_w_parts_sum_to_w_exactly():
+    """The float32 matmul's three bf16 parts of W sum to W exactly (in
+    float64, and in float32 in order), so the plain version on their sum is
+    bitwise the plain version on W, and the three parts' products summed
+    agree with it within float32 rounding."""
+    rng = np.random.default_rng(3)
+    w = (rng.standard_normal((128, 96)) * np.exp(rng.uniform(-8, 8, (128, 96)))).astype(np.float32)
+    tw = _t(w)
+    parts = tmm.split_w(tw)
+    assert all(p.dtype == torch.bfloat16 for p in parts)
+    assert torch.equal(sum(p.double() for p in parts), tw.double())
+    summed = (parts[0].float() + parts[1].float()) + parts[2].float()
+    assert torch.equal(summed, tw)
+    x = _activations(64, 128, seed=12)
+    q, s, ov, oi = (np.asarray(a) for a in jax_quant_ref(jnp.asarray(x), 4, 4))
+    ops = (_t(q), _t(s), _t(ov.astype(np.float32)).to(torch.bfloat16), _t(oi))
+    whole = tmm.aaq_matmul_ref(*ops, tw, bits=4)
+    assert torch.equal(tmm.aaq_matmul_ref(*ops, summed, bits=4), whole)
+    by_part = sum(tmm.aaq_matmul_ref(*ops, p.float(), bits=4) for p in parts)
+    _close(by_part.numpy(), whole.numpy())

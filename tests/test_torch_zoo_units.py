@@ -206,7 +206,7 @@ def test_attention_pads_mla_v_on_the_kernel_route():
 def test_flash_launch_args_take_the_zoo_head_dims(d):
     """phi-3-vision 96, MLA 192 (v padded), RecurrentGemma 256 with MQA:
     the Hopper prefill variant (the tensor-core one's head dims too), with
-    its 16-byte rule; float32 at these dims takes the SIMT kernel, as the
+    its 16-byte rule; float32 at these dims takes the float32 kernel, as the
     reference's kernel takes any head dim in either type."""
     assert d in TC_HEAD_DIMS
     q = torch.empty((2, 64, 16, d), dtype=torch.bfloat16, device="meta")
@@ -216,7 +216,7 @@ def test_flash_launch_args_take_the_zoo_head_dims(d):
     assert args.variant == "pf" and args.sizes == (2, 64, 2048, 16, 1, d, 1)
     assert args.window == 2048 and args.scale == pytest.approx(1.0 / math.sqrt(d))
     f32 = _flash_launch_args(q.float(), kv.float(), kv.float())
-    assert f32.variant == "simt" and f32.sizes[5] == f32.head_dim == d
+    assert f32.variant == "f32" and f32.sizes[5] == f32.head_dim == d
 
 
 # --------------------------------------------------------------------------
